@@ -1,0 +1,27 @@
+"""Architecture registry of the port: the plain-GQA dense transformers
+this slice serves.  Resolves `--arch <id>` like `repro.configs`."""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ModelConfig, smoke_config
+
+_MODULES = {
+    "smollm-135m": ".smollm_135m",
+    "internlm2-1.8b": ".internlm2_1_8b",
+    "qwen2.5-32b": ".qwen2_5_32b",
+}
+
+ARCH_IDS = tuple(_MODULES)
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
+    cfg = importlib.import_module(_MODULES[arch], __name__).config()
+    cfg.validate()
+    return cfg
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return smoke_config(get_config(arch))

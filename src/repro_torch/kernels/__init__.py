@@ -1,0 +1,10 @@
+"""Hand-written CUDA kernels of the port, one `<name>/` directory each
+with `kernel.py` (launch wrapper), `ops.py` (public op: plain version on
+the CPU, kernel on the card) and `ref.py` (plain PyTorch version):
+
+    fused_norm/       RMSNorm and RMSNorm+residual
+    fused_mlp/        dense gated MLP, hidden never in device memory
+    flash_attention/  causal GQA flash attention (prefill)
+
+Sources live in `repro_torch/csrc/`; `_build` compiles and binds them.
+"""

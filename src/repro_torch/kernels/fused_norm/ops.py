@@ -1,0 +1,30 @@
+"""Public fused RMSNorm(+residual) ops in the model layout: x (and res)
+are (..., d), flattened to one token axis for the kernel.
+
+A CPU tensor takes the plain PyTorch version (`ref`); a CUDA tensor
+launches the CUDA kernel, which raises on anything it does not take.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import kernel, ref
+
+
+def fused_rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
+                  eps: float = 1e-6) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return ref.fused_rmsnorm_ref(x, scale, eps=eps)
+    d = x.shape[-1]
+    return kernel.fused_rmsnorm_cuda(
+        x.reshape(-1, d), scale, eps=eps).reshape(x.shape)
+
+
+def fused_rmsnorm_residual(x: torch.Tensor, res: torch.Tensor,
+                           scale: torch.Tensor, *, eps: float = 1e-6):
+    if x.device.type == "cpu":
+        return ref.fused_rmsnorm_residual_ref(x, res, scale, eps=eps)
+    d = x.shape[-1]
+    s, out = kernel.fused_rmsnorm_residual_cuda(
+        x.reshape(-1, d), res.reshape(-1, d), scale, eps=eps)
+    return s.reshape(x.shape), out.reshape(x.shape)

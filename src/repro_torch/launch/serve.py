@@ -1,0 +1,202 @@
+"""Serve launcher of the port: the continuous-batching engine on
+synthetic requests, optionally driven by a Mozart deployment artifact.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+        [--smoke] [--policy deployment.json] [--device cuda|cpu] \
+        [--requests 8] [--max-new 16] [--max-batch 4] [--max-len 128]
+
+`--policy` takes a `mozart-deployment/v1` artifact or a bare policy JSON
+and applies it as the JAX launcher does: flash_attention ->
+attn_impl="flash", fused_mlp -> mlp_impl="fused", fused_norm ->
+norm_impl="fused" (the CUDA kernels), and the policy's batch split sets
+the engine's max/decode batch.  The port runs on one device: a policy
+with tp > 1 runs unsharded.  Weights are random, from `--seed`.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.device import resolve_device
+from repro_torch.launch.policy import ExecutionPolicy, load_policy
+from repro_torch.models import api
+from repro_torch.models.config import ModelConfig
+from repro_torch.serving.engine import Request, ServingEngine
+
+
+def apply_policy(pol: ExecutionPolicy, mcfg: ModelConfig, max_batch: int,
+                 n_devices: int | None = None
+                 ) -> tuple[ModelConfig, dict, list[str]]:
+    """Lower an ExecutionPolicy onto the serving substrate: (model config,
+    ServingEngine kwargs plus "mesh_tp", log lines) — the JAX launcher's
+    mapping.  Pure: no engine is built here."""
+    if n_devices is None:
+        n_devices = max(1, torch.cuda.device_count())
+    lines: list[str] = []
+    flags = pol.fusion_flags()
+
+    applied = []
+    if flags["flash_attention"]:
+        if mcfg.family == "transformer":
+            mcfg = mcfg.replace(attn_impl="flash")
+            applied.append("flash_attention->attn_impl=flash")
+        elif mcfg.family == "rglru":
+            applied.append("flash_attention(no hook: rglru's interleaved "
+                           "attention decodes through its ring-buffer "
+                           "window path)")
+        elif mcfg.family == "whisper":
+            applied.append("flash_attention(no hook: whisper decoder "
+                           "blocks interleave cross-attention over the "
+                           "encoder window)")
+        else:
+            applied.append(f"flash_attention(no hook: {mcfg.family} has "
+                           f"no softmax-attention operator)")
+    if flags["fused_mlp"]:
+        if mcfg.family == "transformer":
+            mcfg = mcfg.replace(mlp_impl="fused")
+            applied.append("fused_mlp->mlp_impl=fused")
+        elif mcfg.family == "whisper":
+            applied.append("fused_mlp(no hook: whisper cross-attn blocks "
+                           "interleave the MLP with encoder reads)")
+        else:
+            applied.append(f"fused_mlp(no hook: {mcfg.family} uses gated "
+                           f"recurrent channel mixing, not the plain MLP "
+                           f"the fused kernel covers)")
+    if flags["fused_norm"]:
+        if mcfg.family == "transformer" and mcfg.norm == "rmsnorm":
+            mcfg = mcfg.replace(norm_impl="fused")
+            applied.append("fused_norm->norm_impl=fused")
+        elif mcfg.family == "transformer":
+            applied.append(f"fused_norm(no hook: norm={mcfg.norm}; the "
+                           f"fused kernel implements rmsnorm only)")
+        else:
+            applied.append(f"fused_norm(no hook: {mcfg.family}'s norm "
+                           f"dispatch has no fused path, norm="
+                           f"{mcfg.norm})")
+    lines.append(f"[serve] policy network={pol.network} "
+                 f"fusion flags: flash_attention={flags['flash_attention']} "
+                 f"fused_mlp={flags['fused_mlp']} "
+                 f"fused_norm={flags['fused_norm']} "
+                 f"applied=[{', '.join(applied) or 'none'}]")
+
+    # Insight 2's batch split: batch-sensitive stages set the slot count,
+    # batch-agnostic stages bound the lock-step decode batch; the CLI
+    # --max-batch stays a cap
+    sens, agn = pol.batch_sensitive_batch, pol.batch_agnostic_batch
+    eng_batch = max(1, min(max_batch, sens))
+    dec_batch = max(1, min(eng_batch, agn))
+    lines.append(f"[serve] policy microbatch: max_batch {max_batch}->"
+                 f"{eng_batch} (batch_sensitive_batch={sens}), "
+                 f"decode_batch={dec_batch} (batch_agnostic_batch={agn})")
+    if mcfg.family != "transformer":
+        lines.append(f"[serve] policy microbatch: {mcfg.family} decodes "
+                     f"gathered at width {dec_batch} (recurrent state is "
+                     f"irreversible; no full-width emulation)")
+    tp = pol.tp_degree
+    if tp > 1:
+        lines.append(f"[serve] policy tp={tp}: {n_devices} device(s), "
+                     f"running unsharded (tp=1)")
+    return mcfg, {"max_batch": eng_batch, "decode_batch": dec_batch,
+                  "mesh_tp": 1}, lines
+
+
+def build_engine(mcfg: ModelConfig, *, policy: ExecutionPolicy | None = None,
+                 max_batch: int = 4, max_len: int = 128, seed: int = 0,
+                 device=None, log=print) -> ServingEngine:
+    """Apply `policy` (if any) to `mcfg`, draw seeded weights on `device`
+    and build the engine."""
+    dev = resolve_device(device)
+    eng_kwargs = {"max_batch": max_batch}
+    if policy is not None:
+        mcfg, eng_kwargs, lines = apply_policy(
+            policy, mcfg, max_batch,
+            n_devices=torch.cuda.device_count() if dev.type == "cuda" else 1)
+        for ln in lines:
+            log(ln)
+        eng_kwargs.pop("mesh_tp")
+    params = api.init_params(mcfg, seed, device=dev)
+    return ServingEngine(mcfg, params, max_len=max_len, device=dev,
+                         **eng_kwargs)
+
+
+def serve(engine: ServingEngine, requests: list[Request]) -> dict:
+    """Submit every request at once, run the engine dry and summarize:
+    tokens, wall seconds, tokens/s, TTFT and TPOT percentiles (host clock;
+    the engine waits for each step's tokens, so the marks are real).
+    Counts are those of this call, not of the engine's lifetime."""
+    before = {k: v for k, v in engine.stats.items() if isinstance(v, int)}
+    n_occ = len(engine.stats["slot_occupancy"])
+    for r in requests:
+        engine.submit(r)
+    t0 = time.perf_counter()
+    engine.run()
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize(engine.device)
+    dt = time.perf_counter() - t0
+    ttft = [r.t_first - r.t_submit for r in requests if r.t_first is not None]
+    tpot = [(r.t_done - r.t_first) / (len(r.out_tokens) - 1)
+            for r in requests
+            if r.t_first is not None and r.t_done is not None
+            and len(r.out_tokens) > 1]
+    st = {k: engine.stats[k] - v for k, v in before.items()}
+    occ = engine.stats["slot_occupancy"][n_occ:]
+
+    def pct(xs, q):
+        return float(np.percentile(xs, q) * 1e3) if xs else float("nan")
+
+    return {"tokens_out": st["tokens_out"], "seconds": dt,
+            "tokens_per_s": st["tokens_out"] / max(dt, 1e-9),
+            "ttft_p50_ms": pct(ttft, 50), "ttft_p99_ms": pct(ttft, 99),
+            "tpot_p50_ms": pct(tpot, 50), "tpot_p99_ms": pct(tpot, 99),
+            "decode_steps": st["decode_steps"], "prefills": st["prefills"],
+            "preemptions": st["preemptions"], "nan_steps": st["nan_steps"],
+            "occupancy": float(np.mean(occ)) if occ else 0.0}
+
+
+def main(argv: list[str] | None = None) -> None:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--arch", required=True, choices=configs.ARCH_IDS)
+    p.add_argument("--smoke", action="store_true")
+    p.add_argument("--policy", default=None, metavar="DEPLOYMENT_JSON",
+                   help="mozart deployment artifact (or bare policy JSON) "
+                        "to apply: fusion flags and microbatches")
+    p.add_argument("--policy-network", default=None,
+                   help="which network's policy to take from a "
+                        "multi-network artifact")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu for the plain PyTorch path")
+    p.add_argument("--requests", type=int, default=8)
+    p.add_argument("--max-new", type=int, default=16)
+    p.add_argument("--max-batch", type=int, default=4)
+    p.add_argument("--max-len", type=int, default=128)
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args(argv)
+
+    mcfg = configs.get_smoke_config(args.arch) if args.smoke \
+        else configs.get_config(args.arch)
+    pol = load_policy(args.policy, args.policy_network) if args.policy \
+        else None
+    eng = build_engine(mcfg, policy=pol, max_batch=args.max_batch,
+                       max_len=args.max_len, seed=args.seed,
+                       device=args.device)
+    rng = np.random.default_rng(args.seed)
+    reqs = []
+    for i in range(args.requests):
+        plen = int(rng.integers(4, 12))
+        reqs.append(Request(
+            rid=i, prompt=rng.integers(0, mcfg.vocab, size=plen)
+            .astype(np.int32), max_new_tokens=args.max_new))
+    s = serve(eng, reqs)
+    print(f"[serve] {s['tokens_out']} tokens, {s['decode_steps']} steps, "
+          f"{s['prefills']} prefills in {s['seconds']:.2f}s "
+          f"({s['tokens_per_s']:.1f} tok/s, occupancy {s['occupancy']:.2f}), "
+          f"ttft p50 {s['ttft_p50_ms']:.1f}ms, tpot p50 "
+          f"{s['tpot_p50_ms']:.2f}ms on {eng.device}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,329 @@
+"""Serving engine of the port (from `repro.serving.engine`): slot-based
+continuous batching over the block-paged KV pool.
+
+A fixed pool of `max_batch` slots decodes in lock step; finished slots
+are refilled by prefilling queued requests into them.  The scheduling is
+the JAX engine's, rule for rule, so the same trace gives the same token
+streams and the same `stats` and `finish_reason`s:
+
+* admission drains the queue resumed-first, then earliest deadline, then
+  submission order; requests that cannot meet their deadline at the
+  measured per-step pace are shed ("shed"), prompts that cannot decode
+  one token inside the cache are rejected ("rejected"), and a bounded
+  queue sheds new submissions;
+* `decode_batch < max_batch` decodes a compacted sub-batch in slot-id
+  rotation (`compact=False`: the full-width emulation);
+* under page pressure the youngest-admitted slot is preempted and
+  requeued at the front, to be resumed by re-prefilling its tokens; a
+  lone slot that exhausts the pool finishes with "capacity";
+* a slot whose next KV write would pass the cache finishes with
+  "length";
+* every decode's logits pass an all-finite guard before sampling: a
+  non-finite step emits nothing and sets `health["nan_detected"]`.
+
+Switches are constructor arguments with the JAX knob registry's
+defaults (paged on, page size 16, bucket minimum 16, compact decode on,
+NaN guard on, deadline shedding on, queue bound 0 = unbounded).  Only
+the paged state is ported: `paged=False`, sliding-window and MoE configs
+raise NotImplementedError.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.bridge import tree_to
+from repro_torch.device import resolve_device
+from repro_torch.models.config import ModelConfig
+
+from . import paged as paged_kv
+from .sampling import sample
+from .state import PagedKVState
+
+Params = Any
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray            # (S,) int32
+    max_new_tokens: int = 32
+    temperature: float = 0.0
+    # SLO deadline in seconds from t_submit; None = no deadline
+    deadline_s: float | None = None
+    # encoder frame embeddings (whisper); unused by the transformer
+    frames: np.ndarray | None = None
+    # cluster routing tag (None = any replica)
+    model: str | None = None
+    out_tokens: list = dataclasses.field(default_factory=list)
+    done: bool = False
+    finish_reason: str | None = None
+    # wall-clock marks for TTFT/TPOT accounting (monotonic seconds)
+    t_submit: float | None = None
+    t_first: float | None = None
+    t_done: float | None = None
+    admit_seq: int = -1           # admission order (preemption picks max)
+    requeues: int = 0
+
+
+def logits_finite(logits: torch.Tensor) -> bool:
+    """True iff every logit is finite — the decode-output health guard."""
+    return bool(torch.isfinite(logits).all())
+
+
+class ServingEngine:
+    def __init__(self, mcfg: ModelConfig, params: Params, *,
+                 max_batch: int = 4, max_len: int = 512,
+                 decode_batch: int | None = None, eos_id: int = -1,
+                 compact: bool = True, paged: bool = True,
+                 page_size: int = 16, num_pages: int | None = None,
+                 bucket_min: int = 16, queue_bound: int = 0,
+                 guard_nan: bool = True, shed_deadlines: bool = True,
+                 seed: int = 0, device: str | torch.device | None = None):
+        self.device = resolve_device(device)
+        if not paged:
+            raise NotImplementedError("the dense KV state is not ported yet; "
+                                      "serve with paged=True")
+        if not paged_kv.paged_supported(mcfg):
+            raise NotImplementedError(
+                f"{mcfg.name}: paged serving needs a plain transformer "
+                f"(no sliding window, no MoE)")
+        self.mcfg = mcfg
+        self.params = tree_to(params, self.device)
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.decode_batch = decode_batch or max_batch
+        self.compact = compact
+        self._next_slot = 0           # rotation cursor: a SLOT ID
+        self.eos_id = eos_id
+        self._admit_counter = 0
+        self._headroom = 1            # KV positions one decode step writes
+        self.queue_bound = queue_bound
+        self.guard_nan = guard_nan
+        self.shed_deadlines = shed_deadlines
+        self.health = {"nan_detected": False}
+        self._est_step_s = 0.0        # EWMA of step wall time
+        self.state = PagedKVState(
+            mcfg, max_batch, max_len, decode_batch=self.decode_batch,
+            compact=self.compact, page_size=page_size, num_pages=num_pages,
+            bucket_min=bucket_min, device=self.device)
+        self.pool = self.state.pool
+        self.buckets = self.state.buckets
+        self.capacity = self.state.capacity
+        self.slots: list[Request | None] = [None] * max_batch
+        self.queue: list[Request] = []
+        self.next_token = np.zeros((max_batch, 1), np.int64)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.stats = {"decode_steps": 0, "prefills": 0,
+                      "tokens_out": 0, "slot_occupancy": [],
+                      "preemptions": 0, "rejected": 0,
+                      "shed": 0, "nan_steps": 0}
+
+    # -- request lifecycle --------------------------------------------------
+    def submit(self, req: Request) -> bool:
+        """Queue a request; returns False when the bounded queue sheds it."""
+        if req.t_submit is None:
+            req.t_submit = time.monotonic()
+        if self.queue_bound > 0 and len(self.queue) >= self.queue_bound:
+            self._shed(req)
+            return False
+        self.queue.append(req)
+        return True
+
+    def _shed(self, req: Request) -> None:
+        req.done = True
+        req.finish_reason = "shed"
+        req.t_done = time.monotonic()
+        self.stats["shed"] += 1
+
+    def _slot_pos(self, b: int) -> int:
+        """Cache length of slot b = prompt + decoded-in KV (the newest
+        sampled token's KV is written by its decode step, hence -1)."""
+        req = self.slots[b]
+        return len(req.prompt) + len(req.out_tokens) - 1
+
+    def _finish(self, b: int, reason: str) -> None:
+        req = self.slots[b]
+        req.done = True
+        if req.finish_reason is None:
+            req.finish_reason = reason
+        req.t_done = time.monotonic()
+        self.slots[b] = None
+        self.state.release(b)
+
+    def _preempt(self, b: int) -> None:
+        """Evict slot b under page pressure and requeue it at the front."""
+        req = self.slots[b]
+        self.slots[b] = None
+        self.state.release(b)
+        self.queue.insert(0, req)
+        self.stats["preemptions"] += 1
+
+    def _admission_key(self, j: int) -> tuple:
+        req = self.queue[j]
+        dl = req.deadline_s
+        return (0 if req.out_tokens else 1,
+                dl if dl is not None else float("inf"), j)
+
+    def _deadline_infeasible(self, req: Request) -> bool:
+        if not self.shed_deadlines or req.deadline_s is None:
+            return False
+        now = time.monotonic()
+        remaining = (req.t_submit or now) + req.deadline_s - now
+        if remaining <= 0:
+            return True
+        left = max(req.max_new_tokens - len(req.out_tokens), 0)
+        return self._est_step_s > 0.0 and self._est_step_s * left > remaining
+
+    def _next_admission(self) -> int | None:
+        while self.queue:
+            j = min(range(len(self.queue)), key=self._admission_key)
+            req = self.queue[j]
+            if self._deadline_infeasible(req):
+                self.queue.pop(j)
+                self._shed(req)
+                continue
+            return j
+        return None
+
+    def _sample_one(self, logits_row: torch.Tensor, req: Request) -> int:
+        return int(sample(logits_row, self.generator,
+                          temperature=req.temperature)[0])
+
+    def _admit(self) -> None:
+        """Prefill queued requests into free slots (continuous batching)."""
+        for b in range(self.max_batch):
+            if self.slots[b] is not None or not self.queue:
+                continue
+            qi = self._next_admission()
+            if qi is None:
+                break
+            req = self.queue[qi]
+            resumed = bool(req.out_tokens)
+            if resumed:
+                # re-prefill everything but the newest token
+                seq = np.concatenate([
+                    np.asarray(req.prompt, np.int32),
+                    np.asarray(req.out_tokens[:-1], np.int32)])
+            else:
+                seq = np.asarray(req.prompt, np.int32)
+            plen = len(seq)
+            if plen < 1 or plen + self._headroom > self.capacity:
+                self.queue.pop(qi)
+                req.done = True
+                req.finish_reason = "rejected"
+                req.t_done = time.monotonic()
+                self.stats["rejected"] += 1
+                continue
+            # +1: the next decode writes KV at position plen
+            if not self.pool.ensure(b, plen + 1):
+                break       # pool dry — wait for decode-side frees
+            last = self.state.prefill(self.params, b, seq)
+            self.queue.pop(qi)
+            self.slots[b] = req
+            req.admit_seq = self._admit_counter
+            self._admit_counter += 1
+            self.stats["prefills"] += 1
+            if resumed:
+                self.next_token[b, 0] = req.out_tokens[-1]
+                continue
+            tok = self._sample_one(last[0, -1:], req)
+            req.out_tokens.append(tok)
+            if req.t_first is None:
+                req.t_first = time.monotonic()
+            self.next_token[b, 0] = tok
+            self.stats["tokens_out"] += 1
+            if len(req.out_tokens) >= req.max_new_tokens or \
+                    tok == self.eos_id:
+                self._finish(b, "eos" if tok == self.eos_id
+                             else "max_new_tokens")
+
+    def _select_active(self, all_active: list[int]) -> list[int]:
+        """Up to decode_batch slots in slot-id rotation."""
+        if self.decode_batch >= len(all_active):
+            return list(all_active)
+        ordered = [b for b in all_active if b >= self._next_slot] + \
+                  [b for b in all_active if b < self._next_slot]
+        active = ordered[:self.decode_batch]
+        self._next_slot = (active[-1] + 1) % self.max_batch
+        return active
+
+    # -- decode tick ---------------------------------------------------------
+    def step(self) -> int:
+        """One lock-step decode over active slots; returns #active."""
+        if self.health["nan_detected"]:
+            return 0
+        t_step = time.monotonic()
+        self._admit()
+        live = [b for b, r in enumerate(self.slots) if r is not None]
+        for b in list(live):
+            if self._slot_pos(b) + self._headroom > self.capacity:
+                self._finish(b, "length")
+                live.remove(b)
+        live = self._grow_pages(live)
+        if not live:
+            return 0
+        active = self._select_active(live)
+        if not self._advance(active):
+            return 0
+        self.stats["decode_steps"] += 1
+        self.stats["slot_occupancy"].append(len(live) / self.max_batch)
+        dt = time.monotonic() - t_step
+        self._est_step_s = dt if self._est_step_s == 0.0 \
+            else 0.8 * self._est_step_s + 0.2 * dt
+        return len(active)
+
+    def _advance(self, active: list[int]) -> bool:
+        """Decode the active slots one step, guard, sample, finish.
+        Returns False when the NaN guard swallowed the step."""
+        logits, lane = self.state.decode(self.params, self.next_token, active)
+        last = logits[:, -1]
+        if self.guard_nan and not logits_finite(last):
+            # emit nothing from non-finite logits; flag for the watchdog
+            self.health["nan_detected"] = True
+            self.stats["nan_steps"] += 1
+            return False
+        greedy = last.argmax(dim=-1).tolist()
+        for b in active:
+            req = self.slots[b]
+            if req.temperature <= 0.0:
+                tok = greedy[lane[b]]
+            else:
+                tok = self._sample_one(last[lane[b]][None], req)
+            req.out_tokens.append(tok)
+            self.next_token[b, 0] = tok
+            self.stats["tokens_out"] += 1
+            if len(req.out_tokens) >= req.max_new_tokens or \
+                    tok == self.eos_id:
+                self._finish(b, "eos" if tok == self.eos_id
+                             else "max_new_tokens")
+        return True
+
+    def _grow_pages(self, live: list[int]) -> list[int]:
+        """Back every live slot's next KV write by a page, preempting the
+        youngest-admitted slot under pool pressure."""
+        for b in list(live):
+            while b in live and \
+                    not self.pool.ensure(b, self._slot_pos(b) + 1):
+                victims = [v for v in live if v != b]
+                if not victims:
+                    self._finish(b, "capacity")
+                    live.remove(b)
+                else:
+                    v = max(victims, key=lambda s: self.slots[s].admit_seq)
+                    self._preempt(v)
+                    live.remove(v)
+        return live
+
+    def run(self, max_steps: int = 10_000) -> None:
+        steps = 0
+        while (self.queue or any(s is not None for s in self.slots)) \
+                and steps < max_steps:
+            if self.health["nan_detected"]:
+                break
+            self.step()
+            steps += 1
