@@ -11,24 +11,31 @@ exit, no result line) when a check fails:
    (`nvidia-smi`) and builds the CUDA kernels from `src/repro_torch/csrc`
    (one nvcc per source, all at once), printing the build time.
 2. Kernels: each kernel's launch wrapper against its plain PyTorch
-   version on the card, at the serving path's shapes (smollm-135m: d 576,
-   F 1536, 9 query / 3 KV heads of 64), in bfloat16 and float32 (TF32
-   off), with the tolerance stated; kernel, plain-version and library
-   times from CUDA events, and the least time the card could take
-   (bytes over 3.35 TB/s or operations over the type's peak).
-3. Correctness end to end: smollm-135m at full width, 4 layers, float32,
+   version on the card, at the serving paths' shapes (smollm-135m: d 576,
+   F 1536, 9 query / 3 KV heads of 64, bfloat16 and float32; rwkv6-3b:
+   wkv6 over 40 heads of 64, in the JAX op's (BH, S, D) layout and in the
+   model's (B, S, H, D) layout that `rwkv6.time_mix` passes;
+   recurrentgemma-2b: rglru_scan over 2560 channels; both float32), TF32
+   off, with the tolerance stated; kernel, plain-version and library
+   times from CUDA events, and the least time the card could take (bytes
+   over 3.35 TB/s or operations over the type's peak).
+3. Correctness end to end, float32 at full width: smollm-135m (4 layers)
    serves one 8-request trace through the plain impls and through the
-   kernel impls; greedy tokens must be equal and the first prefill's
-   logits within 1e-3.
-4. Main path: the full smollm-135m (30 layers, bfloat16, random weights
-   from a seed) through `repro_torch.launch.serve` with a policy that
-   turns all three fusion flags on: 12 requests, prompts of 16-300
+   kernel impls; rwkv6-3b (4 layers) and recurrentgemma-2b (3 layers: two
+   recurrent, one attention) serve one on the card, which runs the
+   kernels, and on the CPU, which runs the plain versions.  Greedy tokens
+   must be equal and the first prefill's logits within 1e-3.
+4. Main paths, each at full width and depth in bfloat16 with random
+   weights from a seed, through `repro_torch.launch.serve`: smollm-135m
+   with a policy that turns all three fusion flags on (12 requests), then
+   rwkv6-3b and recurrentgemma-2b (8 requests each); prompts of 16-300
    tokens, 32 new tokens each, 4 slots, max_len 512.  Launch counts are
-   set to 0 just before and read just after; every kernel must have run.
-   Prints tokens/s, TTFT and TPOT.
-5. Breakdown: the wall time of a steady decode step on the same engine,
-   and from one profiled window the device's busy time and the heaviest
-   kernels a step.
+   set to 0 just before each path and read just after; every kernel of
+   the path must have run, and each recurrent layer's kernel exactly once
+   a prefill and once a decode step.  Prints tokens/s, TTFT and TPOT.
+5. Breakdown, for each main path: the wall time of a steady decode step
+   on the same engine, and from one profiled window the device's busy
+   time, the heaviest kernels and the port's own kernels' time a step.
 
 The last two lines are one JSON object listing the kernels and one with
 the device: `{"ok": true, "device": {"platform": "gpu", ...}}`.
@@ -47,10 +54,18 @@ HBM_BYTES_PER_S = 3.35e12                 # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12,         # dense tensor-core bf16
               "float32": 67e12}           # float32 outside the tensor cores
 TOL = {"bfloat16": 2.5e-2}
+# wkv6: sums in another order than the plain version's chunked form,
+# which clips its decay exponents at -60
 TOL_F32 = {"fused_rmsnorm": 1e-5, "fused_rmsnorm_residual": 1e-5,
-           "fused_mlp": 1e-5, "flash_attention": 3e-5}
+           "fused_mlp": 1e-5, "flash_attention": 3e-5, "wkv6": 1e-4,
+           "rglru_scan": 1e-5}
 D, F_FF, H, HKV, HD = 576, 1536, 9, 3, 64  # smollm-135m
 DECODE_N = 4                               # the main path's slot count
+RWKV_H, RWKV_D = 40, 64                    # rwkv6-3b heads of 64
+LRU_W = 2560                               # recurrentgemma-2b lru_width
+# the port's CUDA kernels, as the profiler names them
+OWN_KERNELS = ("rmsnorm_kernel", "mlp_partial_kernel", "mlp_reduce_kernel",
+               "flash_fwd_kernel", "wkv6_kernel", "rglru_scan_kernel")
 
 
 def check(ok: bool, msg: str) -> None:
@@ -80,6 +95,25 @@ def time_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters: int = 10) -> float | None:
+    """Mean milliseconds of device time (every CUDA kernel, by the
+    profiler) that one fn() call launches: the device's share of what
+    `time_ms` reads, without the host's.  None when the profiler
+    returned no device event (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    return us / iters / 1e3 if us > 0 else None
+
+
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
@@ -95,6 +129,11 @@ def kernel_phase(torch, F):
     from repro_torch.kernels.fused_norm import kernel as nk
     from repro_torch.kernels.fused_norm.ref import (fused_rmsnorm_ref,
                                                     fused_rmsnorm_residual_ref)
+    from repro_torch.kernels.rglru_scan import kernel as gk
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.kernels.wkv6 import ops as wops
+    from repro_torch.kernels.wkv6.ref import wkv6_bshd_ref, wkv6_ref
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
@@ -119,11 +158,13 @@ def kernel_phase(torch, F):
 
     launchers = {"fused_rmsnorm": nk.RMSNORM,
                  "fused_rmsnorm_residual": nk.RMSNORM_RESIDUAL,
-                 "fused_mlp": mk.MLP, "flash_attention": fk.FLASH}
+                 "fused_mlp": mk.MLP, "flash_attention": fk.FLASH,
+                 "wkv6": wk.WKV6, "rglru_scan": gk.SCAN}
 
     def record(name, shape, dtype, out, ref, kern, plain, lib, nbytes, flops):
         """`out` is the kernel's first result (launched by the caller);
-        `launches` counts that launch and the timed ones."""
+        `launches` counts that launch and the event-timed ones.  The
+        `*_device_ms` keys are profiler device times of the same calls."""
         tol = TOL.get(dtype, TOL_F32[name])
         e, ok = err(out, ref, tol)
         check(ok, f"{name} {shape} {dtype}: kernel disagrees with its plain "
@@ -137,6 +178,8 @@ def kernel_phase(torch, F):
                "plain_ms": time_ms(torch, plain),
                "library_ms": None if lib is None else time_ms(torch, lib),
                "bound_ms": b, "bound_by": by}
+        row["kernel_device_ms"] = device_ms(torch, kern)
+        row["plain_device_ms"] = device_ms(torch, plain)
         rows.append(row)
         print(json.dumps(row), flush=True)
 
@@ -190,6 +233,59 @@ def kernel_phase(torch, F):
                        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                        is_causal=True, enable_gqa=True),
                    (2 * s * H * HD + 2 * s * HKV * HD) * es, 4 * HD * pairs * H)
+
+    # recurrent kernels, float32 as the models call them: decode (four
+    # slots, one token) and one prefill of 256 tokens
+    f32 = torch.float32
+    for bh, s in ((DECODE_N * RWKV_H, 1), (RWKV_H, 256)):
+        r, k, v = (rand((bh, s, RWKV_D), f32, 0.5) for _ in range(3))
+        logw = torch.log(torch.exp(-torch.exp(
+            rand((bh, s, RWKV_D), f32).clamp(-1.0, 1.0))).clamp(min=1e-12))
+        u = rand((bh, 1, RWKV_D), f32, 0.1)
+        s0 = rand((bh, RWKV_D, RWKV_D), f32, 0.1)
+
+        def wkv_kern(i, r=r, k=k, v=v, logw=logw, u=u, s0=s0):
+            return wops.wkv6(r, k, v, logw, u, s0)      # CUDA tensors: the kernel
+
+        def wkv_plain(i, r=r, k=k, v=v, logw=logw, u=u, s0=s0):
+            return wkv6_ref(r, k, v, logw, u, s0, chunk=32)
+
+        record("wkv6", [bh, s, RWKV_D], "float32", wkv_kern(0), wkv_plain(0),
+               wkv_kern, wkv_plain, None,
+               4 * (5 * bh * s * RWKV_D + 2 * bh * RWKV_D ** 2),
+               4 * bh * s * RWKV_D ** 2)
+    # the model layout that `rwkv6.time_mix` passes: (B, S, H, D) views of
+    # (B, S, H*D) projections (time stride H*D), u (H, D), s0 (B, H, D, D)
+    for b, s in ((DECODE_N, 1), (1, 256)):
+        shape = (b, s, RWKV_H, RWKV_D)
+        r, k, v = (rand((b, s, RWKV_H * RWKV_D), f32, 0.5).reshape(shape)
+                   for _ in range(3))
+        logw = torch.log(torch.exp(-torch.exp(
+            rand((b, s, RWKV_H * RWKV_D), f32).clamp(-1.0, 1.0))).clamp(
+                min=1e-12)).reshape(shape)
+        u = rand((RWKV_H, RWKV_D), f32, 0.1)
+        s0 = rand((b, RWKV_H, RWKV_D, RWKV_D), f32, 0.1)
+
+        def bshd_kern(i, r=r, k=k, v=v, logw=logw, u=u, s0=s0):
+            return wops.wkv6_bshd(r, k, v, logw, u, s0)
+
+        def bshd_plain(i, r=r, k=k, v=v, logw=logw, u=u, s0=s0):
+            return wkv6_bshd_ref(r, k, v, logw, u, s0, chunk=32)
+
+        bh = b * RWKV_H
+        record("wkv6", list(shape), "float32", bshd_kern(0), bshd_plain(0),
+               bshd_kern, bshd_plain, None,
+               4 * (5 * bh * s * RWKV_D + 2 * bh * RWKV_D ** 2),
+               4 * bh * s * RWKV_D ** 2)
+    for b, s in ((DECODE_N, 1), (1, 256)):
+        a = torch.rand((b, s, LRU_W), generator=gen).to(dev)
+        x, h0 = rand((b, s, LRU_W), f32), rand((b, LRU_W), f32)
+        # reads a, b and h0, writes h (no final-state output)
+        record("rglru_scan", [b, s, LRU_W], "float32",
+               gk.rglru_scan_cuda(a, x, h0), rglru_scan_ref(a, x, h0),
+               lambda i, a=a, x=x, h0=h0: gk.rglru_scan_cuda(a, x, h0),
+               lambda i, a=a, x=x, h0=h0: rglru_scan_ref(a, x, h0), None,
+               4 * (3 * b * s * LRU_W + b * LRU_W), 2 * b * s * LRU_W)
     return rows
 
 
@@ -231,6 +327,111 @@ def e2e_phase(torch):
     check(diff <= 1e-3, f"e2e: first-prefill logits differ by {diff}")
 
 
+def recurrent_e2e_phase(torch, arch: str, n_layers: int):
+    """The card (kernels) against the CPU (plain versions): `arch` at full
+    width, `n_layers` layers, float32, one 8-request trace on the same
+    weights."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import api
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = configs.get_config(arch).replace(
+        n_layers=n_layers, dtype="float32", param_dtype="float32")
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, 1, device="cpu")
+    draw_s = time.perf_counter() - t0
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
+               for n in rng.integers(16, 301, size=8)]
+    toks, first, secs = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        eng = ServingEngine(cfg, params, max_batch=4, max_len=512, device=dev)
+        check(eng.state.kind == "recurrent", f"e2e {arch}: not the recurrent state")
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=16)
+                for i, p in enumerate(prompts)]
+        secs[dev] = serve(eng, reqs)["seconds"]
+        toks[dev] = [r.out_tokens for r in reqs]
+        check(all(r.finish_reason == "max_new_tokens" for r in reqs),
+              f"e2e {arch} {dev}: a request did not finish with max_new_tokens")
+        p0 = torch.as_tensor(prompts[0], device=dev).long()[None]
+        first[dev] = api.prefill(cfg, eng.params, {"tokens": p0}, 512)[0][0, -1].cpu()
+        del eng
+    same = sum(a == b for a, b in zip(toks["cuda"], toks["cpu"]))
+    diff = float((first["cuda"] - first["cpu"]).abs().max())
+    print(f"[smoke] e2e {arch} f32 {n_layers} layers full width, card vs CPU: "
+          f"{same}/8 request streams equal, first-prefill logits max |diff| "
+          f"{diff:.3g} (weights drawn in {draw_s:.1f}s; served in "
+          f"{secs['cuda']:.1f}s on the card, {secs['cpu']:.1f}s on the CPU)",
+          flush=True)
+    check(toks["cuda"] == toks["cpu"], f"e2e {arch}: the kernels changed greedy tokens")
+    check(diff <= 1e-3, f"e2e {arch}: first-prefill logits differ by {diff}")
+
+
+def _requests(rng, vocab, n, lo, hi, max_new):
+    import numpy as np
+
+    from repro_torch.serving.engine import Request
+    return [Request(rid=i, prompt=rng.integers(0, vocab, size=int(p))
+                    .astype(np.int32), max_new_tokens=max_new)
+            for i, p in enumerate(rng.integers(lo, hi + 1, size=n))]
+
+
+def recurrent_path_phase(torch, arch: str, launchers, name: str):
+    """The full `arch` (bfloat16, random weights from a seed) through the
+    serve launcher's own functions; `name` is the kernel of its recurrent
+    layers, which must launch once a layer a prefill and a decode step."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import build_engine, serve
+    from repro_torch.models import rglru
+
+    cfg = configs.get_config(arch)
+    n_rec = cfg.n_layers if cfg.family == "rwkv6" else \
+        sum(not rglru.is_attn_layer(cfg, i) for i in range(cfg.n_layers))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = build_engine(cfg, max_batch=4, max_len=512, seed=0, device="cuda",
+                       log=lambda s: print(s, flush=True))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(eng.state.kind == "recurrent", f"{arch}: not the recurrent state")
+    rng = np.random.default_rng(0)
+    serve(eng, _requests(rng, cfg.vocab, 2, 16, 40, 4))   # warm-up
+    for ln in launchers.values():
+        ln.launches = 0
+    reqs = _requests(rng, cfg.vocab, 8, 16, 300, 32)
+    s = serve(eng, reqs)
+    counts = {n: ln.launches for n, ln in launchers.items()}
+    want = n_rec * (s["prefills"] + s["decode_steps"])
+    print(f"[smoke] main path {arch} {cfg.n_layers}L bf16: {s['tokens_out']} "
+          f"tokens, {s['prefills']} prefills, {s['decode_steps']} decode steps "
+          f"in {s['seconds']:.3f}s = {s['tokens_per_s']:.1f} tok/s; TTFT p50 "
+          f"{s['ttft_p50_ms']:.1f} ms, TPOT p50 {s['tpot_p50_ms']:.2f} ms; "
+          f"launches {counts} ({name} expected {n_rec} x (prefills + decode "
+          f"steps) = {want}); weights drawn and engine built in {build_s:.1f}s; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+          flush=True)
+    print(json.dumps({"main_path": s, "arch": arch, "launches": counts,
+                      "build_engine_s": build_s}), flush=True)
+    check(all(r.finish_reason == "max_new_tokens" and len(r.out_tokens) == 32
+              for r in reqs), f"{arch}: a request did not finish with 32 tokens")
+    check(s["nan_steps"] == 0 and not eng.health["nan_detected"],
+          f"{arch}: non-finite logits")
+    check(counts[name] == want,
+          f"{arch}: {name} launched {counts[name]} times, expected {want}")
+    return eng, counts
+
+
+def free(torch) -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main_path_phase(torch, launchers):
     """The full smollm-135m through the serve launcher's own functions."""
     import numpy as np
@@ -238,7 +439,6 @@ def main_path_phase(torch, launchers):
     from repro_torch import configs
     from repro_torch.launch.policy import load_policy
     from repro_torch.launch.serve import build_engine, serve
-    from repro_torch.serving.engine import Request
 
     pol = {"network": "smollm-135m", "interval_s": 1e-3, "operators": [
         {"group": "norm1+qkv_proj+attention", "batch": 4, "tp": 1,
@@ -255,16 +455,10 @@ def main_path_phase(torch, launchers):
     check(eng.mcfg.attn_impl == "flash" and eng.mcfg.mlp_impl == "fused"
           and eng.mcfg.norm_impl == "fused", "policy did not turn the kernels on")
     rng = np.random.default_rng(0)
-
-    def requests(n, lo, hi, max_new):
-        return [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=int(p))
-                        .astype(np.int32), max_new_tokens=max_new)
-                for i, p in enumerate(rng.integers(lo, hi + 1, size=n))]
-
-    serve(eng, requests(2, 16, 40, 4))          # warm-up: library handles
+    serve(eng, _requests(rng, cfg.vocab, 2, 16, 40, 4))   # warm-up: library handles
     for ln in launchers.values():
         ln.launches = 0
-    reqs = requests(12, 16, 300, 32)
+    reqs = _requests(rng, cfg.vocab, 12, 16, 300, 32)
     s = serve(eng, reqs)
     counts = {name: ln.launches for name, ln in launchers.items()}
     print(f"[smoke] main path smollm-135m 30L bf16: {s['tokens_out']} tokens, "
@@ -284,7 +478,7 @@ def main_path_phase(torch, launchers):
     return eng, counts
 
 
-def breakdown_phase(torch, eng):
+def breakdown_phase(torch, eng, arch: str):
     """Where a decode step's time goes: the wall time of steady decode
     steps (4 slots, 100-token prompts), then one profiled window for the
     device's busy time, kernel count and heaviest kernels a step."""
@@ -318,12 +512,15 @@ def breakdown_phase(torch, eng):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     dev_ms = sum(by_name.values()) / n_prof / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    ours = {k: sum(v for name, v in by_name.items() if k in name) / n_prof / 1e3
+            for k in OWN_KERNELS}
     eng.run()
     out = {"decode_step_ms": step_ms, "device_ms_per_step": dev_ms,
            "device_busy_share": dev_ms / step_ms,
            "kernels_per_step": len(kern) / n_prof,
-           "top_kernels_ms_per_step": [[k[:60], v / n_prof / 1e3] for k, v in top]}
-    print(json.dumps({"breakdown": out}), flush=True)
+           "top_kernels_ms_per_step": [[k[:60], v / n_prof / 1e3] for k, v in top],
+           "own_kernels_ms_per_step": {k: v for k, v in ours.items() if v > 0}}
+    print(json.dumps({"breakdown": out, "arch": arch}), flush=True)
     check(dev_ms > 0, "breakdown: the profiler saw no device time")
 
 
@@ -345,6 +542,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.fused_mlp import kernel as mk
     from repro_torch.kernels.fused_norm import kernel as nk
+    from repro_torch.kernels.rglru_scan import kernel as gk
+    from repro_torch.kernels.wkv6 import kernel as wk
 
     card = card_line()
     print(f"[smoke] card: {card}; torch {torch.__version__} cuda "
@@ -359,35 +558,55 @@ def main() -> int:
 
     rows = kernel_phase(torch, F)
     e2e_phase(torch)
+    recurrent_e2e_phase(torch, "rwkv6-3b", 4)
+    recurrent_e2e_phase(torch, "recurrentgemma-2b", 3)
     launchers = {"fused_rmsnorm": nk.RMSNORM,
                  "fused_rmsnorm_residual": nk.RMSNORM_RESIDUAL,
                  "fused_mlp": mk.MLP, "flash_attention": fk.FLASH}
     eng, counts = main_path_phase(torch, launchers)
-    breakdown_phase(torch, eng)
+    breakdown_phase(torch, eng, "smollm-135m")
+    del eng
+    free(torch)
+    launchers.update(wkv6=wk.WKV6, rglru_scan=gk.SCAN)
+    eng, path = recurrent_path_phase(torch, "rwkv6-3b", launchers, "wkv6")
+    counts["wkv6"] = path["wkv6"]
+    breakdown_phase(torch, eng, "rwkv6-3b")
+    del eng
+    free(torch)
+    eng, path = recurrent_path_phase(torch, "recurrentgemma-2b", launchers,
+                                     "rglru_scan")
+    counts["rglru_scan"] = path["rglru_scan"]
+    breakdown_phase(torch, eng, "recurrentgemma-2b")
+    del eng
+    free(torch)
 
     meta = {
-        "fused_rmsnorm": ("src/repro_torch/csrc/fused_norm.cu",
-                          "src/repro/kernels/fused_norm/kernel.py:51", [DECODE_N, D]),
-        "fused_rmsnorm_residual": ("src/repro_torch/csrc/fused_norm.cu",
-                                   "src/repro/kernels/fused_norm/kernel.py:78",
-                                   [DECODE_N, D]),
-        "fused_mlp": ("src/repro_torch/csrc/fused_mlp.cu",
-                      "src/repro/kernels/fused_mlp/kernel.py:75", [DECODE_N, D, F_FF]),
-        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
-                            "src/repro/kernels/flash_attention/kernel.py:80",
-                            [1, 512, H, HKV, HD]),
+        "fused_rmsnorm": ("fused_norm.cu", "fused_norm/kernel.py:51",
+                          [DECODE_N, D], "bfloat16"),
+        "fused_rmsnorm_residual": ("fused_norm.cu", "fused_norm/kernel.py:78",
+                                   [DECODE_N, D], "bfloat16"),
+        "fused_mlp": ("fused_mlp.cu", "fused_mlp/kernel.py:75",
+                      [DECODE_N, D, F_FF], "bfloat16"),
+        "flash_attention": ("flash_attention.cu", "flash_attention/kernel.py:80",
+                            [1, 512, H, HKV, HD], "bfloat16"),
+        "wkv6": ("wkv6.cu", "wkv6/kernel.py:73",
+                 [DECODE_N, 1, RWKV_H, RWKV_D], "float32"),
+        "rglru_scan": ("rglru_scan.cu", "rglru_scan/kernel.py:39",
+                       [DECODE_N, 1, LRU_W], "float32"),
     }
     kernels = []
-    for name, (source, replaces, shape) in meta.items():
+    for name, (source, replaces, shape, dtype) in meta.items():
         row = next(r for r in rows if r["name"] == name and r["shape"] == shape
-                   and r["dtype"] == "bfloat16")
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": counts[name],
+                   and r["dtype"] == dtype)
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"src/repro_torch/csrc/{source}",
+                        "replaces": f"src/repro/kernels/{replaces}",
+                        "launches": counts[name],
                         "max_abs_err": row["max_err"], "ms": row["kernel_ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"], "shape": shape,
-                        "dtype": "bfloat16", "build_s": build_s})
+                        "dtype": dtype, "build_s": build_s})
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

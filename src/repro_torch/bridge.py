@@ -30,24 +30,24 @@ def array_to_tensor(a: Any, device: str | torch.device = "cpu") -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
+def tree_map(fn, tree: Any) -> Any:
+    """`fn` applied to every leaf of nested dicts/lists/tuples, in the
+    same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
 def tree_to_torch(tree: Any, device: str | torch.device = "cpu") -> Any:
     """Nested dicts/lists/tuples of arrays to the same structure of
     tensors on `device`."""
-    if isinstance(tree, dict):
-        return {k: tree_to_torch(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_to_torch(v, device) for v in tree)
-    if tree is None:
-        return None
-    return array_to_tensor(tree, device)
+    return tree_map(lambda a: None if a is None else array_to_tensor(a, device),
+                    tree)
 
 
 def tree_to(tree: Any, device: str | torch.device) -> Any:
     """Move every tensor of a nested structure to `device`."""
-    if isinstance(tree, dict):
-        return {k: tree_to(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_to(v, device) for v in tree)
-    if isinstance(tree, torch.Tensor):
-        return tree.to(device)
-    return tree
+    return tree_map(lambda t: t.to(device) if isinstance(t, torch.Tensor) else t,
+                    tree)

@@ -1,5 +1,6 @@
 """Architecture registry of the port: the plain-GQA dense transformers
-this slice serves.  Resolves `--arch <id>` like `repro.configs`."""
+and the two recurrent families (RWKV6, RG-LRU hybrid) it serves.
+Resolves `--arch <id>` like `repro.configs`."""
 from __future__ import annotations
 
 import importlib
@@ -10,6 +11,8 @@ _MODULES = {
     "smollm-135m": ".smollm_135m",
     "internlm2-1.8b": ".internlm2_1_8b",
     "qwen2.5-32b": ".qwen2_5_32b",
+    "rwkv6-3b": ".rwkv6_3b",
+    "recurrentgemma-2b": ".recurrentgemma_2b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -34,7 +34,7 @@ _SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("fused_norm", "fused_mlp", "flash_attention")
+SOURCES = ("fused_norm", "fused_mlp", "flash_attention", "wkv6", "rglru_scan")
 
 # loaded libraries by source name; guarded by _LOCK (launches may come
 # from several threads, the first one of each source builds it)

@@ -1,0 +1,34 @@
+"""Public WKV6 ops.  `wkv6` keeps the JAX op's signature and layout (r/k/
+v/logw (BH, S, D), u (BH, 1, D), s0 (BH, D, Dv)); `wkv6_bshd` takes the
+model layout (B, S, H, D) that `rwkv6.time_mix` produces, u (H, D) and
+s0 (B, H, D, Dv), with no transpose.  Both return (o, s_final): the
+model carries the final state into the next call.
+
+A CPU tensor takes the plain PyTorch version (`ref`); a CUDA tensor
+launches the CUDA kernel, which raises on anything it does not take.
+`chunk` sets the plain version's chunk length; the kernel steps through
+time and has no chunk.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import kernel, ref
+
+
+def wkv6_bshd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              logw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor, *,
+              chunk: int = 64):
+    if r.device.type == "cpu":
+        return ref.wkv6_bshd_ref(r, k, v, logw, u, s0, chunk=chunk)
+    return kernel.wkv6_cuda(r, k, v, logw, u, s0)
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         logw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor, *,
+         chunk: int = 64):
+    if r.device.type == "cpu":
+        return ref.wkv6_ref(r, k, v, logw, u, s0, chunk=chunk)
+    o, s = kernel.wkv6_cuda(r[:, :, None], k[:, :, None], v[:, :, None],
+                            logw[:, :, None], u, s0[:, None])
+    return o[:, :, 0], s[:, 0]

@@ -1,2 +1,2 @@
-"""Model code of the port: config, shared blocks, the dense transformer
-and the family facade."""
+"""Model code of the port: config, shared blocks, the dense transformer,
+RWKV6, the RG-LRU hybrid and the family facade."""

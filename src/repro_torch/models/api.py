@@ -1,6 +1,7 @@
-"""Model facade of the port (from `repro.models.api`): the transformer
-family only in this slice.  Entry points run on CUDA unless the caller
-passes `device="cpu"`, and raise where CUDA is asked for and missing.
+"""Model facade of the port (from `repro.models.api`): family dispatch
+for the dense transformer, RWKV6 and the RG-LRU hybrid (whisper is not
+ported yet).  Entry points run on CUDA unless the caller passes
+`device="cpu"`, and raise where CUDA is asked for and missing.
 """
 from __future__ import annotations
 
@@ -10,16 +11,18 @@ import torch
 
 from repro_torch.device import resolve_device
 
-from . import transformer
+from . import rglru, rwkv6, transformer
 from .config import ModelConfig
 
 Params = Any
 
+_FAMS = {"transformer": transformer, "rglru": rglru, "rwkv6": rwkv6}
+
 
 def family_module(cfg: ModelConfig):
-    if cfg.family != "transformer":
+    if cfg.family not in _FAMS:
         raise NotImplementedError(f"family {cfg.family} is not ported yet")
-    return transformer
+    return _FAMS[cfg.family]
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> Params:
@@ -38,12 +41,22 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict, max_len: int):
     return family_module(cfg).prefill(cfg, params, batch["tokens"], max_len)
 
 
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
+    """A zero cache for `batch` rows: the dense KV rectangles of a
+    transformer, the recurrent state (and rglru's ring KV) otherwise."""
+    return family_module(cfg).init_cache(cfg, batch, max_len,
+                                         device=resolve_device(device))
+
+
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int, *,
                      device=None, dtype=None):
-    return family_module(cfg).init_paged_cache(
+    """Paged KV page pools (transformer only, as in the JAX package)."""
+    if cfg.family != "transformer":
+        raise NotImplementedError(
+            f"paged KV cache is transformer-only, not {cfg.family}")
+    return transformer.init_paged_cache(
         cfg, num_pages, page_size, device=resolve_device(device), dtype=dtype)
 
 
 def decode_step(cfg: ModelConfig, params: Params, tokens, cache):
     return family_module(cfg).decode_step(cfg, params, tokens, cache)
-

@@ -1,6 +1,7 @@
 """Shared building blocks of the port (from `repro.models.common`):
-RMSNorm with the fused dispatch, the dense MLP, RoPE and the attention
-dispatch.  Params are nested dicts of tensors, as on the JAX side.
+RMSNorm with the fused dispatch, seeded weight draws, GELU, the dense
+MLP, RoPE and the attention dispatch.  Params are nested dicts of
+tensors, as on the JAX side.
 """
 from __future__ import annotations
 
@@ -30,6 +31,12 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     return (y * (1.0 + scale.float())).to(x.dtype)
 
 
+def init_norm(cfg: ModelConfig) -> Params:
+    """RMSNorm parameters: a zero scale (the norm multiplies by 1 + scale)."""
+    _require_rmsnorm(cfg)
+    return {"scale": torch.zeros((cfg.d_model,), dtype=cfg.tparam_dtype)}
+
+
 def _require_rmsnorm(cfg: ModelConfig) -> None:
     if cfg.norm != "rmsnorm":
         raise NotImplementedError(f"norm={cfg.norm} is not ported yet")
@@ -54,6 +61,27 @@ def apply_norm_residual(cfg: ModelConfig, p: Params, res: torch.Tensor,
     return s, apply_norm(cfg, p, s)
 
 
+# --- activations, init ------------------------------------------------------
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU in the tanh approximation, `jax.nn.gelu`'s default."""
+    return F.gelu(x, approximate="tanh")
+
+
+def normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
+    """scale * N(0, 1) of `shape`, drawn from `gen` in float32 on the CPU,
+    cast to `dtype`."""
+    return (torch.randn(shape, generator=gen, dtype=torch.float32)
+            * scale).to(dtype)
+
+
+def dense(gen: torch.Generator, shape, dtype, scale: float | None = None):
+    """A weight of `shape` with the JAX `dense_init` scale: 1/sqrt(fan-in)
+    unless `scale` is given."""
+    s = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+    return normal(gen, shape, s, dtype)
+
+
 # --- dense MLP --------------------------------------------------------------
 
 def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -68,7 +96,7 @@ def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.swiglu:
         h = F.silu(x @ p["w_gate"].to(dt)) * h
     else:
-        h = F.gelu(h, approximate="tanh")
+        h = gelu(h)
     return h @ p["w_out"].to(dt)
 
 
@@ -130,7 +158,9 @@ def attn_einsum(q, k, v, *, causal: bool, window: int | None,
 def attention(cfg: ModelConfig, q, k, v, *, causal: bool = True,
               q_offset: int = 0, decode: bool = False) -> torch.Tensor:
     """Dispatch on cfg.attn_impl and shape, as the JAX package does.  The
-    chunked and local (sliding-window) forms are not ported yet."""
+    local (banded sliding-window) form runs as the einsum form with the
+    window mask, which computes the same function with the full (Sq, Sk)
+    scores; the chunked form is not ported yet."""
     impl = cfg.attn_impl
     s = q.shape[1]
     if impl == "auto":
@@ -144,7 +174,7 @@ def attention(cfg: ModelConfig, q, k, v, *, causal: bool = True,
             impl = "einsum"
     if impl == "flash":
         return fops.flash_attention(q, k, v, causal=causal, window=cfg.window)
-    if impl in ("local", "chunked"):
+    if impl == "chunked":
         raise NotImplementedError(f"attn_impl={impl} is not ported yet")
     return attn_einsum(q, k, v, causal=causal, window=cfg.window,
                        q_offset=q_offset)

@@ -1,0 +1,203 @@
+"""RWKV6 "Finch" of the port (from `repro.models.rwkv6`): attention-free,
+with a data-dependent per-channel decay.
+
+Time mixing, per head (key index i, value index j):
+    o_t[j] = sum_i r_t[i] * (S_{t-1}[i,j] + u[i] * k_t[i] * v_t[j])
+    S_t[i,j] = w_t[i] * S_{t-1}[i,j] + k_t[i] * v_t[j]
+with w_t = exp(-exp(w0 + lora_w(x~_t))), token-shift interpolation on
+the inputs and a per-head groupnorm + SiLU gate on the output.  The
+recurrence is the `wkv6` op for every sequence length, prefill and
+decode alike: the CUDA kernel on the card, on the CPU the plain version
+(sequential for one token, chunked otherwise, as the JAX model switches).
+
+Params keep the JAX tree, names and dtypes (`w0`, `u` float32); layers
+are a list.  The state is {"layers": [{"shift_att", "wkv", "shift_ffn"}],
+"index"}, with the batch on axis 0 of every leaf.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.bridge import tree_to
+from repro_torch.kernels.wkv6 import ops as wops
+
+from .common import dense, normal, rmsnorm
+from .config import ModelConfig
+
+Params = Any
+
+
+def n_heads(cfg: ModelConfig) -> int:
+    return cfg.d_model // cfg.hd
+
+
+# --- init -------------------------------------------------------------------
+
+def _init_layer(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    d, f, r = cfg.d_model, cfg.d_ff, cfg.wkv_lora
+    pd = cfg.tparam_dtype
+    out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
+    h = n_heads(cfg)
+
+    def full(val):
+        return torch.full((d,), val, dtype=pd)
+
+    att = {"mu_r": full(0.5), "mu_k": full(0.5), "mu_v": full(0.5),
+           "mu_g": full(0.5), "mu_w": full(0.5),
+           "wr": dense(gen, (d, d), pd), "wk": dense(gen, (d, d), pd),
+           "wv": dense(gen, (d, d), pd), "wg": dense(gen, (d, d), pd),
+           "wo": dense(gen, (d, d), pd, out_scale),
+           "w0": torch.rand((d,), generator=gen) * 2.0 - 1.0,
+           "wa": dense(gen, (d, r), pd), "wb": dense(gen, (r, d), pd, 0.01),
+           "u": normal(gen, (h, cfg.hd), 0.1, torch.float32),
+           "gn_scale": torch.ones((h, cfg.hd), dtype=pd)}
+    ffn = {"mu_k": full(0.5), "mu_r": full(0.5),
+           "wk": dense(gen, (d, f), pd), "wv": dense(gen, (f, d), pd, out_scale),
+           "wr": dense(gen, (d, d), pd)}
+    return {"ln1": torch.zeros((d,), dtype=pd), "ln2": torch.zeros((d,), dtype=pd),
+            "att": att, "ffn": ffn}
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator,
+                device: torch.device | str = "cpu") -> Params:
+    """Weights of the JAX `init_params` tree, shapes, scales and dtypes,
+    drawn from `gen` on the CPU and moved to `device`."""
+    pd = cfg.tparam_dtype
+    layers = [_init_layer(cfg, gen) for _ in range(cfg.n_layers)]
+    params = {"embed": normal(gen, (cfg.vocab, cfg.d_model), 0.02, pd),
+              "final_norm": torch.zeros((cfg.d_model,), dtype=pd),
+              "head": normal(gen, (cfg.d_model, cfg.vocab), 0.02, pd),
+              "layers": layers}
+    return tree_to(params, device)
+
+
+# --- blocks -----------------------------------------------------------------
+
+def _shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
+    """Token shift: the previous position's value. prev: (B, 1, d)."""
+    return torch.cat([prev.to(x.dtype), x[:, :-1]], dim=1)
+
+
+def _groupnorm(o: torch.Tensor, scale: torch.Tensor, eps: float = 64e-5):
+    """Per-head norm over the last axis, population variance (as
+    `jnp.var`)."""
+    mu = o.mean(-1, keepdim=True)
+    var = o.var(-1, keepdim=True, unbiased=False)
+    return (o - mu) * torch.rsqrt(var + eps) * scale[None, None]
+
+
+def time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
+             shift_prev: torch.Tensor, s0: torch.Tensor):
+    """x: (B, S, d).  Returns (out, (last_x, s_final))."""
+    dt = cfg.tdtype
+    h, hd = n_heads(cfg), cfg.hd
+    b, s, d = x.shape
+    xx = _shift(x, shift_prev)
+
+    def mix(mu):
+        return x + (xx - x) * mu.to(dt)
+
+    xr, xk, xv, xg, xw = (mix(p["mu_r"]), mix(p["mu_k"]), mix(p["mu_v"]),
+                          mix(p["mu_g"]), mix(p["mu_w"]))
+    r = (xr @ p["wr"].to(dt)).reshape(b, s, h, hd).float()
+    k = (xk @ p["wk"].to(dt)).reshape(b, s, h, hd).float()
+    v = (xv @ p["wv"].to(dt)).reshape(b, s, h, hd).float()
+    g = F.silu(xg @ p["wg"].to(dt))
+    # data-dependent decay (the Finch mechanism), its log as the JAX
+    # model takes it: log(max(w, 1e-12)) of the float32 w
+    dw = torch.tanh(xw @ p["wa"].to(dt)) @ p["wb"].to(dt)
+    w = torch.exp(-torch.exp(p["w0"] + dw.float()))
+    logw = torch.log(torch.clamp(w, min=1e-12)).reshape(b, s, h, hd)
+    o, s_fin = wops.wkv6_bshd(r, k, v, logw, p["u"], s0, chunk=cfg.wkv_chunk)
+    o = _groupnorm(o.to(dt), p["gn_scale"].to(dt))
+    o = (o.reshape(b, s, d) * g) @ p["wo"].to(dt)
+    return o, (x[:, -1:], s_fin)
+
+
+def channel_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                shift_prev: torch.Tensor):
+    dt = cfg.tdtype
+    xx = _shift(x, shift_prev)
+    xk = x + (xx - x) * p["mu_k"].to(dt)
+    xr = x + (xx - x) * p["mu_r"].to(dt)
+    kk = torch.square(torch.relu(xk @ p["wk"].to(dt)))
+    out = torch.sigmoid(xr @ p["wr"].to(dt)) * (kk @ p["wv"].to(dt))
+    return out, x[:, -1:]
+
+
+def _layer(cfg: ModelConfig, p: Params, x: torch.Tensor, st: Params):
+    a, (sh_att, s_fin) = time_mix(
+        cfg, p["att"], rmsnorm(x, p["ln1"], cfg.norm_eps),
+        st["shift_att"], st["wkv"])
+    x = x + a
+    c, sh_ffn = channel_mix(cfg, p["ffn"], rmsnorm(x, p["ln2"], cfg.norm_eps),
+                            st["shift_ffn"])
+    return x + c, {"shift_att": sh_att, "wkv": s_fin, "shift_ffn": sh_ffn}
+
+
+# --- state, forward, serving entry points ----------------------------------
+
+def init_state(cfg: ModelConfig, batch: int, *,
+               device: torch.device | str = "cpu") -> Params:
+    h, hd = n_heads(cfg), cfg.hd
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    layers = [{"shift_att": zeros((batch, 1, cfg.d_model), cfg.tdtype),
+               "wkv": zeros((batch, h, hd, hd), torch.float32),
+               "shift_ffn": zeros((batch, 1, cfg.d_model), cfg.tdtype)}
+              for _ in range(cfg.n_layers)]
+    return {"layers": layers, "index": zeros((), torch.int32)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device: torch.device | str = "cpu") -> Params:
+    """The recurrent state; its size does not depend on max_len."""
+    return init_state(cfg, batch, device=device)
+
+
+def hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+           state: Params | None = None):
+    """Final-normed hidden states (B, S, d) and the advanced state."""
+    x = params["embed"].to(cfg.tdtype)[tokens]
+    st = state or init_state(cfg, tokens.shape[0], device=tokens.device)
+    new_layers = []
+    for p, ls in zip(params["layers"], st["layers"]):
+        x, ns = _layer(cfg, p, x, ls)
+        new_layers.append(ns)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return x, {"layers": new_layers, "index": st["index"] + tokens.shape[1]}
+
+
+def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor):
+    return x @ params["head"].to(cfg.tdtype)
+
+
+def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+            state: Params | None = None, collect_state: bool = False):
+    x, new_state = hidden(cfg, params, tokens, state=state)
+    logits = unembed(cfg, params, x)
+    if collect_state:
+        return logits, new_state
+    return logits
+
+
+def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+            max_len: int = 0):
+    """(last-token logits (B, 1, V), state).  Only the last position is
+    unembedded: the others' logits are never read."""
+    x, state = hidden(cfg, params, tokens)
+    return unembed(cfg, params, x[:, -1:]), state
+
+
+def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                cache: Params):
+    """One token per row: (logits (B, 1, V), advanced state).  The cache
+    tensors are not written; the state returned is new."""
+    x, state = hidden(cfg, params, tokens, state=cache)
+    return unembed(cfg, params, x), state

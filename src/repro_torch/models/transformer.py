@@ -22,7 +22,7 @@ import torch
 from repro_torch.bridge import tree_to
 
 from .common import (apply_norm, apply_norm_residual, apply_rope, attention,
-                     mlp_block, rope_tables)
+                     mlp_block, normal, rope_tables)
 from .config import ModelConfig
 
 Params = Any
@@ -45,11 +45,6 @@ def check_supported(cfg: ModelConfig) -> None:
 # Init
 # ---------------------------------------------------------------------------
 
-def _normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
-    return (torch.randn(shape, generator=gen, dtype=torch.float32)
-            * scale).to(dtype)
-
-
 def init_params(cfg: ModelConfig, gen: torch.Generator,
                 device: torch.device | str = "cpu") -> Params:
     """Weights of the same shapes and scales as the JAX `init_params`,
@@ -62,7 +57,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
 
     def dense(shape, scale=None):       # per-layer shape, stacked on L
         s = scale if scale is not None else 1.0 / math.sqrt(shape[0])
-        return _normal(gen, (L, *shape), s, pd)
+        return normal(gen, (L, *shape), s, pd)
 
     attn = {"wq": dense((d, qd)), "wk": dense((d, kvd)),
             "wv": dense((d, kvd)), "wo": dense((qd, d), out_scale)}
@@ -77,11 +72,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
               "attn": attn,
               "norm2": {"scale": torch.zeros((L, d), dtype=pd)},
               "mlp": mlp}
-    params = {"embed": _normal(gen, (cfg.vocab, d), 0.02, pd),
+    params = {"embed": normal(gen, (cfg.vocab, d), 0.02, pd),
               "final_norm": {"scale": torch.zeros((d,), dtype=pd)},
               "segments": [{"kind_dense": layers}]}
     if not cfg.tie_embeddings:
-        params["head"] = _normal(gen, (d, cfg.vocab), 0.02, pd)
+        params["head"] = normal(gen, (d, cfg.vocab), 0.02, pd)
     return tree_to(params, device)
 
 

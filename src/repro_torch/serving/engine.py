@@ -1,5 +1,6 @@
 """Serving engine of the port (from `repro.serving.engine`): slot-based
-continuous batching over the block-paged KV pool.
+continuous batching over the block-paged KV pool (plain transformers) or
+the gathered recurrent state (rglru, rwkv6).
 
 A fixed pool of `max_batch` slots decodes in lock step; finished slots
 are refilled by prefilling queued requests into them.  The scheduling is
@@ -13,9 +14,10 @@ streams and the same `stats` and `finish_reason`s:
   queue sheds new submissions;
 * `decode_batch < max_batch` decodes a compacted sub-batch in slot-id
   rotation (`compact=False`: the full-width emulation);
-* under page pressure the youngest-admitted slot is preempted and
-  requeued at the front, to be resumed by re-prefilling its tokens; a
-  lone slot that exhausts the pool finishes with "capacity";
+* under page pressure (paged state only) the youngest-admitted slot is
+  preempted and requeued at the front, to be resumed by re-prefilling
+  its tokens; a lone slot that exhausts the pool finishes with
+  "capacity";
 * a slot whose next KV write would pass the cache finishes with
   "length";
 * every decode's logits pass an all-finite guard before sampling: a
@@ -23,9 +25,13 @@ streams and the same `stats` and `finish_reason`s:
 
 Switches are constructor arguments with the JAX knob registry's
 defaults (paged on, page size 16, bucket minimum 16, compact decode on,
-NaN guard on, deadline shedding on, queue bound 0 = unbounded).  Only
-the paged state is ported: `paged=False`, sliding-window and MoE configs
-raise NotImplementedError.
+NaN guard on, deadline shedding on, queue bound 0 = unbounded).  The
+state is chosen as the JAX engine chooses it: `PagedKVState` when paged
+serving applies (a transformer with no sliding window and no MoE),
+`RecurrentState` for rglru and rwkv6 (always compact).  The dense KV
+state is not ported, so a transformer that cannot serve paged
+(`paged=False`, a sliding window, MoE) raises NotImplementedError, and
+so does whisper (its cross-attention state is not ported).
 """
 from __future__ import annotations
 
@@ -42,7 +48,7 @@ from repro_torch.models.config import ModelConfig
 
 from . import paged as paged_kv
 from .sampling import sample
-from .state import PagedKVState
+from .state import PagedKVState, RecurrentState
 
 Params = Any
 
@@ -85,19 +91,25 @@ class ServingEngine:
                  guard_nan: bool = True, shed_deadlines: bool = True,
                  seed: int = 0, device: str | torch.device | None = None):
         self.device = resolve_device(device)
-        if not paged:
-            raise NotImplementedError("the dense KV state is not ported yet; "
-                                      "serve with paged=True")
-        if not paged_kv.paged_supported(mcfg):
+        # paged + bucketed serving is exact only for the plain transformer
+        # cache (no sliding-window ring, no MoE router) — paged_supported
+        self.paged = paged and paged_kv.paged_supported(mcfg)
+        if mcfg.family == "whisper":
             raise NotImplementedError(
-                f"{mcfg.name}: paged serving needs a plain transformer "
-                f"(no sliding window, no MoE)")
+                f"{mcfg.name}: the cross-attention state (whisper) is not "
+                f"ported yet")
+        if mcfg.family == "transformer" and not self.paged:
+            raise NotImplementedError(
+                f"{mcfg.name}: the dense KV state is not ported yet; a "
+                f"transformer serves paged only (paged=True, no sliding "
+                f"window, no MoE)")
         self.mcfg = mcfg
         self.params = tree_to(params, self.device)
         self.max_batch = max_batch
         self.max_len = max_len
         self.decode_batch = decode_batch or max_batch
-        self.compact = compact
+        # recurrent state cannot be rewound: its decode always compacts
+        self.compact = compact if mcfg.family == "transformer" else True
         self._next_slot = 0           # rotation cursor: a SLOT ID
         self.eos_id = eos_id
         self._admit_counter = 0
@@ -107,10 +119,15 @@ class ServingEngine:
         self.shed_deadlines = shed_deadlines
         self.health = {"nan_detected": False}
         self._est_step_s = 0.0        # EWMA of step wall time
-        self.state = PagedKVState(
-            mcfg, max_batch, max_len, decode_batch=self.decode_batch,
-            compact=self.compact, page_size=page_size, num_pages=num_pages,
-            bucket_min=bucket_min, device=self.device)
+        if self.paged:
+            self.state = PagedKVState(
+                mcfg, max_batch, max_len, decode_batch=self.decode_batch,
+                compact=self.compact, page_size=page_size,
+                num_pages=num_pages, bucket_min=bucket_min, device=self.device)
+        else:
+            self.state = RecurrentState(
+                mcfg, max_batch, max_len, decode_batch=self.decode_batch,
+                device=self.device)
         self.pool = self.state.pool
         self.buckets = self.state.buckets
         self.capacity = self.state.capacity
@@ -220,7 +237,7 @@ class ServingEngine:
                 self.stats["rejected"] += 1
                 continue
             # +1: the next decode writes KV at position plen
-            if not self.pool.ensure(b, plen + 1):
+            if self.paged and not self.pool.ensure(b, plen + 1):
                 break       # pool dry — wait for decode-side frees
             last = self.state.prefill(self.params, b, seq)
             self.queue.pop(qi)
@@ -264,7 +281,8 @@ class ServingEngine:
             if self._slot_pos(b) + self._headroom > self.capacity:
                 self._finish(b, "length")
                 live.remove(b)
-        live = self._grow_pages(live)
+        if self.paged:
+            live = self._grow_pages(live)
         if not live:
             return 0
         active = self._select_active(live)

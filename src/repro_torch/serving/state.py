@@ -4,9 +4,10 @@ The engine's scheduling (admission, EDF shedding, slot rotation,
 preemption) never touches cache layout; it talks to a decode state that
 owns the per-slot model state and knows how to (a) prefill a request
 into slot b and (b) advance the active slots one decode step at a fixed
-lane width.  This slice ports `PagedKVState`, compact and full width.
-The dense rectangles (`DenseKVState`), int8 KV and the recurrent and
-cross-attention states are not ported yet.
+lane width.  Ported: `PagedKVState` (compact and full width) for the
+plain transformer, and `RecurrentState` for the rglru and rwkv6
+families.  The dense rectangles (`DenseKVState`), int8 KV and the
+cross-attention state (whisper) are not ported yet.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.bridge import tree_map
+from repro_torch.models import api
 from repro_torch.models.config import ModelConfig
 
 from . import paged as paged_kv
@@ -87,3 +90,81 @@ class PagedKVState:
 
     def release(self, b: int) -> None:
         self.pool.release(b)
+
+
+# -- recurrent (rglru / rwkv6) ------------------------------------------------
+
+def _leaf_pairs(dst, src):
+    """(dst, src) tensor pairs of two trees of the same structure."""
+    if isinstance(dst, dict):
+        for k in dst:
+            yield from _leaf_pairs(dst[k], src[k])
+    elif isinstance(dst, (list, tuple)):
+        for a, b in zip(dst, src):
+            yield from _leaf_pairs(a, b)
+    else:
+        yield dst, src
+
+
+class RecurrentState:
+    """rglru conv + hidden state (and the ring KV of its attention
+    layers) / rwkv6 wkv + token-shift state: {"layers": [(B, ...)],
+    "index": (B,)} caches with the batch on axis 0 of every leaf,
+    gathered and scattered per slot in place.
+
+    Prefill runs each prompt at its exact length (no buckets, as in the
+    JAX package) and splices the batch-1 cache into the slot.  Decode is
+    always the gathered sub-batch form at width `decode_batch`: recurrent
+    state advances irreversibly, so a slot that is not active must never
+    run through the model.  Padding lanes repeat `active[0]`; only the
+    active lanes are scattered back (the JAX state scatters the padding
+    too, writing the same values again)."""
+
+    kind = "recurrent"
+    paged = False
+    pool = None
+    buckets: tuple = ()
+
+    def __init__(self, mcfg: ModelConfig, max_batch: int, max_len: int, *,
+                 decode_batch: int, device: torch.device):
+        self.mcfg = mcfg
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.decode_batch = decode_batch
+        self.compact = True           # gathered decode is structural here
+        self.capacity = max_len
+        self.device = device
+        self.cache = api.init_cache(mcfg, max_batch, max_len, device=device)
+        self.cache["index"] = torch.zeros((max_batch,), dtype=torch.int32,
+                                          device=device)
+
+    def _splice(self, b: int, cache1, plen: int) -> None:
+        """Write a batch-1 cache into slot b and set its length."""
+        for dst, src in _leaf_pairs(self.cache["layers"], cache1["layers"]):
+            dst[b].copy_(src[0])
+        self.cache["index"][b] = plen
+
+    def prefill(self, params: Params, b: int, seq: np.ndarray) -> torch.Tensor:
+        toks = torch.as_tensor(np.asarray(seq)[None, :], dtype=torch.long,
+                               device=self.device)
+        last, cache1 = api.prefill(self.mcfg, params, {"tokens": toks},
+                                   self.max_len)
+        self._splice(b, cache1, len(seq))
+        return last
+
+    def decode(self, params: Params, next_token: np.ndarray,
+               active: list[int]):
+        sel = active + [active[0]] * (self.decode_batch - len(active))
+        idx = torch.as_tensor(sel, dtype=torch.long, device=self.device)
+        sub = tree_map(lambda t: t.index_select(0, idx), self.cache)
+        logits, new = api.decode_step(
+            self.mcfg, params,
+            torch.as_tensor(next_token[np.asarray(sel)], dtype=torch.long,
+                            device=self.device), sub)
+        n = len(active)
+        for full, part in _leaf_pairs(self.cache, new):
+            full.index_copy_(0, idx[:n], part[:n].to(full.dtype))
+        return logits, _lane_map(sel)
+
+    def release(self, b: int) -> None:
+        pass

@@ -31,7 +31,7 @@ def _imported_modules(path: pathlib.Path) -> set[str]:
 def test_port_files_exist():
     rel = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "chip_smoke.py" in rel
-    for name in ("fused_norm", "fused_mlp", "flash_attention"):
+    for name in ("fused_norm", "fused_mlp", "flash_attention", "wkv6", "rglru_scan"):
         for part in ("kernel", "ops", "ref"):
             assert f"src/repro_torch/kernels/{name}/{part}.py" in rel
 

@@ -153,7 +153,8 @@ def test_build_module_imports_without_nvcc(monkeypatch):
     monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc_path()
-    assert set(_build.SOURCES) == {"fused_norm", "fused_mlp", "flash_attention"}
+    assert set(_build.SOURCES) == {"fused_norm", "fused_mlp", "flash_attention",
+                                   "wkv6", "rglru_scan"}
     for name in _build.SOURCES:
         assert (_build._SRC_DIR / f"{name}.cu").is_file()
 

@@ -211,7 +211,8 @@ def _policy_dicts():
 
 
 @pytest.mark.parametrize("idx", [0, 1, 2])
-@pytest.mark.parametrize("arch", ["smollm-135m", "qwen2.5-32b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen2.5-32b", "rwkv6-3b",
+                                  "recurrentgemma-2b"])
 def test_apply_policy_matches_jax(arch, idx, tmp_path):
     d = _policy_dicts()[idx]
     path = tmp_path / "policy.json"
