@@ -9,30 +9,46 @@ exit, no result line) when a check fails:
 
 1. Card and build: prints the card's name and power limit
    (`nvidia-smi`) and builds the CUDA kernels from `src/repro_torch/csrc`
-   (one nvcc per source, all at once), printing the build time.
+   (one nvcc per source, all at once), printing the build time and
+   ptxas's registers and spilled bytes for each kernel; the fused norm
+   and MLP kernels must not spill.
 2. Kernels: each kernel's launch wrapper against its plain PyTorch
    version on the card, at the serving paths' shapes (smollm-135m: d 576,
-   F 1536, 9 query / 3 KV heads of 64, bfloat16 and float32; rwkv6-3b:
-   wkv6 over 40 heads of 64, in the JAX op's (BH, S, D) layout and in the
-   model's (B, S, H, D) layout that `rwkv6.time_mix` passes;
-   recurrentgemma-2b: rglru_scan over 2560 channels; both float32), TF32
-   off, with the tolerance stated; kernel, plain-version and library
-   times from CUDA events, and the least time the card could take (bytes
-   over 3.35 TB/s or operations over the type's peak).
+   F 1536, 9 query / 3 KV heads of 64, bfloat16 and float32, and paged
+   decode over 4 slots of 16-332 tokens in pages of 16 with the null page
+   and the positions past each length poisoned; the norms and the fused
+   MLP also at d 4096 (F 14336) and d 5120 (F 27648); mixtral-8x7b:
+   flash attention over 32 query / 8 KV heads of 128 with its window of
+   4096, at a 300-token prompt and at 4352 tokens (past the window),
+   moe_mlp over 8 experts of d 4096, F 14336 at a decode's capacity 8 and
+   a 256-token prefill's 80, bfloat16; rwkv6-3b: wkv6 over 40 heads of
+   64, in the JAX op's (BH, S, D) layout and in the model's (B, S, H, D)
+   layout that `rwkv6.time_mix` passes; recurrentgemma-2b: rglru_scan
+   over 2560 channels; both float32), TF32 off, with the tolerance
+   stated; kernel, plain-version and library times from CUDA events, and
+   the least time the card could take (bytes over 3.35 TB/s or
+   operations over the type's peak).
 3. Correctness end to end, float32 at full width: smollm-135m (4 layers)
-   serves one 8-request trace through the plain impls and through the
-   kernel impls; rwkv6-3b (4 layers) and recurrentgemma-2b (3 layers: two
-   recurrent, one attention) serve one on the card, which runs the
-   kernels, and on the CPU, which runs the plain versions.  Greedy tokens
-   must be equal and the first prefill's logits within 1e-3.
-4. Main paths, each at full width and depth in bfloat16 with random
-   weights from a seed, through `repro_torch.launch.serve`: smollm-135m
-   with a policy that turns all three fusion flags on (12 requests), then
-   rwkv6-3b and recurrentgemma-2b (8 requests each); prompts of 16-300
-   tokens, 32 new tokens each, 4 slots, max_len 512.  Launch counts are
-   set to 0 just before each path and read just after; every kernel of
-   the path must have run, and each recurrent layer's kernel exactly once
-   a prefill and once a decode step.  Prints tokens/s, TTFT and TPOT.
+   serves one 8-request trace through the plain impls, through the kernel
+   impls (decode attention from the page pool: one paged_decode launch a
+   layer a step) and through the dense KV state (paged=False), and its
+   first decode's logits by the pool route are held against the gather
+   route's; mixtral-8x7b (2 layers), rwkv6-3b (4 layers) and
+   recurrentgemma-2b (3 layers: two recurrent, one attention) serve one
+   trace on the card, which runs the kernels, and on the CPU, which runs
+   the plain versions.  Greedy tokens must be equal and the first
+   prefill's logits within 1e-3.
+4. Main paths, each at full width in bfloat16 with random weights from a
+   seed, through `repro_torch.launch.serve`: smollm-135m with a policy
+   that turns all three fusion flags on (12 requests), rwkv6-3b and
+   recurrentgemma-2b (8 requests each), and mixtral-8x7b cut to 4 of its
+   32 layers with the three flags on (8 requests, dense KV state, the
+   moe_mlp kernel); prompts of 16-300 tokens, 32 new tokens each, 4
+   slots, max_len 512.  Launch counts are set to 0 just before each path
+   and read just after; every kernel of the path must have run, each
+   recurrent layer's kernel and each MoE layer's moe_mlp exactly once a
+   prefill and once a decode step, and smollm's paged_decode once a layer
+   a decode step.  Prints tokens/s, TTFT and TPOT.
 5. Breakdown, for each main path: the wall time of a steady decode step
    on the same engine, and from one profiled window the device's busy
    time, the heaviest kernels and the port's own kernels' time a step.
@@ -55,17 +71,27 @@ PEAK_FLOPS = {"bfloat16": 989e12,         # dense tensor-core bf16
               "float32": 67e12}           # float32 outside the tensor cores
 TOL = {"bfloat16": 2.5e-2}
 # wkv6: sums in another order than the plain version's chunked form,
-# which clips its decay exponents at -60
+# which clips its decay exponents at -60; paged_decode: the JAX paged
+# kernel test's tolerance; moe_mlp and the wide fused_mlp rows: float32
+# sums over F = 14336-27648 hidden units in another order than cuBLAS's
 TOL_F32 = {"fused_rmsnorm": 1e-5, "fused_rmsnorm_residual": 1e-5,
            "fused_mlp": 1e-5, "flash_attention": 3e-5, "wkv6": 1e-4,
-           "rglru_scan": 1e-5}
+           "rglru_scan": 1e-5, "paged_decode": 2e-5, "moe_mlp": 1e-4}
+TOL_F32_WIDE_MLP = 1e-4
 D, F_FF, H, HKV, HD = 576, 1536, 9, 3, 64  # smollm-135m
+PAGE = 16                                  # the engine's page size
 DECODE_N = 4                               # the main path's slot count
+WIDE = ((4096, 14336), (5120, 27648))      # mixtral-8x7b, qwen2.5-32b (d, F)
+MOE_E, MOE_D, MOE_F = 8, 4096, 14336       # mixtral-8x7b experts
+MX_H, MX_HKV, MX_HD, MX_WINDOW = 32, 8, 128, 4096   # mixtral-8x7b attention
+MX_SEQS = (300, 4352)      # the main path's longest prompt; past the window
 RWKV_H, RWKV_D = 40, 64                    # rwkv6-3b heads of 64
 LRU_W = 2560                               # recurrentgemma-2b lru_width
-# the port's CUDA kernels, as the profiler names them
-OWN_KERNELS = ("rmsnorm_kernel", "mlp_partial_kernel", "mlp_reduce_kernel",
-               "flash_fwd_kernel", "wkv6_kernel", "rglru_scan_kernel")
+# the port's CUDA kernels, as the profiler names them (mlp_* serve both
+# fused_mlp and moe_mlp)
+OWN_KERNELS = ("rmsnorm_kernel", "rmsnorm_row_kernel", "mlp_partial_kernel",
+               "mlp_reduce_kernel", "flash_fwd_kernel", "paged_decode_kernel",
+               "wkv6_kernel", "rglru_scan_kernel")
 
 
 def check(ok: bool, msg: str) -> None:
@@ -120,15 +146,58 @@ def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def ptxas_phase() -> None:
+    """Print ptxas's registers and spilled bytes for each kernel of each
+    source built by this process; the fused norm and MLP kernels, widened
+    to d 8192, must not spill."""
+    from repro_torch.kernels import _build
+
+    def readable(names):
+        """Kernel names without their mangling (cu++filt, beside nvcc)."""
+        tool = Path(_build.nvcc_path()).parent / "cu++filt"
+        try:
+            out = subprocess.run([str(tool), *names], capture_output=True,
+                                 text=True, check=True, timeout=60)
+        except (OSError, subprocess.SubprocessError):
+            return names
+        got = out.stdout.splitlines()
+        if len(got) != len(names):
+            return names
+        names = [g.replace("(anonymous namespace)::", "")
+                 .replace("<unnamed>::", "").removeprefix("void ") for g in got]
+        return [g[:g.rfind("(")] if g.endswith(")") else g for g in names]
+
+    for name in _build.SOURCES:
+        usage = _build.ptxas_usage(name)
+        if usage is None:
+            print(f"[smoke] ptxas {name}.cu: not built by this process (its "
+                  f"library was already there)", flush=True)
+            continue
+        check(bool(usage) and all(u["registers"] is not None and
+                                  u["spill_stores"] is not None for u in usage),
+              f"ptxas {name}.cu: no register report")
+        print(f"[smoke] ptxas {name}.cu: " + "; ".join(
+            f"{k} {u['registers']} registers, {u['spill_stores']} / "
+            f"{u['spill_loads']} bytes spilled (stores / loads)"
+            for k, u in zip(readable([u["kernel"] for u in usage]), usage)),
+            flush=True)
+        if name in ("fused_norm", "fused_mlp"):
+            check(all(u["spill_stores"] == 0 and u["spill_loads"] == 0
+                      for u in usage), f"ptxas {name}.cu: a kernel spills")
+
+
 def kernel_phase(torch, F):
     """Check each kernel against its plain version and time it."""
     from repro_torch.kernels.flash_attention import kernel as fk
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_ref, paged_decode_attention_ref)
     from repro_torch.kernels.fused_mlp import kernel as mk
     from repro_torch.kernels.fused_mlp.ref import fused_mlp_ref
     from repro_torch.kernels.fused_norm import kernel as nk
     from repro_torch.kernels.fused_norm.ref import (fused_rmsnorm_ref,
                                                     fused_rmsnorm_residual_ref)
+    from repro_torch.kernels.moe_mlp import kernel as ek
+    from repro_torch.kernels.moe_mlp.ref import moe_mlp_ref
     from repro_torch.kernels.rglru_scan import kernel as gk
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
     from repro_torch.kernels.wkv6 import kernel as wk
@@ -137,13 +206,14 @@ def kernel_phase(torch, F):
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
+    dgen = torch.Generator(device=dev).manual_seed(0)
     # library yardsticks, where this PyTorch has them
     rms_norm = getattr(F, "rms_norm", None)
     sdpa_gqa = tuple(int(p) for p in torch.__version__.split(".")[:2]) >= (2, 5)
     dts = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
     def rand(shape, dt, scale=1.0):
-        return (torch.randn(shape, generator=gen) * scale).to(dev, dt)
+        return (torch.randn(shape, generator=dgen, device=dev) * scale).to(dt)
 
     def err(out, ref, tol):
         """max |out - ref| and whether |out - ref| <= tol + tol * |ref|."""
@@ -159,27 +229,30 @@ def kernel_phase(torch, F):
     launchers = {"fused_rmsnorm": nk.RMSNORM,
                  "fused_rmsnorm_residual": nk.RMSNORM_RESIDUAL,
                  "fused_mlp": mk.MLP, "flash_attention": fk.FLASH,
+                 "paged_decode": fk.PAGED, "moe_mlp": ek.MOE,
                  "wkv6": wk.WKV6, "rglru_scan": gk.SCAN}
 
-    def record(name, shape, dtype, out, ref, kern, plain, lib, nbytes, flops):
+    def record(name, shape, dtype, out, ref, kern, plain, lib, nbytes, flops,
+               tol=None, iters=30):
         """`out` is the kernel's first result (launched by the caller);
         `launches` counts that launch and the event-timed ones.  The
-        `*_device_ms` keys are profiler device times of the same calls."""
-        tol = TOL.get(dtype, TOL_F32[name])
+        `*_device_ms` keys are profiler device times of the same calls;
+        each time is the mean of `iters` calls."""
+        tol = tol or TOL.get(dtype, TOL_F32[name])
         e, ok = err(out, ref, tol)
         check(ok, f"{name} {shape} {dtype}: kernel disagrees with its plain "
                   f"version (max abs err {e:.3g}, tol {tol})")
         b, by = bound_ms(nbytes, flops, dtype)
         before = launchers[name].launches - 1
-        kernel_ms = time_ms(torch, kern)
+        kernel_ms = time_ms(torch, kern, iters)
         row = {"name": name, "shape": shape, "dtype": dtype,
                "launches": launchers[name].launches - before, "max_err": e,
                "tol": tol, "kernel_ms": kernel_ms,
-               "plain_ms": time_ms(torch, plain),
-               "library_ms": None if lib is None else time_ms(torch, lib),
+               "plain_ms": time_ms(torch, plain, iters),
+               "library_ms": None if lib is None else time_ms(torch, lib, iters),
                "bound_ms": b, "bound_by": by}
-        row["kernel_device_ms"] = device_ms(torch, kern)
-        row["plain_device_ms"] = device_ms(torch, plain)
+        row["kernel_device_ms"] = device_ms(torch, kern, min(iters, 10))
+        row["plain_device_ms"] = device_ms(torch, plain, min(iters, 10))
         rows.append(row)
         print(json.dumps(row), flush=True)
 
@@ -233,6 +306,134 @@ def kernel_phase(torch, F):
                        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                        is_causal=True, enable_gqa=True),
                    (2 * s * H * HD + 2 * s * HKV * HD) * es, 4 * HD * pairs * H)
+        # mixtral-8x7b's prefill attention: hd 128, 32 / 8 heads, window
+        # 4096; the longer sequence runs past the window, so its mask cuts
+        for s in MX_SEQS:
+            q, k, v = rand((1, s, MX_H, MX_HD), dt), \
+                rand((1, s, MX_HKV, MX_HD), dt), rand((1, s, MX_HKV, MX_HD), dt)
+            w = MX_WINDOW
+            # (q, k) pairs inside the causal window: min(q + 1, w) a query
+            pairs = min(s, w) * (min(s, w) + 1) // 2 + max(0, s - w) * w
+            qpos = torch.arange(s, device=dev)[:, None]
+            kpos = torch.arange(s, device=dev)[None, :]
+            allowed = (kpos <= qpos) & (kpos > qpos - w)
+
+            def mx_lib(i, q=q, k=k, v=v, allowed=allowed):
+                return F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    attn_mask=allowed, enable_gqa=True)
+
+            record("flash_attention", [1, s, MX_H, MX_HKV, MX_HD, w], dtype,
+                   fk.flash_attention_cuda(q, k, v, window=w),
+                   flash_attention_ref(q, k, v, window=w),
+                   lambda i, q=q, k=k, v=v: fk.flash_attention_cuda(q, k, v, window=w),
+                   lambda i, q=q, k=k, v=v: flash_attention_ref(q, k, v, window=w),
+                   mx_lib if sdpa_gqa else None,
+                   (2 * s * MX_H * MX_HD + 2 * s * MX_HKV * MX_HD) * es,
+                   4 * MX_HD * pairs * MX_H, iters=30 if s <= 512 else 5)
+            del q, k, v, allowed
+        free(torch)
+
+    # the norms and the fused MLP at the widths of mixtral-8x7b (d 4096)
+    # and qwen2.5-32b (d 5120, F 27648); weights read cold (one copy
+    # exceeds the L2)
+    for dtype, dt in dts.items():
+        es = torch.tensor([], dtype=dt).element_size()
+        wtol = TOL.get(dtype, TOL_F32_WIDE_MLP)
+        for d, f in WIDE:
+            for n in (DECODE_N, 256):
+                x, r = rand((n, d), dt), rand((n, d), dt)
+                sc = rand((d,), dt, 0.1)
+                w1 = (1.0 + sc.float()).to(dt)
+                record("fused_rmsnorm", [n, d], dtype,
+                       nk.fused_rmsnorm_cuda(x, sc), fused_rmsnorm_ref(x, sc),
+                       lambda i, x=x, sc=sc: nk.fused_rmsnorm_cuda(x, sc),
+                       lambda i, x=x, sc=sc: fused_rmsnorm_ref(x, sc),
+                       None if rms_norm is None else
+                       lambda i, x=x, d=d, w1=w1: rms_norm(x, (d,), weight=w1, eps=1e-6),
+                       (2 * n * d + d) * es, 4 * n * d)
+                record("fused_rmsnorm_residual", [n, d], dtype,
+                       nk.fused_rmsnorm_residual_cuda(x, r, sc),
+                       fused_rmsnorm_residual_ref(x, r, sc),
+                       lambda i, x=x, r=r, sc=sc: nk.fused_rmsnorm_residual_cuda(x, r, sc),
+                       lambda i, x=x, r=r, sc=sc: fused_rmsnorm_residual_ref(x, r, sc),
+                       None, (4 * n * d + d) * es, 5 * n * d)
+                xm = rand((n, d), dt)
+                wg, wi, wo = rand((d, f), dt, d ** -0.5), rand((d, f), dt, d ** -0.5), \
+                    rand((f, d), dt, f ** -0.5)
+                record("fused_mlp", [n, d, f], dtype,
+                       mk.fused_mlp_cuda(xm, wg, wi, wo), fused_mlp_ref(xm, wg, wi, wo),
+                       lambda i, a=(xm, wg, wi, wo): mk.fused_mlp_cuda(*a),
+                       lambda i, a=(xm, wg, wi, wo): fused_mlp_ref(*a),
+                       lambda i, xm=xm, wg=wg, wi=wi, wo=wo:
+                           (F.silu(xm @ wg) * (xm @ wi)) @ wo,
+                       (2 * n * d + 3 * d * f) * es, 6 * n * d * f, wtol)
+                del wg, wi, wo
+        free(torch)
+
+    # paged decode at smollm's decode shape: 4 slots of 16-332 tokens in
+    # pages of 16, one layer's slice of a 2-layer pool; then the null page
+    # and every position past a slot's length poisoned, which must leave
+    # the kernel's output bit for bit unchanged
+    prng = torch.Generator().manual_seed(5)
+    lens = torch.randint(16, 333, (DECODE_N,), generator=prng)
+    lens[0] = 332
+    npp = 512 // PAGE
+    pages = 1 + DECODE_N * npp
+    tables = torch.zeros((DECODE_N, npp), dtype=torch.int32)
+    perm = torch.randperm(pages - 1, generator=prng) + 1
+    off = 0
+    for b in range(DECODE_N):
+        n = -(-int(lens[b]) // PAGE)
+        tables[b, :n] = perm[off:off + n]
+        off += n
+    tables, lens_d = tables.to(dev), lens.to(dev, torch.int32)
+    live = int(lens.sum())
+    for dtype, dt in dts.items():
+        es = torch.tensor([], dtype=dt).element_size()
+        q = rand((DECODE_N, 1, H, HD), dt)
+        kpool, vpool = rand((2, pages, PAGE, HKV, HD), dt), rand((2, pages, PAGE, HKV, HD), dt)
+        kp, vp = kpool[1], vpool[1]
+        out = fk.paged_decode_attention_cuda(q, kp, vp, tables, lens_d)
+        record("paged_decode", [DECODE_N, H, HKV, HD, PAGE], dtype, out,
+               paged_decode_attention_ref(q, kp, vp, tables, lens_d),
+               lambda i, q=q, kp=kp, vp=vp: fk.paged_decode_attention_cuda(
+                   q, kp, vp, tables, lens_d),
+               lambda i, q=q, kp=kp, vp=vp: paged_decode_attention_ref(
+                   q, kp, vp, tables, lens_d), None,
+               (2 * DECODE_N * H * HD + 2 * live * HKV * HD) * es
+               + 4 * (DECODE_N * npp + DECODE_N), 4 * HD * live * H)
+        kp[0], vp[0] = 1e4, -1e4
+        for b in range(DECODE_N):
+            last = int(tables[b, (int(lens[b]) - 1) // PAGE])
+            kp[last, (int(lens[b]) - 1) % PAGE + 1:] = -1e4
+            vp[last, (int(lens[b]) - 1) % PAGE + 1:] = 1e4
+        poisoned = fk.paged_decode_attention_cuda(q, kp, vp, tables, lens_d)
+        check(torch.equal(poisoned, out), f"paged_decode {dtype}: the null page "
+              f"or positions past the lengths leaked into the output")
+        print(f"[smoke] paged_decode {dtype}: output unchanged with the null "
+              f"page and positions past the lengths poisoned", flush=True)
+
+    # moe_mlp at mixtral's shapes: a decode step's capacity buffers (the
+    # floor of 8 slots) and a 256-token prefill's (80 slots), bfloat16
+    dt, es = torch.bfloat16, 2
+    wg, wi = rand((MOE_E, MOE_D, MOE_F), dt, MOE_D ** -0.5), \
+        rand((MOE_E, MOE_D, MOE_F), dt, MOE_D ** -0.5)
+    wo = rand((MOE_E, MOE_F, MOE_D), dt, MOE_F ** -0.5)
+    for cap in (8, 80):
+        xe = rand((MOE_E, cap, MOE_D), dt)
+
+        def moe_lib(i, xe=xe):
+            return torch.bmm(F.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wi), wo)
+
+        record("moe_mlp", [MOE_E, cap, MOE_D, MOE_F], "bfloat16",
+               ek.moe_mlp_cuda(xe, wg, wi, wo), moe_mlp_ref(xe, wg, wi, wo),
+               lambda i, xe=xe: ek.moe_mlp_cuda(xe, wg, wi, wo),
+               lambda i, xe=xe: moe_mlp_ref(xe, wg, wi, wo), moe_lib,
+               (2 * MOE_E * cap * MOE_D + 3 * MOE_E * MOE_D * MOE_F) * es,
+               6 * MOE_E * cap * MOE_D * MOE_F)
+    del wg, wi, wo
+    free(torch)
 
     # recurrent kernels, float32 as the models call them: decode (four
     # slots, one token) and one prefill of 256 tokens
@@ -290,12 +491,16 @@ def kernel_phase(torch, F):
 
 
 def e2e_phase(torch):
-    """Plain impls vs kernel impls, full width, 4 layers, float32."""
+    """Plain impls vs kernel impls vs the dense KV state, full width, 4
+    layers, float32; the first decode's logits by the pool route against
+    the gather route."""
     import numpy as np
 
     from repro_torch import configs
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.launch.serve import serve
     from repro_torch.models import api, transformer
+    from repro_torch.serving import paged
     from repro_torch.serving.engine import Request, ServingEngine
 
     base = configs.get_config("smollm-135m").replace(
@@ -306,12 +511,18 @@ def e2e_phase(torch):
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, base.vocab, size=int(n)).astype(np.int32)
                for n in rng.integers(16, 301, size=8)]
-    toks = {}
-    for name, cfg in (("plain", plain), ("kernels", kern)):
-        eng = ServingEngine(cfg, params, max_batch=4, max_len=512, device="cuda")
+    toks, paged_launches = {}, {}
+    for name, cfg, kw in (("plain", plain, {}), ("kernels", kern, {}),
+                          ("dense", kern, {"paged": False})):
+        eng = ServingEngine(cfg, params, max_batch=4, max_len=512,
+                            device="cuda", **kw)
+        check(eng.state.kind == ("dense" if kw else "paged"),
+              f"e2e {name}: state {eng.state.kind}")
         reqs = [Request(rid=i, prompt=p, max_new_tokens=16)
                 for i, p in enumerate(prompts)]
-        serve(eng, reqs)
+        before = fk.PAGED.launches
+        st = serve(eng, reqs)
+        paged_launches[name] = (fk.PAGED.launches - before, st["decode_steps"])
         toks[name] = [r.out_tokens for r in reqs]
         check(all(r.finish_reason == "max_new_tokens" for r in reqs),
               f"e2e {name}: a request did not finish with max_new_tokens")
@@ -320,11 +531,114 @@ def e2e_phase(torch):
     lp = transformer.forward(plain, params, p0)[0, -1]
     lk = transformer.forward(kern, params, p0)[0, -1]
     diff = float((lp - lk).abs().max())
+    # one decode step after the same paged prefill, by both routes
+    first = {}
+    plen = len(prompts[0])
+    bucket = paged.bucket_for(plen, paged.prefill_buckets(512))
+    for route, cfg in (("pool", plain.replace(attn_impl="flash")),
+                       ("gather", plain)):
+        pool = paged.PagePool(plain, 1, 512, page_size=PAGE, device="cuda")
+        check(pool.ensure(0, plen + 1), "e2e: page pool too small")
+        tp = torch.zeros((1, bucket), dtype=torch.long, device="cuda")
+        tp[0, :plen] = p0[0]
+        last = paged.paged_prefill(plain, params, tp, plen, pool.segments,
+                                   pool.table_row(0, bucket // PAGE), PAGE)
+        nxt = last[0, -1].argmax().view(1, 1)
+        first[route] = paged.paged_decode(cfg, params, nxt, pool.segments,
+                                          pool.tables[[0]],
+                                          np.asarray([plen], np.int32))[0, -1]
+    route_diff = float((first["pool"] - first["gather"]).abs().max())
     print(f"[smoke] e2e f32 4 layers full width: {same}/8 request streams "
-          f"equal, first-prefill logits max |diff| {diff:.3g}", flush=True)
+          f"equal (kernels vs plain), dense KV state "
+          f"{sum(a == b for a, b in zip(toks['dense'], toks['kernels']))}/8 "
+          f"equal to paged; first-prefill logits max |diff| {diff:.3g}; first "
+          f"decode logits pool route vs gather route max |diff| "
+          f"{route_diff:.3g}; paged_decode launches (launches, decode steps) "
+          f"{paged_launches}", flush=True)
     check(toks["plain"] == toks["kernels"],
           "e2e: kernel impls changed greedy tokens")
+    check(toks["dense"] == toks["kernels"],
+          "e2e: the dense KV state changed greedy tokens")
     check(diff <= 1e-3, f"e2e: first-prefill logits differ by {diff}")
+    check(route_diff <= 1e-4, f"e2e: pool-route decode logits differ from "
+          f"the gather route's by {route_diff}")
+    n, steps = paged_launches["kernels"]
+    check(n == base.n_layers * steps,
+          f"e2e: paged_decode launched {n} times in {steps} decode steps of "
+          f"{base.n_layers} layers")
+    check(paged_launches["plain"][0] == 0 and paged_launches["dense"][0] == 0,
+          f"e2e: paged_decode ran off the pool route: {paged_launches}")
+
+
+def moe_e2e_phase(torch, n_layers: int = 2):
+    """mixtral-8x7b at full width, `n_layers` layers, float32, the kernel
+    impls: served on the card (kernels) and on the CPU (plain versions)
+    from the same weights; 4 requests of 16-64 tokens, 8 new tokens."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels.moe_mlp import kernel as ek
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import api, transformer
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = configs.get_config("mixtral-8x7b").replace(
+        n_layers=n_layers, dtype="float32", param_dtype="float32",
+        attn_impl="flash", mlp_impl="fused", norm_impl="fused")
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, 1, device="cpu")
+    draw_s = time.perf_counter() - t0
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
+               for n in rng.integers(16, 65, size=4)]
+    real_route = transformer.route
+    toks, first, secs, routes, moe_runs = {}, {}, {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        eng = ServingEngine(cfg, params, max_batch=4, max_len=512, device=dev)
+        check(eng.state.kind == "dense", f"e2e mixtral {dev}: not the dense state")
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=8)
+                for i, p in enumerate(prompts)]
+        before = ek.MOE.launches
+        st = serve(eng, reqs)
+        secs[dev] = st["seconds"]
+        moe_runs[dev] = (ek.MOE.launches - before,
+                         n_layers * (st["prefills"] + st["decode_steps"]))
+        toks[dev] = [r.out_tokens for r in reqs]
+        check(all(r.finish_reason == "max_new_tokens" for r in reqs),
+              f"e2e mixtral {dev}: a request did not finish with max_new_tokens")
+        log = []
+
+        def recorded(c, p, xf, log=log):
+            w, idx = real_route(c, p, xf)
+            log.append(idx.cpu())
+            return w, idx
+
+        transformer.route = recorded
+        try:
+            p0 = torch.as_tensor(prompts[0], device=dev).long()[None]
+            first[dev] = api.prefill(cfg, eng.params, {"tokens": p0}, 512)[0][0, -1].cpu()
+        finally:
+            transformer.route = real_route
+        routes[dev] = log
+        del eng
+        free(torch)
+    del params
+    same = sum(a == b for a, b in zip(toks["cuda"], toks["cpu"]))
+    diff = float((first["cuda"] - first["cpu"]).abs().max())
+    decisions = sum(a.numel() for a in routes["cpu"])
+    differ = sum(int((torch.sort(a, -1)[0] != torch.sort(b, -1)[0]).sum())
+                 for a, b in zip(routes["cuda"], routes["cpu"]))
+    print(f"[smoke] e2e mixtral-8x7b f32 {n_layers} layers full width, card vs "
+          f"CPU: {same}/4 request streams equal, first-prefill logits max "
+          f"|diff| {diff:.3g}, routing decisions of the first prefill that "
+          f"differ: {differ} of {decisions}; moe_mlp launches on the card "
+          f"(launches, layers x (prefills + decode steps)) {moe_runs['cuda']} "
+          f"(weights drawn in {draw_s:.1f}s; served in {secs['cuda']:.1f}s on "
+          f"the card, {secs['cpu']:.1f}s on the CPU)", flush=True)
+    check(toks["cuda"] == toks["cpu"], "e2e mixtral: the kernels changed greedy tokens")
+    check(diff <= 1e-3, f"e2e mixtral: first-prefill logits differ by {diff}")
+    check(moe_runs["cuda"][0] == moe_runs["cuda"][1],
+          f"e2e mixtral: moe_mlp launches {moe_runs['cuda']}")
 
 
 def recurrent_e2e_phase(torch, arch: str, n_layers: int):
@@ -432,15 +746,21 @@ def free(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def main_path_phase(torch, launchers):
-    """The full smollm-135m through the serve launcher's own functions."""
+def main_path_phase(torch, arch: str, launchers, n_requests: int,
+                    n_layers: int | None = None):
+    """`arch` (bfloat16, random weights from a seed; cut to `n_layers`
+    layers where given) through the serve launcher's own functions, with
+    a policy that turns the three fusion flags on; every kernel in
+    `launchers` must launch.  Returns (engine, launch counts, summary)."""
+    import resource
+
     import numpy as np
 
     from repro_torch import configs
     from repro_torch.launch.policy import load_policy
     from repro_torch.launch.serve import build_engine, serve
 
-    pol = {"network": "smollm-135m", "interval_s": 1e-3, "operators": [
+    pol = {"network": arch, "interval_s": 1e-3, "operators": [
         {"group": "norm1+qkv_proj+attention", "batch": 4, "tp": 1,
          "memory": "HBM3", "chiplet": "H100", "fused": True},
         {"group": "norm2+mlp", "batch": 4, "tp": 1, "memory": "HBM3",
@@ -448,34 +768,45 @@ def main_path_phase(torch, launchers):
     path = ROOT / "build" / "smoke_policy.json"
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(pol))
-    cfg = configs.get_config("smollm-135m")
+    cfg = configs.get_config(arch)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     eng = build_engine(cfg, policy=load_policy(path), max_batch=4, max_len=512,
                        seed=0, device="cuda",
                        log=lambda s: print(s, flush=True))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    host_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
     check(eng.mcfg.attn_impl == "flash" and eng.mcfg.mlp_impl == "fused"
           and eng.mcfg.norm_impl == "fused", "policy did not turn the kernels on")
     rng = np.random.default_rng(0)
     serve(eng, _requests(rng, cfg.vocab, 2, 16, 40, 4))   # warm-up: library handles
     for ln in launchers.values():
         ln.launches = 0
-    reqs = _requests(rng, cfg.vocab, 12, 16, 300, 32)
+    reqs = _requests(rng, cfg.vocab, n_requests, 16, 300, 32)
     s = serve(eng, reqs)
     counts = {name: ln.launches for name, ln in launchers.items()}
-    print(f"[smoke] main path smollm-135m 30L bf16: {s['tokens_out']} tokens, "
-          f"{s['prefills']} prefills, {s['decode_steps']} decode steps in "
-          f"{s['seconds']:.3f}s = {s['tokens_per_s']:.1f} tok/s; TTFT p50 "
-          f"{s['ttft_p50_ms']:.1f} ms, TPOT p50 {s['tpot_p50_ms']:.2f} ms; "
-          f"launches {counts}", flush=True)
-    print(json.dumps({"main_path": s, "launches": counts,
+    print(f"[smoke] main path {arch} {cfg.n_layers}L bf16 ({eng.state.kind} "
+          f"state): {s['tokens_out']} tokens, {s['prefills']} prefills, "
+          f"{s['decode_steps']} decode steps in {s['seconds']:.3f}s = "
+          f"{s['tokens_per_s']:.1f} tok/s; TTFT p50 {s['ttft_p50_ms']:.1f} ms, "
+          f"TPOT p50 {s['tpot_p50_ms']:.2f} ms; launches {counts}; weights "
+          f"drawn and engine built in {build_s:.1f}s (process peak host "
+          f"memory {host_gb:.1f} GB); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    print(json.dumps({"main_path": s, "arch": arch, "launches": counts,
+                      "build_engine_s": build_s, "state": eng.state.kind,
                       "buckets": sorted({int(2 ** math.ceil(math.log2(max(16, len(r.prompt)))))
                                          for r in reqs})}), flush=True)
     check(all(r.finish_reason == "max_new_tokens" and len(r.out_tokens) == 32
-              for r in reqs), "main path: a request did not finish with 32 tokens")
+              for r in reqs), f"{arch}: a request did not finish with 32 tokens")
     check(s["nan_steps"] == 0 and not eng.health["nan_detected"],
-          "main path: non-finite logits")
+          f"{arch}: non-finite logits")
     check(all(c > 0 for c in counts.values()),
-          f"main path: a kernel was never launched: {counts}")
-    return eng, counts
+          f"{arch}: a kernel of the path was never launched: {counts}")
+    return eng, counts, s
 
 
 def breakdown_phase(torch, eng, arch: str):
@@ -542,6 +873,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.fused_mlp import kernel as mk
     from repro_torch.kernels.fused_norm import kernel as nk
+    from repro_torch.kernels.moe_mlp import kernel as ek
     from repro_torch.kernels.rglru_scan import kernel as gk
     from repro_torch.kernels.wkv6 import kernel as wk
 
@@ -551,6 +883,7 @@ def main() -> int:
     build_s = _build.build()
     print(f"[smoke] built {', '.join(_build.SOURCES)} in {build_s:.1f}s "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})", flush=True)
+    ptxas_phase()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"[smoke] allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
@@ -558,16 +891,24 @@ def main() -> int:
 
     rows = kernel_phase(torch, F)
     e2e_phase(torch)
+    moe_e2e_phase(torch, 2)
+    free(torch)
     recurrent_e2e_phase(torch, "rwkv6-3b", 4)
     recurrent_e2e_phase(torch, "recurrentgemma-2b", 3)
-    launchers = {"fused_rmsnorm": nk.RMSNORM,
-                 "fused_rmsnorm_residual": nk.RMSNORM_RESIDUAL,
-                 "fused_mlp": mk.MLP, "flash_attention": fk.FLASH}
-    eng, counts = main_path_phase(torch, launchers)
+    norms = {"fused_rmsnorm": nk.RMSNORM,
+             "fused_rmsnorm_residual": nk.RMSNORM_RESIDUAL}
+    eng, counts, s = main_path_phase(
+        torch, "smollm-135m", dict(norms, fused_mlp=mk.MLP,
+                                   flash_attention=fk.FLASH,
+                                   paged_decode=fk.PAGED), 12)
+    want = eng.mcfg.n_layers * s["decode_steps"]
+    check(counts["paged_decode"] == want,
+          f"smollm-135m: paged_decode launched {counts['paged_decode']} "
+          f"times, expected {want} (a layer a decode step)")
     breakdown_phase(torch, eng, "smollm-135m")
     del eng
     free(torch)
-    launchers.update(wkv6=wk.WKV6, rglru_scan=gk.SCAN)
+    launchers = dict(norms, wkv6=wk.WKV6, rglru_scan=gk.SCAN)
     eng, path = recurrent_path_phase(torch, "rwkv6-3b", launchers, "wkv6")
     counts["wkv6"] = path["wkv6"]
     breakdown_phase(torch, eng, "rwkv6-3b")
@@ -577,6 +918,18 @@ def main() -> int:
                                      "rglru_scan")
     counts["rglru_scan"] = path["rglru_scan"]
     breakdown_phase(torch, eng, "recurrentgemma-2b")
+    del eng
+    free(torch)
+    eng, path, s = main_path_phase(
+        torch, "mixtral-8x7b", dict(norms, flash_attention=fk.FLASH,
+                                    moe_mlp=ek.MOE), 8, n_layers=4)
+    n_moe = eng.mcfg.n_layers
+    for name, want in (("moe_mlp", n_moe * (s["prefills"] + s["decode_steps"])),
+                       ("flash_attention", n_moe * s["prefills"])):
+        check(path[name] == want, f"mixtral-8x7b: {name} launched "
+              f"{path[name]} times, expected {want}")
+    counts["moe_mlp"] = path["moe_mlp"]
+    breakdown_phase(torch, eng, "mixtral-8x7b")
     del eng
     free(torch)
 
@@ -589,6 +942,10 @@ def main() -> int:
                       [DECODE_N, D, F_FF], "bfloat16"),
         "flash_attention": ("flash_attention.cu", "flash_attention/kernel.py:80",
                             [1, 512, H, HKV, HD], "bfloat16"),
+        "paged_decode": ("paged_decode.cu", "flash_attention/kernel.py:190",
+                         [DECODE_N, H, HKV, HD, PAGE], "bfloat16"),
+        "moe_mlp": ("moe_mlp.cu", "moe_mlp/kernel.py:54",
+                    [MOE_E, 8, MOE_D, MOE_F], "bfloat16"),
         "wkv6": ("wkv6.cu", "wkv6/kernel.py:73",
                  [DECODE_N, 1, RWKV_H, RWKV_D], "float32"),
         "rglru_scan": ("rglru_scan.cu", "rglru_scan/kernel.py:39",

@@ -1,6 +1,7 @@
-"""Architecture registry of the port: the plain-GQA dense transformers
-and the two recurrent families (RWKV6, RG-LRU hybrid) it serves.
-Resolves `--arch <id>` like `repro.configs`."""
+"""Architecture registry of the port: the plain-GQA dense transformers,
+the sliding-window MoE transformer mixtral-8x7b and the two recurrent
+families (RWKV6, RG-LRU hybrid) it serves.  Resolves `--arch <id>` like
+`repro.configs`."""
 from __future__ import annotations
 
 import importlib
@@ -11,6 +12,7 @@ _MODULES = {
     "smollm-135m": ".smollm_135m",
     "internlm2-1.8b": ".internlm2_1_8b",
     "qwen2.5-32b": ".qwen2_5_32b",
+    "mixtral-8x7b": ".mixtral_8x7b",
     "rwkv6-3b": ".rwkv6_3b",
     "recurrentgemma-2b": ".recurrentgemma_2b",
 }

@@ -11,14 +11,20 @@
 // What bounds it on the H100: bytes.  A row of d values is read once
 // (twice with the residual) and written once (twice), about one FLOP per
 // byte, far under the card's ridge point.  So each row makes exactly one
-// pass over device memory: one warp per row holds the row in registers
-// (V values a lane), reduces the mean square with warp shuffles and
-// writes the normalized row from the same registers.  Four rows a block.
+// pass over device memory, held in registers between the mean square and
+// the scaled write:
+//   d <= 2048: one warp per row (V values a lane, V <= 64), the mean
+//     square reduced with warp shuffles; four rows a block;
+//   2048 < d <= 8192: one 256-thread block per row (V <= 32 values a
+//     thread), warp shuffles then the eight warps' sums through shared
+//     memory.  A warp cannot hold a 4096-wide row in registers.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kRowsPerBlock = 4;
+constexpr int kRowThreads = 256;   // threads of the one-row-a-block form
+constexpr int kMaxD = 8192;
 
 template <typename T, typename S, int V, bool RESIDUAL>
 __global__ void __launch_bounds__(32 * kRowsPerBlock)
@@ -57,6 +63,47 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ res,
   }
 }
 
+template <typename T, typename S, int V, bool RESIDUAL>
+__global__ void __launch_bounds__(kRowThreads)
+rmsnorm_row_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                   const S* __restrict__ scale, T* __restrict__ sum_out,
+                   T* __restrict__ out, int d, float eps) {
+  __shared__ float warp_ss[kRowThreads / 32];
+  const int t = threadIdx.x;
+  const size_t base = static_cast<size_t>(blockIdx.x) * d;
+  float v[V];
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int c = t + kRowThreads * i;
+    float a = 0.f;
+    if (c < d) {
+      a = mz::to_f(x[base + c]);
+      if (RESIDUAL) {
+        const T s = mz::from_f<T>(a + mz::to_f(res[base + c]));
+        sum_out[base + c] = s;
+        a = mz::to_f(s);
+      }
+    }
+    v[i] = a;
+    ss += a * a;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  if ((t & 31) == 0) warp_ss[t >> 5] = ss;
+  __syncthreads();
+  float tot = 0.f;
+#pragma unroll
+  for (int w = 0; w < kRowThreads / 32; ++w) tot += warp_ss[w];  // fixed order
+  const float inv = rsqrtf(tot / static_cast<float>(d) + eps);
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int c = t + kRowThreads * i;
+    if (c < d) out[base + c] = mz::from_f<T>(v[i] * inv * (1.f + mz::to_f(scale[c])));
+  }
+}
+
 template <typename T, typename S, bool R>
 cudaError_t launch(const void* x, const void* res, const void* scale,
                    void* sum_out, void* out, int n, int d, float eps,
@@ -68,15 +115,21 @@ cudaError_t launch(const void* x, const void* res, const void* scale,
   T* so = static_cast<T*>(sum_out);
   T* op = static_cast<T*>(out);
   const int vpl = (d + 31) / 32;  // values a lane holds
+  const int vpt = (d + kRowThreads - 1) / kRowThreads;  // ... a thread of a row block
 #define MZ_NORM(VV) rmsnorm_kernel<T, S, VV, R><<<grid, block, 0, st>>>(xp, rp, sp, so, op, n, d, eps)
+#define MZ_ROW(VV) rmsnorm_row_kernel<T, S, VV, R><<<n, kRowThreads, 0, st>>>(xp, rp, sp, so, op, d, eps)
+  if (d < 1 || d > kMaxD) return cudaErrorInvalidValue;
   if (vpl <= 4) MZ_NORM(4);
   else if (vpl <= 8) MZ_NORM(8);
   else if (vpl <= 16) MZ_NORM(16);
   else if (vpl <= 24) MZ_NORM(24);
   else if (vpl <= 32) MZ_NORM(32);
   else if (vpl <= 64) MZ_NORM(64);
-  else return cudaErrorInvalidValue;
+  else if (vpt <= 16) MZ_ROW(16);
+  else if (vpt <= 24) MZ_ROW(24);
+  else MZ_ROW(32);
 #undef MZ_NORM
+#undef MZ_ROW
   return cudaGetLastError();
 }
 
@@ -101,7 +154,7 @@ int dispatch(const void* x, const void* res, const void* scale, void* sum_out,
 
 }  // namespace
 
-// x, out: (n, d) contiguous; scale: (d,).  d <= 2048.
+// x, out: (n, d) contiguous; scale: (d,).  d <= 8192.
 extern "C" int fused_rmsnorm(const void* x, const void* scale, void* out, int n,
                              int d, float eps, int x_dtype, int scale_dtype,
                              void* stream) {
@@ -109,7 +162,7 @@ extern "C" int fused_rmsnorm(const void* x, const void* scale, void* out, int n,
                          scale_dtype, stream);
 }
 
-// x, res, sum_out, out: (n, d) contiguous; scale: (d,).  d <= 2048.
+// x, res, sum_out, out: (n, d) contiguous; scale: (d,).  d <= 8192.
 extern "C" int fused_rmsnorm_residual(const void* x, const void* res,
                                       const void* scale, void* sum_out,
                                       void* out, int n, int d, float eps,

@@ -3,15 +3,21 @@
 Each `csrc/<name>.cu` compiles on its own with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so \
+         csrc/<name>.cu
 
 into a shared library with a plain C interface.  No PyTorch header is
 included, so a source builds in seconds.  The library's file name
-carries a hash of its source and flags: an edited source builds anew,
+carries a hash of its source, the shared headers (`csrc/*.cuh`) and the
+flags: an edited source or header builds anew,
 an unchanged one is loaded as it is.  Nothing is built when this module
 is imported; the first launch builds what it needs, and `build()`
 builds several sources at once (one nvcc process each, all started
 together).
+
+`-Xptxas -v` makes ptxas report each kernel's registers and spilled
+bytes; `ptxas_usage()` reads that report for the sources built by this
+process.
 
 Every C entry point returns `cudaGetLastError()` after its launch;
 `Launcher` raises when that is not 0 and counts launches that succeed.
@@ -21,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -33,13 +40,16 @@ _SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 # build/kernels/ at the root of the checkout (listed in .gitignore)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("fused_norm", "fused_mlp", "flash_attention", "wkv6", "rglru_scan")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("fused_norm", "fused_mlp", "flash_attention", "paged_decode",
+           "moe_mlp", "wkv6", "rglru_scan")
 
 # loaded libraries by source name; guarded by _LOCK (launches may come
 # from several threads, the first one of each source builds it)
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+# nvcc's output (the ptxas report) of each source built by this process
+_BUILD_LOGS: dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -55,8 +65,8 @@ def nvcc_path() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = (_SRC_DIR / f"{name}.cu").read_bytes() + \
-        (_SRC_DIR / "common.cuh").read_bytes()
+    src = (_SRC_DIR / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(_SRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
@@ -87,9 +97,41 @@ def build(names=SOURCES) -> float:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
+            _BUILD_LOGS[name] = log.decode(errors="replace")
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0
+
+
+def ptxas_usage(name: str) -> list[dict] | None:
+    """Per kernel of `csrc/<name>.cu`, from ptxas's report: the (mangled)
+    entry name, registers a thread and bytes of spill stores and loads.
+    None when this process did not build the source (its library was
+    already there)."""
+    log = _BUILD_LOGS.get(name)
+    if log is None:
+        return None
+    usage: dict[str, dict] = {}
+    cur = props = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = usage.setdefault(m.group(1), {
+                "kernel": m.group(1), "registers": None,
+                "spill_stores": None, "spill_loads": None})
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:          # also reported for non-inlined device functions
+            props = usage.get(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and props is not None:
+            props["spill_stores"], props["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+            cur = None
+    return list(usage.values())
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -1,9 +1,14 @@
-"""Public flash attention op in the model layout: q (B, Sq, H, hd), k/v
-(B, Sk, Hkv, hd) -> (B, Sq, H, hd).
+"""Public attention ops in the model layout:
+
+* `flash_attention`: q (B, Sq, H, hd), k/v (B, Sk, Hkv, hd) ->
+  (B, Sq, H, hd), causal, optional sliding window;
+* `paged_decode_attention`: q (B, 1, H, hd) for the current token against
+  one layer's page pools k/v (P, ps, Hkv, hd) (page 0 the never-read
+  null page) through int32 tables (B, npp) and lengths (B,) that include
+  the current token, whose k/v are already in the pool -> (B, 1, H, hd).
 
 A CPU tensor takes the plain PyTorch version (`ref`); a CUDA tensor
 launches the CUDA kernel, which raises on anything it does not take.
-The paged decode kernel (`paged_decode_attention_hp`) is not ported yet.
 """
 from __future__ import annotations
 
@@ -18,3 +23,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     return kernel.flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, tables: torch.Tensor,
+                           lengths: torch.Tensor) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return ref.paged_decode_attention_ref(q, k_pages, v_pages, tables,
+                                              lengths)
+    return kernel.paged_decode_attention_cuda(q, k_pages, v_pages, tables,
+                                              lengths)

@@ -1,5 +1,5 @@
-"""Plain PyTorch version of the flash attention kernel: the CPU path of
-`ops` and the oracle the CUDA kernel is held against.
+"""Plain PyTorch versions of the attention kernels: the CPU path of
+`ops` and the oracles the CUDA kernels are held against.
 
 Model layout, as `ops.flash_attention` takes it: q (B, Sq, H, hd),
 k/v (B, Sk, Hkv, hd) with H % Hkv == 0; query head h reads kv head
@@ -37,3 +37,28 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # scores; the kernel returns 0 there, and so does this version
     p = torch.where(mask.any(-1, keepdim=True), p, torch.zeros_like(p))
     return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+
+
+def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                               v_pages: torch.Tensor, tables: torch.Tensor,
+                               lengths: torch.Tensor) -> torch.Tensor:
+    """Gather the page table into a dense cache view, then mask and
+    softmax like dense decode (the JAX `paged_decode_attention_ref`).
+    q (B, 1, H, hd); k/v pages (P, ps, Hkv, hd); tables (B, npp) int;
+    lengths (B,) int, including the current token."""
+    b, _, h, hd = q.shape
+    npp = tables.shape[1]
+    ps, hkv = k_pages.shape[1], k_pages.shape[2]
+    tl = tables.long()
+
+    def dense(pages):                      # (B, npp*ps, H, hd) float32
+        g = pages[tl].reshape(b, npp * ps, hkv, hd).float()
+        return g.repeat_interleave(h // hkv, dim=2)
+
+    s = torch.einsum("bqhd,bchd->bhqc", q.float(), dense(k_pages)) \
+        / math.sqrt(hd)
+    kpos = torch.arange(npp * ps, device=q.device)[None, :]
+    mask = kpos < lengths.long()[:, None]
+    s = s.masked_fill(~mask[:, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqc,bchd->bqhd", p, dense(v_pages)).to(q.dtype)

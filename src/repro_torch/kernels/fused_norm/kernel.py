@@ -3,7 +3,8 @@
 `fused_rmsnorm_residual_pallas`.
 
 Take (N, d) row-major tensors on one CUDA device, float32 or bfloat16,
-d <= 2048; allocate the outputs and launch on PyTorch's current stream.
+d <= 8192 (one warp a row up to d 2048, one block a row above);
+allocate the outputs and launch on PyTorch's current stream.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import torch
 
 from repro_torch.kernels import _build as B
 
-MAX_D = 2048
+MAX_D = 8192
 
 RMSNORM = B.Launcher("fused_norm", "fused_rmsnorm", [
     B.VOID_P, B.VOID_P, B.VOID_P, B.INT, B.INT, B.FLOAT, B.INT, B.INT,

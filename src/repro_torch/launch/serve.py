@@ -7,10 +7,12 @@ synthetic requests, optionally driven by a Mozart deployment artifact.
 
 `--policy` takes a `mozart-deployment/v1` artifact or a bare policy JSON
 and applies it as the JAX launcher does: flash_attention ->
-attn_impl="flash", fused_mlp -> mlp_impl="fused", fused_norm ->
-norm_impl="fused" (the CUDA kernels), and the policy's batch split sets
-the engine's max/decode batch.  The port runs on one device: a policy
-with tp > 1 runs unsharded.  Weights are random, from `--seed`.
+attn_impl="flash" (flash prefill, paged decode from the page pool),
+fused_mlp -> mlp_impl="fused" (the fused MLP, or `moe_mlp` on MoE
+layers), fused_norm -> norm_impl="fused" (the CUDA kernels), and the
+policy's batch split sets the engine's max/decode batch.  The port runs
+on one device: a policy with tp > 1 runs unsharded.  Weights are
+random, from `--seed`.
 """
 from __future__ import annotations
 
@@ -58,7 +60,9 @@ def apply_policy(pol: ExecutionPolicy, mcfg: ModelConfig, max_batch: int,
     if flags["fused_mlp"]:
         if mcfg.family == "transformer":
             mcfg = mcfg.replace(mlp_impl="fused")
-            applied.append("fused_mlp->mlp_impl=fused")
+            applied.append("fused_mlp->mlp_impl=fused" + (
+                " (MoE layers: the moe_mlp kernel over the expert capacity "
+                "buffers)" if mcfg.use_moe else ""))
         elif mcfg.family == "whisper":
             applied.append("fused_mlp(no hook: whisper cross-attn blocks "
                            "interleave the MLP with encoder reads)")

@@ -43,7 +43,8 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict, max_len: int):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
     """A zero cache for `batch` rows: the dense KV rectangles of a
-    transformer, the recurrent state (and rglru's ring KV) otherwise."""
+    transformer (a ring of `window` slots for a sliding-window model),
+    the recurrent state (and rglru's ring KV) otherwise."""
     return family_module(cfg).init_cache(cfg, batch, max_len,
                                          device=resolve_device(device))
 

@@ -1,16 +1,20 @@
-"""Dense decoder-only transformer of the port (from
-`repro.models.transformer`): plain GQA attention with or without QKV
-bias, RMSNorm, RoPE, SwiGLU/GELU MLP, tied or separate embeddings.
+"""Decoder-only transformer of the port (from `repro.models.transformer`):
+GQA attention with or without QKV bias, RMSNorm, RoPE, SwiGLU/GELU MLP,
+tied or separate embeddings, sliding-window attention over a ring KV
+cache, and capacity-routed top-k MoE layers (shared experts and leading
+dense layers included).
 
 Params keep the JAX tree and layout: each segment's layer weights are
-stacked on a leading axis under `segments[i]["kind_dense"]`, and the
-layers run in a Python loop where JAX used `lax.scan`.  MoE, MLA,
-sliding-window and M-RoPE variants raise NotImplementedError.
+stacked on a leading axis under `segments[i]["kind_dense"]` or
+`["kind_moe"]`, and the layers run in a Python loop where JAX used
+`lax.scan`.  MLA, M-RoPE, MTP and the grouped / shard_map MoE dispatch
+variants raise NotImplementedError.
 
 Caches are updated in place (the JAX functions return fresh arrays):
 `decode_step` writes the new token's k/v into the cache tensors it is
 given and returns the same tensors, which saves a copy of the cache per
-step.
+step; `paged_decode_step` writes into the page pools and attends from
+them directly.
 """
 from __future__ import annotations
 
@@ -18,32 +22,92 @@ import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.bridge import tree_to
+from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.moe_mlp import ops as moe_ops
 
 from .common import (apply_norm, apply_norm_residual, apply_rope, attention,
-                     mlp_block, normal, rope_tables)
+                     gelu, mlp_block, normal, rope_tables)
 from .config import ModelConfig
 
 Params = Any
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the variants this slice of the port does not serve."""
+    """Raise for the variants the port does not serve yet."""
     missing = [name for name, on in (
         ("family " + cfg.family, cfg.family != "transformer"),
-        ("MoE", cfg.use_moe), ("MLA", cfg.use_mla),
-        ("sliding-window attention", cfg.window is not None),
-        ("M-RoPE", cfg.mrope_sections is not None), ("MTP", cfg.mtp),
-        ("norm " + cfg.norm, cfg.norm != "rmsnorm")) if on]
+        ("MLA", cfg.use_mla), ("M-RoPE", cfg.mrope_sections is not None),
+        ("MTP", cfg.mtp), ("norm " + cfg.norm, cfg.norm != "rmsnorm"),
+        ("grouped MoE dispatch (moe_groups)", cfg.moe_groups > 0),
+        ("shard_map MoE dispatch", cfg.moe_shard_map)) if on]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet")
 
 
+def layer_segments(cfg: ModelConfig) -> list[tuple[str, int]]:
+    """[(layer_kind, count)]: contiguous runs of identical structure."""
+    if cfg.use_moe and cfg.first_dense_layers:
+        return [("dense", cfg.first_dense_layers),
+                ("moe", cfg.n_layers - cfg.first_dense_layers)]
+    if cfg.use_moe:
+        return [("moe", cfg.n_layers)]
+    return [("dense", cfg.n_layers)]
+
+
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
+
+def _init_layers(cfg: ModelConfig, gen: torch.Generator, kind: str,
+                 count: int) -> Params:
+    pd = cfg.tparam_dtype
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
+
+    def dense(shape, scale=None):
+        """`count` layers of `shape`, each drawn in float32 and cast on its
+        own, so the host never holds more than one float32 layer (a
+        mixtral expert tensor is 1.9 GB a layer in float32)."""
+        # the JAX dense_init's fan-in is the first axis, E for an expert
+        # tensor (E, d, f)
+        s = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+        out = torch.empty((count, *shape), dtype=pd)
+        for i in range(count):
+            out[i] = normal(gen, shape, s, pd)
+        return out
+
+    def mlp(f):
+        p = {"w_in": dense((d, f)), "w_out": dense((f, d), out_scale)}
+        if cfg.swiglu:
+            p["w_gate"] = dense((d, f))
+        return p
+
+    attn = {"wq": dense((d, qd)), "wk": dense((d, kvd)),
+            "wv": dense((d, kvd)), "wo": dense((qd, d), out_scale)}
+    if cfg.qkv_bias:
+        attn.update(bq=torch.zeros((count, qd), dtype=pd),
+                    bk=torch.zeros((count, kvd), dtype=pd),
+                    bv=torch.zeros((count, kvd), dtype=pd))
+    layers = {"norm1": {"scale": torch.zeros((count, d), dtype=pd)},
+              "attn": attn,
+              "norm2": {"scale": torch.zeros((count, d), dtype=pd)}}
+    if kind == "moe":
+        e, f = cfg.n_experts, cfg.routed_ff
+        moe = {"router": dense((d, e)), "experts_in": dense((e, d, f)),
+               "experts_out": dense((e, f, d), out_scale)}
+        if cfg.swiglu:
+            moe["experts_gate"] = dense((e, d, f))
+        if cfg.n_shared_experts:
+            moe["shared"] = mlp(f * cfg.n_shared_experts)
+        layers["moe"] = moe
+    else:
+        layers["mlp"] = mlp(cfg.d_ff)
+    return layers
+
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
                 device: torch.device | str = "cpu") -> Params:
@@ -52,39 +116,23 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     every machine) and moved to `device`."""
     check_supported(cfg)
     pd = cfg.tparam_dtype
-    d, qd, kvd, f, L = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff, cfg.n_layers
-    out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
-
-    def dense(shape, scale=None):       # per-layer shape, stacked on L
-        s = scale if scale is not None else 1.0 / math.sqrt(shape[0])
-        return normal(gen, (L, *shape), s, pd)
-
-    attn = {"wq": dense((d, qd)), "wk": dense((d, kvd)),
-            "wv": dense((d, kvd)), "wo": dense((qd, d), out_scale)}
-    if cfg.qkv_bias:
-        attn.update(bq=torch.zeros((L, qd), dtype=pd),
-                    bk=torch.zeros((L, kvd), dtype=pd),
-                    bv=torch.zeros((L, kvd), dtype=pd))
-    mlp = {"w_in": dense((d, f)), "w_out": dense((f, d), out_scale)}
-    if cfg.swiglu:
-        mlp["w_gate"] = dense((d, f))
-    layers = {"norm1": {"scale": torch.zeros((L, d), dtype=pd)},
-              "attn": attn,
-              "norm2": {"scale": torch.zeros((L, d), dtype=pd)},
-              "mlp": mlp}
-    params = {"embed": normal(gen, (cfg.vocab, d), 0.02, pd),
-              "final_norm": {"scale": torch.zeros((d,), dtype=pd)},
-              "segments": [{"kind_dense": layers}]}
+    segments = [{f"kind_{kind}": _init_layers(cfg, gen, kind, count)}
+                for kind, count in layer_segments(cfg)]
+    params = {"embed": normal(gen, (cfg.vocab, cfg.d_model), 0.02, pd),
+              "final_norm": {"scale": torch.zeros((cfg.d_model,), dtype=pd)},
+              "segments": segments}
     if not cfg.tie_embeddings:
-        params["head"] = normal(gen, (d, cfg.vocab), 0.02, pd)
+        params["head"] = normal(gen, (cfg.d_model, cfg.vocab), 0.02, pd)
     return tree_to(params, device)
 
 
-def _segment_params(seg: Params) -> Params:
-    kind, sp = next(iter(seg.items()))
-    if kind != "kind_dense":
-        raise NotImplementedError(f"segment {kind} is not ported yet")
-    return sp
+def _segment(seg: Params) -> tuple[str, Params]:
+    """("dense" | "moe", the segment's stacked layer tree)."""
+    name, sp = next(iter(seg.items()))
+    kind = name.removeprefix("kind_")
+    if kind not in ("dense", "moe"):
+        raise NotImplementedError(f"segment {name} is not ported yet")
+    return kind, sp
 
 
 def _layers(sp: Params, n: int | None = None) -> list[Params]:
@@ -116,21 +164,95 @@ def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor):
             v.reshape(bsz, s, cfg.kv_heads, cfg.hd))
 
 
+def _roped_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, rope):
+    q, k, v = _qkv(cfg, p, x)
+    return apply_rope(q, rope), apply_rope(k, rope), v
+
+
 def attn_block(cfg: ModelConfig, p: Params, x: torch.Tensor, rope):
     """Full-sequence (prefill) attention: (out, (k, v)), k/v in cache
     layout (B, S, Hkv, hd).  rope: `rope_tables` of the positions."""
     bsz, s, _ = x.shape
-    q, k, v = _qkv(cfg, p, x)
-    q, k = apply_rope(q, rope), apply_rope(k, rope)
+    q, k, v = _roped_qkv(cfg, p, x, rope)
     o = attention(cfg, q, k, v, causal=True)
     return o.reshape(bsz, s, cfg.q_dim) @ p["wo"].to(cfg.tdtype), (k, v)
 
 
-def layer_fwd(cfg: ModelConfig, p: Params, x: torch.Tensor, rope):
+def capacity(cfg: ModelConfig, n: int) -> int:
+    """Slots each expert's buffer holds for n tokens: ceil(n k / E *
+    capacity_factor), at least 8 and at most n, rounded up to 8."""
+    cap = int(math.ceil(n * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
+    cap = max(8, min(cap, n))
+    return (cap + 7) // 8 * 8
+
+
+def route(cfg: ModelConfig, p: Params, xf: torch.Tensor):
+    """Top-k routing of flat tokens xf (n, d): (weights (n, k) renormalised
+    and cast to the model dtype, expert ids (n, k)).  The router runs in
+    float32 (the JAX product promotes x); `torch.topk` gives the k experts
+    in descending order, as `jax.lax.top_k` does."""
+    probs = torch.softmax(xf.float() @ p["router"].float(), dim=-1)
+    w, idx = torch.topk(probs, cfg.top_k, dim=-1)
+    w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
+    return w.to(cfg.tdtype), idx
+
+
+def expert_mlp(cfg: ModelConfig, p: Params, buf: torch.Tensor) -> torch.Tensor:
+    """The experts over their (E, cap, d) capacity buffers.
+    cfg.mlp_impl == "fused" runs them as the grouped `moe_mlp` kernel
+    (float32 accumulation); "dense" is batched products in the model
+    dtype, as the JAX einsums."""
+    dt = cfg.tdtype
+    wi, wo = p["experts_in"].to(dt), p["experts_out"].to(dt)
+    wg = p["experts_gate"].to(dt) if cfg.swiglu else None
+    if cfg.mlp_impl == "fused":
+        return moe_ops.moe_mlp(buf, wg, wi, wo, swiglu=cfg.swiglu)
+    h = torch.bmm(buf, wi)
+    h = F.silu(torch.bmm(buf, wg)) * h if cfg.swiglu else gelu(h)
+    return torch.bmm(h, wo)
+
+
+def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Capacity-based top-k MoE (Switch-style dense dispatch), the JAX
+    `moe_block`'s plain path: each (token, choice) in flat (token, k)
+    order takes the next slot of its expert's buffer; past `capacity` it
+    is dropped (clamped to the last slot and added as zeros)."""
+    bsz, s, d = x.shape
+    n, k, e = bsz * s, cfg.top_k, cfg.n_experts
+    dt = cfg.tdtype
+    xf = x.reshape(n, d)
+    w, idx = route(cfg, p, xf)
+    cap = capacity(cfg, n)
+    flat_idx = idx.reshape(-1)                               # (n*k,)
+    pos = F.one_hot(flat_idx, e).cumsum(0) - 1
+    slot = pos.gather(1, flat_idx[:, None])[:, 0]
+    keep = slot < cap
+    slot = torch.where(keep, slot, cap - 1)
+    vals = torch.where(keep[:, None], xf.repeat_interleave(k, dim=0), 0).to(dt)
+    buf = torch.zeros((e, cap, d), dtype=dt, device=x.device)
+    # each kept (expert, slot) receives exactly one value and the drops add
+    # zeros, so the accumulation is exact in any order (the JAX .at[].add)
+    buf.index_put_((flat_idx, slot), vals, accumulate=True)
+    out = expert_mlp(cfg, p, buf)
+    gathered = torch.where(keep[:, None], out[flat_idx, slot], 0)
+    y = (gathered.reshape(n, k, d) * w[..., None]).sum(1).to(dt)
+    y = y.reshape(bsz, s, d)
+    if cfg.n_shared_experts:
+        y = y + mlp_block(cfg, p["shared"], x)
+    return y
+
+
+def _ffn(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor):
+    if kind == "moe":
+        return moe_block(cfg, p["moe"], h)
+    return mlp_block(cfg, p["mlp"], h)
+
+
+def layer_fwd(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, rope):
     a, kv = attn_block(cfg, p["attn"], apply_norm(cfg, p["norm1"], x), rope)
     # fused norm_impl runs the attn-residual add + norm2 as one kernel
     x, h = apply_norm_residual(cfg, p["norm2"], x, a)
-    return x + mlp_block(cfg, p["mlp"], h), kv
+    return x + _ffn(cfg, kind, p, h), kv
 
 
 # ---------------------------------------------------------------------------
@@ -158,10 +280,10 @@ def hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     rope = rope_tables(positions, cfg.hd, cfg.rope_theta)
     kvs = []
     for seg in params["segments"]:
-        sp = _segment_params(seg)
+        kind, sp = _segment(seg)
         ks, vs = [], []
         for lp in _layers(sp):
-            x, (k, v) = layer_fwd(cfg, lp, x, rope)
+            x, (k, v) = layer_fwd(cfg, kind, lp, x, rope)
             if collect_kv:
                 ks.append(k)
                 vs.append(v)
@@ -184,54 +306,109 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
 # KV cache + decode
 # ---------------------------------------------------------------------------
 
+def cache_len(cfg: ModelConfig, max_len: int) -> int:
+    """Ring length: a sliding-window model only ever needs `window` slots."""
+    return min(max_len, cfg.window) if cfg.window else max_len
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: torch.device | str = "cpu", dtype=None) -> Params:
+    """Zero dense KV rectangles (count, B, C, Hkv, hd) per segment, C the
+    ring length, and a scalar index."""
     check_supported(cfg)
     dt = dtype or cfg.tdtype
-    shape = (cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.hd)
-    return {"segments": [{"k": torch.zeros(shape, dtype=dt, device=device),
-                          "v": torch.zeros(shape, dtype=dt, device=device)}],
+    clen = cache_len(cfg, max_len)
+    segs = []
+    for _, count in layer_segments(cfg):
+        shape = (count, batch, clen, cfg.kv_heads, cfg.hd)
+        segs.append({"k": torch.zeros(shape, dtype=dt, device=device),
+                     "v": torch.zeros(shape, dtype=dt, device=device)})
+    return {"segments": segs,
             "index": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int, *,
                      device: torch.device | str = "cpu", dtype=None) -> list:
-    """Per-segment KV page pools (L, num_pages, page_size, Hkv, hd); page
-    0 is the null page every unused page-table entry points at."""
+    """Per-segment KV page pools (count, num_pages, page_size, Hkv, hd);
+    page 0 is the null page every unused page-table entry points at."""
     check_supported(cfg)
     dt = dtype or cfg.tdtype
-    shape = (cfg.n_layers, num_pages, page_size, cfg.kv_heads, cfg.hd)
-    return [{"k": torch.zeros(shape, dtype=dt, device=device),
-             "v": torch.zeros(shape, dtype=dt, device=device)}]
+    segs = []
+    for _, count in layer_segments(cfg):
+        shape = (count, num_pages, page_size, cfg.kv_heads, cfg.hd)
+        segs.append({"k": torch.zeros(shape, dtype=dt, device=device),
+                     "v": torch.zeros(shape, dtype=dt, device=device)})
+    return segs
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             max_len: int):
-    """Run the prompt, fill a dense cache: (last-token logits, cache)."""
+    """Run the prompt, fill a dense cache: (last-token logits, cache).
+    A prompt longer than a sliding-window ring keeps its last `clen`
+    positions, rolled so that position p sits in slot p % clen."""
     x, kvs = hidden(cfg, params, tokens, collect_kv=True)
     bsz, s = tokens.shape
     cache = init_cache(cfg, bsz, max_len, device=tokens.device)
+    clen = cache_len(cfg, max_len)
+    take = min(s, clen)
     for (k, v), seg in zip(kvs, cache["segments"]):
-        seg["k"][:, :, :s] = k.to(seg["k"].dtype)
-        seg["v"][:, :, :s] = v.to(seg["v"].dtype)
+        for key, src in (("k", k), ("v", v)):
+            last = src[:, :, s - take:]
+            if cfg.window and take == clen:
+                last = torch.roll(last, shifts=s % clen, dims=2)
+            seg[key][:, :, :take] = last.to(seg[key].dtype)
     cache["index"] = torch.tensor(s, dtype=torch.int32, device=tokens.device)
     return unembed(cfg, params, x[:, -1:]), cache
 
 
+def _ring_slot(cfg: ModelConfig, index: torch.Tensor, clen: int):
+    return torch.remainder(index, clen) if cfg.window else index
+
+
+def _cache_positions(cfg: ModelConfig, index: torch.Tensor, clen: int):
+    """Absolute position held by each cache slot (ring-aware), -1 where
+    none; index (B,) -> (B, clen).  Python-style `%` (torch.remainder)
+    on the negative differences, as JAX's `%`."""
+    j = torch.arange(clen, device=index.device)[None, :]
+    idx = index[:, None]
+    if cfg.window:
+        p = idx - torch.remainder(idx - j, clen)
+        return torch.where(p >= 0, p, -1)
+    return torch.where(j <= idx, j, -1)
+
+
+def _decode_mask(cfg: ModelConfig, index: torch.Tensor, clen: int):
+    """(B, clen): cache slot j is attended by the token at `index`."""
+    kpos = _cache_positions(cfg, index, clen)
+    mask = (kpos >= 0) & (kpos <= index[:, None])
+    if cfg.window:
+        mask &= kpos > index[:, None] - cfg.window
+    return mask
+
+
+def _write_slot(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor):
+    """cache (B, C, ...)[b, slot[b]] <- new (B, 1, ...)[b, 0], in place.  A
+    slot past the cache is dropped, as the JAX scatter drops it (an empty
+    slot of a full-width step may sit at index C): its row writes back
+    what it holds."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    c = cache.shape[1]
+    at = slot.clamp(max=c - 1)
+    ok = (slot < c).view(-1, *([1] * (new.dim() - 2)))
+    cache[rows, at] = torch.where(ok, new[:, 0].to(cache.dtype), cache[rows, at])
+
+
 def _decode_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                 K: torch.Tensor, V: torch.Tensor, index: torch.Tensor,
+                 K: torch.Tensor, V: torch.Tensor, slot: torch.Tensor,
                  rope, mask: torch.Tensor):
     """One-token attention against the cache; writes the token's k/v into
-    K/V (B, C, Hkv, hd) in place at slot index[b].  x: (B, 1, d); rope:
-    `rope_tables` of the positions index; mask (B, C): cache slot j is
-    attended iff j <= index[b]."""
+    K/V (B, C, Hkv, hd) in place at cache slot slot[b].  x: (B, 1, d);
+    rope: `rope_tables` of the token positions; mask (B, C): `_decode_mask`."""
     bsz = x.shape[0]
     dt = cfg.tdtype
-    q, k, v = _qkv(cfg, p, x)
-    q, k = apply_rope(q, rope), apply_rope(k, rope)
-    rows = torch.arange(bsz, device=x.device)
-    K[rows, index] = k[:, 0].to(K.dtype)
-    V[rows, index] = v[:, 0].to(V.dtype)
+    q, k, v = _roped_qkv(cfg, p, x, rope)
+    _write_slot(K, k, slot)
+    _write_slot(V, v, slot)
     n_rep = cfg.n_heads // cfg.kv_heads
     Kr = K.to(dt).repeat_interleave(n_rep, dim=2) if n_rep > 1 else K.to(dt)
     Vr = V.to(dt).repeat_interleave(n_rep, dim=2) if n_rep > 1 else V.to(dt)
@@ -242,28 +419,76 @@ def _decode_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return o.reshape(bsz, 1, cfg.q_dim) @ p["wo"].to(dt)
 
 
+def _decode_layers(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                   index: torch.Tensor, caches: list, layer_attn):
+    """The decode layer loop that the dense and the paged step share.
+    tokens (B, 1); index (B,) long, the positions before the step; caches:
+    per segment, {"k", "v"} stacked by layer.  layer_attn(p, h, K, V, rope)
+    writes the token's k/v into one layer's K/V and returns the attention
+    output (B, 1, d).  Returns the (B, 1, V) logits."""
+    rope = rope_tables(index[:, None], cfg.hd, cfg.rope_theta)
+    x = embed_tokens(cfg, params, tokens)
+    for seg, seg_cache in zip(params["segments"], caches):
+        kind, sp = _segment(seg)
+        for lp, K, V in zip(_layers(sp), seg_cache["k"].unbind(0),
+                            seg_cache["v"].unbind(0)):
+            a = layer_attn(lp["attn"], apply_norm(cfg, lp["norm1"], x), K, V,
+                           rope)
+            x, h = apply_norm_residual(cfg, lp["norm2"], x, a)
+            x = x + _ffn(cfg, kind, lp, h)
+    x = apply_norm(cfg, params["final_norm"], x)
+    return unembed(cfg, params, x)
+
+
 def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                 cache: Params):
     """One decode step. tokens: (B, 1) int.  cache["index"] is a scalar
     (uniform lengths) or a (B,) vector (per-slot lengths).  Returns
     (logits (B, 1, V), cache) with the cache advanced in place and
-    index + 1."""
+    index + 1.  A sliding-window model writes ring slot index % C and
+    attends to the last `window` positions."""
     check_supported(cfg)
     raw = torch.as_tensor(cache["index"], device=tokens.device)
     index = raw.expand(tokens.shape[0]) if raw.dim() == 0 else raw
     index = index.long()
-    rope = rope_tables(index[:, None], cfg.hd, cfg.rope_theta)
-    x = embed_tokens(cfg, params, tokens)
-    for seg, seg_cache in zip(params["segments"], cache["segments"]):
-        sp = _segment_params(seg)
-        ks, vs = seg_cache["k"].unbind(0), seg_cache["v"].unbind(0)
-        mask = torch.arange(ks[0].shape[1], device=x.device)[None, :] \
-            <= index[:, None]
-        for lp, K, V in zip(_layers(sp), ks, vs):
-            a = _decode_attn(cfg, lp["attn"], apply_norm(cfg, lp["norm1"], x),
-                             K, V, index, rope, mask)
-            x, h = apply_norm_residual(cfg, lp["norm2"], x, a)
-            x = x + mlp_block(cfg, lp["mlp"], h)
-    x = apply_norm(cfg, params["final_norm"], x)
-    return unembed(cfg, params, x), {"segments": cache["segments"],
-                                     "index": raw + 1}
+    clen = cache["segments"][0]["k"].shape[2]      # every segment's ring
+    slot = _ring_slot(cfg, index, clen)
+    mask = _decode_mask(cfg, index, clen)
+
+    def attn(p, h, K, V, rope):
+        return _decode_attn(cfg, p, h, K, V, slot, rope, mask)
+
+    logits = _decode_layers(cfg, params, tokens, index, cache["segments"], attn)
+    return logits, {"segments": cache["segments"], "index": raw + 1}
+
+
+def paged_decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                      segments: list, tables: torch.Tensor,
+                      index: torch.Tensor) -> torch.Tensor:
+    """One decode step straight from the page pools (in place): in each
+    layer the token's k/v go to page tables[b, index[b] // ps], offset
+    index[b] % ps, and `paged_decode_attention` attends over the
+    index + 1 live positions through the table.  tokens (n, 1); tables
+    (n, npp) int32; index (n,) int (positions before the step).  Returns
+    the (n, 1, V) logits.  Plain (no ring) attention only, as paged
+    serving is (`paged.paged_supported`)."""
+    check_supported(cfg)
+    n = tokens.shape[0]
+    index = index.long()
+    ps = segments[0]["k"].shape[2]
+    rows = torch.arange(n, device=tokens.device)
+    pages = tables.long()[rows, index // ps]
+    offs = index % ps
+    lengths = (index + 1).to(torch.int32)
+
+    def attn(p, h, Kp, Vp, rope):
+        q, k, v = _roped_qkv(cfg, p, h, rope)
+        # padding lanes of a compacted step repeat a real slot: they
+        # write identical k/v to the same pool position, so the
+        # duplicate writes are benign, and the kernel runs after them
+        Kp[pages, offs] = k[:, 0].to(Kp.dtype)
+        Vp[pages, offs] = v[:, 0].to(Vp.dtype)
+        o = fops.paged_decode_attention(q, Kp, Vp, tables, lengths)
+        return o.reshape(n, 1, cfg.q_dim) @ p["wo"].to(cfg.tdtype)
+
+    return _decode_layers(cfg, params, tokens, index, segments, attn)

@@ -1,6 +1,7 @@
 """Serving engine of the port (from `repro.serving.engine`): slot-based
-continuous batching over the block-paged KV pool (plain transformers) or
-the gathered recurrent state (rglru, rwkv6).
+continuous batching over the block-paged KV pool (plain transformers),
+the dense KV rectangles (every other transformer) or the gathered
+recurrent state (rglru, rwkv6).
 
 A fixed pool of `max_batch` slots decodes in lock step; finished slots
 are refilled by prefilling queued requests into them.  The scheduling is
@@ -28,10 +29,10 @@ defaults (paged on, page size 16, bucket minimum 16, compact decode on,
 NaN guard on, deadline shedding on, queue bound 0 = unbounded).  The
 state is chosen as the JAX engine chooses it: `PagedKVState` when paged
 serving applies (a transformer with no sliding window and no MoE),
-`RecurrentState` for rglru and rwkv6 (always compact).  The dense KV
-state is not ported, so a transformer that cannot serve paged
-(`paged=False`, a sliding window, MoE) raises NotImplementedError, and
-so does whisper (its cross-attention state is not ported).
+`DenseKVState` for every other transformer (`paged=False` included),
+`RecurrentState` for rglru and rwkv6 (always compact).  Whisper (its
+cross-attention state) and int8 KV (`kv_quant`) are not ported and
+raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -48,7 +49,7 @@ from repro_torch.models.config import ModelConfig
 
 from . import paged as paged_kv
 from .sampling import sample
-from .state import PagedKVState, RecurrentState
+from .state import DenseKVState, PagedKVState, RecurrentState
 
 Params = Any
 
@@ -87,9 +88,10 @@ class ServingEngine:
                  decode_batch: int | None = None, eos_id: int = -1,
                  compact: bool = True, paged: bool = True,
                  page_size: int = 16, num_pages: int | None = None,
-                 bucket_min: int = 16, queue_bound: int = 0,
-                 guard_nan: bool = True, shed_deadlines: bool = True,
-                 seed: int = 0, device: str | torch.device | None = None):
+                 bucket_min: int = 16, kv_quant: bool = False,
+                 queue_bound: int = 0, guard_nan: bool = True,
+                 shed_deadlines: bool = True, seed: int = 0,
+                 device: str | torch.device | None = None):
         self.device = resolve_device(device)
         # paged + bucketed serving is exact only for the plain transformer
         # cache (no sliding-window ring, no MoE router) — paged_supported
@@ -98,11 +100,9 @@ class ServingEngine:
             raise NotImplementedError(
                 f"{mcfg.name}: the cross-attention state (whisper) is not "
                 f"ported yet")
-        if mcfg.family == "transformer" and not self.paged:
+        if kv_quant:           # the JAX signature, reserved until int8 KV
             raise NotImplementedError(
-                f"{mcfg.name}: the dense KV state is not ported yet; a "
-                f"transformer serves paged only (paged=True, no sliding "
-                f"window, no MoE)")
+                f"{mcfg.name}: int8 KV storage is not ported yet")
         self.mcfg = mcfg
         self.params = tree_to(params, self.device)
         self.max_batch = max_batch
@@ -124,6 +124,10 @@ class ServingEngine:
                 mcfg, max_batch, max_len, decode_batch=self.decode_batch,
                 compact=self.compact, page_size=page_size,
                 num_pages=num_pages, bucket_min=bucket_min, device=self.device)
+        elif mcfg.family == "transformer":
+            self.state = DenseKVState(
+                mcfg, max_batch, max_len, decode_batch=self.decode_batch,
+                compact=self.compact, device=self.device)
         else:
             self.state = RecurrentState(
                 mcfg, max_batch, max_len, decode_batch=self.decode_batch,

@@ -11,10 +11,12 @@
   prefill scatter is ragged: pad positions are zeroed and table entries
   whose page starts at or past the prompt length go to the null page, so
   a slot's pages hold real KV and zeros, nothing else.
-* **Decode** gathers the selected slots' pages into the dense (n, C, ...)
+* **Decode** with `attn_impl == "flash"` runs straight from the pools:
+  each layer writes the token's k/v into its page and the
+  `paged_decode_attention` op attends through the page table.  Any other
+  `attn_impl` gathers the selected slots' pages into the dense (n, C, ...)
   layout `transformer.decode_step` reads, runs it and scatters the pages
-  back, as the JAX package does; paged decode is exact against the dense
-  cache.
+  back, as the JAX package does; that route is the pool route's oracle.
 """
 from __future__ import annotations
 
@@ -142,9 +144,15 @@ def _scatter_pages(segments: list, dense: list, tables_sel: torch.Tensor) -> Non
 def paged_decode(mcfg: ModelConfig, params, tokens: torch.Tensor,
                  segments: list, tables_sel: np.ndarray,
                  index_sel: np.ndarray) -> torch.Tensor:
-    """Gather -> decode_step -> scatter over the page pool (pools updated
-    in place).  Returns the (n, 1, V) logits."""
+    """One decode step over the page pool (pools updated in place):
+    attention from the pool itself when mcfg.attn_impl == "flash", else
+    gather -> decode_step -> scatter.  Returns the (n, 1, V) logits."""
     dev = tokens.device
+    if mcfg.attn_impl == "flash":
+        return transformer.paged_decode_step(
+            mcfg, params, tokens, segments,
+            torch.as_tensor(tables_sel, dtype=torch.int32, device=dev),
+            torch.as_tensor(index_sel, dtype=torch.long, device=dev))
     tsel = torch.as_tensor(tables_sel, dtype=torch.long, device=dev)
     dense = _gather_pages(segments, tsel)
     idx = torch.as_tensor(index_sel, dtype=torch.int32, device=dev)

@@ -5,9 +5,10 @@ preemption) never touches cache layout; it talks to a decode state that
 owns the per-slot model state and knows how to (a) prefill a request
 into slot b and (b) advance the active slots one decode step at a fixed
 lane width.  Ported: `PagedKVState` (compact and full width) for the
-plain transformer, and `RecurrentState` for the rglru and rwkv6
-families.  The dense rectangles (`DenseKVState`), int8 KV and the
-cross-attention state (whisper) are not ported yet.
+plain transformer, `DenseKVState` for every other transformer (sliding
+window, MoE, or `paged=False`), and `RecurrentState` for the rglru and
+rwkv6 families.  int8 KV and the cross-attention state (whisper) are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -31,6 +32,96 @@ def _lane_map(sel: list[int]) -> dict[int, int]:
     for j, b in enumerate(sel):
         lane.setdefault(b, j)
     return lane
+
+
+def _leaf_pairs(dst, src):
+    """(dst, src) tensor pairs of two trees of the same structure."""
+    if isinstance(dst, dict):
+        for k in dst:
+            yield from _leaf_pairs(dst[k], src[k])
+    elif isinstance(dst, (list, tuple)):
+        for a, b in zip(dst, src):
+            yield from _leaf_pairs(a, b)
+    else:
+        yield dst, src
+
+
+class DenseKVState:
+    """Transformer dense KV rectangles {"segments": [{"k", "v": (L, B, C,
+    Hkv, hd)}], "index": (B,)}, C the ring length of a sliding-window
+    model, updated in place.
+
+    Prefill runs each prompt at its exact length and splices the batch-1
+    cache into slot b (on the batch axis always: the JAX `_tree_set_slot`
+    finds no batch axis with one slot).  With `compact` and
+    `decode_batch < max_batch` the active slots are gathered into a
+    sub-cache of width `decode_batch` (padding lanes repeat the first
+    active slot), decoded and the active lanes scattered back; otherwise
+    every slot decodes at full width and the slots that were not active
+    have their index rewound by one batched update."""
+
+    kind = "dense"
+    paged = False
+    pool = None
+    buckets: tuple = ()
+
+    def __init__(self, mcfg: ModelConfig, max_batch: int, max_len: int, *,
+                 decode_batch: int, compact: bool, device: torch.device):
+        self.mcfg = mcfg
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.decode_batch = decode_batch
+        self.compact = compact
+        self.capacity = max_len
+        self.device = device
+        self.cache = api.init_cache(mcfg, max_batch, max_len, device=device)
+        self.cache["index"] = torch.zeros((max_batch,), dtype=torch.int32,
+                                          device=device)
+
+    def prefill(self, params: Params, b: int, seq: np.ndarray) -> torch.Tensor:
+        toks = torch.as_tensor(np.asarray(seq)[None, :], dtype=torch.long,
+                               device=self.device)
+        last, cache1 = api.prefill(self.mcfg, params, {"tokens": toks},
+                                   self.max_len)
+        for dst, src in _leaf_pairs(self.cache["segments"], cache1["segments"]):
+            dst[:, b].copy_(src[:, 0])
+        self.cache["index"][b] = len(seq)
+        return last
+
+    def decode(self, params: Params, next_token: np.ndarray,
+               active: list[int]):
+        if self.compact and self.decode_batch < self.max_batch:
+            sel = active + [active[0]] * (self.decode_batch - len(active))
+            idx = torch.as_tensor(sel, dtype=torch.long, device=self.device)
+            sub = {"segments": tree_map(lambda t: t.index_select(1, idx),
+                                        self.cache["segments"]),
+                   "index": self.cache["index"].index_select(0, idx)}
+            logits, new = api.decode_step(
+                self.mcfg, params,
+                torch.as_tensor(next_token[np.asarray(sel)], dtype=torch.long,
+                                device=self.device), sub)
+            # padding lanes repeat active[0] with identical results: only
+            # the active lanes are written back
+            n = len(active)
+            for full, part in _leaf_pairs(self.cache["segments"],
+                                          new["segments"]):
+                full.index_copy_(1, idx[:n], part[:, :n])
+            self.cache["index"].index_copy_(0, idx[:n], new["index"][:n])
+            return logits, _lane_map(sel)
+        logits, new = api.decode_step(
+            self.mcfg, params,
+            torch.as_tensor(next_token, dtype=torch.long, device=self.device),
+            self.cache)
+        self.cache = new
+        # every slot advanced; those that were not active step back in one
+        # batched update
+        inactive = [b for b in range(self.max_batch) if b not in active]
+        if inactive:
+            self.cache["index"][torch.as_tensor(inactive, device=self.device)] -= 1
+        return logits, {b: b for b in active}
+
+    def release(self, b: int) -> None:
+        pass
 
 
 class PagedKVState:
@@ -93,17 +184,6 @@ class PagedKVState:
 
 
 # -- recurrent (rglru / rwkv6) ------------------------------------------------
-
-def _leaf_pairs(dst, src):
-    """(dst, src) tensor pairs of two trees of the same structure."""
-    if isinstance(dst, dict):
-        for k in dst:
-            yield from _leaf_pairs(dst[k], src[k])
-    elif isinstance(dst, (list, tuple)):
-        for a, b in zip(dst, src):
-            yield from _leaf_pairs(a, b)
-    else:
-        yield dst, src
 
 
 class RecurrentState:

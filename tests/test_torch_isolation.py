@@ -31,9 +31,13 @@ def _imported_modules(path: pathlib.Path) -> set[str]:
 def test_port_files_exist():
     rel = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "chip_smoke.py" in rel
-    for name in ("fused_norm", "fused_mlp", "flash_attention", "wkv6", "rglru_scan"):
+    for name in ("fused_norm", "fused_mlp", "flash_attention", "moe_mlp", "wkv6",
+                 "rglru_scan"):
         for part in ("kernel", "ops", "ref"):
             assert f"src/repro_torch/kernels/{name}/{part}.py" in rel
+    for path in ("configs/mixtral_8x7b.py", "csrc/paged_decode.cu",
+                 "csrc/moe_mlp.cu", "csrc/mlp_tile.cuh"):
+        assert (ROOT / "src" / "repro_torch" / path).is_file(), path
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

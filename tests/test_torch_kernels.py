@@ -154,9 +154,32 @@ def test_build_module_imports_without_nvcc(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc_path()
     assert set(_build.SOURCES) == {"fused_norm", "fused_mlp", "flash_attention",
-                                   "wkv6", "rglru_scan"}
+                                   "paged_decode", "moe_mlp", "wkv6", "rglru_scan"}
     for name in _build.SOURCES:
         assert (_build._SRC_DIR / f"{name}.cu").is_file()
+
+
+def test_ptxas_usage_reads_registers_and_spills(monkeypatch):
+    assert ("-Xptxas", "-v") == _build.NVCC_FLAGS[-2:]
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z6kernelPf' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelPf
+    8 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 360 bytes cmem[0]
+ptxas info    : Function properties for _Z6helperv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Compiling entry function '_Z7kernel2Pf' for 'sm_90a'
+ptxas info    : Function properties for _Z7kernel2Pf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 255 registers, 360 bytes cmem[0]
+"""
+    monkeypatch.setattr(_build, "_BUILD_LOGS", {"fused_mlp": log})
+    assert _build.ptxas_usage("fused_mlp") == [
+        {"kernel": "_Z6kernelPf", "registers": 40, "spill_stores": 8,
+         "spill_loads": 4},
+        {"kernel": "_Z7kernel2Pf", "registers": 255, "spill_stores": 0,
+         "spill_loads": 0}]
+    assert _build.ptxas_usage("fused_norm") is None      # not built here
 
 
 def test_cpu_ops_use_plain_version_and_never_build(monkeypatch):

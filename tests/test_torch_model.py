@@ -127,7 +127,14 @@ def test_init_params_shapes_match_jax_and_default_to_cuda():
 
 
 def test_unported_variants_raise():
+    """Sliding windows and capacity MoE are ported; MLA, M-RoPE, layernorm
+    and the grouped / shard_map MoE dispatch variants still raise."""
     cfg = configs.get_smoke_config("smollm-135m")
-    for kw in (dict(window=8), dict(n_experts=4, top_k=2), dict(norm="layernorm")):
+    for kw in (dict(window=8), dict(n_experts=4, top_k=2)):
+        api.init_params(cfg.replace(**kw), 0, device="cpu")
+    moe = dict(n_experts=4, top_k=2)
+    for kw in (dict(mla_q_rank=64, mla_kv_rank=32), dict(mrope_sections=(4, 6, 6)),
+               dict(norm="layernorm"), dict(moe, moe_groups=2),
+               dict(moe, moe_shard_map=True)):
         with pytest.raises(NotImplementedError):
             api.init_params(cfg.replace(**kw), 0, device="cpu")

@@ -263,8 +263,7 @@ def test_engine_state_choice():
     assert eng.state.kind == "recurrent" and eng.compact and not eng.paged
     assert eng.capacity == 16 and eng.state.cache["index"].shape == (2,)
     tf = configs.get_smoke_config("smollm-135m")
-    with pytest.raises(NotImplementedError, match="dense KV state"):
-        ServingEngine(tf, {}, paged=False, device="cpu")
+    assert ServingEngine(tf, {}, paged=False, device="cpu").state.kind == "dense"
     with pytest.raises(NotImplementedError, match="whisper"):
         ServingEngine(tf.replace(family="whisper", name="whisper"), {}, device="cpu")
 

@@ -189,11 +189,17 @@ def test_page_pool_rules():
 
 
 def test_engine_defaults_to_cuda_and_rejects_unported_states():
+    """A transformer that cannot serve paged (paged=False, a sliding
+    window, MoE) takes the dense KV state; int8 KV and whisper raise."""
     cfg = configs.get_smoke_config("smollm-135m")
+    for c, kw in ((cfg, dict(paged=False)), (cfg.replace(window=8), {}),
+                  (configs.get_smoke_config("mixtral-8x7b"), {})):
+        eng = ServingEngine(c, {}, device="cpu", **kw)
+        assert eng.state.kind == "dense" and not eng.paged
     with pytest.raises(NotImplementedError):
-        ServingEngine(cfg, {}, paged=False, device="cpu")
+        ServingEngine(cfg, {}, kv_quant=True, device="cpu")
     with pytest.raises(NotImplementedError):
-        ServingEngine(cfg.replace(window=8), {}, device="cpu")
+        ServingEngine(cfg.replace(family="whisper"), {}, device="cpu")
 
 
 # -- policies -----------------------------------------------------------------
@@ -211,8 +217,8 @@ def _policy_dicts():
 
 
 @pytest.mark.parametrize("idx", [0, 1, 2])
-@pytest.mark.parametrize("arch", ["smollm-135m", "qwen2.5-32b", "rwkv6-3b",
-                                  "recurrentgemma-2b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen2.5-32b", "mixtral-8x7b",
+                                  "rwkv6-3b", "recurrentgemma-2b"])
 def test_apply_policy_matches_jax(arch, idx, tmp_path):
     d = _policy_dicts()[idx]
     path = tmp_path / "policy.json"
