@@ -11,23 +11,27 @@ exit, no result line) when a check fails:
    (`nvidia-smi`) and builds the CUDA kernels from `src/repro_torch/csrc`
    (one nvcc per source, all at once), printing the build time and
    ptxas's registers and spilled bytes for each kernel; the fused norm
-   and MLP kernels must not spill.
+   and MLP kernels (fused_mlp.cu, moe_mlp.cu) must not spill.
 2. Kernels: each kernel's launch wrapper against its plain PyTorch
    version on the card, at the serving paths' shapes (smollm-135m: d 576,
-   F 1536, 9 query / 3 KV heads of 64, bfloat16 and float32, and paged
-   decode over 4 slots of 16-332 tokens in pages of 16 with the null page
-   and the positions past each length poisoned; the norms and the fused
-   MLP also at d 4096 (F 14336) and d 5120 (F 27648); mixtral-8x7b:
-   flash attention over 32 query / 8 KV heads of 128 with its window of
-   4096, at a 300-token prompt and at 4352 tokens (past the window),
-   moe_mlp over 8 experts of d 4096, F 14336 at a decode's capacity 8 and
-   a 256-token prefill's 80, bfloat16; rwkv6-3b: wkv6 over 40 heads of
-   64, in the JAX op's (BH, S, D) layout and in the model's (B, S, H, D)
-   layout that `rwkv6.time_mix` passes; recurrentgemma-2b: rglru_scan
-   over 2560 channels; both float32), TF32 off, with the tolerance
-   stated; kernel, plain-version and library times from CUDA events, and
-   the least time the card could take (bytes over 3.35 TB/s or
-   operations over the type's peak).
+   F 1536, 9 query / 3 KV heads of 64, bfloat16 and float32, the fused
+   MLP at N 1, 4, 5, 16, 256 and 300, swiglu and GELU, and paged decode
+   over 4 slots of 16-332 tokens in pages of 16 with the null page and
+   the positions past each length poisoned; the norms and the fused MLP
+   also at d 4096 (F 14336) and d 5120 (F 27648); mixtral-8x7b: flash
+   attention over 32 query / 8 KV heads of 128 with its window of 4096,
+   at a 300-token prompt and at 4352 tokens (past the window), moe_mlp
+   over 8 experts of d 4096, F 14336 at capacities 8, 12, 80 and 96 and a
+   GELU row, bfloat16; rwkv6-3b: wkv6 over 40 heads of 64, in the JAX
+   op's (BH, S, D) layout and in the model's (B, S, H, D) layout that
+   `rwkv6.time_mix` passes; recurrentgemma-2b: rglru_scan over 2560
+   channels; both float32), TF32 off, with the tolerance stated; kernel,
+   plain-version and library times from CUDA events and from the
+   profiler's device time, and the least time the card could take (bytes
+   over 3.35 TB/s or operations over the type's peak).  Every bfloat16
+   MLP row must give bit-identical outputs on a second launch, and one
+   moe_mlp call at capacity 96 may take at most 64 MB of device memory
+   beside its output.
 3. Correctness end to end, float32 at full width: smollm-135m (4 layers)
    serves one 8-request trace through the plain impls, through the kernel
    impls (decode attention from the page pool: one paged_decode launch a
@@ -51,7 +55,9 @@ exit, no result line) when a check fails:
    a decode step.  Prints tokens/s, TTFT and TPOT.
 5. Breakdown, for each main path: the wall time of a steady decode step
    on the same engine, and from one profiled window the device's busy
-   time, the heaviest kernels and the port's own kernels' time a step.
+   time, the heaviest kernels and the port's own kernels' time a step;
+   smollm's and mixtral's (bfloat16) must run the MLP's cluster tile and
+   not the float32 partial kernel.
 
 The last two lines are one JSON object listing the kernels and one with
 the device: `{"ok": true, "device": {"platform": "gpu", ...}}`.
@@ -88,10 +94,15 @@ MX_SEQS = (300, 4352)      # the main path's longest prompt; past the window
 RWKV_H, RWKV_D = 40, 64                    # rwkv6-3b heads of 64
 LRU_W = 2560                               # recurrentgemma-2b lru_width
 # the port's CUDA kernels, as the profiler names them (mlp_* serve both
-# fused_mlp and moe_mlp)
-OWN_KERNELS = ("rmsnorm_kernel", "rmsnorm_row_kernel", "mlp_partial_kernel",
-               "mlp_reduce_kernel", "flash_fwd_kernel", "paged_decode_kernel",
-               "wkv6_kernel", "rglru_scan_kernel")
+# fused_mlp and moe_mlp: the cluster tile and its fix-up pass for
+# bfloat16, the partial / reduce pair for float32)
+OWN_KERNELS = ("rmsnorm_kernel", "rmsnorm_row_kernel", "mlp_cluster_kernel",
+               "mlp_fixup_kernel", "mlp_partial_kernel", "mlp_reduce_kernel",
+               "flash_fwd_kernel", "paged_decode_kernel", "wkv6_kernel",
+               "rglru_scan_kernel")
+MLP_NS = (1, DECODE_N, 5, 16, 256, 300)     # fused_mlp rows at smollm's width
+MOE_CAPS = (8, 12, 80, 96)                 # moe_mlp capacities (decode, prefill)
+MOE_EXTRA_MB = 64                          # extra device memory of a C-96 call
 
 
 def check(ok: bool, msg: str) -> None:
@@ -181,7 +192,7 @@ def ptxas_phase() -> None:
             f"{u['spill_loads']} bytes spilled (stores / loads)"
             for k, u in zip(readable([u["kernel"] for u in usage]), usage)),
             flush=True)
-        if name in ("fused_norm", "fused_mlp"):
+        if name in ("fused_norm", "fused_mlp", "moe_mlp"):
             check(all(u["spill_stores"] == 0 and u["spill_loads"] == 0
                       for u in usage), f"ptxas {name}.cu: a kernel spills")
 
@@ -191,6 +202,7 @@ def kernel_phase(torch, F):
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_ref, paged_decode_attention_ref)
+    from repro_torch.kernels import _mlp_plan as mplan
     from repro_torch.kernels.fused_mlp import kernel as mk
     from repro_torch.kernels.fused_mlp.ref import fused_mlp_ref
     from repro_torch.kernels.fused_norm import kernel as nk
@@ -233,15 +245,22 @@ def kernel_phase(torch, F):
                  "wkv6": wk.WKV6, "rglru_scan": gk.SCAN}
 
     def record(name, shape, dtype, out, ref, kern, plain, lib, nbytes, flops,
-               tol=None, iters=30):
-        """`out` is the kernel's first result (launched by the caller);
-        `launches` counts that launch and the event-timed ones.  The
-        `*_device_ms` keys are profiler device times of the same calls;
-        each time is the mean of `iters` calls."""
+               tol=None, iters=30, act=None):
+        """`out` is the kernel's first result (launched by the caller) on
+        the inputs of kern(0); `launches` counts that launch and the
+        event-timed ones.  The `*_device_ms` keys are profiler device
+        times of the same calls; each time is the mean of `iters` calls.
+        A bfloat16 MLP row must give bit-identical outputs on a second
+        launch (the cluster tile sums in a fixed order, no atomics)."""
         tol = tol or TOL.get(dtype, TOL_F32[name])
         e, ok = err(out, ref, tol)
         check(ok, f"{name} {shape} {dtype}: kernel disagrees with its plain "
                   f"version (max abs err {e:.3g}, tol {tol})")
+        same = None
+        if dtype == "bfloat16" and name in ("fused_mlp", "moe_mlp"):
+            same = bool(torch.equal(kern(0), out))
+            check(same, f"{name} {shape} {dtype}: two launches on the same "
+                        f"inputs differ")
         b, by = bound_ms(nbytes, flops, dtype)
         before = launchers[name].launches - 1
         kernel_ms = time_ms(torch, kern, iters)
@@ -251,8 +270,14 @@ def kernel_phase(torch, F):
                "plain_ms": time_ms(torch, plain, iters),
                "library_ms": None if lib is None else time_ms(torch, lib, iters),
                "bound_ms": b, "bound_by": by}
+        if act is not None:
+            row["act"] = act
+        if same is not None:
+            row["bit_identical"] = same
         row["kernel_device_ms"] = device_ms(torch, kern, min(iters, 10))
         row["plain_device_ms"] = device_ms(torch, plain, min(iters, 10))
+        row["library_device_ms"] = None if lib is None else \
+            device_ms(torch, lib, min(iters, 10))
         rows.append(row)
         print(json.dumps(row), flush=True)
 
@@ -275,24 +300,36 @@ def kernel_phase(torch, F):
                    lambda i: nk.fused_rmsnorm_residual_cuda(x, r, sc),
                    lambda i: fused_rmsnorm_residual_ref(x, r, sc), None,
                    (4 * n * D + D) * es, 5 * n * D)
-            # weights are read cold on the serving path (30 layers' worth,
-            # beyond the 50 MB L2): rotate through copies that exceed it
-            w_bytes = 3 * D * F_FF * es
-            copies = max(1, math.ceil(64e6 / w_bytes))
-            ws = [(rand((D, F_FF), dt, D ** -0.5), rand((D, F_FF), dt, D ** -0.5),
-                   rand((F_FF, D), dt, F_FF ** -0.5)) for _ in range(copies)]
+        # the fused MLP at smollm's width, swiglu and GELU; weights are
+        # read cold on the serving path (30 layers' worth, beyond the 50 MB
+        # L2): rotate through copies that exceed it
+        w_bytes = 3 * D * F_FF * es
+        copies = max(1, math.ceil(64e6 / w_bytes))
+        ws = [(rand((D, F_FF), dt, D ** -0.5), rand((D, F_FF), dt, D ** -0.5),
+               rand((F_FF, D), dt, F_FF ** -0.5)) for _ in range(copies)]
+        for n in MLP_NS:
             xm = rand((n, D), dt)
-            wg, wi, wo = ws[0]
+            for sw in (True, False):
+                def mlp_lib(i, xm=xm, sw=sw):
+                    g, u, o = ws[i % len(ws)]
+                    h = F.silu(xm @ g) * (xm @ u) if sw else \
+                        F.gelu(xm @ u, approximate="tanh")
+                    return h @ o
 
-            def mlp_lib(i, xm=xm, ws=ws):
-                g, u, o = ws[i % len(ws)]
-                return (F.silu(xm @ g) * (xm @ u)) @ o
+                def mlp_kern(i, xm=xm, sw=sw):
+                    g, u, o = ws[i % len(ws)]
+                    return mk.fused_mlp_cuda(xm, g if sw else None, u, o, swiglu=sw)
 
-            record("fused_mlp", [n, D, F_FF], dtype,
-                   mk.fused_mlp_cuda(xm, wg, wi, wo), fused_mlp_ref(xm, wg, wi, wo),
-                   lambda i, xm=xm, ws=ws: mk.fused_mlp_cuda(xm, *ws[i % len(ws)]),
-                   lambda i, xm=xm, ws=ws: fused_mlp_ref(xm, *ws[i % len(ws)]),
-                   mlp_lib, (2 * n * D + 3 * D * F_FF) * es, 6 * n * D * F_FF)
+                def mlp_plain(i, xm=xm, sw=sw):
+                    g, u, o = ws[i % len(ws)]
+                    return fused_mlp_ref(xm, g if sw else None, u, o, swiglu=sw)
+
+                record("fused_mlp", [n, D, F_FF], dtype, mlp_kern(0), mlp_plain(0),
+                       mlp_kern, mlp_plain, mlp_lib,
+                       (2 * n * D + (3 if sw else 2) * D * F_FF) * es,
+                       (6 if sw else 4) * n * D * F_FF,
+                       act="swiglu" if sw else "gelu")
+        del ws
         for s in (16, 128, 512):
             q, k, v = rand((1, s, H, HD), dt), rand((1, s, HKV, HD), dt), \
                 rand((1, s, HKV, HD), dt)
@@ -414,24 +451,51 @@ def kernel_phase(torch, F):
         print(f"[smoke] paged_decode {dtype}: output unchanged with the null "
               f"page and positions past the lengths poisoned", flush=True)
 
-    # moe_mlp at mixtral's shapes: a decode step's capacity buffers (the
-    # floor of 8 slots) and a 256-token prefill's (80 slots), bfloat16
+    # moe_mlp at mixtral's shapes, bfloat16: a decode step's capacity
+    # buffers (the floor of 8 slots, and 12), a 256-token prefill's (80)
+    # and a 300-token one's (96); then a GELU row.  At capacity 96 the
+    # call's extra peak device memory (beyond its output) is read.
     dt, es = torch.bfloat16, 2
     wg, wi = rand((MOE_E, MOE_D, MOE_F), dt, MOE_D ** -0.5), \
         rand((MOE_E, MOE_D, MOE_F), dt, MOE_D ** -0.5)
     wo = rand((MOE_E, MOE_F, MOE_D), dt, MOE_F ** -0.5)
-    for cap in (8, 80):
+    print(f"[smoke] moe_mlp bf16 plans (clusters the card holds at once, "
+          f"from the occupancy query): " + "; ".join(
+              f"C {cap}: {mplan.launch_plan('moe_mlp', MOE_E, cap, MOE_D, MOE_F, 'bfloat16', True)}"
+              for cap in MOE_CAPS), flush=True)
+    for cap, sw in [(c, True) for c in MOE_CAPS] + [(8, False)]:
         xe = rand((MOE_E, cap, MOE_D), dt)
+        g = wg if sw else None
 
-        def moe_lib(i, xe=xe):
-            return torch.bmm(F.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wi), wo)
+        def moe_lib(i, xe=xe, sw=sw):
+            h = F.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wi) if sw else \
+                F.gelu(torch.bmm(xe, wi), approximate="tanh")
+            return torch.bmm(h, wo)
 
-        record("moe_mlp", [MOE_E, cap, MOE_D, MOE_F], "bfloat16",
-               ek.moe_mlp_cuda(xe, wg, wi, wo), moe_mlp_ref(xe, wg, wi, wo),
-               lambda i, xe=xe: ek.moe_mlp_cuda(xe, wg, wi, wo),
-               lambda i, xe=xe: moe_mlp_ref(xe, wg, wi, wo), moe_lib,
-               (2 * MOE_E * cap * MOE_D + 3 * MOE_E * MOE_D * MOE_F) * es,
-               6 * MOE_E * cap * MOE_D * MOE_F)
+        if cap == MOE_CAPS[-1]:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        out = ek.moe_mlp_cuda(xe, g, wi, wo, swiglu=sw)
+        if cap == MOE_CAPS[-1]:
+            torch.cuda.synchronize()
+            extra = torch.cuda.max_memory_allocated() - base - out.numel() * es
+            print(f"[smoke] moe_mlp C {cap} bf16: extra peak device memory of "
+                  f"one call {extra / 1e6:.3f} MB (limit {MOE_EXTRA_MB} MB)",
+                  flush=True)
+            check(extra <= MOE_EXTRA_MB * 1e6, f"moe_mlp C {cap}: {extra} bytes "
+                  f"of device memory beside the output")
+        record("moe_mlp", [MOE_E, cap, MOE_D, MOE_F], "bfloat16", out,
+               moe_mlp_ref(xe, g, wi, wo, swiglu=sw),
+               lambda i, xe=xe, g=g, sw=sw: ek.moe_mlp_cuda(xe, g, wi, wo, swiglu=sw),
+               lambda i, xe=xe, g=g, sw=sw: moe_mlp_ref(xe, g, wi, wo, swiglu=sw),
+               moe_lib,
+               (2 * MOE_E * cap * MOE_D + (3 if sw else 2) * MOE_E * MOE_D * MOE_F) * es,
+               (6 if sw else 4) * MOE_E * cap * MOE_D * MOE_F,
+               iters=30 if cap <= 16 else 10, act="swiglu" if sw else "gelu")
+        if cap == MOE_CAPS[-1]:
+            rows[-1]["extra_peak_mb"] = extra / 1e6
+        del xe, out
     del wg, wi, wo
     free(torch)
 
@@ -809,10 +873,11 @@ def main_path_phase(torch, arch: str, launchers, n_requests: int,
     return eng, counts, s
 
 
-def breakdown_phase(torch, eng, arch: str):
+def breakdown_phase(torch, eng, arch: str, need=(), forbid=()):
     """Where a decode step's time goes: the wall time of steady decode
     steps (4 slots, 100-token prompts), then one profiled window for the
-    device's busy time, kernel count and heaviest kernels a step."""
+    device's busy time, kernel count and heaviest kernels a step.  Every
+    kernel named in `need` must show in the window, none in `forbid`."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -853,6 +918,10 @@ def breakdown_phase(torch, eng, arch: str):
            "own_kernels_ms_per_step": {k: v for k, v in ours.items() if v > 0}}
     print(json.dumps({"breakdown": out, "arch": arch}), flush=True)
     check(dev_ms > 0, "breakdown: the profiler saw no device time")
+    for k in need:
+        check(any(k in name for name in by_name), f"breakdown {arch}: no {k}")
+    for k in forbid:
+        check(not any(k in name for name in by_name), f"breakdown {arch}: {k} ran")
 
 
 def main() -> int:
@@ -905,7 +974,8 @@ def main() -> int:
     check(counts["paged_decode"] == want,
           f"smollm-135m: paged_decode launched {counts['paged_decode']} "
           f"times, expected {want} (a layer a decode step)")
-    breakdown_phase(torch, eng, "smollm-135m")
+    breakdown_phase(torch, eng, "smollm-135m", need=("mlp_cluster_kernel",),
+                    forbid=("mlp_partial_kernel",))
     del eng
     free(torch)
     launchers = dict(norms, wkv6=wk.WKV6, rglru_scan=gk.SCAN)
@@ -929,7 +999,8 @@ def main() -> int:
         check(path[name] == want, f"mixtral-8x7b: {name} launched "
               f"{path[name]} times, expected {want}")
     counts["moe_mlp"] = path["moe_mlp"]
-    breakdown_phase(torch, eng, "mixtral-8x7b")
+    breakdown_phase(torch, eng, "mixtral-8x7b", need=("mlp_cluster_kernel",),
+                    forbid=("mlp_partial_kernel",))
     del eng
     free(torch)
 
@@ -954,7 +1025,7 @@ def main() -> int:
     kernels = []
     for name, (source, replaces, shape, dtype) in meta.items():
         row = next(r for r in rows if r["name"] == name and r["shape"] == shape
-                   and r["dtype"] == dtype)
+                   and r["dtype"] == dtype and r.get("act", "swiglu") == "swiglu")
         kernels.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/csrc/{source}",
                         "replaces": f"src/repro/kernels/{replaces}",
@@ -962,7 +1033,9 @@ def main() -> int:
                         "max_abs_err": row["max_err"], "ms": row["kernel_ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
-                        "library_ms": row["library_ms"], "shape": shape,
+                        "library_ms": row["library_ms"],
+                        "library_device_ms": row["library_device_ms"],
+                        "kernel_device_ms": row["kernel_device_ms"], "shape": shape,
                         "dtype": dtype, "build_s": build_s})
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -202,6 +202,19 @@ def require_cuda(what: str, *tensors: torch.Tensor) -> None:
                              f"device, got {[str(x.device) for x in tensors]}")
 
 
+def require_tile_inputs(what: str, x: torch.Tensor, tensors) -> None:
+    """Raise unless every tensor shares x's dtype and is contiguous; in
+    bfloat16 each must also start on a 16-byte boundary (the cluster tile
+    reads them by TMA)."""
+    for t in tensors:
+        if t.dtype != x.dtype or not t.is_contiguous():
+            raise ValueError(f"{what}: inputs must share x's dtype and be "
+                             f"contiguous")
+        if x.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{what}: every bfloat16 input must start on a "
+                             f"16-byte boundary")
+
+
 def stream(t: torch.Tensor) -> int:
     """PyTorch's current stream on `t`'s device, as a C pointer value."""
     return torch.cuda.current_stream(t.device).cuda_stream

@@ -2,25 +2,23 @@
 (`csrc/fused_mlp.cu`), the port of `fused_mlp_pallas`.
 
 Takes x (N, d), wg/wi (d, F), wo (F, d) on one CUDA device, one dtype
-(float32 or bfloat16), contiguous, any d (the kernel walks the output
-columns in tiles).  Allocates the output and the float32 partial-sum
-workspace and launches on PyTorch's current stream.
+(float32 or bfloat16), contiguous.  The tile plan (`kernels/_mlp_plan.py`)
+picks the route: bfloat16 runs the cluster tile (d and F multiples of 8,
+d up to 6144, inputs on 16-byte boundaries), cutting F into chunk ranges
+over up to 8 clusters (no more than the card holds at once) with a
+float32 partial per range; float32 runs the FMA tile (any d) with its
+(F/fc, N, d) float32 partial.  Launches on PyTorch's current stream.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build as B
+from repro_torch.kernels._mlp_plan import launch_plan
 
 MLP = B.Launcher("fused_mlp", "fused_mlp", [
     B.VOID_P, B.VOID_P, B.VOID_P, B.VOID_P, B.VOID_P, B.VOID_P, B.INT,
-    B.INT, B.INT, B.INT, B.INT, B.INT, B.VOID_P])
-
-
-def ff_chunk(n: int) -> int:
-    """Hidden units a block takes: narrow chunks at decode widths so the
-    weight reads spread over enough blocks, wide ones for prefill."""
-    return 32 if n <= 64 else 128
+    B.INT, B.INT, B.INT, B.INT, B.INT, B.INT, B.INT, B.INT, B.VOID_P])
 
 
 def fused_mlp_cuda(x: torch.Tensor, wg: torch.Tensor | None, wi: torch.Tensor,
@@ -37,18 +35,17 @@ def fused_mlp_cuda(x: torch.Tensor, wg: torch.Tensor | None, wi: torch.Tensor,
         if tuple(t.shape) != want:
             raise ValueError(f"fused_mlp: weight of shape {tuple(t.shape)}, "
                              f"want {want}")
-    for t in ws:
-        if t.dtype != x.dtype or not t.is_contiguous():
-            raise ValueError("fused_mlp: inputs must share x's dtype and be "
-                             "contiguous")
+    B.require_tile_inputs("fused_mlp", x, ws)
     code = B.dtype_code(x, "fused_mlp")
     out = torch.empty_like(x)
     if n == 0:
         return out
-    fc = ff_chunk(n)
-    partial = torch.empty((-(-f // fc), n, d), dtype=torch.float32,
-                          device=x.device)
+    plan = launch_plan("fused_mlp", 1, n, d, f, str(x.dtype).removeprefix("torch."),
+                       swiglu)
+    partial = torch.empty(plan.workspace_bytes // 4, dtype=torch.float32,
+                          device=x.device) if plan.workspace_bytes else None
     MLP(x.data_ptr(), wg.data_ptr() if swiglu else None, wi.data_ptr(),
-        wo.data_ptr(), partial.data_ptr(), out.data_ptr(), n, d, f, fc,
-        int(swiglu), code, B.stream(x))
+        wo.data_ptr(), None if partial is None else partial.data_ptr(),
+        out.data_ptr(), n, d, f, plan.fc, int(swiglu), code, plan.cl,
+        plan.nt, plan.clusters, B.stream(x))
     return out

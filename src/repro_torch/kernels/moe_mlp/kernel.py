@@ -2,8 +2,14 @@
 (`csrc/moe_mlp.cu`), the port of `moe_mlp_pallas`.
 
 Takes x (E, C, d), wg/wi (E, d, F), wo (E, F, d) on one CUDA device, one
-dtype (float32 or bfloat16), contiguous.  Allocates the output and the
-float32 partial-sum workspace (E * F/128 * C * d values) and launches on
+dtype (float32 or bfloat16), contiguous.  The tile plan
+(`kernels/_mlp_plan.py`) picks the route: bfloat16 runs the cluster tile
+(d and F multiples of 8, inputs on 16-byte boundaries), one cluster an
+(expert, token tile) where the card holds them all at once and nothing
+beside the output is allocated; otherwise the items left over are cut
+into chunk ranges with a float32 partial each (at mixtral's shapes on a
+card that holds 7 clusters of 16: 7 * C * d floats); float32 runs the
+FMA tile with its (E, F/fc, C, d) float32 partial.  Launches on
 PyTorch's current stream.
 """
 from __future__ import annotations
@@ -11,12 +17,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build as B
-
-FF_CHUNK = 128       # hidden units a block (csrc/mlp_tile.cuh)
+from repro_torch.kernels._mlp_plan import launch_plan
 
 MOE = B.Launcher("moe_mlp", "moe_mlp", [
     B.VOID_P, B.VOID_P, B.VOID_P, B.VOID_P, B.VOID_P, B.VOID_P, B.INT,
-    B.INT, B.INT, B.INT, B.INT, B.INT, B.INT, B.VOID_P])
+    B.INT, B.INT, B.INT, B.INT, B.INT, B.INT, B.INT, B.INT, B.INT, B.VOID_P])
 
 
 def moe_mlp_cuda(x: torch.Tensor, wg: torch.Tensor | None, wi: torch.Tensor,
@@ -33,19 +38,18 @@ def moe_mlp_cuda(x: torch.Tensor, wg: torch.Tensor | None, wi: torch.Tensor,
         if tuple(t.shape) != want:
             raise ValueError(f"moe_mlp: weight of shape {tuple(t.shape)}, "
                              f"want {want}")
-    for t in ws:
-        if t.dtype != x.dtype or not t.is_contiguous():
-            raise ValueError("moe_mlp: inputs must share x's dtype and be "
-                             "contiguous")
-    if -(-f // FF_CHUNK) > 65535 or e > 65535:
-        raise ValueError("moe_mlp: grid limits exceeded")
+    B.require_tile_inputs("moe_mlp", x, ws)
     code = B.dtype_code(x, "moe_mlp")
     out = torch.empty_like(x)
     if c == 0:
         return out
-    partial = torch.empty((e, -(-f // FF_CHUNK), c, d), dtype=torch.float32,
-                          device=x.device)
+    plan = launch_plan("moe_mlp", e, c, d, f, str(x.dtype).removeprefix("torch."),
+                       swiglu)
+    partial = torch.empty(plan.workspace_bytes // 4, dtype=torch.float32,
+                          device=x.device) if plan.workspace_bytes else None
     MOE(x.data_ptr(), wg.data_ptr() if swiglu else None, wi.data_ptr(),
-        wo.data_ptr(), partial.data_ptr(), out.data_ptr(), e, c, d, f,
-        FF_CHUNK, int(swiglu), code, B.stream(x))
+        wo.data_ptr(), None if partial is None else partial.data_ptr(),
+        out.data_ptr(), e, c, d, f, plan.fc, int(swiglu), code, plan.cl,
+        plan.nt, plan.clusters, B.stream(x))
     return out
+
