@@ -10,8 +10,9 @@ exit, no result line) when a check fails:
 1. Card and build: prints the card's name and power limit
    (`nvidia-smi`) and builds the CUDA kernels from `src/repro_torch/csrc`
    (one nvcc per source, all at once), printing the build time and
-   ptxas's registers and spilled bytes for each kernel; the fused norm
-   and MLP kernels (fused_mlp.cu, moe_mlp.cu) must not spill.
+   ptxas's registers and spilled bytes for each kernel; the fused norm,
+   flash attention and MLP kernels (fused_mlp.cu, moe_mlp.cu) must not
+   spill.
 2. Kernels: each kernel's launch wrapper against its plain PyTorch
    version on the card, at the serving paths' shapes (smollm-135m: d 576,
    F 1536, 9 query / 3 KV heads of 64, bfloat16 and float32, the fused
@@ -22,16 +23,23 @@ exit, no result line) when a check fails:
    attention over 32 query / 8 KV heads of 128 with its window of 4096,
    at a 300-token prompt and at 4352 tokens (past the window), moe_mlp
    over 8 experts of d 4096, F 14336 at capacities 8, 12, 80 and 96 and a
-   GELU row, bfloat16; rwkv6-3b: wkv6 over 40 heads of 64, in the JAX
+   GELU row, bfloat16; flash attention also at h2o-danube-1.8b's 32 / 8
+   heads of 80 (window 4096, S 300) and over a ragged batch of two
+   100-token prompts; rwkv6-3b: wkv6 over 40 heads of 64, in the JAX
    op's (BH, S, D) layout and in the model's (B, S, H, D) layout that
    `rwkv6.time_mix` passes; recurrentgemma-2b: rglru_scan over 2560
    channels; both float32), TF32 off, with the tolerance stated; kernel,
    plain-version and library times from CUDA events and from the
    profiler's device time, and the least time the card could take (bytes
    over 3.35 TB/s or operations over the type's peak).  Every bfloat16
-   MLP row must give bit-identical outputs on a second launch, and one
-   moe_mlp call at capacity 96 may take at most 64 MB of device memory
-   beside its output.
+   MLP and flash row must give bit-identical outputs on a second launch,
+   and each bfloat16 flash row the same bits under the tile's other block
+   size (4 or 8 warps; its device time is printed); in a windowed
+   bfloat16 flash row past its window, each row q >= window (an average
+   over `window` keys, so its values are small) must also be within
+   2.5e-2 of its own RMS of the float32 plain version.  One moe_mlp call
+   at capacity 96 may take at most 64 MB of device memory beside its
+   output.
 3. Correctness end to end, float32 at full width: smollm-135m (4 layers)
    serves one 8-request trace through the plain impls, through the kernel
    impls (decode attention from the page pool: one paged_decode launch a
@@ -52,12 +60,19 @@ exit, no result line) when a check fails:
    and read just after; every kernel of the path must have run, each
    recurrent layer's kernel and each MoE layer's moe_mlp exactly once a
    prefill and once a decode step, and smollm's paged_decode once a layer
-   a decode step.  Prints tokens/s, TTFT and TPOT.
+   a decode step.  Prints tokens/s, TTFT and TPOT.  After smollm's and
+   mixtral's runs, on the served bfloat16 weights: the last-position
+   logits of one prompt through the flash route and through the einsum
+   route, both bfloat16, each against the float32 plain route; the flash
+   route's max |diff| must be within 1.25x the einsum route's + 1e-3.
 5. Breakdown, for each main path: the wall time of a steady decode step
    on the same engine, and from one profiled window the device's busy
    time, the heaviest kernels and the port's own kernels' time a step;
    smollm's and mixtral's (bfloat16) must run the MLP's cluster tile and
-   not the float32 partial kernel.
+   not the float32 partial kernel.  Then one profiled prefill of each
+   (smollm's bucket 512, mixtral's 300 tokens): device time, flash's
+   share and kernel count; it must run flash_tc_kernel and not the
+   float32 flash_fwd_kernel.
 
 The last two lines are one JSON object listing the kernels and one with
 the device: `{"ok": true, "device": {"platform": "gpu", ...}}`.
@@ -98,8 +113,11 @@ LRU_W = 2560                               # recurrentgemma-2b lru_width
 # bfloat16, the partial / reduce pair for float32)
 OWN_KERNELS = ("rmsnorm_kernel", "rmsnorm_row_kernel", "mlp_cluster_kernel",
                "mlp_fixup_kernel", "mlp_partial_kernel", "mlp_reduce_kernel",
-               "flash_fwd_kernel", "paged_decode_kernel", "wkv6_kernel",
-               "rglru_scan_kernel")
+               "flash_tc_kernel", "flash_fwd_kernel", "paged_decode_kernel",
+               "wkv6_kernel", "rglru_scan_kernel")
+DANUBE = (32, 8, 80, 4096, 300)            # h2o-danube-1.8b: H, Hkv, hd, window, S
+FLASH_RAGGED = (2, 100)                    # a ragged batch: B, S
+FLASH_E2E_SLACK = (1.25, 1e-3)             # flash route's logits error bound
 MLP_NS = (1, DECODE_N, 5, 16, 256, 300)     # fused_mlp rows at smollm's width
 MOE_CAPS = (8, 12, 80, 96)                 # moe_mlp capacities (decode, prefill)
 MOE_EXTRA_MB = 64                          # extra device memory of a C-96 call
@@ -159,8 +177,8 @@ def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
 
 def ptxas_phase() -> None:
     """Print ptxas's registers and spilled bytes for each kernel of each
-    source built by this process; the fused norm and MLP kernels, widened
-    to d 8192, must not spill."""
+    source built by this process; the fused norm (to d 8192), flash
+    attention and MLP kernels must not spill."""
     from repro_torch.kernels import _build
 
     def readable(names):
@@ -192,9 +210,82 @@ def ptxas_phase() -> None:
             f"{u['spill_loads']} bytes spilled (stores / loads)"
             for k, u in zip(readable([u["kernel"] for u in usage]), usage)),
             flush=True)
-        if name in ("fused_norm", "fused_mlp", "moe_mlp"):
+        if name in ("fused_norm", "flash_attention", "fused_mlp", "moe_mlp"):
             check(all(u["spill_stores"] == 0 and u["spill_loads"] == 0
                       for u in usage), f"ptxas {name}.cu: a kernel spills")
+
+
+def flash_other_plan(torch, q, k, v, window, out) -> None:
+    """The bfloat16 flash tile under the block size the rule did not pick
+    (4 <-> 8 warps) must give `out` bit for bit (a warp's walk depends
+    only on its own 16 rows); prints its device time beside the rule's
+    block size."""
+    from repro_torch.kernels import _attn_plan
+    from repro_torch.kernels import _build as B
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    b, sq, h, hd = q.shape
+    _, sk, hkv, _ = k.shape
+    chosen = _attn_plan.flash_plan(
+        b, h, hkv, sq, hd,
+        sms=torch.cuda.get_device_properties(q.device).multi_processor_count)
+    other = 4 if chosen.warps == 8 else 8
+    got = torch.empty_like(q)
+
+    def run(i):
+        fk.FLASH(q.data_ptr(), k.data_ptr(), v.data_ptr(), got.data_ptr(), b, h,
+                 hkv, sq, sk, hd, *fk._strides(q), *fk._strides(k), *fk._strides(v),
+                 1, window or 0, 1.0 / math.sqrt(hd), other, 1, B.stream(q))
+
+    run(0)
+    check(torch.equal(got, out), f"flash {[b, sq, h, hkv, hd, window]}: {other} "
+          f"warps a block differ from the rule's {chosen.warps}")
+    print(json.dumps({"flash_other_plan": [b, sq, h, hkv, hd, window],
+                      "warps": chosen.warps, "other_warps": other,
+                      "other_device_ms": device_ms(torch, run, 10 if sq <= 512 else 3)}),
+          flush=True)
+
+
+def window_rows_err(q, k, v, window, out) -> float:
+    """Largest |out - ref| / RMS(ref row) over the rows q >= window, the
+    float32 plain version as ref: those rows average over `window` keys,
+    so their values are about window ** -0.5 in size and the bfloat16
+    tolerance alone would pass a wrong window edge."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    ref = flash_attention_ref(q.float(), k.float(), v.float(), window=window)[:, window:]
+    rms = ref.pow(2).mean(-1, keepdim=True).sqrt().clamp_min(1e-30)
+    return float(((out.float()[:, window:] - ref).abs() / rms).max())
+
+
+def norm_trace(torch, ns=(DECODE_N, 256)) -> None:
+    """What one bfloat16 `fused_rmsnorm` call and one `F.rms_norm` call
+    launch at smollm's width (d 576, N in `ns`), by the profiler: each
+    device kernel's name and microseconds.  Prints one JSON line a call.
+    (Standalone against another checkout's kernels: put its `src` first
+    on sys.path, import this file and call norm_trace(torch).)"""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.fused_norm import kernel as nk
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for n in ns:
+        x = torch.randn((n, D), generator=g, device="cuda").to(torch.bfloat16)
+        sc = (torch.randn((D,), generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+        w1 = (1.0 + sc.float()).to(torch.bfloat16)
+        for name, fn in (("fused_rmsnorm", lambda: nk.fused_rmsnorm_cuda(x, sc)),
+                         ("F.rms_norm", lambda: F.rms_norm(x, (D,), weight=w1, eps=1e-6))):
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            kern = [[e.name[:80], e.time_range.elapsed_us()] for e in prof.events()
+                    if e.device_type == DeviceType.CUDA]
+            print(json.dumps({"norm_trace": name, "shape": [n, D], "dtype": "bfloat16",
+                              "kernels": kern}), flush=True)
 
 
 def kernel_phase(torch, F):
@@ -245,19 +336,19 @@ def kernel_phase(torch, F):
                  "wkv6": wk.WKV6, "rglru_scan": gk.SCAN}
 
     def record(name, shape, dtype, out, ref, kern, plain, lib, nbytes, flops,
-               tol=None, iters=30, act=None):
+               tol=None, iters=30, act=None, extra=None):
         """`out` is the kernel's first result (launched by the caller) on
         the inputs of kern(0); `launches` counts that launch and the
         event-timed ones.  The `*_device_ms` keys are profiler device
         times of the same calls; each time is the mean of `iters` calls.
-        A bfloat16 MLP row must give bit-identical outputs on a second
-        launch (the cluster tile sums in a fixed order, no atomics)."""
+        A bfloat16 MLP or flash row must give bit-identical outputs on a
+        second launch (both tiles sum in a fixed order, no atomics)."""
         tol = tol or TOL.get(dtype, TOL_F32[name])
         e, ok = err(out, ref, tol)
         check(ok, f"{name} {shape} {dtype}: kernel disagrees with its plain "
                   f"version (max abs err {e:.3g}, tol {tol})")
         same = None
-        if dtype == "bfloat16" and name in ("fused_mlp", "moe_mlp"):
+        if dtype == "bfloat16" and name in ("fused_mlp", "moe_mlp", "flash_attention"):
             same = bool(torch.equal(kern(0), out))
             check(same, f"{name} {shape} {dtype}: two launches on the same "
                         f"inputs differ")
@@ -272,6 +363,7 @@ def kernel_phase(torch, F):
                "bound_ms": b, "bound_by": by}
         if act is not None:
             row["act"] = act
+        row.update(extra or {})
         if same is not None:
             row["bit_identical"] = same
         row["kernel_device_ms"] = device_ms(torch, kern, min(iters, 10))
@@ -330,45 +422,48 @@ def kernel_phase(torch, F):
                        (6 if sw else 4) * n * D * F_FF,
                        act="swiglu" if sw else "gelu")
         del ws
-        for s in (16, 128, 512):
-            q, k, v = rand((1, s, H, HD), dt), rand((1, s, HKV, HD), dt), \
-                rand((1, s, HKV, HD), dt)
-            pairs = s * (s + 1) // 2              # causal (q, k) pairs
-            record("flash_attention", [1, s, H, HKV, HD], dtype,
-                   fk.flash_attention_cuda(q, k, v), flash_attention_ref(q, k, v),
-                   lambda i: fk.flash_attention_cuda(q, k, v),
-                   lambda i: flash_attention_ref(q, k, v),
-                   None if not sdpa_gqa else
-                   lambda i: F.scaled_dot_product_attention(
-                       q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                       is_causal=True, enable_gqa=True),
-                   (2 * s * H * HD + 2 * s * HKV * HD) * es, 4 * HD * pairs * H)
-        # mixtral-8x7b's prefill attention: hd 128, 32 / 8 heads, window
-        # 4096; the longer sequence runs past the window, so its mask cuts
-        for s in MX_SEQS:
-            q, k, v = rand((1, s, MX_H, MX_HD), dt), \
-                rand((1, s, MX_HKV, MX_HD), dt), rand((1, s, MX_HKV, MX_HD), dt)
-            w = MX_WINDOW
+        # flash attention: smollm's prefill buckets, a ragged batch of two,
+        # mixtral-8x7b's (hd 128, 32 / 8 heads, window 4096; the longer
+        # prompt runs past the window, so its mask cuts) and
+        # h2o-danube-1.8b's head dim 80
+        flash_shapes = [(1, s, H, HKV, HD, None) for s in (16, 128, 512)] + \
+            [(FLASH_RAGGED[0], FLASH_RAGGED[1], H, HKV, HD, None)] + \
+            [(1, s, MX_H, MX_HKV, MX_HD, MX_WINDOW) for s in MX_SEQS] + \
+            [(1, DANUBE[4], *DANUBE[:4])]
+        for b, s, h, hkv, hd, w in flash_shapes:
+            q, k, v = rand((b, s, h, hd), dt), rand((b, s, hkv, hd), dt), \
+                rand((b, s, hkv, hd), dt)
             # (q, k) pairs inside the causal window: min(q + 1, w) a query
-            pairs = min(s, w) * (min(s, w) + 1) // 2 + max(0, s - w) * w
-            qpos = torch.arange(s, device=dev)[:, None]
-            kpos = torch.arange(s, device=dev)[None, :]
-            allowed = (kpos <= qpos) & (kpos > qpos - w)
+            ww = w or s
+            pairs = min(s, ww) * (min(s, ww) + 1) // 2 + max(0, s - ww) * ww
+            lib = None
+            if sdpa_gqa:
+                qpos = torch.arange(s, device=dev)[:, None]
+                kpos = torch.arange(s, device=dev)[None, :]
+                allowed = None if w is None else (kpos <= qpos) & (kpos > qpos - w)
 
-            def mx_lib(i, q=q, k=k, v=v, allowed=allowed):
-                return F.scaled_dot_product_attention(
-                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    attn_mask=allowed, enable_gqa=True)
+                def lib(i, q=q, k=k, v=v, allowed=allowed):
+                    return F.scaled_dot_product_attention(
+                        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                        attn_mask=allowed, is_causal=allowed is None,
+                        enable_gqa=True)
 
-            record("flash_attention", [1, s, MX_H, MX_HKV, MX_HD, w], dtype,
-                   fk.flash_attention_cuda(q, k, v, window=w),
-                   flash_attention_ref(q, k, v, window=w),
-                   lambda i, q=q, k=k, v=v: fk.flash_attention_cuda(q, k, v, window=w),
-                   lambda i, q=q, k=k, v=v: flash_attention_ref(q, k, v, window=w),
-                   mx_lib if sdpa_gqa else None,
-                   (2 * s * MX_H * MX_HD + 2 * s * MX_HKV * MX_HD) * es,
-                   4 * MX_HD * pairs * MX_H, iters=30 if s <= 512 else 5)
-            del q, k, v, allowed
+            out = fk.flash_attention_cuda(q, k, v, window=w)
+            extra = None
+            if dtype == "bfloat16" and w and s > w:
+                rel = window_rows_err(q, k, v, w, out)
+                check(rel <= TOL[dtype], f"flash {[b, s, h, hkv, hd, w]}: rows past "
+                      f"the window off by {rel:.3g} of their RMS (tol {TOL[dtype]})")
+                extra = {"window_rows_rms_err": rel}
+            record("flash_attention", [b, s, h, hkv, hd] + ([w] if w else []),
+                   dtype, out, flash_attention_ref(q, k, v, window=w),
+                   lambda i, q=q, k=k, v=v, w=w: fk.flash_attention_cuda(q, k, v, window=w),
+                   lambda i, q=q, k=k, v=v, w=w: flash_attention_ref(q, k, v, window=w),
+                   lib, (2 * b * s * h * hd + 2 * b * s * hkv * hd) * es,
+                   4 * hd * pairs * h * b, iters=30 if s <= 512 else 5, extra=extra)
+            if dtype == "bfloat16":
+                flash_other_plan(torch, q, k, v, w, out)
+            del q, k, v, out
         free(torch)
 
     # the norms and the fused MLP at the widths of mixtral-8x7b (d 4096)
@@ -924,6 +1019,89 @@ def breakdown_phase(torch, eng, arch: str, need=(), forbid=()):
         check(not any(k in name for name in by_name), f"breakdown {arch}: {k} ran")
 
 
+def flash_logits_check(torch, eng, arch: str, n_tokens: int) -> None:
+    """The served bfloat16 weights' last-position logits of one seeded
+    `n_tokens` prompt through the flash route and through the einsum
+    route, both bfloat16 on the card, each against the float32 plain
+    route (einsum attention, dense MLP, plain norms) on the same weights.
+    Rounding P to bfloat16 inside the flash tile must cost no more than
+    the einsum route's own bfloat16 rounding allows."""
+    import numpy as np
+
+    from repro_torch.models import api
+
+    cfg = eng.mcfg
+    rng = np.random.default_rng(4)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, n_tokens),
+                           device="cuda").long()[None]
+    routes = {"flash": cfg, "einsum": cfg.replace(attn_impl="einsum"),
+              "float32": cfg.replace(dtype="float32", attn_impl="einsum",
+                                     mlp_impl="dense", norm_impl="ref")}
+    logits = {r: api.forward(c, eng.params, {"tokens": toks})[0, -1].float()
+              for r, c in routes.items()}
+    diff = {r: float((logits[r] - logits["float32"]).abs().max())
+            for r in ("flash", "einsum")}
+    slack, floor = FLASH_E2E_SLACK
+    print(f"[smoke] bf16 logits {arch} {cfg.n_layers}L, {n_tokens}-token prompt, "
+          f"last position against the float32 plain route: flash route max "
+          f"|diff| {diff['flash']:.4g}, einsum route {diff['einsum']:.4g} "
+          f"(bound {slack} x einsum + {floor})", flush=True)
+    check(all(bool(torch.isfinite(x).all()) for x in logits.values()),
+          f"bf16 logits {arch}: non-finite logits")
+    check(diff["flash"] <= slack * diff["einsum"] + floor,
+          f"bf16 logits {arch}: the flash route is off by {diff['flash']}, "
+          f"the einsum route by {diff['einsum']}")
+
+
+def prefill_breakdown_phase(torch, eng, arch: str, plen: int) -> None:
+    """Where one prefill's time goes: a seeded `plen`-token prompt into
+    slot 0 through the engine's state (smollm: bucket-padded into the page
+    pool), timed by the host clock, then profiled once: device time,
+    flash's share, kernel count.  It must run the tensor-core flash tile
+    and not the float32 FMA kernel."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    seq = np.random.default_rng(5).integers(0, eng.mcfg.vocab, plen).astype(np.int32)
+
+    def prefill():
+        if eng.paged:
+            check(eng.pool.ensure(0, plen + 1), f"prefill {arch}: pool too small")
+        eng.state.prefill(eng.params, 0, seq)
+        eng.state.release(0)
+
+    prefill()                              # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prefill()
+        torch.cuda.synchronize()
+    by_name: dict[str, float] = {}
+    n = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            n += 1
+    dev_ms = sum(by_name.values()) / 1e3
+    flash_ms = sum(v for k, v in by_name.items() if "flash_" in k) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    out = {"prefill_tokens": plen, "wall_ms": wall_ms, "device_ms": dev_ms,
+           "device_busy_share": dev_ms / wall_ms, "flash_ms": flash_ms,
+           "flash_share": flash_ms / dev_ms if dev_ms else None, "kernels": n,
+           "top_kernels_ms": [[k[:60], v / 1e3] for k, v in top],
+           "own_kernels_ms": {k: v / 1e3 for k in OWN_KERNELS
+                              if (v := sum(t for name, t in by_name.items() if k in name))}}
+    print(json.dumps({"prefill_breakdown": out, "arch": arch}), flush=True)
+    check(dev_ms > 0, f"prefill {arch}: the profiler saw no device time")
+    check(any("flash_tc_kernel" in k for k in by_name), f"prefill {arch}: no flash_tc_kernel")
+    check(not any("flash_fwd_kernel" in k for k in by_name),
+          f"prefill {arch}: the float32 flash kernel ran")
+
+
 def main() -> int:
     import torch
 
@@ -958,6 +1136,7 @@ def main() -> int:
     print(f"[smoke] allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
 
+    norm_trace(torch)
     rows = kernel_phase(torch, F)
     e2e_phase(torch)
     moe_e2e_phase(torch, 2)
@@ -976,6 +1155,8 @@ def main() -> int:
           f"times, expected {want} (a layer a decode step)")
     breakdown_phase(torch, eng, "smollm-135m", need=("mlp_cluster_kernel",),
                     forbid=("mlp_partial_kernel",))
+    prefill_breakdown_phase(torch, eng, "smollm-135m", 400)     # bucket 512
+    flash_logits_check(torch, eng, "smollm-135m", 300)
     del eng
     free(torch)
     launchers = dict(norms, wkv6=wk.WKV6, rglru_scan=gk.SCAN)
@@ -1001,6 +1182,8 @@ def main() -> int:
     counts["moe_mlp"] = path["moe_mlp"]
     breakdown_phase(torch, eng, "mixtral-8x7b", need=("mlp_cluster_kernel",),
                     forbid=("mlp_partial_kernel",))
+    prefill_breakdown_phase(torch, eng, "mixtral-8x7b", 300)
+    flash_logits_check(torch, eng, "mixtral-8x7b", 300)
     del eng
     free(torch)
 

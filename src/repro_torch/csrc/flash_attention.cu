@@ -1,36 +1,72 @@
 // Causal GQA flash attention (prefill) for Hopper (sm_90a).
 //
 // Replaces the TPU kernel flash_attention_bhsd
-// (src/repro/kernels/flash_attention/kernel.py): softmax(q k^T / sqrt(hd))
-// v with causal, optional sliding-window and kpos < Sk masking by -1e30,
-// an online max and sum in float32 and a float32 accumulator; query head h
-// reads kv head h / (H / Hkv); rows with no valid key come out as 0.
+// (src/repro/kernels/flash_attention/kernel.py:80): softmax(q k^T /
+// sqrt(hd)) v with causal, optional sliding-window (kpos > qpos - window)
+// and kpos < Sk masking, an online max and sum in float32 and a float32
+// accumulator; query head h reads kv head h / (H / Hkv); rows with no valid
+// key come out as 0.  q, k and v are read in the model layout (B, S,
+// heads, hd) through their strides, so no transpose runs before it.
 //
-// What bounds it on the H100: at the serving path's prefill lengths
-// (Sq = Sk <= 512, hd 64) it is small either way; the (Sq, Sk) score matrix
-// is what must stay off device memory, and the work (4*Sq*Sk*hd/2 FLOPs
-// causal) grows faster than the bytes (q, k, v, o once each).  A block
-// takes one (batch, head) pair and 64 queries and walks the KV tiles of 32
-// keys in order, so scores, probabilities, max and sum live in shared
-// memory and registers only.  KV tiles wholly past the causal diagonal are
-// never loaded; tiles wholly outside the window are skipped.  The kernel
-// reads q, k and v in the model layout (B, S, heads, hd) through their
-// strides, so no transpose runs before it.  Products are float32 FMAs from
-// shared memory; tensor cores are later work.
+// What bounds it on the H100: operations.  The (Sq, Sk) scores must stay
+// off device memory, and the work (4 * hd FLOPs a (q, k) pair inside the
+// mask) grows faster than the bytes (q, k, v, o once each): mixtral-8x7b's
+// 4352-token prefill is 154 GFLOP against 36 MB.  At smollm-135m's prefill
+// buckets (S <= 512) the whole call is a few microseconds, so what counts
+// there is the latency of the longest walk over the keys.
+//
+// bfloat16 route: flash_tc_kernel, an FA2-style tile on tensor cores
+// (mma.sync.m16n8k16, bf16 in, float32 sums).  A block serves one query
+// head and 16 query positions a warp (4 or 8 warps).  Each warp loads its
+// Q fragments once (ldmatrix) and keeps them in registers.  K/V tiles of 64 keys stream through a 3-stage ring of
+// shared memory, filled with 16-byte cp.async (zero fill past Sk), the
+// next tiles in flight while the current one is computed.  S = Q K^T runs
+// on the tensor cores; the scale is folded into an exp2; the mask is
+// applied only on tiles that cut the diagonal, the window edge or Sk
+// (tile_class; interior tiles skip it, and tiles with no valid pair are
+// never loaded: kv_range).  The online max and sum stay in registers with
+// quad shuffles along each row; P is rounded to bf16 in registers and fed
+// straight back as the A operand of P V, with V through ldmatrix.trans and
+// O a float32 sum in registers.  The epilogue normalises by 1 / max(l,
+// 1e-30) and stores through shared memory as 16-byte writes.  The heaviest
+// causal query tiles are launched first (blockIdx.y runs from the last
+// tile down).  No atomics and no split of a row across blocks, so the
+// output is bit-identical from launch to launch.  The tile plan (the
+// warps a block) is computed by kernels/_attn_plan.py and passed in;
+// tile_class and kv_range are mirrored there for the CPU tests.
+//
+// The rounding this route adds: P is rounded to bf16 before P V, as the
+// port's einsum attention does (models/common.py: softmax(...).to(q.dtype)
+// before the bf16 P V einsum); the plain version keeps P in float32.
+// Inputs must start on 16-byte boundaries with strides that are multiples
+// of 8 elements (the wrapper checks).
+//
+// float32 route: the first port's FMA kernel (flash_fwd_kernel), kept for
+// the float32 end-to-end checks: a block takes one (batch, head) pair and
+// 64 queries and walks KV tiles of 32 keys in shared memory, float32 FMAs.
+#include <cmath>
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
-
-constexpr int kBQ = 64;       // queries a block
-constexpr int kBK = 32;       // keys a tile
-constexpr int kThreads = 128; // two threads a query row
 
 struct Strides {
   long long b, s, h;  // element strides of batch, sequence, head (hd: 1)
 };
 
+using mz::kDevices;   // shared-memory opt-in tables, per device (mz::opt_in)
+
+// ---------------------------------------------------------------------------
+// float32: the FMA kernel of the first port
+// ---------------------------------------------------------------------------
+
+constexpr int kBQ = 64;       // queries a block
+constexpr int kBK = 32;       // keys a tile
+constexpr int kThreads = 128; // two threads a query row
+
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)  // without the 1, hd 80 spilled
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int H, int Hkv,
                  int Sq, int Sk, Strides qs, Strides ks, Strides vs, int causal,
@@ -140,20 +176,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
-                   int H, int Hkv, int Sq, int Sk, Strides qs, Strides ks,
-                   Strides vs, int causal, int window, float scale,
-                   cudaStream_t st) {
-  const size_t smem =
-      sizeof(float) * (kBQ * (HD + 1) + 2 * kBK * (HD + 1) + kBQ * (kBK + 1));
+int fma_smem_set[kDevices] = {};
+
+template <typename T, int HD>
+cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
+                       int B, int H, int Hkv, int Sq, int Sk, Strides qs,
+                       Strides ks, Strides vs, int causal, int window,
+                       float scale, cudaStream_t st) {
+  const int smem = static_cast<int>(
+      sizeof(float) * (kBQ * (HD + 1) + 2 * kBK * (HD + 1) + kBQ * (kBK + 1)));
   auto kern = flash_fwd_kernel<T, HD>;
-  static bool opted_in = false;  // above 48 KB needs the opt-in (hd 128)
-  if (!opted_in) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    opted_in = true;
-  }
+  cudaError_t e = mz::opt_in(kern, fma_smem_set<T, HD>, smem);  // above 48 KB (hd >= 80)
+  if (e != cudaSuccess) return e;
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   kern<<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
@@ -161,37 +195,361 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t by_hd(int hd, const void* q, const void* k, const void* v, void* o,
-                  int B, int H, int Hkv, int Sq, int Sk, Strides qs, Strides ks,
-                  Strides vs, int causal, int window, float scale, cudaStream_t st) {
-  if (hd == 32) return launch<T, 32>(q, k, v, o, B, H, Hkv, Sq, Sk, qs, ks, vs, causal, window, scale, st);
-  if (hd == 64) return launch<T, 64>(q, k, v, o, B, H, Hkv, Sq, Sk, qs, ks, vs, causal, window, scale, st);
-  if (hd == 128) return launch<T, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, qs, ks, vs, causal, window, scale, st);
-  return cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// bfloat16: the tensor-core tile
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcBK = 64;        // keys a K/V tile
+constexpr int kTcStages = 3;     // K/V ring stages
+constexpr int kTcMaxWarps = 8;   // warps a block at most
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Classification of a (query tile, key tile) pair, mirrored by
+// kernels/_attn_plan.py:tile_class.  Rows >= sq are padding and ignored.
+//   0: no (q, k) pair of the tile is valid (the tile is skipped)
+//   1: every pair is valid (no mask applied)
+//   2: an edge tile: some pair is masked (causal diagonal, window edge or
+//      keys past sk), so the mask is applied element by element
+__device__ __forceinline__ int tile_class(int q0, int bq, int k0, int bk, int sq,
+                                          int sk, int causal, int window) {
+  const int q_hi = (q0 + bq < sq ? q0 + bq : sq) - 1;
+  const int k_hi = (k0 + bk < sk ? k0 + bk : sk) - 1;
+  if (q_hi < q0 || k_hi < k0) return 0;
+  // the keys valid for some row of [q0, q_hi] form [q0 - window + 1, q_hi]
+  if (causal && k0 > q_hi) return 0;
+  if (window > 0 && k_hi <= q0 - window) return 0;
+  const bool full = k0 + bk <= sk && (!causal || k0 + bk - 1 <= q0) &&
+                    (window <= 0 || k0 > q_hi - window);
+  return full ? 1 : 2;
+}
+
+// The key tiles [first, last] a query tile walks (last < first: none);
+// every tile outside holds no valid pair.  Mirrored by
+// kernels/_attn_plan.py:kv_range.
+__device__ __forceinline__ void kv_range(int q0, int bq, int sq, int sk, int causal,
+                                         int window, int bk, int& first, int& last) {
+  const int q_hi = (q0 + bq < sq ? q0 + bq : sq) - 1;
+  int k_hi = sk - 1;
+  if (causal && q_hi < k_hi) k_hi = q_hi;
+  const int k_lo = window > 0 && q0 - window + 1 > 0 ? q0 - window + 1 : 0;
+  first = k_lo / bk;
+  last = (q_hi < q0 || k_hi < k_lo) ? first - 1 : k_hi / bk;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory; zeros where !pred
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(pred ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// c += a b for one m16n8k16 tile, b given as its two registers
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to bf16 (nearest even), the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+constexpr int tc_smem_bytes(int hd, int warps) {
+  return (warps * 16 + kTcStages * 2 * kTcBK) * (hd + 8) * 2;
+}
+
+// grid: x = (b, head), y = query tile, the last (heaviest under a causal
+// mask) first; block: one warp for each 16 query positions
+template <int HD>
+__global__ void __launch_bounds__(32 * kTcMaxWarps, 1)
+flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ o, int H, int Hkv,
+                int Sq, int Sk, Strides qs, Strides ks, Strides vs, int causal,
+                int window, float sl2) {
+  constexpr int ST = HD + 8;    // shared row stride: ldmatrix rows on distinct banks
+  constexpr int CPR = HD / 8;   // 16-byte chunks a row
+  constexpr int KSTEPS = HD / 16;
+  constexpr int NT = HD / 8;    // 8-wide n tiles of O
+  constexpr int SN = kTcBK / 8; // 8-wide n tiles of S
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nw = blockDim.x >> 5;
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // [nw * 16][ST]; O in the epilogue
+  bf16* Ks = Qs + nw * 16 * ST;                    // [stages][kTcBK][ST]
+  bf16* Vs = Ks + kTcStages * kTcBK * ST;          // [stages][kTcBK][ST]
+
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int h = blockIdx.x % H, b = blockIdx.x / H;
+  const int hk = h / (H / Hkv);
+  const int bq = 16 * nw;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * bq;
+  const int wq0 = q0 + w * 16;             // this warp's first position
+
+  // stage Q: rows w*16 .. w*16+15 of Qs are warp w's
+  for (int e = tid; e < nw * 16 * CPR; e += blockDim.x) {
+    const int r = e / CPR, ch = e % CPR, pos = q0 + r;
+    const bool ok = pos < Sq;
+    const bf16* src = ok ? q + b * qs.b + pos * qs.s + h * qs.h + ch * 8 : q;
+    cp_async16(smem_addr(Qs + r * ST + ch * 8), src, ok);
+  }
+  int first, last;
+  kv_range(q0, bq, Sq, Sk, causal, window, kTcBK, first, last);
+  const int n_tiles = last - first + 1;
+  const bf16* kb = k + b * ks.b + hk * ks.h;
+  const bf16* vb = v + b * vs.b + hk * vs.h;
+  auto load_kv = [&](int tile, int stage) {
+    const int k0 = tile * kTcBK;
+    bf16* kd = Ks + stage * kTcBK * ST;
+    bf16* vd = Vs + stage * kTcBK * ST;
+    for (int e = tid; e < kTcBK * CPR; e += blockDim.x) {
+      const int j = e / CPR, ch = e % CPR, pos = k0 + j;
+      const bool ok = pos < Sk;
+      cp_async16(smem_addr(kd + j * ST + ch * 8), ok ? kb + pos * ks.s + ch * 8 : k, ok);
+      cp_async16(smem_addr(vd + j * ST + ch * 8), ok ? vb + pos * vs.s + ch * 8 : v, ok);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kTcStages - 1; ++s) {   // Q rides in the first group
+    if (s < n_tiles) load_kv(first + s, s);
+    cp_commit();
+  }
+
+  const int r4 = lane >> 2, c4 = (lane & 3) * 2;   // this lane's row and column pair
+  // ldmatrix row addresses: Q as the A operand (x4: rows 0-7 / 8-15, k lo /
+  // hi); K as B (x4: two n tiles of keys, k lo / hi); V as B, transposed
+  // (x4: keys lo / hi, two n tiles of hd)
+  const uint32_t q_addr = smem_addr(
+      Qs + (w * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ST + (lane >> 4) * 8);
+  const int k_off = ((lane & 7) + (lane >> 4) * 8) * ST + ((lane >> 3) & 1) * 8;
+  const int v_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * ST + (lane >> 4) * 8;
+
+  uint32_t qf[KSTEPS][4];
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;   // running max of rows r4, r4 + 8 (raw scores)
+  float l0 = 0.f, l1 = 0.f;               // this lane's part of the running sums
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_wait<kTcStages - 2>();
+    __syncthreads();   // tile `it` is in; every warp is done with tile it - 1
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) ldsm_x4(qf[kk], q_addr + kk * 32);
+    }
+    {
+      const int nx = it + kTcStages - 1;   // into the stage tile it - 1 used
+      if (nx < n_tiles) load_kv(first + nx, nx % kTcStages);
+      cp_commit();
+    }
+    const int k0 = (first + it) * kTcBK;
+    const int cls = tile_class(wq0, 16, k0, kTcBK, Sq, Sk, causal, window);
+    if (cls == 0) continue;   // warp-uniform: none of this warp's pairs is valid
+    const int stage = it % kTcStages;
+    const uint32_t kbase = smem_addr(Ks + stage * kTcBK * ST + k_off);
+    const uint32_t vbase = smem_addr(Vs + stage * kTcBK * ST + v_off);
+
+    float s[SN][4];
+#pragma unroll
+    for (int j = 0; j < SN; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+#pragma unroll
+      for (int jp = 0; jp < SN / 2; ++jp) {
+        uint32_t bb[4];
+        ldsm_x4(bb, kbase + (jp * 16 * ST + kk * 16) * 2);
+        mma_bf16(s[2 * jp], qf[kk], bb[0], bb[1]);
+        mma_bf16(s[2 * jp + 1], qf[kk], bb[2], bb[3]);
+      }
+    }
+    if (cls == 2) {
+#pragma unroll
+      for (int j = 0; j < SN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qp = wq0 + r4 + (e >> 1) * 8;
+          const int kp = k0 + j * 8 + c4 + (e & 1);
+          bool ok = kp < Sk;
+          if (causal) ok = ok && kp <= qp;
+          if (window > 0) ok = ok && kp > qp - window;
+          if (!ok) s[j][e] = -INFINITY;
+        }
+    }
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int j = 0; j < SN; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    // a row with no valid key so far keeps max -inf: use 0 so that
+    // exp2(-inf - 0) = 0 instead of NaN
+    const float ms0 = mx0 == -INFINITY ? 0.f : mx0 * sl2;
+    const float ms1 = mx1 == -INFINITY ? 0.f : mx1 * sl2;
+    const float cr0 = exp2f(m0 * sl2 - ms0), cr1 = exp2f(m1 * sl2 - ms1);
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= cr0;
+    l1 *= cr1;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      acc[n][0] *= cr0;
+      acc[n][1] *= cr0;
+      acc[n][2] *= cr1;
+      acc[n][3] *= cr1;
+    }
+    // P in registers, rounded to bf16, as the A operand of P V: k step kk
+    // takes n tiles 2kk (keys 0-7) and 2kk + 1 (keys 8-15)
+    uint32_t pa[SN / 2][4];
+#pragma unroll
+    for (int j = 0; j < SN; ++j) {
+      const float p0 = exp2f(fmaf(s[j][0], sl2, -ms0));
+      const float p1 = exp2f(fmaf(s[j][1], sl2, -ms0));
+      const float p2 = exp2f(fmaf(s[j][2], sl2, -ms1));
+      const float p3 = exp2f(fmaf(s[j][3], sl2, -ms1));
+      l0 += p0 + p1;
+      l1 += p2 + p3;
+      pa[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
+      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+    }
+#pragma unroll
+    for (int kk = 0; kk < SN / 2; ++kk) {
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bb[4];
+        ldsm_x4_t(bb, vbase + (kk * 16 * ST + np * 16) * 2);
+        mma_bf16(acc[2 * np], pa[kk], bb[0], bb[1]);
+        mma_bf16(acc[2 * np + 1], pa[kk], bb[2], bb[3]);
+      }
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();   // Q copies of a block with no key tile have landed
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float i0 = 1.f / fmaxf(l0, 1e-30f), i1 = 1.f / fmaxf(l1, 1e-30f);
+  bf16* Os = Qs + w * 16 * ST;   // this warp's own Q rows, read into registers above
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    *reinterpret_cast<uint32_t*>(Os + r4 * ST + n * 8 + c4) =
+        pack_bf16(acc[n][0] * i0, acc[n][1] * i0);
+    *reinterpret_cast<uint32_t*>(Os + (r4 + 8) * ST + n * 8 + c4) =
+        pack_bf16(acc[n][2] * i1, acc[n][3] * i1);
+  }
+  __syncwarp();
+  for (int e = lane; e < 16 * CPR; e += 32) {
+    const int r = e / CPR, ch = e % CPR, pos = wq0 + r;
+    if (pos < Sq)
+      *reinterpret_cast<uint4*>(o + ((static_cast<size_t>(b) * Sq + pos) * H + h) * HD + ch * 8) =
+          *reinterpret_cast<const uint4*>(Os + r * ST + ch * 8);
+  }
+}
+
+template <int HD>
+int tc_smem_set[kDevices] = {};
+
+template <int HD>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int B,
+                      int H, int Hkv, int Sq, int Sk, Strides qs, Strides ks,
+                      Strides vs, int causal, int window, float scale, int warps,
+                      cudaStream_t st) {
+  if (warps < 1 || warps > kTcMaxWarps) return cudaErrorInvalidValue;
+  const long long n_q = (Sq + 16LL * warps - 1) / (16LL * warps);
+  const long long n_x = static_cast<long long>(B) * H;
+  if (n_q > 65535 || n_x > 0x7fffffffLL) return cudaErrorInvalidValue;
+  auto kern = flash_tc_kernel<HD>;
+  // the limit is raised once to the largest block (8 warps) of this head dim
+  cudaError_t e = mz::opt_in(kern, tc_smem_set<HD>, tc_smem_bytes(HD, kTcMaxWarps));
+  if (e != cudaSuccess) return e;
+  const dim3 grid(static_cast<unsigned>(n_x), static_cast<unsigned>(n_q));
+  kern<<<grid, 32 * warps, tc_smem_bytes(HD, warps), st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), H, Hkv, Sq, Sk, qs, ks, vs, causal, window, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+bool tc_aligned(const void* p, Strides s) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s.b % 8 == 0 && s.s % 8 == 0 &&
+         s.h % 8 == 0;
 }
 
 }  // namespace
 
 // q: (B, Sq, H, hd), k/v: (B, Sk, Hkv, hd), each with unit hd stride and
 // the element strides given; o: (B, Sq, H, hd) contiguous.  hd in
-// {32, 64, 128}; window <= 0 means none.
+// {32, 64, 80, 128}; window <= 0 means none.  bfloat16 (dtype 1) takes the
+// tensor-core tile with the warps a block of kernels/_attn_plan.py, its
+// inputs on 16-byte boundaries with strides in multiples of 8; float32
+// (dtype 0) the FMA kernel, which ignores `warps`.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int B, int H, int Hkv, int Sq, int Sk,
                                int hd, long long q_sb, long long q_ss,
                                long long q_sh, long long k_sb, long long k_ss,
                                long long k_sh, long long v_sb, long long v_ss,
                                long long v_sh, int causal, int window,
-                               float scale, int dtype, void* stream) {
+                               float scale, int warps, int dtype,
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
-  cudaError_t e;
-  if (dtype == 0)
-    e = by_hd<float>(hd, q, k, v, o, B, H, Hkv, Sq, Sk, qs, ks, vs, causal, window, scale, st);
-  else if (dtype == 1)
-    e = by_hd<__nv_bfloat16>(hd, q, k, v, o, B, H, Hkv, Sq, Sk, qs, ks, vs, causal, window, scale, st);
-  else
-    e = cudaErrorInvalidValue;
+  cudaError_t e = cudaErrorInvalidValue;
+  if (dtype == 0) {
+#define MZ_FMA(HD) launch_fma<float, HD>(q, k, v, o, B, H, Hkv, Sq, Sk, qs, ks, vs, causal, window, scale, st)
+    if (hd == 32) e = MZ_FMA(32);
+    else if (hd == 64) e = MZ_FMA(64);
+    else if (hd == 80) e = MZ_FMA(80);
+    else if (hd == 128) e = MZ_FMA(128);
+#undef MZ_FMA
+  } else if (dtype == 1) {
+    if (!tc_aligned(q, qs) || !tc_aligned(k, ks) || !tc_aligned(v, vs) ||
+        reinterpret_cast<uintptr_t>(o) % 16)
+      return static_cast<int>(cudaErrorMisalignedAddress);
+#define MZ_TC(HD) launch_tc<HD>(q, k, v, o, B, H, Hkv, Sq, Sk, qs, ks, vs, causal, window, scale, warps, st)
+    if (hd == 32) e = MZ_TC(32);
+    else if (hd == 64) e = MZ_TC(64);
+    else if (hd == 80) e = MZ_TC(80);
+    else if (hd == 128) e = MZ_TC(128);
+#undef MZ_TC
+  }
   return static_cast<int>(e);
 }
 

@@ -682,14 +682,12 @@ inline bool tc_map(CUtensorMap* m, const void* base, int cols, int rows,
 }
 
 // Largest dynamic shared memory set so far on each kernel instantiation,
-// by device (attributes are per device).  Unnamed namespace: fused_mlp and
-// moe_mlp each hold their own copy of the kernels and must set their
-// attributes themselves (a static local of a template would be one object
-// for the whole process).
-constexpr int kTcDevices = 16;
+// by device (opt_in in common.cuh).  Unnamed namespace: fused_mlp and
+// moe_mlp each hold their own copy of the kernels and set their own
+// attributes.
 namespace {
 template <int NT, int MW, bool SW>
-int tc_smem_set[kTcDevices] = {};
+int tc_smem_set[kDevices] = {};
 }  // namespace
 
 template <int NT, int MW, bool SW>
@@ -699,20 +697,10 @@ cudaError_t mlp_cluster_launch(const void* x, const void* wg, const void* wi,
                                const TcPlan& p, cudaStream_t st,
                                int* max_clusters) {
   auto kern = mlp_cluster_kernel<NT, MW, SW>;
-  // the attributes are set once an instantiation (largest ring so far):
-  // setting them costs host time on every launch otherwise
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  // the attributes are set once an instantiation (largest ring so far),
+  // with the cluster-size one beside the shared-memory limit
+  cudaError_t e = opt_in(kern, tc_smem_set<NT, MW, SW>, p.smem, /*cluster=*/true);
   if (e != cudaSuccess) return e;
-  int unset = 0;                          // devices past the table: every call
-  int& smem_set = dev < kTcDevices ? tc_smem_set<NT, MW, SW>[dev] : unset;
-  if (p.smem > smem_set) {
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return e;
-    smem_set = p.smem;
-  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.cl * p.clusters);
   cfg.blockDim = dim3(kTcThreads);

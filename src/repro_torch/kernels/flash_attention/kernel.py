@@ -1,16 +1,19 @@
 """Launch wrappers of the CUDA attention kernels, on one CUDA device,
 one dtype (float32 or bfloat16), unit stride on hd (other strides are
-passed to the kernels, so no transpose runs), hd in {32, 64, 128}; each
-allocates its output and launches on PyTorch's current stream.
+passed to the kernels, so no transpose runs); each allocates its output
+and launches on PyTorch's current stream.
 
 * `flash_attention_cuda` (`csrc/flash_attention.cu`), the port of
   `flash_attention_bhsd`: q (B, Sq, H, hd), k/v (B, Sk, Hkv, hd) in the
-  model layout -> (B, Sq, H, hd).
+  model layout -> (B, Sq, H, hd), hd in {32, 64, 80, 128}.  bfloat16
+  takes the tensor-core tile with the warps a block that
+  `kernels/_attn_plan.py` picks (its inputs on 16-byte boundaries,
+  strides in multiples of 8 elements); float32 the FMA kernel.
 * `paged_decode_attention_cuda` (`csrc/paged_decode.cu`), the port of
   `paged_decode_attention_hp`: one query token a slot, q (B, 1, H, hd),
   against one layer's page pools (P, ps, Hkv, hd) through int32 page
   tables (B, npp) and lengths (B,) that count the current token ->
-  (B, 1, H, hd).
+  (B, 1, H, hd), hd in {32, 64, 128}.
 """
 from __future__ import annotations
 
@@ -18,14 +21,16 @@ import math
 
 import torch
 
+from repro_torch.kernels import _attn_plan
 from repro_torch.kernels import _build as B
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = _attn_plan.HEAD_DIMS          # flash_attention
+PAGED_HEAD_DIMS = (32, 64, 128)           # paged_decode_attention
 
 FLASH = B.Launcher("flash_attention", "flash_attention", [
     B.VOID_P, B.VOID_P, B.VOID_P, B.VOID_P, B.INT, B.INT, B.INT, B.INT,
     B.INT, B.INT, B.INT64, B.INT64, B.INT64, B.INT64, B.INT64, B.INT64,
-    B.INT64, B.INT64, B.INT64, B.INT, B.INT, B.FLOAT, B.INT, B.VOID_P])
+    B.INT64, B.INT64, B.INT64, B.INT, B.INT, B.FLOAT, B.INT, B.INT, B.VOID_P])
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -49,18 +54,39 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention: the head dim must have stride 1")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
-    if b * h > 65535:
-        raise ValueError("flash_attention: B * H exceeds the grid's y limit")
     code = B.dtype_code(q, "flash_attention")
+    if q.dtype == torch.bfloat16:
+        # 16-byte cp.async rows; a size-1 dim's stride is never used
+        if any(t.data_ptr() % 16 or any(st % 8 for n, st in
+                                        zip(t.shape[:3], t.stride()[:3]) if n > 1)
+               for t in (q, k, v)):
+            raise ValueError("flash_attention: bfloat16 q, k and v must start "
+                             "on 16-byte boundaries with strides in multiples "
+                             "of 8 elements")
+        plan = _attn_plan.flash_plan(
+            b, h, hkv, sq, hd,
+            sms=torch.cuda.get_device_properties(q.device).multi_processor_count)
+        warps = plan.warps
+        if plan.grid[1] > 65535:
+            raise ValueError("flash_attention: Sq exceeds the grid's y limit")
+    else:
+        warps = 0
+        if b * h > 65535:
+            raise ValueError("flash_attention: B * H exceeds the grid's y limit")
     out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     FLASH(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv,
-          sq, sk, hd, q.stride(0), q.stride(1), q.stride(2), k.stride(0),
-          k.stride(1), k.stride(2), v.stride(0), v.stride(1), v.stride(2),
+          sq, sk, hd, *_strides(q), *_strides(k), *_strides(v),
           int(causal), 0 if window is None else int(window),
-          1.0 / math.sqrt(hd), code, B.stream(q))
+          1.0 / math.sqrt(hd), warps, code, B.stream(q))
     return out
+
+
+def _strides(t: torch.Tensor) -> tuple[int, int, int]:
+    """Batch, sequence and head strides, those of size-1 dims as 0 (they
+    are never stepped, and PyTorch may give them any value)."""
+    return tuple(st if n > 1 else 0 for n, st in zip(t.shape[:3], t.stride()[:3]))
 
 
 PAGED = B.Launcher("paged_decode", "paged_decode", [
@@ -86,9 +112,9 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"paged_decode_attention: incompatible q "
                          f"{tuple(q.shape)} and pools {tuple(k_pages.shape)} "
                          f"(H % Hkv == 0, H / Hkv <= {MAX_GROUP})")
-    if hd not in HEAD_DIMS:
+    if hd not in PAGED_HEAD_DIMS:
         raise ValueError(f"paged_decode_attention: head dim {hd} not in "
-                         f"{HEAD_DIMS}")
+                         f"{PAGED_HEAD_DIMS}")
     if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
         raise ValueError("paged_decode_attention: q and the pools must share "
                          "one dtype")

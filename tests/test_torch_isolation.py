@@ -36,7 +36,8 @@ def test_port_files_exist():
         for part in ("kernel", "ops", "ref"):
             assert f"src/repro_torch/kernels/{name}/{part}.py" in rel
     for path in ("configs/mixtral_8x7b.py", "csrc/paged_decode.cu",
-                 "csrc/moe_mlp.cu", "csrc/mlp_tile.cuh", "kernels/_mlp_plan.py"):
+                 "csrc/moe_mlp.cu", "csrc/mlp_tile.cuh", "kernels/_mlp_plan.py",
+                 "kernels/_attn_plan.py"):
         assert (ROOT / "src" / "repro_torch" / path).is_file(), path
 
 
