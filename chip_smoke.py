@@ -11,14 +11,17 @@ exit, no result line) when a check fails:
    (`nvidia-smi`) and builds the CUDA kernels from `src/repro_torch/csrc`
    (one nvcc per source, all at once), printing the build time and
    ptxas's registers and spilled bytes for each kernel; the fused norm,
-   flash attention and MLP kernels (fused_mlp.cu, moe_mlp.cu) must not
-   spill.
+   flash attention, MLP (fused_mlp.cu, moe_mlp.cu), paged decode and wkv6
+   kernels must not spill.
 2. Kernels: each kernel's launch wrapper against its plain PyTorch
    version on the card, at the serving paths' shapes (smollm-135m: d 576,
    F 1536, 9 query / 3 KV heads of 64, bfloat16 and float32, the fused
    MLP at N 1, 4, 5, 16, 256 and 300, swiglu and GELU, and paged decode
    over 4 slots of 16-332 tokens in pages of 16 with the null page and
-   the positions past each length poisoned; the norms and the fused MLP
+   the positions past each length poisoned, also at head dims 80 (32 / 8
+   heads) and 96 (16 / 4), and bfloat16 rows where bytes set the bound:
+   smollm's heads over 16 slots and internlm2-1.8b's 16 / 8 heads of 128
+   over 8 slots, 2048 positions each; the norms and the fused MLP
    also at d 4096 (F 14336) and d 5120 (F 27648); mixtral-8x7b: flash
    attention over 32 query / 8 KV heads of 128 with its window of 4096,
    at a 300-token prompt and at 4352 tokens (past the window), moe_mlp
@@ -27,12 +30,15 @@ exit, no result line) when a check fails:
    heads of 80 (window 4096, S 300) and over a ragged batch of two
    100-token prompts; rwkv6-3b: wkv6 over 40 heads of 64, in the JAX
    op's (BH, S, D) layout and in the model's (B, S, H, D) layout that
-   `rwkv6.time_mix` passes; recurrentgemma-2b: rglru_scan over 2560
-   channels; both float32), TF32 off, with the tolerance stated; kernel,
+   `rwkv6.time_mix` passes, float32, at decode, a 256- and a 1024-token
+   prefill, with Dv 32 and with bfloat16 inputs (o within one bfloat16
+   rounding); recurrentgemma-2b: rglru_scan over 2560 channels,
+   float32), TF32 off, with the tolerance stated; kernel,
    plain-version and library times from CUDA events and from the
    profiler's device time, and the least time the card could take (bytes
    over 3.35 TB/s or operations over the type's peak).  Every bfloat16
-   MLP and flash row must give bit-identical outputs on a second launch,
+   MLP and flash row, and every paged decode and wkv6 row, must give
+   bit-identical outputs on a second launch,
    and each bfloat16 flash row the same bits under the tile's other block
    size (4 or 8 warps; its device time is printed); in a windowed
    bfloat16 flash row past its window, each row q >= window (an average
@@ -69,10 +75,12 @@ exit, no result line) when a check fails:
    on the same engine, and from one profiled window the device's busy
    time, the heaviest kernels and the port's own kernels' time a step;
    smollm's and mixtral's (bfloat16) must run the MLP's cluster tile and
-   not the float32 partial kernel.  Then one profiled prefill of each
-   (smollm's bucket 512, mixtral's 300 tokens): device time, flash's
-   share and kernel count; it must run flash_tc_kernel and not the
-   float32 flash_fwd_kernel.
+   not the float32 partial kernel, smollm's the tensor-core paged decode
+   and its combine, rwkv6's the wkv6 step kernel.  Then one profiled
+   prefill (smollm's bucket 512, mixtral's 300 tokens, rwkv6's 256):
+   device time, flash's (wkv6's) share and kernel count; the transformers
+   must run flash_tc_kernel and not the float32 flash_fwd_kernel, rwkv6
+   the three chunked wkv6 kernels.
 
 The last two lines are one JSON object listing the kernels and one with
 the device: `{"ok": true, "device": {"platform": "gpu", ...}}`.
@@ -92,8 +100,8 @@ PEAK_FLOPS = {"bfloat16": 989e12,         # dense tensor-core bf16
               "float32": 67e12}           # float32 outside the tensor cores
 TOL = {"bfloat16": 2.5e-2}
 # wkv6: sums in another order than the plain version's chunked form,
-# which clips its decay exponents at -60; paged_decode: the JAX paged
-# kernel test's tolerance; moe_mlp and the wide fused_mlp rows: float32
+# which clips its decay exponents at -60 (o and s_final alike); paged_decode:
+# the JAX paged kernel test's tolerance; moe_mlp and the wide fused_mlp rows: float32
 # sums over F = 14336-27648 hidden units in another order than cuBLAS's
 TOL_F32 = {"fused_rmsnorm": 1e-5, "fused_rmsnorm_residual": 1e-5,
            "fused_mlp": 1e-5, "flash_attention": 3e-5, "wkv6": 1e-4,
@@ -113,8 +121,22 @@ LRU_W = 2560                               # recurrentgemma-2b lru_width
 # bfloat16, the partial / reduce pair for float32)
 OWN_KERNELS = ("rmsnorm_kernel", "rmsnorm_row_kernel", "mlp_cluster_kernel",
                "mlp_fixup_kernel", "mlp_partial_kernel", "mlp_reduce_kernel",
-               "flash_tc_kernel", "flash_fwd_kernel", "paged_decode_kernel",
-               "wkv6_kernel", "rglru_scan_kernel")
+               "flash_tc_kernel", "flash_fwd_kernel", "paged_tc_kernel",
+               "paged_split_kernel", "paged_combine_kernel", "wkv6_step_kernel",
+               "wkv6_prep_kernel", "wkv6_state_kernel", "wkv6_out_kernel",
+               "rglru_scan_kernel")
+# paged_decode rows where bytes set the bound (bf16, pages of 16, every
+# slot at 2048 positions): smollm-135m (B 16, 9 / 3 heads of 64) and
+# internlm2-1.8b (B 8, 16 / 8 heads of 128); and rows at head dims 80 and
+# 96 (B 4, 32 / 8 and 16 / 4 heads, lengths 1-332)
+PD_LONG = (("smollm-135m", 16, 9, 3, 64), ("internlm2-1.8b", 8, 16, 8, 128))
+PD_LONG_LEN = 2048
+PD_HEAD_DIMS = ((32, 8, 80), (16, 4, 96))
+# wkv6 rows beyond the served shapes: a 1024-token prefill, Dv != D (D 64,
+# Dv 32) and bfloat16 inputs (256 tokens); a bfloat16 o is held to one
+# bfloat16 rounding of the plain version's (2^-7 of its size) + 1e-4
+WKV_LONG_S = 1024
+WKV_BF16_RTOL = 2.0 ** -7
 DANUBE = (32, 8, 80, 4096, 300)            # h2o-danube-1.8b: H, Hkv, hd, window, S
 FLASH_RAGGED = (2, 100)                    # a ragged batch: B, S
 FLASH_E2E_SLACK = (1.25, 1e-3)             # flash route's logits error bound
@@ -178,7 +200,7 @@ def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
 def ptxas_phase() -> None:
     """Print ptxas's registers and spilled bytes for each kernel of each
     source built by this process; the fused norm (to d 8192), flash
-    attention and MLP kernels must not spill."""
+    attention, MLP, paged decode and wkv6 kernels must not spill."""
     from repro_torch.kernels import _build
 
     def readable(names):
@@ -210,7 +232,8 @@ def ptxas_phase() -> None:
             f"{u['spill_loads']} bytes spilled (stores / loads)"
             for k, u in zip(readable([u["kernel"] for u in usage]), usage)),
             flush=True)
-        if name in ("fused_norm", "flash_attention", "fused_mlp", "moe_mlp"):
+        if name in ("fused_norm", "flash_attention", "fused_mlp", "moe_mlp",
+                    "paged_decode", "wkv6"):
             check(all(u["spill_stores"] == 0 and u["spill_loads"] == 0
                       for u in usage), f"ptxas {name}.cu: a kernel spills")
 
@@ -288,11 +311,50 @@ def norm_trace(torch, ns=(DECODE_N, 256)) -> None:
                               "kernels": kern}), flush=True)
 
 
+def paged_tables(torch, lens, npp, prng):
+    """Page tables (B, npp) on the card for slots of `lens` positions in
+    pages of PAGE, drawn as a random permutation of pages 1..; page 0 is
+    the null page.  Returns (tables, pages in the pool)."""
+    pages = 1 + len(lens) * npp
+    tables = torch.zeros((len(lens), npp), dtype=torch.int32)
+    perm = torch.randperm(pages - 1, generator=prng) + 1
+    off = 0
+    for b, n_pos in enumerate(lens):
+        n = -(-int(n_pos) // PAGE)
+        tables[b, :n] = perm[off:off + n]
+        off += n
+    return tables.to("cuda"), pages
+
+
+def paged_row(torch, record, dtype, q, kp, vp, tables, lens_d, extra=None):
+    """One paged_decode row through `record`; returns the kernel's output.
+    Bytes: q and out, the live K/V rows, the tables and lengths."""
+    from repro_torch.kernels import _attn_plan
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import paged_decode_attention_ref
+
+    b, _, h, hd = q.shape
+    _, ps, hkv, _ = kp.shape
+    es = q.element_size()
+    live = int(lens_d.sum())
+    plan = _attn_plan.paged_plan(b, h, hkv, tables.shape[1], ps, hd, es,
+                                 sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    out = fk.paged_decode_attention_cuda(q, kp, vp, tables, lens_d)
+    record("paged_decode", [b, h, hkv, hd, ps], dtype, out,
+           paged_decode_attention_ref(q, kp, vp, tables, lens_d),
+           lambda i: fk.paged_decode_attention_cuda(q, kp, vp, tables, lens_d),
+           lambda i: paged_decode_attention_ref(q, kp, vp, tables, lens_d), None,
+           (2 * b * h * hd + 2 * live * hkv * hd) * es + 4 * (tables.numel() + b),
+           4 * hd * live * h,
+           extra=dict(extra or {}, live_positions=live, route=plan.route,
+                      splits=plan.splits, blocks=plan.blocks))
+    return out
+
+
 def kernel_phase(torch, F):
     """Check each kernel against its plain version and time it."""
     from repro_torch.kernels.flash_attention import kernel as fk
-    from repro_torch.kernels.flash_attention.ref import (
-        flash_attention_ref, paged_decode_attention_ref)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels import _mlp_plan as mplan
     from repro_torch.kernels.fused_mlp import kernel as mk
     from repro_torch.kernels.fused_mlp.ref import fused_mlp_ref
@@ -341,15 +403,20 @@ def kernel_phase(torch, F):
         the inputs of kern(0); `launches` counts that launch and the
         event-timed ones.  The `*_device_ms` keys are profiler device
         times of the same calls; each time is the mean of `iters` calls.
-        A bfloat16 MLP or flash row must give bit-identical outputs on a
-        second launch (both tiles sum in a fixed order, no atomics)."""
+        A bfloat16 MLP or flash row, and every paged_decode and wkv6 row,
+        must give bit-identical outputs on a second launch (each sums in a
+        fixed order, no atomics)."""
         tol = tol or TOL.get(dtype, TOL_F32[name])
         e, ok = err(out, ref, tol)
         check(ok, f"{name} {shape} {dtype}: kernel disagrees with its plain "
                   f"version (max abs err {e:.3g}, tol {tol})")
         same = None
-        if dtype == "bfloat16" and name in ("fused_mlp", "moe_mlp", "flash_attention"):
-            same = bool(torch.equal(kern(0), out))
+        if name in ("paged_decode", "wkv6") or (
+                dtype == "bfloat16" and name in ("fused_mlp", "moe_mlp", "flash_attention")):
+            again = kern(0)
+            same = all(bool(torch.equal(a, b)) for a, b in zip(
+                again if isinstance(again, tuple) else (again,),
+                out if isinstance(out, tuple) else (out,)))
             check(same, f"{name} {shape} {dtype}: two launches on the same "
                         f"inputs differ")
         b, by = bound_ms(nbytes, flops, dtype)
@@ -511,30 +578,13 @@ def kernel_phase(torch, F):
     lens = torch.randint(16, 333, (DECODE_N,), generator=prng)
     lens[0] = 332
     npp = 512 // PAGE
-    pages = 1 + DECODE_N * npp
-    tables = torch.zeros((DECODE_N, npp), dtype=torch.int32)
-    perm = torch.randperm(pages - 1, generator=prng) + 1
-    off = 0
-    for b in range(DECODE_N):
-        n = -(-int(lens[b]) // PAGE)
-        tables[b, :n] = perm[off:off + n]
-        off += n
-    tables, lens_d = tables.to(dev), lens.to(dev, torch.int32)
-    live = int(lens.sum())
+    tables, pages = paged_tables(torch, lens.tolist(), npp, prng)
+    lens_d = lens.to(dev, torch.int32)
     for dtype, dt in dts.items():
-        es = torch.tensor([], dtype=dt).element_size()
         q = rand((DECODE_N, 1, H, HD), dt)
         kpool, vpool = rand((2, pages, PAGE, HKV, HD), dt), rand((2, pages, PAGE, HKV, HD), dt)
         kp, vp = kpool[1], vpool[1]
-        out = fk.paged_decode_attention_cuda(q, kp, vp, tables, lens_d)
-        record("paged_decode", [DECODE_N, H, HKV, HD, PAGE], dtype, out,
-               paged_decode_attention_ref(q, kp, vp, tables, lens_d),
-               lambda i, q=q, kp=kp, vp=vp: fk.paged_decode_attention_cuda(
-                   q, kp, vp, tables, lens_d),
-               lambda i, q=q, kp=kp, vp=vp: paged_decode_attention_ref(
-                   q, kp, vp, tables, lens_d), None,
-               (2 * DECODE_N * H * HD + 2 * live * HKV * HD) * es
-               + 4 * (DECODE_N * npp + DECODE_N), 4 * HD * live * H)
+        out = paged_row(torch, record, dtype, q, kp, vp, tables, lens_d)
         kp[0], vp[0] = 1e4, -1e4
         for b in range(DECODE_N):
             last = int(tables[b, (int(lens[b]) - 1) // PAGE])
@@ -545,6 +595,25 @@ def kernel_phase(torch, F):
               f"or positions past the lengths leaked into the output")
         print(f"[smoke] paged_decode {dtype}: output unchanged with the null "
               f"page and positions past the lengths poisoned", flush=True)
+        del q, kpool, vpool, kp, vp
+    # head dims 80 and 96 at the same lengths, both dtypes
+    for h, hkv, hd in PD_HEAD_DIMS:
+        for dtype, dt in dts.items():
+            q = rand((DECODE_N, 1, h, hd), dt)
+            kp, vp = rand((pages, PAGE, hkv, hd), dt), rand((pages, PAGE, hkv, hd), dt)
+            paged_row(torch, record, dtype, q, kp, vp, tables, lens_d)
+            del q, kp, vp
+    # where bytes set the bound: every slot at 2048 positions, bf16
+    for arch, b, h, hkv, hd in PD_LONG:
+        ll = [PD_LONG_LEN] * b
+        npl = PD_LONG_LEN // PAGE
+        tl, pl = paged_tables(torch, ll, npl, prng)
+        q = rand((b, 1, h, hd), torch.bfloat16)
+        kp, vp = rand((pl, PAGE, hkv, hd), torch.bfloat16), rand((pl, PAGE, hkv, hd), torch.bfloat16)
+        paged_row(torch, record, "bfloat16", q, kp, vp, tl,
+                  torch.tensor(ll, dtype=torch.int32, device=dev), extra={"arch": arch})
+        del q, kp, vp
+    free(torch)
 
     # moe_mlp at mixtral's shapes, bfloat16: a decode step's capacity
     # buffers (the floor of 8 slots, and 12), a 256-token prefill's (80)
@@ -615,16 +684,21 @@ def kernel_phase(torch, F):
                4 * (5 * bh * s * RWKV_D + 2 * bh * RWKV_D ** 2),
                4 * bh * s * RWKV_D ** 2)
     # the model layout that `rwkv6.time_mix` passes: (B, S, H, D) views of
-    # (B, S, H*D) projections (time stride H*D), u (H, D), s0 (B, H, D, D)
-    for b, s in ((DECODE_N, 1), (1, 256)):
+    # (B, S, H*D) projections (time stride H*D), u (H, D), s0 (B, H, D, Dv);
+    # then a 1024-token prefill, Dv != D and bfloat16 inputs
+    for b, s, dv, dtype in ((DECODE_N, 1, RWKV_D, "float32"), (1, 256, RWKV_D, "float32"),
+                            (1, WKV_LONG_S, RWKV_D, "float32"), (1, 256, RWKV_D // 2, "float32"),
+                            (1, 256, RWKV_D, "bfloat16")):
+        dt = dts[dtype]
         shape = (b, s, RWKV_H, RWKV_D)
-        r, k, v = (rand((b, s, RWKV_H * RWKV_D), f32, 0.5).reshape(shape)
-                   for _ in range(3))
+        r, k = (rand((b, s, RWKV_H * RWKV_D), f32, 0.5).to(dt).reshape(shape)
+                for _ in range(2))
+        v = rand((b, s, RWKV_H * dv), f32, 0.5).to(dt).reshape(b, s, RWKV_H, dv)
         logw = torch.log(torch.exp(-torch.exp(
             rand((b, s, RWKV_H * RWKV_D), f32).clamp(-1.0, 1.0))).clamp(
-                min=1e-12)).reshape(shape)
+                min=1e-12)).to(dt).reshape(shape)
         u = rand((RWKV_H, RWKV_D), f32, 0.1)
-        s0 = rand((b, RWKV_H, RWKV_D, RWKV_D), f32, 0.1)
+        s0 = rand((b, RWKV_H, RWKV_D, dv), f32, 0.1)
 
         def bshd_kern(i, r=r, k=k, v=v, logw=logw, u=u, s0=s0):
             return wops.wkv6_bshd(r, k, v, logw, u, s0)
@@ -632,11 +706,22 @@ def kernel_phase(torch, F):
         def bshd_plain(i, r=r, k=k, v=v, logw=logw, u=u, s0=s0):
             return wkv6_bshd_ref(r, k, v, logw, u, s0, chunk=32)
 
+        out, ref = bshd_kern(0), bshd_plain(0)
+        if dtype == "bfloat16":
+            tol = TOL_F32["wkv6"]
+            ok = bool(((out[0].float() - ref[0].float()).abs()
+                       <= tol + WKV_BF16_RTOL * ref[0].float().abs()).all()) and \
+                bool(((out[1] - ref[1]).abs() <= tol + tol * ref[1].abs()).all())
+            check(ok, f"wkv6 {list(shape)} bf16: o beyond one bfloat16 rounding "
+                      f"or s_final beyond {tol} of the plain version")
         bh = b * RWKV_H
-        record("wkv6", list(shape), "float32", bshd_kern(0), bshd_plain(0),
+        es = torch.tensor([], dtype=dt).element_size()
+        record("wkv6", list(shape) + ([dv] if dv != RWKV_D else []), dtype, out, ref,
                bshd_kern, bshd_plain, None,
-               4 * (5 * bh * s * RWKV_D + 2 * bh * RWKV_D ** 2),
-               4 * bh * s * RWKV_D ** 2)
+               es * bh * s * (3 * RWKV_D + 2 * dv)
+               + 4 * (RWKV_H * RWKV_D + 2 * bh * RWKV_D * dv),
+               4 * bh * s * RWKV_D * dv, iters=30 if s <= 256 else 10)
+        del r, k, v, logw, out, ref
     for b, s in ((DECODE_N, 1), (1, 256)):
         a = torch.rand((b, s, LRU_W), generator=gen).to(dev)
         x, h0 = rand((b, s, LRU_W), f32), rand((b, LRU_W), f32)
@@ -1053,12 +1138,15 @@ def flash_logits_check(torch, eng, arch: str, n_tokens: int) -> None:
           f"the einsum route by {diff['einsum']}")
 
 
-def prefill_breakdown_phase(torch, eng, arch: str, plen: int) -> None:
+def prefill_breakdown_phase(torch, eng, arch: str, plen: int, share: str = "flash_",
+                            need=("flash_tc_kernel",),
+                            forbid=("flash_fwd_kernel",)) -> None:
     """Where one prefill's time goes: a seeded `plen`-token prompt into
     slot 0 through the engine's state (smollm: bucket-padded into the page
-    pool), timed by the host clock, then profiled once: device time,
-    flash's share, kernel count.  It must run the tensor-core flash tile
-    and not the float32 FMA kernel."""
+    pool), timed by the host clock, then profiled once: device time, the
+    share of the kernels whose names hold `share` (flash's, wkv6's), kernel
+    count.  Every kernel in `need` must run (the transformers: the
+    tensor-core flash tile), none in `forbid` (the float32 FMA kernel)."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1087,19 +1175,21 @@ def prefill_breakdown_phase(torch, eng, arch: str, plen: int) -> None:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
             n += 1
     dev_ms = sum(by_name.values()) / 1e3
-    flash_ms = sum(v for k, v in by_name.items() if "flash_" in k) / 1e3
+    share_ms = sum(v for k, v in by_name.items() if share in k) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     out = {"prefill_tokens": plen, "wall_ms": wall_ms, "device_ms": dev_ms,
-           "device_busy_share": dev_ms / wall_ms, "flash_ms": flash_ms,
-           "flash_share": flash_ms / dev_ms if dev_ms else None, "kernels": n,
+           "device_busy_share": dev_ms / wall_ms, "share_of": share,
+           "share_ms": share_ms,
+           "share": share_ms / dev_ms if dev_ms else None, "kernels": n,
            "top_kernels_ms": [[k[:60], v / 1e3] for k, v in top],
            "own_kernels_ms": {k: v / 1e3 for k in OWN_KERNELS
                               if (v := sum(t for name, t in by_name.items() if k in name))}}
     print(json.dumps({"prefill_breakdown": out, "arch": arch}), flush=True)
     check(dev_ms > 0, f"prefill {arch}: the profiler saw no device time")
-    check(any("flash_tc_kernel" in k for k in by_name), f"prefill {arch}: no flash_tc_kernel")
-    check(not any("flash_fwd_kernel" in k for k in by_name),
-          f"prefill {arch}: the float32 flash kernel ran")
+    for k in need:
+        check(any(k in name for name in by_name), f"prefill {arch}: no {k}")
+    for k in forbid:
+        check(not any(k in name for name in by_name), f"prefill {arch}: {k} ran")
 
 
 def main() -> int:
@@ -1153,8 +1243,9 @@ def main() -> int:
     check(counts["paged_decode"] == want,
           f"smollm-135m: paged_decode launched {counts['paged_decode']} "
           f"times, expected {want} (a layer a decode step)")
-    breakdown_phase(torch, eng, "smollm-135m", need=("mlp_cluster_kernel",),
-                    forbid=("mlp_partial_kernel",))
+    breakdown_phase(torch, eng, "smollm-135m",
+                    need=("mlp_cluster_kernel", "paged_tc_kernel", "paged_combine_kernel"),
+                    forbid=("mlp_partial_kernel", "paged_split_kernel"))
     prefill_breakdown_phase(torch, eng, "smollm-135m", 400)     # bucket 512
     flash_logits_check(torch, eng, "smollm-135m", 300)
     del eng
@@ -1162,7 +1253,10 @@ def main() -> int:
     launchers = dict(norms, wkv6=wk.WKV6, rglru_scan=gk.SCAN)
     eng, path = recurrent_path_phase(torch, "rwkv6-3b", launchers, "wkv6")
     counts["wkv6"] = path["wkv6"]
-    breakdown_phase(torch, eng, "rwkv6-3b")
+    breakdown_phase(torch, eng, "rwkv6-3b", need=("wkv6_step_kernel",))
+    prefill_breakdown_phase(torch, eng, "rwkv6-3b", 256, share="wkv6_",
+                            need=("wkv6_prep_kernel", "wkv6_state_kernel",
+                                  "wkv6_out_kernel"), forbid=())
     del eng
     free(torch)
     eng, path = recurrent_path_phase(torch, "recurrentgemma-2b", launchers,

@@ -1,200 +1,728 @@
 // Paged single-token decode attention for Hopper (sm_90a).
 //
 // Replaces the TPU kernel paged_decode_attention_hp
-// (src/repro/kernels/flash_attention/kernel.py): one query token a slot
-// attends to its K/V through a page table,
+// (src/repro/kernels/flash_attention/kernel.py:190): one query token a
+// slot attends to its K/V through a page table,
 //     out[b, h] = softmax(q[b, h] . K[b, :len] / sqrt(hd)) @ V[b, :len]
 // where position j of slot b lives at page tables[b, j / ps], offset
 // j % ps, and len = lengths[b] counts the current token, whose k/v are
 // already in the pool.
 //
-// What bounds it on the H100: bytes -- each live K/V row is read once and
-// every row costs 4*hd FLOPs per query head, a few FLOPs a byte.  The
-// design:
-//   * one block per (slot, kv head); it serves the `group` query heads
-//     that share the kv head, so each K/V row is read once for the group
-//     (the TPU grid ran one cell per query head and re-read the pages);
-//   * the block walks the slot's live positions in tiles of 32 rows: the
-//     loop stands in for the TPU grid's sequential page axis, and the
-//     online-softmax state (m, l) sits in shared memory and the output
-//     accumulator in registers;
-//   * positions at or past len are never loaded: pages past
-//     ceil(len / ps) and the null page 0 are never read, and the tail of
-//     the last page is masked;
-//   * the block reads its own table row (no scalar prefetch on the card);
-//   * the pool is read in its stored (P, ps, Hkv, hd) layout, one layer's
-//     slice of the (L, P, ps, Hkv, hd) pool, through strides: no copy,
-//     no transpose.
-// Float32 FMAs throughout; tensor cores are later work.
+// What bounds it on the H100: bytes.  Each live K/V row is read once and
+// costs 4 * hd FLOPs a query head, a few FLOPs a byte.  At smollm-135m's
+// decode (4 slots, 3 kv heads) a block a (slot, kv head) leaves 120 of
+// 132 SMs idle and the call is one long latency chain, so the design
+// spreads the positions over the card:
+//   * Split positions across blocks.  The grid is (slot x kv head x head
+//     chunk, split); a split is a fixed run of `pps` whole pages, chosen
+//     by kernels/_attn_plan.py:paged_plan from the shapes alone (never
+//     the lengths: no host read, and the launch can be captured in a
+//     CUDA graph).  A split that starts at or past its slot's length
+//     writes an empty partial (l = 0) and exits.
+//   * Load bytes the way the card wants them.  A block reads its split's
+//     page ids once into shared memory, then streams tiles of K and V rows
+//     through a 3-stage ring with 16-byte cp.async: only live pages are
+//     read (never the null page), and rows past the length in the last
+//     tile are zero-filled and masked.
+//   * The kv group is scored together: each K/V row is read once for the
+//     up-to-8 query heads of a block.  A row's hd values are split over
+//     `LN` lanes (one 8-value chunk each); each group of LN lanes walks
+//     its own positions with an online softmax in registers (q, the max,
+//     the sum and its output chunk stay there), so the only traffic in
+//     the loop is one xor-butterfly a score.  FMA, not tensor cores: the
+//     work is byte-bound.  Scores carry log2(e) / sqrt(hd) and use exp2.
+//   * A fixed-order combine.  A block merges its position groups (xor
+//     butterfly, then its warps in order) into one float32 partial (m, l,
+//     acc[hd]) a query head; a second small kernel, launched by the same
+//     C call, merges the splits in split order.  So the output is
+//     bit-identical across launches of one plan.  With one split the
+//     block writes the output itself.
+// The pool is read in its stored (P, ps, Hkv, hd) layout, one layer's
+// slice of the (L, P, ps, Hkv, hd) pool, through strides: no copy, no
+// transpose.  Any hd that is a multiple of 8 up to 256.
+#include <cstdint>
+
 #include "common.cuh"
+#include "warp_ops.cuh"
 
 namespace {
 
-constexpr int kNT = 128;       // threads a block
-constexpr int kTP = 32;        // positions a tile (one per lane in the softmax)
-constexpr int kMaxGroup = 16;  // query heads a kv head serves, at most
+using namespace mz::warp;
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kNT)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                    const T* __restrict__ vp, const int* __restrict__ tables,
-                    const int* __restrict__ lengths, T* __restrict__ out,
-                    int h, int hkv, int ps, int npp, long long q_sb,
-                    long long q_sh, long long k_sp, long long k_so,
-                    long long k_sh, long long v_sp, long long v_so,
-                    long long v_sh, float scale) {
-  static_assert(kTP == 32, "the softmax gives each lane one position");
-  constexpr int KS = HD + 1;                 // padded K row: no bank conflicts
-  constexpr int MAXO = kMaxGroup * HD / kNT; // outputs a thread, at most
-  __shared__ float q_s[kMaxGroup * HD];
-  __shared__ float k_s[kTP * KS];
-  __shared__ float v_s[kTP * HD];
-  __shared__ float p_s[kMaxGroup * kTP];     // scores, then probabilities
-  __shared__ float m_s[kMaxGroup], l_s[kMaxGroup], corr_s[kMaxGroup];
+constexpr int kThreads = 128;   // threads a block (4 warps)
+constexpr int kStages = 3;      // K/V ring stages
+constexpr int kMaxPages = 64;   // pages a split, at most (page ids in shared memory)
+constexpr int kMaxHeads = 8;    // query heads a block, at most
+constexpr int kCombineThreads = 64;
 
-  const int b = blockIdx.x, g = blockIdx.y, t = threadIdx.x;
+// 8 consecutive values from shared memory, as float32
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&f)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h2[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+
+struct Pool {
+  long long sp, so, sh;   // element strides of page, offset, head (hd: 1)
+};
+
+// T: element type; LN: lanes a position (hd <= 8 * LN); GM: query heads
+// a block holds in registers (>= the plan's heads)
+// (a minimum of one block in the launch bounds: without it ptxas picked
+// spilling register counts for GM = 2)
+template <typename T, int LN, int GM>
+__global__ void __launch_bounds__(kThreads, 1)
+paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+                   const T* __restrict__ vp, const int* __restrict__ tables,
+                   const int* __restrict__ lengths, T* __restrict__ out,
+                   float* __restrict__ ws, int h, int hkv, int hd, int ps,
+                   int npp, int pps, int heads, int hchunks, long long q_sb,
+                   long long q_sh, Pool kpool, Pool vpool, float scale_log2) {
+  constexpr int EPC = 16 / sizeof(T);        // elements a 16-byte copy
+  constexpr int NPG = kThreads / LN;         // position groups a block
+  constexpr int R = sizeof(T) == 2 ? 2 : 1;  // rows a group a tile
+  constexpr int TP = NPG * R;                // rows a tile
+  constexpr int HDMAX = 8 * LN;
+  constexpr int RING = kStages * 2 * TP * HDMAX * sizeof(T);
+  constexpr int MERGE = (kThreads / 32) * GM * HDMAX * sizeof(float);
+  __shared__ __align__(16) unsigned char smem[RING > MERGE ? RING : MERGE];
+  __shared__ int pid_s[kMaxPages];
+  __shared__ float mw_s[kThreads / 32][GM], lw_s[kThreads / 32][GM];
+  T* ring = reinterpret_cast<T*>(smem);
+  float* merge = reinterpret_cast<float*>(smem);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int hc = blockIdx.x % hchunks;
+  const int g = (blockIdx.x / hchunks) % hkv;
+  const int b = blockIdx.x / (hchunks * hkv);
+  const int split = blockIdx.y, splits = gridDim.y;
   const int group = h / hkv;
+  const int h0 = g * group + hc * heads;          // this block's first query head
+  const int nh = min(heads, group - hc * heads);  // and its count
   const int len = lengths[b];
-  const int* trow = tables + static_cast<size_t>(b) * npp;
-  const int nout = group * HD;               // this block's outputs
+  const int pos0 = split * pps * ps;
+  const int pos_end = min(len, min(npp, (split + 1) * pps) * ps);
 
-  for (int e = t; e < nout; e += kNT) {
-    const int qi = e / HD, dd = e % HD;
-    q_s[e] = mz::to_f(q[b * q_sb + (g * group + qi) * q_sh + dd]) * scale;
+  if (pos0 >= pos_end) {          // nothing live: an empty partial
+    for (int e = tid; e < nh * hd; e += kThreads) {
+      const int head = h0 + e / hd, d = e % hd;
+      if (splits == 1)
+        out[(static_cast<size_t>(b) * h + head) * hd + d] = mz::from_f<T>(0.f);
+      else if (d == 0)
+        ws[((static_cast<size_t>(b) * h + head) * splits + split) * (hd + 2) + 1] = 0.f;
+    }
+    return;
   }
-  if (t < group) {
-    m_s[t] = mz::kNegInf;
-    l_s[t] = 0.f;
-  }
-  float acc[MAXO];
+
+  const int npages = (pos_end - pos0 + ps - 1) / ps;   // live pages of the split
+  const int* trow = tables + static_cast<size_t>(b) * npp + split * pps;
+  for (int i = tid; i < npages; i += kThreads) pid_s[i] = trow[i];
+
+  const int c = lane % LN;            // this lane's chunk of hd
+  const int pg = tid / LN;            // its position group
+  const bool active = c * 8 < hd;
+
+  float qf[GM][8];
 #pragma unroll
-  for (int i = 0; i < MAXO; ++i) acc[i] = 0.f;
+  for (int gi = 0; gi < GM; ++gi) {
+    const T* qr = q + b * q_sb + static_cast<long long>(h0 + gi) * q_sh + c * 8;
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      qf[gi][e] = gi < nh && active ? mz::to_f(qr[e]) * scale_log2 : 0.f;
+  }
+  float m[GM], l[GM], acc[GM][8];
+#pragma unroll
+  for (int gi = 0; gi < GM; ++gi) {
+    m[gi] = mz::kNegInf;
+    l[gi] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[gi][e] = 0.f;
+  }
+  __syncthreads();                    // page ids
+
+  const int cpr = hd / EPC;           // 16-byte copies a row
+  auto load_tile = [&](int t) {
+    T* ks = ring + (t % kStages) * 2 * TP * hd;
+    T* vs = ks + TP * hd;
+    for (int e = tid; e < TP * cpr; e += kThreads) {
+      const int r = e / cpr, cc = e % cpr;
+      const int lp = t * TP + r;      // position inside the split
+      const bool ok = pos0 + lp < pos_end;
+      const T* ksrc = kp;
+      const T* vsrc = vp;
+      if (ok) {
+        const long long page = pid_s[lp / ps], off = lp % ps;
+        ksrc = kp + page * kpool.sp + off * kpool.so + g * kpool.sh + cc * EPC;
+        vsrc = vp + page * vpool.sp + off * vpool.so + g * vpool.sh + cc * EPC;
+      }
+      cp_async16(smem_addr(ks + r * hd + cc * EPC), ksrc, ok);
+      cp_async16(smem_addr(vs + r * hd + cc * EPC), vsrc, ok);
+    }
+  };
+
+  const int ntiles = (pos_end - pos0 + TP - 1) / TP;
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < ntiles) load_tile(t);
+    cp_commit();
+  }
+  for (int t = 0; t < ntiles; ++t) {
+    cp_wait<kStages - 2>();
+    __syncthreads();                  // tile t landed; tile t-1's slot is free
+    if (t + kStages - 1 < ntiles) load_tile(t + kStages - 1);
+    cp_commit();
+    const T* ks = ring + (t % kStages) * 2 * TP * hd;
+    const T* vs = ks + TP * hd;
+    float s[R][GM];
+    bool valid[R];
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      const int row = pg + NPG * rr;
+      valid[rr] = pos0 + t * TP + row < pos_end;
+      float kf[8];
+      if (active) load8(ks + row * hd + c * 8, kf);
+      else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) kf[e] = 0.f;
+      }
+#pragma unroll
+      for (int gi = 0; gi < GM; ++gi) {
+        float part = 0.f;
+        if (gi < nh) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) part = fmaf(qf[gi][e], kf[e], part);
+#pragma unroll
+          for (int o = LN / 2; o > 0; o >>= 1)
+            part += __shfl_xor_sync(0xffffffffu, part, o);
+        }
+        s[rr][gi] = part;
+      }
+    }
+    float vf[R][8];
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      if (active) load8(vs + (pg + NPG * rr) * hd + c * 8, vf[rr]);
+      else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) vf[rr][e] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int gi = 0; gi < GM; ++gi) {
+      if (gi >= nh) continue;
+      float mx = m[gi];
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr)
+        if (valid[rr]) mx = fmaxf(mx, s[rr][gi]);
+      const float corr = exp2f(m[gi] - mx);
+      float p[R], psum = 0.f;
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr) {
+        p[rr] = valid[rr] ? exp2f(s[rr][gi] - mx) : 0.f;
+        psum += p[rr];
+      }
+      m[gi] = mx;
+      l[gi] = l[gi] * corr + psum;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        float a = acc[gi][e] * corr;
+#pragma unroll
+        for (int rr = 0; rr < R; ++rr) a = fmaf(p[rr], vf[rr][e], a);
+        acc[gi][e] = a;
+      }
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();                    // the ring becomes the merge area
+
+  // merge the position groups of each warp (xor over the lane bits above LN)
+#pragma unroll
+  for (int gi = 0; gi < GM; ++gi) {
+    if (gi >= nh) continue;
+    float mw = m[gi];
+#pragma unroll
+    for (int o = LN; o < 32; o <<= 1) mw = fmaxf(mw, __shfl_xor_sync(0xffffffffu, mw, o));
+    const float f = exp2f(m[gi] - mw);
+    float lw = l[gi] * f;
+#pragma unroll
+    for (int o = LN; o < 32; o <<= 1) lw += __shfl_xor_sync(0xffffffffu, lw, o);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      float a = acc[gi][e] * f;
+#pragma unroll
+      for (int o = LN; o < 32; o <<= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+      acc[gi][e] = a;
+    }
+    if (lane < LN && active) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) merge[(warp * GM + gi) * HDMAX + c * 8 + e] = acc[gi][e];
+    }
+    if (lane == 0) {
+      mw_s[warp][gi] = mw;
+      lw_s[warp][gi] = lw;
+    }
+  }
   __syncthreads();
-
-  for (int j0 = 0; j0 < len; j0 += kTP) {
-    // stage K and V rows j0 .. j0+31; rows past len stay zero, unread
-    for (int e = t; e < kTP * HD; e += kNT) {
-      const int j = e / HD, dd = e % HD, pos = j0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (pos < len) {
-        const long long page = trow[pos / ps], off = pos % ps;
-        kv = mz::to_f(kp[page * k_sp + off * k_so + g * k_sh + dd]);
-        vv = mz::to_f(vp[page * v_sp + off * v_so + g * v_sh + dd]);
-      }
-      k_s[j * KS + dd] = kv;
-      v_s[j * HD + dd] = vv;
-    }
-    __syncthreads();
-    for (int e = t; e < group * kTP; e += kNT) {
-      const int qi = e / kTP, j = e % kTP;
-      float s = mz::kNegInf;
-      if (j0 + j < len) {
-        s = 0.f;
-#pragma unroll 16
-        for (int dd = 0; dd < HD; ++dd) s += q_s[qi * HD + dd] * k_s[j * KS + dd];
-      }
-      p_s[e] = s;
-    }
-    __syncthreads();
-    // online softmax, one warp per query head, one lane per position
-    const int warp = t >> 5, lane = t & 31;
-    for (int qi = warp; qi < group; qi += kNT / 32) {
-      const float s = p_s[qi * kTP + lane];
-      float mx = s;
+  // then the warps, in order; one thread a (query head, d)
+  for (int e = tid; e < nh * hd; e += kThreads) {
+    const int gi = e / hd, d = e % hd;
+    float mx = mz::kNegInf;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = m_s[qi];
-      const float m_new = fmaxf(m_old, mx);
-      const float p = s <= mz::kNegInf / 2 ? 0.f : expf(s - m_new);
-      float sum = p;
+    for (int w = 0; w < kThreads / 32; ++w) mx = fmaxf(mx, mw_s[w][gi]);
+    float lsum = 0.f, a = 0.f;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      p_s[qi * kTP + lane] = p;
-      __syncwarp();
-      if (lane == 0) {
-        const float c = expf(m_old - m_new);
-        corr_s[qi] = c;
-        l_s[qi] = l_s[qi] * c + sum;
-        m_s[qi] = m_new;
-      }
+    for (int w = 0; w < kThreads / 32; ++w) {
+      const float f = exp2f(mw_s[w][gi] - mx);
+      lsum += lw_s[w][gi] * f;
+      a += merge[(w * GM + gi) * HDMAX + d] * f;
     }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < MAXO; ++i) {
-      const int o = t + kNT * i;
-      if (o < nout) {
-        const int qi = o / HD, dd = o % HD;
-        float a = acc[i] * corr_s[qi];
-#pragma unroll 8
-        for (int j = 0; j < kTP; ++j) a += p_s[qi * kTP + j] * v_s[j * HD + dd];
-        acc[i] = a;
+    const size_t bh = static_cast<size_t>(b) * h + h0 + gi;
+    if (splits == 1) {
+      out[bh * hd + d] = mz::from_f<T>(a / fmaxf(lsum, 1e-30f));
+    } else {
+      float* wp = ws + (bh * splits + split) * (hd + 2);
+      wp[2 + d] = a;
+      if (d == 0) {
+        wp[0] = mx;
+        wp[1] = lsum;
       }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < MAXO; ++i) {
-    const int o = t + kNT * i;
-    if (o < nout) {
-      const int qi = o / HD, dd = o % HD;
-      const size_t dst = (static_cast<size_t>(b) * h + g * group + qi) * HD + dd;
-      out[dst] = mz::from_f<T>(acc[i] / fmaxf(l_s[qi], 1e-30f));
     }
   }
 }
 
+// ---- bfloat16, head dims 32-128 in steps of 16: tensor cores -------------
+
+using bf16 = __nv_bfloat16;
+constexpr int kTcRows = 32;       // positions a tile
+constexpr int kTcStages = 3;
+constexpr int kTcMaxHeads = 16;   // the m16 rows of mma.m16n8k16
+
+// q values d, d + 1 of one head as a bf16 pair (0 past the block's heads)
+__device__ __forceinline__ uint32_t q_pair(const bf16* row, int d, bool ok) {
+  if (!ok) return 0u;
+  const unsigned short* p = reinterpret_cast<const unsigned short*>(row + d);
+  return static_cast<uint32_t>(p[0]) | (static_cast<uint32_t>(p[1]) << 16);
+}
+
+__host__ __device__ constexpr int tc_smem_bytes(int hd) {
+  return kTcStages * 2 * kTcRows * (hd + 8) * 2;
+}
+
+// One warp a block: the query heads of a head chunk are the rows of S =
+// Q K^T (mma.m16n8k16, Q in registers, K through ldmatrix), with the
+// online softmax on the S fragments (quad shuffles along a row) and P fed
+// back in registers as the A operand of P V (V through ldmatrix.trans),
+// float32 sums; K/V tiles of 32 positions through a 3-stage cp.async ring.
+template <int HD>
+__global__ void __launch_bounds__(32, 1)
+paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
+                const bf16* __restrict__ vp, const int* __restrict__ tables,
+                const int* __restrict__ lengths, bf16* __restrict__ out,
+                float* __restrict__ ws, int h, int hkv, int ps, int ps_shift,
+                int npp, int pps, int heads, int hchunks, long long q_sb,
+                long long q_sh, Pool kpool, Pool vpool, float sl2) {
+  constexpr int ST = HD + 8;       // shared row stride: ldmatrix rows on distinct banks
+  constexpr int CPR = HD / 8;      // 16-byte chunks a row
+  constexpr int KSTEPS = HD / 16;
+  constexpr int NT = HD / 8;       // 8-wide n tiles of O
+  constexpr int SN = kTcRows / 8;  // 8-wide n tiles of S
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // [stages][kTcRows][ST]
+  bf16* Vs = Ks + kTcStages * kTcRows * ST;
+  __shared__ int pid_s[kMaxPages];
+
+  const int lane = threadIdx.x;
+  const int hc = blockIdx.x % hchunks;
+  const int g = (blockIdx.x / hchunks) % hkv;
+  const int b = blockIdx.x / (hchunks * hkv);
+  const int split = blockIdx.y, splits = gridDim.y;
+  const int group = h / hkv;
+  const int h0 = g * group + hc * heads;
+  const int nh = min(heads, group - hc * heads);
+  const int len = lengths[b];
+  const int pos0 = split * pps * ps;
+  const int pos_end = min(len, min(npp, (split + 1) * pps) * ps);
+
+  if (pos0 >= pos_end) {          // nothing live: an empty partial
+    for (int e = lane; e < nh * HD; e += 32) {
+      const int head = h0 + e / HD, d = e % HD;
+      if (splits == 1)
+        out[(static_cast<size_t>(b) * h + head) * HD + d] = __float2bfloat16_rn(0.f);
+      else if (d == 0)
+        ws[((static_cast<size_t>(b) * h + head) * splits + split) * (HD + 2) + 1] = 0.f;
+    }
+    return;
+  }
+  const int npages = (pos_end - pos0 + ps - 1) / ps;
+  const int* trow = tables + static_cast<size_t>(b) * npp + split * pps;
+  for (int i = lane; i < npages; i += 32) pid_s[i] = trow[i];
+  __syncwarp();
+
+  const bf16* kb = kp + g * kpool.sh;
+  const bf16* vb = vp + g * vpool.sh;
+  auto load_tile = [&](int t, int stage) {
+    bf16* kd = Ks + stage * kTcRows * ST;
+    bf16* vd = Vs + stage * kTcRows * ST;
+#pragma unroll
+    for (int e = lane; e < kTcRows * CPR; e += 32) {
+      const int r = e / CPR, ch = e % CPR, lp = t * kTcRows + r;
+      const bool ok = pos0 + lp < pos_end;
+      const bf16* ksrc = kp;
+      const bf16* vsrc = vp;
+      if (ok) {
+        int pi, off;
+        if (ps_shift >= 0) {
+          pi = lp >> ps_shift;
+          off = lp & (ps - 1);
+        } else {
+          pi = lp / ps;
+          off = lp - pi * ps;
+        }
+        const long long page = pid_s[pi];
+        ksrc = kb + page * kpool.sp + off * kpool.so + ch * 8;
+        vsrc = vb + page * vpool.sp + off * vpool.so + ch * 8;
+      }
+      cp_async16(smem_addr(kd + r * ST + ch * 8), ksrc, ok);
+      cp_async16(smem_addr(vd + r * ST + ch * 8), vsrc, ok);
+    }
+  };
+  const int ntiles = (pos_end - pos0 + kTcRows - 1) / kTcRows;
+#pragma unroll
+  for (int s = 0; s < kTcStages - 1; ++s) {
+    if (s < ntiles) load_tile(s, s);
+    cp_commit();
+  }
+
+  const int r4 = lane >> 2, c4 = (lane & 3) * 2;   // this lane's row and column pair
+  const bf16* q0r = q + b * q_sb + static_cast<long long>(h0 + r4) * q_sh;
+  const bf16* q1r = q + b * q_sb + static_cast<long long>(h0 + r4 + 8) * q_sh;
+  const bool ok0 = r4 < nh, ok1 = r4 + 8 < nh;
+  uint32_t qf[KSTEPS][4];
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    qf[kk][0] = q_pair(q0r, kk * 16 + c4, ok0);
+    qf[kk][1] = q_pair(q1r, kk * 16 + c4, ok1);
+    qf[kk][2] = q_pair(q0r, kk * 16 + 8 + c4, ok0);
+    qf[kk][3] = q_pair(q1r, kk * 16 + 8 + c4, ok1);
+  }
+  const int k_off = ((lane & 7) + (lane >> 4) * 8) * ST + ((lane >> 3) & 1) * 8;
+  const int v_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * ST + (lane >> 4) * 8;
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;   // running max of rows r4, r4 + 8 (raw scores)
+  float l0 = 0.f, l1 = 0.f;               // this lane's part of the running sums
+
+  for (int it = 0; it < ntiles; ++it) {
+    cp_wait<kTcStages - 2>();
+    __syncwarp();                 // tile `it` is in; tile it - 1 is consumed
+    if (it + kTcStages - 1 < ntiles) load_tile(it + kTcStages - 1, (it + kTcStages - 1) % kTcStages);
+    cp_commit();
+    const int stage = it % kTcStages;
+    const uint32_t kbase = smem_addr(Ks + stage * kTcRows * ST + k_off);
+    const uint32_t vbase = smem_addr(Vs + stage * kTcRows * ST + v_off);
+    float s[SN][4];
+#pragma unroll
+    for (int j = 0; j < SN; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+#pragma unroll
+      for (int jp = 0; jp < SN / 2; ++jp) {
+        uint32_t bb[4];
+        ldsm_x4(bb, kbase + (jp * 16 * ST + kk * 16) * 2);
+        mma_bf16(s[2 * jp], qf[kk], bb[0], bb[1]);
+        mma_bf16(s[2 * jp + 1], qf[kk], bb[2], bb[3]);
+      }
+    }
+    const int base = pos0 + it * kTcRows;
+    if (base + kTcRows > pos_end) {   // the tail of the last page
+#pragma unroll
+      for (int j = 0; j < SN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (base + j * 8 + c4 + (e & 1) >= pos_end) s[j][e] = -INFINITY;
+    }
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int j = 0; j < SN; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    const float ms0 = mx0 == -INFINITY ? 0.f : mx0 * sl2;
+    const float ms1 = mx1 == -INFINITY ? 0.f : mx1 * sl2;
+    const float cr0 = exp2f(m0 * sl2 - ms0), cr1 = exp2f(m1 * sl2 - ms1);
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= cr0;
+    l1 *= cr1;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      acc[n][0] *= cr0;
+      acc[n][1] *= cr0;
+      acc[n][2] *= cr1;
+      acc[n][3] *= cr1;
+    }
+    uint32_t pa[SN / 2][4];
+#pragma unroll
+    for (int j = 0; j < SN; ++j) {
+      const float p0 = exp2f(fmaf(s[j][0], sl2, -ms0));
+      const float p1 = exp2f(fmaf(s[j][1], sl2, -ms0));
+      const float p2 = exp2f(fmaf(s[j][2], sl2, -ms1));
+      const float p3 = exp2f(fmaf(s[j][3], sl2, -ms1));
+      l0 += p0 + p1;
+      l1 += p2 + p3;
+      pa[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
+      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+    }
+#pragma unroll
+    for (int kk = 0; kk < SN / 2; ++kk) {
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bb[4];
+        ldsm_x4_t(bb, vbase + (kk * 16 * ST + np * 16) * 2);
+        mma_bf16(acc[2 * np], pa[kk], bb[0], bb[1]);
+        mma_bf16(acc[2 * np + 1], pa[kk], bb[2], bb[3]);
+      }
+    }
+  }
+  cp_wait<0>();
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  // rows r4 and r4 + 8: the heads h0 + r4 and h0 + r4 + 8 of this block
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r4 + 8 * half;
+    if (row >= nh) continue;
+    const float l = half ? l1 : l0, m = half ? m1 : m0;
+    const size_t bh = static_cast<size_t>(b) * h + h0 + row;
+    if (splits == 1) {
+      const float inv = 1.f / fmaxf(l, 1e-30f);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        *reinterpret_cast<uint32_t*>(out + bh * HD + n * 8 + c4) =
+            pack_bf16(acc[n][2 * half] * inv, acc[n][2 * half + 1] * inv);
+    } else {
+      float* wp = ws + (bh * splits + split) * (HD + 2);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        wp[2 + n * 8 + c4] = acc[n][2 * half];
+        wp[3 + n * 8 + c4] = acc[n][2 * half + 1];
+      }
+      if (c4 == 0) {
+        wp[0] = m * sl2;
+        wp[1] = l;
+      }
+    }
+  }
+}
+
+template <int HD>
+int tc_smem_set[mz::kDevices] = {};
+
+// merges the splits' partials of one (slot, query head) in a fixed order:
+// the max over the splits (a fixed tree), each split's weight exp2(m - max)
+// (0 for an empty split, l = 0), then per d the weighted sums in split order
+template <typename T>
+__global__ void __launch_bounds__(kCombineThreads)
+paged_combine_kernel(const float* __restrict__ ws, T* __restrict__ out, int hd,
+                     int splits) {
+  extern __shared__ float w_s[];     // [2][splits]: weight, weight * l
+  __shared__ float red[kCombineThreads];
+  const int tid = threadIdx.x;
+  const size_t bh = blockIdx.x;
+  const float* wp = ws + bh * splits * (hd + 2);
+  constexpr int U = 8;               // partials read at once (loads in flight)
+  float mx = mz::kNegInf;
+  for (int s0 = tid * U; s0 < splits; s0 += kCombineThreads * U) {
+    float m[U], l[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const bool ok = s0 + u < splits;
+      m[u] = ok ? wp[(s0 + u) * (hd + 2)] : 0.f;
+      l[u] = ok ? wp[(s0 + u) * (hd + 2) + 1] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (l[u] > 0.f) mx = fmaxf(mx, m[u]);
+  }
+  red[tid] = mx;
+  __syncthreads();
+#pragma unroll
+  for (int o = kCombineThreads / 2; o > 0; o >>= 1) {
+    if (tid < o) red[tid] = fmaxf(red[tid], red[tid + o]);
+    __syncthreads();
+  }
+  mx = red[0];
+  for (int s = tid; s < splits; s += kCombineThreads) {
+    const float l = wp[s * (hd + 2) + 1];
+    const float f = l > 0.f ? exp2f(wp[s * (hd + 2)] - mx) : 0.f;
+    w_s[s] = f;
+    w_s[splits + s] = f * l;
+  }
+  __syncthreads();
+  float lsum = 0.f;
+  for (int s = 0; s < splits; ++s) lsum += w_s[splits + s];
+  for (int d = tid; d < hd; d += kCombineThreads) {
+    float a = 0.f;
+    for (int s0 = 0; s0 < splits; s0 += U) {
+      float x[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        x[u] = s0 + u < splits ? wp[(s0 + u) * (hd + 2) + 2 + d] : 0.f;
+#pragma unroll
+      for (int u = 0; u < U; ++u)   // in split order; an empty split's acc is never used
+        if (s0 + u < splits && w_s[s0 + u] > 0.f) a = fmaf(w_s[s0 + u], x[u], a);
+    }
+    out[bh * hd + d] = mz::from_f<T>(a / fmaxf(lsum, 1e-30f));
+  }
+}
+
+template <typename T, int LN>
+cudaError_t launch_ln(dim3 grid, int gm, const T* q, const T* kp, const T* vp,
+                      const int* tables, const int* lengths, T* out, float* ws,
+                      int h, int hkv, int hd, int ps, int npp, int pps,
+                      int heads, int hchunks, long long q_sb, long long q_sh,
+                      Pool kpool, Pool vpool, float scale_log2, cudaStream_t st) {
+#define MZ_PD(GMV) paged_split_kernel<T, LN, GMV><<<grid, kThreads, 0, st>>>( \
+      q, kp, vp, tables, lengths, out, ws, h, hkv, hd, ps, npp, pps, heads,  \
+      hchunks, q_sb, q_sh, kpool, vpool, scale_log2)
+  if (gm == 1) MZ_PD(1);
+  else if (gm == 2) MZ_PD(2);
+  else if (gm == 4) MZ_PD(4);
+  else if (gm == 8) MZ_PD(8);
+  else return cudaErrorInvalidValue;
+#undef MZ_PD
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_tc(dim3 grid, const bf16* q, const bf16* kp, const bf16* vp,
+                      const int* tables, const int* lengths, bf16* out, float* ws,
+                      int h, int hkv, int ps, int npp, int pps, int heads,
+                      int hchunks, long long q_sb, long long q_sh, Pool kpool,
+                      Pool vpool, float scale_log2, cudaStream_t st) {
+  const int smem = tc_smem_bytes(HD);
+  cudaError_t e = mz::opt_in(paged_tc_kernel<HD>, tc_smem_set<HD>, smem);
+  if (e != cudaSuccess) return e;
+  const int ps_shift = (ps & (ps - 1)) == 0 ? __builtin_ctz(ps) : -1;
+  paged_tc_kernel<HD><<<grid, 32, smem, st>>>(q, kp, vp, tables, lengths, out, ws,
+                                               h, hkv, ps, ps_shift, npp, pps, heads,
+                                               hchunks, q_sb, q_sh, kpool, vpool,
+                                               scale_log2);
+  return cudaGetLastError();
+}
+
+// the tensor-core route: bfloat16 and hd in {32, 48, ..., 128}
+// (kernels/_attn_plan.py: paged_plan's route "tc")
+bool tc_route(int dtype, int hd) { return dtype == 1 && hd % 16 == 0 && hd >= 32 && hd <= 128; }
+
 template <typename T>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const int* tables, const int* lengths, void* out, int b,
-                   int h, int hkv, int hd, int ps, int npp, long long q_sb,
-                   long long q_sh, long long k_sp, long long k_so,
-                   long long k_sh, long long v_sp, long long v_so,
-                   long long v_sh, float scale, cudaStream_t st) {
-  const dim3 grid(b, hkv);
+                   const int* tables, const int* lengths, void* out, void* ws,
+                   int b, int h, int hkv, int hd, int ps, int npp, int pps,
+                   int splits, int heads, int hchunks, long long q_sb,
+                   long long q_sh, Pool kpool, Pool vpool, float scale_log2,
+                   cudaStream_t st) {
+  const dim3 grid(b * hkv * hchunks, splits);
+  T* op = static_cast<T*>(out);
+  float* wsp = static_cast<float*>(ws);
+  cudaError_t e;
+  if constexpr (sizeof(T) == 2) {
+    if (tc_route(1, hd)) {
+      const bf16* qp = static_cast<const bf16*>(q);
+      const bf16* kpp = static_cast<const bf16*>(kp);
+      const bf16* vpp = static_cast<const bf16*>(vp);
+#define MZ_TC(HDV) e = launch_tc<HDV>(grid, qp, kpp, vpp, tables, lengths, op, wsp, h, \
+      hkv, ps, npp, pps, heads, hchunks, q_sb, q_sh, kpool, vpool, scale_log2, st)
+      switch (hd) {
+        case 32: MZ_TC(32); break;
+        case 48: MZ_TC(48); break;
+        case 64: MZ_TC(64); break;
+        case 80: MZ_TC(80); break;
+        case 96: MZ_TC(96); break;
+        case 112: MZ_TC(112); break;
+        default: MZ_TC(128); break;
+      }
+#undef MZ_TC
+      if (e != cudaSuccess || splits == 1) return e;
+      paged_combine_kernel<T><<<b * h, kCombineThreads, 2 * splits * sizeof(float), st>>>(
+          wsp, op, hd, splits);
+      return cudaGetLastError();
+    }
+  }
+  int gm = 1;
+  while (gm < heads) gm *= 2;
+  int ln = 4;
+  while (ln * 8 < hd) ln *= 2;
   const T* qp = static_cast<const T*>(q);
   const T* kpp = static_cast<const T*>(kp);
   const T* vpp = static_cast<const T*>(vp);
-  T* op = static_cast<T*>(out);
-#define MZ_PD(HDV) paged_decode_kernel<T, HDV><<<grid, kNT, 0, st>>>(          \
-      qp, kpp, vpp, tables, lengths, op, h, hkv, ps, npp, q_sb, q_sh, k_sp, \
-      k_so, k_sh, v_sp, v_so, v_sh, scale)
-  if (hd == 32) MZ_PD(32);
-  else if (hd == 64) MZ_PD(64);
-  else if (hd == 128) MZ_PD(128);
+#define MZ_LN(LNV) e = launch_ln<T, LNV>(grid, gm, qp, kpp, vpp, tables, lengths, \
+      op, wsp, h, hkv, hd, ps, npp, pps, heads, hchunks, q_sb, q_sh, kpool,      \
+      vpool, scale_log2, st)
+  if (ln == 4) MZ_LN(4);
+  else if (ln == 8) MZ_LN(8);
+  else if (ln == 16) MZ_LN(16);
+  else if (ln == 32) MZ_LN(32);
   else return cudaErrorInvalidValue;
-#undef MZ_PD
+#undef MZ_LN
+  if (e != cudaSuccess || splits == 1) return e;
+  paged_combine_kernel<T><<<b * h, kCombineThreads, 2 * splits * sizeof(float), st>>>(
+      wsp, op, hd, splits);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q: (b, h, hd) with strides q_sb, q_sh (unit stride on hd); k/v pools:
-// one layer's (P, ps, hkv, hd) with strides (page, offset, head) and unit
-// stride on hd; tables: (b, npp) int32 contiguous; lengths: (b,) int32;
-// out: (b, h, hd) contiguous.  h % hkv == 0, h / hkv <= 16, hd in
-// {32, 64, 128}.
+// one layer's (P, ps, hkv, hd) with strides (page, offset, head), unit
+// stride on hd, 16-byte aligned rows; tables: (b, npp) int32 contiguous;
+// lengths: (b,) int32; out: (b, h, hd) contiguous; ws: b*h*splits*(hd+2)
+// float32 when splits > 1.  The plan (pps pages a split, splits, heads a
+// block, hchunks head chunks a kv head) is kernels/_attn_plan.py's
+// paged_plan.  scale_log2 = log2(e) / sqrt(hd).
 extern "C" int paged_decode(const void* q, const void* kp, const void* vp,
                             const void* tables, const void* lengths, void* out,
-                            int b, int h, int hkv, int hd, int ps, int npp,
+                            void* ws, int b, int h, int hkv, int hd, int ps,
+                            int npp, int pps, int splits, int heads, int hchunks,
                             long long q_sb, long long q_sh, long long k_sp,
                             long long k_so, long long k_sh, long long v_sp,
-                            long long v_so, long long v_sh, float scale,
+                            long long v_so, long long v_sh, float scale_log2,
                             int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (b < 1 || hkv < 1 || h % hkv || h / hkv > kMaxGroup || ps < 1 || npp < 1)
+  if (b < 1 || hkv < 1 || h % hkv || ps < 1 || npp < 1 || hd < 8 || hd > 256 ||
+      hd % 8 || pps < 1 || pps > kMaxPages || splits != (npp + pps - 1) / pps ||
+      heads < 1 || heads > (tc_route(dtype, hd) ? kTcMaxHeads : kMaxHeads) ||
+      hchunks < 1 ||
+      hchunks * heads < h / hkv || (hchunks - 1) * heads >= h / hkv ||
+      splits > 4096 || (splits > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int* tp = static_cast<const int*>(tables);
   const int* lp = static_cast<const int*>(lengths);
+  const Pool kpool{k_sp, k_so, k_sh}, vpool{v_sp, v_so, v_sh};
   cudaError_t e;
   if (dtype == 0)
-    e = launch<float>(q, kp, vp, tp, lp, out, b, h, hkv, hd, ps, npp, q_sb,
-                      q_sh, k_sp, k_so, k_sh, v_sp, v_so, v_sh, scale, st);
+    e = launch<float>(q, kp, vp, tp, lp, out, ws, b, h, hkv, hd, ps, npp, pps,
+                      splits, heads, hchunks, q_sb, q_sh, kpool, vpool,
+                      scale_log2, st);
   else if (dtype == 1)
-    e = launch<__nv_bfloat16>(q, kp, vp, tp, lp, out, b, h, hkv, hd, ps, npp,
-                              q_sb, q_sh, k_sp, k_so, k_sh, v_sp, v_so, v_sh,
-                              scale, st);
+    e = launch<__nv_bfloat16>(q, kp, vp, tp, lp, out, ws, b, h, hkv, hd, ps,
+                              npp, pps, splits, heads, hchunks, q_sb, q_sh,
+                              kpool, vpool, scale_log2, st);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

@@ -17,6 +17,12 @@ names: which key tiles of 64 a query tile walks, and whether a tile is
 skipped (no valid pair), full (no masked pair: no mask applied) or an
 edge (the mask applied element by element).  The kernel computes them
 itself; the CPU tests hold these copies against a brute-force mask.
+
+`paged_plan(b, h, hkv, npp, ps, hd, elem_bytes)` cuts a paged decode call
+(`csrc/paged_decode.cu`) into blocks of one (slot, kv head, head chunk,
+split), a split being a fixed run of whole pages.  It reads shapes and
+the SM count, never the lengths, so the grid is the same for any lengths
+(no host read, no sync).
 """
 from __future__ import annotations
 
@@ -104,3 +110,92 @@ def kv_range(q0: int, bq: int, sq: int, sk: int, causal: bool,
     first = k_lo // bk
     last = first - 1 if q_hi < q0 or k_hi < k_lo else k_hi // bk
     return first, last
+
+
+# -- paged decode (csrc/paged_decode.cu) ----------------------------------------
+
+PAGED_MAX_PAGES = 64      # pages a split, at most (kMaxPages)
+PAGED_MAX_HD = 256
+PAGED_MAX_SPLITS = 4096   # the combine kernel's weights in shared memory
+# "tc": bfloat16, hd in 32..128 in steps of 16 (paged_tc_kernel, one warp a
+# block, up to 16 query heads as the rows of mma.m16n8k16, tiles of 32
+# positions in a 3-stage ring); "fma": the rest (paged_split_kernel, 4
+# warps, up to 8 query heads, 8-value chunks of hd a lane)
+TC_ROWS, TC_MAX_HEADS = 32, 16
+FMA_THREADS, FMA_MAX_HEADS = 128, 8
+
+
+@dataclass(frozen=True)
+class PagedPlan:
+    route: str            # "tc" or "fma"
+    rows: int             # positions a tile (one stage of the K/V ring)
+    heads: int            # query heads a block, at most
+    head_chunks: int      # blocks that share one kv head's query heads
+    pages: int            # pages a split
+    splits: int           # splits a (slot, kv head)
+    grid: tuple[int, int] # (B * Hkv * head_chunks, splits)
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+    def workspace_floats(self, b: int, h: int, hd: int) -> int:
+        """Float32 partials (m, l, acc[hd]) of every (slot, query head,
+        split); none with one split (the blocks write the output)."""
+        return 0 if self.splits == 1 else b * h * self.splits * (hd + 2)
+
+
+def tc_route(hd: int, elem_bytes: int) -> bool:
+    return elem_bytes == 2 and hd % 16 == 0 and 32 <= hd <= 128
+
+
+def paged_plan(b: int, h: int, hkv: int, npp: int, ps: int, hd: int,
+               elem_bytes: int, *, sms: int = SMS) -> PagedPlan:
+    """The plan of a paged decode call on a card with `sms` SMs.
+
+    * Route and tile: "tc" tiles are 32 positions; in "fma" blocks a
+      position's hd values are read in 8-value chunks by the next power
+      of two >= hd / 8 lanes (at least 4), 128 / lanes positions a pass,
+      two passes a tile in bfloat16 and one in float32.
+    * Heads: a block serves up to 16 ("tc") or 8 ("fma") query heads of
+      one kv head; a larger group is cut into equal head chunks.
+    * Pages a split: the fewest that give the card about eight blocks an
+      SM ("tc", one warp each) or two ("fma", four warps each), at least
+      one tile's worth and at most 64; splits = ceil(npp / pages).
+    """
+    if hd % 8 or not 8 <= hd <= PAGED_MAX_HD:
+        raise ValueError(f"paged_decode_attention: head dim {hd} must be a "
+                         f"multiple of 8 up to {PAGED_MAX_HD}")
+    if hkv < 1 or h % hkv:
+        raise ValueError(f"paged_decode_attention: H {h} is not a multiple "
+                         f"of Hkv {hkv}")
+    if elem_bytes not in (2, 4):
+        raise ValueError(f"paged_decode_attention: {elem_bytes}-byte elements")
+    if b < 1 or ps < 1 or npp < 1:
+        raise ValueError("paged_decode_attention: B, the page size and the "
+                         "pages a slot must be >= 1")
+    group = h // hkv
+    if tc_route(hd, elem_bytes):
+        route, rows, max_heads = "tc", TC_ROWS, TC_MAX_HEADS
+        per_sm = 8
+    else:
+        lanes = max(4, _pow2_at_least(hd // 8))
+        route, max_heads = "fma", FMA_MAX_HEADS
+        rows = FMA_THREADS // lanes * (2 if elem_bytes == 2 else 1)
+        per_sm = 2
+    head_chunks = _cdiv(group, max_heads)
+    heads = _cdiv(group, head_chunks)
+    base = b * hkv * head_chunks
+    pages = max(_cdiv(rows, ps), _cdiv(npp, _cdiv(per_sm * sms, base)))
+    pages = min(PAGED_MAX_PAGES, pages)
+    splits = _cdiv(npp, pages)
+    if splits > PAGED_MAX_SPLITS:
+        raise ValueError(f"paged_decode_attention: {npp} pages a slot need "
+                         f"more than {PAGED_MAX_SPLITS} splits")
+    return PagedPlan(route=route, rows=rows, heads=heads,
+                     head_chunks=head_chunks, pages=pages, splits=splits,
+                     grid=(base, splits))
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())

@@ -13,10 +13,15 @@ and launches on PyTorch's current stream.
   `paged_decode_attention_hp`: one query token a slot, q (B, 1, H, hd),
   against one layer's page pools (P, ps, Hkv, hd) through int32 page
   tables (B, npp) and lengths (B,) that count the current token ->
-  (B, 1, H, hd), hd in {32, 64, 128}.
+  (B, 1, H, hd), hd any multiple of 8 up to 256.  The positions are
+  split across blocks by `kernels/_attn_plan.py:paged_plan` (from the
+  shapes, never the lengths); with more than one split the wrapper
+  allocates a float32 workspace of the splits' partials, which a second
+  kernel of the same C call merges in split order.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -25,7 +30,9 @@ from repro_torch.kernels import _attn_plan
 from repro_torch.kernels import _build as B
 
 HEAD_DIMS = _attn_plan.HEAD_DIMS          # flash_attention
-PAGED_HEAD_DIMS = (32, 64, 128)           # paged_decode_attention
+# paged_decode_attention: any multiple of 8 up to 256
+PAGED_HEAD_DIMS = tuple(range(8, _attn_plan.PAGED_MAX_HD + 1, 8))
+LOG2E = 1.4426950408889634
 
 FLASH = B.Launcher("flash_attention", "flash_attention", [
     B.VOID_P, B.VOID_P, B.VOID_P, B.VOID_P, B.INT, B.INT, B.INT, B.INT,
@@ -90,10 +97,13 @@ def _strides(t: torch.Tensor) -> tuple[int, int, int]:
 
 
 PAGED = B.Launcher("paged_decode", "paged_decode", [
-    B.VOID_P, B.VOID_P, B.VOID_P, B.VOID_P, B.VOID_P, B.VOID_P, B.INT, B.INT,
-    B.INT, B.INT, B.INT, B.INT, B.INT64, B.INT64, B.INT64, B.INT64, B.INT64,
-    B.INT64, B.INT64, B.INT64, B.FLOAT, B.INT, B.VOID_P])
-MAX_GROUP = 16       # query heads a kv head serves (csrc/paged_decode.cu)
+    B.VOID_P, B.VOID_P, B.VOID_P, B.VOID_P, B.VOID_P, B.VOID_P, B.VOID_P,
+    *[B.INT] * 10, *[B.INT64] * 8, B.FLOAT, B.INT, B.VOID_P])
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def paged_decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
@@ -108,13 +118,10 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                          f"{tuple(k_pages.shape)}, {tuple(v_pages.shape)}")
     b, _, h, hd = q.shape
     _, ps, hkv, _ = k_pages.shape
-    if k_pages.shape[3] != hd or hkv < 1 or h % hkv or h // hkv > MAX_GROUP:
+    if k_pages.shape[3] != hd or hkv < 1 or h % hkv:
         raise ValueError(f"paged_decode_attention: incompatible q "
                          f"{tuple(q.shape)} and pools {tuple(k_pages.shape)} "
-                         f"(H % Hkv == 0, H / Hkv <= {MAX_GROUP})")
-    if hd not in PAGED_HEAD_DIMS:
-        raise ValueError(f"paged_decode_attention: head dim {hd} not in "
-                         f"{PAGED_HEAD_DIMS}")
+                         f"(H % Hkv == 0)")
     if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
         raise ValueError("paged_decode_attention: q and the pools must share "
                          "one dtype")
@@ -127,16 +134,25 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
             not lengths.is_contiguous():
         raise ValueError("paged_decode_attention: tables must be a contiguous"
                          " int32 (B, npp), lengths a contiguous int32 (B,)")
-    if hkv > 65535:
-        raise ValueError("paged_decode_attention: grid limits exceeded")
     code = B.dtype_code(q, "paged_decode_attention")
+    es = q.element_size()
+    # 16-byte cp.async rows: aligned pool bases, strides in 16-byte steps
+    if any(t.data_ptr() % 16 or any(st * es % 16 for st in t.stride()[:3])
+           for t in (k_pages, v_pages)):
+        raise ValueError("paged_decode_attention: the pools must start on "
+                         "16-byte boundaries with strides in 16-byte steps")
     out = torch.empty((b, 1, h, hd), dtype=q.dtype, device=q.device)
     if b == 0:
         return out
+    npp = tables.shape[1]
+    plan = _attn_plan.paged_plan(b, h, hkv, npp, ps, hd, es,
+                                 sms=_sm_count(q.device.index or 0))
+    n_ws = plan.workspace_floats(b, h, hd)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=q.device) if n_ws else None
     PAGED(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-          tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h, hkv,
-          hd, ps, tables.shape[1], q.stride(0), q.stride(2),
-          k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
-          v_pages.stride(0), v_pages.stride(1), v_pages.stride(2),
-          1.0 / math.sqrt(hd), code, B.stream(q))
+          tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+          None if ws is None else ws.data_ptr(), b, h, hkv, hd, ps, npp,
+          plan.pages, plan.splits, plan.heads, plan.head_chunks,
+          q.stride(0), q.stride(2), *k_pages.stride()[:3],
+          *v_pages.stride()[:3], LOG2E / math.sqrt(hd), code, B.stream(q))
     return out

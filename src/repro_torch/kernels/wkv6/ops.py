@@ -1,13 +1,14 @@
 """Public WKV6 ops.  `wkv6` keeps the JAX op's signature and layout (r/k/
-v/logw (BH, S, D), u (BH, 1, D), s0 (BH, D, Dv)); `wkv6_bshd` takes the
-model layout (B, S, H, D) that `rwkv6.time_mix` produces, u (H, D) and
-s0 (B, H, D, Dv), with no transpose.  Both return (o, s_final): the
-model carries the final state into the next call.
+logw (BH, S, D), v (BH, S, Dv), u (BH, 1, D), s0 (BH, D, Dv));
+`wkv6_bshd` takes the model layout (B, S, H, D) that `rwkv6.time_mix`
+produces, u (H, D) and s0 (B, H, D, Dv), with no transpose.  Inputs
+float32 or bfloat16; both return (o in the input dtype, s_final in
+float32): the model carries the final state into the next call.
 
 A CPU tensor takes the plain PyTorch version (`ref`); a CUDA tensor
 launches the CUDA kernel, which raises on anything it does not take.
-`chunk` sets the plain version's chunk length; the kernel steps through
-time and has no chunk.
+`chunk` sets the plain version's chunk length; the kernel picks its own
+(64 for D <= 64, else 32; `csrc/wkv6.cu`).
 """
 from __future__ import annotations
 

@@ -66,20 +66,26 @@ def _chunked(r, k, v, logw, u, s0, chunk: int):
 def wkv6_bshd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   logw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor, *,
                   chunk: int = 64):
-    """Model layout: r/k/v/logw (B, S, H, D), u (H, D) or (B, H, D), s0
-    (B, H, D, Dv), all float32.  Returns (o (B, S, H, Dv), s_final
-    (B, H, D, Dv)): sequential for S = 1, chunked otherwise."""
-    ub = u.expand(r.shape[0], *r.shape[2:])
+    """Model layout: r/k/logw (B, S, H, D), v (B, S, H, Dv), u (H, D) or
+    (B, H, D), s0 (B, H, D, Dv).  Computes in float32 whatever the input
+    dtype and returns (o (B, S, H, Dv) in r's dtype, s_final (B, H, D, Dv)
+    float32), as the JAX `wkv6_pallas` casts: sequential for S = 1,
+    chunked otherwise."""
+    dt = r.dtype
+    r, k, v, logw = (t.float() for t in (r, k, v, logw))
+    ub = u.float().expand(r.shape[0], *r.shape[2:])
     if r.shape[1] == 1:
-        return _sequential(r, k, v, logw, ub, s0)
-    return _chunked(r, k, v, logw, ub, s0, chunk)
+        o, s = _sequential(r, k, v, logw, ub, s0)
+    else:
+        o, s = _chunked(r, k, v, logw, ub, s0, chunk)
+    return o.to(dt), s
 
 
 def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              logw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor, *,
              chunk: int = 64):
-    """The JAX op's layout: r/k/v/logw (BH, S, D), u (BH, 1, D), s0
-    (BH, D, Dv).  Returns (o (BH, S, Dv), s_final (BH, D, Dv)); the chunk
+    """The JAX op's layout: r/k/logw (BH, S, D), v (BH, S, Dv), u
+    (BH, 1, D), s0 (BH, D, Dv).  Returns (o (BH, S, Dv), s_final (BH, D, Dv)); the chunk
     is cut to S, as the JAX op cuts it."""
     o, s = wkv6_bshd_ref(r[:, :, None], k[:, :, None], v[:, :, None],
                          logw[:, :, None], u, s0[:, None],

@@ -155,12 +155,82 @@ def attn_einsum(q, k, v, *, causal: bool, window: int | None,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def attn_chunked(q, k, v, *, causal: bool, window: int | None,
+                 chunk: int = 1024, q_offset: int = 0) -> torch.Tensor:
+    """Memory-efficient attention (the JAX `attn_chunked`): a loop over KV
+    chunks of `chunk` keys with a running max and sum, so the (Sq, Sk)
+    scores are never held whole.  q: (B,Sq,H,hd), k/v: (B,Sk,Hkv,hd)."""
+    b, sq, h, hd = q.shape
+    vd = v.shape[-1]
+    sk = k.shape[1]
+    n_rep = h // k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, vd), dtype=torch.float32, device=q.device)
+    for c0 in range(0, sk, chunk):
+        ki = repeat_kv(k[:, c0:c0 + chunk], n_rep)
+        vi = repeat_kv(v[:, c0:c0 + chunk], n_rep)
+        s = torch.einsum("bqhd,bkhd->bhqk", q, ki).float() * scale
+        kpos = torch.arange(c0, c0 + ki.shape[1], device=q.device)[None, :]
+        msk = torch.ones((sq, ki.shape[1]), dtype=torch.bool, device=q.device)
+        if causal:
+            msk &= kpos <= qpos
+        if window is not None:
+            msk &= kpos > qpos - window
+        s = s.masked_fill(~msk, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        # fully masked chunks keep p exactly 0 (not exp(-inf - -inf) = 1)
+        p = torch.where(s <= NEG_INF / 2, torch.zeros_like(s),
+                        torch.exp(s - m_new[..., None]))
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(q.dtype), vi).float()
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def attn_local(q, k, v, *, window: int, q_offset: int = 0) -> torch.Tensor:
+    """Banded causal attention for sliding-window prefill (the JAX
+    `attn_local`): queries in chunks of `window`, each against its own
+    chunk and the previous one, so the scores are (S, 2 * window), never
+    (S, S).  Like the JAX form it is causal by construction and ignores
+    `q_offset`."""
+    b, s, h, hd = q.shape
+    w = window
+    pad = (-s) % w
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+    sp = q.shape[1]
+    nq = sp // w
+    hkv, vd = k.shape[2], v.shape[-1]
+    kc = k.reshape(b, nq, w, hkv, hd)
+    vc = v.reshape(b, nq, w, hkv, vd)
+    # the previous chunk (zeros before chunk 0)
+    kprev = torch.cat([torch.zeros_like(kc[:, :1]), kc[:, :-1]], 1)
+    vprev = torch.cat([torch.zeros_like(vc[:, :1]), vc[:, :-1]], 1)
+    n_rep = h // hkv
+    kcat = repeat_kv(torch.cat([kprev, kc], 2).reshape(b * nq, 2 * w, hkv, hd), n_rep)
+    vcat = repeat_kv(torch.cat([vprev, vc], 2).reshape(b * nq, 2 * w, hkv, vd), n_rep)
+    qf = q.reshape(b * nq, w, h, hd)
+    sco = torch.einsum("bqhd,bkhd->bhqk", qf, kcat).float() / math.sqrt(hd)
+    qpos = torch.arange(w, device=q.device)[:, None] + w     # position within 2w
+    kpos = torch.arange(2 * w, device=q.device)[None, :]
+    mask = ((kpos <= qpos) & (kpos > qpos - w)).expand(b * nq, w, 2 * w).clone()
+    chunk0 = (torch.arange(b * nq, device=q.device) % nq) == 0
+    mask &= ~(chunk0[:, None, None] & (kpos[None] < w))
+    sco = sco.masked_fill(~mask[:, None], NEG_INF)
+    probs = torch.softmax(sco, -1).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, vcat).reshape(b, sp, h, vd)
+    return out[:, :s]
+
+
 def attention(cfg: ModelConfig, q, k, v, *, causal: bool = True,
               q_offset: int = 0, decode: bool = False) -> torch.Tensor:
-    """Dispatch on cfg.attn_impl and shape, as the JAX package does.  The
-    local (banded sliding-window) form runs as the einsum form with the
-    window mask, which computes the same function with the full (Sq, Sk)
-    scores; the chunked form is not ported yet."""
+    """Dispatch on cfg.attn_impl and shape, as the JAX package does."""
     impl = cfg.attn_impl
     s = q.shape[1]
     if impl == "auto":
@@ -174,7 +244,10 @@ def attention(cfg: ModelConfig, q, k, v, *, causal: bool = True,
             impl = "einsum"
     if impl == "flash":
         return fops.flash_attention(q, k, v, causal=causal, window=cfg.window)
+    if impl == "local":
+        return attn_local(q, k, v, window=cfg.window, q_offset=q_offset)
     if impl == "chunked":
-        raise NotImplementedError(f"attn_impl={impl} is not ported yet")
+        return attn_chunked(q, k, v, causal=causal, window=cfg.window,
+                            chunk=cfg.attn_chunk, q_offset=q_offset)
     return attn_einsum(q, k, v, causal=causal, window=cfg.window,
                        q_offset=q_offset)

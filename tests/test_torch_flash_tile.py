@@ -124,7 +124,7 @@ def test_plan_shapes_on_the_served_paths():
     with pytest.raises(ValueError, match="multiple"):
         ap.flash_plan(1, 9, 2, 64, 64)
     assert flash_kernel.HEAD_DIMS == (32, 64, 80, 128)
-    assert flash_kernel.PAGED_HEAD_DIMS == (32, 64, 128)
+    assert flash_kernel.PAGED_HEAD_DIMS == tuple(range(8, 257, 8))
 
 
 # -- the tile's arithmetic -------------------------------------------------------
