@@ -39,7 +39,11 @@
 // port's einsum attention does (models/common.py: softmax(...).to(q.dtype)
 // before the bf16 P V einsum); the plain version keeps P in float32.
 // Inputs must start on 16-byte boundaries with strides that are multiples
-// of 8 elements (the wrapper checks).
+// of 8 elements (the wrapper copies them where not).  Head dims 32-256
+// (the wrapper zero-pads any other up to 256 to the next); from hd 160 Q
+// is re-read from shared memory each key tile instead of held in
+// registers, and at hd 256 the ring has 2 stages (3 would not fit a block
+// of 8 warps: tc_stages).
 //
 // float32 route: the first port's FMA kernel (flash_fwd_kernel), kept for
 // the float32 end-to-end checks: a block takes one (batch, head) pair and
@@ -204,8 +208,9 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
 using bf16 = __nv_bfloat16;
 
 constexpr int kTcBK = 64;        // keys a K/V tile
-constexpr int kTcStages = 3;     // K/V ring stages
+constexpr int kTcStages = 3;     // K/V ring stages where they fit
 constexpr int kTcMaxWarps = 8;   // warps a block at most
+constexpr int kSmemMax = 232448; // dynamic shared memory a block can opt in to
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Classification of a (query tile, key tile) pair, mirrored by
@@ -240,8 +245,14 @@ __device__ __forceinline__ void kv_range(int q0, int bq, int sq, int sk, int cau
   last = (q_hi < q0 || k_hi < k_lo) ? first - 1 : k_hi / bk;
 }
 
-constexpr int tc_smem_bytes(int hd, int warps) {
-  return (warps * 16 + kTcStages * 2 * kTcBK) * (hd + 8) * 2;
+__host__ __device__ constexpr int tc_smem_bytes(int hd, int warps, int stages) {
+  return (warps * 16 + stages * 2 * kTcBK) * (hd + 8) * 2;
+}
+
+// 3 ring stages where a block of the most warps fits, else 2 (hd 256);
+// mirrored by kernels/_attn_plan.py:tc_stages, which passes the count
+__host__ __device__ constexpr int tc_stages(int hd) {
+  return tc_smem_bytes(hd, kTcMaxWarps, kTcStages) <= kSmemMax ? kTcStages : 2;
 }
 
 // grid: x = (b, head), y = query tile, the last (heaviest under a causal
@@ -257,11 +268,15 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int KSTEPS = HD / 16;
   constexpr int NT = HD / 8;    // 8-wide n tiles of O
   constexpr int SN = kTcBK / 8; // 8-wide n tiles of S
+  constexpr int STAGES = tc_stages(HD);
+  // Q fragments stay in registers up to hd 128; wider, the accumulator
+  // needs them, and Q is read from shared memory (ldmatrix) each key tile
+  constexpr bool kQRegs = HD <= 128;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nw = blockDim.x >> 5;
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // [nw * 16][ST]; O in the epilogue
   bf16* Ks = Qs + nw * 16 * ST;                    // [stages][kTcBK][ST]
-  bf16* Vs = Ks + kTcStages * kTcBK * ST;          // [stages][kTcBK][ST]
+  bf16* Vs = Ks + STAGES * kTcBK * ST;             // [stages][kTcBK][ST]
 
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int h = blockIdx.x % H, b = blockIdx.x / H;
@@ -294,7 +309,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   };
 #pragma unroll
-  for (int s = 0; s < kTcStages - 1; ++s) {   // Q rides in the first group
+  for (int s = 0; s < STAGES - 1; ++s) {      // Q rides in the first group
     if (s < n_tiles) load_kv(first + s, s);
     cp_commit();
   }
@@ -308,7 +323,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int k_off = ((lane & 7) + (lane >> 4) * 8) * ST + ((lane >> 3) & 1) * 8;
   const int v_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * ST + (lane >> 4) * 8;
 
-  uint32_t qf[KSTEPS][4];
+  uint32_t qf[kQRegs ? KSTEPS : 1][4];
   float acc[NT][4];
 #pragma unroll
   for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
@@ -316,21 +331,23 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float l0 = 0.f, l1 = 0.f;               // this lane's part of the running sums
 
   for (int it = 0; it < n_tiles; ++it) {
-    cp_wait<kTcStages - 2>();
+    cp_wait<STAGES - 2>();
     __syncthreads();   // tile `it` is in; every warp is done with tile it - 1
-    if (it == 0) {
+    if constexpr (kQRegs) {
+      if (it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) ldsm_x4(qf[kk], q_addr + kk * 32);
+        for (int kk = 0; kk < KSTEPS; ++kk) ldsm_x4(qf[kk], q_addr + kk * 32);
+      }
     }
     {
-      const int nx = it + kTcStages - 1;   // into the stage tile it - 1 used
-      if (nx < n_tiles) load_kv(first + nx, nx % kTcStages);
+      const int nx = it + STAGES - 1;      // into the stage tile it - 1 used
+      if (nx < n_tiles) load_kv(first + nx, nx % STAGES);
       cp_commit();
     }
     const int k0 = (first + it) * kTcBK;
     const int cls = tile_class(wq0, 16, k0, kTcBK, Sq, Sk, causal, window);
     if (cls == 0) continue;   // warp-uniform: none of this warp's pairs is valid
-    const int stage = it % kTcStages;
+    const int stage = it % STAGES;
     const uint32_t kbase = smem_addr(Ks + stage * kTcBK * ST + k_off);
     const uint32_t vbase = smem_addr(Vs + stage * kTcBK * ST + v_off);
 
@@ -339,12 +356,18 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < SN; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk) {
+      uint32_t qa[4];
+      if constexpr (kQRegs) {
+        qa[0] = qf[kk][0]; qa[1] = qf[kk][1]; qa[2] = qf[kk][2]; qa[3] = qf[kk][3];
+      } else {
+        ldsm_x4(qa, q_addr + kk * 32);
+      }
 #pragma unroll
       for (int jp = 0; jp < SN / 2; ++jp) {
         uint32_t bb[4];
         ldsm_x4(bb, kbase + (jp * 16 * ST + kk * 16) * 2);
-        mma_bf16(s[2 * jp], qf[kk], bb[0], bb[1]);
-        mma_bf16(s[2 * jp + 1], qf[kk], bb[2], bb[3]);
+        mma_bf16(s[2 * jp], qa, bb[0], bb[1]);
+        mma_bf16(s[2 * jp + 1], qa, bb[2], bb[3]);
       }
     }
     if (cls == 2) {
@@ -410,12 +433,13 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
   cp_wait<0>();
-  __syncthreads();   // Q copies of a block with no key tile have landed
+  __syncthreads();   // Q copies of a block with no key tile have landed; every
+                     // warp is done reading Q (its rows become its O below)
 
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
   const float i0 = 1.f / fmaxf(l0, 1e-30f), i1 = 1.f / fmaxf(l1, 1e-30f);
-  bf16* Os = Qs + w * 16 * ST;   // this warp's own Q rows, read into registers above
+  bf16* Os = Qs + w * 16 * ST;   // this warp's own Q rows, read above
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
     *reinterpret_cast<uint32_t*>(Os + r4 * ST + n * 8 + c4) =
@@ -439,17 +463,18 @@ template <int HD>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int B,
                       int H, int Hkv, int Sq, int Sk, Strides qs, Strides ks,
                       Strides vs, int causal, int window, float scale, int warps,
-                      cudaStream_t st) {
-  if (warps < 1 || warps > kTcMaxWarps) return cudaErrorInvalidValue;
+                      int stages, cudaStream_t st) {
+  constexpr int STAGES = tc_stages(HD);
+  if (warps < 1 || warps > kTcMaxWarps || stages != STAGES) return cudaErrorInvalidValue;
   const long long n_q = (Sq + 16LL * warps - 1) / (16LL * warps);
   const long long n_x = static_cast<long long>(B) * H;
   if (n_q > 65535 || n_x > 0x7fffffffLL) return cudaErrorInvalidValue;
   auto kern = flash_tc_kernel<HD>;
   // the limit is raised once to the largest block (8 warps) of this head dim
-  cudaError_t e = mz::opt_in(kern, tc_smem_set<HD>, tc_smem_bytes(HD, kTcMaxWarps));
+  cudaError_t e = mz::opt_in(kern, tc_smem_set<HD>, tc_smem_bytes(HD, kTcMaxWarps, STAGES));
   if (e != cudaSuccess) return e;
   const dim3 grid(static_cast<unsigned>(n_x), static_cast<unsigned>(n_q));
-  kern<<<grid, 32 * warps, tc_smem_bytes(HD, warps), st>>>(
+  kern<<<grid, 32 * warps, tc_smem_bytes(HD, warps, STAGES), st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), H, Hkv, Sq, Sk, qs, ks, vs, causal, window, scale * kLog2e);
   return cudaGetLastError();
@@ -464,37 +489,53 @@ bool tc_aligned(const void* p, Strides s) {
 
 // q: (B, Sq, H, hd), k/v: (B, Sk, Hkv, hd), each with unit hd stride and
 // the element strides given; o: (B, Sq, H, hd) contiguous.  hd in
-// {32, 64, 80, 128}; window <= 0 means none.  bfloat16 (dtype 1) takes the
-// tensor-core tile with the warps a block of kernels/_attn_plan.py, its
-// inputs on 16-byte boundaries with strides in multiples of 8; float32
-// (dtype 0) the FMA kernel, which ignores `warps`.
+// {32, 64, 80, 96, 128, 160, 192, 256} (the wrapper zero-pads others);
+// scale: 1 / sqrt(the unpadded hd); window <= 0 means none.  bfloat16
+// (dtype 1) takes the tensor-core tile with the warps a block and ring
+// stages of kernels/_attn_plan.py, its inputs on 16-byte boundaries with
+// strides in multiples of 8; float32 (dtype 0) the FMA kernel, which
+// ignores `warps` and `stages`.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int B, int H, int Hkv, int Sq, int Sk,
                                int hd, long long q_sb, long long q_ss,
                                long long q_sh, long long k_sb, long long k_ss,
                                long long k_sh, long long v_sb, long long v_ss,
                                long long v_sh, int causal, int window,
-                               float scale, int warps, int dtype,
+                               float scale, int warps, int stages, int dtype,
                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   cudaError_t e = cudaErrorInvalidValue;
   if (dtype == 0) {
 #define MZ_FMA(HD) launch_fma<float, HD>(q, k, v, o, B, H, Hkv, Sq, Sk, qs, ks, vs, causal, window, scale, st)
-    if (hd == 32) e = MZ_FMA(32);
-    else if (hd == 64) e = MZ_FMA(64);
-    else if (hd == 80) e = MZ_FMA(80);
-    else if (hd == 128) e = MZ_FMA(128);
+    switch (hd) {
+      case 32: e = MZ_FMA(32); break;
+      case 64: e = MZ_FMA(64); break;
+      case 80: e = MZ_FMA(80); break;
+      case 96: e = MZ_FMA(96); break;
+      case 128: e = MZ_FMA(128); break;
+      case 160: e = MZ_FMA(160); break;
+      case 192: e = MZ_FMA(192); break;
+      case 256: e = MZ_FMA(256); break;
+      default: break;
+    }
 #undef MZ_FMA
   } else if (dtype == 1) {
     if (!tc_aligned(q, qs) || !tc_aligned(k, ks) || !tc_aligned(v, vs) ||
         reinterpret_cast<uintptr_t>(o) % 16)
       return static_cast<int>(cudaErrorMisalignedAddress);
-#define MZ_TC(HD) launch_tc<HD>(q, k, v, o, B, H, Hkv, Sq, Sk, qs, ks, vs, causal, window, scale, warps, st)
-    if (hd == 32) e = MZ_TC(32);
-    else if (hd == 64) e = MZ_TC(64);
-    else if (hd == 80) e = MZ_TC(80);
-    else if (hd == 128) e = MZ_TC(128);
+#define MZ_TC(HD) launch_tc<HD>(q, k, v, o, B, H, Hkv, Sq, Sk, qs, ks, vs, causal, window, scale, warps, stages, st)
+    switch (hd) {
+      case 32: e = MZ_TC(32); break;
+      case 64: e = MZ_TC(64); break;
+      case 80: e = MZ_TC(80); break;
+      case 96: e = MZ_TC(96); break;
+      case 128: e = MZ_TC(128); break;
+      case 160: e = MZ_TC(160); break;
+      case 192: e = MZ_TC(192); break;
+      case 256: e = MZ_TC(256); break;
+      default: break;
+    }
 #undef MZ_TC
   }
   return static_cast<int>(e);

@@ -24,7 +24,11 @@
 //   * d <= 1024: one warp a row, warp shuffles; one row a block below 1024
 //     rows, so a decode step's rows spread over as many SMs;
 //   * 1024 < d <= 8192: one 256-thread block a row, warp shuffles then the
-//     eight warps' sums through shared memory, vectorised the same way.
+//     eight warps' sums through shared memory, vectorised the same way;
+//   * d > 8192 (any width, as the JAX kernels take): the same block a row,
+//     looping over the row in tiles of its 256 threads' chunks, a
+//     sum-of-squares pass and then a pass that re-reads the row for the
+//     scaled write (rmsnorm_wide_kernel).
 // The sum runs in one fixed order: each lane over its chunks (lane, lane +
 // 32, ...; in a block, thread, thread + 256, ...) and their values in
 // order, then the xor butterfly, then (row form) the warps in order.
@@ -38,7 +42,7 @@ namespace {
 
 constexpr int kRowThreads = 256;   // threads of the one-row-a-block form
 constexpr int kWarpMaxD = 1024;    // widest row of the one-warp form
-constexpr int kMaxD = 8192;
+constexpr int kMaxD = 8192;        // widest row held in registers (wider: two passes)
 constexpr int kWarpRowsBig = 4;    // rows a block of the warp form from 1024 rows
 
 template <typename T, int N>
@@ -170,11 +174,64 @@ rmsnorm_row_kernel(const T* __restrict__ x, const T* __restrict__ res,
   row_store<T, S, W, CH, kRowThreads>(out, base, t, nc, inv, xs, gs);
 }
 
+// d > kMaxD: one block a row, looping over it in tiles of kRowThreads
+// chunks: a sum-of-squares pass (the residual sum rounded and stored on
+// the way), then a second pass that re-reads the row (the stored sum) and
+// writes the scaled values.  The sum keeps the row form's order: each
+// thread over its chunks t, t + kRowThreads, ... and their values in
+// order, the xor butterfly, the warps in order.
+template <typename T, typename S, int W, bool RESIDUAL>
+__global__ void __launch_bounds__(kRowThreads, 1)
+rmsnorm_wide_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                    const S* __restrict__ scale, T* __restrict__ sum_out,
+                    T* __restrict__ out, int d, float eps) {
+  __shared__ float warp_ss[kRowThreads / 32];
+  const int t = threadIdx.x;
+  const size_t base = static_cast<size_t>(blockIdx.x) * d;
+  const int nc = d / W;
+  float ss = 0.f;
+#pragma unroll 4
+  for (int c = t; c < nc; c += kRowThreads) {
+    Chunk<T, W> xs;
+    xs.load(x + base + c * W);
+    if constexpr (RESIDUAL) {
+      Chunk<T, W> rs;
+      rs.load(res + base + c * W);
+#pragma unroll
+      for (int e = 0; e < W; ++e) xs.set(e, xs.get(e) + rs.get(e));
+      xs.store(sum_out + base + c * W);
+    }
+#pragma unroll
+    for (int e = 0; e < W; ++e) {
+      const float a = xs.get(e);
+      ss += a * a;
+    }
+  }
+  ss = warp_sum(ss);
+  if ((t & 31) == 0) warp_ss[t >> 5] = ss;
+  __syncthreads();
+  float tot = 0.f;
+#pragma unroll
+  for (int w = 0; w < kRowThreads / 32; ++w) tot += warp_ss[w];  // fixed order
+  const float inv = rsqrtf(tot / static_cast<float>(d) + eps);
+  const T* src = RESIDUAL ? sum_out : x;   // this thread's own stores, re-read
+#pragma unroll 4
+  for (int c = t; c < nc; c += kRowThreads) {
+    Chunk<T, W> xs, y;
+    Chunk<S, W> gs;
+    xs.load(src + base + c * W);
+    gs.load(scale + c * W);
+#pragma unroll
+    for (int e = 0; e < W; ++e) y.set(e, xs.get(e) * inv * (1.f + gs.get(e)));
+    y.store(out + base + c * W);
+  }
+}
+
 template <typename T, typename S, int W, bool R>
 cudaError_t launch_w(const void* x, const void* res, const void* scale,
                      void* sum_out, void* out, int n, int d, float eps,
                      cudaStream_t st) {
-  if (d < 1 || d > kMaxD || d % W) return cudaErrorInvalidValue;
+  if (d < 1 || d % W) return cudaErrorInvalidValue;
   const T* xp = static_cast<const T*>(x);
   const T* rp = static_cast<const T*>(res);
   const S* sp = static_cast<const S*>(scale);
@@ -193,6 +250,8 @@ cudaError_t launch_w(const void* x, const void* res, const void* scale,
 #define MZ_NORM(CH) rmsnorm_kernel<T, S, W, CH, R><<<grid, block, 0, st>>>(xp, rp, sp, so, op, n, d, eps)
     MZ_PICK((nc + 31) / 32 * W, MZ_NORM)
 #undef MZ_NORM
+  } else if (d > kMaxD) {
+    rmsnorm_wide_kernel<T, S, W, R><<<n, kRowThreads, 0, st>>>(xp, rp, sp, so, op, d, eps);
   } else {
 #define MZ_ROW(CH) rmsnorm_row_kernel<T, S, W, CH, R><<<n, kRowThreads, 0, st>>>(xp, rp, sp, so, op, d, eps)
     MZ_PICK((nc + kRowThreads - 1) / kRowThreads * W, MZ_ROW)
@@ -233,7 +292,7 @@ int dispatch(const void* x, const void* res, const void* scale, void* sum_out,
 
 }  // namespace
 
-// x, out: (n, d) contiguous; scale: (d,).  d <= 8192.  vec: values a load,
+// x, out: (n, d) contiguous; scale: (d,).  vec: values a load,
 // 16 / sizeof(x's type) (d a multiple of it, every pointer on a 16-byte
 // boundary, scale on min(16, vec * its size)) or 1.
 extern "C" int fused_rmsnorm(const void* x, const void* scale, void* out, int n,
@@ -243,8 +302,7 @@ extern "C" int fused_rmsnorm(const void* x, const void* scale, void* out, int n,
                          scale_dtype, stream);
 }
 
-// x, res, sum_out, out: (n, d) contiguous; scale: (d,).  d <= 8192; vec as
-// above.
+// x, res, sum_out, out: (n, d) contiguous; scale: (d,); vec as above.
 extern "C" int fused_rmsnorm_residual(const void* x, const void* res,
                                       const void* scale, void* sum_out,
                                       void* out, int n, int d, int vec, float eps,

@@ -39,7 +39,12 @@
 //     block writes the output itself.
 // The pool is read in its stored (P, ps, Hkv, hd) layout, one layer's
 // slice of the (L, P, ps, Hkv, hd) pool, through strides: no copy, no
-// transpose.  Any hd that is a multiple of 8 up to 256.
+// transpose.  Any hd up to 1024: an hd that is not a multiple of 8 masks
+// its last lane chunk (a zeroed tail in shared memory), pools whose rows
+// are not on 16-byte steps are read value by value (the pool cannot be
+// padded without a copy of all of it), and above 256 a lane walks hd in
+// up to four 8-value chunks (one query head a block; deepseek-v3's
+// absorbed-MLA latent is 576 = 512 + 64).
 #include <cstdint>
 
 #include "common.cuh"
@@ -52,7 +57,8 @@ using namespace mz::warp;
 constexpr int kThreads = 128;   // threads a block (4 warps)
 constexpr int kStages = 3;      // K/V ring stages
 constexpr int kMaxPages = 64;   // pages a split, at most (page ids in shared memory)
-constexpr int kMaxHeads = 8;    // query heads a block, at most
+constexpr int kMaxHeads = 8;    // query heads a block, at most (hd <= 256)
+constexpr int kMaxHd = 1024;    // widest head (32 lanes x 4 chunks of 8)
 constexpr int kCombineThreads = 64;
 
 // 8 consecutive values from shared memory, as float32
@@ -78,26 +84,30 @@ struct Pool {
   long long sp, so, sh;   // element strides of page, offset, head (hd: 1)
 };
 
-// T: element type; LN: lanes a position (hd <= 8 * LN); GM: query heads
-// a block holds in registers (>= the plan's heads)
+// T: element type; LN: lanes a position; NC: 8-value chunks of hd a lane
+// (hd <= 8 * LN * NC: NC > 1 only at LN 32, hd > 256); GM: query heads a
+// block holds in registers (>= the plan's heads).  A position's row sits
+// in shared memory at a stride of hd rounded up to 8 (hds), the tail
+// zeroed once, so the last lane chunk of an hd that is not a multiple of
+// 8 reads zeros past hd.  vec: rows copied by 16-byte cp.async (pool
+// rows and strides on 16-byte steps); else value by value.
 // (a minimum of one block in the launch bounds: without it ptxas picked
 // spilling register counts for GM = 2)
-template <typename T, int LN, int GM>
+template <typename T, int LN, int GM, int NC>
 __global__ void __launch_bounds__(kThreads, 1)
 paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                    const T* __restrict__ vp, const int* __restrict__ tables,
                    const int* __restrict__ lengths, T* __restrict__ out,
                    float* __restrict__ ws, int h, int hkv, int hd, int ps,
                    int npp, int pps, int heads, int hchunks, long long q_sb,
-                   long long q_sh, Pool kpool, Pool vpool, float scale_log2) {
+                   long long q_sh, Pool kpool, Pool vpool, float scale_log2,
+                   int vec) {
   constexpr int EPC = 16 / sizeof(T);        // elements a 16-byte copy
   constexpr int NPG = kThreads / LN;         // position groups a block
   constexpr int R = sizeof(T) == 2 ? 2 : 1;  // rows a group a tile
   constexpr int TP = NPG * R;                // rows a tile
-  constexpr int HDMAX = 8 * LN;
-  constexpr int RING = kStages * 2 * TP * HDMAX * sizeof(T);
-  constexpr int MERGE = (kThreads / 32) * GM * HDMAX * sizeof(float);
-  __shared__ __align__(16) unsigned char smem[RING > MERGE ? RING : MERGE];
+  constexpr int HDMAX = 8 * LN * NC;
+  extern __shared__ __align__(16) unsigned char smem[];   // the ring, then the merge area
   __shared__ int pid_s[kMaxPages];
   __shared__ float mw_s[kThreads / 32][GM], lw_s[kThreads / 32][GM];
   T* ring = reinterpret_cast<T*>(smem);
@@ -114,6 +124,7 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int len = lengths[b];
   const int pos0 = split * pps * ps;
   const int pos_end = min(len, min(npp, (split + 1) * pps) * ps);
+  const int hds = (hd + 7) & ~7;                  // shared row stride
 
   if (pos0 >= pos_end) {          // nothing live: an empty partial
     for (int e = tid; e < nh * hd; e += kThreads) {
@@ -129,46 +140,72 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int npages = (pos_end - pos0 + ps - 1) / ps;   // live pages of the split
   const int* trow = tables + static_cast<size_t>(b) * npp + split * pps;
   for (int i = tid; i < npages; i += kThreads) pid_s[i] = trow[i];
+  if (hds != hd)                      // zero the rows' tails past hd, once
+    for (int e = tid; e < kStages * 2 * TP * (hds - hd); e += kThreads)
+      ring[(e / (hds - hd)) * hds + hd + e % (hds - hd)] = mz::from_f<T>(0.f);
 
-  const int c = lane % LN;            // this lane's chunk of hd
+  const int c = lane % LN;            // this lane's chunk of hd (of each part)
   const int pg = tid / LN;            // its position group
-  const bool active = c * 8 < hd;
+  bool active[NC];
+#pragma unroll
+  for (int p = 0; p < NC; ++p) active[p] = (p * LN + c) * 8 < hd;
 
-  float qf[GM][8];
+  float qf[GM][NC][8];
 #pragma unroll
   for (int gi = 0; gi < GM; ++gi) {
-    const T* qr = q + b * q_sb + static_cast<long long>(h0 + gi) * q_sh + c * 8;
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
-      qf[gi][e] = gi < nh && active ? mz::to_f(qr[e]) * scale_log2 : 0.f;
+    for (int p = 0; p < NC; ++p) {
+      const int d0 = (p * LN + c) * 8;
+      const T* qr = q + b * q_sb + static_cast<long long>(h0 + gi) * q_sh + d0;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        qf[gi][p][e] = gi < nh && d0 + e < hd ? mz::to_f(qr[e]) * scale_log2 : 0.f;
+    }
   }
-  float m[GM], l[GM], acc[GM][8];
+  float m[GM], l[GM], acc[GM][NC][8];
 #pragma unroll
   for (int gi = 0; gi < GM; ++gi) {
     m[gi] = mz::kNegInf;
     l[gi] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) acc[gi][e] = 0.f;
+    for (int p = 0; p < NC; ++p)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[gi][p][e] = 0.f;
   }
-  __syncthreads();                    // page ids
+  __syncthreads();                    // page ids, zeroed tails
 
-  const int cpr = hd / EPC;           // 16-byte copies a row
   auto load_tile = [&](int t) {
-    T* ks = ring + (t % kStages) * 2 * TP * hd;
-    T* vs = ks + TP * hd;
-    for (int e = tid; e < TP * cpr; e += kThreads) {
-      const int r = e / cpr, cc = e % cpr;
-      const int lp = t * TP + r;      // position inside the split
-      const bool ok = pos0 + lp < pos_end;
-      const T* ksrc = kp;
-      const T* vsrc = vp;
-      if (ok) {
-        const long long page = pid_s[lp / ps], off = lp % ps;
-        ksrc = kp + page * kpool.sp + off * kpool.so + g * kpool.sh + cc * EPC;
-        vsrc = vp + page * vpool.sp + off * vpool.so + g * vpool.sh + cc * EPC;
+    T* ks = ring + (t % kStages) * 2 * TP * hds;
+    T* vs = ks + TP * hds;
+    if (vec) {
+      const int cpr = hd / EPC;       // 16-byte copies a row
+      for (int e = tid; e < TP * cpr; e += kThreads) {
+        const int r = e / cpr, cc = e % cpr;
+        const int lp = t * TP + r;    // position inside the split
+        const bool ok = pos0 + lp < pos_end;
+        const T* ksrc = kp;
+        const T* vsrc = vp;
+        if (ok) {
+          const long long page = pid_s[lp / ps], off = lp % ps;
+          ksrc = kp + page * kpool.sp + off * kpool.so + g * kpool.sh + cc * EPC;
+          vsrc = vp + page * vpool.sp + off * vpool.so + g * vpool.sh + cc * EPC;
+        }
+        cp_async16(smem_addr(ks + r * hds + cc * EPC), ksrc, ok);
+        cp_async16(smem_addr(vs + r * hds + cc * EPC), vsrc, ok);
       }
-      cp_async16(smem_addr(ks + r * hd + cc * EPC), ksrc, ok);
-      cp_async16(smem_addr(vs + r * hd + cc * EPC), vsrc, ok);
+    } else {
+      for (int e = tid; e < TP * hd; e += kThreads) {
+        const int r = e / hd, d = e % hd;
+        const int lp = t * TP + r;
+        T kv = mz::from_f<T>(0.f), vv = kv;
+        if (pos0 + lp < pos_end) {
+          const long long page = pid_s[lp / ps], off = lp % ps;
+          kv = kp[page * kpool.sp + off * kpool.so + g * kpool.sh + d];
+          vv = vp[page * vpool.sp + off * vpool.so + g * vpool.sh + d];
+        }
+        ks[r * hds + d] = kv;
+        vs[r * hds + d] = vv;
+      }
     }
   };
 
@@ -183,64 +220,83 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     __syncthreads();                  // tile t landed; tile t-1's slot is free
     if (t + kStages - 1 < ntiles) load_tile(t + kStages - 1);
     cp_commit();
-    const T* ks = ring + (t % kStages) * 2 * TP * hd;
-    const T* vs = ks + TP * hd;
+    const T* ks = ring + (t % kStages) * 2 * TP * hds;
+    const T* vs = ks + TP * hds;
     float s[R][GM];
     bool valid[R];
 #pragma unroll
     for (int rr = 0; rr < R; ++rr) {
       const int row = pg + NPG * rr;
       valid[rr] = pos0 + t * TP + row < pos_end;
-      float kf[8];
-      if (active) load8(ks + row * hd + c * 8, kf);
-      else {
+      float part[GM];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) kf[e] = 0.f;
+      for (int gi = 0; gi < GM; ++gi) part[gi] = 0.f;
+#pragma unroll
+      for (int p = 0; p < NC; ++p) {
+        float kf[8];
+        if (active[p]) load8(ks + row * hds + (p * LN + c) * 8, kf);
+        else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) kf[e] = 0.f;
+        }
+#pragma unroll
+        for (int gi = 0; gi < GM; ++gi)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) part[gi] = fmaf(qf[gi][p][e], kf[e], part[gi]);
       }
 #pragma unroll
       for (int gi = 0; gi < GM; ++gi) {
-        float part = 0.f;
+        float sc = 0.f;
         if (gi < nh) {
+          sc = part[gi];
 #pragma unroll
-          for (int e = 0; e < 8; ++e) part = fmaf(qf[gi][e], kf[e], part);
-#pragma unroll
-          for (int o = LN / 2; o > 0; o >>= 1)
-            part += __shfl_xor_sync(0xffffffffu, part, o);
+          for (int o = LN / 2; o > 0; o >>= 1) sc += __shfl_xor_sync(0xffffffffu, sc, o);
         }
-        s[rr][gi] = part;
+        s[rr][gi] = sc;
       }
     }
-    float vf[R][8];
-#pragma unroll
-    for (int rr = 0; rr < R; ++rr) {
-      if (active) load8(vs + (pg + NPG * rr) * hd + c * 8, vf[rr]);
-      else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) vf[rr][e] = 0.f;
-      }
-    }
+    float pw[GM][R], corr[GM];
 #pragma unroll
     for (int gi = 0; gi < GM; ++gi) {
+      corr[gi] = 1.f;
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr) pw[gi][rr] = 0.f;
       if (gi >= nh) continue;
       float mx = m[gi];
 #pragma unroll
       for (int rr = 0; rr < R; ++rr)
         if (valid[rr]) mx = fmaxf(mx, s[rr][gi]);
-      const float corr = exp2f(m[gi] - mx);
-      float p[R], psum = 0.f;
+      corr[gi] = exp2f(m[gi] - mx);
+      float psum = 0.f;
 #pragma unroll
       for (int rr = 0; rr < R; ++rr) {
-        p[rr] = valid[rr] ? exp2f(s[rr][gi] - mx) : 0.f;
-        psum += p[rr];
+        pw[gi][rr] = valid[rr] ? exp2f(s[rr][gi] - mx) : 0.f;
+        psum += pw[gi][rr];
       }
       m[gi] = mx;
-      l[gi] = l[gi] * corr + psum;
+      l[gi] = l[gi] * corr[gi] + psum;
+    }
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        float a = acc[gi][e] * corr;
+    for (int p = 0; p < NC; ++p) {       // each V chunk read once for every head
+      float vf[R][8];
 #pragma unroll
-        for (int rr = 0; rr < R; ++rr) a = fmaf(p[rr], vf[rr][e], a);
-        acc[gi][e] = a;
+      for (int rr = 0; rr < R; ++rr) {
+        if (active[p]) load8(vs + (pg + NPG * rr) * hds + (p * LN + c) * 8, vf[rr]);
+        else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) vf[rr][e] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int gi = 0; gi < GM; ++gi) {
+        if (gi >= nh) continue;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          float a = acc[gi][p][e] * corr[gi];
+#pragma unroll
+          for (int rr = 0; rr < R; ++rr) a = fmaf(pw[gi][rr], vf[rr][e], a);
+          acc[gi][p][e] = a;
+        }
       }
     }
   }
@@ -259,15 +315,19 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 #pragma unroll
     for (int o = LN; o < 32; o <<= 1) lw += __shfl_xor_sync(0xffffffffu, lw, o);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      float a = acc[gi][e] * f;
+    for (int p = 0; p < NC; ++p) {
 #pragma unroll
-      for (int o = LN; o < 32; o <<= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
-      acc[gi][e] = a;
-    }
-    if (lane < LN && active) {
+      for (int e = 0; e < 8; ++e) {
+        float a = acc[gi][p][e] * f;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) merge[(warp * GM + gi) * HDMAX + c * 8 + e] = acc[gi][e];
+        for (int o = LN; o < 32; o <<= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+        acc[gi][p][e] = a;
+      }
+      if (lane < LN && active[p]) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          merge[(warp * GM + gi) * HDMAX + (p * LN + c) * 8 + e] = acc[gi][p][e];
+      }
     }
     if (lane == 0) {
       mw_s[warp][gi] = mw;
@@ -300,6 +360,16 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       }
     }
   }
+}
+
+// dynamic shared memory of a split block: the K/V ring, or (after it) the
+// merge area, whichever is larger
+template <typename T, int LN, int GM, int NC>
+constexpr int split_smem_bytes() {
+  constexpr int ring = kStages * 2 * (kThreads / LN) * (sizeof(T) == 2 ? 2 : 1) *
+                       8 * LN * NC * static_cast<int>(sizeof(T));
+  constexpr int merge = (kThreads / 32) * GM * 8 * LN * NC * 4;
+  return ring > merge ? ring : merge;
 }
 
 // ---- bfloat16, head dims 32-128 in steps of 16: tensor cores -------------
@@ -591,22 +661,48 @@ paged_combine_kernel(const float* __restrict__ ws, T* __restrict__ out, int hd,
   }
 }
 
+template <typename T, int LN, int GM, int NC>
+int split_smem_set[mz::kDevices] = {};
+
+template <typename T, int LN, int GM, int NC>
+cudaError_t launch_split(dim3 grid, const T* q, const T* kp, const T* vp,
+                         const int* tables, const int* lengths, T* out, float* ws,
+                         int h, int hkv, int hd, int ps, int npp, int pps, int heads,
+                         int hchunks, long long q_sb, long long q_sh, Pool kpool,
+                         Pool vpool, float scale_log2, int vec, cudaStream_t st) {
+  auto kern = paged_split_kernel<T, LN, GM, NC>;
+  constexpr int smem = split_smem_bytes<T, LN, GM, NC>();
+  cudaError_t e = mz::opt_in(kern, split_smem_set<T, LN, GM, NC>, smem);
+  if (e != cudaSuccess) return e;
+  kern<<<grid, kThreads, smem, st>>>(q, kp, vp, tables, lengths, out, ws, h, hkv, hd,
+                                     ps, npp, pps, heads, hchunks, q_sb, q_sh, kpool,
+                                     vpool, scale_log2, vec);
+  return cudaGetLastError();
+}
+
+// hd <= 256: one 8-value chunk a lane, `gm` heads a block; hd > 256: 32
+// lanes, `nc` chunks a lane, one head a block
 template <typename T, int LN>
-cudaError_t launch_ln(dim3 grid, int gm, const T* q, const T* kp, const T* vp,
+cudaError_t launch_ln(dim3 grid, int gm, int nc, const T* q, const T* kp, const T* vp,
                       const int* tables, const int* lengths, T* out, float* ws,
                       int h, int hkv, int hd, int ps, int npp, int pps,
                       int heads, int hchunks, long long q_sb, long long q_sh,
-                      Pool kpool, Pool vpool, float scale_log2, cudaStream_t st) {
-#define MZ_PD(GMV) paged_split_kernel<T, LN, GMV><<<grid, kThreads, 0, st>>>( \
-      q, kp, vp, tables, lengths, out, ws, h, hkv, hd, ps, npp, pps, heads,  \
-      hchunks, q_sb, q_sh, kpool, vpool, scale_log2)
-  if (gm == 1) MZ_PD(1);
-  else if (gm == 2) MZ_PD(2);
-  else if (gm == 4) MZ_PD(4);
-  else if (gm == 8) MZ_PD(8);
-  else return cudaErrorInvalidValue;
+                      Pool kpool, Pool vpool, float scale_log2, int vec, cudaStream_t st) {
+#define MZ_PD(GMV, NCV) return launch_split<T, LN, GMV, NCV>(                    \
+      grid, q, kp, vp, tables, lengths, out, ws, h, hkv, hd, ps, npp, pps, heads, \
+      hchunks, q_sb, q_sh, kpool, vpool, scale_log2, vec, st)
+  if (nc == 1) {
+    if (gm == 1) MZ_PD(1, 1);
+    if (gm == 2) MZ_PD(2, 1);
+    if (gm == 4) MZ_PD(4, 1);
+    if (gm == 8) MZ_PD(8, 1);
+  } else if constexpr (LN == 32) {
+    if (gm == 1 && nc == 2) MZ_PD(1, 2);
+    if (gm == 1 && nc == 3) MZ_PD(1, 3);
+    if (gm == 1 && nc == 4) MZ_PD(1, 4);
+  }
 #undef MZ_PD
-  return cudaGetLastError();
+  return cudaErrorInvalidValue;
 }
 
 template <int HD>
@@ -626,9 +722,11 @@ cudaError_t launch_tc(dim3 grid, const bf16* q, const bf16* kp, const bf16* vp,
   return cudaGetLastError();
 }
 
-// the tensor-core route: bfloat16 and hd in {32, 48, ..., 128}
+// the tensor-core route: bfloat16, hd in {32, 48, ..., 128}, 16-byte rows
 // (kernels/_attn_plan.py: paged_plan's route "tc")
-bool tc_route(int dtype, int hd) { return dtype == 1 && hd % 16 == 0 && hd >= 32 && hd <= 128; }
+bool tc_route(int dtype, int hd, bool vec) {
+  return dtype == 1 && vec && hd % 16 == 0 && hd >= 32 && hd <= 128;
+}
 
 template <typename T>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
@@ -636,13 +734,13 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
                    int b, int h, int hkv, int hd, int ps, int npp, int pps,
                    int splits, int heads, int hchunks, long long q_sb,
                    long long q_sh, Pool kpool, Pool vpool, float scale_log2,
-                   cudaStream_t st) {
+                   int vec, cudaStream_t st) {
   const dim3 grid(b * hkv * hchunks, splits);
   T* op = static_cast<T*>(out);
   float* wsp = static_cast<float*>(ws);
   cudaError_t e;
   if constexpr (sizeof(T) == 2) {
-    if (tc_route(1, hd)) {
+    if (tc_route(1, hd, vec)) {
       const bf16* qp = static_cast<const bf16*>(q);
       const bf16* kpp = static_cast<const bf16*>(kp);
       const bf16* vpp = static_cast<const bf16*>(vp);
@@ -667,18 +765,18 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
   int gm = 1;
   while (gm < heads) gm *= 2;
   int ln = 4;
-  while (ln * 8 < hd) ln *= 2;
+  while (ln * 8 < hd && ln < 32) ln *= 2;
+  const int nc = (hd + 8 * ln - 1) / (8 * ln);
   const T* qp = static_cast<const T*>(q);
   const T* kpp = static_cast<const T*>(kp);
   const T* vpp = static_cast<const T*>(vp);
-#define MZ_LN(LNV) e = launch_ln<T, LNV>(grid, gm, qp, kpp, vpp, tables, lengths, \
-      op, wsp, h, hkv, hd, ps, npp, pps, heads, hchunks, q_sb, q_sh, kpool,      \
-      vpool, scale_log2, st)
+#define MZ_LN(LNV) e = launch_ln<T, LNV>(grid, gm, nc, qp, kpp, vpp, tables, lengths, \
+      op, wsp, h, hkv, hd, ps, npp, pps, heads, hchunks, q_sb, q_sh, kpool,          \
+      vpool, scale_log2, vec, st)
   if (ln == 4) MZ_LN(4);
   else if (ln == 8) MZ_LN(8);
   else if (ln == 16) MZ_LN(16);
-  else if (ln == 32) MZ_LN(32);
-  else return cudaErrorInvalidValue;
+  else MZ_LN(32);
 #undef MZ_LN
   if (e != cudaSuccess || splits == 1) return e;
   paged_combine_kernel<T><<<b * h, kCombineThreads, 2 * splits * sizeof(float), st>>>(
@@ -686,15 +784,18 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
   return cudaGetLastError();
 }
 
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 }  // namespace
 
 // q: (b, h, hd) with strides q_sb, q_sh (unit stride on hd); k/v pools:
 // one layer's (P, ps, hkv, hd) with strides (page, offset, head), unit
-// stride on hd, 16-byte aligned rows; tables: (b, npp) int32 contiguous;
-// lengths: (b,) int32; out: (b, h, hd) contiguous; ws: b*h*splits*(hd+2)
-// float32 when splits > 1.  The plan (pps pages a split, splits, heads a
+// stride on hd; tables: (b, npp) int32 contiguous; lengths: (b,) int32;
+// out: (b, h, hd) contiguous; ws: b*h*splits*(hd+2) float32 when splits >
+// 1.  Any hd up to 1024.  The plan (pps pages a split, splits, heads a
 // block, hchunks head chunks a kv head) is kernels/_attn_plan.py's
-// paged_plan.  scale_log2 = log2(e) / sqrt(hd).
+// paged_plan; its route is "tc" where tc_route holds with the pools' rows
+// on 16-byte steps (vec).  scale_log2 = log2(e) / sqrt(hd).
 extern "C" int paged_decode(const void* q, const void* kp, const void* vp,
                             const void* tables, const void* lengths, void* out,
                             void* ws, int b, int h, int hkv, int hd, int ps,
@@ -704,10 +805,14 @@ extern "C" int paged_decode(const void* q, const void* kp, const void* vp,
                             long long v_so, long long v_sh, float scale_log2,
                             int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (b < 1 || hkv < 1 || h % hkv || ps < 1 || npp < 1 || hd < 8 || hd > 256 ||
-      hd % 8 || pps < 1 || pps > kMaxPages || splits != (npp + pps - 1) / pps ||
-      heads < 1 || heads > (tc_route(dtype, hd) ? kTcMaxHeads : kMaxHeads) ||
-      hchunks < 1 ||
+  const int epc = dtype == 1 ? 8 : 4;   // elements a 16-byte row copy
+  const int vec = hd % epc == 0 && aligned16(kp) && aligned16(vp) && k_sp % epc == 0 &&
+                  k_so % epc == 0 && k_sh % epc == 0 && v_sp % epc == 0 &&
+                  v_so % epc == 0 && v_sh % epc == 0;
+  const int max_heads = tc_route(dtype, hd, vec) ? kTcMaxHeads : hd > 256 ? 1 : kMaxHeads;
+  if (b < 1 || hkv < 1 || h % hkv || ps < 1 || npp < 1 || hd < 1 || hd > kMaxHd ||
+      pps < 1 || pps > kMaxPages || splits != (npp + pps - 1) / pps ||
+      heads < 1 || heads > max_heads || hchunks < 1 ||
       hchunks * heads < h / hkv || (hchunks - 1) * heads >= h / hkv ||
       splits > 4096 || (splits > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -718,11 +823,11 @@ extern "C" int paged_decode(const void* q, const void* kp, const void* vp,
   if (dtype == 0)
     e = launch<float>(q, kp, vp, tp, lp, out, ws, b, h, hkv, hd, ps, npp, pps,
                       splits, heads, hchunks, q_sb, q_sh, kpool, vpool,
-                      scale_log2, st);
+                      scale_log2, vec, st);
   else if (dtype == 1)
     e = launch<__nv_bfloat16>(q, kp, vp, tp, lp, out, ws, b, h, hkv, hd, ps,
                               npp, pps, splits, heads, hchunks, q_sb, q_sh,
-                              kpool, vpool, scale_log2, st);
+                              kpool, vpool, scale_log2, vec, st);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

@@ -3,6 +3,9 @@
 
 `flash_plan(b, h, hkv, sq, hd)` picks how a call is cut into blocks:
 
+* The K/V ring has 3 stages where a block of 8 warps fits one SM's
+  shared memory with them, else 2 (hd 256); the kernel reads the count.
+
 * A block serves one query head and `warps` warps of 16 positions each:
   8 where blocks of 8 still give at least half the SMs of the card one
   (each staged K/V tile then serves 128 query rows, and hd-128 blocks of
@@ -29,10 +32,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 BK = 64                   # keys a K/V tile (kTcBK)
-STAGES = 3                # K/V ring stages (kTcStages)
+STAGES = 3                # K/V ring stages where they fit (kTcStages)
 MAX_WARPS = 8             # warps a block at most (kTcMaxWarps)
 SMS = 132                 # streaming multiprocessors of an H100 SXM
-HEAD_DIMS = (32, 64, 80, 128)
+SMEM_MAX = 232448         # dynamic shared memory a block can opt in to
+# the head dims the kernels are built for; any other hd up to the last is
+# zero-padded to the next of them (`padded_head_dim`)
+HEAD_DIMS = (32, 64, 80, 96, 128, 160, 192, 256)
 
 SKIP, FULL, EDGE = 0, 1, 2
 
@@ -43,6 +49,7 @@ class FlashPlan:
     bq: int               # query positions a block
     grid: tuple[int, int] # (B * H, query tiles)
     smem_bytes: int       # dynamic shared memory a block
+    stages: int = STAGES  # K/V ring stages
 
     @property
     def blocks(self) -> int:
@@ -53,23 +60,40 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def smem_bytes(hd: int, warps: int) -> int:
+def smem_bytes(hd: int, warps: int, stages: int = STAGES) -> int:
     """Q rows of the warps and the K/V ring, rows padded by 8 values
     (`tc_smem_bytes`)."""
-    return (warps * 16 + STAGES * 2 * BK) * (hd + 8) * 2
+    return (warps * 16 + stages * 2 * BK) * (hd + 8) * 2
+
+
+def tc_stages(hd: int) -> int:
+    """Ring stages of the head dim's kernel: 3 where a block of the most
+    warps fits, else 2 (hd 256: 3 stages would take 270,336 bytes)
+    (`tc_stages`)."""
+    return STAGES if smem_bytes(hd, MAX_WARPS, STAGES) <= SMEM_MAX else 2
+
+
+def padded_head_dim(hd: int) -> int:
+    """The head dim a call runs at: the least of `HEAD_DIMS` >= hd."""
+    for k in HEAD_DIMS:
+        if k >= hd:
+            return k
+    raise ValueError(f"flash_attention: head dim {hd} above {HEAD_DIMS[-1]}")
 
 
 def flash_plan(b: int, h: int, hkv: int, sq: int, hd: int, *,
                sms: int = SMS) -> FlashPlan:
-    """The plan of a call on a card with `sms` SMs."""
+    """The plan of a call on a card with `sms` SMs (hd one of
+    `HEAD_DIMS`)."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
     if hkv < 1 or h % hkv:
         raise ValueError(f"flash_attention: H {h} is not a multiple of Hkv {hkv}")
     warps = MAX_WARPS if 2 * b * h * _cdiv(sq, 16 * MAX_WARPS) >= sms else 4
+    stages = tc_stages(hd)
     return FlashPlan(warps=warps, bq=16 * warps,
                      grid=(b * h, _cdiv(sq, 16 * warps)),
-                     smem_bytes=smem_bytes(hd, warps))
+                     smem_bytes=smem_bytes(hd, warps, stages), stages=stages)
 
 
 def block_order(plan: FlashPlan, h: int):
@@ -115,12 +139,13 @@ def kv_range(q0: int, bq: int, sq: int, sk: int, causal: bool,
 # -- paged decode (csrc/paged_decode.cu) ----------------------------------------
 
 PAGED_MAX_PAGES = 64      # pages a split, at most (kMaxPages)
-PAGED_MAX_HD = 256
+PAGED_MAX_HD = 1024       # widest head: 32 lanes x 4 chunks of 8 (kMaxHd)
 PAGED_MAX_SPLITS = 4096   # the combine kernel's weights in shared memory
-# "tc": bfloat16, hd in 32..128 in steps of 16 (paged_tc_kernel, one warp a
-# block, up to 16 query heads as the rows of mma.m16n8k16, tiles of 32
-# positions in a 3-stage ring); "fma": the rest (paged_split_kernel, 4
-# warps, up to 8 query heads, 8-value chunks of hd a lane)
+# "tc": bfloat16, hd in 32..128 in steps of 16, rows on 16-byte steps
+# (paged_tc_kernel, one warp a block, up to 16 query heads as the rows of
+# mma.m16n8k16, tiles of 32 positions in a 3-stage ring); "fma": the rest
+# (paged_split_kernel, 4 warps, up to 8 query heads -- 1 above hd 256 --,
+# 8-value chunks of hd a lane, the last one masked past hd)
 TC_ROWS, TC_MAX_HEADS = 32, 16
 FMA_THREADS, FMA_MAX_HEADS = 128, 8
 
@@ -145,27 +170,31 @@ class PagedPlan:
         return 0 if self.splits == 1 else b * h * self.splits * (hd + 2)
 
 
-def tc_route(hd: int, elem_bytes: int) -> bool:
-    return elem_bytes == 2 and hd % 16 == 0 and 32 <= hd <= 128
+def tc_route(hd: int, elem_bytes: int, aligned: bool = True) -> bool:
+    return aligned and elem_bytes == 2 and hd % 16 == 0 and 32 <= hd <= 128
 
 
 def paged_plan(b: int, h: int, hkv: int, npp: int, ps: int, hd: int,
-               elem_bytes: int, *, sms: int = SMS) -> PagedPlan:
-    """The plan of a paged decode call on a card with `sms` SMs.
+               elem_bytes: int, *, sms: int = SMS,
+               aligned: bool = True) -> PagedPlan:
+    """The plan of a paged decode call on a card with `sms` SMs;
+    `aligned`: the pools' rows and strides are on 16-byte steps.
 
     * Route and tile: "tc" tiles are 32 positions; in "fma" blocks a
       position's hd values are read in 8-value chunks by the next power
-      of two >= hd / 8 lanes (at least 4), 128 / lanes positions a pass,
-      two passes a tile in bfloat16 and one in float32.
-    * Heads: a block serves up to 16 ("tc") or 8 ("fma") query heads of
-      one kv head; a larger group is cut into equal head chunks.
+      of two >= hd / 8 lanes (at least 4, at most 32, a lane holding up
+      to 4 chunks above hd 256), 128 / lanes positions a pass, two
+      passes a tile in bfloat16 and one in float32.
+    * Heads: a block serves up to 16 ("tc") or 8 ("fma"; 1 above hd 256)
+      query heads of one kv head; a larger group is cut into equal head
+      chunks.
     * Pages a split: the fewest that give the card about eight blocks an
       SM ("tc", one warp each) or two ("fma", four warps each), at least
       one tile's worth and at most 64; splits = ceil(npp / pages).
     """
-    if hd % 8 or not 8 <= hd <= PAGED_MAX_HD:
-        raise ValueError(f"paged_decode_attention: head dim {hd} must be a "
-                         f"multiple of 8 up to {PAGED_MAX_HD}")
+    if not 1 <= hd <= PAGED_MAX_HD:
+        raise ValueError(f"paged_decode_attention: head dim {hd} must be in "
+                         f"1..{PAGED_MAX_HD}")
     if hkv < 1 or h % hkv:
         raise ValueError(f"paged_decode_attention: H {h} is not a multiple "
                          f"of Hkv {hkv}")
@@ -175,12 +204,12 @@ def paged_plan(b: int, h: int, hkv: int, npp: int, ps: int, hd: int,
         raise ValueError("paged_decode_attention: B, the page size and the "
                          "pages a slot must be >= 1")
     group = h // hkv
-    if tc_route(hd, elem_bytes):
+    if tc_route(hd, elem_bytes, aligned):
         route, rows, max_heads = "tc", TC_ROWS, TC_MAX_HEADS
         per_sm = 8
     else:
-        lanes = max(4, _pow2_at_least(hd // 8))
-        route, max_heads = "fma", FMA_MAX_HEADS
+        lanes = min(32, max(4, _pow2_at_least(_cdiv(hd, 8))))
+        route, max_heads = "fma", FMA_MAX_HEADS if hd <= 256 else 1
         rows = FMA_THREADS // lanes * (2 if elem_bytes == 2 else 1)
         per_sm = 2
     head_chunks = _cdiv(group, max_heads)

@@ -202,17 +202,16 @@ def require_cuda(what: str, *tensors: torch.Tensor) -> None:
                              f"device, got {[str(x.device) for x in tensors]}")
 
 
-def require_tile_inputs(what: str, x: torch.Tensor, tensors) -> None:
-    """Raise unless every tensor shares x's dtype and is contiguous; in
-    bfloat16 each must also start on a 16-byte boundary (the cluster tile
-    reads them by TMA)."""
-    for t in tensors:
-        if t.dtype != x.dtype or not t.is_contiguous():
-            raise ValueError(f"{what}: inputs must share x's dtype and be "
-                             f"contiguous")
-        if x.dtype == torch.bfloat16 and t.data_ptr() % 16:
-            raise ValueError(f"{what}: every bfloat16 input must start on a "
-                             f"16-byte boundary")
+def tile_inputs(what: str, x: torch.Tensor, tensors) -> list[torch.Tensor]:
+    """The tensors as the MLP tile reads them: each contiguous and, in
+    bfloat16, starting on a 16-byte boundary (the cluster tile reads them
+    by TMA); a tensor that is neither is copied.  Raises unless every
+    tensor shares x's dtype."""
+    if any(t.dtype != x.dtype for t in tensors):
+        raise ValueError(f"{what}: inputs must share x's dtype")
+    return [t if t.is_contiguous() and (x.dtype != torch.bfloat16 or
+                                        t.data_ptr() % 16 == 0)
+            else t.clone(memory_format=torch.contiguous_format) for t in tensors]
 
 
 def stream(t: torch.Tensor) -> int:

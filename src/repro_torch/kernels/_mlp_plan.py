@@ -14,7 +14,8 @@ the route a call takes and its geometry:
   dealt to the clusters, each writing a float32 (min(nt, n), d) partial
   that a small pass sums in part order.  With one cluster an item and room for
   all of them nothing is left over and nothing is allocated.  d and F
-  must be multiples of 8.
+  must be multiples of 8: `padded_call` zero-pads other widths to the
+  next multiple (`tile_widths`), as the JAX kernels pad F themselves.
 * float32 takes the FMA tile: ff chunks of `fc` hidden units a block, each
   writing a float32 partial of all n * d outputs.
 
@@ -24,6 +25,8 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
+
+import torch.nn.functional as F
 
 HB = 64                    # hidden units a block a chunk (kTcHB)
 BOX = 64                   # columns of one TMA box (kTcBox)
@@ -158,3 +161,24 @@ def launch_plan(lib: str, e: int, n: int, d: int, f: int, dtype: str,
     cap = cluster_capacity(lib, e, n, d, f, swiglu) if dtype == "bfloat16" \
         else None
     return mlp_plan(e, n, d, f, dtype, swiglu=swiglu, capacity=cap)
+
+
+def tile_widths(d: int, f: int) -> tuple[int, int]:
+    """The widths the bfloat16 tile runs d and F at: each rounded up to a
+    multiple of 8 (16-byte rows)."""
+    return -(-d // 8) * 8, -(-f // 8) * 8
+
+
+def padded_call(run, x, wg, wi, wo, d_to: int, f_to: int):
+    """`run(x, wg, wi, wo)` on x (..., d), wg / wi (..., d, F), wo (..., F,
+    d) zero-padded to d_to and F to f_to; the output sliced back to d.
+    Exact: the padded x columns and weight rows add zero terms to the up
+    projection, a padded hidden unit is silu(0) * 0 = 0 (gelu(0) = 0) and
+    a zero row of wo adds nothing; the padded output columns are dropped."""
+    d, f = x.shape[-1], wi.shape[-1]
+    if (d_to, f_to) == (d, f):
+        return run(x, wg, wi, wo)
+    pd, pf = d_to - d, f_to - f
+    out = run(F.pad(x, (0, pd)), None if wg is None else F.pad(wg, (0, pf, 0, pd)),
+              F.pad(wi, (0, pf, 0, pd)), F.pad(wo, (0, pd, 0, pf)))
+    return out[..., :d].contiguous()

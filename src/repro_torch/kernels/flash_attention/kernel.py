@@ -13,7 +13,7 @@ and launches on PyTorch's current stream.
   `paged_decode_attention_hp`: one query token a slot, q (B, 1, H, hd),
   against one layer's page pools (P, ps, Hkv, hd) through int32 page
   tables (B, npp) and lengths (B,) that count the current token ->
-  (B, 1, H, hd), hd any multiple of 8 up to 256.  The positions are
+  (B, 1, H, hd), any hd up to 1024.  The positions are
   split across blocks by `kernels/_attn_plan.py:paged_plan` (from the
   shapes, never the lengths); with more than one split the wrapper
   allocates a float32 workspace of the splits' partials, which a second
@@ -25,19 +25,20 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _attn_plan
 from repro_torch.kernels import _build as B
 
-HEAD_DIMS = _attn_plan.HEAD_DIMS          # flash_attention
-# paged_decode_attention: any multiple of 8 up to 256
-PAGED_HEAD_DIMS = tuple(range(8, _attn_plan.PAGED_MAX_HD + 1, 8))
+HEAD_DIMS = _attn_plan.HEAD_DIMS          # flash_attention's kernels
+
 LOG2E = 1.4426950408889634
 
 FLASH = B.Launcher("flash_attention", "flash_attention", [
     B.VOID_P, B.VOID_P, B.VOID_P, B.VOID_P, B.INT, B.INT, B.INT, B.INT,
     B.INT, B.INT, B.INT64, B.INT64, B.INT64, B.INT64, B.INT64, B.INT64,
-    B.INT64, B.INT64, B.INT64, B.INT, B.INT, B.FLOAT, B.INT, B.INT, B.VOID_P])
+    B.INT64, B.INT64, B.INT64, B.INT, B.INT, B.FLOAT, B.INT, B.INT, B.INT,
+    B.VOID_P])
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -50,30 +51,47 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(v.shape)}")
     b, sq, h, hd = q.shape
     _, sk, hkv, _ = k.shape
-    if k.shape[0] != b or k.shape[3] != hd or hkv < 1 or h % hkv:
+    if k.shape[0] != b or k.shape[3] != hd or hkv < 1 or h % hkv or hd < 1:
         raise ValueError(f"flash_attention: incompatible q {tuple(q.shape)} "
                          f"and k/v {tuple(k.shape)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("flash_attention: q, k and v must share one dtype")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("flash_attention: the head dim must have stride 1")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
-    code = B.dtype_code(q, "flash_attention")
+    B.dtype_code(q, "flash_attention")
+    return padded_flash(q, k, v, causal=causal, window=window,
+                        hd_to=_attn_plan.padded_head_dim(hd))
+
+
+def padded_flash(q, k, v, *, causal: bool, window: int | None, hd_to: int,
+                 run=None):
+    """`run(q, k, v, causal, window, scale)` at head dim `hd_to` >= hd:
+    q, k and v zero-padded on hd (the padded columns add zero terms to
+    every score, and the padded output columns are dropped), the scale
+    kept at 1 / sqrt(hd).  Without `run`, one launch of the kernel."""
+    hd = q.shape[-1]
+    run = run or launch
+    scale = 1.0 / math.sqrt(hd)
+    if hd_to == hd:
+        return run(q, k, v, causal, window, scale)
+    q, k, v = (F.pad(t, (0, hd_to - hd)) for t in (q, k, v))
+    return run(q, k, v, causal, window, scale)[..., :hd].contiguous()
+
+
+def launch(q, k, v, causal: bool, window: int | None, scale: float,
+           warps: int | None = None) -> torch.Tensor:
+    """One launch at a head dim of `HEAD_DIMS`; a view without unit hd
+    stride (bfloat16: off 16-byte boundaries, or with strides not in
+    multiples of 8 elements) is copied.  `warps` overrides the plan's
+    block size (bfloat16)."""
+    b, sq, h, hd = q.shape
+    _, sk, hkv, _ = k.shape
+    code = B.DTYPE_CODES[q.dtype]
+    q, k, v = (t if _readable(t) else t.contiguous() for t in (q, k, v))
+    stages = 0
     if q.dtype == torch.bfloat16:
-        # 16-byte cp.async rows; a size-1 dim's stride is never used
-        if any(t.data_ptr() % 16 or any(st % 8 for n, st in
-                                        zip(t.shape[:3], t.stride()[:3]) if n > 1)
-               for t in (q, k, v)):
-            raise ValueError("flash_attention: bfloat16 q, k and v must start "
-                             "on 16-byte boundaries with strides in multiples "
-                             "of 8 elements")
-        plan = _attn_plan.flash_plan(
-            b, h, hkv, sq, hd,
-            sms=torch.cuda.get_device_properties(q.device).multi_processor_count)
-        warps = plan.warps
+        plan = _attn_plan.flash_plan(b, h, hkv, sq, hd, sms=_sm_count(q.device.index or 0))
+        warps, stages = warps or plan.warps, plan.stages
         if plan.grid[1] > 65535:
             raise ValueError("flash_attention: Sq exceeds the grid's y limit")
     else:
@@ -85,9 +103,19 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     FLASH(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv,
           sq, sk, hd, *_strides(q), *_strides(k), *_strides(v),
-          int(causal), 0 if window is None else int(window),
-          1.0 / math.sqrt(hd), warps, code, B.stream(q))
+          int(causal), 0 if window is None else int(window), scale, warps,
+          stages, code, B.stream(q))
     return out
+
+
+def _readable(t: torch.Tensor) -> bool:
+    """Unit hd stride; in bfloat16 also a 16-byte aligned base and
+    strides in multiples of 8 elements (16-byte cp.async rows; a size-1
+    dim's stride is never used)."""
+    if t.stride(-1) != 1:
+        return False
+    return t.dtype != torch.bfloat16 or (t.data_ptr() % 16 == 0 and all(
+        st % 8 == 0 for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1))
 
 
 def _strides(t: torch.Tensor) -> tuple[int, int, int]:
@@ -125,9 +153,10 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
         raise ValueError("paged_decode_attention: q and the pools must share "
                          "one dtype")
-    if any(t.stride(-1) != 1 for t in (q, k_pages, v_pages)):
-        raise ValueError("paged_decode_attention: the head dim must have "
-                         "stride 1")
+    # a head dim without unit stride is copied to one (for the pools, a
+    # copy of all of them: no served path passes such a view)
+    q, k_pages, v_pages = (t if t.stride(-1) == 1 else t.contiguous()
+                           for t in (q, k_pages, v_pages))
     if tables.dim() != 2 or tables.shape[0] != b or \
             tables.dtype != torch.int32 or not tables.is_contiguous() or \
             lengths.shape != (b,) or lengths.dtype != torch.int32 or \
@@ -136,17 +165,19 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                          " int32 (B, npp), lengths a contiguous int32 (B,)")
     code = B.dtype_code(q, "paged_decode_attention")
     es = q.element_size()
-    # 16-byte cp.async rows: aligned pool bases, strides in 16-byte steps
-    if any(t.data_ptr() % 16 or any(st * es % 16 for st in t.stride()[:3])
-           for t in (k_pages, v_pages)):
-        raise ValueError("paged_decode_attention: the pools must start on "
-                         "16-byte boundaries with strides in 16-byte steps")
+    # rows on 16-byte steps (aligned pool bases, strides and rows) take
+    # 16-byte cp.async copies and may take the tensor-core route; other
+    # pools are read value by value (never copied: the pool is large)
+    aligned = hd * es % 16 == 0 and not any(
+        t.data_ptr() % 16 or any(st * es % 16 for st in t.stride()[:3])
+        for t in (k_pages, v_pages))
     out = torch.empty((b, 1, h, hd), dtype=q.dtype, device=q.device)
     if b == 0:
         return out
     npp = tables.shape[1]
     plan = _attn_plan.paged_plan(b, h, hkv, npp, ps, hd, es,
-                                 sms=_sm_count(q.device.index or 0))
+                                 sms=_sm_count(q.device.index or 0),
+                                 aligned=aligned)
     n_ws = plan.workspace_floats(b, h, hd)
     ws = torch.empty(n_ws, dtype=torch.float32, device=q.device) if n_ws else None
     PAGED(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),

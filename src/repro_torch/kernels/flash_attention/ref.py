@@ -16,14 +16,16 @@ NEG_INF = -1e30
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True,
-                        window: int | None = None) -> torch.Tensor:
+                        causal: bool = True, window: int | None = None,
+                        scale: float | None = None) -> torch.Tensor:
+    """`scale` multiplies the scores (default 1 / sqrt(hd))."""
     b, sq, h, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     group = h // hkv
     kf = k.float().repeat_interleave(group, dim=2)
     vf = v.float().repeat_interleave(group, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / math.sqrt(hd)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf)
+    s = s / math.sqrt(hd) if scale is None else s * scale
     qpos = torch.arange(sq, device=q.device)[:, None]
     kpos = torch.arange(sk, device=q.device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)

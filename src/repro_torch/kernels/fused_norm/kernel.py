@@ -3,8 +3,10 @@
 `fused_rmsnorm_residual_pallas`.
 
 Take (N, d) row-major tensors on one CUDA device, float32 or bfloat16,
-d <= 8192 (one warp a row up to d 1024, one block a row above);
-allocate the outputs and launch on PyTorch's current stream.  Loads and
+any d (one warp a row up to d 1024, one block a row above, the row held
+in registers up to d 8192 and walked twice beyond); row inputs that are
+not contiguous are copied; allocate the outputs and launch on PyTorch's
+current stream.  Loads and
 stores are 16-byte vectors where d is a multiple of 8 (bfloat16) or 4
 (float32) and every pointer is aligned, else single values
 (`load_width`).
@@ -17,7 +19,7 @@ import torch
 
 from repro_torch.kernels import _build as B
 
-MAX_D = 8192
+REG_MAX_D = 8192           # widest row held in registers (kMaxD); wider: two passes
 WARP_MAX_D = 1024          # widest row of the one-warp form (kWarpMaxD)
 ROW_THREADS = 256          # threads of the one-row-a-block form (kRowThreads)
 
@@ -33,8 +35,9 @@ RMSNORM_RESIDUAL = B.Launcher("fused_norm", "fused_rmsnorm_residual", [
 class NormLayout:
     """How `csrc/fused_norm.cu` cuts a row: `threads` threads a row (32:
     one warp; 256: one block), each holding chunks t, t + threads, ... of
-    `vec` values (`chunks` of them at most); `vec * chunks` values a
-    thread are rounded up to 8, 16, 24 or 32."""
+    `vec` values (`chunks` of them at most); up to d 8192 `vec * chunks`
+    values a thread are rounded up to 8, 16, 24 or 32 (registers); beyond,
+    the wide kernel walks every chunk of the row twice."""
     threads: int
     vec: int
     chunks: int
@@ -42,9 +45,11 @@ class NormLayout:
 
 def norm_layout(d: int, vec: int) -> NormLayout:
     """The kernel's layout of a d-wide row read `vec` values at a time."""
-    if not 0 < d <= MAX_D or d % vec:
+    if d < 1 or d % vec:
         raise ValueError(f"fused_rmsnorm: no layout for d {d}, vec {vec}")
     threads = 32 if d <= WARP_MAX_D else ROW_THREADS
+    if d > REG_MAX_D:
+        return NormLayout(threads, vec, -(-(d // vec) // threads))
     vals = -(-(d // vec) // threads) * vec
     return NormLayout(threads, vec, next(v for v in (8, 16, 24, 32) if vals <= v) // vec)
 
@@ -59,23 +64,25 @@ def load_width(d: int, rows: list[torch.Tensor], scale: torch.Tensor) -> int:
     return vec if ok else 1
 
 
-def _check(what: str, rows: list[torch.Tensor], scale: torch.Tensor) -> None:
+def _check(what: str, rows: list[torch.Tensor], scale: torch.Tensor):
+    """The row inputs and scale as the kernels read them (contiguous:
+    copied where not); raises on shapes or dtypes they do not take."""
     B.require_cuda(what, *rows, scale)
     x = rows[0]
-    if x.dim() != 2 or not 0 < x.shape[1] <= MAX_D:
-        raise ValueError(f"{what}: x must be (N, d) with 0 < d <= {MAX_D}, "
-                         f"got {tuple(x.shape)}")
+    if x.dim() != 2 or x.shape[1] < 1:
+        raise ValueError(f"{what}: x must be (N, d) with d > 0, got "
+                         f"{tuple(x.shape)}")
     for t in rows:
-        if t.shape != x.shape or t.dtype != x.dtype or not t.is_contiguous():
-            raise ValueError(f"{what}: row inputs must share shape and "
-                             f"dtype and be contiguous")
-    if scale.shape != (x.shape[1],) or not scale.is_contiguous():
-        raise ValueError(f"{what}: scale must be a contiguous ({x.shape[1]},)")
+        if t.shape != x.shape or t.dtype != x.dtype:
+            raise ValueError(f"{what}: row inputs must share shape and dtype")
+    if scale.shape != (x.shape[1],):
+        raise ValueError(f"{what}: scale must be ({x.shape[1]},)")
+    return [t.contiguous() for t in rows], scale.contiguous()
 
 
 def fused_rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, *,
                        eps: float = 1e-6) -> torch.Tensor:
-    _check("fused_rmsnorm", [x], scale)
+    (x,), scale = _check("fused_rmsnorm", [x], scale)
     out = torch.empty_like(x)
     n, d = x.shape
     if n:
@@ -88,7 +95,7 @@ def fused_rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, *,
 
 def fused_rmsnorm_residual_cuda(x: torch.Tensor, res: torch.Tensor,
                                 scale: torch.Tensor, *, eps: float = 1e-6):
-    _check("fused_rmsnorm_residual", [x, res], scale)
+    (x, res), scale = _check("fused_rmsnorm_residual", [x, res], scale)
     s = torch.empty_like(x)
     out = torch.empty_like(x)
     n, d = x.shape

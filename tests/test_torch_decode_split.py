@@ -66,13 +66,17 @@ def test_paged_plan_routes():
     assert ap.paged_plan(4, 9, 3, 32, 16, 64, 2).route == "tc"
     for hd in (32, 80, 96, 128):
         assert ap.paged_plan(4, 8, 2, 32, 16, hd, 2).route == "tc"
-    for hd, es in ((64, 4), (256, 2), (40, 2), (8, 2), (136, 2)):
+    for hd, es in ((64, 4), (256, 2), (40, 2), (8, 2), (136, 2), (84, 2), (100, 4),
+                   (264, 2), (576, 2), (1024, 4)):
         assert ap.paged_plan(4, 8, 2, 32, 16, hd, es).route == "fma"
+    assert ap.paged_plan(4, 8, 2, 32, 16, 64, 2, aligned=False).route == "fma"
     p = ap.paged_plan(2, 40, 2, 8, 16, 64, 2)           # a group of 20
     assert (p.head_chunks, p.heads) == (2, 10)
     p = ap.paged_plan(2, 40, 2, 8, 16, 64, 4)
     assert (p.head_chunks, p.heads) == (3, 7)
-    for bad in (dict(hd=84), dict(hd=264), dict(hd=0)):
+    p = ap.paged_plan(2, 128, 1, 8, 16, 576, 2)         # absorbed MLA: a head a block
+    assert (p.head_chunks, p.heads) == (128, 1)
+    for bad in (dict(hd=1025), dict(hd=0)):
         with pytest.raises(ValueError, match="head dim"):
             ap.paged_plan(2, 4, 2, 8, 16, bad["hd"], 2)
     with pytest.raises(ValueError, match="multiple"):
@@ -248,7 +252,7 @@ def test_wrapper_grid_ignores_lengths(recorded):
     assert first[7:] == second[7:]
 
 
-@pytest.mark.parametrize("hd,match", [(84, "head dim"), (264, "head dim")])
+@pytest.mark.parametrize("hd,match", [(0, "head dim"), (1032, "head dim")])
 def test_wrapper_refuses_what_the_kernel_does_not_take(recorded, hd, match):
     q = torch.zeros((2, 1, 4, hd))
     pool = torch.zeros((5, 4, 2, hd))

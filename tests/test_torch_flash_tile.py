@@ -120,11 +120,15 @@ def test_plan_shapes_on_the_served_paths():
     assert (p.warps, p.blocks) == (8, 96)
     assert ap.flash_plan(2, *SMOLLM[:2], 100, 64).warps == 4
     with pytest.raises(ValueError, match="head dim"):
-        ap.flash_plan(1, 8, 2, 64, 96)
+        ap.flash_plan(1, 8, 2, 64, 100)                  # not a kernel's width
     with pytest.raises(ValueError, match="multiple"):
         ap.flash_plan(1, 9, 2, 64, 64)
-    assert flash_kernel.HEAD_DIMS == (32, 64, 80, 128)
-    assert flash_kernel.PAGED_HEAD_DIMS == tuple(range(8, 257, 8))
+    assert flash_kernel.HEAD_DIMS == (32, 64, 80, 96, 128, 160, 192, 256)
+    assert [ap.padded_head_dim(hd) for hd in (1, 64, 65, 100, 200, 256)] == \
+        [32, 64, 80, 128, 256, 256]
+    with pytest.raises(ValueError, match="head dim"):
+        ap.padded_head_dim(257)
+    assert ap.PAGED_MAX_HD == 1024
 
 
 # -- the tile's arithmetic -------------------------------------------------------
@@ -330,7 +334,7 @@ def test_norm_layout(d, vec, threads, chunks):
 
 
 
-@pytest.mark.parametrize("d,vec", [(578, 8), (8193, 1), (0, 1)])
+@pytest.mark.parametrize("d,vec", [(578, 8), (8196, 8), (0, 1)])
 def test_norm_layout_refuses(d, vec):
     with pytest.raises(ValueError, match="no layout"):
         norm_layout(d, vec)

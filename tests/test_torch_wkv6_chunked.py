@@ -215,13 +215,17 @@ def test_wrapper_takes_d_and_dv_apart(recorded, dtype, s, d, dv):
     assert (args[8] is None) == (s == 1) == (n_ws == 0)
 
 
-@pytest.mark.parametrize("d,dv,err", [(40, 64, ValueError), (64, 136, ValueError),
-                                      (64, 8, ValueError)])
-def test_wrapper_refuses_what_the_kernel_does_not_take(recorded, d, dv, err):
-    r = torch.zeros((1, 4, 2, d))
+@pytest.mark.parametrize("case,err", [("s0 shape", ValueError), ("empty D", ValueError),
+                                      ("float16", TypeError)])
+def test_wrapper_refuses_what_the_kernel_does_not_take(recorded, case, err):
+    """Any D and Dv run (tests/test_torch_widths.py); what still raises is
+    a wrong s0, an empty head and a dtype the kernels do not take."""
+    d = 0 if case == "empty D" else 40
+    r = torch.zeros((1, 4, 2, d), dtype=torch.float16 if case == "float16" else torch.float32)
+    s0 = torch.zeros((1, 2, d + (case == "s0 shape"), 24))
     with pytest.raises(err):
-        wkv_kernel.wkv6_cuda(r, r, torch.zeros((1, 4, 2, dv)), r, torch.zeros((2, d)),
-                             torch.zeros((1, 2, d, dv)))
+        wkv_kernel.wkv6_cuda(r, r, torch.zeros((1, 4, 2, 24), dtype=r.dtype), r,
+                             torch.zeros((2, d)), s0)
     r64 = torch.zeros((1, 4, 2, 64))
     with pytest.raises(TypeError):
         wkv_kernel.wkv6_cuda(r64, r64.bfloat16(), r64, r64, torch.zeros((2, 64)),
