@@ -41,7 +41,15 @@ exit, no result line) when a check fails:
    and 576, wkv6 (D, Dv) (40, 24), (64, 256) and (200, 64), the bf16 MLP
    tile at d 580, F 1540, the norms at d 12288), with flash hd 64 and the
    fused MLP's d 576 forced through the padding bit-equal to their
-   native routes; kernel,
+   native routes; then one float16 row per kernel at its served shape
+   (`float16_rows`); the column splits past the kernels' register tiles
+   (`column_split_rows`: flash hd 288 and 512, paged decode hd 1152 and
+   2048, the bfloat16 MLP tile at d 7168 and 8192, F 2048, fused and
+   MoE; the flash rows beside one SDPA call); and paged_decode's int8
+   pool route with q float32 and bfloat16 (bfloat16 within one bfloat16
+   rounding of the float32 result) at smollm's decode shape and
+   internlm2-1.8b's 8 slots x 2048 positions, with the null page and the
+   positions at or past each length - 1 poisoned (`int8_paged_rows`); kernel,
    plain-version and library times from CUDA events and from the
    profiler's device time, and the least time the card could take (bytes
    over 3.35 TB/s or operations over the type's peak).  Every bfloat16
@@ -63,14 +71,22 @@ exit, no result line) when a check fails:
    recurrentgemma-2b (3 layers: two recurrent, one attention) serve one
    trace on the card, which runs the kernels, and on the CPU, which runs
    the plain versions.  Greedy tokens must be equal and the first
-   prefill's logits within 1e-3.
+   prefill's logits within 1e-3.  smollm-135m (4 layers) with int8 KV
+   serves one trace by the int8 pool route and by the gather route: equal
+   greedy tokens (`int8_e2e_phase`).
 4. Main paths, each at full width in bfloat16 with random weights from a
    seed, through `repro_torch.launch.serve`: smollm-135m with a policy
    that turns all three fusion flags on (12 requests), rwkv6-3b and
    recurrentgemma-2b (8 requests each), and mixtral-8x7b cut to 4 of its
    32 layers with the three flags on (8 requests, dense KV state, the
    moe_mlp kernel); prompts of 16-300 tokens, 32 new tokens each, 4
-   slots, max_len 512.  Launch counts are set to 0 just before each path
+   slots, max_len 512; then a fifth path, smollm-135m (30 layers) with
+   int8 KV on the pool route, 12 requests from the port's Zipf workload
+   generator over bands that cross the 64-512 buckets: the int8
+   paged_decode once a layer a decode step, the bfloat16 one never, the
+   decode step on `paged_split_kernel` and not `paged_tc_kernel`, and the
+   int8 pool's pages per byte against a bfloat16 pool's printed
+   (`int8_path_phase`).  Launch counts are set to 0 just before each path
    and read just after; every kernel of the path must have run, each
    recurrent layer's kernel and each MoE layer's moe_mlp exactly once a
    prefill and once a decode step, and smollm's paged_decode once a layer
@@ -107,15 +123,20 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12,         # dense tensor-core bf16
+              "float16": 989e12,          # dense tensor-core fp16
               "float32": 67e12}           # float32 outside the tensor cores
-TOL = {"bfloat16": 2.5e-2}
+# float16: a 16-bit output rounds to 2^-11 of its size (bfloat16 2^-8);
+# the MLP tile also rounds h once (the JAX kernel tests' bf16 2.5e-2 is
+# for 3 fewer mantissa bits)
+TOL = {"bfloat16": 2.5e-2, "float16": 1e-2}
 # wkv6: sums in another order than the plain version's chunked form,
 # which clips its decay exponents at -60 (o and s_final alike); paged_decode:
 # the JAX paged kernel test's tolerance; moe_mlp and the wide fused_mlp rows: float32
 # sums over F = 14336-27648 hidden units in another order than cuBLAS's
 TOL_F32 = {"fused_rmsnorm": 1e-5, "fused_rmsnorm_residual": 1e-5,
            "fused_mlp": 1e-5, "flash_attention": 3e-5, "wkv6": 1e-4,
-           "rglru_scan": 1e-5, "paged_decode": 2e-5, "moe_mlp": 1e-4}
+           "rglru_scan": 1e-5, "paged_decode": 2e-5, "moe_mlp": 1e-4,
+           "paged_decode_int8": 2e-5}
 TOL_F32_WIDE_MLP = 1e-4
 D, F_FF, H, HKV, HD = 576, 1536, 9, 3, 64  # smollm-135m
 PAGE = 16                                  # the engine's page size
@@ -170,6 +191,25 @@ WIDE_PAGED = ((8, 2, 100), (16, 1, 576))
 WIDE_WKV = ((40, 24), (64, 256), (200, 64))
 WIDE_MLP = (580, 1540)
 WIDE_NORM_D = 12288
+# widths past the kernels' register tiles (column splits): flash (H, Hkv,
+# hd) at S 300; paged decode (H, Hkv, hd) over the smoke lengths; the
+# 16-bit MLP tile (d, F) -- deepseek-v3's dense layers (d 7168, F 2048)
+# and d 8192 -- as fused_mlp (N 4, 256) and as moe_mlp (E 8, C 8)
+COLS_FLASH = ((8, 2, 288), (8, 2, 512))
+COLS_PAGED = ((8, 2, 1152), (8, 2, 2048))
+COLS_MLP = ((7168, 2048), (8192, 2048))
+# the int8 pool route, q float32 and bfloat16: smollm-135m's decode (4
+# slots, 16-332 positions) and internlm2-1.8b's 8 slots x 2048 positions
+# (16 / 8 heads of 128); a bfloat16 output is held to one bfloat16
+# rounding (2^-8 of its size) of the float32 result + 1e-5
+Q8_BF16_RTOL = 2.0 ** -8
+Q8_BF16_ATOL = 1e-5
+Q8_ROWS = (("smollm-135m", DECODE_N, H, HKV, HD, None),
+           ("internlm2-1.8b", 8, 16, 8, 128, PD_LONG_LEN))
+# the fifth path: smollm-135m with int8 KV on the pool route; its Zipf
+# prompt bands cross the 64 - 512 prefill buckets, the longest band the
+# most likely (Zipf weights 1/(i+1) in band order)
+Q8_BANDS = ((257, 400), (129, 255), (65, 127), (40, 63))
 
 
 def check(ok: bool, msg: str) -> None:
@@ -441,31 +481,34 @@ def kernel_phase(torch, F):
                  "fused_rmsnorm_residual": nk.RMSNORM_RESIDUAL,
                  "fused_mlp": mk.MLP, "flash_attention": fk.FLASH,
                  "paged_decode": fk.PAGED, "moe_mlp": ek.MOE,
-                 "wkv6": wk.WKV6, "rglru_scan": gk.SCAN}
+                 "wkv6": wk.WKV6, "rglru_scan": gk.SCAN,
+                 "paged_decode_int8": fk.PAGED_INT8}
 
     def record(name, shape, dtype, out, ref, kern, plain, lib, nbytes, flops,
-               tol=None, iters=30, act=None, extra=None):
+               tol=None, iters=30, act=None, extra=None, ops_dtype=None):
         """`out` is the kernel's first result (launched by the caller) on
         the inputs of kern(0); `launches` counts that launch and the
         event-timed ones.  The `*_device_ms` keys are profiler device
         times of the same calls; each time is the mean of `iters` calls.
         A bfloat16 MLP or flash row, and every paged_decode and wkv6 row,
         must give bit-identical outputs on a second launch (each sums in a
-        fixed order, no atomics)."""
+        fixed order, no atomics).  `ops_dtype`: the type the arithmetic
+        runs in, where it is not `dtype` (its peak bounds the operations)."""
         tol = tol or TOL.get(dtype, TOL_F32[name])
         e, ok = err(out, ref, tol)
         check(ok, f"{name} {shape} {dtype}: kernel disagrees with its plain "
                   f"version (max abs err {e:.3g}, tol {tol})")
         same = None
-        if name in ("paged_decode", "wkv6", "rglru_scan") or (
-                dtype == "bfloat16" and name in ("fused_mlp", "moe_mlp", "flash_attention")):
+        if name in ("paged_decode", "paged_decode_int8", "wkv6", "rglru_scan") or (
+                dtype in ("bfloat16", "float16") and
+                name in ("fused_mlp", "moe_mlp", "flash_attention")):
             again = kern(0)
             same = all(bool(torch.equal(a, b)) for a, b in zip(
                 again if isinstance(again, tuple) else (again,),
                 out if isinstance(out, tuple) else (out,)))
             check(same, f"{name} {shape} {dtype}: two launches on the same "
                         f"inputs differ")
-        b, by = bound_ms(nbytes, flops, dtype)
+        b, by = bound_ms(nbytes, flops, ops_dtype or dtype)
         before = launchers[name].launches - 1
         kernel_ms = time_ms(torch, kern, iters)
         row = {"name": name, "shape": shape, "dtype": dtype,
@@ -811,6 +854,9 @@ def kernel_phase(torch, F):
                       "chunk": plan.chunk, "blocks": plan.blocks})
         del a, x, h0, out
     widths_rows(torch, record, rand, dts, F)
+    float16_rows(torch, record, rand, F)
+    column_split_rows(torch, record, rand, dts, F)
+    int8_paged_rows(torch, record, rand)
     return rows
 
 
@@ -949,6 +995,306 @@ def widths_rows(torch, record, rand, dts, F) -> None:
                    lambda i, x=x, r=r, sc=sc: nk.fused_rmsnorm_residual_cuda(x, r, sc),
                    lambda i, x=x, r=r, sc=sc: fused_rmsnorm_residual_ref(x, r, sc),
                    None, (4 * n * dw + dw) * es, 5 * n * dw, iters=10)
+    free(torch)
+
+
+def float16_rows(torch, record, rand, F) -> None:
+    """One float16 row per kernel at its served shape, each against its
+    plain version (float16 in, float32 math, float16 out; the MLP tile and
+    flash also bit-identical across two launches): the norms and the fused
+    MLP at smollm's width (N 4), flash over smollm's 512-token bucket,
+    paged decode at smollm's decode shape, moe_mlp at mixtral's decode
+    capacity (C 8), rglru_scan at decode (B 4) and a 256-token prefill,
+    wkv6 at decode (B 4) and a 256-token prefill."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.fused_mlp import kernel as mk
+    from repro_torch.kernels.fused_mlp.ref import fused_mlp_ref
+    from repro_torch.kernels.fused_norm import kernel as nk
+    from repro_torch.kernels.fused_norm.ref import (fused_rmsnorm_ref,
+                                                    fused_rmsnorm_residual_ref)
+    from repro_torch.kernels.moe_mlp import kernel as ek
+    from repro_torch.kernels.moe_mlp.ref import moe_mlp_ref
+    from repro_torch.kernels.rglru_scan import kernel as gk
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.kernels.wkv6 import ops as wops
+    from repro_torch.kernels.wkv6.ref import wkv6_bshd_ref
+
+    h16, es, n = torch.float16, 2, DECODE_N
+    rms_norm = getattr(F, "rms_norm", None)
+    x, r = rand((n, D), h16), rand((n, D), h16)
+    sc = rand((D,), h16, 0.1)
+    w1 = (1.0 + sc.float()).to(h16)
+    record("fused_rmsnorm", [n, D], "float16", nk.fused_rmsnorm_cuda(x, sc),
+           fused_rmsnorm_ref(x, sc), lambda i: nk.fused_rmsnorm_cuda(x, sc),
+           lambda i: fused_rmsnorm_ref(x, sc),
+           None if rms_norm is None else lambda i: rms_norm(x, (D,), weight=w1, eps=1e-6),
+           (2 * n * D + D) * es, 4 * n * D)
+    record("fused_rmsnorm_residual", [n, D], "float16",
+           nk.fused_rmsnorm_residual_cuda(x, r, sc), fused_rmsnorm_residual_ref(x, r, sc),
+           lambda i: nk.fused_rmsnorm_residual_cuda(x, r, sc),
+           lambda i: fused_rmsnorm_residual_ref(x, r, sc), None,
+           (4 * n * D + D) * es, 5 * n * D)
+    wg, wi, wo = rand((D, F_FF), h16, D ** -0.5), rand((D, F_FF), h16, D ** -0.5), \
+        rand((F_FF, D), h16, F_FF ** -0.5)
+    xm = rand((n, D), h16)
+    record("fused_mlp", [n, D, F_FF], "float16", mk.fused_mlp_cuda(xm, wg, wi, wo),
+           fused_mlp_ref(xm, wg, wi, wo), lambda i: mk.fused_mlp_cuda(xm, wg, wi, wo),
+           lambda i: fused_mlp_ref(xm, wg, wi, wo),
+           lambda i: (F.silu(xm @ wg) * (xm @ wi)) @ wo,
+           (2 * n * D + 3 * D * F_FF) * es, 6 * n * D * F_FF)
+    s = 512
+    q, k, v = rand((1, s, H, HD), h16), rand((1, s, HKV, HD), h16), rand((1, s, HKV, HD), h16)
+    lib = None
+    if tuple(int(p) for p in torch.__version__.split(".")[:2]) >= (2, 5):
+        def lib(i):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True)
+    record("flash_attention", [1, s, H, HKV, HD], "float16",
+           fk.flash_attention_cuda(q, k, v), flash_attention_ref(q, k, v),
+           lambda i: fk.flash_attention_cuda(q, k, v), lambda i: flash_attention_ref(q, k, v),
+           lib, (2 * s * H * HD + 2 * s * HKV * HD) * es, 4 * HD * s * (s + 1) // 2 * H)
+    prng = torch.Generator().manual_seed(5)
+    lens = torch.randint(16, 333, (n,), generator=prng)
+    tables, pages = paged_tables(torch, lens.tolist(), 512 // PAGE, prng)
+    q = rand((n, 1, H, HD), h16)
+    kp, vp = rand((pages, PAGE, HKV, HD), h16), rand((pages, PAGE, HKV, HD), h16)
+    paged_row(torch, record, "float16", q, kp, vp, tables, lens.to("cuda", torch.int32))
+    del q, k, v, kp, vp
+    ewg, ewi = (rand((MOE_E, MOE_D, MOE_F), h16, MOE_D ** -0.5) for _ in range(2))
+    ewo = rand((MOE_E, MOE_F, MOE_D), h16, MOE_F ** -0.5)
+    xe = rand((MOE_E, 8, MOE_D), h16)
+    record("moe_mlp", [MOE_E, 8, MOE_D, MOE_F], "float16", ek.moe_mlp_cuda(xe, ewg, ewi, ewo),
+           moe_mlp_ref(xe, ewg, ewi, ewo), lambda i: ek.moe_mlp_cuda(xe, ewg, ewi, ewo),
+           lambda i: moe_mlp_ref(xe, ewg, ewi, ewo),
+           lambda i: torch.bmm(F.silu(torch.bmm(xe, ewg)) * torch.bmm(xe, ewi), ewo),
+           (2 * MOE_E * 8 * MOE_D + 3 * MOE_E * MOE_D * MOE_F) * es,
+           6 * MOE_E * 8 * MOE_D * MOE_F, iters=10)
+    del ewg, ewi, ewo, xe
+    free(torch)
+    for b, sl in ((n, 1), (1, 256)):
+        a = torch.rand((b, sl, LRU_W), device="cuda").to(h16)
+        xr, h0 = rand((b, sl, LRU_W), h16), rand((b, LRU_W), torch.float32)
+        record("rglru_scan", [b, sl, LRU_W], "float16", gk.rglru_scan_cuda(a, xr, h0),
+               rglru_scan_ref(a, xr, h0), lambda i: gk.rglru_scan_cuda(a, xr, h0),
+               lambda i: rglru_scan_ref(a, xr, h0), None,
+               es * 3 * b * sl * LRU_W + 4 * b * LRU_W, 2 * b * sl * LRU_W)
+    for b, sl in ((n, 1), (1, 256)):
+        hh, d = RWKV_H, RWKV_D
+        rr, kk, vv = (rand((b, sl, hh, d), h16, 0.5) for _ in range(3))
+        logw = torch.log(torch.exp(-torch.exp(rand((b, sl, hh, d), torch.float32)
+                                              .clamp(-1.0, 1.0))).clamp(min=1e-12)).to(h16)
+        u, s0 = rand((hh, d), torch.float32, 0.1), rand((b, hh, d, d), torch.float32, 0.1)
+        args = (rr, kk, vv, logw, u, s0)
+        record("wkv6", [b, sl, hh, d], "float16", wops.wkv6_bshd(*args),
+               wkv6_bshd_ref(*args, chunk=32), lambda i: wops.wkv6_bshd(*args),
+               lambda i: wkv6_bshd_ref(*args, chunk=32), None,
+               es * b * sl * hh * 5 * d + 4 * (hh * d + 2 * b * hh * d * d),
+               4 * b * hh * sl * d * d, iters=10)
+    free(torch)
+
+
+def column_split_rows(torch, record, rand, dts, F) -> None:
+    """The widths past the kernels' register tiles, each on its column
+    split against its plain version (and, in bfloat16, bit-identical across
+    two launches): flash hd 288 and 512 at S 300 (blocks of 256 output
+    columns), paged decode hd 1152 and 2048 at the smoke lengths (blocks
+    of 1024), the bfloat16 MLP tile at d 7168 and 8192, F 2048 (groups of
+    at most 6144 output columns), as fused_mlp (N 4, 256) and as moe_mlp
+    (E 8, C 8)."""
+    from repro_torch.kernels import _attn_plan
+    from repro_torch.kernels import _mlp_plan as mplan
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.fused_mlp import kernel as mk
+    from repro_torch.kernels.fused_mlp.ref import fused_mlp_ref
+    from repro_torch.kernels.moe_mlp import kernel as ek
+    from repro_torch.kernels.moe_mlp.ref import moe_mlp_ref
+
+    s = WIDE_FLASH_S
+    sdpa = tuple(int(p) for p in torch.__version__.split(".")[:2]) >= (2, 5)
+    for h, hkv, hd in COLS_FLASH:
+        for dtype, dt in dts.items():
+            es = torch.tensor([], dtype=dt).element_size()
+            q, k, v = rand((1, s, h, hd), dt), rand((1, s, hkv, hd), dt), \
+                rand((1, s, hkv, hd), dt)
+
+            def lib(i, q=q, k=k, v=v):
+                return F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=True, enable_gqa=True)
+
+            record("flash_attention", [1, s, h, hkv, hd], dtype,
+                   fk.flash_attention_cuda(q, k, v), flash_attention_ref(q, k, v),
+                   lambda i, q=q, k=k, v=v: fk.flash_attention_cuda(q, k, v),
+                   lambda i, q=q, k=k, v=v: flash_attention_ref(q, k, v),
+                   lib if sdpa else None,
+                   (2 * s * h * hd + 2 * s * hkv * hd) * es, 4 * hd * s * (s + 1) // 2 * h,
+                   iters=10, extra={"column_blocks": _attn_plan.flash_column_blocks(hd)})
+            del q, k, v
+    prng = torch.Generator().manual_seed(6)
+    lens = torch.randint(16, 333, (DECODE_N,), generator=prng)
+    tables, pages = paged_tables(torch, lens.tolist(), 512 // PAGE, prng)
+    lens_d = lens.to("cuda", torch.int32)
+    for h, hkv, hd in COLS_PAGED:
+        for dtype, dt in dts.items():
+            q = rand((DECODE_N, 1, h, hd), dt)
+            kp, vp = rand((pages, PAGE, hkv, hd), dt), rand((pages, PAGE, hkv, hd), dt)
+            paged_row(torch, record, dtype, q, kp, vp, tables, lens_d,
+                      extra={"column_blocks": -(-hd // _attn_plan.PAGED_COL_BLOCK)})
+            del q, kp, vp
+    bf = torch.bfloat16
+    for d, f in COLS_MLP:
+        plan = mplan.mlp_plan(1, DECODE_N, d, f, "bfloat16")
+        wg, wi, wo = rand((d, f), bf, d ** -0.5), rand((d, f), bf, d ** -0.5), \
+            rand((f, d), bf, f ** -0.5)
+        for n in (DECODE_N, 256):
+            xm = rand((n, d), bf)
+            record("fused_mlp", [n, d, f], "bfloat16", mk.fused_mlp_cuda(xm, wg, wi, wo),
+                   fused_mlp_ref(xm, wg, wi, wo),
+                   lambda i, xm=xm: mk.fused_mlp_cuda(xm, wg, wi, wo),
+                   lambda i, xm=xm: fused_mlp_ref(xm, wg, wi, wo),
+                   lambda i, xm=xm: (F.silu(xm @ wg) * (xm @ wi)) @ wo,
+                   (2 * n * d + 3 * d * f) * 2, 6 * n * d * f, iters=10,
+                   extra={"column_groups": plan.groups, "group_cols": plan.gcols})
+        del wg, wi, wo
+        ewg, ewi = (rand((MOE_E, d, f), bf, d ** -0.5) for _ in range(2))
+        ewo = rand((MOE_E, f, d), bf, f ** -0.5)
+        xe = rand((MOE_E, 8, d), bf)
+        record("moe_mlp", [MOE_E, 8, d, f], "bfloat16", ek.moe_mlp_cuda(xe, ewg, ewi, ewo),
+               moe_mlp_ref(xe, ewg, ewi, ewo),
+               lambda i: ek.moe_mlp_cuda(xe, ewg, ewi, ewo),
+               lambda i: moe_mlp_ref(xe, ewg, ewi, ewo),
+               lambda i: torch.bmm(F.silu(torch.bmm(xe, ewg)) * torch.bmm(xe, ewi), ewo),
+               (2 * MOE_E * 8 * d + 3 * MOE_E * d * f) * 2, 6 * MOE_E * 8 * d * f,
+               iters=10, extra={"column_groups": plan.groups, "group_cols": plan.gcols})
+        del ewg, ewi, ewo, xe
+    free(torch)
+
+
+def int8_paged_rows(torch, record, rand) -> None:
+    """paged_decode's int8 pool route (int8 pages with a float32 scale a
+    (page, kv head), the current token's k/v beside the pool; q, the
+    current k/v and out in float32, then bfloat16) against its plain
+    version at smollm-135m's decode shape and at internlm2-1.8b's 8 slots
+    x 2048 positions: float32 within TOL_F32, bfloat16 within one
+    bfloat16 rounding of the plain version's float32 result;
+    bit-identical across two launches; then the null page (codes 127,
+    scale NaN) and every position at or past each slot's length - 1 in
+    the pool (the current token's slot included: its k/v come from beside
+    the pool) poisoned, which must leave both outputs bit for bit
+    unchanged.  Bytes: the live int8 rows and their pages' scales, q, the
+    current k/v, out, tables and lengths; operations in float32."""
+    from repro_torch.kernels import _attn_plan
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import paged_decode_attention_int8_ref
+
+    for arch, b, h, hkv, hd, length in Q8_ROWS:
+        prng = torch.Generator().manual_seed(7)
+        if length is None:
+            lens = torch.randint(16, 333, (b,), generator=prng)
+            lens[0] = 332
+            npp = 512 // PAGE
+        else:
+            lens = torch.full((b,), length)
+            npp = length // PAGE
+        tables, pages = paged_tables(torch, lens.tolist(), npp, prng)
+        lens_d = lens.to("cuda", torch.int32)
+        g = torch.Generator(device="cuda").manual_seed(8)
+        kq, vq = (torch.randint(-127, 128, (pages, PAGE, hkv, hd), generator=g,
+                                device="cuda", dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand((pages, 1, hkv, 1), generator=g, device="cuda") * 0.02 + 1e-3
+                  for _ in range(2))
+        q, kn, vn = rand((b, 1, h, hd), torch.float32), rand((b, hkv, hd), torch.float32), \
+            rand((b, hkv, hd), torch.float32)
+        live = int(lens.sum())
+        live_pages = sum(-(-int(n) // PAGE) for n in lens)
+        plan = _attn_plan.paged_plan(b, h, hkv, npp, PAGE, hd, 4, aligned=False)
+        outs = {}
+        for dtype, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            es = torch.tensor([], dtype=dt).element_size()
+            args = [q.to(dt), kq, vq, ks, vs, tables, lens_d, kn.to(dt), vn.to(dt)]
+            out = fk.paged_decode_attention_int8_cuda(*args)
+            check(out.dtype == dt, f"paged_decode_int8 {arch} {dtype}: out is {out.dtype}")
+            ref, tol = paged_decode_attention_int8_ref(*args), None
+            if dtype == "bfloat16":
+                # one rounding of the float32 result on the same (bfloat16) inputs
+                ref = paged_decode_attention_int8_ref(*[
+                    t.float() if t.dtype == dt else t for t in args])
+                dev = (out.float() - ref).abs()
+                check(bool((dev <= Q8_BF16_ATOL + Q8_BF16_RTOL * ref.abs()).all()),
+                      f"paged_decode_int8 {arch} bf16: out beyond one bfloat16 rounding "
+                      f"of the float32 result (max abs err {float(dev.max()):.3g})")
+                tol = Q8_BF16_RTOL
+            record("paged_decode_int8", [b, h, hkv, hd, PAGE], dtype, out, ref,
+                   lambda i, a=args: fk.paged_decode_attention_int8_cuda(*a),
+                   lambda i, a=args: paged_decode_attention_int8_ref(*a), None,
+                   2 * (live - b) * hkv * hd + 2 * 4 * live_pages * hkv +
+                   es * (2 * b * h * hd + 2 * b * hkv * hd) + 4 * (tables.numel() + b),
+                   4 * hd * live * h, tol=tol, iters=30 if length is None else 10,
+                   ops_dtype="float32",
+                   extra={"arch": arch, "live_positions": live, "route": "int8",
+                          "splits": plan.splits, "blocks": plan.blocks})
+            outs[dtype] = (args, out)
+        kq[0], vq[0], ks[0], vs[0] = 127, -127, float("nan"), float("nan")
+        for i in range(b):
+            last = int(tables[i, (int(lens[i]) - 1) // PAGE])
+            kq[last, (int(lens[i]) - 1) % PAGE:] = 127
+            vq[last, (int(lens[i]) - 1) % PAGE:] = -127
+        for dtype, (args, out) in outs.items():
+            poisoned = fk.paged_decode_attention_int8_cuda(*args)
+            check(torch.equal(poisoned, out), f"paged_decode_int8 {arch} {dtype}: the null "
+                  f"page or positions at or past length - 1 leaked into the output")
+        print(f"[smoke] paged_decode_int8 {arch}: float32 and bfloat16 outputs unchanged "
+              f"with the null page and positions at or past length - 1 poisoned", flush=True)
+        del kq, vq, ks, vs, outs
+    free(torch)
+
+
+def int8_e2e_phase(torch, n_layers: int = 4) -> None:
+    """smollm-135m at full width, `n_layers` layers, float32, int8 KV: the
+    pool route (kernel impls; the int8 paged_decode once a layer a decode
+    step) and the gather route (plain impls: the JAX engine's
+    dequantize, decode, requantize) serve one trace; greedy tokens must be
+    equal."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import api
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    base = configs.get_config("smollm-135m").replace(
+        n_layers=n_layers, dtype="float32", param_dtype="float32")
+    params = api.init_params(base, 1, device="cuda")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, base.vocab, size=int(n)).astype(np.int32)
+               for n in rng.integers(16, 301, size=8)]
+    toks, launches = {}, {}
+    for name, cfg in (("pool", base.replace(attn_impl="flash", mlp_impl="fused",
+                                            norm_impl="fused")),
+                      ("gather", base.replace(attn_impl="einsum", mlp_impl="dense",
+                                              norm_impl="ref"))):
+        eng = ServingEngine(cfg, params, max_batch=4, max_len=512, device="cuda",
+                            kv_quant=True)
+        check(eng.kv_quant_mode == "paged", f"int8 e2e {name}: mode {eng.kv_quant_mode}")
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=16) for i, p in enumerate(prompts)]
+        before = fk.PAGED_INT8.launches
+        st = serve(eng, reqs)
+        launches[name] = (fk.PAGED_INT8.launches - before, st["decode_steps"])
+        toks[name] = [r.out_tokens for r in reqs]
+        check(st["nan_steps"] == 0, f"int8 e2e {name}: non-finite logits")
+        del eng
+    same = sum(a == b for a, b in zip(toks["pool"], toks["gather"]))
+    print(f"[smoke] int8 KV e2e f32 {n_layers} layers full width: {same}/8 request "
+          f"streams equal (pool route vs gather route); int8 paged_decode "
+          f"launches (launches, decode steps) {launches}", flush=True)
+    check(toks["pool"] == toks["gather"], "int8 e2e: the pool route changed greedy tokens")
+    n, steps = launches["pool"]
+    check(n == n_layers * steps and launches["gather"][0] == 0,
+          f"int8 e2e: int8 paged_decode launches {launches}")
     free(torch)
 
 
@@ -1222,11 +1568,15 @@ def free(torch) -> None:
 
 
 def main_path_phase(torch, arch: str, launchers, n_requests: int,
-                    n_layers: int | None = None):
+                    n_layers: int | None = None, kv_quant: bool = False,
+                    bands=None):
     """`arch` (bfloat16, random weights from a seed; cut to `n_layers`
     layers where given) through the serve launcher's own functions, with
     a policy that turns the three fusion flags on; every kernel in
-    `launchers` must launch.  Returns (engine, launch counts, summary)."""
+    `launchers` must launch.  `kv_quant`: the engine's int8 KV switch;
+    `bands`: prompt-length bands of the port's Zipf workload generator
+    (else prompts of 16-300 tokens).  Returns (engine, launch counts,
+    summary)."""
     import resource
 
     import numpy as np
@@ -1234,6 +1584,7 @@ def main_path_phase(torch, arch: str, launchers, n_requests: int,
     from repro_torch import configs
     from repro_torch.launch.policy import load_policy
     from repro_torch.launch.serve import build_engine, serve
+    from repro_torch.serving import workload
 
     pol = {"network": arch, "interval_s": 1e-3, "operators": [
         {"group": "norm1+qkv_proj+attention", "batch": 4, "tp": 1,
@@ -1249,7 +1600,7 @@ def main_path_phase(torch, arch: str, launchers, n_requests: int,
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng = build_engine(cfg, policy=load_policy(path), max_batch=4, max_len=512,
-                       seed=0, device="cuda",
+                       seed=0, device="cuda", kv_quant=kv_quant,
                        log=lambda s: print(s, flush=True))
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -1258,13 +1609,16 @@ def main_path_phase(torch, arch: str, launchers, n_requests: int,
           and eng.mcfg.norm_impl == "fused", "policy did not turn the kernels on")
     rng = np.random.default_rng(0)
     serve(eng, _requests(rng, cfg.vocab, 2, 16, 40, 4))   # warm-up: library handles
+    reqs = _requests(rng, cfg.vocab, n_requests, 16, 300, 32) if bands is None \
+        else workload.zipf_mix_requests(rng, n_requests, cfg.vocab, bands=bands,
+                                        max_new_tokens=32)
     for ln in launchers.values():
         ln.launches = 0
-    reqs = _requests(rng, cfg.vocab, n_requests, 16, 300, 32)
     s = serve(eng, reqs)
     counts = {name: ln.launches for name, ln in launchers.items()}
+    quant = f", int8 KV ({eng.kv_quant_mode})" if eng.kv_quant_mode else ""
     print(f"[smoke] main path {arch} {cfg.n_layers}L bf16 ({eng.state.kind} "
-          f"state): {s['tokens_out']} tokens, {s['prefills']} prefills, "
+          f"state{quant}): {s['tokens_out']} tokens, {s['prefills']} prefills, "
           f"{s['decode_steps']} decode steps in {s['seconds']:.3f}s = "
           f"{s['tokens_per_s']:.1f} tok/s; TTFT p50 {s['ttft_p50_ms']:.1f} ms, "
           f"TPOT p50 {s['tpot_p50_ms']:.2f} ms; launches {counts}; weights "
@@ -1273,6 +1627,7 @@ def main_path_phase(torch, arch: str, launchers, n_requests: int,
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
     print(json.dumps({"main_path": s, "arch": arch, "launches": counts,
                       "build_engine_s": build_s, "state": eng.state.kind,
+                      "kv_quant": eng.kv_quant_mode,
                       "buckets": sorted({int(2 ** math.ceil(math.log2(max(16, len(r.prompt)))))
                                          for r in reqs})}), flush=True)
     check(all(r.finish_reason == "max_new_tokens" and len(r.out_tokens) == 32
@@ -1281,6 +1636,41 @@ def main_path_phase(torch, arch: str, launchers, n_requests: int,
           f"{arch}: non-finite logits")
     check(all(c > 0 for c in counts.values()),
           f"{arch}: a kernel of the path was never launched: {counts}")
+    return eng, counts, s
+
+
+def int8_path_phase(torch, launchers):
+    """The fifth main path: smollm-135m at full width (30 layers, bfloat16,
+    pages of 16) with int8 KV on the pool route: 12 requests from the
+    port's Zipf workload generator over bands that cross the 64 - 512
+    prefill buckets.  Every kernel must launch, the int8 paged_decode once
+    a layer a decode step and the bfloat16 one never; no non-finite
+    logits.  Prints the int8 pool's pages per byte against a bfloat16
+    pool's (`pages_for_byte_budget`, from shapes alone)."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.serving import quant
+
+    before = fk.PAGED.launches
+    eng, counts, s = main_path_phase(torch, "smollm-135m", launchers, 12,
+                                     kv_quant=True, bands=Q8_BANDS)
+    check(eng.kv_quant_mode == "paged" and eng.pool.segments[0]["k"].dtype == torch.int8,
+          "smollm-135m int8: the pool is not int8")
+    want = eng.mcfg.n_layers * s["decode_steps"]
+    check(counts["paged_decode_int8"] == want,
+          f"smollm-135m int8: int8 paged_decode launched "
+          f"{counts['paged_decode_int8']} times, expected {want} (a layer a decode step)")
+    check(fk.PAGED.launches == before, "smollm-135m int8: the bfloat16 paged_decode ran")
+    cfg = configs.get_config("smollm-135m")
+    budget = 1 << 30
+    per = {q: quant.kv_page_nbytes(cfg, PAGE, q) for q in (False, True)}
+    pages = {q: quant.pages_for_byte_budget(cfg, budget, PAGE, q) for q in (False, True)}
+    ratio = pages[True] / pages[False]
+    print(json.dumps({"int8_pages_per_byte": {
+        "page_bytes_bf16": per[False], "page_bytes_int8": per[True],
+        "pages_in_1GiB_bf16": pages[False], "pages_in_1GiB_int8": pages[True],
+        "ratio": ratio}}), flush=True)
+    check(1.9 < ratio <= 2.0, f"smollm-135m int8: {ratio} pages per bf16 page")
     return eng, counts, s
 
 
@@ -1455,6 +1845,7 @@ def main() -> int:
     free(torch)
     recurrent_e2e_phase(torch, "rwkv6-3b", 4)
     recurrent_e2e_phase(torch, "recurrentgemma-2b", 3)
+    int8_e2e_phase(torch, 4)
     norms = {"fused_rmsnorm": nk.RMSNORM,
              "fused_rmsnorm_residual": nk.RMSNORM_RESIDUAL}
     eng, counts, s = main_path_phase(
@@ -1508,6 +1899,15 @@ def main() -> int:
     flash_logits_check(torch, eng, "mixtral-8x7b", 300)
     del eng
     free(torch)
+    eng, path, s = int8_path_phase(
+        torch, dict(norms, fused_mlp=mk.MLP, flash_attention=fk.FLASH,
+                    paged_decode_int8=fk.PAGED_INT8))
+    counts["paged_decode_int8"] = path["paged_decode_int8"]
+    breakdown_phase(torch, eng, "smollm-135m int8",
+                    need=("mlp_cluster_kernel", "paged_split_kernel"),
+                    forbid=("paged_tc_kernel", "mlp_partial_kernel"))
+    del eng
+    free(torch)
 
     meta = {
         "fused_rmsnorm": ("fused_norm.cu", "fused_norm/kernel.py:51",
@@ -1520,6 +1920,8 @@ def main() -> int:
                             [1, 512, H, HKV, HD], "bfloat16"),
         "paged_decode": ("paged_decode.cu", "flash_attention/kernel.py:190",
                          [DECODE_N, H, HKV, HD, PAGE], "bfloat16"),
+        "paged_decode_int8": ("paged_decode.cu", "flash_attention/kernel.py:190",
+                              [DECODE_N, H, HKV, HD, PAGE], "bfloat16"),
         "moe_mlp": ("moe_mlp.cu", "moe_mlp/kernel.py:54",
                     [MOE_E, 8, MOE_D, MOE_F], "bfloat16"),
         "wkv6": ("wkv6.cu", "wkv6/kernel.py:73",

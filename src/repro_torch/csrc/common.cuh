@@ -1,13 +1,12 @@
 // Shared helpers of the port's CUDA kernels (sm_90a, plain C interface).
 //
-// Element types arrive as codes: 0 = float32, 1 = bfloat16
-// (repro_torch/kernels/_build.py DTYPE_CODES).  Every kernel loads its
-// inputs to float32, computes in float32 and rounds once on store
-// (round to nearest even, as XLA's convert does).
+// Element types arrive as codes (0 = float32, 1 = bfloat16, 2 =
+// float16); their conversions and dispatch are in dtypes.cuh.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "dtypes.cuh"
 
 namespace mz {
 
@@ -36,18 +35,6 @@ inline cudaError_t opt_in(K kern, int (&set)[kDevices], int bytes, bool cluster 
     done = bytes;
   }
   return cudaSuccess;
-}
-
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
 }
 
 }  // namespace mz

@@ -15,8 +15,8 @@
 // buckets (S <= 512) the whole call is a few microseconds, so what counts
 // there is the latency of the longest walk over the keys.
 //
-// bfloat16 route: flash_tc_kernel, an FA2-style tile on tensor cores
-// (mma.sync.m16n8k16, bf16 in, float32 sums).  A block serves one query
+// bfloat16 and float16 route: flash_tc_kernel, an FA2-style tile on tensor
+// cores (mma.sync.m16n8k16, bf16 or fp16 in, float32 sums).  A block serves one query
 // head and 16 query positions a warp (4 or 8 warps).  Each warp loads its
 // Q fragments once (ldmatrix) and keeps them in registers.  K/V tiles of 64 keys stream through a 3-stage ring of
 // shared memory, filled with 16-byte cp.async (zero fill past Sk), the
@@ -35,7 +35,7 @@
 // warps a block) is computed by kernels/_attn_plan.py and passed in;
 // tile_class and kv_range are mirrored there for the CPU tests.
 //
-// The rounding this route adds: P is rounded to bf16 before P V, as the
+// The rounding this route adds: P is rounded to T before P V, as the
 // port's einsum attention does (models/common.py: softmax(...).to(q.dtype)
 // before the bf16 P V einsum); the plain version keeps P in float32.
 // Inputs must start on 16-byte boundaries with strides that are multiples
@@ -48,6 +48,14 @@
 // float32 route: the first port's FMA kernel (flash_fwd_kernel), kept for
 // the float32 end-to-end checks: a block takes one (batch, head) pair and
 // 64 queries and walks KV tiles of 32 keys in shared memory, float32 FMAs.
+//
+// hd > 256, every type: flash_wide_kernel splits the output columns into
+// blocks of 256 (a grid dimension).  Each block recomputes the full-hd
+// scores in one fixed order, so all of a row's blocks hold the same max
+// and sum, and accumulates only its own columns of P V in float32 (P is
+// not rounded).  A simple kernel that is right: one key at a time a warp,
+// every K row read again by each column block and each query row (from
+// L2); its cost against the byte bound is in PERF.md.
 #include <cmath>
 #include <cstdint>
 
@@ -202,10 +210,8 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: the tensor-core tile
+// bfloat16 and float16: the tensor-core tile
 // ---------------------------------------------------------------------------
-
-using bf16 = __nv_bfloat16;
 
 constexpr int kTcBK = 64;        // keys a K/V tile
 constexpr int kTcStages = 3;     // K/V ring stages where they fit
@@ -257,10 +263,10 @@ __host__ __device__ constexpr int tc_stages(int hd) {
 
 // grid: x = (b, head), y = query tile, the last (heaviest under a causal
 // mask) first; block: one warp for each 16 query positions
-template <int HD>
+template <typename T, int HD>
 __global__ void __launch_bounds__(32 * kTcMaxWarps, 1)
-flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ o, int H, int Hkv,
+flash_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, T* __restrict__ o, int H, int Hkv,
                 int Sq, int Sk, Strides qs, Strides ks, Strides vs, int causal,
                 int window, float sl2) {
   constexpr int ST = HD + 8;    // shared row stride: ldmatrix rows on distinct banks
@@ -274,9 +280,9 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr bool kQRegs = HD <= 128;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nw = blockDim.x >> 5;
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // [nw * 16][ST]; O in the epilogue
-  bf16* Ks = Qs + nw * 16 * ST;                    // [stages][kTcBK][ST]
-  bf16* Vs = Ks + STAGES * kTcBK * ST;             // [stages][kTcBK][ST]
+  T* Qs = reinterpret_cast<T*>(smem_raw);   // [nw * 16][ST]; O in the epilogue
+  T* Ks = Qs + nw * 16 * ST;                    // [stages][kTcBK][ST]
+  T* Vs = Ks + STAGES * kTcBK * ST;             // [stages][kTcBK][ST]
 
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int h = blockIdx.x % H, b = blockIdx.x / H;
@@ -289,18 +295,18 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int e = tid; e < nw * 16 * CPR; e += blockDim.x) {
     const int r = e / CPR, ch = e % CPR, pos = q0 + r;
     const bool ok = pos < Sq;
-    const bf16* src = ok ? q + b * qs.b + pos * qs.s + h * qs.h + ch * 8 : q;
+    const T* src = ok ? q + b * qs.b + pos * qs.s + h * qs.h + ch * 8 : q;
     cp_async16(smem_addr(Qs + r * ST + ch * 8), src, ok);
   }
   int first, last;
   kv_range(q0, bq, Sq, Sk, causal, window, kTcBK, first, last);
   const int n_tiles = last - first + 1;
-  const bf16* kb = k + b * ks.b + hk * ks.h;
-  const bf16* vb = v + b * vs.b + hk * vs.h;
+  const T* kb = k + b * ks.b + hk * ks.h;
+  const T* vb = v + b * vs.b + hk * vs.h;
   auto load_kv = [&](int tile, int stage) {
     const int k0 = tile * kTcBK;
-    bf16* kd = Ks + stage * kTcBK * ST;
-    bf16* vd = Vs + stage * kTcBK * ST;
+    T* kd = Ks + stage * kTcBK * ST;
+    T* vd = Vs + stage * kTcBK * ST;
     for (int e = tid; e < kTcBK * CPR; e += blockDim.x) {
       const int j = e / CPR, ch = e % CPR, pos = k0 + j;
       const bool ok = pos < Sk;
@@ -366,8 +372,8 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int jp = 0; jp < SN / 2; ++jp) {
         uint32_t bb[4];
         ldsm_x4(bb, kbase + (jp * 16 * ST + kk * 16) * 2);
-        mma_bf16(s[2 * jp], qa, bb[0], bb[1]);
-        mma_bf16(s[2 * jp + 1], qa, bb[2], bb[3]);
+        mz::mma16<T>(s[2 * jp], qa, bb[0], bb[1]);
+        mz::mma16<T>(s[2 * jp + 1], qa, bb[2], bb[3]);
       }
     }
     if (cls == 2) {
@@ -418,8 +424,8 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const float p3 = exp2f(fmaf(s[j][3], sl2, -ms1));
       l0 += p0 + p1;
       l1 += p2 + p3;
-      pa[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
-      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+      pa[j >> 1][(j & 1) * 2] = mz::pack2<T>(p0, p1);
+      pa[j >> 1][(j & 1) * 2 + 1] = mz::pack2<T>(p2, p3);
     }
 #pragma unroll
     for (int kk = 0; kk < SN / 2; ++kk) {
@@ -427,8 +433,8 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t bb[4];
         ldsm_x4_t(bb, vbase + (kk * 16 * ST + np * 16) * 2);
-        mma_bf16(acc[2 * np], pa[kk], bb[0], bb[1]);
-        mma_bf16(acc[2 * np + 1], pa[kk], bb[2], bb[3]);
+        mz::mma16<T>(acc[2 * np], pa[kk], bb[0], bb[1]);
+        mz::mma16<T>(acc[2 * np + 1], pa[kk], bb[2], bb[3]);
       }
     }
   }
@@ -439,13 +445,13 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
   const float i0 = 1.f / fmaxf(l0, 1e-30f), i1 = 1.f / fmaxf(l1, 1e-30f);
-  bf16* Os = Qs + w * 16 * ST;   // this warp's own Q rows, read above
+  T* Os = Qs + w * 16 * ST;   // this warp's own Q rows, read above
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
     *reinterpret_cast<uint32_t*>(Os + r4 * ST + n * 8 + c4) =
-        pack_bf16(acc[n][0] * i0, acc[n][1] * i0);
+        mz::pack2<T>(acc[n][0] * i0, acc[n][1] * i0);
     *reinterpret_cast<uint32_t*>(Os + (r4 + 8) * ST + n * 8 + c4) =
-        pack_bf16(acc[n][2] * i1, acc[n][3] * i1);
+        mz::pack2<T>(acc[n][2] * i1, acc[n][3] * i1);
   }
   __syncwarp();
   for (int e = lane; e < 16 * CPR; e += 32) {
@@ -456,10 +462,10 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int HD>
+template <typename T, int HD>
 int tc_smem_set[kDevices] = {};
 
-template <int HD>
+template <typename T, int HD>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int B,
                       int H, int Hkv, int Sq, int Sk, Strides qs, Strides ks,
                       Strides vs, int causal, int window, float scale, int warps,
@@ -469,14 +475,109 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int 
   const long long n_q = (Sq + 16LL * warps - 1) / (16LL * warps);
   const long long n_x = static_cast<long long>(B) * H;
   if (n_q > 65535 || n_x > 0x7fffffffLL) return cudaErrorInvalidValue;
-  auto kern = flash_tc_kernel<HD>;
+  auto kern = flash_tc_kernel<T, HD>;
   // the limit is raised once to the largest block (8 warps) of this head dim
-  cudaError_t e = mz::opt_in(kern, tc_smem_set<HD>, tc_smem_bytes(HD, kTcMaxWarps, STAGES));
+  cudaError_t e = mz::opt_in(kern, tc_smem_set<T, HD>, tc_smem_bytes(HD, kTcMaxWarps, STAGES));
   if (e != cudaSuccess) return e;
   const dim3 grid(static_cast<unsigned>(n_x), static_cast<unsigned>(n_q));
   kern<<<grid, 32 * warps, tc_smem_bytes(HD, warps, STAGES), st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), H, Hkv, Sq, Sk, qs, ks, vs, causal, window, scale * kLog2e);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), H, Hkv, Sq, Sk, qs, ks, vs, causal, window, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// hd > 256, any element type: the column-split kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kWideRows = 8;     // query rows a block, one a warp
+constexpr int kWideCols = 256;   // output columns a block: 8 a lane
+constexpr int kWideThreads = 32 * kWideRows;
+
+// grid: x = (b, head), y = a run of 8 query rows, z = a block of 256
+// output columns.  Each warp walks its row's valid keys one at a time:
+// the full-hd score q . k (its lanes over hd, the xor butterfly: the same
+// order in every column block, so every block computes the same m and l)
+// and the online softmax in float32, accumulating only its 256 columns of
+// P V (8 a lane).  q, scaled by log2(e) / sqrt(hd), sits in shared memory.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads, 1)
+flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, T* __restrict__ o, int H, int Hkv,
+                  int Sq, int Sk, int hd, Strides qs, Strides ks, Strides vs,
+                  int causal, int window, float sl2) {
+  extern __shared__ float q_s[];              // [kWideRows][hd]
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int h = blockIdx.x % H, b = blockIdx.x / H;
+  const int hk = h / (H / Hkv);
+  const int q0 = blockIdx.y * kWideRows;
+  const int col0 = blockIdx.z * kWideCols;
+  for (int e = tid; e < kWideRows * hd; e += kWideThreads) {
+    const int r = e / hd, c = e % hd, pos = q0 + r;
+    q_s[e] = pos < Sq ? mz::to_f(q[b * qs.b + pos * qs.s + h * qs.h + c]) * sl2 : 0.f;
+  }
+  __syncthreads();
+  const int qpos = q0 + w;
+  if (qpos >= Sq) return;
+  const float* qr = q_s + w * hd;
+  const T* kb = k + b * ks.b + hk * ks.h;
+  const T* vb = v + b * vs.b + hk * vs.h;
+  int k_hi = Sk - 1;
+  if (causal && qpos < k_hi) k_hi = qpos;
+  const int k_lo = window > 0 && qpos - window + 1 > 0 ? qpos - window + 1 : 0;
+  constexpr int CPL = kWideCols / 32;         // columns a lane
+  float acc[CPL];
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) acc[j] = 0.f;
+  float m = -INFINITY, l = 0.f;
+  for (int kp = k_lo; kp <= k_hi; ++kp) {
+    const T* kr = kb + static_cast<long long>(kp) * ks.s;
+    float part = 0.f;
+    for (int c = lane; c < hd; c += 32) part = fmaf(qr[c], mz::to_f(kr[c]), part);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+    const float mn = fmaxf(m, part);
+    const float corr = exp2f(m - mn), p = exp2f(part - mn);
+    m = mn;
+    l = l * corr + p;
+    const T* vr = vb + static_cast<long long>(kp) * vs.s;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      const int c = col0 + lane + 32 * j;
+      const float vv = c < hd ? mz::to_f(vr[c]) : 0.f;
+      acc[j] = fmaf(p, vv, acc[j] * corr);
+    }
+  }
+  const float inv = 1.f / fmaxf(l, 1e-30f);
+  T* orow = o + ((static_cast<size_t>(b) * Sq + qpos) * H + h) * hd;
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) {
+    const int c = col0 + lane + 32 * j;
+    if (c < hd) orow[c] = mz::from_f<T>(acc[j] * inv);
+  }
+}
+
+template <typename T>
+int wide_smem_set[kDevices] = {};
+
+template <typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, int B,
+                        int H, int Hkv, int Sq, int Sk, int hd, Strides qs, Strides ks,
+                        Strides vs, int causal, int window, float scale, int cblocks,
+                        cudaStream_t st) {
+  const int smem = kWideRows * hd * static_cast<int>(sizeof(float));
+  const long long n_q = (Sq + kWideRows - 1) / kWideRows;
+  const long long n_x = static_cast<long long>(B) * H;
+  if (cblocks != (hd + kWideCols - 1) / kWideCols || n_q > 65535 || n_x > 0x7fffffffLL ||
+      cblocks > 65535 || smem > kSmemMax)
+    return cudaErrorInvalidValue;
+  auto kern = flash_wide_kernel<T>;
+  cudaError_t e = mz::opt_in(kern, wide_smem_set<T>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(static_cast<unsigned>(n_x), static_cast<unsigned>(n_q), cblocks);
+  kern<<<grid, kWideThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), H, Hkv, Sq, Sk, hd, qs, ks, vs, causal, window, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -488,23 +589,30 @@ bool tc_aligned(const void* p, Strides s) {
 }  // namespace
 
 // q: (B, Sq, H, hd), k/v: (B, Sk, Hkv, hd), each with unit hd stride and
-// the element strides given; o: (B, Sq, H, hd) contiguous.  hd in
-// {32, 64, 80, 96, 128, 160, 192, 256} (the wrapper zero-pads others);
-// scale: 1 / sqrt(the unpadded hd); window <= 0 means none.  bfloat16
-// (dtype 1) takes the tensor-core tile with the warps a block and ring
-// stages of kernels/_attn_plan.py, its inputs on 16-byte boundaries with
-// strides in multiples of 8; float32 (dtype 0) the FMA kernel, which
-// ignores `warps` and `stages`.
+// the element strides given; o: (B, Sq, H, hd) contiguous.  scale: 1 /
+// sqrt(the unpadded hd); window <= 0 means none.  dtype 0 float32, 1
+// bfloat16, 2 float16.  hd in {32, 64, 80, 96, 128, 160, 192, 256} (the
+// wrapper zero-pads others up to 256): bfloat16 and float16 take the
+// tensor-core tile with the warps a block and ring stages of
+// kernels/_attn_plan.py, their inputs on 16-byte boundaries with strides in
+// multiples of 8; float32 the FMA kernel.  hd > 256, any type: the
+// column-split kernel, `cblocks` = ceil(hd / 256) blocks of output columns
+// (a grid dimension); `warps` and `stages` are ignored there.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int B, int H, int Hkv, int Sq, int Sk,
                                int hd, long long q_sb, long long q_ss,
                                long long q_sh, long long k_sb, long long k_ss,
                                long long k_sh, long long v_sb, long long v_ss,
                                long long v_sh, int causal, int window,
-                               float scale, int warps, int stages, int dtype,
-                               void* stream) {
+                               float scale, int warps, int stages, int cblocks,
+                               int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
+  if (hd > 256)
+    return static_cast<int>(mz::by_dtype(dtype, [&](auto t) {
+      return launch_wide<decltype(t)>(q, k, v, o, B, H, Hkv, Sq, Sk, hd, qs, ks, vs,
+                                      causal, window, scale, cblocks, st);
+    }));
   cudaError_t e = cudaErrorInvalidValue;
   if (dtype == 0) {
 #define MZ_FMA(HD) launch_fma<float, HD>(q, k, v, o, B, H, Hkv, Sq, Sk, qs, ks, vs, causal, window, scale, st)
@@ -520,24 +628,27 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
       default: break;
     }
 #undef MZ_FMA
-  } else if (dtype == 1) {
-    if (!tc_aligned(q, qs) || !tc_aligned(k, ks) || !tc_aligned(v, vs) ||
-        reinterpret_cast<uintptr_t>(o) % 16)
-      return static_cast<int>(cudaErrorMisalignedAddress);
-#define MZ_TC(HD) launch_tc<HD>(q, k, v, o, B, H, Hkv, Sq, Sk, qs, ks, vs, causal, window, scale, warps, stages, st)
+    return static_cast<int>(e);
+  }
+  if (!tc_aligned(q, qs) || !tc_aligned(k, ks) || !tc_aligned(v, vs) ||
+      reinterpret_cast<uintptr_t>(o) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  e = mz::by_dtype16(dtype, [&](auto t) {
+    using T = decltype(t);
+#define MZ_TC(HD) launch_tc<T, HD>(q, k, v, o, B, H, Hkv, Sq, Sk, qs, ks, vs, causal, window, scale, warps, stages, st)
     switch (hd) {
-      case 32: e = MZ_TC(32); break;
-      case 64: e = MZ_TC(64); break;
-      case 80: e = MZ_TC(80); break;
-      case 96: e = MZ_TC(96); break;
-      case 128: e = MZ_TC(128); break;
-      case 160: e = MZ_TC(160); break;
-      case 192: e = MZ_TC(192); break;
-      case 256: e = MZ_TC(256); break;
-      default: break;
+      case 32: return MZ_TC(32);
+      case 64: return MZ_TC(64);
+      case 80: return MZ_TC(80);
+      case 96: return MZ_TC(96);
+      case 128: return MZ_TC(128);
+      case 160: return MZ_TC(160);
+      case 192: return MZ_TC(192);
+      case 256: return MZ_TC(256);
+      default: return cudaErrorInvalidValue;
     }
 #undef MZ_TC
-  }
+  });
   return static_cast<int>(e);
 }
 

@@ -28,7 +28,7 @@
 
 // x: (n, d); wg, wi: (d, f); wo: (f, d); out: (n, d); all contiguous, one
 // element type.  float32 (dtype 0): fc (32 or 128) hidden units a block,
-// partial of ceil(f/fc)*n*d floats.  bfloat16 (dtype 1): cluster size cl,
+// partial of ceil(f/fc)*n*d floats.  bfloat16 (dtype 1) and float16 (2): cluster size cl,
 // token tile nt and cluster count from the tile plan
 // (kernels/_mlp_plan.py), partial of leftover*parts*min(nt,n)*d floats.
 // wg may be null when swiglu is 0.

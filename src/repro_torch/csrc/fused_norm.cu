@@ -16,7 +16,7 @@
 // and its chain of dependent device-memory round trips.  Each row makes one
 // pass, held in registers between the mean square and the scaled write,
 // with one round trip before the reduction:
-//   * every load is a 16-byte vector (8 bf16 or 4 float32 values a lane)
+//   * every load is a 16-byte vector (8 bf16 / fp16 or 4 float32 values a lane)
 //     where d is a multiple of 8 (4) and the pointers are aligned; other
 //     widths take scalar loads (the wrapper picks `vec`);
 //   * `scale` does not depend on the row, so its loads are issued with
@@ -276,17 +276,12 @@ int dispatch(const void* x, const void* res, const void* scale, void* sum_out,
              void* out, int n, int d, int vec, float eps, int x_dtype,
              int scale_dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (x_dtype == 0 && scale_dtype == 0)
-    e = launch<float, float, R>(x, res, scale, sum_out, out, n, d, vec, eps, st);
-  else if (x_dtype == 0 && scale_dtype == 1)
-    e = launch<float, __nv_bfloat16, R>(x, res, scale, sum_out, out, n, d, vec, eps, st);
-  else if (x_dtype == 1 && scale_dtype == 0)
-    e = launch<__nv_bfloat16, float, R>(x, res, scale, sum_out, out, n, d, vec, eps, st);
-  else if (x_dtype == 1 && scale_dtype == 1)
-    e = launch<__nv_bfloat16, __nv_bfloat16, R>(x, res, scale, sum_out, out, n, d, vec, eps, st);
-  else
-    e = cudaErrorInvalidValue;
+  const cudaError_t e = mz::by_dtype(x_dtype, [&](auto xt) {
+    return mz::by_dtype(scale_dtype, [&](auto gt) {
+      return launch<decltype(xt), decltype(gt), R>(x, res, scale, sum_out, out, n, d,
+                                                   vec, eps, st);
+    });
+  });
   return static_cast<int>(e);
 }
 

@@ -18,13 +18,15 @@
 // (0.23 ms).  So each weight byte must be read once, by tiles that keep
 // enough bytes in flight, and the products must not be the limit.
 //
-// bfloat16 route: the cluster tile (mlp_cluster_kernel).  A thread-block
+// bfloat16 and float16 route: the cluster tile (mlp_cluster_kernel,
+// templated on the 16-bit type T: its mma.sync and its tensor maps' element
+// type are T's, the rest is type-blind).  A thread-block
 // cluster of CL blocks (8, or 16 where d > 1024) owns one item -- one token
 // tile of one expert -- and walks its ff chunks (CL * 64 hidden units
 // each) in order, the Hopper form of the TPU grid's sequential ff axis:
 //   up:   block r computes h = act(x @ wg, x @ wi) for its 64 hidden units
 //         of the chunk, from weight columns only it reads, and stores h in
-//         its shared memory, rounded once to bfloat16;
+//         its shared memory, rounded once to T;
 //   then a cluster barrier;
 //   down: block r reads every block's h slice through distributed shared
 //         memory and multiplies it by its own d/CL columns of wo[chunk, :],
@@ -33,7 +35,7 @@
 // Each weight byte is read from device memory by exactly one block, h
 // never reaches device memory, and the sum runs in one fixed order, so
 // the result is deterministic (no atomics).  The products are tensor-core
-// mma.sync.m16n8k16 (bf16 in, float32 sums) with the weights as the M
+// mma.sync.m16n8k16 (bf16 or fp16 in, float32 sums) with the weights as the M
 // side (64 hidden units or 16 output columns a tile) and the tokens as N
 // (8 to 128), so a decode step pads tokens to 8, not 16 or 64:
 // h^T = W^T x^T, out^T = wo^T h^T; operands come from shared memory by
@@ -61,12 +63,20 @@
 // 8, not 16.
 //
 // The rounding this route adds: the plain version keeps h in float32; here
-// h is rounded once to bfloat16 before the down projection, as the tensor
-// cores take it (held to the bf16 tolerance of 2.5e-2 by
+// h is rounded once to T before the down projection, as the tensor cores
+// take it (held to the bf16 tolerance of 2.5e-2 by
 // tests/test_torch_mlp_tile.py and chip_smoke.py).  The route needs d and
 // F to be multiples of 8 (16-byte rows); the wrappers check that, and the
 // tile plan (kernels/_mlp_plan.py) picks CL, the token tile and the
 // cluster count.
+//
+// Wide d: a block's output columns set its register tile (MW m16 tiles a
+// warp, at most 3), so past kTcMaxCols = 6144 columns the output columns
+// are cut into groups, one launch a group over the same plan.  Each group
+// walks the ff axis again and recomputes h (wi and wg are read once more a
+// group: a stated cost); every output column's float32 sum still runs in
+// one fixed order, so the result is the ungrouped one's, bit for bit, and
+// the same from launch to launch.
 //
 // float32 route: the FMA tile of the first port (mlp_partial_kernel +
 // mlp_reduce_kernel), kept for float32 inputs (the end-to-end float32
@@ -78,6 +88,7 @@
 #include <cooperative_groups.h>
 #include <cuda.h>
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -271,6 +282,7 @@ constexpr int kTcBox = 64;        // columns of one TMA box: 128 bytes
 constexpr int kTcPad = 8;         // bf16 values of row padding of h
 constexpr int kTcMaxStages = 8;   // ring stages at most
 constexpr int kTcSmemMax = 232192;   // 227 KB less the static barriers
+constexpr int kTcMaxCols = 6144;  // output columns a launch (the register tile's)
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -323,15 +335,6 @@ __device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
                : "=r"(r[0]), "=r"(r[1]) : "r"(addr));
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // The geometry of one launch, computed on the host; mirrored by
 // kernels/_mlp_plan.py, which picks cl, nt and the cluster count.
 //
@@ -348,6 +351,8 @@ struct TcPlan {
   int cl, nt, mw, tiles;                // cluster size, token tile, m16
                                         // tiles a warp (down), token tiles
   int chunks, clusters, rounds, leftover, parts;
+  int groups, gcols;                    // column groups of d, columns a group
+  int col0, gend;                       // this launch's group: [col0, gend)
   int cpb;                              // output columns a block (x 64)
   int bk;                               // d rows of one up-projection step
   int stage_bytes, stages, smem;        // ring stage, stages, dynamic bytes
@@ -361,7 +366,13 @@ inline int tc_plan(int experts, int n, int d, int f, int cl, int nt,
   p->nt = nt;
   p->bk = nt <= 32 ? 128 : 64;          // deeper steps where x's tile is small
   p->tiles = (n + nt - 1) / nt;
-  p->cpb = ((d + cl - 1) / cl + kTcBox - 1) / kTcBox * kTcBox;
+  // d's output columns in groups of at most kTcMaxCols, one launch each
+  p->groups = (d + kTcMaxCols - 1) / kTcMaxCols;
+  p->gcols = p->groups == 1 ? d
+                            : ((d + p->groups - 1) / p->groups + kTcBox - 1) / kTcBox * kTcBox;
+  p->col0 = 0;
+  p->gend = p->gcols < d ? p->gcols : d;
+  p->cpb = ((p->gcols + cl - 1) / cl + kTcBox - 1) / kTcBox * kTcBox;
   p->mw = (p->cpb / 16 + 7) / 8;
   p->chunks = (f + cl * kTcHB - 1) / (cl * kTcHB);
   const int items = experts * p->tiles;
@@ -407,15 +418,15 @@ __device__ __forceinline__ int tc_nseg(const TcPlan& p, int k) {
 // in the down projection (cpb <= MW * 128).  Thread 0 feeds the ring by
 // TMA (3-D maps of x (d, n, E), wg / wi (F, d, E) and wo (d, F, E), boxes
 // of 64 columns, 128-byte swizzle, zeros past every edge).
-template <int NT, int MW, bool SW>
+template <typename T, int NT, int MW, bool SW>
 __global__ void __launch_bounds__(kTcThreads, 1)
 mlp_cluster_kernel(const __grid_constant__ CUtensorMap tm_x,
                    const __grid_constant__ CUtensorMap tm_g,
                    const __grid_constant__ CUtensorMap tm_i,
                    const __grid_constant__ CUtensorMap tm_o,
-                   __nv_bfloat16* __restrict__ out, float* __restrict__ partial,
+                   T* __restrict__ out, float* __restrict__ partial,
                    int n, int d, int f, TcPlan p) {
-  using bf = __nv_bfloat16;
+  using bf = T;
   constexpr int HB = kTcHB, HS = HB + kTcPad;
   constexpr int NTL = NT / 8;             // n8 tiles of the token tile
   // up phase: warp = (m16 tile of the 64 hidden units, half); the half
@@ -443,7 +454,7 @@ mlp_cluster_kernel(const __grid_constant__ CUtensorMap tm_x,
   const int nseg = tc_nseg(p, k);
   int total = 0;
   for (int s = 0; s < nseg; ++s) total += tc_seg(p, k, s).nch * spc;
-  const int c0 = rank * p.cpb;            // first output column of this block
+  const int c0 = p.col0 + rank * p.cpb;   // first output column of this block
   const int mtiles = p.cpb / 16;
   const int xbytes = (bk / kTcBox) * NT * 128;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -532,12 +543,12 @@ mlp_cluster_kernel(const __grid_constant__ CUtensorMap tm_x,
             if (nt < NTL) {
               uint32_t b[2];
               ldsm_x2(b, xs + xb * NT * 128 + swz(nt * 8 + b_n, xc));
-              mma_bf16(ai[t], a_i, b);
-              if (SW) mma_bf16(ag[t], a_g, b);
+              mma16<T>(ai[t], a_i, b[0], b[1]);
+              if (SW) mma16<T>(ag[t], a_g, b[0], b[1]);
             }
           }
         }
-        if (j == ks - 1) {                  // h = act(...), rounded once to bf16
+        if (j == ks - 1) {                  // h = act(...), rounded once to T
           if (KSPLIT) {                     // the halves' sums, in a fixed order
             if (half == 1)
 #pragma unroll
@@ -562,7 +573,7 @@ mlp_cluster_kernel(const __grid_constant__ CUtensorMap tm_x,
                 const int row = mu * 16 + (lane >> 2) + ((e >> 1) << 3);
                 const int tok = nt * 8 + 2 * (lane & 3) + (e & 1);
                 const float h = SW ? silu(ag[t][e]) * ai[t][e] : gelu_tanh(ai[t][e]);
-                hb[tok * HS + row] = __float2bfloat16_rn(h);
+                hb[tok * HS + row] = from_f<T>(h);
               }
             }
           }
@@ -593,14 +604,14 @@ mlp_cluster_kernel(const __grid_constant__ CUtensorMap tm_x,
             ldsm_x2(b, hl + ((nt * 8 + b_n) * HS + kk + b_c * 8) * 2);
 #pragma unroll
             for (int m = 0; m < MW; ++m)
-              if (warp + 8 * m < mtiles) mma_bf16(acc[m][nt], a[m], b);
+              if (warp + 8 * m < mtiles) mma16<T>(acc[m][nt], a[m], b[0], b[1]);
           }
         }
       }
     }
     // the segment's output: the item's rows, or this part's float32 partial
     const int ex = sg.item / p.tiles, tile0 = sg.item % p.tiles * NT;
-    const int ncols = min(p.cpb, d - c0);
+    const int ncols = min(p.cpb, p.gend - c0);   // none past the group
 #pragma unroll
     for (int m = 0; m < MW; ++m) {
       const int mt = warp + 8 * m;
@@ -614,7 +625,7 @@ mlp_cluster_kernel(const __grid_constant__ CUtensorMap tm_x,
           if (col >= ncols || tile0 + row >= n) continue;
           if (sg.part < 0)
             out[(static_cast<size_t>(ex) * n + tile0 + row) * d + c0 + col] =
-                __float2bfloat16_rn(acc[m][nt][e]);
+                from_f<T>(acc[m][nt][e]);
           else
             partial[(static_cast<size_t>(sg.part) * min(NT, n) + row) * d + c0 + col] =
                 acc[m][nt][e];
@@ -624,24 +635,25 @@ mlp_cluster_kernel(const __grid_constant__ CUtensorMap tm_x,
   cluster.sync();                         // no block leaves while peers read it
 }
 
-// The leftover items' rows: the sum of their parts' float32 partials, in
-// part order, rounded once.
+// The leftover items' rows in this launch's column group: the sum of
+// their parts' float32 partials, in part order, rounded once.
+template <typename T>
 __global__ void mlp_fixup_kernel(const float* __restrict__ partial,
-                                 __nv_bfloat16* __restrict__ out, int n, int d,
-                                 TcPlan p) {
+                                 T* __restrict__ out, int n, int d, TcPlan p) {
   const int rows = min(p.nt, n);         // rows of a partial
+  const int gw = p.gend - p.col0;        // columns of the group
   const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<size_t>(p.leftover) * rows * d) return;
-  const int col = static_cast<int>(idx % d);
-  const int row = static_cast<int>(idx / d % rows);
-  const int l = static_cast<int>(idx / d / rows);
+  if (idx >= static_cast<size_t>(p.leftover) * rows * gw) return;
+  const int col = p.col0 + static_cast<int>(idx % gw);
+  const int row = static_cast<int>(idx / gw % rows);
+  const int l = static_cast<int>(idx / gw / rows);
   const int item = p.rounds * p.clusters + l;
   const int tok = item % p.tiles * p.nt + row;
   if (tok >= n) return;
   float s = 0.f;
   for (int q = 0; q < p.parts; ++q)
     s += partial[(static_cast<size_t>(l * p.parts + q) * rows + row) * d + col];
-  out[(static_cast<size_t>(item / p.tiles) * n + tok) * d + col] = __float2bfloat16_rn(s);
+  out[(static_cast<size_t>(item / p.tiles) * n + tok) * d + col] = from_f<T>(s);
 }
 
 // cuTensorMapEncodeTiled from the driver, found once through the runtime
@@ -664,7 +676,9 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a bf16 (cols, rows, experts) map, boxes of 64 columns x box_rows rows
+// a 16-bit (cols, rows, experts) map of T, boxes of 64 columns x box_rows
+// rows
+template <typename T>
 inline bool tc_map(CUtensorMap* m, const void* base, int cols, int rows,
                    int experts, int box_rows) {
   EncodeTiled enc = encode_tiled();
@@ -675,7 +689,10 @@ inline bool tc_map(CUtensorMap* m, const void* base, int cols, int rows,
                                  static_cast<cuuint64_t>(cols) * rows * 2};
   const cuuint32_t box[3] = {kTcBox, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t one[3] = {1, 1, 1};
-  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+  const CUtensorMapDataType type = std::is_same<T, __half>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return enc(m, type, 3, const_cast<void*>(base), dims,
              strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -686,20 +703,22 @@ inline bool tc_map(CUtensorMap* m, const void* base, int cols, int rows,
 // moe_mlp each hold their own copy of the kernels and set their own
 // attributes.
 namespace {
-template <int NT, int MW, bool SW>
+template <typename T, int NT, int MW, bool SW>
 int tc_smem_set[kDevices] = {};
 }  // namespace
 
-template <int NT, int MW, bool SW>
+// one launch for each column group of d (p.groups), in order; the float32
+// partial of the leftover items is reused from group to group
+template <typename T, int NT, int MW, bool SW>
 cudaError_t mlp_cluster_launch(const void* x, const void* wg, const void* wi,
                                const void* wo, float* partial, void* out,
                                int experts, int n, int d, int f,
                                const TcPlan& p, cudaStream_t st,
                                int* max_clusters) {
-  auto kern = mlp_cluster_kernel<NT, MW, SW>;
+  auto kern = mlp_cluster_kernel<T, NT, MW, SW>;
   // the attributes are set once an instantiation (largest ring so far),
   // with the cluster-size one beside the shared-memory limit
-  cudaError_t e = opt_in(kern, tc_smem_set<NT, MW, SW>, p.smem, /*cluster=*/true);
+  cudaError_t e = opt_in(kern, tc_smem_set<T, NT, MW, SW>, p.smem, /*cluster=*/true);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.cl * p.clusters);
@@ -715,22 +734,31 @@ cudaError_t mlp_cluster_launch(const void* x, const void* wg, const void* wi,
   cfg.numAttrs = 1;
   if (max_clusters) return cudaOccupancyMaxActiveClusters(max_clusters, kern, &cfg);
   CUtensorMap tx, tg, ti, to;
-  if (!tc_map(&tx, x, d, n, experts, NT) || !tc_map(&ti, wi, f, d, experts, p.bk) ||
-      !tc_map(&tg, SW ? wg : wi, f, d, experts, p.bk) ||
-      !tc_map(&to, wo, d, f, experts, kTcHB))
+  if (!tc_map<T>(&tx, x, d, n, experts, NT) || !tc_map<T>(&ti, wi, f, d, experts, p.bk) ||
+      !tc_map<T>(&tg, SW ? wg : wi, f, d, experts, p.bk) ||
+      !tc_map<T>(&to, wo, d, f, experts, kTcHB))
     return cudaErrorInvalidValue;
-  e = cudaLaunchKernelEx(&cfg, kern, tx, tg, ti, to, static_cast<__nv_bfloat16*>(out),
-                         partial, n, d, f, p);
-  if (e != cudaSuccess || p.leftover == 0) return e;
-  const size_t total = static_cast<size_t>(p.leftover) * (p.nt < n ? p.nt : n) * d;
-  mlp_fixup_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, st>>>(
-      partial, static_cast<__nv_bfloat16*>(out), n, d, p);
-  return cudaGetLastError();
+  TcPlan pg = p;
+  for (int g = 0; g < p.groups; ++g) {
+    pg.col0 = g * p.gcols;
+    pg.gend = pg.col0 + p.gcols < d ? pg.col0 + p.gcols : d;
+    e = cudaLaunchKernelEx(&cfg, kern, tx, tg, ti, to, static_cast<T*>(out), partial, n, d,
+                           f, pg);
+    if (e != cudaSuccess) return e;
+    if (p.leftover == 0) continue;
+    const size_t total =
+        static_cast<size_t>(p.leftover) * (p.nt < n ? p.nt : n) * (pg.gend - pg.col0);
+    mlp_fixup_kernel<T><<<static_cast<unsigned>((total + 255) / 256), 256, 0, st>>>(
+        partial, static_cast<T*>(out), n, d, pg);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 // token tiles: 8-128 with one m16 tile a warp, up to 96 with two, up to 64
 // with three (the float32 sums of both projections stay in registers)
-template <bool SW>
+template <typename T, bool SW>
 cudaError_t mlp_cluster_by_shape(const void* x, const void* wg, const void* wi,
                                  const void* wo, float* partial, void* out,
                                  int experts, int n, int d, int f,
@@ -738,7 +766,7 @@ cudaError_t mlp_cluster_by_shape(const void* x, const void* wg, const void* wi,
                                  int* max_clusters = nullptr) {
 #define MZ_TC(NT_, MW_)                                                      \
   if (p.nt == NT_ && p.mw == MW_)                                            \
-    return mlp_cluster_launch<NT_, MW_, SW>(x, wg, wi, wo, partial, out,     \
+    return mlp_cluster_launch<T, NT_, MW_, SW>(x, wg, wi, wo, partial, out,  \
                                             experts, n, d, f, p, st,         \
                                             max_clusters);
   MZ_TC(8, 1) MZ_TC(16, 1) MZ_TC(32, 1) MZ_TC(64, 1) MZ_TC(96, 1) MZ_TC(128, 1)
@@ -749,10 +777,11 @@ cudaError_t mlp_cluster_by_shape(const void* x, const void* wg, const void* wi,
 }
 
 // The entry both libraries export.  dtype 0 = float32 takes the FMA tile
-// with ff chunks of fc; dtype 1 = bfloat16 takes the cluster tile with the
-// plan's cluster size cl, token tile nt and cluster count.  partial:
-// float32 workspace, E * ceil(F/fc) * n * d values for float32, leftover *
-// parts * min(nt, n) * d for bfloat16 (none when nothing is left over).
+// with ff chunks of fc; dtype 1 = bfloat16 and 2 = float16 take the cluster
+// tile with the plan's cluster size cl, token tile nt and cluster count,
+// one launch a column group of d.  partial: float32 workspace, E *
+// ceil(F/fc) * n * d values for float32, leftover * parts * min(nt, n) * d
+// for the cluster tile (none when nothing is left over).
 inline int mlp_entry(const void* x, const void* wg, const void* wi,
                      const void* wo, void* partial, void* out, int experts,
                      int n, int d, int f, int fc, int swiglu, int dtype, int cl,
@@ -764,23 +793,26 @@ inline int mlp_entry(const void* x, const void* wg, const void* wi,
   if (dtype == 0) {
     e = swiglu ? mlp_by_d<float, true>(x, wg, wi, wo, w, out, experts, n, d, f, fc, st)
                : mlp_by_d<float, false>(x, wg, wi, wo, w, out, experts, n, d, f, fc, st);
-  } else if (dtype == 1) {
+  } else {
     TcPlan p;
     if (tc_plan(experts, n, d, f, cl, nt, clusters, swiglu != 0, &p) != 0 ||
         (p.leftover > 0 && !w))
       return static_cast<int>(cudaErrorInvalidValue);
-    e = swiglu ? mlp_cluster_by_shape<true>(x, wg, wi, wo, w, out, experts, n, d, f, p, st)
-               : mlp_cluster_by_shape<false>(x, wg, wi, wo, w, out, experts, n, d, f, p, st);
-  } else {
-    e = cudaErrorInvalidValue;
+    e = by_dtype16(dtype, [&](auto t) {
+      using T = decltype(t);
+      return swiglu
+          ? mlp_cluster_by_shape<T, true>(x, wg, wi, wo, w, out, experts, n, d, f, p, st)
+          : mlp_cluster_by_shape<T, false>(x, wg, wi, wo, w, out, experts, n, d, f, p, st);
+    });
   }
   return static_cast<int>(e);
 }
 
-// How many clusters of the bfloat16 route's kernel for these shapes (cl
+// How many clusters of the cluster tile's kernel for these shapes (cl
 // blocks of nt tokens) fit on the card at once
-// (cudaOccupancyMaxActiveClusters); minus the CUDA error code where the
-// query fails or the route refuses the shapes.
+// (cudaOccupancyMaxActiveClusters, asked of the bfloat16 instantiation: the
+// float16 one has the same block, ring and shared memory); minus the CUDA
+// error code where the query fails or the route refuses the shapes.
 inline int mlp_max_clusters(int experts, int n, int d, int f, int swiglu,
                             int cl, int nt) {
   TcPlan p;
@@ -788,10 +820,12 @@ inline int mlp_max_clusters(int experts, int n, int d, int f, int swiglu,
     return -static_cast<int>(cudaErrorInvalidValue);
   int count = -1;
   cudaError_t e = swiglu
-      ? mlp_cluster_by_shape<true>(nullptr, nullptr, nullptr, nullptr, nullptr,
-                                   nullptr, experts, n, d, f, p, 0, &count)
-      : mlp_cluster_by_shape<false>(nullptr, nullptr, nullptr, nullptr, nullptr,
-                                    nullptr, experts, n, d, f, p, 0, &count);
+      ? mlp_cluster_by_shape<__nv_bfloat16, true>(nullptr, nullptr, nullptr, nullptr,
+                                                  nullptr, nullptr, experts, n, d, f, p, 0,
+                                                  &count)
+      : mlp_cluster_by_shape<__nv_bfloat16, false>(nullptr, nullptr, nullptr, nullptr,
+                                                   nullptr, nullptr, experts, n, d, f, p, 0,
+                                                   &count);
   return e == cudaSuccess ? count : -static_cast<int>(e);
 }
 

@@ -30,7 +30,7 @@
 
 // x: (e, n, d); wg, wi: (e, d, f); wo: (e, f, d); out: (e, n, d); all
 // contiguous, one element type.  float32 (dtype 0): fc (32 or 128) hidden
-// units a block, partial of e*ceil(f/fc)*n*d floats.  bfloat16 (dtype 1):
+// units a block, partial of e*ceil(f/fc)*n*d floats.  bfloat16 (dtype 1) and float16 (2):
 // cluster size cl, token tile nt and cluster count from the tile plan
 // (kernels/_mlp_plan.py), partial of leftover*parts*min(nt,n)*d floats
 // (none when no item is left over).  wg may be null when swiglu is 0.

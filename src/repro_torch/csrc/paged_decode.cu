@@ -39,13 +39,25 @@
 //     block writes the output itself.
 // The pool is read in its stored (P, ps, Hkv, hd) layout, one layer's
 // slice of the (L, P, ps, Hkv, hd) pool, through strides: no copy, no
-// transpose.  Any hd up to 1024: an hd that is not a multiple of 8 masks
+// transpose.  Any hd up to 4096: an hd that is not a multiple of 8 masks
 // its last lane chunk (a zeroed tail in shared memory), pools whose rows
 // are not on 16-byte steps are read value by value (the pool cannot be
-// padded without a copy of all of it), and above 256 a lane walks hd in
-// up to four 8-value chunks (one query head a block; deepseek-v3's
-// absorbed-MLA latent is 576 = 512 + 64).
+// padded without a copy of all of it), above 256 a lane walks hd in up to
+// four 8-value chunks (one query head a block; deepseek-v3's absorbed-MLA
+// latent is 576 = 512 + 64), and above 1024 the output columns are cut
+// into blocks of 1024 (a third grid dimension), each recomputing the
+// full-hd scores in the same order (the split-and-combine order is
+// unchanged, so every block holds the same max and sum).
+// Types: float32, bfloat16 and float16 (the tensor-core route takes both
+// 16-bit types).  The int8 pool route (paged_decode_int8, the port of the
+// JAX engine's quantized decode) runs the float32 FMA kernel with int8
+// pages dequantized (code * the page's float32 scale) into a float32
+// ring as a tile loads (16 codes a 16-byte load where the pool's rows
+// allow it), and the current token's k/v, not yet quantized into the
+// pool, read from beside it; q, the current k/v and out in any of the
+// three types.
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 #include "warp_ops.cuh"
@@ -55,83 +67,102 @@ namespace {
 using namespace mz::warp;
 
 constexpr int kThreads = 128;   // threads a block (4 warps)
-constexpr int kStages = 3;      // K/V ring stages
+constexpr int kStages = 3;      // K/V ring stages (2 in the column-split form)
 constexpr int kMaxPages = 64;   // pages a split, at most (page ids in shared memory)
 constexpr int kMaxHeads = 8;    // query heads a block, at most (hd <= 256)
-constexpr int kMaxHd = 1024;    // widest head (32 lanes x 4 chunks of 8)
+constexpr int kColBlock = 1024; // output columns a block (32 lanes x 4 chunks of 8)
+constexpr int kMaxHd = 4096;    // widest head: column blocks of 1024 past 1024
 constexpr int kCombineThreads = 64;
 
-// 8 consecutive values from shared memory, as float32
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&f)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h2[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-
-__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-}
+using mz::load8;
 
 struct Pool {
   long long sp, so, sh;   // element strides of page, offset, head (hd: 1)
 };
 
-// T: element type; LN: lanes a position; NC: 8-value chunks of hd a lane
-// (hd <= 8 * LN * NC: NC > 1 only at LN 32, hd > 256); GM: query heads a
-// block holds in registers (>= the plan's heads).  A position's row sits
-// in shared memory at a stride of hd rounded up to 8 (hds), the tail
-// zeroed once, so the last lane chunk of an hd that is not a multiple of
-// 8 reads zeros past hd.  vec: rows copied by 16-byte cp.async (pool
-// rows and strides on 16-byte steps); else value by value.
+// The int8 pool's extra inputs: one float32 scale a (page, kv head) of
+// each pool, element (page, g) at page * sp + g * sh, and the current
+// token's k and v (b, g, hd) in q's type at b * n_sb + g * n_sh, which
+// the pool does not hold yet (it is quantized after the step attends).
+struct Q8 {
+  const float* ks;
+  const float* vs;
+  long long sp, sh;
+  const void* kn;
+  const void* vn;
+  long long n_sb, n_sh;
+};
+
+// T: element type of q and out, and of the shared ring but on the int8
+// route (float32 there); LN: lanes a position;
+// NC: 8-value chunks of a row a lane (<= 8 * LN * NC values: NC > 1 only
+// at LN 32, hd > 256); GM: query heads a block holds in registers (>= the
+// plan's heads).  A position's K row sits in shared memory at a stride of
+// hd rounded up to 8 (hks), its V row at hvs, the tails zeroed once, so
+// the last lane chunk of an hd that is not a multiple of 8 reads zeros.
+// vec: rows copied by 16-byte cp.async (pool rows and strides on 16-byte
+// steps); else value by value.
+//   WIDE (hd > 1024; LN 32, GM 1, NC 4): blockIdx.z is a block of 1024
+//     output columns.  K rows are held whole and every column block
+//     recomputes the full-hd scores, in the same order, from q staged in
+//     shared memory (so every block holds the same max and sum); V rows
+//     only the block's columns.  Two ring stages, one row a group a tile.
+//   INT8: the pools are int8 codes with a float32 scale a (page, kv
+//     head); a tile's rows are dequantized (code * scale) into the
+//     float32 ring as they load, and the row of the current token
+//     (position length - 1) comes from the k/v inputs (in T) instead.
 // (a minimum of one block in the launch bounds: without it ptxas picked
 // spilling register counts for GM = 2)
-template <typename T, int LN, int GM, int NC>
+template <typename T, int LN, int GM, int NC, bool WIDE, bool INT8>
 __global__ void __launch_bounds__(kThreads, 1)
-paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                   const T* __restrict__ vp, const int* __restrict__ tables,
+paged_split_kernel(const T* __restrict__ q, const void* __restrict__ kp_raw,
+                   const void* __restrict__ vp_raw, const int* __restrict__ tables,
                    const int* __restrict__ lengths, T* __restrict__ out,
                    float* __restrict__ ws, int h, int hkv, int hd, int ps,
                    int npp, int pps, int heads, int hchunks, long long q_sb,
                    long long q_sh, Pool kpool, Pool vpool, float scale_log2,
-                   int vec) {
-  constexpr int EPC = 16 / sizeof(T);        // elements a 16-byte copy
+                   int vec, Q8 q8) {
+  static_assert(!WIDE || (LN == 32 && GM == 1 && NC == 4), "column split: one head, 1024 columns");
+  using P = typename std::conditional<INT8, int8_t, T>::type;   // pool element
+  using RT = typename std::conditional<INT8, float, T>::type;   // ring element
+  constexpr int EPC = 16 / sizeof(RT);       // elements a 16-byte copy
   constexpr int NPG = kThreads / LN;         // position groups a block
-  constexpr int R = sizeof(T) == 2 ? 2 : 1;  // rows a group a tile
+  constexpr int R = sizeof(RT) == 2 && !WIDE ? 2 : 1;  // rows a group a tile
   constexpr int TP = NPG * R;                // rows a tile
-  constexpr int HDMAX = 8 * LN * NC;
+  constexpr int HDMAX = 8 * LN * NC;         // columns a block holds
+  constexpr int STAGES = WIDE ? 2 : kStages;
   extern __shared__ __align__(16) unsigned char smem[];   // the ring, then the merge area
   __shared__ int pid_s[kMaxPages];
+  __shared__ float ksc_s[INT8 ? kMaxPages : 1], vsc_s[INT8 ? kMaxPages : 1];
   __shared__ float mw_s[kThreads / 32][GM], lw_s[kThreads / 32][GM];
-  T* ring = reinterpret_cast<T*>(smem);
-  float* merge = reinterpret_cast<float*>(smem);
+  const P* kp = static_cast<const P*>(kp_raw);
+  const P* vp = static_cast<const P*>(vp_raw);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int hc = blockIdx.x % hchunks;
   const int g = (blockIdx.x / hchunks) % hkv;
   const int b = blockIdx.x / (hchunks * hkv);
   const int split = blockIdx.y, splits = gridDim.y;
+  const int col0 = WIDE ? blockIdx.z * kColBlock : 0;     // first output column
+  const int vw = WIDE ? min(kColBlock, hd - col0) : hd;   // output columns
   const int group = h / hkv;
   const int h0 = g * group + hc * heads;          // this block's first query head
   const int nh = min(heads, group - hc * heads);  // and its count
   const int len = lengths[b];
   const int pos0 = split * pps * ps;
   const int pos_end = min(len, min(npp, (split + 1) * pps) * ps);
-  const int hds = (hd + 7) & ~7;                  // shared row stride
+  const int hks = (hd + 7) & ~7;                  // shared K row stride
+  const int hvs = WIDE ? kColBlock : hks;         // shared V row stride
+  const size_t ring_elems = static_cast<size_t>(STAGES) * TP * (hks + hvs);
+  RT* ring = reinterpret_cast<RT*>(smem);
+  float* merge = reinterpret_cast<float*>(smem);
 
   if (pos0 >= pos_end) {          // nothing live: an empty partial
-    for (int e = tid; e < nh * hd; e += kThreads) {
-      const int head = h0 + e / hd, d = e % hd;
+    for (int e = tid; e < nh * vw; e += kThreads) {
+      const int head = h0 + e / vw, d = e % vw;
       if (splits == 1)
-        out[(static_cast<size_t>(b) * h + head) * hd + d] = mz::from_f<T>(0.f);
-      else if (d == 0)
+        out[(static_cast<size_t>(b) * h + head) * hd + col0 + d] = mz::from_f<T>(0.f);
+      else if (d == 0 && col0 == 0)
         ws[((static_cast<size_t>(b) * h + head) * splits + split) * (hd + 2) + 1] = 0.f;
     }
     return;
@@ -139,27 +170,49 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 
   const int npages = (pos_end - pos0 + ps - 1) / ps;   // live pages of the split
   const int* trow = tables + static_cast<size_t>(b) * npp + split * pps;
-  for (int i = tid; i < npages; i += kThreads) pid_s[i] = trow[i];
-  if (hds != hd)                      // zero the rows' tails past hd, once
-    for (int e = tid; e < kStages * 2 * TP * (hds - hd); e += kThreads)
-      ring[(e / (hds - hd)) * hds + hd + e % (hds - hd)] = mz::from_f<T>(0.f);
+  for (int i = tid; i < npages; i += kThreads) {
+    const int page = trow[i];
+    pid_s[i] = page;
+    if constexpr (INT8) {
+      ksc_s[i] = q8.ks[page * q8.sp + g * q8.sh];
+      vsc_s[i] = q8.vs[page * q8.sp + g * q8.sh];
+    }
+  }
+  {                                   // zero the rows' tails, once
+    const int kt = hks - hd, vt = ((vw + 7) & ~7) - vw;
+    for (int e = tid; e < STAGES * TP * (kt + vt); e += kThreads) {
+      const int r = e / (kt + vt), x = e % (kt + vt);   // r: (stage, row)
+      RT* row = ring + (r / TP) * TP * (hks + hvs) + (x < kt ? (r % TP) * hks + hd
+                                                            : TP * hks + (r % TP) * hvs + vw - kt);
+      row[x] = mz::from_f<RT>(0.f);
+    }
+  }
 
-  const int c = lane % LN;            // this lane's chunk of hd (of each part)
+  const int c = lane % LN;            // this lane's chunk of a row (of each part)
   const int pg = tid / LN;            // its position group
   bool active[NC];
 #pragma unroll
-  for (int p = 0; p < NC; ++p) active[p] = (p * LN + c) * 8 < hd;
+  for (int p = 0; p < NC; ++p) active[p] = (p * LN + c) * 8 < vw;
 
-  float qf[GM][NC][8];
+  // q, scaled by log2(e) / sqrt(hd): in registers, or (WIDE) the whole
+  // row in shared memory past the ring and the merge area
+  float qf[WIDE ? 1 : GM][WIDE ? 1 : NC][8];
+  float* q_s = reinterpret_cast<float*>(smem) + (WIDE ? ring_elems * sizeof(RT) / 4 : 0);
+  if constexpr (WIDE) {
+    const T* qr = q + b * q_sb + static_cast<long long>(h0) * q_sh;
+    for (int d = tid; d < hks; d += kThreads)
+      q_s[d] = d < hd ? mz::to_f(qr[d]) * scale_log2 : 0.f;
+  } else {
 #pragma unroll
-  for (int gi = 0; gi < GM; ++gi) {
+    for (int gi = 0; gi < GM; ++gi) {
 #pragma unroll
-    for (int p = 0; p < NC; ++p) {
-      const int d0 = (p * LN + c) * 8;
-      const T* qr = q + b * q_sb + static_cast<long long>(h0 + gi) * q_sh + d0;
+      for (int p = 0; p < NC; ++p) {
+        const int d0 = (p * LN + c) * 8;
+        const T* qr = q + b * q_sb + static_cast<long long>(h0 + gi) * q_sh + d0;
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
-        qf[gi][p][e] = gi < nh && d0 + e < hd ? mz::to_f(qr[e]) * scale_log2 : 0.f;
+        for (int e = 0; e < 8; ++e)
+          qf[gi][p][e] = gi < nh && d0 + e < hd ? mz::to_f(qr[e]) * scale_log2 : 0.f;
+      }
     }
   }
   float m[GM], l[GM], acc[GM][NC][8];
@@ -172,56 +225,118 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 #pragma unroll
       for (int e = 0; e < 8; ++e) acc[gi][p][e] = 0.f;
   }
-  __syncthreads();                    // page ids, zeroed tails
+  __syncthreads();                    // page ids, scales, zeroed tails, q
 
   auto load_tile = [&](int t) {
-    T* ks = ring + (t % kStages) * 2 * TP * hds;
-    T* vs = ks + TP * hds;
-    if (vec) {
-      const int cpr = hd / EPC;       // 16-byte copies a row
-      for (int e = tid; e < TP * cpr; e += kThreads) {
-        const int r = e / cpr, cc = e % cpr;
+    RT* ks = ring + (t % STAGES) * TP * (hks + hvs);
+    RT* vs = ks + TP * hks;
+    if constexpr (INT8) {
+      // K rows whole, V rows the block's columns: code * the page's scale,
+      // the current token's row from its inputs (in T); 16 codes a
+      // 16-byte load where the pool's rows are on 16-byte steps (vec)
+      if (vec) {
+        const int cpk = hd / 16, cpv = vw / 16;
+        for (int e = tid; e < TP * (cpk + cpv); e += kThreads) {
+          const bool is_k = e < TP * cpk;
+          const int r = is_k ? e / cpk : (e - TP * cpk) / cpv;
+          const int d = (is_k ? e % cpk : (e - TP * cpk) % cpv) * 16 + (is_k ? 0 : col0);
+          const int lp = t * TP + r, pos = pos0 + lp;
+          float4 x[4] = {};
+          if (pos < pos_end && pos == len - 1) {
+            const T* src = static_cast<const T*>(is_k ? q8.kn : q8.vn) + b * q8.n_sb +
+                           g * q8.n_sh + d;
+            float f[2][8];
+            load8(src, f[0]);
+            load8(src + 8, f[1]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              x[i] = make_float4(f[i / 2][4 * (i % 2)], f[i / 2][4 * (i % 2) + 1],
+                                 f[i / 2][4 * (i % 2) + 2], f[i / 2][4 * (i % 2) + 3]);
+          } else if (pos < pos_end) {
+            const long long page = pid_s[lp / ps], off = lp % ps;
+            const Pool& pl = is_k ? kpool : vpool;
+            const uint4 u = *reinterpret_cast<const uint4*>(
+                (is_k ? kp : vp) + page * pl.sp + off * pl.so + g * pl.sh + d);
+            const float sc = (is_k ? ksc_s : vsc_s)[lp / ps];
+            const int8_t* c8 = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              x[i] = make_float4(c8[4 * i] * sc, c8[4 * i + 1] * sc, c8[4 * i + 2] * sc,
+                                 c8[4 * i + 3] * sc);
+          }
+          float4* dst = reinterpret_cast<float4*>(is_k ? ks + r * hks + d
+                                                       : vs + r * hvs + d - col0);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) dst[i] = x[i];
+        }
+        return;
+      }
+      for (int e = tid; e < TP * (hd + vw); e += kThreads) {
+        const bool is_k = e < TP * hd;
+        const int r = is_k ? e / hd : (e - TP * hd) / vw;
+        const int d = is_k ? e % hd : (e - TP * hd) % vw + col0;
+        const int lp = t * TP + r, pos = pos0 + lp;
+        float x = 0.f;
+        if (pos < pos_end && pos == len - 1) {
+          x = mz::to_f(static_cast<const T*>(is_k ? q8.kn : q8.vn)[b * q8.n_sb +
+                                                                  g * q8.n_sh + d]);
+        } else if (pos < pos_end) {
+          const long long page = pid_s[lp / ps], off = lp % ps;
+          const Pool& pl = is_k ? kpool : vpool;
+          x = static_cast<float>((is_k ? kp : vp)[page * pl.sp + off * pl.so + g * pl.sh + d]) *
+              (is_k ? ksc_s : vsc_s)[lp / ps];
+        }
+        if (is_k) ks[r * hks + d] = x;
+        else vs[r * hvs + d - col0] = x;
+      }
+    } else if (vec) {
+      const int cpk = hd / EPC, cpv = vw / EPC;   // 16-byte copies a row
+      for (int e = tid; e < TP * (cpk + cpv); e += kThreads) {
+        const bool is_k = e < TP * cpk;
+        const int r = is_k ? e / cpk : (e - TP * cpk) / cpv;
+        const int cc = is_k ? e % cpk : (e - TP * cpk) % cpv;
         const int lp = t * TP + r;    // position inside the split
         const bool ok = pos0 + lp < pos_end;
-        const T* ksrc = kp;
-        const T* vsrc = vp;
+        const P* src = is_k ? kp : vp;
         if (ok) {
           const long long page = pid_s[lp / ps], off = lp % ps;
-          ksrc = kp + page * kpool.sp + off * kpool.so + g * kpool.sh + cc * EPC;
-          vsrc = vp + page * vpool.sp + off * vpool.so + g * vpool.sh + cc * EPC;
+          const Pool& pl = is_k ? kpool : vpool;
+          src += page * pl.sp + off * pl.so + g * pl.sh + (is_k ? 0 : col0) + cc * EPC;
         }
-        cp_async16(smem_addr(ks + r * hds + cc * EPC), ksrc, ok);
-        cp_async16(smem_addr(vs + r * hds + cc * EPC), vsrc, ok);
+        cp_async16(smem_addr(is_k ? ks + r * hks + cc * EPC : vs + r * hvs + cc * EPC),
+                   src, ok);
       }
     } else {
-      for (int e = tid; e < TP * hd; e += kThreads) {
-        const int r = e / hd, d = e % hd;
+      for (int e = tid; e < TP * (hd + vw); e += kThreads) {
+        const bool is_k = e < TP * hd;
+        const int r = is_k ? e / hd : (e - TP * hd) / vw;
+        const int d = is_k ? e % hd : (e - TP * hd) % vw + col0;
         const int lp = t * TP + r;
-        T kv = mz::from_f<T>(0.f), vv = kv;
+        T x = mz::from_f<T>(0.f);
         if (pos0 + lp < pos_end) {
           const long long page = pid_s[lp / ps], off = lp % ps;
-          kv = kp[page * kpool.sp + off * kpool.so + g * kpool.sh + d];
-          vv = vp[page * vpool.sp + off * vpool.so + g * vpool.sh + d];
+          const Pool& pl = is_k ? kpool : vpool;
+          x = (is_k ? kp : vp)[page * pl.sp + off * pl.so + g * pl.sh + d];
         }
-        ks[r * hds + d] = kv;
-        vs[r * hds + d] = vv;
+        if (is_k) ks[r * hks + d] = x;
+        else vs[r * hvs + d - col0] = x;
       }
     }
   };
 
   const int ntiles = (pos_end - pos0 + TP - 1) / TP;
 #pragma unroll
-  for (int t = 0; t < kStages - 1; ++t) {
+  for (int t = 0; t < STAGES - 1; ++t) {
     if (t < ntiles) load_tile(t);
     cp_commit();
   }
   for (int t = 0; t < ntiles; ++t) {
-    cp_wait<kStages - 2>();
+    cp_wait<STAGES - 2>();
     __syncthreads();                  // tile t landed; tile t-1's slot is free
-    if (t + kStages - 1 < ntiles) load_tile(t + kStages - 1);
+    if (t + STAGES - 1 < ntiles) load_tile(t + STAGES - 1);
     cp_commit();
-    const T* ks = ring + (t % kStages) * 2 * TP * hds;
-    const T* vs = ks + TP * hds;
+    const RT* ks = ring + (t % STAGES) * TP * (hks + hvs);
+    const RT* vs = ks + TP * hks;
     float s[R][GM];
     bool valid[R];
 #pragma unroll
@@ -231,18 +346,29 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       float part[GM];
 #pragma unroll
       for (int gi = 0; gi < GM; ++gi) part[gi] = 0.f;
+      if constexpr (WIDE) {
+        // the full-hd score: 8-value chunks c, c + 32, ... of the row
+        for (int d0 = c * 8; d0 < hks; d0 += 8 * LN) {
+          float kf[8], qv[8];
+          load8(ks + row * hks + d0, kf);
+          load8(q_s + d0, qv);
 #pragma unroll
-      for (int p = 0; p < NC; ++p) {
-        float kf[8];
-        if (active[p]) load8(ks + row * hds + (p * LN + c) * 8, kf);
-        else {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) kf[e] = 0.f;
+          for (int e = 0; e < 8; ++e) part[0] = fmaf(qv[e], kf[e], part[0]);
         }
+      } else {
 #pragma unroll
-        for (int gi = 0; gi < GM; ++gi)
+        for (int p = 0; p < NC; ++p) {
+          float kf[8];
+          if (active[p]) load8(ks + row * hks + (p * LN + c) * 8, kf);
+          else {
 #pragma unroll
-          for (int e = 0; e < 8; ++e) part[gi] = fmaf(qf[gi][p][e], kf[e], part[gi]);
+            for (int e = 0; e < 8; ++e) kf[e] = 0.f;
+          }
+#pragma unroll
+          for (int gi = 0; gi < GM; ++gi)
+#pragma unroll
+            for (int e = 0; e < 8; ++e) part[gi] = fmaf(qf[gi][p][e], kf[e], part[gi]);
+        }
       }
 #pragma unroll
       for (int gi = 0; gi < GM; ++gi) {
@@ -281,7 +407,7 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       float vf[R][8];
 #pragma unroll
       for (int rr = 0; rr < R; ++rr) {
-        if (active[p]) load8(vs + (pg + NPG * rr) * hds + (p * LN + c) * 8, vf[rr]);
+        if (active[p]) load8(vs + (pg + NPG * rr) * hvs + (p * LN + c) * 8, vf[rr]);
         else {
 #pragma unroll
           for (int e = 0; e < 8; ++e) vf[rr][e] = 0.f;
@@ -335,9 +461,9 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     }
   }
   __syncthreads();
-  // then the warps, in order; one thread a (query head, d)
-  for (int e = tid; e < nh * hd; e += kThreads) {
-    const int gi = e / hd, d = e % hd;
+  // then the warps, in order; one thread a (query head, column)
+  for (int e = tid; e < nh * vw; e += kThreads) {
+    const int gi = e / vw, d = e % vw;
     float mx = mz::kNegInf;
 #pragma unroll
     for (int w = 0; w < kThreads / 32; ++w) mx = fmaxf(mx, mw_s[w][gi]);
@@ -350,11 +476,11 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     }
     const size_t bh = static_cast<size_t>(b) * h + h0 + gi;
     if (splits == 1) {
-      out[bh * hd + d] = mz::from_f<T>(a / fmaxf(lsum, 1e-30f));
+      out[bh * hd + col0 + d] = mz::from_f<T>(a / fmaxf(lsum, 1e-30f));
     } else {
       float* wp = ws + (bh * splits + split) * (hd + 2);
-      wp[2 + d] = a;
-      if (d == 0) {
+      wp[2 + col0 + d] = a;
+      if (d == 0 && col0 == 0) {
         wp[0] = mx;
         wp[1] = lsum;
       }
@@ -362,25 +488,27 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
-// dynamic shared memory of a split block: the K/V ring, or (after it) the
-// merge area, whichever is larger
-template <typename T, int LN, int GM, int NC>
-constexpr int split_smem_bytes() {
-  constexpr int ring = kStages * 2 * (kThreads / LN) * (sizeof(T) == 2 ? 2 : 1) *
-                       8 * LN * NC * static_cast<int>(sizeof(T));
-  constexpr int merge = (kThreads / 32) * GM * 8 * LN * NC * 4;
-  return ring > merge ? ring : merge;
+// dynamic shared memory of a split block at head dim hd: the K/V ring, or
+// (after it) the merge area, whichever is larger, and (WIDE) q's row
+template <typename T, int LN, int GM, int NC, bool WIDE>
+int split_smem_bytes(int hd) {
+  const int tp = (kThreads / LN) * (sizeof(T) == 2 && !WIDE ? 2 : 1);
+  const int hks = WIDE ? (hd + 7) & ~7 : 8 * LN * NC;
+  const int hvs = WIDE ? kColBlock : hks;
+  const int ring = (WIDE ? 2 : kStages) * tp * (hks + hvs) * static_cast<int>(sizeof(T));
+  const int merge = (kThreads / 32) * GM * 8 * LN * NC * 4;
+  return WIDE ? ring + hks * 4 : (ring > merge ? ring : merge);
 }
 
-// ---- bfloat16, head dims 32-128 in steps of 16: tensor cores -------------
+// ---- bfloat16 and float16, head dims 32-128 in steps of 16: tensor cores --
 
-using bf16 = __nv_bfloat16;
 constexpr int kTcRows = 32;       // positions a tile
 constexpr int kTcStages = 3;
 constexpr int kTcMaxHeads = 16;   // the m16 rows of mma.m16n8k16
 
-// q values d, d + 1 of one head as a bf16 pair (0 past the block's heads)
-__device__ __forceinline__ uint32_t q_pair(const bf16* row, int d, bool ok) {
+// q values d, d + 1 of one head as a 16-bit pair (0 past the block's heads)
+template <typename T>
+__device__ __forceinline__ uint32_t q_pair(const T* row, int d, bool ok) {
   if (!ok) return 0u;
   const unsigned short* p = reinterpret_cast<const unsigned short*>(row + d);
   return static_cast<uint32_t>(p[0]) | (static_cast<uint32_t>(p[1]) << 16);
@@ -395,11 +523,11 @@ __host__ __device__ constexpr int tc_smem_bytes(int hd) {
 // online softmax on the S fragments (quad shuffles along a row) and P fed
 // back in registers as the A operand of P V (V through ldmatrix.trans),
 // float32 sums; K/V tiles of 32 positions through a 3-stage cp.async ring.
-template <int HD>
+template <typename T, int HD>
 __global__ void __launch_bounds__(32, 1)
-paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
-                const bf16* __restrict__ vp, const int* __restrict__ tables,
-                const int* __restrict__ lengths, bf16* __restrict__ out,
+paged_tc_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+                const T* __restrict__ vp, const int* __restrict__ tables,
+                const int* __restrict__ lengths, T* __restrict__ out,
                 float* __restrict__ ws, int h, int hkv, int ps, int ps_shift,
                 int npp, int pps, int heads, int hchunks, long long q_sb,
                 long long q_sh, Pool kpool, Pool vpool, float sl2) {
@@ -409,8 +537,8 @@ paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   constexpr int NT = HD / 8;       // 8-wide n tiles of O
   constexpr int SN = kTcRows / 8;  // 8-wide n tiles of S
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // [stages][kTcRows][ST]
-  bf16* Vs = Ks + kTcStages * kTcRows * ST;
+  T* Ks = reinterpret_cast<T*>(smem_raw);   // [stages][kTcRows][ST]
+  T* Vs = Ks + kTcStages * kTcRows * ST;
   __shared__ int pid_s[kMaxPages];
 
   const int lane = threadIdx.x;
@@ -429,7 +557,7 @@ paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
     for (int e = lane; e < nh * HD; e += 32) {
       const int head = h0 + e / HD, d = e % HD;
       if (splits == 1)
-        out[(static_cast<size_t>(b) * h + head) * HD + d] = __float2bfloat16_rn(0.f);
+        out[(static_cast<size_t>(b) * h + head) * HD + d] = mz::from_f<T>(0.f);
       else if (d == 0)
         ws[((static_cast<size_t>(b) * h + head) * splits + split) * (HD + 2) + 1] = 0.f;
     }
@@ -440,17 +568,17 @@ paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   for (int i = lane; i < npages; i += 32) pid_s[i] = trow[i];
   __syncwarp();
 
-  const bf16* kb = kp + g * kpool.sh;
-  const bf16* vb = vp + g * vpool.sh;
+  const T* kb = kp + g * kpool.sh;
+  const T* vb = vp + g * vpool.sh;
   auto load_tile = [&](int t, int stage) {
-    bf16* kd = Ks + stage * kTcRows * ST;
-    bf16* vd = Vs + stage * kTcRows * ST;
+    T* kd = Ks + stage * kTcRows * ST;
+    T* vd = Vs + stage * kTcRows * ST;
 #pragma unroll
     for (int e = lane; e < kTcRows * CPR; e += 32) {
       const int r = e / CPR, ch = e % CPR, lp = t * kTcRows + r;
       const bool ok = pos0 + lp < pos_end;
-      const bf16* ksrc = kp;
-      const bf16* vsrc = vp;
+      const T* ksrc = kp;
+      const T* vsrc = vp;
       if (ok) {
         int pi, off;
         if (ps_shift >= 0) {
@@ -476,8 +604,8 @@ paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   }
 
   const int r4 = lane >> 2, c4 = (lane & 3) * 2;   // this lane's row and column pair
-  const bf16* q0r = q + b * q_sb + static_cast<long long>(h0 + r4) * q_sh;
-  const bf16* q1r = q + b * q_sb + static_cast<long long>(h0 + r4 + 8) * q_sh;
+  const T* q0r = q + b * q_sb + static_cast<long long>(h0 + r4) * q_sh;
+  const T* q1r = q + b * q_sb + static_cast<long long>(h0 + r4 + 8) * q_sh;
   const bool ok0 = r4 < nh, ok1 = r4 + 8 < nh;
   uint32_t qf[KSTEPS][4];
 #pragma unroll
@@ -512,8 +640,8 @@ paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
       for (int jp = 0; jp < SN / 2; ++jp) {
         uint32_t bb[4];
         ldsm_x4(bb, kbase + (jp * 16 * ST + kk * 16) * 2);
-        mma_bf16(s[2 * jp], qf[kk], bb[0], bb[1]);
-        mma_bf16(s[2 * jp + 1], qf[kk], bb[2], bb[3]);
+        mz::mma16<T>(s[2 * jp], qf[kk], bb[0], bb[1]);
+        mz::mma16<T>(s[2 * jp + 1], qf[kk], bb[2], bb[3]);
       }
     }
     const int base = pos0 + it * kTcRows;
@@ -555,8 +683,8 @@ paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
       const float p3 = exp2f(fmaf(s[j][3], sl2, -ms1));
       l0 += p0 + p1;
       l1 += p2 + p3;
-      pa[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
-      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+      pa[j >> 1][(j & 1) * 2] = mz::pack2<T>(p0, p1);
+      pa[j >> 1][(j & 1) * 2 + 1] = mz::pack2<T>(p2, p3);
     }
 #pragma unroll
     for (int kk = 0; kk < SN / 2; ++kk) {
@@ -564,8 +692,8 @@ paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t bb[4];
         ldsm_x4_t(bb, vbase + (kk * 16 * ST + np * 16) * 2);
-        mma_bf16(acc[2 * np], pa[kk], bb[0], bb[1]);
-        mma_bf16(acc[2 * np + 1], pa[kk], bb[2], bb[3]);
+        mz::mma16<T>(acc[2 * np], pa[kk], bb[0], bb[1]);
+        mz::mma16<T>(acc[2 * np + 1], pa[kk], bb[2], bb[3]);
       }
     }
   }
@@ -584,7 +712,7 @@ paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
 #pragma unroll
       for (int n = 0; n < NT; ++n)
         *reinterpret_cast<uint32_t*>(out + bh * HD + n * 8 + c4) =
-            pack_bf16(acc[n][2 * half] * inv, acc[n][2 * half + 1] * inv);
+            mz::pack2<T>(acc[n][2 * half] * inv, acc[n][2 * half + 1] * inv);
     } else {
       float* wp = ws + (bh * splits + split) * (HD + 2);
 #pragma unroll
@@ -600,7 +728,7 @@ paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   }
 }
 
-template <int HD>
+template <typename T, int HD>
 int tc_smem_set[mz::kDevices] = {};
 
 // merges the splits' partials of one (slot, query head) in a fixed order:
@@ -661,130 +789,132 @@ paged_combine_kernel(const float* __restrict__ ws, T* __restrict__ out, int hd,
   }
 }
 
-template <typename T, int LN, int GM, int NC>
+template <typename T, int LN, int GM, int NC, bool WIDE, bool INT8>
 int split_smem_set[mz::kDevices] = {};
 
-template <typename T, int LN, int GM, int NC>
-cudaError_t launch_split(dim3 grid, const T* q, const T* kp, const T* vp,
-                         const int* tables, const int* lengths, T* out, float* ws,
-                         int h, int hkv, int hd, int ps, int npp, int pps, int heads,
-                         int hchunks, long long q_sb, long long q_sh, Pool kpool,
-                         Pool vpool, float scale_log2, int vec, cudaStream_t st) {
-  auto kern = paged_split_kernel<T, LN, GM, NC>;
-  constexpr int smem = split_smem_bytes<T, LN, GM, NC>();
-  cudaError_t e = mz::opt_in(kern, split_smem_set<T, LN, GM, NC>, smem);
+// The arguments every launch of a call shares.
+struct Call {
+  const void* q;
+  const void* kp;
+  const void* vp;
+  const int* tables;
+  const int* lengths;
+  void* out;
+  float* ws;
+  int b, h, hkv, hd, ps, npp, pps, splits, heads, hchunks, cblocks;
+  long long q_sb, q_sh;
+  Pool kpool, vpool;
+  float scale_log2;
+  int vec;
+  Q8 q8;
+};
+
+template <typename T, int LN, int GM, int NC, bool WIDE, bool INT8>
+cudaError_t launch_split(const Call& c, cudaStream_t st) {
+  auto kern = paged_split_kernel<T, LN, GM, NC, WIDE, INT8>;
+  using RT = typename std::conditional<INT8, float, T>::type;   // the ring's type
+  const int smem = split_smem_bytes<RT, LN, GM, NC, WIDE>(c.hd);
+  cudaError_t e = mz::opt_in(kern, split_smem_set<T, LN, GM, NC, WIDE, INT8>, smem);
   if (e != cudaSuccess) return e;
-  kern<<<grid, kThreads, smem, st>>>(q, kp, vp, tables, lengths, out, ws, h, hkv, hd,
-                                     ps, npp, pps, heads, hchunks, q_sb, q_sh, kpool,
-                                     vpool, scale_log2, vec);
+  const dim3 grid(c.b * c.hkv * c.hchunks, c.splits, c.cblocks);
+  kern<<<grid, kThreads, smem, st>>>(
+      static_cast<const T*>(c.q), c.kp, c.vp, c.tables, c.lengths, static_cast<T*>(c.out),
+      c.ws, c.h, c.hkv, c.hd, c.ps, c.npp, c.pps, c.heads, c.hchunks, c.q_sb, c.q_sh,
+      c.kpool, c.vpool, c.scale_log2, c.vec, c.q8);
   return cudaGetLastError();
 }
 
-// hd <= 256: one 8-value chunk a lane, `gm` heads a block; hd > 256: 32
-// lanes, `nc` chunks a lane, one head a block
-template <typename T, int LN>
-cudaError_t launch_ln(dim3 grid, int gm, int nc, const T* q, const T* kp, const T* vp,
-                      const int* tables, const int* lengths, T* out, float* ws,
-                      int h, int hkv, int hd, int ps, int npp, int pps,
-                      int heads, int hchunks, long long q_sb, long long q_sh,
-                      Pool kpool, Pool vpool, float scale_log2, int vec, cudaStream_t st) {
-#define MZ_PD(GMV, NCV) return launch_split<T, LN, GMV, NCV>(                    \
-      grid, q, kp, vp, tables, lengths, out, ws, h, hkv, hd, ps, npp, pps, heads, \
-      hchunks, q_sb, q_sh, kpool, vpool, scale_log2, vec, st)
+// hd <= 256: one 8-value chunk a lane, `gm` heads a block; 256 < hd <=
+// 1024: 32 lanes, `nc` chunks a lane, one head a block; hd > 1024: the
+// column split (32 lanes, 4 chunks, one head)
+template <typename T, int LN, bool INT8>
+cudaError_t launch_ln(const Call& c, int gm, int nc, cudaStream_t st) {
+#define MZ_PD(GMV, NCV, W) return launch_split<T, LN, GMV, NCV, W, INT8>(c, st)
   if (nc == 1) {
-    if (gm == 1) MZ_PD(1, 1);
-    if (gm == 2) MZ_PD(2, 1);
-    if (gm == 4) MZ_PD(4, 1);
-    if (gm == 8) MZ_PD(8, 1);
+    if (gm == 1) MZ_PD(1, 1, false);
+    if (gm == 2) MZ_PD(2, 1, false);
+    if (gm == 4) MZ_PD(4, 1, false);
+    if (gm == 8) MZ_PD(8, 1, false);
   } else if constexpr (LN == 32) {
-    if (gm == 1 && nc == 2) MZ_PD(1, 2);
-    if (gm == 1 && nc == 3) MZ_PD(1, 3);
-    if (gm == 1 && nc == 4) MZ_PD(1, 4);
+    if (gm == 1 && nc == 2) MZ_PD(1, 2, false);
+    if (gm == 1 && nc == 3) MZ_PD(1, 3, false);
+    if (gm == 1 && nc == 4) MZ_PD(1, 4, false);
+    if (gm == 1 && nc > 4) MZ_PD(1, 4, true);
   }
 #undef MZ_PD
   return cudaErrorInvalidValue;
 }
 
-template <int HD>
-cudaError_t launch_tc(dim3 grid, const bf16* q, const bf16* kp, const bf16* vp,
-                      const int* tables, const int* lengths, bf16* out, float* ws,
-                      int h, int hkv, int ps, int npp, int pps, int heads,
-                      int hchunks, long long q_sb, long long q_sh, Pool kpool,
-                      Pool vpool, float scale_log2, cudaStream_t st) {
+template <typename T, int HD>
+cudaError_t launch_tc(const Call& c, cudaStream_t st) {
   const int smem = tc_smem_bytes(HD);
-  cudaError_t e = mz::opt_in(paged_tc_kernel<HD>, tc_smem_set<HD>, smem);
+  cudaError_t e = mz::opt_in(paged_tc_kernel<T, HD>, tc_smem_set<T, HD>, smem);
   if (e != cudaSuccess) return e;
-  const int ps_shift = (ps & (ps - 1)) == 0 ? __builtin_ctz(ps) : -1;
-  paged_tc_kernel<HD><<<grid, 32, smem, st>>>(q, kp, vp, tables, lengths, out, ws,
-                                               h, hkv, ps, ps_shift, npp, pps, heads,
-                                               hchunks, q_sb, q_sh, kpool, vpool,
-                                               scale_log2);
+  const int ps_shift = (c.ps & (c.ps - 1)) == 0 ? __builtin_ctz(c.ps) : -1;
+  const dim3 grid(c.b * c.hkv * c.hchunks, c.splits);
+  paged_tc_kernel<T, HD><<<grid, 32, smem, st>>>(
+      static_cast<const T*>(c.q), static_cast<const T*>(c.kp), static_cast<const T*>(c.vp),
+      c.tables, c.lengths, static_cast<T*>(c.out), c.ws, c.h, c.hkv, c.ps, ps_shift, c.npp,
+      c.pps, c.heads, c.hchunks, c.q_sb, c.q_sh, c.kpool, c.vpool, c.scale_log2);
   return cudaGetLastError();
 }
 
-// the tensor-core route: bfloat16, hd in {32, 48, ..., 128}, 16-byte rows
-// (kernels/_attn_plan.py: paged_plan's route "tc")
+// the tensor-core route: bfloat16 or float16, hd in {32, 48, ..., 128},
+// 16-byte rows (kernels/_attn_plan.py: paged_plan's route "tc")
 bool tc_route(int dtype, int hd, bool vec) {
-  return dtype == 1 && vec && hd % 16 == 0 && hd >= 32 && hd <= 128;
+  return (dtype == 1 || dtype == 2) && vec && hd % 16 == 0 && hd >= 32 && hd <= 128;
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const int* tables, const int* lengths, void* out, void* ws,
-                   int b, int h, int hkv, int hd, int ps, int npp, int pps,
-                   int splits, int heads, int hchunks, long long q_sb,
-                   long long q_sh, Pool kpool, Pool vpool, float scale_log2,
-                   int vec, cudaStream_t st) {
-  const dim3 grid(b * hkv * hchunks, splits);
-  T* op = static_cast<T*>(out);
-  float* wsp = static_cast<float*>(ws);
+// T: q's and out's type; the splits' partials merged by
+// paged_combine_kernel when there is more than one.  The int8 route
+// always takes the FMA kernel (its ring is float32).
+template <typename T, bool INT8>
+cudaError_t launch(const Call& c, cudaStream_t st) {
   cudaError_t e;
-  if constexpr (sizeof(T) == 2) {
-    if (tc_route(1, hd, vec)) {
-      const bf16* qp = static_cast<const bf16*>(q);
-      const bf16* kpp = static_cast<const bf16*>(kp);
-      const bf16* vpp = static_cast<const bf16*>(vp);
-#define MZ_TC(HDV) e = launch_tc<HDV>(grid, qp, kpp, vpp, tables, lengths, op, wsp, h, \
-      hkv, ps, npp, pps, heads, hchunks, q_sb, q_sh, kpool, vpool, scale_log2, st)
-      switch (hd) {
-        case 32: MZ_TC(32); break;
-        case 48: MZ_TC(48); break;
-        case 64: MZ_TC(64); break;
-        case 80: MZ_TC(80); break;
-        case 96: MZ_TC(96); break;
-        case 112: MZ_TC(112); break;
-        default: MZ_TC(128); break;
+  if constexpr (sizeof(T) == 2 && !INT8) {
+    if (tc_route(1, c.hd, c.vec)) {
+      switch (c.hd) {
+        case 32: e = launch_tc<T, 32>(c, st); break;
+        case 48: e = launch_tc<T, 48>(c, st); break;
+        case 64: e = launch_tc<T, 64>(c, st); break;
+        case 80: e = launch_tc<T, 80>(c, st); break;
+        case 96: e = launch_tc<T, 96>(c, st); break;
+        case 112: e = launch_tc<T, 112>(c, st); break;
+        default: e = launch_tc<T, 128>(c, st); break;
       }
-#undef MZ_TC
-      if (e != cudaSuccess || splits == 1) return e;
-      paged_combine_kernel<T><<<b * h, kCombineThreads, 2 * splits * sizeof(float), st>>>(
-          wsp, op, hd, splits);
+      if (e != cudaSuccess || c.splits == 1) return e;
+      paged_combine_kernel<T><<<c.b * c.h, kCombineThreads, 2 * c.splits * sizeof(float), st>>>(
+          c.ws, static_cast<T*>(c.out), c.hd, c.splits);
       return cudaGetLastError();
     }
   }
   int gm = 1;
-  while (gm < heads) gm *= 2;
+  while (gm < c.heads) gm *= 2;
   int ln = 4;
-  while (ln * 8 < hd && ln < 32) ln *= 2;
-  const int nc = (hd + 8 * ln - 1) / (8 * ln);
-  const T* qp = static_cast<const T*>(q);
-  const T* kpp = static_cast<const T*>(kp);
-  const T* vpp = static_cast<const T*>(vp);
-#define MZ_LN(LNV) e = launch_ln<T, LNV>(grid, gm, nc, qp, kpp, vpp, tables, lengths, \
-      op, wsp, h, hkv, hd, ps, npp, pps, heads, hchunks, q_sb, q_sh, kpool,          \
-      vpool, scale_log2, vec, st)
-  if (ln == 4) MZ_LN(4);
-  else if (ln == 8) MZ_LN(8);
-  else if (ln == 16) MZ_LN(16);
-  else MZ_LN(32);
-#undef MZ_LN
-  if (e != cudaSuccess || splits == 1) return e;
-  paged_combine_kernel<T><<<b * h, kCombineThreads, 2 * splits * sizeof(float), st>>>(
-      wsp, op, hd, splits);
+  while (ln * 8 < c.hd && ln < 32) ln *= 2;
+  const int nc = (c.hd + 8 * ln - 1) / (8 * ln);
+  if (ln == 4) e = launch_ln<T, 4, INT8>(c, gm, nc, st);
+  else if (ln == 8) e = launch_ln<T, 8, INT8>(c, gm, nc, st);
+  else if (ln == 16) e = launch_ln<T, 16, INT8>(c, gm, nc, st);
+  else e = launch_ln<T, 32, INT8>(c, gm, nc, st);
+  if (e != cudaSuccess || c.splits == 1) return e;
+  paged_combine_kernel<T><<<c.b * c.h, kCombineThreads, 2 * c.splits * sizeof(float), st>>>(
+      c.ws, static_cast<T*>(c.out), c.hd, c.splits);
   return cudaGetLastError();
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// the checks both entries share; the plan is kernels/_attn_plan.py's
+bool valid_call(const Call& c, int max_heads) {
+  return c.b >= 1 && c.hkv >= 1 && c.h % c.hkv == 0 && c.ps >= 1 && c.npp >= 1 &&
+         c.hd >= 1 && c.hd <= kMaxHd && c.pps >= 1 && c.pps <= kMaxPages &&
+         c.splits == (c.npp + c.pps - 1) / c.pps && c.heads >= 1 && c.heads <= max_heads &&
+         c.hchunks >= 1 && c.hchunks * c.heads >= c.h / c.hkv &&
+         (c.hchunks - 1) * c.heads < c.h / c.hkv && c.splits <= 4096 &&
+         (c.splits == 1 || c.ws != nullptr) &&
+         c.cblocks == (c.hd > kColBlock ? (c.hd + kColBlock - 1) / kColBlock : 1);
+}
 
 }  // namespace
 
@@ -792,45 +922,73 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 // one layer's (P, ps, hkv, hd) with strides (page, offset, head), unit
 // stride on hd; tables: (b, npp) int32 contiguous; lengths: (b,) int32;
 // out: (b, h, hd) contiguous; ws: b*h*splits*(hd+2) float32 when splits >
-// 1.  Any hd up to 1024.  The plan (pps pages a split, splits, heads a
-// block, hchunks head chunks a kv head) is kernels/_attn_plan.py's
-// paged_plan; its route is "tc" where tc_route holds with the pools' rows
-// on 16-byte steps (vec).  scale_log2 = log2(e) / sqrt(hd).
+// 1.  Any hd up to 4096; past 1024, cblocks = ceil(hd / 1024) blocks of
+// output columns (a grid dimension), else 1.  The plan (pps pages a split,
+// splits, heads a block, hchunks head chunks a kv head) is
+// kernels/_attn_plan.py's paged_plan; its route is "tc" where tc_route
+// holds with the pools' rows on 16-byte steps (vec).  scale_log2 = log2(e)
+// / sqrt(hd).  dtype 0 float32, 1 bfloat16, 2 float16.
 extern "C" int paged_decode(const void* q, const void* kp, const void* vp,
                             const void* tables, const void* lengths, void* out,
                             void* ws, int b, int h, int hkv, int hd, int ps,
                             int npp, int pps, int splits, int heads, int hchunks,
-                            long long q_sb, long long q_sh, long long k_sp,
-                            long long k_so, long long k_sh, long long v_sp,
-                            long long v_so, long long v_sh, float scale_log2,
-                            int dtype, void* stream) {
+                            int cblocks, long long q_sb, long long q_sh,
+                            long long k_sp, long long k_so, long long k_sh,
+                            long long v_sp, long long v_so, long long v_sh,
+                            float scale_log2, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int epc = dtype == 1 ? 8 : 4;   // elements a 16-byte row copy
+  const int epc = dtype == 0 ? 4 : 8;   // elements a 16-byte row copy
   const int vec = hd % epc == 0 && aligned16(kp) && aligned16(vp) && k_sp % epc == 0 &&
                   k_so % epc == 0 && k_sh % epc == 0 && v_sp % epc == 0 &&
                   v_so % epc == 0 && v_sh % epc == 0;
+  const Call c{q, kp, vp, static_cast<const int*>(tables), static_cast<const int*>(lengths),
+               out, static_cast<float*>(ws), b, h, hkv, hd, ps, npp, pps, splits, heads,
+               hchunks, cblocks, q_sb, q_sh, {k_sp, k_so, k_sh}, {v_sp, v_so, v_sh},
+               scale_log2, vec, {}};
   const int max_heads = tc_route(dtype, hd, vec) ? kTcMaxHeads : hd > 256 ? 1 : kMaxHeads;
-  if (b < 1 || hkv < 1 || h % hkv || ps < 1 || npp < 1 || hd < 1 || hd > kMaxHd ||
-      pps < 1 || pps > kMaxPages || splits != (npp + pps - 1) / pps ||
-      heads < 1 || heads > max_heads || hchunks < 1 ||
-      hchunks * heads < h / hkv || (hchunks - 1) * heads >= h / hkv ||
-      splits > 4096 || (splits > 1 && ws == nullptr))
+  if (!valid_call(c, max_heads)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(mz::by_dtype(dtype, [&](auto t) {
+    return launch<decltype(t), false>(c, st);
+  }));
+}
+
+// The int8 pool route: k/v pools of int8 codes with float32 scales
+// k_scales / v_scales, element (page, kv head) at page * s_sp + head *
+// s_sh, read for every live position < lengths - 1; the current token's
+// k and v (position lengths - 1, not in the pool yet) from k_new / v_new,
+// (b, hkv, hd) in q's type at b * n_sb + head * n_sh (unit stride on hd).
+// q, k_new, v_new and out in `dtype` (0 float32, 1 bfloat16, 2 float16),
+// the arithmetic in float32; the rest as paged_decode, on the FMA route.
+extern "C" int paged_decode_int8(const void* q, const void* kp, const void* vp,
+                                 const void* tables, const void* lengths, void* out,
+                                 void* ws, int b, int h, int hkv, int hd, int ps,
+                                 int npp, int pps, int splits, int heads, int hchunks,
+                                 int cblocks, long long q_sb, long long q_sh,
+                                 long long k_sp, long long k_so, long long k_sh,
+                                 long long v_sp, long long v_so, long long v_sh,
+                                 const void* k_scales, const void* v_scales,
+                                 long long s_sp, long long s_sh, const void* k_new,
+                                 const void* v_new, long long n_sb, long long n_sh,
+                                 float scale_log2, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Q8 q8{static_cast<const float*>(k_scales), static_cast<const float*>(v_scales),
+              s_sp, s_sh, k_new, v_new, n_sb, n_sh};
+  const int epc = dtype == 0 ? 4 : 8;   // elements of k_new / v_new a 16 bytes
+  // 16 int8 codes a load where every row starts on a 16-byte step
+  const int vec = hd % 16 == 0 && aligned16(kp) && aligned16(vp) && k_sp % 16 == 0 &&
+                  k_so % 16 == 0 && k_sh % 16 == 0 && v_sp % 16 == 0 && v_so % 16 == 0 &&
+                  v_sh % 16 == 0 && aligned16(k_new) && aligned16(v_new) && n_sb % epc == 0 &&
+                  n_sh % epc == 0;
+  const Call c{q, kp, vp, static_cast<const int*>(tables), static_cast<const int*>(lengths),
+               out, static_cast<float*>(ws), b, h, hkv, hd, ps, npp, pps, splits, heads,
+               hchunks, cblocks, q_sb, q_sh, {k_sp, k_so, k_sh}, {v_sp, v_so, v_sh},
+               scale_log2, vec, q8};
+  if (!valid_call(c, hd > 256 ? 1 : kMaxHeads) || !k_scales || !v_scales || !k_new ||
+      !v_new)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int* tp = static_cast<const int*>(tables);
-  const int* lp = static_cast<const int*>(lengths);
-  const Pool kpool{k_sp, k_so, k_sh}, vpool{v_sp, v_so, v_sh};
-  cudaError_t e;
-  if (dtype == 0)
-    e = launch<float>(q, kp, vp, tp, lp, out, ws, b, h, hkv, hd, ps, npp, pps,
-                      splits, heads, hchunks, q_sb, q_sh, kpool, vpool,
-                      scale_log2, vec, st);
-  else if (dtype == 1)
-    e = launch<__nv_bfloat16>(q, kp, vp, tp, lp, out, ws, b, h, hkv, hd, ps,
-                              npp, pps, splits, heads, hchunks, q_sb, q_sh,
-                              kpool, vpool, scale_log2, vec, st);
-  else
-    e = cudaErrorInvalidValue;
-  return static_cast<int>(e);
+  return static_cast<int>(mz::by_dtype(dtype, [&](auto t) {
+    return launch<decltype(t), true>(c, st);
+  }));
 }
 
 MZ_ERROR_STRING(paged_decode)

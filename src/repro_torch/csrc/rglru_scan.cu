@@ -3,7 +3,7 @@
 // Replaces the TPU kernel rglru_scan_pallas
 // (src/repro/kernels/rglru_scan/kernel.py:39):
 //     h_t = a_t * h_{t-1} + b_t     elementwise over the channel axis,
-// from h0, in float32; a and b float32 or bfloat16, h written in a's type
+// from h0, in float32; a and b float32, bfloat16 or float16, h in a's type
 // (h0 float32 or a's type).  The Pallas kernel walks time blocks in order
 // and keeps h in VMEM scratch between them.
 //
@@ -301,24 +301,23 @@ cudaError_t launch(const void* a, const void* b, const void* h0, void* out, int 
   return e;
 }
 
-// dtype: a, b and out (0 float32, 1 bfloat16); h0_dtype: h0 (float32 or
-// a's type)
+// dtype: a, b and out (0 float32, 1 bfloat16, 2 float16); h0_dtype: h0
+// (float32 or a's type)
 cudaError_t dispatch(const void* a, const void* b, const void* h0, void* out, int B,
                      int S, int W, long long a_sb, long long a_ss, long long b_sb,
                      long long b_ss, long long h0_sb, int cs, int chunk, int dtype,
                      int h0_dtype, cudaStream_t st, int* max_clusters, int* ran) {
-  using bf16 = __nv_bfloat16;
   if (B < 1 || S < 1 || W < 1) return cudaErrorInvalidValue;
-  if (dtype == 0 && h0_dtype == 0)
-    return launch<float, float>(a, b, h0, out, B, S, W, a_sb, a_ss, b_sb, b_ss, h0_sb,
-                                cs, chunk, st, max_clusters, ran);
-  if (dtype == 1 && h0_dtype == 0)
-    return launch<bf16, float>(a, b, h0, out, B, S, W, a_sb, a_ss, b_sb, b_ss, h0_sb,
-                               cs, chunk, st, max_clusters, ran);
-  if (dtype == 1 && h0_dtype == 1)
-    return launch<bf16, bf16>(a, b, h0, out, B, S, W, a_sb, a_ss, b_sb, b_ss, h0_sb,
-                              cs, chunk, st, max_clusters, ran);
-  return cudaErrorInvalidValue;
+  return mz::by_dtype(dtype, [&](auto at) {
+    using T = decltype(at);
+    // h0 in float32 or in a's type
+    if (h0_dtype != 0 && h0_dtype != dtype) return cudaErrorInvalidValue;
+    if (h0_dtype == 0 || dtype == 0)
+      return launch<T, float>(a, b, h0, out, B, S, W, a_sb, a_ss, b_sb, b_ss, h0_sb, cs,
+                              chunk, st, max_clusters, ran);
+    return launch<T, T>(a, b, h0, out, B, S, W, a_sb, a_ss, b_sb, b_ss, h0_sb, cs, chunk,
+                        st, max_clusters, ran);
+  });
 }
 
 }  // namespace

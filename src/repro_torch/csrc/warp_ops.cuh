@@ -1,12 +1,11 @@
 // Warp-level building blocks shared by the tensor-core and cp.async
 // kernels of the port (flash_attention.cu, paged_decode.cu, wkv6.cu):
-// 16-byte cp.async with its groups, ldmatrix, mma.sync.m16n8k16 in bf16
-// with float32 sums, and the quad reductions along an mma row.
+// 16-byte cp.async with its groups, ldmatrix and the quad reductions
+// along an mma row (the mma.sync instructions are in dtypes.cuh).
 #pragma once
 
 #include <cstdint>
 
-#include <cuda_bf16.h>
 
 namespace mz::warp {
 
@@ -37,22 +36,6 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// c += a b for one m16n8k16 tile, b given as its two registers
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats rounded to bf16 (nearest even), the first in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
 }
 
 __device__ __forceinline__ float quad_max(float x) {

@@ -4,7 +4,7 @@
 // Per (batch, head), with key index i < D and value index j < Dv:
 //     o_t[j]  = sum_i r_t[i] * (S[i,j] + u[i] * k_t[i] * v_t[j])
 //     S[i,j] <- w_t[i] * S[i,j] + k_t[i] * v_t[j],   w_t = exp(logw_t)
-// from s0.  Inputs float32 or bfloat16; the math, the state and s_final
+// from s0.  Inputs float32, bfloat16 or float16; the math, the state and s_final
 // float32; o in the input type (as wkv6_pallas returns it in r's dtype).
 // Unlike the Pallas kernel it also returns the final state: the model
 // carries it from prefill into decode and from step to step.
@@ -482,8 +482,8 @@ cudaError_t launch(const void* r, const void* k, const void* v,
 
 }  // namespace
 
-// r, k, logw: (B, S, H, D) and v: (B, S, H, Dv), one dtype (float32 or
-// bfloat16), unit stride on the last dim and the given batch, time and
+// r, k, logw: (B, S, H, D) and v: (B, S, H, Dv), one dtype (float32,
+// bfloat16 or float16), unit stride on the last dim and the given batch, time and
 // head strides; u: float32, element (b, h, i) at b*u_sb + h*u_sh + i; s0:
 // float32 (B, H, D, Dv) with contiguous (D, Dv) blocks at b*s0_sb +
 // h*s0_sh.  o: (B, S, H, Dv) contiguous in the input dtype; s_out: float32
@@ -504,15 +504,10 @@ extern "C" int wkv6(const void* r, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides rs{r_sb, r_ss, r_sh}, ks{k_sb, k_ss, k_sh};
   const Strides vs{v_sb, v_ss, v_sh}, wst{w_sb, w_ss, w_sh};
-  cudaError_t e;
-  if (dtype == 0)
-    e = launch<float>(r, k, v, logw, u, s0, o, s_out, ws, B, S, H, D, Dv, rs,
-                      ks, vs, wst, u_sb, u_sh, s0_sb, s0_sh, st);
-  else if (dtype == 1)
-    e = launch<__nv_bfloat16>(r, k, v, logw, u, s0, o, s_out, ws, B, S, H, D,
-                              Dv, rs, ks, vs, wst, u_sb, u_sh, s0_sb, s0_sh, st);
-  else
-    e = cudaErrorInvalidValue;
+  const cudaError_t e = mz::by_dtype(dtype, [&](auto t) {
+    return launch<decltype(t)>(r, k, v, logw, u, s0, o, s_out, ws, B, S, H, D, Dv, rs,
+                               ks, vs, wst, u_sb, u_sh, s0_sb, s0_sh, st);
+  });
   return static_cast<int>(e);
 }
 

@@ -15,6 +15,10 @@
   from the last down, so under a causal mask the heaviest tiles are
   launched first (`block_order`).
 
+Past hd 256 every type takes the column-split kernel
+(`flash_wide_kernel`): `flash_column_blocks(hd)` blocks of 256 output
+columns, each recomputing the full-hd scores (no padding, no tile plan).
+
 `tile_class` and `kv_range` mirror the kernel's functions of the same
 names: which key tiles of 64 a query tile walks, and whether a tile is
 skipped (no valid pair), full (no masked pair: no mask applied) or an
@@ -25,7 +29,9 @@ itself; the CPU tests hold these copies against a brute-force mask.
 (`csrc/paged_decode.cu`) into blocks of one (slot, kv head, head chunk,
 split), a split being a fixed run of whole pages.  It reads shapes and
 the SM count, never the lengths, so the grid is the same for any lengths
-(no host read, no sync).
+(no host read, no sync).  Past hd 1024 the output columns are cut into
+blocks of 1024 (`col_blocks`, a third grid dimension), each recomputing
+the full-hd scores.
 """
 from __future__ import annotations
 
@@ -37,8 +43,11 @@ MAX_WARPS = 8             # warps a block at most (kTcMaxWarps)
 SMS = 132                 # streaming multiprocessors of an H100 SXM
 SMEM_MAX = 232448         # dynamic shared memory a block can opt in to
 # the head dims the kernels are built for; any other hd up to the last is
-# zero-padded to the next of them (`padded_head_dim`)
+# zero-padded to the next of them (`padded_head_dim`); wider heads take
+# the column-split kernel at their own width
 HEAD_DIMS = (32, 64, 80, 96, 128, 160, 192, 256)
+WIDE_COLS = 256           # output columns a block of the column split (kWideCols)
+WIDE_ROWS = 8             # query rows a block of the column split (kWideRows)
 
 SKIP, FULL, EDGE = 0, 1, 2
 
@@ -74,11 +83,18 @@ def tc_stages(hd: int) -> int:
 
 
 def padded_head_dim(hd: int) -> int:
-    """The head dim a call runs at: the least of `HEAD_DIMS` >= hd."""
+    """The head dim a call runs at: the least of `HEAD_DIMS` >= hd; hd
+    itself past the last (the column split takes any width)."""
     for k in HEAD_DIMS:
         if k >= hd:
             return k
-    raise ValueError(f"flash_attention: head dim {hd} above {HEAD_DIMS[-1]}")
+    return hd
+
+
+def flash_column_blocks(hd: int) -> int:
+    """Blocks of `WIDE_COLS` output columns of the column split (hd > 256;
+    1 otherwise: the tile kernels hold all of hd)."""
+    return _cdiv(hd, WIDE_COLS) if hd > HEAD_DIMS[-1] else 1
 
 
 def flash_plan(b: int, h: int, hkv: int, sq: int, hd: int, *,
@@ -139,9 +155,10 @@ def kv_range(q0: int, bq: int, sq: int, sk: int, causal: bool,
 # -- paged decode (csrc/paged_decode.cu) ----------------------------------------
 
 PAGED_MAX_PAGES = 64      # pages a split, at most (kMaxPages)
-PAGED_MAX_HD = 1024       # widest head: 32 lanes x 4 chunks of 8 (kMaxHd)
+PAGED_COL_BLOCK = 1024    # output columns a block: 32 lanes x 4 chunks of 8 (kColBlock)
+PAGED_MAX_HD = 4096       # widest head: blocks of 1024 columns past 1024 (kMaxHd)
 PAGED_MAX_SPLITS = 4096   # the combine kernel's weights in shared memory
-# "tc": bfloat16, hd in 32..128 in steps of 16, rows on 16-byte steps
+# "tc": bfloat16 or float16, hd in 32..128 in steps of 16, rows on 16-byte steps
 # (paged_tc_kernel, one warp a block, up to 16 query heads as the rows of
 # mma.m16n8k16, tiles of 32 positions in a 3-stage ring); "fma": the rest
 # (paged_split_kernel, 4 warps, up to 8 query heads -- 1 above hd 256 --,
@@ -159,10 +176,11 @@ class PagedPlan:
     pages: int            # pages a split
     splits: int           # splits a (slot, kv head)
     grid: tuple[int, int] # (B * Hkv * head_chunks, splits)
+    col_blocks: int = 1   # blocks of PAGED_COL_BLOCK output columns (grid z)
 
     @property
     def blocks(self) -> int:
-        return self.grid[0] * self.grid[1]
+        return self.grid[0] * self.grid[1] * self.col_blocks
 
     def workspace_floats(self, b: int, h: int, hd: int) -> int:
         """Float32 partials (m, l, acc[hd]) of every (slot, query head,
@@ -184,7 +202,10 @@ def paged_plan(b: int, h: int, hkv: int, npp: int, ps: int, hd: int,
       position's hd values are read in 8-value chunks by the next power
       of two >= hd / 8 lanes (at least 4, at most 32, a lane holding up
       to 4 chunks above hd 256), 128 / lanes positions a pass, two
-      passes a tile in bfloat16 and one in float32.
+      passes a tile in a 16-bit type and one in float32 or past hd 1024.
+    * Columns: past hd 1024, `col_blocks` blocks of 1024 output columns,
+      each recomputing the full-hd scores (two ring stages, whole K rows
+      and the block's V columns in shared memory).
     * Heads: a block serves up to 16 ("tc") or 8 ("fma"; 1 above hd 256)
       query heads of one kv head; a larger group is cut into equal head
       chunks.
@@ -210,7 +231,8 @@ def paged_plan(b: int, h: int, hkv: int, npp: int, ps: int, hd: int,
     else:
         lanes = min(32, max(4, _pow2_at_least(_cdiv(hd, 8))))
         route, max_heads = "fma", FMA_MAX_HEADS if hd <= 256 else 1
-        rows = FMA_THREADS // lanes * (2 if elem_bytes == 2 else 1)
+        rows = FMA_THREADS // lanes * (2 if elem_bytes == 2 and hd <= PAGED_COL_BLOCK
+                                       else 1)
         per_sm = 2
     head_chunks = _cdiv(group, max_heads)
     heads = _cdiv(group, head_chunks)
@@ -221,9 +243,10 @@ def paged_plan(b: int, h: int, hkv: int, npp: int, ps: int, hd: int,
     if splits > PAGED_MAX_SPLITS:
         raise ValueError(f"paged_decode_attention: {npp} pages a slot need "
                          f"more than {PAGED_MAX_SPLITS} splits")
+    col_blocks = _cdiv(hd, PAGED_COL_BLOCK) if hd > PAGED_COL_BLOCK else 1
     return PagedPlan(route=route, rows=rows, heads=heads,
                      head_chunks=head_chunks, pages=pages, splits=splits,
-                     grid=(base, splits))
+                     grid=(base, splits), col_blocks=col_blocks)
 
 
 def _pow2_at_least(n: int) -> int:

@@ -182,14 +182,16 @@ INT = ctypes.c_int
 INT64 = ctypes.c_longlong
 FLOAT = ctypes.c_float
 
-# element-type codes the C entry points switch on (csrc/common.cuh)
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# element-type codes the C entry points switch on (csrc/dtypes.cuh)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the 16-bit types: the tensor-core routes, 16-byte rows of 8 values
+HALF_TYPES = (torch.bfloat16, torch.float16)
 
 
 def dtype_code(t: torch.Tensor, what: str) -> int:
     if t.dtype not in DTYPE_CODES:
         raise TypeError(f"{what}: dtype {t.dtype} not supported "
-                        f"(float32 or bfloat16)")
+                        f"(float32, bfloat16 or float16)")
     return DTYPE_CODES[t.dtype]
 
 
@@ -203,13 +205,13 @@ def require_cuda(what: str, *tensors: torch.Tensor) -> None:
 
 
 def tile_inputs(what: str, x: torch.Tensor, tensors) -> list[torch.Tensor]:
-    """The tensors as the MLP tile reads them: each contiguous and, in
-    bfloat16, starting on a 16-byte boundary (the cluster tile reads them
-    by TMA); a tensor that is neither is copied.  Raises unless every
+    """The tensors as the MLP tile reads them: each contiguous and, in a
+    16-bit type, starting on a 16-byte boundary (the cluster tile reads
+    them by TMA); a tensor that is neither is copied.  Raises unless every
     tensor shares x's dtype."""
     if any(t.dtype != x.dtype for t in tensors):
         raise ValueError(f"{what}: inputs must share x's dtype")
-    return [t if t.is_contiguous() and (x.dtype != torch.bfloat16 or
+    return [t if t.is_contiguous() and (x.dtype not in HALF_TYPES or
                                         t.data_ptr() % 16 == 0)
             else t.clone(memory_format=torch.contiguous_format) for t in tensors]
 

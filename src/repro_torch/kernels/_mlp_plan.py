@@ -4,9 +4,13 @@
 `mlp_plan(e, n, d, f, dtype)` picks, for x (E, n, d) and weights (E, d, F),
 the route a call takes and its geometry:
 
-* bfloat16 takes the cluster tile: a cluster of `cl` blocks (8, or 16
-  where d > 1024) walks the ff axis of one item (one token tile of `nt`
-  rows of one expert) in chunks of `cl * 64` hidden units.  `clusters`
+* bfloat16 and float16 take the cluster tile: a cluster of `cl` blocks
+  (8, or 16 where d > 1024) walks the ff axis of one item (one token tile
+  of `nt` rows of one expert) in chunks of `cl * 64` hidden units.  A
+  block's output columns set its register tile, so d's output columns
+  are cut into `groups` of at most 6144 (`gcols` each), one launch a
+  group, each walking the ff axis again (recomputing h: wi and wg are
+  read once more a group).  `clusters`
   clusters run: at least 8 where there is the work, at most as many as
   the card holds at once (`capacity`, from the CUDA occupancy query).
   Each takes whole items in turn (`rounds` of them, written straight to
@@ -38,11 +42,13 @@ TOKEN_TILES = (8, 16, 32, 64, 96, 128)
 # float32 sums of both projections stay in registers
 MAX_TILE = {1: 128, 2: 96, 3: 64}
 MIN_CLUSTERS = 8           # fewer items: cut them into chunk ranges
+MAX_COLS = 6144            # output columns a launch (kTcMaxCols)
+HALF_DTYPES = ("bfloat16", "float16")   # the cluster tile's types
 
 
 @dataclass(frozen=True)
 class MlpPlan:
-    route: str             # "cluster" (bfloat16) or "fma" (float32)
+    route: str             # "cluster" (bfloat16, float16) or "fma" (float32)
     blocks: int            # blocks of the main kernel
     workspace_bytes: int   # float32 partial the wrapper allocates
     fc: int = 0            # fma: hidden units a block
@@ -58,6 +64,8 @@ class MlpPlan:
     bk: int = 0            # cluster: d rows of one up-projection step
     stages: int = 0        # cluster: ring stages
     smem_bytes: int = 0    # cluster: dynamic shared memory a block
+    groups: int = 1        # cluster: column groups of d (launches)
+    gcols: int = 0         # cluster: output columns a group
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -67,8 +75,8 @@ def _cdiv(a: int, b: int) -> int:
 @functools.lru_cache(maxsize=256)
 def mlp_plan(e: int, n: int, d: int, f: int, dtype: str, *,
              swiglu: bool = True, capacity: int | None = None) -> MlpPlan:
-    """The route and geometry of one call (`dtype` "bfloat16" or
-    "float32"); raises ValueError for a shape the route does not take.
+    """The route and geometry of one call (`dtype` "bfloat16", "float16"
+    or "float32"); raises ValueError for a shape the route does not take.
     `capacity`: clusters the card holds at once (None: no limit)."""
     if min(e, n, d, f) < 1:
         raise ValueError(f"mlp: empty shape e={e} n={n} d={d} f={f}")
@@ -79,17 +87,17 @@ def mlp_plan(e: int, n: int, d: int, f: int, dtype: str, *,
             raise ValueError("mlp: grid limits exceeded")
         return MlpPlan(route="fma", fc=fc, blocks=_cdiv(n, 16) * chunks * e,
                        workspace_bytes=4 * e * chunks * n * d)
-    if dtype != "bfloat16":
+    if dtype not in HALF_DTYPES:
         raise ValueError(f"mlp: dtype {dtype} not supported")
     if d % 8 or f % 8:
-        raise ValueError(f"mlp: the bfloat16 tile needs d and F multiples of "
+        raise ValueError(f"mlp: the {dtype} tile needs d and F multiples of "
                          f"8 (16-byte rows), got d={d}, F={f}")
     cl = 8 if d <= 1024 else 16
-    cpb = _cdiv(_cdiv(d, cl), BOX) * BOX           # output columns a block
+    groups = _cdiv(d, MAX_COLS)
+    gcols = d if groups == 1 else _cdiv(_cdiv(d, groups), BOX) * BOX
+    cpb = _cdiv(_cdiv(gcols, cl), BOX) * BOX       # output columns a block
     mw = _cdiv(cpb // 16, 8)
-    if mw not in MAX_TILE:
-        raise ValueError(f"mlp: d={d} is wider than the bfloat16 tile takes "
-                         f"(6144)")
+    assert mw in MAX_TILE, (d, gcols, mw)
     nt = next(t for t in TOKEN_TILES if t >= min(n, MAX_TILE[mw]))
     tiles = _cdiv(n, nt)
     chunks = _cdiv(f, cl * HB)
@@ -114,7 +122,7 @@ def mlp_plan(e: int, n: int, d: int, f: int, dtype: str, *,
                    clusters=clusters, rounds=rounds, leftover=leftover,
                    parts=parts, mw=mw, bk=bk, stages=stages,
                    smem_bytes=1024 + stages * stage + hbytes,
-                   blocks=cl * clusters,
+                   blocks=cl * clusters, groups=groups, gcols=gcols,
                    workspace_bytes=4 * leftover * parts * min(nt, n) * d)
 
 
@@ -134,9 +142,10 @@ def cluster_segments(plan: MlpPlan, k: int) -> list[tuple[int, int, int, int]]:
 @functools.lru_cache(maxsize=256)
 def cluster_capacity(lib: str, e: int, n: int, d: int, f: int,
                      swiglu: bool) -> int:
-    """Clusters of the bfloat16 kernel for these shapes that the card
-    holds at once: `<lib>_max_clusters` of `csrc/<lib>.cu` (the CUDA
-    occupancy query), built at first use."""
+    """Clusters of the cluster tile's kernel for these shapes that the
+    card holds at once: `<lib>_max_clusters` of `csrc/<lib>.cu` (the CUDA
+    occupancy query of the bfloat16 kernel, whose block the float16 one
+    shares), built at first use."""
     from repro_torch.kernels import _build
 
     base = mlp_plan(e, n, d, f, "bfloat16", swiglu=swiglu)
@@ -156,15 +165,15 @@ def cluster_capacity(lib: str, e: int, n: int, d: int, f: int,
 
 def launch_plan(lib: str, e: int, n: int, d: int, f: int, dtype: str,
                 swiglu: bool) -> MlpPlan:
-    """The plan a launch of `lib` takes: for bfloat16, no more clusters
-    than the card holds at once."""
-    cap = cluster_capacity(lib, e, n, d, f, swiglu) if dtype == "bfloat16" \
+    """The plan a launch of `lib` takes: on the cluster tile, no more
+    clusters than the card holds at once."""
+    cap = cluster_capacity(lib, e, n, d, f, swiglu) if dtype in HALF_DTYPES \
         else None
     return mlp_plan(e, n, d, f, dtype, swiglu=swiglu, capacity=cap)
 
 
 def tile_widths(d: int, f: int) -> tuple[int, int]:
-    """The widths the bfloat16 tile runs d and F at: each rounded up to a
+    """The widths the cluster tile runs d and F at: each rounded up to a
     multiple of 8 (16-byte rows)."""
     return -(-d // 8) * 8, -(-f // 8) * 8
 

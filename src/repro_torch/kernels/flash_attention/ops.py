@@ -5,7 +5,10 @@
 * `paged_decode_attention`: q (B, 1, H, hd) for the current token against
   one layer's page pools k/v (P, ps, Hkv, hd) (page 0 the never-read
   null page) through int32 tables (B, npp) and lengths (B,) that include
-  the current token, whose k/v are already in the pool -> (B, 1, H, hd).
+  the current token, whose k/v are already in the pool -> (B, 1, H, hd);
+* `paged_decode_attention_int8`: the same over int8 pools with one
+  float32 scale a (page, kv head), the current token's k/v (B, Hkv, hd)
+  given beside the pool (it is quantized after the step attends).
 
 A CPU tensor takes the plain PyTorch version (`ref`); a CUDA tensor
 launches the CUDA kernel, which raises on anything it does not take.
@@ -33,3 +36,14 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                                               lengths)
     return kernel.paged_decode_attention_cuda(q, k_pages, v_pages, tables,
                                               lengths)
+
+
+def paged_decode_attention_int8(q: torch.Tensor, k_pages: torch.Tensor,
+                                v_pages: torch.Tensor, k_scales: torch.Tensor,
+                                v_scales: torch.Tensor, tables: torch.Tensor,
+                                lengths: torch.Tensor, k_new: torch.Tensor,
+                                v_new: torch.Tensor) -> torch.Tensor:
+    args = (q, k_pages, v_pages, k_scales, v_scales, tables, lengths, k_new, v_new)
+    if q.device.type == "cpu":
+        return ref.paged_decode_attention_int8_ref(*args)
+    return kernel.paged_decode_attention_int8_cuda(*args)

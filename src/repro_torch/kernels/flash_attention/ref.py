@@ -64,3 +64,37 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     s = s.masked_fill(~mask[:, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqc,bchd->bqhd", p, dense(v_pages)).to(q.dtype)
+
+
+def paged_decode_attention_int8_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                                    v_pages: torch.Tensor, k_scales: torch.Tensor,
+                                    v_scales: torch.Tensor, tables: torch.Tensor,
+                                    lengths: torch.Tensor, k_new: torch.Tensor,
+                                    v_new: torch.Tensor) -> torch.Tensor:
+    """The int8 pool's decode attention, as the JAX engine's quantized
+    gather route computes it at float32: the pages gathered and
+    dequantized to float32 (code * its page's scale), the current token's
+    k/v (position lengths - 1, not yet in the pool) written over its
+    slot unquantized, then float32 attention over positions < lengths.
+    q (B, 1, H, hd); int8 pools (P, ps, Hkv, hd); scales (P, 1, Hkv, 1);
+    k_new / v_new (B, Hkv, hd) -> (B, 1, H, hd) in q's dtype."""
+    b, _, h, hd = q.shape
+    npp = tables.shape[1]
+    ps, hkv = k_pages.shape[1], k_pages.shape[2]
+    tl = tables.long()
+    last = lengths.long() - 1
+    rows = torch.arange(b, device=q.device)
+
+    def dense(pages, scales, new):         # (B, npp*ps, H, hd) float32
+        g = (pages[tl].float() * scales[tl]).reshape(b, npp * ps, hkv, hd)
+        g[rows, last] = new.float()
+        return g.repeat_interleave(h // hkv, dim=2)
+
+    s = torch.einsum("bqhd,bchd->bhqc", q.float(), dense(k_pages, k_scales, k_new)) \
+        / math.sqrt(hd)
+    kpos = torch.arange(npp * ps, device=q.device)[None, :]
+    mask = kpos < lengths.long()[:, None]
+    s = s.masked_fill(~mask[:, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqc,bchd->bqhd", p,
+                        dense(v_pages, v_scales, v_new)).to(q.dtype)

@@ -2,9 +2,10 @@
 (`csrc/fused_mlp.cu`), the port of `fused_mlp_pallas`.
 
 Takes x (N, d), wg/wi (d, F), wo (F, d) on one CUDA device, one dtype
-(float32 or bfloat16); inputs that are not contiguous (bfloat16: not on
+(float32, bfloat16 or float16); inputs that are not contiguous (16-bit types: not on
 16-byte boundaries) are copied.  The tile plan (`kernels/_mlp_plan.py`)
-picks the route: bfloat16 runs the cluster tile (d up to 6144; d and F
+picks the route: bfloat16 and float16 run the cluster tile (any d, its
+output columns in groups of up to 6144; d and F
 not multiples of 8 are zero-padded to the next, `padded_call`; inputs
 on 16-byte boundaries), cutting F into chunk ranges
 over up to 8 clusters (no more than the card holds at once) with a
@@ -40,15 +41,15 @@ def fused_mlp_cuda(x: torch.Tensor, wg: torch.Tensor | None, wi: torch.Tensor,
     B.dtype_code(x, "fused_mlp")
     if n == 0:
         return torch.empty_like(x)
-    d_to, f_to = tile_widths(d, f) if x.dtype == torch.bfloat16 else (d, f)
+    d_to, f_to = tile_widths(d, f) if x.dtype in B.HALF_TYPES else (d, f)
     return padded_call(lambda *a: launch(*a, swiglu=swiglu), x,
                        wg if swiglu else None, wi, wo, d_to, f_to)
 
 
 def launch(x: torch.Tensor, wg: torch.Tensor | None, wi: torch.Tensor,
            wo: torch.Tensor, *, swiglu: bool = True) -> torch.Tensor:
-    """One launch at widths the route takes (bfloat16: d and F multiples
-    of 8); inputs that are not contiguous (bfloat16: not on 16-byte
+    """One call at widths the route takes (16-bit types: d and F multiples
+    of 8); inputs that are not contiguous (16-bit types: not on 16-byte
     boundaries) are copied."""
     x, wi, wo, *g = B.tile_inputs("fused_mlp", x, [x, wi, wo] + ([wg] if swiglu else []))
     wg = g[0] if swiglu else None

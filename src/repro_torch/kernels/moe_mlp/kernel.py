@@ -2,9 +2,10 @@
 (`csrc/moe_mlp.cu`), the port of `moe_mlp_pallas`.
 
 Takes x (E, C, d), wg/wi (E, d, F), wo (E, F, d) on one CUDA device, one
-dtype (float32 or bfloat16); inputs that are not contiguous (bfloat16:
+dtype (float32, bfloat16 or float16); inputs that are not contiguous (bfloat16:
 not on 16-byte boundaries) are copied.  The tile plan
-(`kernels/_mlp_plan.py`) picks the route: bfloat16 runs the cluster tile
+(`kernels/_mlp_plan.py`) picks the route: bfloat16 and float16 run the
+cluster tile
 (d and F not multiples of 8 zero-padded to the next, `padded_call`), one cluster an
 (expert, token tile) where the card holds them all at once and nothing
 beside the output is allocated; otherwise the items left over are cut
@@ -42,15 +43,15 @@ def moe_mlp_cuda(x: torch.Tensor, wg: torch.Tensor | None, wi: torch.Tensor,
     B.dtype_code(x, "moe_mlp")
     if c == 0:
         return torch.empty_like(x)
-    d_to, f_to = tile_widths(d, f) if x.dtype == torch.bfloat16 else (d, f)
+    d_to, f_to = tile_widths(d, f) if x.dtype in B.HALF_TYPES else (d, f)
     return padded_call(lambda *a: launch(*a, swiglu=swiglu), x,
                        wg if swiglu else None, wi, wo, d_to, f_to)
 
 
 def launch(x: torch.Tensor, wg: torch.Tensor | None, wi: torch.Tensor,
            wo: torch.Tensor, *, swiglu: bool = True) -> torch.Tensor:
-    """One launch at widths the route takes (bfloat16: d and F multiples
-    of 8); inputs that are not contiguous (bfloat16: not on 16-byte
+    """One call at widths the route takes (16-bit types: d and F multiples
+    of 8); inputs that are not contiguous (16-bit types: not on 16-byte
     boundaries) are copied."""
     x, wi, wo, *g = B.tile_inputs("moe_mlp", x, [x, wi, wo] + ([wg] if swiglu else []))
     wg = g[0] if swiglu else None

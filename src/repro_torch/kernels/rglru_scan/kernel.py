@@ -2,8 +2,8 @@
 the port of `rglru_scan_pallas`.
 
 Takes a, b (B, S, W) and h0 (B, W) on one CUDA device.  a and b are
-float32 or bfloat16 (b is taken in a's type where that is exact, else
-both in float32); h0 float32 or a's type (else converted to float32).
+float32, bfloat16 or float16 (b is taken in a's type where that is
+exact, else both in float32); h0 float32 or a's type (else converted to float32).
 The batch and time strides are passed to the kernel, so a slice such as
 the last step of an earlier scan needs no copy; a channel axis without
 unit stride is copied to one.  Returns h (B, S, W) contiguous in a's
@@ -26,7 +26,7 @@ SCAN = B.Launcher("rglru_scan", "rglru_scan", [
     B.VOID_P, B.VOID_P, B.VOID_P, B.VOID_P, B.INT, B.INT, B.INT,
     B.INT64, B.INT64, B.INT64, B.INT64, B.INT64, B.INT, B.INT, B.INT, B.INT,
     B.VOID_P, ctypes.POINTER(ctypes.c_int)])
-DTYPES = (torch.float32, torch.bfloat16)
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 # the kernel a launch ran, as the C entry reports it, and how many launches
 # ran each (a record beside `SCAN.launches`, which counts them all)
 KERNELS = {1: "rglru_step_kernel", 2: "rglru_scan_kernel"}
@@ -59,7 +59,7 @@ def launch_plan(b: int, s: int, w: int, dtype: int, h0_dtype: int,
                 index: int) -> _scan_plan.ScanPlan:
     """The plan a launch takes: the shapes' plan, its cluster halved
     until the card holds at least one cluster of it."""
-    es = 2 if dtype == 1 else 4
+    es = 4 if dtype == 0 else 2
     plan = _scan_plan.scan_plan(b, s, w, es, sms=_sm_count(index))
     while plan.cluster > 1 and cluster_capacity(
             index, plan.cluster, plan.chunk, dtype, h0_dtype) < 1:
@@ -75,7 +75,7 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"rglru_scan: a, b (B, S, W) and h0 (B, W); got "
                          f"{tuple(a.shape)}, {tuple(b.shape)}, {tuple(h0.shape)}")
     if a.dtype not in DTYPES or b.dtype not in DTYPES or not h0.is_floating_point():
-        raise TypeError(f"rglru_scan: a and b must be float32 or bfloat16, h0 "
+        raise TypeError(f"rglru_scan: a and b must be float32, bfloat16 or float16, h0 "
                         f"floating; got {a.dtype}, {b.dtype}, {h0.dtype}")
     out_dtype = a.dtype
     if b.dtype != a.dtype:               # float32 holds either exactly

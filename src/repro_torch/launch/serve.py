@@ -110,9 +110,10 @@ def apply_policy(pol: ExecutionPolicy, mcfg: ModelConfig, max_batch: int,
 
 def build_engine(mcfg: ModelConfig, *, policy: ExecutionPolicy | None = None,
                  max_batch: int = 4, max_len: int = 128, seed: int = 0,
-                 device=None, log=print) -> ServingEngine:
+                 device=None, kv_quant: bool | str = False, paged: bool = True,
+                 log=print) -> ServingEngine:
     """Apply `policy` (if any) to `mcfg`, draw seeded weights on `device`
-    and build the engine."""
+    and build the engine (`kv_quant`, `paged`: the engine's switches)."""
     dev = resolve_device(device)
     eng_kwargs = {"max_batch": max_batch}
     if policy is not None:
@@ -124,7 +125,7 @@ def build_engine(mcfg: ModelConfig, *, policy: ExecutionPolicy | None = None,
         eng_kwargs.pop("mesh_tp")
     params = api.init_params(mcfg, seed, device=dev)
     return ServingEngine(mcfg, params, max_len=max_len, device=dev,
-                         **eng_kwargs)
+                         kv_quant=kv_quant, paged=paged, **eng_kwargs)
 
 
 def serve(engine: ServingEngine, requests: list[Request]) -> dict:
@@ -178,6 +179,11 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--max-batch", type=int, default=4)
     p.add_argument("--max-len", type=int, default=128)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--kv-quant", default="0", choices=("0", "1", "dense"),
+                   help="int8 KV: 1 quantizes the paged pool; dense the "
+                        "dense rectangles of a non-paged engine (--no-paged)")
+    p.add_argument("--no-paged", action="store_true",
+                   help="dense KV rectangles instead of the page pool")
     args = p.parse_args(argv)
 
     mcfg = configs.get_smoke_config(args.arch) if args.smoke \
@@ -186,7 +192,10 @@ def main(argv: list[str] | None = None) -> None:
         else None
     eng = build_engine(mcfg, policy=pol, max_batch=args.max_batch,
                        max_len=args.max_len, seed=args.seed,
-                       device=args.device)
+                       device=args.device,
+                       kv_quant={"0": False, "1": True}.get(args.kv_quant,
+                                                            args.kv_quant),
+                       paged=not args.no_paged)
     rng = np.random.default_rng(args.seed)
     reqs = []
     for i in range(args.requests):
@@ -199,7 +208,8 @@ def main(argv: list[str] | None = None) -> None:
           f"{s['prefills']} prefills in {s['seconds']:.2f}s "
           f"({s['tokens_per_s']:.1f} tok/s, occupancy {s['occupancy']:.2f}), "
           f"ttft p50 {s['ttft_p50_ms']:.1f}ms, tpot p50 "
-          f"{s['tpot_p50_ms']:.2f}ms on {eng.device}")
+          f"{s['tpot_p50_ms']:.2f}ms on {eng.device}"
+          + (f", int8 KV ({eng.kv_quant_mode})" if eng.kv_quant_mode else ""))
 
 
 if __name__ == "__main__":

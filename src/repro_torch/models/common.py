@@ -137,9 +137,15 @@ def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 def attn_einsum(q, k, v, *, causal: bool, window: int | None,
                 q_offset: int = 0) -> torch.Tensor:
-    """Plain attention. q: (B,Sq,H,hd), k/v: (B,Sk,Hkv,hd)."""
+    """Plain attention. q: (B,Sq,H,hd), k/v: (B,Sk,Hkv,hd).  Mixed dtypes
+    (a float32 or dequantized cache beside a bfloat16 q) are promoted as
+    `jnp.einsum` promotes them; the probabilities are rounded to q's own
+    dtype first, as the JAX version does."""
     n_rep = q.shape[2] // k.shape[2]
     k, v = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
+    q_dtype = q.dtype
+    dt = torch.promote_types(q.dtype, torch.promote_types(k.dtype, v.dtype))
+    q, k, v = q.to(dt), k.to(dt), v.to(dt)
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
     sq, sk = q.shape[1], k.shape[1]
@@ -151,8 +157,8 @@ def attn_einsum(q, k, v, *, causal: bool, window: int | None,
     if window is not None:
         mask &= kpos > qpos - window
     logits = logits.masked_fill(~mask, NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    probs = torch.softmax(logits, dim=-1).to(q_dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(dt), v)
 
 
 def attn_chunked(q, k, v, *, causal: bool, window: int | None,

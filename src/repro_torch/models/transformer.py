@@ -421,19 +421,21 @@ def _decode_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 def _decode_layers(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    index: torch.Tensor, caches: list, layer_attn):
-    """The decode layer loop that the dense and the paged step share.
+    """The decode layer loop that the dense and the paged steps share.
     tokens (B, 1); index (B,) long, the positions before the step; caches:
-    per segment, {"k", "v"} stacked by layer.  layer_attn(p, h, K, V, rope)
-    writes the token's k/v into one layer's K/V and returns the attention
-    output (B, 1, d).  Returns the (B, 1, V) logits."""
+    per segment, a dict of tensors stacked by layer ({"k", "v"}, and the
+    int8 pool's scales).  layer_attn(p, h, lc, rope) writes the token's
+    k/v into one layer's cache lc (the dict's per-layer views) and returns
+    the attention output (B, 1, d).  Returns the (B, 1, V) logits."""
     rope = rope_tables(index[:, None], cfg.hd, cfg.rope_theta)
     x = embed_tokens(cfg, params, tokens)
     for seg, seg_cache in zip(params["segments"], caches):
         kind, sp = _segment(seg)
-        for lp, K, V in zip(_layers(sp), seg_cache["k"].unbind(0),
-                            seg_cache["v"].unbind(0)):
-            a = layer_attn(lp["attn"], apply_norm(cfg, lp["norm1"], x), K, V,
-                           rope)
+        keys = list(seg_cache)
+        per_layer = zip(*(seg_cache[k].unbind(0) for k in keys))
+        for lp, views in zip(_layers(sp), per_layer):
+            a = layer_attn(lp["attn"], apply_norm(cfg, lp["norm1"], x),
+                           dict(zip(keys, views)), rope)
             x, h = apply_norm_residual(cfg, lp["norm2"], x, a)
             x = x + _ffn(cfg, kind, lp, h)
     x = apply_norm(cfg, params["final_norm"], x)
@@ -455,8 +457,8 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     slot = _ring_slot(cfg, index, clen)
     mask = _decode_mask(cfg, index, clen)
 
-    def attn(p, h, K, V, rope):
-        return _decode_attn(cfg, p, h, K, V, slot, rope, mask)
+    def attn(p, h, lc, rope):
+        return _decode_attn(cfg, p, h, lc["k"], lc["v"], slot, rope, mask)
 
     logits = _decode_layers(cfg, params, tokens, index, cache["segments"], attn)
     return logits, {"segments": cache["segments"], "index": raw + 1}
@@ -481,8 +483,9 @@ def paged_decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     offs = index % ps
     lengths = (index + 1).to(torch.int32)
 
-    def attn(p, h, Kp, Vp, rope):
+    def attn(p, h, lc, rope):
         q, k, v = _roped_qkv(cfg, p, h, rope)
+        Kp, Vp = lc["k"], lc["v"]
         # padding lanes of a compacted step repeat a real slot: they
         # write identical k/v to the same pool position, so the
         # duplicate writes are benign, and the kernel runs after them

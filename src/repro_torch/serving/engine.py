@@ -30,9 +30,13 @@ NaN guard on, deadline shedding on, queue bound 0 = unbounded).  The
 state is chosen as the JAX engine chooses it: `PagedKVState` when paged
 serving applies (a transformer with no sliding window and no MoE),
 `DenseKVState` for every other transformer (`paged=False` included),
-`RecurrentState` for rglru and rwkv6 (always compact).  Whisper (its
-cross-attention state) and int8 KV (`kv_quant`) are not ported and
-raise NotImplementedError.
+`RecurrentState` for rglru and rwkv6 (always compact).  `kv_quant`
+stores KV in int8 with per-head scales (`serving/quant.py`), resolved as
+the JAX engine resolves it (`_kv_quant_mode`): any truthy value
+quantizes a paged engine's pool, the value "dense" a non-paged
+transformer's rectangles (no sliding window); the resolved mode is
+`engine.kv_quant_mode`.  Whisper (its cross-attention state) is not
+ported and raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -77,6 +81,22 @@ class Request:
     requeues: int = 0
 
 
+def _kv_quant_mode(kv_quant, paged: bool, mcfg: ModelConfig) -> str:
+    """The engine's KV-quant mode: "paged" (int8 page pool), "dense" (int8
+    dense rectangles) or "" (off).  Any truthy value quantizes a paged
+    engine; the explicit value "dense" also covers a non-paged transformer
+    with no sliding window (the stale-position zeroing assumes slot j
+    holds position j).  The JAX engine's rule."""
+    mode = str(kv_quant).strip().lower()
+    if mode in ("0", "", "false", "no", "off", "none"):
+        return ""
+    if paged:
+        return "paged"
+    if mode == "dense" and mcfg.family == "transformer" and not mcfg.window:
+        return "dense"
+    return ""
+
+
 def logits_finite(logits: torch.Tensor) -> bool:
     """True iff every logit is finite — the decode-output health guard."""
     return bool(torch.isfinite(logits).all())
@@ -88,7 +108,7 @@ class ServingEngine:
                  decode_batch: int | None = None, eos_id: int = -1,
                  compact: bool = True, paged: bool = True,
                  page_size: int = 16, num_pages: int | None = None,
-                 bucket_min: int = 16, kv_quant: bool = False,
+                 bucket_min: int = 16, kv_quant: bool | str = False,
                  queue_bound: int = 0, guard_nan: bool = True,
                  shed_deadlines: bool = True, seed: int = 0,
                  device: str | torch.device | None = None):
@@ -100,9 +120,7 @@ class ServingEngine:
             raise NotImplementedError(
                 f"{mcfg.name}: the cross-attention state (whisper) is not "
                 f"ported yet")
-        if kv_quant:           # the JAX signature, reserved until int8 KV
-            raise NotImplementedError(
-                f"{mcfg.name}: int8 KV storage is not ported yet")
+        self.kv_quant_mode = _kv_quant_mode(kv_quant, self.paged, mcfg)
         self.mcfg = mcfg
         self.params = tree_to(params, self.device)
         self.max_batch = max_batch
@@ -123,11 +141,13 @@ class ServingEngine:
             self.state = PagedKVState(
                 mcfg, max_batch, max_len, decode_batch=self.decode_batch,
                 compact=self.compact, page_size=page_size,
-                num_pages=num_pages, bucket_min=bucket_min, device=self.device)
+                num_pages=num_pages, bucket_min=bucket_min, device=self.device,
+                quantized=self.kv_quant_mode == "paged")
         elif mcfg.family == "transformer":
             self.state = DenseKVState(
                 mcfg, max_batch, max_len, decode_batch=self.decode_batch,
-                compact=self.compact, device=self.device)
+                compact=self.compact, device=self.device,
+                quantized=self.kv_quant_mode == "dense")
         else:
             self.state = RecurrentState(
                 mcfg, max_batch, max_len, decode_batch=self.decode_batch,

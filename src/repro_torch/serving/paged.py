@@ -17,14 +17,27 @@
   `attn_impl` gathers the selected slots' pages into the dense (n, C, ...)
   layout `transformer.decode_step` reads, runs it and scatters the pages
   back, as the JAX package does; that route is the pool route's oracle.
+* **int8 KV** (`PagePool(quant=True)`, `serving/quant.py`): int8 pages
+  with one float32 scale per (layer, page, kv head).  Prefill attends
+  over unquantized KV and quantizes each bucket page.  The gather route
+  dequantizes the gathered pages to float32, decodes, zeroes positions
+  at or past each lane's new length and requantizes every gathered page
+  with fresh scales (`_gather_pages_dequant`, `_scatter_pages_quant`).
+  The pool route attends from the int8 pool with the token's k/v given
+  beside it (`paged_decode_attention_int8`), then requantizes only the
+  page the token went to: an unchanged page requantizes to the same
+  codes and scales.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.models import api, transformer
 from repro_torch.models.config import ModelConfig
+
+from . import quant as kvq
 
 
 def prefill_buckets(max_len: int, min_bucket: int = 16) -> tuple[int, ...]:
@@ -52,7 +65,7 @@ class PagePool:
 
     def __init__(self, mcfg: ModelConfig, max_batch: int, max_len: int, *,
                  page_size: int = 16, num_pages: int | None = None,
-                 device: torch.device | str = "cpu"):
+                 quant: bool = False, device: torch.device | str = "cpu"):
         if page_size < 1 or page_size & (page_size - 1):
             raise ValueError(f"page_size must be a power of two, got {page_size}")
         self.page_size = page_size
@@ -62,8 +75,14 @@ class PagePool:
         self.num_pages = num_pages or 1 + max_batch * self.pages_per_slot
         if self.num_pages < 2:
             raise ValueError("need at least one allocatable page beyond the null page")
-        self.segments = api.init_paged_cache(mcfg, self.num_pages, page_size,
-                                             device=device)
+        # quant: int8 pages + per-(layer, page, kv head) float32 scales
+        self.quant = quant
+        self.segments = api.init_paged_cache(
+            mcfg, self.num_pages, page_size, device=device,
+            dtype=torch.int8 if quant else None)
+        self.scales = kvq.scale_struct(self.segments) if quant else None
+        # device bytes one page costs (scales included), from shapes alone
+        self.page_nbytes = kvq.kv_page_nbytes(mcfg, page_size, quant)
         self.tables = np.zeros((max_batch, self.pages_per_slot), np.int32)
         self.index = np.zeros((max_batch,), np.int32)
         self._free = list(range(self.num_pages - 1, 0, -1))  # pop() allocates ascending
@@ -141,34 +160,122 @@ def _scatter_pages(segments: list, dense: list, tables_sel: torch.Tensor) -> Non
                                          *a.shape[3:]).to(a.dtype)
 
 
+def _gather_pages_dequant(segments: list, scales: list,
+                          tables_sel: torch.Tensor) -> list:
+    """int8 pool pages -> the dequantized float32 dense (L, n, C, ...)
+    layout; each page's scale broadcasts over its positions and hd."""
+    n, npp = tables_sel.shape
+
+    def leaf(a, sc):  # a: (L, P, ps, ...) int8; sc: (L, P, 1, ...) float32
+        d = kvq.dequantize_block(a[:, tables_sel], sc[:, tables_sel])
+        return d.reshape(a.shape[0], n, npp * a.shape[2], *a.shape[3:])
+
+    return [{k: leaf(a, ssc[k]) for k, a in seg.items()}
+            for seg, ssc in zip(segments, scales)]
+
+
+def _scatter_pages_quant(segments: list, scales: list, dense: list,
+                         tables_sel: torch.Tensor, new_len: torch.Tensor) -> None:
+    """Requantize an advanced dense sub-cache into the int8 pages with
+    fresh per-page scales, in place.  Positions at or past each lane's new
+    length (`new_len`, (n,)) are zeroed first, so a reused page's stale
+    values (or the never-read null page's) cannot inflate a scale."""
+    for seg, ssc, dseg in zip(segments, scales, dense):
+        for key, a in seg.items():
+            # (L, n, C, ...) -> (L, n, npp, ps, ...)
+            q, sc = kvq.requantize(dseg[key], new_len, 2, page_size=a.shape[2])
+            a[:, tables_sel] = q
+            ssc[key][:, tables_sel] = sc
+
+
+def _requantize_page(codes: torch.Tensor, scales: torch.Tensor,
+                     pages: torch.Tensor, offs: torch.Tensor,
+                     new: torch.Tensor) -> None:
+    """Write the token's k or v into its int8 page, in place: the page
+    dequantized to float32, `new` (n, Hkv, hd) written at `offs`,
+    positions past it zeroed (they are not live yet) and the page
+    requantized with fresh scales.  codes (P, ps, Hkv, hd) int8, scales
+    (P, 1, Hkv, 1); pages, offs (n,).  Padding lanes repeat a real slot,
+    so their writes are identical."""
+    page = kvq.dequantize_block(codes[pages], scales[pages])   # (n, ps, Hkv, hd)
+    page[torch.arange(page.shape[0], device=page.device), offs] = new.float()
+    q, sc = kvq.requantize(page, offs + 1, 1)
+    codes[pages] = q
+    scales[pages] = sc
+
+
+def paged_decode_step_int8(cfg: ModelConfig, params, tokens: torch.Tensor,
+                           segments: list, scales: list, tables: torch.Tensor,
+                           index: torch.Tensor) -> torch.Tensor:
+    """`transformer.paged_decode_step` over an int8 pool, in place.  In
+    each layer `paged_decode_attention_int8` attends over the dequantized
+    live positions and the token's own k/v, unquantized (the JAX engine
+    attends before it quantizes); then the page the token went to is
+    requantized with the token in it (`_requantize_page`).  Every other
+    page is left as it is: requantizing an unchanged page gives its codes
+    and scales back.  segments: per segment {"k", "v"} int8 pools;
+    scales: per segment {"k", "v"} (L, P, 1, Hkv, 1) float32."""
+    transformer.check_supported(cfg)
+    n = tokens.shape[0]
+    index = index.long()
+    ps = segments[0]["k"].shape[2]
+    rows = torch.arange(n, device=tokens.device)
+    pages = tables.long()[rows, index // ps]
+    offs = index % ps
+    lengths = (index + 1).to(torch.int32)
+    caches = [{"k": seg["k"], "v": seg["v"], "ks": sc["k"], "vs": sc["v"]}
+              for seg, sc in zip(segments, scales)]
+
+    def attn(p, h, lc, rope):
+        q, k, v = transformer._roped_qkv(cfg, p, h, rope)
+        o = fops.paged_decode_attention_int8(q, lc["k"], lc["v"], lc["ks"],
+                                             lc["vs"], tables, lengths,
+                                             k[:, 0], v[:, 0])
+        _requantize_page(lc["k"], lc["ks"], pages, offs, k[:, 0])
+        _requantize_page(lc["v"], lc["vs"], pages, offs, v[:, 0])
+        return o.reshape(n, 1, cfg.q_dim) @ p["wo"].to(cfg.tdtype)
+
+    return transformer._decode_layers(cfg, params, tokens, index, caches, attn)
+
+
 def paged_decode(mcfg: ModelConfig, params, tokens: torch.Tensor,
                  segments: list, tables_sel: np.ndarray,
-                 index_sel: np.ndarray) -> torch.Tensor:
+                 index_sel: np.ndarray, scales: list | None = None) -> torch.Tensor:
     """One decode step over the page pool (pools updated in place):
     attention from the pool itself when mcfg.attn_impl == "flash", else
-    gather -> decode_step -> scatter.  Returns the (n, 1, V) logits."""
+    gather -> decode_step -> scatter.  `scales`: the int8 pool's (the
+    pages are int8).  Returns the (n, 1, V) logits."""
     dev = tokens.device
     if mcfg.attn_impl == "flash":
-        return transformer.paged_decode_step(
-            mcfg, params, tokens, segments,
-            torch.as_tensor(tables_sel, dtype=torch.int32, device=dev),
-            torch.as_tensor(index_sel, dtype=torch.long, device=dev))
+        tables = torch.as_tensor(tables_sel, dtype=torch.int32, device=dev)
+        index = torch.as_tensor(index_sel, dtype=torch.long, device=dev)
+        if scales is not None:
+            return paged_decode_step_int8(
+                mcfg, params, tokens, segments, scales, tables, index)
+        return transformer.paged_decode_step(mcfg, params, tokens, segments,
+                                             tables, index)
     tsel = torch.as_tensor(tables_sel, dtype=torch.long, device=dev)
-    dense = _gather_pages(segments, tsel)
     idx = torch.as_tensor(index_sel, dtype=torch.int32, device=dev)
+    dense = _gather_pages(segments, tsel) if scales is None \
+        else _gather_pages_dequant(segments, scales, tsel)
     logits, new = api.decode_step(
         mcfg, params, tokens, {"segments": dense, "index": idx})
-    _scatter_pages(segments, new["segments"], tsel)
+    if scales is None:
+        _scatter_pages(segments, new["segments"], tsel)
+    else:
+        _scatter_pages_quant(segments, scales, new["segments"], tsel,
+                             new["index"].long())
     return logits
 
 
 def paged_prefill(mcfg: ModelConfig, params, toks: torch.Tensor, plen: int,
                   segments: list, table_row: np.ndarray,
-                  page_size: int) -> torch.Tensor:
+                  page_size: int, scales: list | None = None) -> torch.Tensor:
     """Padded prefill of one bucket-length prompt + ragged per-page
     scatter into the pools (in place).  `toks` is (1, bucket),
     right-padded past `plen`; returns the (1, 1, V) logits of the last
-    real token."""
+    real token.  With `scales` (an int8 pool) each bucket page is
+    quantized with its own fresh scales."""
     bucket = toks.shape[1]
     if bucket % page_size:
         raise ValueError(f"bucket {bucket} is not a multiple of page_size {page_size}")
@@ -180,12 +287,17 @@ def paged_prefill(mcfg: ModelConfig, params, toks: torch.Tensor, plen: int,
     row = torch.as_tensor(np.where(page_live, table_row, 0), dtype=torch.long,
                           device=dev)
     pad = torch.arange(bucket, device=dev) >= plen
-    for seg_pool, (k, v) in zip(segments, kvs):
+    for i, (seg_pool, (k, v)) in enumerate(zip(segments, kvs)):
         for key, kv in (("k", k), ("v", v)):  # kv: (L, 1, bucket, Hkv, hd)
             a = seg_pool[key]
             kv = kv[:, 0].masked_fill(pad[None, :, None, None], 0)
-            a[:, row] = kv.reshape(a.shape[0], npp_b, page_size,
-                                   *a.shape[3:]).to(a.dtype)
+            pages = kv.reshape(a.shape[0], npp_b, page_size, *a.shape[3:])
+            if scales is None:
+                a[:, row] = pages.to(a.dtype)
+            else:
+                q, sc = kvq.quantize_block(pages, ps_axis=2)
+                a[:, row] = q
+                scales[i][key][:, row] = sc
     return last
 
 

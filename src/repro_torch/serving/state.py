@@ -7,8 +7,9 @@ into slot b and (b) advance the active slots one decode step at a fixed
 lane width.  Ported: `PagedKVState` (compact and full width) for the
 plain transformer, `DenseKVState` for every other transformer (sliding
 window, MoE, or `paged=False`), and `RecurrentState` for the rglru and
-rwkv6 families.  int8 KV and the cross-attention state (whisper) are not
-ported yet.
+rwkv6 families.  Both KV states take int8 storage (`quantized`,
+`serving/quant.py`).  The cross-attention state (whisper) is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from repro_torch.models import api
 from repro_torch.models.config import ModelConfig
 
 from . import paged as paged_kv
+from . import quant as kvq
 
 Params = Any
 
@@ -58,7 +60,15 @@ class DenseKVState:
     sub-cache of width `decode_batch` (padding lanes repeat the first
     active slot), decoded and the active lanes scattered back; otherwise
     every slot decodes at full width and the slots that were not active
-    have their index rewound by one batched update."""
+    have their index rewound by one batched update.
+
+    `quantized`: the rectangles are int8 codes with one float32 scale per
+    (layer, slot, kv head) over the whole rectangle (`self.scales`).
+    Decode is then always the gathered form: the selected slots are
+    dequantized to the model dtype, decoded, their positions past the old
+    index zeroed and the whole rectangles requantized with fresh scales,
+    as the JAX `_dense_quant_step_fn` does (no full-width rewind over int8
+    codes)."""
 
     kind = "dense"
     paged = False
@@ -66,7 +76,8 @@ class DenseKVState:
     buckets: tuple = ()
 
     def __init__(self, mcfg: ModelConfig, max_batch: int, max_len: int, *,
-                 decode_batch: int, compact: bool, device: torch.device):
+                 decode_batch: int, compact: bool, device: torch.device,
+                 quantized: bool = False):
         self.mcfg = mcfg
         self.max_batch = max_batch
         self.max_len = max_len
@@ -74,22 +85,65 @@ class DenseKVState:
         self.compact = compact
         self.capacity = max_len
         self.device = device
+        self.quantized = quantized
         self.cache = api.init_cache(mcfg, max_batch, max_len, device=device)
         self.cache["index"] = torch.zeros((max_batch,), dtype=torch.int32,
                                           device=device)
+        self.scales = None
+        if quantized:
+            self.cache["segments"] = tree_map(
+                lambda a: torch.zeros(a.shape, dtype=torch.int8, device=device),
+                self.cache["segments"])
+            self.scales = kvq.scale_struct(self.cache["segments"])
 
     def prefill(self, params: Params, b: int, seq: np.ndarray) -> torch.Tensor:
         toks = torch.as_tensor(np.asarray(seq)[None, :], dtype=torch.long,
                                device=self.device)
         last, cache1 = api.prefill(self.mcfg, params, {"tokens": toks},
                                    self.max_len)
-        for dst, src in _leaf_pairs(self.cache["segments"], cache1["segments"]):
-            dst[:, b].copy_(src[:, 0])
+        if self.quantized:
+            for (dst, src), (dsc, _) in zip(
+                    _leaf_pairs(self.cache["segments"], cache1["segments"]),
+                    _leaf_pairs(self.scales, cache1["segments"])):
+                q, sc = kvq.quantize_block(src, 2)
+                dst[:, b].copy_(q[:, 0])
+                dsc[:, b].copy_(sc[:, 0])
+        else:
+            for dst, src in _leaf_pairs(self.cache["segments"], cache1["segments"]):
+                dst[:, b].copy_(src[:, 0])
         self.cache["index"][b] = len(seq)
         return last
 
+    def _decode_quantized(self, params: Params, next_token: np.ndarray,
+                          active: list[int]):
+        """The int8 step: always gathered at width decode_batch, so only
+        the selected slots dequantize and requantize."""
+        sel = active + [active[0]] * (self.decode_batch - len(active))
+        idx = torch.as_tensor(sel, dtype=torch.long, device=self.device)
+        sub_idx = self.cache["index"].index_select(0, idx)
+        dt = self.mcfg.tdtype
+        segs = [{k: kvq.dequantize_block(q.index_select(1, idx),
+                                         self.scales[i][k].index_select(1, idx), dt)
+                 for k, q in seg.items()}
+                for i, seg in enumerate(self.cache["segments"])]
+        logits, new = api.decode_step(
+            self.mcfg, params,
+            torch.as_tensor(next_token[np.asarray(sel)], dtype=torch.long,
+                            device=self.device),
+            {"segments": segs, "index": sub_idx})
+        for i, seg in enumerate(new["segments"]):
+            for k, x in seg.items():     # (L, w, C, Hkv, hd)
+                # live after this step: positions <= the old index
+                q, sc = kvq.requantize(x, sub_idx.long() + 1, 2)
+                self.cache["segments"][i][k].index_copy_(1, idx, q)
+                self.scales[i][k].index_copy_(1, idx, sc)
+        self.cache["index"].index_copy_(0, idx, new["index"].to(torch.int32))
+        return logits, _lane_map(sel)
+
     def decode(self, params: Params, next_token: np.ndarray,
                active: list[int]):
+        if self.quantized:
+            return self._decode_quantized(params, next_token, active)
         if self.compact and self.decode_batch < self.max_batch:
             sel = active + [active[0]] * (self.decode_batch - len(active))
             idx = torch.as_tensor(sel, dtype=torch.long, device=self.device)
@@ -125,7 +179,9 @@ class DenseKVState:
 
 
 class PagedKVState:
-    """Block-paged KV: PagePool + bucketed prefill + gathered decode."""
+    """Block-paged KV: PagePool + bucketed prefill + gathered decode (or,
+    with attn_impl "flash", decode from the pool itself); `quantized`:
+    int8 pages with per-(layer, page, kv head) scales."""
 
     kind = "paged"
     paged = True
@@ -134,16 +190,18 @@ class PagedKVState:
     def __init__(self, mcfg: ModelConfig, max_batch: int, max_len: int, *,
                  decode_batch: int, compact: bool, page_size: int,
                  num_pages: int | None, bucket_min: int,
-                 device: torch.device):
+                 device: torch.device, quantized: bool = False):
         self.mcfg = mcfg
         self.max_batch = max_batch
         self.max_len = max_len
         self.decode_batch = decode_batch
         self.compact = compact
         self.device = device
+        self.quantized = quantized
         self.pool = paged_kv.PagePool(mcfg, max_batch, max_len,
                                       page_size=page_size,
-                                      num_pages=num_pages, device=device)
+                                      num_pages=num_pages, quant=quantized,
+                                      device=device)
         self.buckets = paged_kv.prefill_buckets(max_len, bucket_min)
         self.capacity = paged_kv.pool_token_capacity(self.pool, max_len)
 
@@ -157,7 +215,8 @@ class PagedKVState:
         trow = self.pool.table_row(b, bucket // self.pool.page_size)
         last = paged_kv.paged_prefill(
             self.mcfg, params, torch.as_tensor(toks, device=self.device),
-            plen, self.pool.segments, trow, self.pool.page_size)
+            plen, self.pool.segments, trow, self.pool.page_size,
+            self.pool.scales)
         self.pool.index[b] = plen
         return last
 
@@ -174,7 +233,7 @@ class PagedKVState:
             torch.as_tensor(next_token[sel_arr], dtype=torch.long,
                             device=self.device),
             self.pool.segments, self.pool.tables[sel_arr],
-            self.pool.index[sel_arr])
+            self.pool.index[sel_arr], self.pool.scales)
         # lengths are host-side numpy: advance them here
         self.pool.index[np.asarray(active)] += 1
         return logits, _lane_map(sel)

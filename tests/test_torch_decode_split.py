@@ -76,7 +76,7 @@ def test_paged_plan_routes():
     assert (p.head_chunks, p.heads) == (3, 7)
     p = ap.paged_plan(2, 128, 1, 8, 16, 576, 2)         # absorbed MLA: a head a block
     assert (p.head_chunks, p.heads) == (128, 1)
-    for bad in (dict(hd=1025), dict(hd=0)):
+    for bad in (dict(hd=4097), dict(hd=0)):
         with pytest.raises(ValueError, match="head dim"):
             ap.paged_plan(2, 4, 2, 8, 16, bad["hd"], 2)
     with pytest.raises(ValueError, match="multiple"):
@@ -252,7 +252,7 @@ def test_wrapper_grid_ignores_lengths(recorded):
     assert first[7:] == second[7:]
 
 
-@pytest.mark.parametrize("hd,match", [(0, "head dim"), (1032, "head dim")])
+@pytest.mark.parametrize("hd,match", [(0, "head dim"), (4104, "head dim")])
 def test_wrapper_refuses_what_the_kernel_does_not_take(recorded, hd, match):
     q = torch.zeros((2, 1, 4, hd))
     pool = torch.zeros((5, 4, 2, hd))

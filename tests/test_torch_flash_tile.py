@@ -126,9 +126,10 @@ def test_plan_shapes_on_the_served_paths():
     assert flash_kernel.HEAD_DIMS == (32, 64, 80, 96, 128, 160, 192, 256)
     assert [ap.padded_head_dim(hd) for hd in (1, 64, 65, 100, 200, 256)] == \
         [32, 64, 80, 128, 256, 256]
-    with pytest.raises(ValueError, match="head dim"):
-        ap.padded_head_dim(257)
-    assert ap.PAGED_MAX_HD == 1024
+    # past 256 every hd runs at its own width on the column split
+    assert [ap.padded_head_dim(hd) for hd in (257, 288, 512)] == [257, 288, 512]
+    assert [ap.flash_column_blocks(hd) for hd in (256, 257, 512, 513)] == [1, 2, 2, 3]
+    assert ap.PAGED_MAX_HD == 4096
 
 
 # -- the tile's arithmetic -------------------------------------------------------

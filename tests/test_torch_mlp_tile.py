@@ -38,8 +38,9 @@ def test_plan_routes_by_dtype():
     assert bf.route == "cluster" and bf.cl in (8, 16) and bf.fc == 0
     assert f32.route == "fma" and f32.fc == 128 and f32.cl == 0
     assert mlp_plan(1, 4, *SMOLLM, "float32").fc == 32      # narrow decode chunks
+    assert mlp_plan(1, 4, *SMOLLM, "float16") == mlp_plan(1, 4, *SMOLLM, "bfloat16")
     with pytest.raises(ValueError, match="not supported"):
-        mlp_plan(1, 4, *SMOLLM, "float16")
+        mlp_plan(1, 4, *SMOLLM, "float64")
 
 
 @pytest.mark.parametrize("c", [8, 12, 80, 96])

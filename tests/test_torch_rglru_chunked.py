@@ -268,9 +268,12 @@ def test_wrapper_passes_strides_and_copies_a_strided_channel_axis(recorded):
 
 
 def test_wrapper_refuses_float16_and_wrong_shapes(recorded):
+    """float16 is one of the kernels' types since the float16 route landed
+    (tests/test_torch_float16.py); a type they do not take (float64) and a
+    wrong h0 shape still raise before any launch."""
     a = torch.zeros((1, 4, 8))
     with pytest.raises(TypeError):
-        scan_kernel.rglru_scan_cuda(a.half(), a.half(), torch.zeros((1, 8)))
+        scan_kernel.rglru_scan_cuda(a.double(), a.double(), torch.zeros((1, 8)))
     with pytest.raises(ValueError):
         scan_kernel.rglru_scan_cuda(a, a, torch.zeros((1, 9)))
     assert not recorded.calls

@@ -216,12 +216,12 @@ def test_wrapper_takes_d_and_dv_apart(recorded, dtype, s, d, dv):
 
 
 @pytest.mark.parametrize("case,err", [("s0 shape", ValueError), ("empty D", ValueError),
-                                      ("float16", TypeError)])
+                                      ("float64", TypeError)])
 def test_wrapper_refuses_what_the_kernel_does_not_take(recorded, case, err):
     """Any D and Dv run (tests/test_torch_widths.py); what still raises is
     a wrong s0, an empty head and a dtype the kernels do not take."""
     d = 0 if case == "empty D" else 40
-    r = torch.zeros((1, 4, 2, d), dtype=torch.float16 if case == "float16" else torch.float32)
+    r = torch.zeros((1, 4, 2, d), dtype=torch.float64 if case == "float64" else torch.float32)
     s0 = torch.zeros((1, 2, d + (case == "s0 shape"), 24))
     with pytest.raises(err):
         wkv_kernel.wkv6_cuda(r, r, torch.zeros((1, 4, 2, 24), dtype=r.dtype), r,
