@@ -31,10 +31,11 @@ exit, no result line) when a check fails:
    op's (BH, S, D) layout and in the model's (B, S, H, D) layout that
    `rwkv6.time_mix` passes, float32, at decode, a 256- and a 1024-token
    prefill, with Dv 32 and with bfloat16 inputs (o within one bfloat16
-   rounding); recurrentgemma-2b: rglru_scan over 2560 channels at
-   decode (B 4) and prefills of 256, 300 and 1024 tokens and B 4 x 256,
-   float32, and a 256-token bfloat16 row (h within one bfloat16 rounding
-   of the float32 recurrence), every prefill row on the cluster kernel
+   rounding, at decode and S 256); recurrentgemma-2b: rglru_scan over
+   2560 channels at decode (B 4) and prefills of 256, 300 and 1024 tokens
+   and B 4 x 256, float32, and bfloat16 rows at decode and 256 tokens
+   (h within one bfloat16 rounding of the float32 recurrence), every
+   prefill row on the cluster kernel
    and decode on the step kernel), TF32 off, with the tolerance stated;
    then every op at widths its JAX kernel takes and no served model
    uses (`widths_rows`: flash hd 96, 100 and 256, paged decode hd 100
@@ -49,7 +50,13 @@ exit, no result line) when a check fails:
    pool route with q float32 and bfloat16 (bfloat16 within one bfloat16
    rounding of the float32 result) at smollm's decode shape and
    internlm2-1.8b's 8 slots x 2048 positions, with the null page and the
-   positions at or past each length - 1 poisoned (`int8_paged_rows`); kernel,
+   positions at or past each length - 1 poisoned (`int8_paged_rows`); then
+   paged_decode's pool routes with a NaN in a live page of one slot (the
+   tensor-core route at 16 splits and at 1, the FMA route at hd 80 in
+   float32, the int8 route through a page's scales; K, V and both): that
+   slot's output non-finite on every head, the other slots' bits
+   unchanged, and a NaN in the null page or past each length changing no
+   bit (`nan_paged_rows`); kernel,
    plain-version and library times from CUDA events and from the
    profiler's device time, and the least time the card could take (bytes
    over 3.35 TB/s or operations over the type's peak).  Every bfloat16
@@ -73,7 +80,13 @@ exit, no result line) when a check fails:
    the plain versions.  Greedy tokens must be equal and the first
    prefill's logits within 1e-3.  smollm-135m (4 layers) with int8 KV
    serves one trace by the int8 pool route and by the gather route: equal
-   greedy tokens (`int8_e2e_phase`).
+   greedy tokens (`int8_e2e_phase`).  smollm-135m (4 layers, the kernel
+   impls) on 2 cluster replicas through a scripted fault drill (kill,
+   restart, stall, nan; watchdog stall_steps 5): every request's tokens
+   equal a fault-free engine's, one "nan" and one "stall" quarantine,
+   requests requeued, none unrouted (`cluster_drill_phase`); and a
+   `SpecDecodeEngine` (4-layer target, 1-layer shared-trunk draft, k 4)
+   emits the target-only engine's greedy tokens (`spec_e2e_phase`).
 4. Main paths, each at full width in bfloat16 with random weights from a
    seed, through `repro_torch.launch.serve`: smollm-135m with a policy
    that turns all three fusion flags on (12 requests), rwkv6-3b and
@@ -86,7 +99,20 @@ exit, no result line) when a check fails:
    paged_decode once a layer a decode step, the bfloat16 one never, the
    decode step on `paged_split_kernel` and not `paged_tc_kernel`, and the
    int8 pool's pages per byte against a bfloat16 pool's printed
-   (`int8_path_phase`).  Launch counts are set to 0 just before each path
+   (`int8_path_phase`); a sixth, the cluster path: smollm-135m with the
+   three flags on, 2 replicas on the card sharing one set of weights, 16
+   requests from the `LoadGenerator` (Poisson at 4 a second, 2000 ms
+   deadlines) under the seed-0 chaos script over 64 steps, through
+   `serve_cluster` (every request done with a finish reason, none lost,
+   twice or unrouted, paged_decode a layer a decode step on every engine
+   that decoded, a "nan" quarantine where a nan event found a live slot;
+   the aggregate and per-replica summary and the share of requests whose
+   tokens equal a fault-free engine's printed; `cluster_path_phase`); a
+   seventh, the spec-decode path: smollm-135m (30 layers, three flags,
+   dense KV) with a 7-layer shared-trunk draft, k 4, 8 requests through
+   `serve_specdec`, beside the target-only engine on the same requests
+   (tokens/s, the bf16 share of equal streams) and `high_tar_pair`'s
+   acceptance and tokens/s (`spec_path_phase`).  Launch counts are set to 0 just before each path
    and read just after; every kernel of the path must have run, each
    recurrent layer's kernel and each MoE layer's moe_mlp exactly once a
    prefill and once a decode step, and smollm's paged_decode once a layer
@@ -106,7 +132,10 @@ exit, no result line) when a check fails:
    flash's (wkv6's, rglru's) share and kernel count; the transformers
    must run flash_tc_kernel and not the float32 flash_fwd_kernel, rwkv6
    the three chunked wkv6 kernels, recurrentgemma the cluster scan
-   (rglru_scan_kernel) and not the step kernel.
+   (rglru_scan_kernel) and not the step kernel.  Spec-decode: one
+   propose/verify iteration (4 slots) timed and profiled; the verify must
+   run the MLP's cluster tile and the norm kernels
+   (`spec_breakdown_phase`).
 
 The last two lines are one JSON object listing the kernels and one with
 the device: `{"ok": true, "device": {"platform": "gpu", ...}}`.
@@ -178,7 +207,8 @@ MOE_EXTRA_MB = 64                          # extra device memory of a C-96 call
 # rglru_scan rows (B, S, dtype) at W 2560; a bfloat16 h is held to one
 # bfloat16 rounding (2^-8 of its size) of the float32 recurrence + 1e-5
 LRU_ROWS = ((DECODE_N, 1, "float32"), (1, 256, "float32"), (1, 300, "float32"),
-            (1, 1024, "float32"), (4, 256, "float32"), (1, 256, "bfloat16"))
+            (1, 1024, "float32"), (4, 256, "float32"), (DECODE_N, 1, "bfloat16"),
+            (1, 256, "bfloat16"))
 LRU_BF16_RTOL = 2.0 ** -8
 # profiler windows taken for one reading at most (`profiled`)
 PROFILE_TRIES = 5
@@ -210,6 +240,24 @@ Q8_ROWS = (("smollm-135m", DECODE_N, H, HKV, HD, None),
 # prompt bands cross the 64 - 512 prefill buckets, the longest band the
 # most likely (Zipf weights 1/(i+1) in band order)
 Q8_BANDS = ((257, 400), (129, 255), (65, 127), (40, 63))
+# the cluster's float32 chaos drill (4 layers, 2 replicas, 8 requests of
+# 24 tokens, watchdog stall_steps 5): (step, replica, kind), set so every
+# fault lands while its replica holds work -- kill 0 (its work moves to
+# 1), restart 0, stall 1 (quarantined 5 steps later, its work to 0), nan
+# on 0 (quarantined; its work parks while 1 is down), restart 1 (drains
+# the parked work), restart 0
+DRILL = ((2, 0, "kill"), (14, 0, "restart"), (16, 1, "stall"), (24, 0, "nan"),
+         (26, 1, "restart"), (30, 0, "restart"))
+DRILL_STALL_STEPS = 5
+# the cluster path: 16 Poisson requests at 4 a second, 2000 ms deadlines,
+# the seed-0 chaos script over 64 steps (the CLI's horizon, max(16 x 32,
+# 64) = 512, would put every event past the ~100 steps this trace serves)
+CLUSTER_REQUESTS, CLUSTER_RATE, CLUSTER_DEADLINE_MS, CLUSTER_HORIZON = 16, 4.0, 2000.0, 64
+FINISH_REASONS = ("eos", "max_new_tokens", "length", "rejected", "capacity", "shed",
+                  "poison")
+# the spec-decode path: smollm-135m's 30 layers, the CLI's shared-trunk
+# draft of a quarter of them (7 layers), k 4
+SPEC_K = 4
 
 
 def check(ok: bool, msg: str) -> None:
@@ -777,7 +825,7 @@ def kernel_phase(torch, F):
     # then a 1024-token prefill, Dv != D and bfloat16 inputs
     for b, s, dv, dtype in ((DECODE_N, 1, RWKV_D, "float32"), (1, 256, RWKV_D, "float32"),
                             (1, WKV_LONG_S, RWKV_D, "float32"), (1, 256, RWKV_D // 2, "float32"),
-                            (1, 256, RWKV_D, "bfloat16")):
+                            (DECODE_N, 1, RWKV_D, "bfloat16"), (1, 256, RWKV_D, "bfloat16")):
         dt = dts[dtype]
         shape = (b, s, RWKV_H, RWKV_D)
         r, k = (rand((b, s, RWKV_H * RWKV_D), f32, 0.5).to(dt).reshape(shape)
@@ -857,6 +905,7 @@ def kernel_phase(torch, F):
     float16_rows(torch, record, rand, F)
     column_split_rows(torch, record, rand, dts, F)
     int8_paged_rows(torch, record, rand)
+    nan_paged_rows(torch, rand)
     return rows
 
 
@@ -1252,6 +1301,110 @@ def int8_paged_rows(torch, record, rand) -> None:
     free(torch)
 
 
+def nan_paged_rows(torch, rand) -> None:
+    """paged_decode's pool routes with a NaN in a live page of slot 0 (its
+    first page, every kv head): at smollm-135m's decode shape (4 slots,
+    16-332 positions) the bfloat16 tensor-core route at its served split
+    count and at one split (slots of at most 32 positions), the FMA route
+    (float32, 32 / 8 heads of 80) and the int8 route (float32 q).  Cases:
+    K only, V only, both (the int8 route: the page's K scale, V scale,
+    both).  Slot 0's output must be non-finite on every head, as the
+    plain version's is; the other slots' bits equal those of the clean
+    call; and the null page and every position at or past each length
+    poisoned with NaN (the int8 route: the null page's scales; its
+    positions past a length hold codes, which cannot be NaN) must leave
+    every slot's bits unchanged."""
+    from repro_torch.kernels import _attn_plan
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import (paged_decode_attention_int8_ref,
+                                                         paged_decode_attention_ref)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    nan = float("nan")
+    for route, dt, h, hkv, hd, npp, lo, hi in (
+            ("tc", torch.bfloat16, H, HKV, HD, 512 // PAGE, 16, 332),
+            ("tc", torch.bfloat16, H, HKV, HD, 2, 17, 32),
+            ("fma", torch.float32, 32, 8, 80, 512 // PAGE, 16, 332),
+            ("int8", torch.float32, H, HKV, HD, 512 // PAGE, 16, 332)):
+        b = DECODE_N
+        prng = torch.Generator().manual_seed(11)
+        lens = torch.randint(lo, hi + 1, (b,), generator=prng)
+        lens[0] = hi
+        tables, pages = paged_tables(torch, lens.tolist(), npp, prng)
+        lens_d = lens.to("cuda", torch.int32)
+        q = rand((b, 1, h, hd), dt)
+        es = 4 if route == "int8" else q.element_size()
+        plan = _attn_plan.paged_plan(b, h, hkv, npp, PAGE, hd, es, sms=sms,
+                                     aligned=route != "int8")
+        check(plan.route == ("fma" if route == "int8" else route),
+              f"nan rows: {route} planned as {plan.route}")
+        if route == "int8":
+            g = torch.Generator(device="cuda").manual_seed(12)
+            kp, vp = (torch.randint(-127, 128, (pages, PAGE, hkv, hd), generator=g,
+                                    device="cuda", dtype=torch.int8) for _ in range(2))
+            ks, vs = (torch.rand((pages, 1, hkv, 1), generator=g, device="cuda") * 0.02
+                      + 1e-3 for _ in range(2))
+            kn, vn = rand((b, hkv, hd), dt), rand((b, hkv, hd), dt)
+            parts = {"k": ks, "v": vs}
+            args = (q, kp, vp, ks, vs, tables, lens_d, kn, vn)
+
+            def kern():
+                return fk.paged_decode_attention_int8_cuda(*args)
+
+            def plain():
+                return paged_decode_attention_int8_ref(*args)
+        else:
+            kp, vp = rand((pages, PAGE, hkv, hd), dt), rand((pages, PAGE, hkv, hd), dt)
+            parts = {"k": kp, "v": vp}
+
+            def kern():
+                return fk.paged_decode_attention_cuda(q, kp, vp, tables, lens_d)
+
+            def plain():
+                return paged_decode_attention_ref(q, kp, vp, tables, lens_d)
+        clean = kern()
+        check(bool(torch.isfinite(clean).all()), f"nan rows {route}: clean call not finite")
+        # masked: the null page and everything at or past each length
+        saved = {k: t.clone() for k, t in parts.items()}
+        for t in parts.values():
+            t[0] = nan
+        if route != "int8":
+            for i in range(b):
+                n_pos = int(lens[i])
+                for pi in range(n_pos // PAGE, npp):
+                    page = int(tables[i, pi])
+                    if page:
+                        for t in parts.values():
+                            t[page, max(n_pos - pi * PAGE, 0):] = nan
+        masked = kern()
+        check(torch.equal(masked, clean), f"nan rows {route} splits {plan.splits}: a NaN "
+              f"in the null page or past a length changed the output")
+        for k, t in parts.items():
+            t.copy_(saved[k])
+        live = int(tables[0, 0])
+        rows = {}
+        for case in ("k", "v", "kv"):
+            for k in case:
+                parts[k][live] = nan
+            out = kern()
+            bad = (~torch.isfinite(out[:, 0].float())).any(-1)       # (B, H)
+            ref_bad = (~torch.isfinite(plain()[:, 0].float())).any(-1)
+            rows[case] = [int(bad[0].sum()), h]
+            check(bool(bad[0].all()), f"nan rows {route} splits {plan.splits} {case}: "
+                  f"slot 0 finite on {int((~bad[0]).sum())} of {h} heads")
+            check(bool(ref_bad[0].all()), f"nan rows {route} {case}: plain version finite")
+            check(torch.equal(out[1:], clean[1:]), f"nan rows {route} splits {plan.splits} "
+                  f"{case}: another slot's output changed")
+            for k, t in parts.items():
+                t.copy_(saved[k])
+        print(json.dumps({"nan_paged_row": {
+            "route": route, "dtype": str(dt).removeprefix("torch."),
+            "shape": [b, h, hkv, hd, PAGE], "splits": plan.splits,
+            "nonfinite_heads_slot0": rows, "masked_nan_bits_unchanged": True,
+            "other_slots_bits_unchanged": True}}), flush=True)
+    free(torch)
+
+
 def int8_e2e_phase(torch, n_layers: int = 4) -> None:
     """smollm-135m at full width, `n_layers` layers, float32, int8 KV: the
     pool route (kernel impls; the int8 paged_decode once a layer a decode
@@ -1295,6 +1448,127 @@ def int8_e2e_phase(torch, n_layers: int = 4) -> None:
     n, steps = launches["pool"]
     check(n == n_layers * steps and launches["gather"][0] == 0,
           f"int8 e2e: int8 paged_decode launches {launches}")
+    free(torch)
+
+
+def cluster_drill_phase(torch, n_layers: int = 4) -> None:
+    """smollm-135m at full width, `n_layers` layers, float32, the kernel
+    impls (paged decode from the pool): 2 replicas on the card serve 8
+    requests through the scripted fault drill `DRILL` (watchdog
+    stall_steps 5).  Every request's tokens must equal a fault-free single
+    engine's; the watchdog must log one "nan" and one "stall" quarantine;
+    requests must have been requeued and none left unrouted; after the
+    three restarts the card may hold no more than two replicas' pools
+    (the retired ones freed)."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import api
+    from repro_torch.serving import resilience
+    from repro_torch.serving.cluster import ServingCluster
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = configs.get_config("smollm-135m").replace(
+        n_layers=n_layers, dtype="float32", param_dtype="float32",
+        attn_impl="flash", mlp_impl="fused", norm_impl="fused")
+    params = api.init_params(cfg, 2, device="cuda")
+    kw = dict(max_batch=4, max_len=512, device="cuda")
+    ref = _requests(np.random.default_rng(6), cfg.vocab, 8, 16, 100, 24)
+    serve(ServingEngine(cfg, params, **kw), ref)
+    reqs = _requests(np.random.default_rng(6), cfg.vocab, 8, 16, 100, 24)
+    free(torch)
+    mem0 = torch.cuda.memory_allocated()
+    cl = ServingCluster(cfg, params, n_replicas=2, **kw,
+                        watchdog=resilience.Watchdog(2, stall_steps=DRILL_STALL_STEPS))
+    pool_bytes = cl.replicas[0].pool.page_nbytes * cl.replicas[0].pool.num_pages
+    drill = resilience.ChaosSchedule([resilience.ChaosEvent(*e) for e in DRILL])
+    before = fk.PAGED.launches
+    for r in reqs:
+        cl.submit(r)
+    cl.run(chaos=drill)
+    # three restarts rebuilt engines: the old pools must be gone
+    grown = torch.cuda.memory_allocated() - mem0 - 2 * pool_bytes
+    agg = cl.metrics.summary(cl)["aggregate"]
+    same = sum(a.out_tokens == b.out_tokens for a, b in zip(reqs, ref))
+    reasons = sorted(why for _, _, why in cl.watchdog.events)
+    print(f"[smoke] cluster drill f32 {n_layers} layers full width, 2 replicas: "
+          f"{same}/8 request streams equal to a fault-free engine's; watchdog "
+          f"{cl.watchdog.events}; nan events that found a live slot "
+          f"{drill.poisoned}; requeued {agg['requeued']}, restarts "
+          f"{agg['restarts']}, quarantined {agg['quarantined']}, unrouted "
+          f"{agg['n_unrouted']}, {cl.stats['steps']} cluster steps; paged_decode "
+          f"launches {fk.PAGED.launches - before}; device memory beyond two pools "
+          f"of {pool_bytes / 1e6:.1f} MB after {agg['restarts']} restarts "
+          f"{grown / 1e6:.2f} MB", flush=True)
+    check(all(r.done and r.finish_reason == "max_new_tokens" for r in reqs),
+          "cluster drill: a request did not finish with max_new_tokens")
+    check(same == 8, "cluster drill: failover changed greedy tokens")
+    check(reasons == ["nan", "stall"], f"cluster drill: watchdog log {cl.watchdog.events}")
+    check(agg["requeued"] > 0 and agg["n_unrouted"] == 0,
+          f"cluster drill: requeued {agg['requeued']}, unrouted {agg['n_unrouted']}")
+    check(fk.PAGED.launches > before, "cluster drill: paged_decode never ran")
+    check(grown < pool_bytes / 2, f"cluster drill: {grown} bytes beyond two pools "
+          f"after the restarts (a retired pool kept alive?)")
+    del cl
+    free(torch)
+
+
+def spec_e2e_phase(torch, n_layers: int = 4) -> None:
+    """smollm-135m at full width, `n_layers` layers, float32, the kernel
+    impls: a `SpecDecodeEngine` with a 1-layer shared-trunk draft (k 4)
+    must emit the target-only dense engine's greedy tokens; so must one
+    over `high_tar_pair` (1-layer draft), whose acceptance must be 1 --
+    every iteration then takes the k - 1 drafts, so the verify rows past
+    the first and the rewind past them are held token for token."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import api
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.specdec import (SpecDecodeEngine, high_tar_pair,
+                                             shared_trunk_draft)
+
+    cfg = configs.get_config("smollm-135m").replace(
+        n_layers=n_layers, dtype="float32", param_dtype="float32",
+        attn_impl="flash", mlp_impl="fused", norm_impl="fused")
+    params = api.init_params(cfg, 3, device="cuda")
+    kw = dict(max_batch=4, max_len=512, device="cuda")
+    ref = _requests(np.random.default_rng(8), cfg.vocab, 8, 16, 300, 24)
+    serve(ServingEngine(cfg, params, paged=False, **kw), ref)
+    dcfg, dparams = shared_trunk_draft(cfg, params, 1)
+    eng = SpecDecodeEngine(cfg, params, dcfg, dparams, k=SPEC_K, **kw)
+    reqs = _requests(np.random.default_rng(8), cfg.vocab, 8, 16, 300, 24)
+    serve(eng, reqs)
+    same = sum(a.out_tokens == b.out_tokens for a, b in zip(reqs, ref))
+    st = eng.spec_stats
+    print(f"[smoke] spec-decode f32 {n_layers} layers full width, 1-layer draft, "
+          f"k {SPEC_K}: {same}/8 request streams equal to the target-only engine's; "
+          f"acceptance {st.acceptance_rate:.3f}, tokens/iteration "
+          f"{st.tokens_per_iteration:.3f}", flush=True)
+    check(same == 8 and not eng.health["nan_detected"],
+          "spec-decode f32: tokens differ from target-only greedy decoding")
+    del eng
+    tp, hcfg, hparams = high_tar_pair(cfg, params, 1)
+    href = _requests(np.random.default_rng(8), cfg.vocab, 8, 16, 300, 24)
+    serve(ServingEngine(cfg, tp, paged=False, **kw), href)
+    hi = SpecDecodeEngine(cfg, tp, hcfg, hparams, k=SPEC_K, **kw)
+    hreqs = _requests(np.random.default_rng(8), cfg.vocab, 8, 16, 300, 24)
+    serve(hi, hreqs)
+    hsame = sum(a.out_tokens == b.out_tokens for a, b in zip(hreqs, href))
+    hst = hi.spec_stats
+    print(f"[smoke] spec-decode f32 high_tar_pair (1-layer draft, k {SPEC_K}): "
+          f"{hsame}/8 request streams equal to the target-only engine's on the same "
+          f"target; acceptance {hst.acceptance_rate:.3f}, tokens/iteration "
+          f"{hst.tokens_per_iteration:.3f} over {hst.iterations} slot-iterations",
+          flush=True)
+    check(hsame == 8 and not hi.health["nan_detected"],
+          "spec-decode f32 high_tar_pair: tokens differ from target-only greedy decoding")
+    check(hst.acceptance_rate == 1.0,
+          f"spec-decode f32 high_tar_pair: acceptance {hst.acceptance_rate}, not 1")
+    del hi, tp
     free(torch)
 
 
@@ -1567,6 +1841,20 @@ def free(torch) -> None:
     torch.cuda.empty_cache()
 
 
+def smoke_policy(arch: str) -> Path:
+    """A policy JSON for `arch` that turns the three fusion flags on (batch
+    4, tp 1), written under build/; returns its path."""
+    pol = {"network": arch, "interval_s": 1e-3, "operators": [
+        {"group": "norm1+qkv_proj+attention", "batch": 4, "tp": 1,
+         "memory": "HBM3", "chiplet": "H100", "fused": True},
+        {"group": "norm2+mlp", "batch": 4, "tp": 1, "memory": "HBM3",
+         "chiplet": "H100", "fused": True}]}
+    path = ROOT / "build" / "smoke_policy.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(pol))
+    return path
+
+
 def main_path_phase(torch, arch: str, launchers, n_requests: int,
                     n_layers: int | None = None, kv_quant: bool = False,
                     bands=None):
@@ -1586,14 +1874,7 @@ def main_path_phase(torch, arch: str, launchers, n_requests: int,
     from repro_torch.launch.serve import build_engine, serve
     from repro_torch.serving import workload
 
-    pol = {"network": arch, "interval_s": 1e-3, "operators": [
-        {"group": "norm1+qkv_proj+attention", "batch": 4, "tp": 1,
-         "memory": "HBM3", "chiplet": "H100", "fused": True},
-        {"group": "norm2+mlp", "batch": 4, "tp": 1, "memory": "HBM3",
-         "chiplet": "H100", "fused": True}]}
-    path = ROOT / "build" / "smoke_policy.json"
-    path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_text(json.dumps(pol))
+    path = smoke_policy(arch)
     cfg = configs.get_config(arch)
     if n_layers is not None:
         cfg = cfg.replace(n_layers=n_layers)
@@ -1672,6 +1953,263 @@ def int8_path_phase(torch, launchers):
         "ratio": ratio}}), flush=True)
     check(1.9 < ratio <= 2.0, f"smollm-135m int8: {ratio} pages per bf16 page")
     return eng, counts, s
+
+
+def cluster_path_phase(torch, launchers):
+    """The cluster path: smollm-135m at full width (bfloat16, the three
+    fusion flags on), 2 replicas on the card sharing one set of weights,
+    `CLUSTER_REQUESTS` requests from the `LoadGenerator` (Poisson at
+    `CLUSTER_RATE` a second, `CLUSTER_DEADLINE_MS` deadlines) under the
+    seed-0 chaos script over `CLUSTER_HORIZON` steps, through
+    `launch.serve.serve_cluster`.  Gates: every request done with a JAX
+    finish reason and at most its tokens, no request lost or twice in the
+    trace, none unrouted at the end, every kernel of the path launched,
+    every live engine (restarted ones too) on the one set of weight
+    tensors, paged_decode launched once a layer for every decode step of
+    every engine, retired ones included (NaN steps too: a step launches
+    at most one a layer, so the total holds each engine), a "nan"
+    quarantine where a nan event found a live slot.  Prints the share of
+    requests whose tokens equal a fault-free engine's, and, for the
+    host-loop question, the same requests served as one burst (rate 0,
+    no chaos, no deadlines) by one engine and by the 2-replica cluster."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.launch.policy import load_policy
+    from repro_torch.launch.serve import prepare, serve, serve_cluster
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg, params, kw = prepare(configs.get_config("smollm-135m"),
+                              policy=load_policy(smoke_policy("smollm-135m")),
+                              device="cuda", log=lambda x: None)
+    for ln in launchers.values():
+        ln.launches = 0
+    s = serve_cluster(cfg, params, n_replicas=2, rate=CLUSTER_RATE,
+                      deadline_ms=CLUSTER_DEADLINE_MS, n_requests=CLUSTER_REQUESTS,
+                      max_new=32, chaos_horizon=CLUSTER_HORIZON, max_len=512,
+                      log=lambda x: print(x, flush=True), **kw)
+    counts = {name: ln.launches for name, ln in launchers.items()}
+    cl, reqs, agg, chaos = s["cluster"], s["requests"], s["aggregate"], s["chaos"]
+    shared = all(e.params["embed"].data_ptr() == params["embed"].data_ptr() and
+                 e.params["segments"][0]["kind_dense"]["mlp"]["w_in"].data_ptr() ==
+                 params["segments"][0]["kind_dense"]["mlp"]["w_in"].data_ptr()
+                 for e in cl.replicas)
+    steps = sum(e.stats[k] for e in cl.replicas for k in ("decode_steps", "nan_steps")) \
+        + cl._retired["decode_steps"] + cl._retired["nan_steps"]
+    # the fault-free run: one engine, the same prompts as one burst, no deadlines
+    ref = [Request(rid=r.rid, prompt=r.prompt, max_new_tokens=r.max_new_tokens)
+           for r in reqs]
+    one = serve(ServingEngine(cfg, params, max_len=512, **kw), ref)
+    full = [(a, b) for a, b in zip(reqs, ref) if a.finish_reason == "max_new_tokens"]
+    same = sum(a.out_tokens == b.out_tokens for a, b in full)
+    # the same prompts (the generator draws them before the arrivals) as
+    # one burst through the 2-replica cluster
+    burst = serve_cluster(cfg, params, n_replicas=2, n_requests=CLUSTER_REQUESTS,
+                          max_new=32, max_len=512, log=lambda x: None, **kw)
+    check([r.prompt.tolist() for r in burst["requests"]] ==
+          [r.prompt.tolist() for r in reqs], "cluster burst: other prompts")
+    reasons = [why for _, _, why in cl.watchdog.events]
+    out = {k: agg[k] for k in (
+        "tokens_out", "ttft_p50_ms", "ttft_p99_ms", "tpot_p50_ms", "tpot_p99_ms",
+        "goodput_tokens", "deadline_met", "deadline_missed", "shed", "poisoned",
+        "quarantined", "restarts", "requeued", "n_unrouted")}
+    out.update(seconds=s["seconds"], tokens_per_s=s["tokens_per_s"],
+               goodput_tokens_per_s=agg["goodput_tokens"] / max(s["seconds"], 1e-9),
+               chaos_events=[(e.step, e.kind, e.replica) for e in chaos.events],
+               nan_events_on_live_slots=chaos.poisoned,
+               watchdog=cl.watchdog.events, cluster_steps=cl.stats["steps"],
+               finish_reasons={k: sum(r.finish_reason == k for r in reqs)
+                               for k in FINISH_REASONS},
+               tokens_equal_fault_free=[same, len(full)],
+               decode_steps_all_engines=steps,
+               replicas_share_weight_tensors=shared,
+               burst_one_engine={k: one[k] for k in (
+                   "tokens_out", "seconds", "tokens_per_s", "tpot_p50_ms", "decode_steps")},
+               burst_cluster={"tokens_out": burst["aggregate"]["tokens_out"],
+                              "seconds": burst["seconds"],
+                              "tokens_per_s": burst["tokens_per_s"],
+                              "tpot_p50_ms": burst["aggregate"]["tpot_p50_ms"],
+                              "cluster_steps": burst["cluster"].stats["steps"]},
+               per_replica=[{k: row[k] for k in ("replica", "healthy", "tokens_out",
+                                                 "decode_steps", "prefills", "preemptions",
+                                                 "ttft_p50_ms", "tpot_p50_ms")}
+                            for row in s["per_replica"]])
+    print(json.dumps({"cluster_path": out, "arch": "smollm-135m", "replicas": 2,
+                      "launches": counts}), flush=True)
+    rids = [r.rid for r in reqs]
+    check(len(reqs) == CLUSTER_REQUESTS and len(set(rids)) == len(rids)
+          and sorted(r.rid for r in cl.requests) == sorted(rids),
+          "cluster path: a request was lost or submitted twice")
+    check(all(r.done and r.finish_reason in FINISH_REASONS
+              and len(r.out_tokens) <= r.max_new_tokens for r in reqs),
+          "cluster path: a request is not done with a finish reason")
+    check(shared, "cluster path: a replica copied the weights")
+    check(agg["n_unrouted"] == 0 and not cl.pending_work,
+          f"cluster path: {agg['n_unrouted']} requests unrouted at the end")
+    check(all(c > 0 for c in counts.values()),
+          f"cluster path: a kernel of the path was never launched: {counts}")
+    check(steps > 0 and counts["paged_decode"] == cfg.n_layers * steps,
+          f"cluster path: {counts['paged_decode']} paged_decode launches for {steps} "
+          f"decode steps of {cfg.n_layers} layers")
+    if chaos.poisoned:
+        check("nan" in reasons, f"cluster path: a live slot was poisoned at "
+              f"{chaos.poisoned} but the watchdog logged {cl.watchdog.events}")
+    check(all(r.done and r.finish_reason == "max_new_tokens" for r in burst["requests"])
+          and burst["aggregate"]["n_unrouted"] == 0,
+          "cluster burst: a request did not finish")
+    del cl, s, burst
+    free(torch)
+    return counts
+
+
+def spec_path_phase(torch, launchers):
+    """The spec-decode path: smollm-135m at full width (30 layers,
+    bfloat16, the three fusion flags on, dense KV) with the CLI's
+    shared-trunk draft (a quarter of the layers), k `SPEC_K`, 8 requests
+    of 16-300 tokens, 32 new each, through `launch.serve.serve_specdec`;
+    then the target-only dense engine on the same requests (tokens/s, the
+    share of equal token streams in bfloat16 and where the others leave
+    it, with `verify_rounding`'s reading) and `high_tar_pair`'s
+    acceptance and tokens/s on the same requests.  Every kernel of the
+    path must launch.  Returns (the engine, launch counts)."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.launch.policy import load_policy
+    from repro_torch.launch.serve import prepare, serve, serve_specdec
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.specdec import SpecDecodeEngine, high_tar_pair
+
+    cfg, params, kw = prepare(configs.get_config("smollm-135m"),
+                              policy=load_policy(smoke_policy("smollm-135m")),
+                              device="cuda", log=lambda x: None)
+
+    def requests(n, max_new):
+        return _requests(np.random.default_rng(9), cfg.vocab, n, 16, 300, max_new)
+
+    serve_specdec(cfg, params, requests(2, 4), k=SPEC_K, max_len=512,
+                  log=lambda x: None, **kw)   # warm-up
+    for ln in launchers.values():
+        ln.launches = 0
+    reqs = requests(8, 32)
+    s = serve_specdec(cfg, params, reqs, k=SPEC_K, max_len=512,
+                      log=lambda x: print(x, flush=True), **kw)
+    counts = {name: ln.launches for name, ln in launchers.items()}
+    eng = s.pop("engine")
+    ref = requests(8, 32)
+    t = serve(ServingEngine(cfg, params, paged=False, max_len=512, **kw), ref)
+    same = sum(a.out_tokens == b.out_tokens for a, b in zip(reqs, ref))
+    first_diff = [next(i for i, (x, y) in enumerate(zip(a.out_tokens, b.out_tokens))
+                       if x != y) for a, b in zip(reqs, ref) if a.out_tokens != b.out_tokens]
+    rounding = verify_rounding(torch, cfg, params, [r.prompt for r in requests(4, 1)])
+    n_draft = eng.draft_cfg.n_layers
+    tp, dcfg, dp = high_tar_pair(cfg, params, n_draft)
+    hi = SpecDecodeEngine(cfg, tp, dcfg, dp, k=SPEC_K, max_len=512, **kw)
+    h = serve(hi, requests(8, 32))
+    out = {"tokens_out": s["tokens_out"], "seconds": s["seconds"],
+           "tokens_per_s": s["tokens_per_s"], "tpot_p50_ms": s["tpot_p50_ms"],
+           "tpot_p99_ms": s["tpot_p99_ms"], "ttft_p50_ms": s["ttft_p50_ms"],
+           "verify_steps": s["decode_steps"], "acceptance": s["acceptance"],
+           "tokens_per_iteration": s["tokens_per_iteration"],
+           "target_only_tokens_per_s": t["tokens_per_s"],
+           "target_only_tpot_p50_ms": t["tpot_p50_ms"],
+           "bf16_streams_equal_target_only": [same, len(reqs)],
+           "bf16_first_differing_token": first_diff,
+           "verify_vs_decode_rounding": rounding,
+           "high_tar_pair_acceptance": hi.spec_stats.acceptance_rate,
+           "high_tar_pair_tokens_per_iteration": hi.spec_stats.tokens_per_iteration,
+           "high_tar_pair_tokens_per_s": h["tokens_per_s"],
+           "high_tar_pair_tpot_p50_ms": h["tpot_p50_ms"]}
+    print(json.dumps({"spec_path": out, "arch": "smollm-135m", "k": SPEC_K,
+                      "draft_layers": n_draft, "launches": counts}), flush=True)
+    check(all(r.finish_reason == "max_new_tokens" and len(r.out_tokens) == 32
+              for r in reqs), "spec path: a request did not finish with 32 tokens")
+    check(s["nan_steps"] == 0 and not eng.health["nan_detected"],
+          "spec path: non-finite logits")
+    check(all(c > 0 for c in counts.values()),
+          f"spec path: a kernel of the path was never launched: {counts}")
+    del hi, tp
+    free(torch)
+    return eng, counts
+
+
+def verify_rounding(torch, cfg, params, prompts, rounds: int = 4) -> dict:
+    """How far the verify's logits round from target-only decode's: the
+    same `rounds` windows of k random tokens scored by `decode_window`
+    (N = w * k rows) and by k `decode_step`s (N = w, the target-only
+    engine's call), each on its own copy of one prefilled dense cache.
+    Returns the largest logit difference, the rows whose argmax differs
+    and how many rows' top two decode logits lie within that difference
+    (a near tie that rounding can flip)."""
+    from repro_torch.models import api
+    from repro_torch.serving.state import DenseKVState, gather_slots
+
+    dev = torch.device("cuda")
+    w = len(prompts)
+    st = DenseKVState(cfg, w, 512, decode_batch=w, compact=True, device=dev)
+    for b, p in enumerate(prompts):
+        st.prefill(params, b, p)
+    idx = torch.arange(w, device=dev)
+    win, stp = gather_slots(st.cache, idx), gather_slots(st.cache, idx)
+    g = torch.Generator(device=dev).manual_seed(0)
+    d_max, flips, gaps = 0.0, 0, []
+    for _ in range(rounds):
+        window = torch.randint(0, cfg.vocab, (w, SPEC_K), generator=g, device=dev)
+        lw, win = api.decode_window(cfg, params, window, win)
+        ls = []
+        for j in range(SPEC_K):
+            logits, stp = api.decode_step(cfg, params, window[:, j:j + 1], stp)
+            ls.append(logits[:, -1])
+        lw, ls = lw.float(), torch.stack(ls, 1).float()
+        d_max = max(d_max, float((lw - ls).abs().max()))
+        flips += int((lw.argmax(-1) != ls.argmax(-1)).sum())
+        top2 = ls.topk(2, -1).values
+        gaps.append((top2[..., 0] - top2[..., 1]).flatten())
+    gaps = torch.cat(gaps)
+    return {"rows": int(gaps.numel()), "max_abs_logit_diff": d_max,
+            "argmax_differs": flips, "top2_gap_median": float(gaps.median()),
+            "top2_within_max_diff": int((gaps <= d_max).sum()),
+            "top2_tied": int((gaps == 0).sum())}
+
+
+def spec_breakdown_phase(torch, eng) -> None:
+    """Where one propose/verify iteration's time goes (4 slots,
+    100-token prompts): wall time of steady iterations, then one profiled
+    iteration for device time, busy share and kernels; the verify must run
+    the MLP's cluster tile and the norm kernels."""
+    import numpy as np
+
+    from repro_torch.serving.engine import Request
+
+    rng = np.random.default_rng(2)
+    for i in range(4):
+        eng.submit(Request(rid=1000 + i, prompt=rng.integers(0, eng.mcfg.vocab, 100)
+                           .astype(np.int32), max_new_tokens=200))
+    for _ in range(3):
+        eng.step()
+    n = 8
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        eng.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / n * 1e3
+    rec = profiled(torch, eng.step, need=("mlp_cluster_kernel", "rmsnorm"))
+    by_name = {k: t for k, (t, _) in rec.items()}
+    dev_ms = sum(by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    eng.run()
+    out = {"iteration_ms": step_ms, "device_ms_per_iteration": dev_ms,
+           "device_busy_share": dev_ms / step_ms,
+           "kernels_per_iteration": sum(c for _, c in rec.values()),
+           "top_kernels_ms": [[k[:60], v / 1e3] for k, v in top],
+           "own_kernels_ms": {k: v / 1e3 for k in OWN_KERNELS
+                              if (v := sum(t for name, t in by_name.items() if k in name))}}
+    print(json.dumps({"spec_breakdown": out, "arch": "smollm-135m", "k": SPEC_K}),
+          flush=True)
+    check(dev_ms > 0, "spec breakdown: the profiler saw no device time")
+    for k in ("mlp_cluster_kernel", "rmsnorm"):
+        check(any(k in name for name in by_name), f"spec breakdown: no {k}")
 
 
 def breakdown_phase(torch, eng, arch: str, need=(), forbid=()):
@@ -1846,6 +2384,8 @@ def main() -> int:
     recurrent_e2e_phase(torch, "rwkv6-3b", 4)
     recurrent_e2e_phase(torch, "recurrentgemma-2b", 3)
     int8_e2e_phase(torch, 4)
+    cluster_drill_phase(torch, 4)
+    spec_e2e_phase(torch, 4)
     norms = {"fused_rmsnorm": nk.RMSNORM,
              "fused_rmsnorm_residual": nk.RMSNORM_RESIDUAL}
     eng, counts, s = main_path_phase(
@@ -1906,6 +2446,13 @@ def main() -> int:
     breakdown_phase(torch, eng, "smollm-135m int8",
                     need=("mlp_cluster_kernel", "paged_split_kernel"),
                     forbid=("paged_tc_kernel", "mlp_partial_kernel"))
+    del eng
+    free(torch)
+    cluster_path_phase(torch, dict(norms, fused_mlp=mk.MLP, flash_attention=fk.FLASH,
+                                   paged_decode=fk.PAGED))
+    eng, _ = spec_path_phase(torch, dict(norms, fused_mlp=mk.MLP,
+                                         flash_attention=fk.FLASH))
+    spec_breakdown_phase(torch, eng)
     del eng
     free(torch)
 

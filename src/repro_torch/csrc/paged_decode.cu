@@ -37,6 +37,15 @@
 //     C call, merges the splits in split order.  So the output is
 //     bit-identical across launches of one plan.  With one split the
 //     block writes the output itself.
+//   * A NaN that a live position reads reaches the output, as in the plain
+//     version and the JAX engine, whose NaN guard depends on it.  fmaxf
+//     drops a NaN score from the running max, but its weight exp2(NaN -
+//     m) is NaN, so l and acc carry it; a NaN in V reaches acc through
+//     p * v.  The final division keeps a NaN sum (`denom`), and the
+//     combine skips only empty splits (l == 0), never a NaN one.  Masked
+//     positions are never read (zero-filled rows, -inf scores), so a NaN
+//     in the null page or past a length still leaves the output's bits
+//     unchanged.
 // The pool is read in its stored (P, ps, Hkv, hd) layout, one layer's
 // slice of the (L, P, ps, Hkv, hd) pool, through strides: no copy, no
 // transpose.  Any hd up to 4096: an hd that is not a multiple of 8 masks
@@ -75,6 +84,11 @@ constexpr int kMaxHd = 4096;    // widest head: column blocks of 1024 past 1024
 constexpr int kCombineThreads = 64;
 
 using mz::load8;
+
+// the softmax's denominator: a zero sum is clamped (a row with nothing
+// live gives 0), a NaN one kept, so that a NaN a live position read
+// reaches the output (fmaxf would drop it)
+__device__ __forceinline__ float denom(float l) { return isnan(l) ? l : fmaxf(l, 1e-30f); }
 
 struct Pool {
   long long sp, so, sh;   // element strides of page, offset, head (hd: 1)
@@ -476,7 +490,7 @@ paged_split_kernel(const T* __restrict__ q, const void* __restrict__ kp_raw,
     }
     const size_t bh = static_cast<size_t>(b) * h + h0 + gi;
     if (splits == 1) {
-      out[bh * hd + col0 + d] = mz::from_f<T>(a / fmaxf(lsum, 1e-30f));
+      out[bh * hd + col0 + d] = mz::from_f<T>(a / denom(lsum));
     } else {
       float* wp = ws + (bh * splits + split) * (hd + 2);
       wp[2 + col0 + d] = a;
@@ -708,7 +722,7 @@ paged_tc_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     const float l = half ? l1 : l0, m = half ? m1 : m0;
     const size_t bh = static_cast<size_t>(b) * h + h0 + row;
     if (splits == 1) {
-      const float inv = 1.f / fmaxf(l, 1e-30f);
+      const float inv = 1.f / denom(l);
 #pragma unroll
       for (int n = 0; n < NT; ++n)
         *reinterpret_cast<uint32_t*>(out + bh * HD + n * 8 + c4) =
@@ -732,14 +746,17 @@ template <typename T, int HD>
 int tc_smem_set[mz::kDevices] = {};
 
 // merges the splits' partials of one (slot, query head) in a fixed order:
-// the max over the splits (a fixed tree), each split's weight exp2(m - max)
-// (0 for an empty split, l = 0), then per d the weighted sums in split order
+// the max over the splits (a fixed tree), each split's weight exp2(m - max),
+// then per d the weighted sums in split order.  Only an empty split (l ==
+// 0, its acc never written) is left out: a split whose l or acc is NaN
+// enters every sum, so the NaN reaches the output.
 template <typename T>
 __global__ void __launch_bounds__(kCombineThreads)
 paged_combine_kernel(const float* __restrict__ ws, T* __restrict__ out, int hd,
                      int splits) {
-  extern __shared__ float w_s[];     // [2][splits]: weight, weight * l
+  extern __shared__ float w_s[];     // [2][splits]: weight, weight * l; then [splits] live
   __shared__ float red[kCombineThreads];
+  unsigned char* live_s = reinterpret_cast<unsigned char*>(w_s + 2 * splits);
   const int tid = threadIdx.x;
   const size_t bh = blockIdx.x;
   const float* wp = ws + bh * splits * (hd + 2);
@@ -755,7 +772,7 @@ paged_combine_kernel(const float* __restrict__ ws, T* __restrict__ out, int hd,
     }
 #pragma unroll
     for (int u = 0; u < U; ++u)
-      if (l[u] > 0.f) mx = fmaxf(mx, m[u]);
+      if (l[u] != 0.f) mx = fmaxf(mx, m[u]);
   }
   red[tid] = mx;
   __syncthreads();
@@ -767,9 +784,11 @@ paged_combine_kernel(const float* __restrict__ ws, T* __restrict__ out, int hd,
   mx = red[0];
   for (int s = tid; s < splits; s += kCombineThreads) {
     const float l = wp[s * (hd + 2) + 1];
-    const float f = l > 0.f ? exp2f(wp[s * (hd + 2)] - mx) : 0.f;
+    const bool live = l != 0.f;      // true for a NaN l
+    const float f = live ? exp2f(wp[s * (hd + 2)] - mx) : 0.f;
     w_s[s] = f;
-    w_s[splits + s] = f * l;
+    w_s[splits + s] = live ? f * l : 0.f;
+    live_s[s] = live;
   }
   __syncthreads();
   float lsum = 0.f;
@@ -783,9 +802,9 @@ paged_combine_kernel(const float* __restrict__ ws, T* __restrict__ out, int hd,
         x[u] = s0 + u < splits ? wp[(s0 + u) * (hd + 2) + 2 + d] : 0.f;
 #pragma unroll
       for (int u = 0; u < U; ++u)   // in split order; an empty split's acc is never used
-        if (s0 + u < splits && w_s[s0 + u] > 0.f) a = fmaf(w_s[s0 + u], x[u], a);
+        if (s0 + u < splits && live_s[s0 + u]) a = fmaf(w_s[s0 + u], x[u], a);
     }
-    out[bh * hd + d] = mz::from_f<T>(a / fmaxf(lsum, 1e-30f));
+    out[bh * hd + d] = mz::from_f<T>(a / denom(lsum));
   }
 }
 
@@ -868,6 +887,9 @@ bool tc_route(int dtype, int hd, bool vec) {
 // T: q's and out's type; the splits' partials merged by
 // paged_combine_kernel when there is more than one.  The int8 route
 // always takes the FMA kernel (its ring is float32).
+// dynamic shared memory of the combine: two floats and a live flag a split
+size_t combine_smem(int splits) { return splits * (2 * sizeof(float) + 1); }
+
 template <typename T, bool INT8>
 cudaError_t launch(const Call& c, cudaStream_t st) {
   cudaError_t e;
@@ -883,7 +905,7 @@ cudaError_t launch(const Call& c, cudaStream_t st) {
         default: e = launch_tc<T, 128>(c, st); break;
       }
       if (e != cudaSuccess || c.splits == 1) return e;
-      paged_combine_kernel<T><<<c.b * c.h, kCombineThreads, 2 * c.splits * sizeof(float), st>>>(
+      paged_combine_kernel<T><<<c.b * c.h, kCombineThreads, combine_smem(c.splits), st>>>(
           c.ws, static_cast<T*>(c.out), c.hd, c.splits);
       return cudaGetLastError();
     }
@@ -898,7 +920,7 @@ cudaError_t launch(const Call& c, cudaStream_t st) {
   else if (ln == 16) e = launch_ln<T, 16, INT8>(c, gm, nc, st);
   else e = launch_ln<T, 32, INT8>(c, gm, nc, st);
   if (e != cudaSuccess || c.splits == 1) return e;
-  paged_combine_kernel<T><<<c.b * c.h, kCombineThreads, 2 * c.splits * sizeof(float), st>>>(
+  paged_combine_kernel<T><<<c.b * c.h, kCombineThreads, combine_smem(c.splits), st>>>(
       c.ws, static_cast<T*>(c.out), c.hd, c.splits);
   return cudaGetLastError();
 }

@@ -3,7 +3,18 @@ synthetic requests, optionally driven by a Mozart deployment artifact.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
         [--smoke] [--policy deployment.json] [--device cuda|cpu] \
-        [--requests 8] [--max-new 16] [--max-batch 4] [--max-len 128]
+        [--requests 8] [--max-new 16] [--max-batch 4] [--max-len 128] \
+        [--replicas 2 --router round_robin --rate 4 --deadline-ms 2000 \
+         --chaos --chaos-seed 0] [--scenario specdec --k 4] [--specdec]
+
+`--replicas N` (N > 1) serves through a `ServingCluster` of N replicas
+on the device, fed by the seeded open-loop `LoadGenerator` at `--rate`
+requests a second (0: a burst), each request with a `--deadline-ms` SLO
+(0: none); `--chaos` replays `ChaosSchedule.generate(--chaos-seed)` over
+a horizon of max(requests x max-new, 64) cluster steps.  `--scenario
+specdec` serves through the live `SpecDecodeEngine` (draft: the first
+quarter of the target's layers, shared trunk); `--specdec` runs the
+uncached reference loop with a fresh draft of a quarter of the layers.
 
 `--policy` takes a `mozart-deployment/v1` artifact or a bare policy JSON
 and applies it as the JAX launcher does: flash_attention ->
@@ -18,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import time
+from typing import Any
 
 import numpy as np
 import torch
@@ -27,7 +39,10 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.policy import ExecutionPolicy, load_policy
 from repro_torch.models import api
 from repro_torch.models.config import ModelConfig
+from repro_torch.serving import cluster as cluster_mod
+from repro_torch.serving import resilience
 from repro_torch.serving.engine import Request, ServingEngine
+from repro_torch.serving.specdec import SPEC_K
 
 
 def apply_policy(pol: ExecutionPolicy, mcfg: ModelConfig, max_batch: int,
@@ -108,12 +123,11 @@ def apply_policy(pol: ExecutionPolicy, mcfg: ModelConfig, max_batch: int,
                   "mesh_tp": 1}, lines
 
 
-def build_engine(mcfg: ModelConfig, *, policy: ExecutionPolicy | None = None,
-                 max_batch: int = 4, max_len: int = 128, seed: int = 0,
-                 device=None, kv_quant: bool | str = False, paged: bool = True,
-                 log=print) -> ServingEngine:
-    """Apply `policy` (if any) to `mcfg`, draw seeded weights on `device`
-    and build the engine (`kv_quant`, `paged`: the engine's switches)."""
+def prepare(mcfg: ModelConfig, *, policy: ExecutionPolicy | None = None,
+            max_batch: int = 4, seed: int = 0, device=None, log=print
+            ) -> tuple[ModelConfig, Any, dict]:
+    """Apply `policy` (if any) to `mcfg` and draw seeded weights on
+    `device`: (model config, params, engine kwargs: device and batch)."""
     dev = resolve_device(device)
     eng_kwargs = {"max_batch": max_batch}
     if policy is not None:
@@ -123,9 +137,19 @@ def build_engine(mcfg: ModelConfig, *, policy: ExecutionPolicy | None = None,
         for ln in lines:
             log(ln)
         eng_kwargs.pop("mesh_tp")
-    params = api.init_params(mcfg, seed, device=dev)
-    return ServingEngine(mcfg, params, max_len=max_len, device=dev,
-                         kv_quant=kv_quant, paged=paged, **eng_kwargs)
+    return mcfg, api.init_params(mcfg, seed, device=dev), dict(eng_kwargs, device=dev)
+
+
+def build_engine(mcfg: ModelConfig, *, policy: ExecutionPolicy | None = None,
+                 max_batch: int = 4, max_len: int = 128, seed: int = 0,
+                 device=None, kv_quant: bool | str = False, paged: bool = True,
+                 log=print) -> ServingEngine:
+    """Apply `policy` (if any) to `mcfg`, draw seeded weights on `device`
+    and build the engine (`kv_quant`, `paged`: the engine's switches)."""
+    mcfg, params, eng_kwargs = prepare(mcfg, policy=policy, max_batch=max_batch,
+                                       seed=seed, device=device, log=log)
+    return ServingEngine(mcfg, params, max_len=max_len, kv_quant=kv_quant,
+                         paged=paged, **eng_kwargs)
 
 
 def serve(engine: ServingEngine, requests: list[Request]) -> dict:
@@ -162,6 +186,98 @@ def serve(engine: ServingEngine, requests: list[Request]) -> dict:
             "occupancy": float(np.mean(occ)) if occ else 0.0}
 
 
+def serve_cluster(mcfg: ModelConfig, params, *, n_replicas: int,
+                  router: str = cluster_mod.ROUTER, rate: float = 0.0,
+                  deadline_ms: float = 0.0, chaos_horizon: int = 0,
+                  chaos_seed: int = resilience.CHAOS_SEED, n_requests: int = 8,
+                  max_new: int = 16, seed: int = 0, log=print, **engine_kwargs) -> dict:
+    """Serve `n_requests` from the seeded `LoadGenerator` (Poisson at
+    `rate`, deadline `deadline_ms`, 0 = none) through a `ServingCluster` of
+    `n_replicas` engines on one set of weights; `chaos_horizon` > 0
+    replays `ChaosSchedule.generate(chaos_seed)` over that many steps (the
+    CLI's `--chaos` passes max(requests x max-new, 64)).  Returns the
+    cluster's `summary` with "seconds", "tokens_per_s", the cluster, its
+    requests and the chaos script ("chaos", None without one)."""
+    deadline_bands = ((deadline_ms / 1e3, deadline_ms / 1e3),) if deadline_ms > 0 else None
+    cl = cluster_mod.ServingCluster(mcfg, params, n_replicas=n_replicas, router=router,
+                                    **engine_kwargs)
+    lg = cluster_mod.LoadGenerator(n_requests=n_requests, rate=rate, vocab=mcfg.vocab,
+                                   seed=seed, max_new_tokens=max_new,
+                                   deadline_bands=deadline_bands)
+    schedule = None
+    if chaos_horizon > 0:
+        schedule = resilience.ChaosSchedule.generate(
+            chaos_seed, n_replicas=n_replicas, horizon=chaos_horizon)
+        log(f"[serve] chaos script: "
+            f"{[(e.step, e.kind, e.replica) for e in schedule.events]}")
+    trace = lg.schedule()
+    t0 = time.perf_counter()
+    summary = cl.drive(trace, chaos=schedule)
+    if cl.replicas[0].device.type == "cuda":
+        torch.cuda.synchronize(cl.replicas[0].device)
+    dt = time.perf_counter() - t0
+    agg = summary["aggregate"]
+    log(f"[serve] cluster x{n_replicas} router={cl.router.policy} rate={rate:g}: "
+        f"{agg['tokens_out']} tokens in {dt:.2f}s "
+        f"({agg['tokens_out'] / max(dt, 1e-9):.1f} tok/s aggregate), ttft p50/p99 "
+        f"{agg['ttft_p50_ms']:.1f}/{agg['ttft_p99_ms']:.1f}ms, tpot p50/p99 "
+        f"{agg['tpot_p50_ms']:.2f}/{agg['tpot_p99_ms']:.2f}ms")
+    log(f"[serve]   goodput {agg['goodput_tokens']} tokens "
+        f"({agg['goodput_tokens'] / max(dt, 1e-9):.1f} tok/s), deadlines met/missed "
+        f"{agg['deadline_met']}/{agg['deadline_missed']}, shed={agg['shed']} "
+        f"poisoned={agg['poisoned']} quarantined={agg['quarantined']} "
+        f"restarts={agg['restarts']} unrouted={agg['n_unrouted']}")
+    for row in summary["per_replica"]:
+        log(f"[serve]   replica {row['replica']}: {row['tokens_out']} tokens, "
+            f"{row['prefills']} prefills, {row['preemptions']} preemptions")
+    return dict(summary, seconds=dt, tokens_per_s=agg["tokens_out"] / max(dt, 1e-9),
+                cluster=cl, requests=[r for _, r in trace], chaos=schedule)
+
+
+def _specdec_demo(mcfg: ModelConfig, params, args, rng, dev, log=print) -> None:
+    """The uncached reference loop: a fresh draft of a quarter of the
+    target's layers, one 12-token prompt."""
+    from repro_torch.models import transformer
+    from repro_torch.serving.specdec import spec_decode_greedy
+
+    if mcfg.family != "transformer":
+        raise SystemExit("specdec demo targets transformer archs")
+    dcfg = mcfg.replace(n_layers=max(1, mcfg.n_layers // 4))
+    dparams = api.init_params(dcfg, args.seed + 1, device=dev)
+    prompt = rng.integers(0, mcfg.vocab, size=12).astype(np.int32)
+    t0 = time.perf_counter()
+    out, st = spec_decode_greedy(
+        lambda t: transformer.forward(mcfg, params, t),
+        lambda t: transformer.forward(dcfg, dparams, t), prompt, k=args.k,
+        max_new_tokens=args.max_new, device=dev)
+    dt = time.perf_counter() - t0
+    log(f"[serve] specdec: {len(out)} tokens in {dt:.2f}s; "
+        f"accept={st.acceptance_rate:.2f} tokens/iter={st.tokens_per_iteration:.2f}")
+
+
+def serve_specdec(mcfg: ModelConfig, params, requests: list[Request], *, k: int = SPEC_K,
+                  log=print, **engine_kwargs) -> dict:
+    """The live spec-decode scenario: a `SpecDecodeEngine` with the
+    target's first quarter of layers as a shared-trunk draft serves
+    `requests`; returns `serve`'s summary with the acceptance, tokens an
+    iteration and the engine."""
+    from repro_torch.serving.specdec import SpecDecodeEngine, shared_trunk_draft
+
+    if mcfg.family != "transformer":
+        raise SystemExit("--scenario specdec needs a transformer arch")
+    dcfg, dparams = shared_trunk_draft(mcfg, params, max(1, mcfg.n_layers // 4))
+    eng = SpecDecodeEngine(mcfg, params, dcfg, dparams, k=k, **engine_kwargs)
+    log(f"[serve] scenario=spec_decode: live spec-decode, k={k}, draft=shared-trunk "
+        f"{dcfg.n_layers}/{mcfg.n_layers} layers")
+    s = serve(eng, requests)
+    st = eng.spec_stats
+    log(f"[serve] specdec-live: {s['tokens_out']} tokens in {s['seconds']:.2f}s "
+        f"({s['tokens_per_s']:.1f} tok/s); accept={st.acceptance_rate:.2f} "
+        f"tokens/iter={st.tokens_per_iteration:.2f} ({s['decode_steps']} verify steps)")
+    return dict(s, acceptance=st.acceptance_rate,
+                tokens_per_iteration=st.tokens_per_iteration, engine=eng)
+
+
 def main(argv: list[str] | None = None) -> None:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--arch", required=True, choices=configs.ARCH_IDS)
@@ -184,12 +300,60 @@ def main(argv: list[str] | None = None) -> None:
                         "dense rectangles of a non-paged engine (--no-paged)")
     p.add_argument("--no-paged", action="store_true",
                    help="dense KV rectangles instead of the page pool")
+    p.add_argument("--replicas", type=int, default=1,
+                   help="serving-cluster replica count (> 1: a ServingCluster "
+                        "on the one device)")
+    p.add_argument("--router", default=cluster_mod.ROUTER,
+                   choices=cluster_mod.ROUTER_POLICIES,
+                   help="cluster routing policy")
+    p.add_argument("--rate", type=float, default=0.0,
+                   help="open-loop Poisson arrival rate in req/s for the "
+                        "cluster path (0 = closed-loop burst)")
+    p.add_argument("--deadline-ms", type=float, default=0.0,
+                   help="per-request SLO deadline in ms (0 = none); "
+                        "infeasible requests are shed at admission")
+    p.add_argument("--chaos", action="store_true",
+                   help="replay a seeded fault script (kill/restart/stall/"
+                        "nan) against the cluster while it serves")
+    p.add_argument("--chaos-seed", type=int, default=resilience.CHAOS_SEED,
+                   help="seed of the chaos script")
+    p.add_argument("--specdec", action="store_true",
+                   help="speculative decoding demo (uncached reference loop; "
+                        "see --scenario specdec for the live engine)")
+    p.add_argument("--k", type=int, default=SPEC_K,
+                   help="spec-decode draft window")
+    p.add_argument("--scenario", default="", choices=("", "specdec"),
+                   help="serving scenario: specdec serves through the live "
+                        "SpecDecodeEngine (shared-trunk draft)")
     args = p.parse_args(argv)
 
     mcfg = configs.get_smoke_config(args.arch) if args.smoke \
         else configs.get_config(args.arch)
     pol = load_policy(args.policy, args.policy_network) if args.policy \
         else None
+    if args.specdec or args.scenario or args.replicas > 1:
+        mcfg, params, eng_kwargs = prepare(mcfg, policy=pol, max_batch=args.max_batch,
+                                           seed=args.seed, device=args.device)
+        rng = np.random.default_rng(args.seed)
+        if args.specdec:
+            _specdec_demo(mcfg, params, args, rng, eng_kwargs["device"])
+        elif args.scenario == "specdec":
+            reqs = [Request(rid=i, prompt=rng.integers(0, mcfg.vocab, size=int(
+                rng.integers(4, 12))).astype(np.int32), max_new_tokens=args.max_new)
+                for i in range(args.requests)]
+            serve_specdec(mcfg, params, reqs, k=args.k, max_len=args.max_len,
+                          **eng_kwargs)
+        else:
+            serve_cluster(mcfg, params, n_replicas=args.replicas, router=args.router,
+                          rate=args.rate, deadline_ms=args.deadline_ms,
+                          chaos_horizon=max(args.requests * args.max_new, 64)
+                          if args.chaos else 0, chaos_seed=args.chaos_seed,
+                          n_requests=args.requests, max_new=args.max_new,
+                          seed=args.seed, max_len=args.max_len,
+                          kv_quant={"0": False, "1": True}.get(args.kv_quant,
+                                                               args.kv_quant),
+                          paged=not args.no_paged, **eng_kwargs)
+        return
     eng = build_engine(mcfg, policy=pol, max_batch=args.max_batch,
                        max_len=args.max_len, seed=args.seed,
                        device=args.device,

@@ -61,3 +61,12 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int, *,
 
 def decode_step(cfg: ModelConfig, params: Params, tokens, cache):
     return family_module(cfg).decode_step(cfg, params, tokens, cache)
+
+
+def decode_window(cfg: ModelConfig, params: Params, tokens, cache):
+    """Verify a (B, W) token window in one cached forward (spec-decode);
+    plain-attention transformers only: `transformer.decode_window`."""
+    if cfg.family != "transformer":
+        raise NotImplementedError(
+            f"decode_window is transformer-only, not {cfg.family}")
+    return transformer.decode_window(cfg, params, tokens, cache)

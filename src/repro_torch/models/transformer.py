@@ -421,13 +421,15 @@ def _decode_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 def _decode_layers(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    index: torch.Tensor, caches: list, layer_attn):
-    """The decode layer loop that the dense and the paged steps share.
-    tokens (B, 1); index (B,) long, the positions before the step; caches:
-    per segment, a dict of tensors stacked by layer ({"k", "v"}, and the
-    int8 pool's scales).  layer_attn(p, h, lc, rope) writes the token's
-    k/v into one layer's cache lc (the dict's per-layer views) and returns
-    the attention output (B, 1, d).  Returns the (B, 1, V) logits."""
-    rope = rope_tables(index[:, None], cfg.hd, cfg.rope_theta)
+    """The decode layer loop that the dense, the paged and the window
+    steps share.  tokens (B, S); index (B,) long, the positions before a
+    one-token step, or (B, S), the tokens' positions; caches: per
+    segment, a dict of tensors stacked by layer ({"k", "v"}, and the int8
+    pool's scales).  layer_attn(p, h, lc, rope) writes the tokens' k/v
+    into one layer's cache lc (the dict's per-layer views) and returns
+    the attention output (B, S, d).  Returns the (B, S, V) logits."""
+    rope = rope_tables(index[:, None] if index.dim() == 1 else index, cfg.hd,
+                       cfg.rope_theta)
     x = embed_tokens(cfg, params, tokens)
     for seg, seg_cache in zip(params["segments"], caches):
         kind, sp = _segment(seg)
@@ -462,6 +464,61 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
     logits = _decode_layers(cfg, params, tokens, index, cache["segments"], attn)
     return logits, {"segments": cache["segments"], "index": raw + 1}
+
+
+def window_supported(cfg: ModelConfig) -> bool:
+    """Configs `decode_window` handles: plain linear-cache attention."""
+    return cfg.family == "transformer" and not cfg.use_mla and not cfg.window
+
+
+def _window_attn(cfg: ModelConfig, p: Params, x: torch.Tensor, K: torch.Tensor,
+                 V: torch.Tensor, pos: torch.Tensor, rope):
+    """W-token cached attention (the spec-decode verify): x (B, W, d) at
+    positions pos (B, W); position p writes cache slot p of K/V (B, C,
+    Hkv, hd) in place and attends causally to every slot <= p.  Einsum
+    attention, as in the JAX package (no Pallas kernel there)."""
+    bsz, w = x.shape[:2]
+    dt = cfg.tdtype
+    q, k, v = _roped_qkv(cfg, p, x, rope)
+    rows = torch.arange(bsz, device=x.device)[:, None]
+    K[rows, pos] = k.to(K.dtype)
+    V[rows, pos] = v.to(V.dtype)
+    n_rep = cfg.n_heads // cfg.kv_heads
+    Kr = K.to(dt).repeat_interleave(n_rep, dim=2) if n_rep > 1 else K.to(dt)
+    Vr = V.to(dt).repeat_interleave(n_rep, dim=2) if n_rep > 1 else V.to(dt)
+    scores = torch.einsum("bqhd,bchd->bhqc", q, Kr).float() / math.sqrt(cfg.hd)
+    mask = torch.arange(K.shape[1], device=x.device)[None, None, :] <= pos[:, :, None]
+    scores = scores.masked_fill(~mask[:, None], -1e30)
+    probs = torch.softmax(scores, dim=-1).to(dt)
+    o = torch.einsum("bhqc,bchd->bqhd", probs, Vr)
+    return o.reshape(bsz, w, cfg.q_dim) @ p["wo"].to(dt)
+
+
+def decode_window(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                  cache: Params):
+    """Verify W speculated tokens in one cached forward.  tokens (B, W)
+    at positions index .. index + W - 1, which must lie inside the cache
+    (the spec-decode engine keeps W positions of headroom); their k/v are
+    written into the cache in place, and the logits of every window
+    position come back, (B, W, V), with the cache's index + W.  Norms and
+    MLP take the same dispatch as `decode_step` (at B * W rows).  The
+    caller rewinds by resetting the index: slots past it are masked out
+    of every later attention."""
+    if not window_supported(cfg):
+        raise NotImplementedError(
+            f"decode_window: plain-attention transformer only (family="
+            f"{cfg.family}, mla={cfg.use_mla}, window={cfg.window})")
+    check_supported(cfg)
+    raw = torch.as_tensor(cache["index"], device=tokens.device)
+    bsz, w = tokens.shape
+    index = (raw.expand(bsz) if raw.dim() == 0 else raw).long()
+    pos = index[:, None] + torch.arange(w, device=tokens.device)[None]
+
+    def attn(p, h, lc, rope):
+        return _window_attn(cfg, p, h, lc["k"], lc["v"], pos, rope)
+
+    logits = _decode_layers(cfg, params, tokens, pos, cache["segments"], attn)
+    return logits, {"segments": cache["segments"], "index": raw + w}
 
 
 def paged_decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,

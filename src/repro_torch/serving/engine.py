@@ -52,6 +52,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 
 from . import paged as paged_kv
+from .resilience import logits_finite
 from .sampling import sample
 from .state import DenseKVState, PagedKVState, RecurrentState
 
@@ -97,11 +98,6 @@ def _kv_quant_mode(kv_quant, paged: bool, mcfg: ModelConfig) -> str:
     return ""
 
 
-def logits_finite(logits: torch.Tensor) -> bool:
-    """True iff every logit is finite — the decode-output health guard."""
-    return bool(torch.isfinite(logits).all())
-
-
 class ServingEngine:
     def __init__(self, mcfg: ModelConfig, params: Params, *,
                  max_batch: int = 4, max_len: int = 512,
@@ -137,21 +133,8 @@ class ServingEngine:
         self.shed_deadlines = shed_deadlines
         self.health = {"nan_detected": False}
         self._est_step_s = 0.0        # EWMA of step wall time
-        if self.paged:
-            self.state = PagedKVState(
-                mcfg, max_batch, max_len, decode_batch=self.decode_batch,
-                compact=self.compact, page_size=page_size,
-                num_pages=num_pages, bucket_min=bucket_min, device=self.device,
-                quantized=self.kv_quant_mode == "paged")
-        elif mcfg.family == "transformer":
-            self.state = DenseKVState(
-                mcfg, max_batch, max_len, decode_batch=self.decode_batch,
-                compact=self.compact, device=self.device,
-                quantized=self.kv_quant_mode == "dense")
-        else:
-            self.state = RecurrentState(
-                mcfg, max_batch, max_len, decode_batch=self.decode_batch,
-                device=self.device)
+        self.state = self._new_state(page_size=page_size, num_pages=num_pages,
+                                     bucket_min=bucket_min)
         self.pool = self.state.pool
         self.buckets = self.state.buckets
         self.capacity = self.state.capacity
@@ -163,6 +146,35 @@ class ServingEngine:
                       "tokens_out": 0, "slot_occupancy": [],
                       "preemptions": 0, "rejected": 0,
                       "shed": 0, "nan_steps": 0}
+
+    def _new_state(self, *, page_size: int, num_pages: int | None, bucket_min: int):
+        """The decode state this engine serves from: the page pool, dense
+        KV rectangles or recurrent state."""
+        mcfg = self.mcfg
+        if self.paged:
+            return PagedKVState(
+                mcfg, self.max_batch, self.max_len, decode_batch=self.decode_batch,
+                compact=self.compact, page_size=page_size,
+                num_pages=num_pages, bucket_min=bucket_min, device=self.device,
+                quantized=self.kv_quant_mode == "paged")
+        if mcfg.family == "transformer":
+            return DenseKVState(
+                mcfg, self.max_batch, self.max_len, decode_batch=self.decode_batch,
+                compact=self.compact, device=self.device,
+                quantized=self.kv_quant_mode == "dense")
+        return RecurrentState(
+            mcfg, self.max_batch, self.max_len, decode_batch=self.decode_batch,
+            device=self.device)
+
+    @property
+    def cache(self):
+        """The live model-state tree (None for paged engines), owned by
+        the decode state; the chaos injection and tests read it."""
+        return self.state.cache
+
+    @property
+    def queue_full(self) -> bool:
+        return self.queue_bound > 0 and len(self.queue) >= self.queue_bound
 
     # -- request lifecycle --------------------------------------------------
     def submit(self, req: Request) -> bool:

@@ -48,6 +48,23 @@ def _leaf_pairs(dst, src):
         yield dst, src
 
 
+def gather_slots(cache, idx: torch.Tensor):
+    """The dense sub-cache of slots `idx` (long, (w,)): segment leaves
+    (L, B, C, ...) gathered on the batch axis, "index" (B,) with them
+    (copies; the JAX `_gather_slots`)."""
+    return {"segments": tree_map(lambda t: t.index_select(1, idx), cache["segments"]),
+            "index": cache["index"].index_select(0, idx)}
+
+
+def scatter_slots(cache, sub, idx: torch.Tensor, n: int) -> None:
+    """Write the first `n` lanes of sub-cache `sub` back into slots
+    idx[:n] of `cache`, in place (the JAX `_scatter_slots`; padding lanes
+    past n repeat a real slot and are not written)."""
+    for full, part in _leaf_pairs(cache["segments"], sub["segments"]):
+        full.index_copy_(1, idx[:n], part[:, :n].to(full.dtype))
+    cache["index"].index_copy_(0, idx[:n], sub["index"][:n].to(cache["index"].dtype))
+
+
 class DenseKVState:
     """Transformer dense KV rectangles {"segments": [{"k", "v": (L, B, C,
     Hkv, hd)}], "index": (B,)}, C the ring length of a sliding-window
@@ -147,20 +164,13 @@ class DenseKVState:
         if self.compact and self.decode_batch < self.max_batch:
             sel = active + [active[0]] * (self.decode_batch - len(active))
             idx = torch.as_tensor(sel, dtype=torch.long, device=self.device)
-            sub = {"segments": tree_map(lambda t: t.index_select(1, idx),
-                                        self.cache["segments"]),
-                   "index": self.cache["index"].index_select(0, idx)}
             logits, new = api.decode_step(
                 self.mcfg, params,
                 torch.as_tensor(next_token[np.asarray(sel)], dtype=torch.long,
-                                device=self.device), sub)
+                                device=self.device), gather_slots(self.cache, idx))
             # padding lanes repeat active[0] with identical results: only
             # the active lanes are written back
-            n = len(active)
-            for full, part in _leaf_pairs(self.cache["segments"],
-                                          new["segments"]):
-                full.index_copy_(1, idx[:n], part[:, :n])
-            self.cache["index"].index_copy_(0, idx[:n], new["index"][:n])
+            scatter_slots(self.cache, new, idx, len(active))
             return logits, _lane_map(sel)
         logits, new = api.decode_step(
             self.mcfg, params,

@@ -8,10 +8,16 @@
 * A float32 emulation of the kernels' order -- each split walks its live
   positions in tiles with an online max and sum in base 2, writes a
   partial (m, l, acc), empty splits l = 0, and the combine merges the
-  partials in split order with weights 2^(m - max) -- against the plain
+  partials in split order with weights 2^(m - max), skipping only the
+  empty ones (a NaN partial enters every sum) -- against the plain
   `paged_decode_attention_ref`, the JAX `paged_decode_attention_ref` and
   `paged_decode_attention_hp` in interpret mode, at split counts 1, 2 and
   5, lengths that end mid-page and on a page edge, head dims 80, 96, 256.
+* A NaN in a live page (K, V, both, or an int8 page's scale) makes the
+  slot's output non-finite on every head at split counts 1, 2 and 8, as
+  in the plain version and the JAX ref, and leaves the other slots'
+  outputs unchanged; a NaN in the null page or past each length changes
+  no bit of the emulation's output.
 * The launch wrapper takes the widened head dims and both dtypes at
   validation and hands the kernel the plan (the launcher is replaced by a
   recorder here: the CUDA call itself runs only on the card).
@@ -125,21 +131,24 @@ def _split_emulation(q, kp, vp, tables, lengths, pages, rows):
                     pg = tables[bi, pos // ps].long()
                     kk, vv = kp[pg, pos % ps, g], vp[pg, pos % ps, g]
                     sc = (kk @ q[bi, 0, hh]) * sl2
-                    mx = max(m, float(sc.max()))
+                    # fmaxf: a NaN score stays out of the max, but its
+                    # weight 2^(NaN - mx) puts the NaN into l and acc
+                    mx = max(m, float(sc.nan_to_num(nan=-math.inf).max()))
                     corr = 2.0 ** (m - mx) if m > -math.inf else 0.0
                     p = torch.exp2(sc - mx)
                     l = l * corr + float(p.sum())
                     acc = acc * corr + p @ vv
                     m = mx
                 parts.append((m, l, acc))
-            mx = max(m for m, l, _ in parts if l > 0)
+            # only an empty split (l == 0) is left out: a NaN l is live
+            mx = max(m for m, l, _ in parts if l != 0)
             lsum, a = 0.0, torch.zeros(hd)
             for m, l, acc in parts:               # split order
-                if l > 0:
+                if l != 0:
                     f = 2.0 ** (m - mx)
                     lsum += l * f
                     a = a + f * acc
-            out[bi, 0, hh] = a / max(lsum, 1e-30)
+            out[bi, 0, hh] = a / (lsum if math.isnan(lsum) else max(lsum, 1e-30))
     return out
 
 
@@ -195,6 +204,83 @@ def test_split_counts_give_one_function(splits):
     got = _split_emulation(q, kp, vp, tables, lengths, pages, rows=4)
     torch.testing.assert_close(got, paged_decode_attention_ref(q, kp, vp, tables, lengths),
                                **TOL)
+
+
+# -- a NaN in a live page reaches the output; a masked one does not -------------
+
+def _poison_case(seed=3):
+    """2 slots (lengths 21 and 30) over 8 pages of 4, 8 / 2 heads of 32;
+    slot 0's second page and slot 1's pages are live."""
+    b, h, hkv, hd, ps, npp = 2, 8, 2, 32, 4, 8
+    arrays = _case(seed, b, h, hkv, hd, ps, npp, [21, 30])
+    return tuple(torch.from_numpy(a) for a in arrays)
+
+
+def _nonfinite_heads(o):
+    """(slots, heads) mask of heads with a non-finite value: o (B, 1, H, hd)."""
+    return (~torch.isfinite(o[:, 0])).any(-1)
+
+
+@pytest.mark.parametrize("pages", [8, 4, 1], ids=["1split", "2splits", "8splits"])
+@pytest.mark.parametrize("what", ["k", "v", "kv"])
+def test_nan_in_a_live_page_reaches_the_slot(what, pages):
+    q, kp, vp, tables, lengths = _poison_case()
+    clean = _split_emulation(q, kp, vp, tables, lengths, pages, rows=4)
+    live = int(tables[0, 1])                    # slot 0's second page
+    if "k" in what:
+        kp[live] = float("nan")
+    if "v" in what:
+        vp[live] = float("nan")
+    got = _split_emulation(q, kp, vp, tables, lengths, pages, rows=4)
+    assert _nonfinite_heads(got)[0].all()
+    assert torch.equal(got[1], clean[1])
+    # the plain version and the JAX ref agree: the whole slot, every head
+    for ref in (paged_decode_attention_ref(q, kp, vp, tables, lengths),
+                torch.tensor(np.asarray(jax_paged_ref(
+                    *(jnp.asarray(t.numpy()) for t in (q, kp, vp, tables, lengths)))))):
+        assert torch.equal(_nonfinite_heads(ref), _nonfinite_heads(got))
+
+
+@pytest.mark.parametrize("pages", [8, 4, 1], ids=["1split", "2splits", "8splits"])
+def test_nan_in_an_int8_page_scale_reaches_the_slot(pages):
+    """The int8 route runs the same split-and-combine over codes times
+    their page's scale, the current token's k/v from beside the pool."""
+    from repro_torch.kernels.flash_attention.ref import paged_decode_attention_int8_ref
+
+    q, kp, vp, tables, lengths = _poison_case(5)
+    g = torch.Generator().manual_seed(0)
+    kq, vq = (torch.randint(-127, 128, kp.shape, generator=g, dtype=torch.int8)
+              for _ in range(2))
+    ks, vs = (torch.rand((kp.shape[0], 1, kp.shape[2], 1), generator=g) * 0.02 + 1e-3
+              for _ in range(2))
+    kn, vn = (torch.randn((2, kp.shape[2], kp.shape[3]), generator=g) for _ in range(2))
+
+    def run():
+        rows = torch.arange(2)
+        last = lengths.long() - 1
+        pg, off = tables.long()[rows, last // 4], last % 4
+        kd, vd = kq.float() * ks, vq.float() * vs
+        kd[pg, off], vd[pg, off] = kn, vn
+        return _split_emulation(q, kd, vd, tables, lengths, pages, rows=4)
+
+    clean = run()
+    ks[int(tables[0, 1])] = float("nan")
+    got = run()
+    assert _nonfinite_heads(got)[0].all() and torch.equal(got[1], clean[1])
+    ref = paged_decode_attention_int8_ref(q, kq, vq, ks, vs, tables, lengths, kn, vn)
+    assert torch.equal(_nonfinite_heads(ref), _nonfinite_heads(got))
+
+
+@pytest.mark.parametrize("pages", [8, 4, 1], ids=["1split", "2splits", "8splits"])
+def test_nan_in_the_null_page_or_past_a_length_changes_no_bit(pages):
+    q, kp, vp, tables, lengths = _poison_case(9)
+    clean = _split_emulation(q, kp, vp, tables, lengths, pages, rows=4)
+    kp[0], vp[0] = float("nan"), float("nan")   # the null page
+    for i, ln in enumerate(lengths.tolist()):   # past each length, in its last page
+        last = int(tables[i, (ln - 1) // 4])
+        kp[last, ln % 4 or 4:], vp[last, ln % 4 or 4:] = float("nan"), float("nan")
+    got = _split_emulation(q, kp, vp, tables, lengths, pages, rows=4)
+    assert torch.equal(got, clean)
 
 
 # -- the wrapper: validation and the plan it launches ---------------------------
