@@ -56,7 +56,12 @@ exit, no result line) when a check fails:
    float32, the int8 route through a page's scales; K, V and both): that
    slot's output non-finite on every head, the other slots' bits
    unchanged, and a NaN in the null page or past each length changing no
-   bit (`nan_paged_rows`); kernel,
+   bit (`nan_paged_rows`); then the rows at the variant archs' served
+   shapes (`variant_rows`: flash and paged decode at qwen2-vl-2b's 12 / 2
+   heads of 128, its int8 row in `Q8_ROWS`, the MLP tile at N 4 at
+   h2o-danube-1.8b's, qwen2-vl-2b's and deepseek-v3-671b's widths,
+   moe_mlp over deepseek-v3's 256 experts at capacities 8 and 16, one
+   call's extra device memory within 64 MB); kernel,
    plain-version and library times from CUDA events and from the
    profiler's device time, and the least time the card could take (bytes
    over 3.35 TB/s or operations over the type's peak).  Every bfloat16
@@ -87,6 +92,14 @@ exit, no result line) when a check fails:
    requests requeued, none unrouted (`cluster_drill_phase`); and a
    `SpecDecodeEngine` (4-layer target, 1-layer shared-trunk draft, k 4)
    emits the target-only engine's greedy tokens (`spec_e2e_phase`).
+   qwen2-vl-2b (4 layers; M-RoPE) serves one trace through the plain
+   impls, the kernel impls (pool route) and the kernel impls with the
+   gather route, and deepseek-v3-671b (2 layers: one dense, one MoE over
+   256 experts; weights drawn on the card) through the plain and the
+   kernel impls (flash off: it refuses MLA's v), and h2o-danube-1.8b (2
+   layers) with two prompts past its window of 4096 through the plain
+   and the kernel impls: equal greedy tokens (`qwen2_vl_e2e_phase`,
+   `danube_e2e_phase`, `deepseek_e2e_phase`).
 4. Main paths, each at full width in bfloat16 with random weights from a
    seed, through `repro_torch.launch.serve`: smollm-135m with a policy
    that turns all three fusion flags on (12 requests), rwkv6-3b and
@@ -112,7 +125,17 @@ exit, no result line) when a check fails:
    dense KV) with a 7-layer shared-trunk draft, k 4, 8 requests through
    `serve_specdec`, beside the target-only engine on the same requests
    (tokens/s, the bf16 share of equal streams) and `high_tar_pair`'s
-   acceptance and tokens/s (`spec_path_phase`).  Launch counts are set to 0 just before each path
+   acceptance and tokens/s (`spec_path_phase`); then the variant archs,
+   weights drawn on the card (`variant_path_phases`): h2o-danube-1.8b
+   (24 layers, 6 prompts of 16-300 tokens and 2 of 4200 and 4600, past
+   its 4096 window; windowed flash once a layer a prefill), qwen2-vl-2b
+   (28 layers, the pool route, 8 requests; paged_decode once a layer a
+   decode step; then 4 requests with int8 KV), deepseek-v3-671b cut to
+   4 of its 61 layers (3 dense, 1 MoE; flash off; moe_mlp once a MoE
+   layer and fused_mlp once a dense layer or shared expert a prefill and
+   a decode step) and whisper-base (6 + 6 layers, 8 requests with 1500
+   frames each; no kernel of the port may launch).  Launch counts are
+   set to 0 just before each path
    and read just after; every kernel of the path must have run, each
    recurrent layer's kernel and each MoE layer's moe_mlp exactly once a
    prefill and once a decode step, and smollm's paged_decode once a layer
@@ -135,7 +158,10 @@ exit, no result line) when a check fails:
    (rglru_scan_kernel) and not the step kernel.  Spec-decode: one
    propose/verify iteration (4 slots) timed and profiled; the verify must
    run the MLP's cluster tile and the norm kernels
-   (`spec_breakdown_phase`).
+   (`spec_breakdown_phase`).  The variant paths' decode steps and one
+   prefill each (danube's 4600 tokens, qwen2-vl's and deepseek's 300)
+   are broken down the same way; whisper's step must run none of the
+   port's kernels.
 
 The last two lines are one JSON object listing the kernels and one with
 the device: `{"ok": true, "device": {"platform": "gpu", ...}}`.
@@ -151,6 +177,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM
+L2_BYTES = 50e6                           # H100 SXM L2
 PEAK_FLOPS = {"bfloat16": 989e12,         # dense tensor-core bf16
               "float16": 989e12,          # dense tensor-core fp16
               "float32": 67e12}           # float32 outside the tensor cores
@@ -235,7 +262,8 @@ COLS_MLP = ((7168, 2048), (8192, 2048))
 Q8_BF16_RTOL = 2.0 ** -8
 Q8_BF16_ATOL = 1e-5
 Q8_ROWS = (("smollm-135m", DECODE_N, H, HKV, HD, None),
-           ("internlm2-1.8b", 8, 16, 8, 128, PD_LONG_LEN))
+           ("internlm2-1.8b", 8, 16, 8, 128, PD_LONG_LEN),
+           ("qwen2-vl-2b", DECODE_N, 12, 2, 128, None))
 # the fifth path: smollm-135m with int8 KV on the pool route; its Zipf
 # prompt bands cross the 64 - 512 prefill buckets, the longest band the
 # most likely (Zipf weights 1/(i+1) in band order)
@@ -258,6 +286,25 @@ FINISH_REASONS = ("eos", "max_new_tokens", "length", "rejected", "capacity", "sh
 # the spec-decode path: smollm-135m's 30 layers, the CLI's shared-trunk
 # draft of a quarter of them (7 layers), k 4
 SPEC_K = 4
+# the variant archs' served paths (bf16, full width, weights drawn on the card):
+# h2o-danube-1.8b's prompts, 6 of 16-300 tokens and 2 past its window of
+# 4096 (the ring wraps, the window cuts), and its max_len; qwen2-vl-2b's
+# attention (H, Hkv, hd: group 6); the MLP tile's served widths (arch,
+# d, F, the longest prompt's N); deepseek-v3-671b's experts (E, d, F), the moe_mlp capacities of
+# a 4-slot decode step and of a 300-token prefill (`transformer.capacity`),
+# and its depth on one card (its 3 dense layers and 1 MoE layer of 61:
+# 671 B parameters do not fit 80 GB); whisper-base's encoder window (30
+# s of frames) and max_len
+DANUBE_LENS = (16, 57, 120, 188, 251, 300, 4200, 4600)
+DANUBE_MAX_LEN = 4640
+QVL_ATTN = (12, 2, 128)
+VARIANT_MLP = (("h2o-danube-1.8b", 2560, 6912, DANUBE_LENS[-1]),
+               ("qwen2-vl-2b", 1536, 8960, 300), ("deepseek-v3-671b", 7168, 2048, 300))
+DS_MOE = (256, 7168, 2048)
+DS_CAPS = (8, 16)
+DS_LAYERS = 4
+WHISPER_ENC = 1500
+WHISPER_MAX_LEN = 256
 
 
 def check(ok: bool, msg: str) -> None:
@@ -541,7 +588,11 @@ def kernel_phase(torch, F):
         A bfloat16 MLP or flash row, and every paged_decode and wkv6 row,
         must give bit-identical outputs on a second launch (each sums in a
         fixed order, no atomics).  `ops_dtype`: the type the arithmetic
-        runs in, where it is not `dtype` (its peak bounds the operations)."""
+        runs in, where it is not `dtype` (its peak bounds the operations).
+        A profiler reading of a call that moves more than four times the
+        L2 can not beat the byte bound: one that does (a window that lost
+        events) is taken again, up to PROFILE_TRIES times, else recorded as
+        not measured (None) and named in `invalid_readings`."""
         tol = tol or TOL.get(dtype, TOL_F32[name])
         e, ok = err(out, ref, tol)
         check(ok, f"{name} {shape} {dtype}: kernel disagrees with its plain "
@@ -570,10 +621,22 @@ def kernel_phase(torch, F):
         row.update(extra or {})
         if same is not None:
             row["bit_identical"] = same
-        row["kernel_device_ms"] = device_ms(torch, kern, min(iters, 10))
-        row["plain_device_ms"] = device_ms(torch, plain, min(iters, 10))
-        row["library_device_ms"] = None if lib is None else \
-            device_ms(torch, lib, min(iters, 10))
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        invalid = []
+        for key, fn in (("kernel_device_ms", kern), ("plain_device_ms", plain),
+                        ("library_device_ms", lib)):
+            ms = None
+            for _ in range(PROFILE_TRIES if fn is not None else 0):
+                ms = device_ms(torch, fn, min(iters, 10))
+                if ms is None or nbytes <= 4 * L2_BYTES or ms >= byte_ms:
+                    break
+                invalid.append([key, ms])
+                print(f"[smoke] {name} {shape} {dtype}: {key} {ms:.4g} below the "
+                      f"byte bound {byte_ms:.4g}: not a valid reading", flush=True)
+                ms = None
+            row[key] = ms
+        if invalid:
+            row["invalid_readings"] = invalid
         rows.append(row)
         print(json.dumps(row), flush=True)
 
@@ -906,6 +969,7 @@ def kernel_phase(torch, F):
     column_split_rows(torch, record, rand, dts, F)
     int8_paged_rows(torch, record, rand)
     nan_paged_rows(torch, rand)
+    variant_rows(torch, record, rand, F)
     return rows
 
 
@@ -1835,18 +1899,474 @@ def recurrent_path_phase(torch, arch: str, launchers, name: str):
     return eng, counts
 
 
+def variant_rows(torch, record, rand, F) -> None:
+    """Kernel rows at the shapes the variant archs' served paths give them,
+    bfloat16: flash attention at qwen2-vl-2b's 12 / 2 heads of 128 (group
+    6) over a 300-token prompt, and at h2o-danube-1.8b's 32 / 8 heads of
+    80 over its two prompts past the window of 4096 (the rows past the
+    window held to `window_rows_err`); paged decode at qwen2-vl-2b's heads
+    over 4 slots of 16-332 positions (the int8 route's row is `Q8_ROWS`');
+    the MLP tile at h2o-danube-1.8b's, qwen2-vl-2b's and deepseek-v3's
+    widths (d 7168: the column-split route), at N 4 (a decode step) and
+    at the N of each path's longest prompt; moe_mlp over deepseek-v3's
+    256 experts (d 7168, F 2048) at a decode step's capacity (8) and a
+    300-token prefill's (16), the latter's extra peak device memory held
+    to MOE_EXTRA_MB.  The plain moe_mlp runs 32 experts a call (float32
+    copies of all 256 experts' weights would take 45 GB); each expert's
+    product is independent, so the result is the same function's."""
+    from repro_torch.kernels import _mlp_plan as mplan
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.fused_mlp import kernel as mk
+    from repro_torch.kernels.fused_mlp.ref import fused_mlp_ref
+    from repro_torch.kernels.moe_mlp import kernel as ek
+    from repro_torch.kernels.moe_mlp.ref import moe_mlp_ref
+
+    bf, es = torch.bfloat16, 2
+    sdpa = tuple(int(p) for p in torch.__version__.split(".")[:2]) >= (2, 5)
+    h, hkv, hd = QVL_ATTN
+    s = WIDE_FLASH_S
+    q, k, v = rand((1, s, h, hd), bf), rand((1, s, hkv, hd), bf), rand((1, s, hkv, hd), bf)
+
+    def lib(i):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+            enable_gqa=True)
+
+    out = fk.flash_attention_cuda(q, k, v)
+    record("flash_attention", [1, s, h, hkv, hd], "bfloat16", out,
+           flash_attention_ref(q, k, v), lambda i: fk.flash_attention_cuda(q, k, v),
+           lambda i: flash_attention_ref(q, k, v), lib if sdpa else None,
+           (2 * s * h * hd + 2 * s * hkv * hd) * es, 4 * hd * s * (s + 1) // 2 * h,
+           extra={"arch": "qwen2-vl-2b"})
+    flash_other_plan(torch, q, k, v, None, out)
+    del q, k, v, out
+    h, hkv, hd, w, _ = DANUBE
+    for s in DANUBE_LENS[-2:]:
+        q, k, v = rand((1, s, h, hd), bf), rand((1, s, hkv, hd), bf), rand((1, s, hkv, hd), bf)
+        pos = torch.arange(s, device="cuda")
+        allowed = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - w)
+
+        def wlib(i, q=q, k=k, v=v, allowed=allowed):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=allowed,
+                enable_gqa=True)
+
+        out = fk.flash_attention_cuda(q, k, v, window=w)
+        rel = window_rows_err(q, k, v, w, out)
+        check(rel <= TOL["bfloat16"], f"flash {[1, s, h, hkv, hd, w]}: rows past the "
+              f"window off by {rel:.3g} of their RMS (tol {TOL['bfloat16']})")
+        pairs = w * (w + 1) // 2 + (s - w) * w
+        record("flash_attention", [1, s, h, hkv, hd, w], "bfloat16", out,
+               flash_attention_ref(q, k, v, window=w),
+               lambda i, q=q, k=k, v=v: fk.flash_attention_cuda(q, k, v, window=w),
+               lambda i, q=q, k=k, v=v: flash_attention_ref(q, k, v, window=w),
+               wlib if sdpa else None, (2 * s * h * hd + 2 * s * hkv * hd) * es,
+               4 * hd * pairs * h, iters=5,
+               extra={"arch": "h2o-danube-1.8b", "window_rows_rms_err": rel})
+        del q, k, v, out, allowed
+    free(torch)
+    h, hkv, hd = QVL_ATTN
+    prng = torch.Generator().manual_seed(9)
+    lens = torch.randint(16, 333, (DECODE_N,), generator=prng)
+    tables, pages = paged_tables(torch, lens.tolist(), 512 // PAGE, prng)
+    q = rand((DECODE_N, 1, h, hd), bf)
+    kp, vp = rand((pages, PAGE, hkv, hd), bf), rand((pages, PAGE, hkv, hd), bf)
+    paged_row(torch, record, "bfloat16", q, kp, vp, tables,
+              lens.to("cuda", torch.int32), extra={"arch": "qwen2-vl-2b"})
+    del q, kp, vp
+    for arch, d, f, n_long in VARIANT_MLP:
+        wg, wi, wo = rand((d, f), bf, d ** -0.5), rand((d, f), bf, d ** -0.5), \
+            rand((f, d), bf, f ** -0.5)
+        for n in (DECODE_N, n_long):
+            plan = mplan.mlp_plan(1, n, d, f, "bfloat16")
+            xm = rand((n, d), bf)
+            record("fused_mlp", [n, d, f], "bfloat16", mk.fused_mlp_cuda(xm, wg, wi, wo),
+                   fused_mlp_ref(xm, wg, wi, wo),
+                   lambda i, xm=xm: mk.fused_mlp_cuda(xm, wg, wi, wo),
+                   lambda i, xm=xm: fused_mlp_ref(xm, wg, wi, wo),
+                   lambda i, xm=xm: (F.silu(xm @ wg) * (xm @ wi)) @ wo,
+                   (2 * n * d + 3 * d * f) * es, 6 * n * d * f, iters=30 if n <= 512 else 10,
+                   extra={"arch": arch, "column_groups": plan.groups,
+                          "group_cols": plan.gcols})
+            del xm
+        del wg, wi, wo
+    free(torch)
+    e, d, f = DS_MOE
+    ewg, ewi = (rand((e, d, f), bf, d ** -0.5) for _ in range(2))
+    ewo = rand((e, f, d), bf, f ** -0.5)
+    chunk = 32
+
+    def plain(xe):
+        return torch.cat([moe_mlp_ref(xe[j:j + chunk], ewg[j:j + chunk], ewi[j:j + chunk],
+                                      ewo[j:j + chunk]) for j in range(0, e, chunk)])
+
+    for cap in DS_CAPS:
+        plan = mplan.launch_plan("moe_mlp", e, cap, d, f, "bfloat16", True)
+        xe = rand((e, cap, d), bf)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = ek.moe_mlp_cuda(xe, ewg, ewi, ewo)
+        torch.cuda.synchronize()
+        extra_mb = (torch.cuda.max_memory_allocated() - base - out.numel() * es) / 1e6
+        print(f"[smoke] moe_mlp deepseek-v3 E {e} C {cap}: plan {plan}; extra peak "
+              f"device memory of one call {extra_mb:.3f} MB (limit {MOE_EXTRA_MB} MB)",
+              flush=True)
+        check(extra_mb <= MOE_EXTRA_MB, f"moe_mlp E {e} C {cap}: {extra_mb} MB of "
+              f"device memory beside the output")
+        record("moe_mlp", [e, cap, d, f], "bfloat16", out, plain(xe),
+               lambda i, xe=xe: ek.moe_mlp_cuda(xe, ewg, ewi, ewo),
+               lambda i, xe=xe: plain(xe),
+               lambda i, xe=xe: torch.bmm(F.silu(torch.bmm(xe, ewg)) * torch.bmm(xe, ewi), ewo),
+               (2 * e * cap * d + 3 * e * d * f) * es, 6 * e * cap * d * f, iters=3,
+               extra={"arch": "deepseek-v3-671b", "extra_peak_mb": extra_mb,
+                      "capacity_rule": f"{cap} slots for "
+                                       f"{'a decode step of 4' if cap == DS_CAPS[0] else '300 tokens'}"})
+        del xe, out
+    del ewg, ewi, ewo
+    free(torch)
+
+
+def qwen2_vl_e2e_phase(torch, n_layers: int = 4) -> None:
+    """qwen2-vl-2b at full width (M-RoPE, QKV bias, 12 / 2 heads of 128),
+    `n_layers` layers, float32, weights drawn on the card: one 8-request
+    trace through the plain impls (einsum attention, dense MLP, plain
+    norms: decode by the gather route), the kernel impls (flash prefill,
+    decode from the page pool, fused MLP and norms) and the kernel impls
+    with einsum attention (the gather route beside the fused MLP and
+    norms).  Greedy tokens must be equal, paged_decode must launch once
+    a layer a decode step on the pool route and never on the others, and
+    the first decode's logits by the pool route must be within 1e-4 of
+    the gather route's after the same paged prefill."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import api
+    from repro_torch.serving import paged
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    base = configs.get_config("qwen2-vl-2b").replace(
+        n_layers=n_layers, dtype="float32", param_dtype="float32")
+    kern = dict(mlp_impl="fused", norm_impl="fused")
+    cfgs = {"plain": base.replace(attn_impl="einsum"),
+            "kernels": base.replace(attn_impl="flash", **kern),
+            "gather": base.replace(attn_impl="einsum", **kern)}
+    params = api.init_params(base, 1, device="cuda")
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, base.vocab, size=int(n)).astype(np.int32)
+               for n in rng.integers(16, 301, size=8)]
+    toks, launches = {}, {}
+    for name, cfg in cfgs.items():
+        eng = ServingEngine(cfg, params, max_batch=4, max_len=512, device="cuda")
+        check(eng.paged, f"qwen2-vl e2e {name}: not paged")
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=16) for i, p in enumerate(prompts)]
+        before = fk.PAGED.launches
+        st = serve(eng, reqs)
+        launches[name] = (fk.PAGED.launches - before, st["decode_steps"])
+        toks[name] = [r.out_tokens for r in reqs]
+        check(all(r.finish_reason == "max_new_tokens" for r in reqs),
+              f"qwen2-vl e2e {name}: a request did not finish with max_new_tokens")
+        del eng
+    p0 = torch.as_tensor(prompts[0], device="cuda").long()[None]
+    plen = len(prompts[0])
+    bucket = paged.bucket_for(plen, paged.prefill_buckets(512))
+    first = {}
+    for route in ("kernels", "gather"):
+        pool = paged.PagePool(base, 1, 512, page_size=PAGE, device="cuda")
+        check(pool.ensure(0, plen + 1), "qwen2-vl e2e: page pool too small")
+        tp = torch.zeros((1, bucket), dtype=torch.long, device="cuda")
+        tp[0, :plen] = p0[0]
+        last = paged.paged_prefill(cfgs["plain"], params, tp, plen, pool.segments,
+                                   pool.table_row(0, bucket // PAGE), PAGE)
+        nxt = last[0, -1].argmax().view(1, 1)
+        first[route] = paged.paged_decode(cfgs[route], params, nxt, pool.segments,
+                                          pool.tables[[0]],
+                                          np.asarray([plen], np.int32))[0, -1]
+    route_diff = float((first["kernels"] - first["gather"]).abs().max())
+    same = {n: sum(a == b for a, b in zip(toks[n], toks["plain"])) for n in cfgs}
+    print(f"[smoke] e2e qwen2-vl-2b f32 {n_layers} layers full width: request streams "
+          f"equal to the plain impls' {same} of 8; first decode logits pool route vs "
+          f"gather route max |diff| {route_diff:.3g}; paged_decode launches "
+          f"(launches, decode steps) {launches}", flush=True)
+    check(toks["kernels"] == toks["plain"] == toks["gather"],
+          "qwen2-vl e2e: the kernels changed greedy tokens")
+    check(route_diff <= 1e-4, f"qwen2-vl e2e: pool-route decode logits differ from "
+          f"the gather route's by {route_diff}")
+    n, steps = launches["kernels"]
+    check(n == n_layers * steps and launches["plain"][0] == launches["gather"][0] == 0,
+          f"qwen2-vl e2e: paged_decode launches {launches}")
+    del params
+    free(torch)
+
+
+def danube_e2e_phase(torch, n_layers: int = 2) -> None:
+    """h2o-danube-1.8b at full width (32 / 8 heads of 80, window 4096),
+    `n_layers` layers, float32: one 4-request trace whose two longest
+    prompts (`DANUBE_LENS`' last two) run past the window, 16 new tokens,
+    through the plain impls (einsum attention, dense MLP, plain norms)
+    and the kernel impls (windowed flash prefill, fused MLP and norms),
+    both over the dense KV ring of the window.  Greedy tokens must be
+    equal and flash must launch once a layer a prefill on the kernel
+    impls only."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import api
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    base = configs.get_config("h2o-danube-1.8b").replace(
+        n_layers=n_layers, dtype="float32", param_dtype="float32")
+    cfgs = {"plain": base.replace(attn_impl="einsum", mlp_impl="dense", norm_impl="ref"),
+            "kernels": base.replace(attn_impl="flash", mlp_impl="fused", norm_impl="fused")}
+    params = api.init_params(base, 1, device="cuda")
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, base.vocab, size=int(n)).astype(np.int32)
+               for n in (*rng.integers(16, 301, size=2), *DANUBE_LENS[-2:])]
+    toks, launches = {}, {}
+    for name, cfg in cfgs.items():
+        eng = ServingEngine(cfg, params, max_batch=4, max_len=DANUBE_MAX_LEN, device="cuda")
+        check(eng.state.kind == "dense" and eng.cache["segments"][0]["k"].shape[2] ==
+              base.window, f"danube e2e {name}: not the dense KV ring of the window")
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=16) for i, p in enumerate(prompts)]
+        before = fk.FLASH.launches
+        st = serve(eng, reqs)
+        launches[name] = (fk.FLASH.launches - before, st["prefills"])
+        toks[name] = [r.out_tokens for r in reqs]
+        check(all(r.finish_reason == "max_new_tokens" for r in reqs),
+              f"danube e2e {name}: a request did not finish with max_new_tokens")
+        del eng
+    same = sum(a == b for a, b in zip(toks["plain"], toks["kernels"]))
+    print(f"[smoke] e2e h2o-danube-1.8b f32 {n_layers} layers full width, prompts "
+          f"{[len(p) for p in prompts]} (window {base.window}): {same}/4 request streams "
+          f"equal; flash launches (launches, prefills) {launches}", flush=True)
+    check(toks["kernels"] == toks["plain"], "danube e2e: the kernels changed greedy tokens")
+    n, prefills = launches["kernels"]
+    check(n == n_layers * prefills and launches["plain"][0] == 0,
+          f"danube e2e: flash launches {launches}")
+    del params
+    free(torch)
+
+
+def deepseek_e2e_phase(torch, n_layers: int = 2) -> None:
+    """deepseek-v3-671b at full width (MLA, 256 experts top-8, a shared
+    expert), cut to `n_layers` layers (one dense, the rest MoE), float32,
+    weights drawn on the card (~57 GB): one 4-request trace (16-64
+    tokens, 8 new) through the plain impls (einsum attention, dense MLP,
+    batched expert products, plain norms) and the kernel impls (fused
+    MLP, moe_mlp, fused norms; flash attention stays off: it refuses
+    MLA's v, as JAX's does), both on the card over dense latent KV.
+    Greedy tokens must be equal, the first prefill's logits within 1e-3,
+    and moe_mlp must launch once a MoE layer a prefill and a decode step
+    on the kernel impls only."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels.moe_mlp import kernel as ek
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import api
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    base = configs.get_config("deepseek-v3-671b").replace(
+        n_layers=n_layers, first_dense_layers=1, dtype="float32", param_dtype="float32")
+    t0 = time.perf_counter()
+    params = api.init_params(base, 1, device="cuda")
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, base.vocab, size=int(n)).astype(np.int32)
+               for n in rng.integers(16, 65, size=4)]
+    toks, first, moe_runs, secs = {}, {}, {}, {}
+    for name, cfg in (("plain", base),
+                      ("kernels", base.replace(mlp_impl="fused", norm_impl="fused"))):
+        eng = ServingEngine(cfg, params, max_batch=4, max_len=128, device="cuda")
+        check(eng.state.kind == "dense", f"deepseek e2e {name}: not the dense state")
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=8) for i, p in enumerate(prompts)]
+        before = ek.MOE.launches
+        st = serve(eng, reqs)
+        secs[name] = st["seconds"]
+        moe_runs[name] = (ek.MOE.launches - before,
+                          (n_layers - 1) * (st["prefills"] + st["decode_steps"]))
+        toks[name] = [r.out_tokens for r in reqs]
+        check(all(r.finish_reason == "max_new_tokens" for r in reqs),
+              f"deepseek e2e {name}: a request did not finish with max_new_tokens")
+        p0 = torch.as_tensor(prompts[0], device="cuda").long()[None]
+        first[name] = api.prefill(cfg, params, {"tokens": p0}, 128)[0][0, -1]
+        del eng
+    same = sum(a == b for a, b in zip(toks["plain"], toks["kernels"]))
+    diff = float((first["plain"] - first["kernels"]).abs().max())
+    print(f"[smoke] e2e deepseek-v3-671b f32 {n_layers} layers full width: {same}/4 "
+          f"request streams equal (kernels vs plain), first-prefill logits max |diff| "
+          f"{diff:.3g}; moe_mlp launches (launches, MoE layers x (prefills + decode "
+          f"steps)) {moe_runs} (weights drawn on the card in {draw_s:.1f}s; served in "
+          f"{secs['plain']:.1f}s plain, {secs['kernels']:.1f}s kernels)", flush=True)
+    check(toks["plain"] == toks["kernels"], "deepseek e2e: the kernels changed greedy tokens")
+    check(diff <= 1e-3, f"deepseek e2e: first-prefill logits differ by {diff}")
+    check(moe_runs["plain"][0] == 0 and moe_runs["kernels"][0] == moe_runs["kernels"][1],
+          f"deepseek e2e: moe_mlp launches {moe_runs}")
+    del params, first
+    free(torch)
+
+
+def variant_path_phases(torch, launchers) -> dict:
+    """The variant archs' served paths at full width in bfloat16, weights drawn on
+    the card, through the serve launcher (`main_path_phase`):
+    h2o-danube-1.8b (24 layers, dense KV ring of 4096) with 6 prompts of
+    16-300 tokens and 2 of 4200-4600, so the ring wraps and the window
+    cuts; qwen2-vl-2b (28 layers, the paged pool route), 8 prompts of
+    16-300 tokens, then a short int8 KV run; deepseek-v3-671b cut to
+    `DS_LAYERS` of 61 layers (its 3 dense layers and 1 MoE layer; flash
+    off); each with its launch counts checked and a decode step broken
+    down.  Then whisper-base (`whisper_path_phase`).  Returns the launch
+    counts by path."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    paths = {}
+    norms = {k: launchers[k] for k in ("fused_rmsnorm", "fused_rmsnorm_residual")}
+    mlp = {"fused_mlp": launchers["fused_mlp"]}
+    eng, counts, s = main_path_phase(
+        torch, "h2o-danube-1.8b", dict(norms, **mlp, flash_attention=fk.FLASH), 8,
+        lens=DANUBE_LENS, max_len=DANUBE_MAX_LEN)
+    cfg = eng.mcfg
+    check(eng.state.kind == "dense" and eng.cache["segments"][0]["k"].shape[2] == cfg.window,
+          "h2o-danube-1.8b: not the dense KV ring of its window")
+    check(counts["flash_attention"] == cfg.n_layers * s["prefills"],
+          f"h2o-danube-1.8b: flash launched {counts['flash_attention']} times, "
+          f"expected {cfg.n_layers} x {s['prefills']} prefills")
+    paths["h2o-danube-1.8b"] = counts
+    breakdown_phase(torch, eng, "h2o-danube-1.8b", need=("mlp_cluster_kernel",),
+                    forbid=("mlp_partial_kernel",))
+    prefill_breakdown_phase(torch, eng, "h2o-danube-1.8b", DANUBE_LENS[-1])
+    del eng
+    free(torch)
+    eng, counts, s = main_path_phase(
+        torch, "qwen2-vl-2b", dict(norms, **mlp, flash_attention=fk.FLASH,
+                                   paged_decode=fk.PAGED), 8)
+    check(eng.paged and counts["paged_decode"] == eng.mcfg.n_layers * s["decode_steps"],
+          f"qwen2-vl-2b: paged_decode launched {counts['paged_decode']} times, expected "
+          f"{eng.mcfg.n_layers} x {s['decode_steps']} decode steps")
+    paths["qwen2-vl-2b"] = counts
+    breakdown_phase(torch, eng, "qwen2-vl-2b",
+                    need=("mlp_cluster_kernel", "paged_tc_kernel"),
+                    forbid=("mlp_partial_kernel", "paged_split_kernel"))
+    prefill_breakdown_phase(torch, eng, "qwen2-vl-2b", 300)
+    del eng
+    free(torch)
+    before = fk.PAGED.launches
+    eng, counts, s = main_path_phase(
+        torch, "qwen2-vl-2b", dict(norms, **mlp, flash_attention=fk.FLASH,
+                                   paged_decode_int8=fk.PAGED_INT8), 4,
+        kv_quant=True)
+    want = eng.mcfg.n_layers * s["decode_steps"]
+    check(eng.kv_quant_mode == "paged" and counts["paged_decode_int8"] == want,
+          f"qwen2-vl-2b int8: launches {counts}, int8 paged_decode expected {want}")
+    check(fk.PAGED.launches == before, "qwen2-vl-2b int8: the bfloat16 paged_decode ran")
+    paths["qwen2-vl-2b int8"] = counts
+    del eng
+    free(torch)
+    eng, counts, s = main_path_phase(
+        torch, "deepseek-v3-671b", dict(norms, **mlp, moe_mlp=launchers["moe_mlp"]), 8,
+        n_layers=DS_LAYERS, flash=False)
+    cfg = eng.mcfg
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    steps = s["prefills"] + s["decode_steps"]
+    for name, want in (("moe_mlp", n_moe * steps),
+                       ("fused_mlp", (cfg.first_dense_layers + n_moe) * steps)):
+        check(counts[name] == want, f"deepseek-v3-671b: {name} launched {counts[name]} "
+              f"times, expected {want}")
+    check(eng.state.kind == "dense" and set(eng.cache["segments"][0]) == {"latent"},
+          "deepseek-v3-671b: not the dense latent KV")
+    paths["deepseek-v3-671b"] = counts
+    breakdown_phase(torch, eng, "deepseek-v3-671b", need=("mlp_cluster_kernel",),
+                    forbid=("mlp_partial_kernel",))
+    prefill_breakdown_phase(torch, eng, "deepseek-v3-671b", 300, share="mlp_",
+                            need=("mlp_cluster_kernel",),
+                            forbid=("flash_tc_kernel", "flash_fwd_kernel"))
+    del eng
+    free(torch)
+    paths["whisper-base"] = whisper_path_phase(torch, launchers)
+    return paths
+
+
+def whisper_path_phase(torch, launchers) -> dict:
+    """whisper-base at full width (6 encoder and 6 decoder layers), bf16,
+    weights drawn on the card, through the serve launcher with the
+    three-flag policy (whisper has no hook for any: the policy only logs),
+    an encoder window of `WHISPER_ENC` frames (30 s): 8 requests with
+    `workload.synthetic_frames` of that many frames and prompts of 4-64
+    tokens, 32 new tokens each.  No hand-written kernel may launch."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.launch.policy import load_policy
+    from repro_torch.launch.serve import build_engine, serve
+    from repro_torch.serving import workload
+    from repro_torch.serving.engine import Request
+
+    cfg = configs.get_config("whisper-base")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = build_engine(cfg, policy=load_policy(smoke_policy("whisper-base")), max_batch=4,
+                       max_len=WHISPER_MAX_LEN, enc_len=WHISPER_ENC, seed=0, device="cuda",
+                       log=lambda s: print(s, flush=True))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(eng.state.kind == "cross_attn" and eng.state.enc_len == WHISPER_ENC,
+          "whisper-base: not the cross-attention state over its window")
+    check((eng.mcfg.attn_impl, eng.mcfg.mlp_impl, eng.mcfg.norm_impl) ==
+          ("auto", "dense", "ref"), "whisper-base: the policy changed an impl")
+    rng = np.random.default_rng(0)
+
+    def reqs(n, max_new):
+        return [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=int(p))
+                        .astype(np.int32), max_new_tokens=max_new,
+                        frames=workload.synthetic_frames(rng, WHISPER_ENC, cfg.d_model))
+                for i, p in enumerate(rng.integers(4, 65, size=n))]
+
+    serve(eng, reqs(2, 4))                                 # warm-up
+    for ln in launchers.values():
+        ln.launches = 0
+    rs = reqs(8, 32)
+    s = serve(eng, rs)
+    counts = {name: ln.launches for name, ln in launchers.items()}
+    print(f"[smoke] main path whisper-base {cfg.n_enc_layers}+{cfg.n_layers}L bf16 "
+          f"(cross_attn state, enc_len "
+          f"{WHISPER_ENC}): {s['tokens_out']} tokens, {s['prefills']} prefills, "
+          f"{s['decode_steps']} decode steps in {s['seconds']:.3f}s = "
+          f"{s['tokens_per_s']:.1f} tok/s; TTFT p50 {s['ttft_p50_ms']:.1f} ms, TPOT p50 "
+          f"{s['tpot_p50_ms']:.2f} ms; launches {counts}; weights drawn and engine "
+          f"built in {build_s:.1f}s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    print(json.dumps({"main_path": s, "arch": "whisper-base", "launches": counts,
+                      "build_engine_s": build_s, "state": eng.state.kind}), flush=True)
+    check(all(r.finish_reason == "max_new_tokens" and len(r.out_tokens) == 32 for r in rs),
+          "whisper-base: a request did not finish with 32 tokens")
+    check(s["nan_steps"] == 0 and not eng.health["nan_detected"], "whisper-base: non-finite logits")
+    check(not any(counts.values()), f"whisper-base: a hand-written kernel launched: {counts}")
+    breakdown_phase(torch, eng, "whisper-base", forbid=OWN_KERNELS)
+    del eng
+    free(torch)
+    return counts
+
+
 def free(torch) -> None:
     import gc
     gc.collect()
     torch.cuda.empty_cache()
 
 
-def smoke_policy(arch: str) -> Path:
+def smoke_policy(arch: str, flash: bool = True) -> Path:
     """A policy JSON for `arch` that turns the three fusion flags on (batch
-    4, tp 1), written under build/; returns its path."""
+    4, tp 1; `flash` False leaves the attention group unfused, so only
+    fused_mlp and fused_norm are on), written under build/; returns its
+    path."""
     pol = {"network": arch, "interval_s": 1e-3, "operators": [
         {"group": "norm1+qkv_proj+attention", "batch": 4, "tp": 1,
-         "memory": "HBM3", "chiplet": "H100", "fused": True},
+         "memory": "HBM3", "chiplet": "H100", "fused": flash},
         {"group": "norm2+mlp", "batch": 4, "tp": 1, "memory": "HBM3",
          "chiplet": "H100", "fused": True}]}
     path = ROOT / "build" / "smoke_policy.json"
@@ -1857,14 +2377,14 @@ def smoke_policy(arch: str) -> Path:
 
 def main_path_phase(torch, arch: str, launchers, n_requests: int,
                     n_layers: int | None = None, kv_quant: bool = False,
-                    bands=None):
+                    bands=None, lens=None, flash: bool = True, max_len: int = 512):
     """`arch` (bfloat16, random weights from a seed; cut to `n_layers`
     layers where given) through the serve launcher's own functions, with
-    a policy that turns the three fusion flags on; every kernel in
-    `launchers` must launch.  `kv_quant`: the engine's int8 KV switch;
-    `bands`: prompt-length bands of the port's Zipf workload generator
-    (else prompts of 16-300 tokens).  Returns (engine, launch counts,
-    summary)."""
+    a policy that turns the three fusion flags on (`flash` False: all but
+    flash attention); every kernel in `launchers` must launch.
+    `kv_quant`: the engine's int8 KV switch; `bands`: prompt-length bands
+    of the port's Zipf workload generator, `lens`: the prompts' lengths
+    (else `n_requests` prompts of 16-300 tokens).  Returns (engine, launch counts, summary)."""
     import resource
 
     import numpy as np
@@ -1874,25 +2394,33 @@ def main_path_phase(torch, arch: str, launchers, n_requests: int,
     from repro_torch.launch.serve import build_engine, serve
     from repro_torch.serving import workload
 
-    path = smoke_policy(arch)
+    from repro_torch.serving.engine import Request
+
+    path = smoke_policy(arch, flash)
     cfg = configs.get_config(arch)
     if n_layers is not None:
         cfg = cfg.replace(n_layers=n_layers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eng = build_engine(cfg, policy=load_policy(path), max_batch=4, max_len=512,
+    eng = build_engine(cfg, policy=load_policy(path), max_batch=4, max_len=max_len,
                        seed=0, device="cuda", kv_quant=kv_quant,
                        log=lambda s: print(s, flush=True))
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     host_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
-    check(eng.mcfg.attn_impl == "flash" and eng.mcfg.mlp_impl == "fused"
+    check((eng.mcfg.attn_impl == "flash") == flash and eng.mcfg.mlp_impl == "fused"
           and eng.mcfg.norm_impl == "fused", "policy did not turn the kernels on")
     rng = np.random.default_rng(0)
     serve(eng, _requests(rng, cfg.vocab, 2, 16, 40, 4))   # warm-up: library handles
-    reqs = _requests(rng, cfg.vocab, n_requests, 16, 300, 32) if bands is None \
-        else workload.zipf_mix_requests(rng, n_requests, cfg.vocab, bands=bands,
-                                        max_new_tokens=32)
+    if lens is not None:
+        reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=int(n))
+                        .astype(np.int32), max_new_tokens=32)
+                for i, n in enumerate(lens)]
+    elif bands is None:
+        reqs = _requests(rng, cfg.vocab, n_requests, 16, 300, 32)
+    else:
+        reqs = workload.zipf_mix_requests(rng, n_requests, cfg.vocab, bands=bands,
+                                          max_new_tokens=32)
     for ln in launchers.values():
         ln.launches = 0
     s = serve(eng, reqs)
@@ -2212,11 +2740,33 @@ def spec_breakdown_phase(torch, eng) -> None:
         check(any(k in name for name in by_name), f"spec breakdown: no {k}")
 
 
+def op_breakdown(torch, fn, n: int, top: int = 8) -> list:
+    """The PyTorch ops with the most device time (of the kernels each
+    launches itself) in one profiler window around fn(), `n` steps, by op
+    and input shapes: [[op, shapes, device ms a step, calls a step], ...];
+    empty when the window recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages(group_by_input_shape=True):
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append([e.key, str(e.input_shapes)[:160], us / n / 1e3, e.count / n])
+    return sorted(rows, key=lambda r: -r[2])[:top]
+
+
 def breakdown_phase(torch, eng, arch: str, need=(), forbid=()):
     """Where a decode step's time goes: the wall time of steady decode
     steps (4 slots, 100-token prompts), then one profiled window for the
-    device's busy time, kernel count and heaviest kernels a step.  Every
-    kernel named in `need` must show in the window, none in `forbid`."""
+    device's busy time, kernel count and heaviest kernels a step, and one
+    for the ops with the most device time (`op_breakdown`).  Every kernel
+    named in `need` must show in the window, none in `forbid`."""
     import numpy as np
 
     from repro_torch.serving.engine import Request
@@ -2240,8 +2790,10 @@ def breakdown_phase(torch, eng, arch: str, need=(), forbid=()):
         for _ in range(n_prof):
             eng.step()
 
-    # at most PROFILE_TRIES windows: 11 + 4 * 5 steps, within the 40 tokens
+    # at most PROFILE_TRIES windows and the ops' window: 11 + 4 * 6 steps,
+    # within the 40 tokens
     rec = profiled(torch, steps, need=need)
+    ops = op_breakdown(torch, steps, n_prof)
     by_name = {k: t for k, (t, _) in rec.items()}
     n_kern = sum(n for _, n in rec.values())
     dev_ms = sum(by_name.values()) / n_prof / 1e3
@@ -2253,7 +2805,8 @@ def breakdown_phase(torch, eng, arch: str, need=(), forbid=()):
            "device_busy_share": dev_ms / step_ms,
            "kernels_per_step": n_kern / n_prof,
            "top_kernels_ms_per_step": [[k[:60], v / n_prof / 1e3] for k, v in top],
-           "own_kernels_ms_per_step": {k: v for k, v in ours.items() if v > 0}}
+           "own_kernels_ms_per_step": {k: v for k, v in ours.items() if v > 0},
+           "top_ops_ms_per_step": ops}
     print(json.dumps({"breakdown": out, "arch": arch}), flush=True)
     check(dev_ms > 0, "breakdown: the profiler saw no device time")
     for k in need:
@@ -2386,6 +2939,9 @@ def main() -> int:
     int8_e2e_phase(torch, 4)
     cluster_drill_phase(torch, 4)
     spec_e2e_phase(torch, 4)
+    qwen2_vl_e2e_phase(torch, 4)
+    danube_e2e_phase(torch, 2)
+    deepseek_e2e_phase(torch, 2)
     norms = {"fused_rmsnorm": nk.RMSNORM,
              "fused_rmsnorm_residual": nk.RMSNORM_RESIDUAL}
     eng, counts, s = main_path_phase(
@@ -2455,6 +3011,9 @@ def main() -> int:
     spec_breakdown_phase(torch, eng)
     del eng
     free(torch)
+    variant_path_phases(torch, dict(norms, fused_mlp=mk.MLP, flash_attention=fk.FLASH,
+                                    paged_decode=fk.PAGED, paged_decode_int8=fk.PAGED_INT8,
+                                    moe_mlp=ek.MOE, wkv6=wk.WKV6, rglru_scan=gk.SCAN))
 
     meta = {
         "fused_rmsnorm": ("fused_norm.cu", "fused_norm/kernel.py:51",

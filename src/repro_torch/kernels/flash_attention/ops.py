@@ -1,7 +1,9 @@
 """Public attention ops in the model layout:
 
 * `flash_attention`: q (B, Sq, H, hd), k/v (B, Sk, Hkv, hd) ->
-  (B, Sq, H, hd), causal, optional sliding window;
+  (B, Sq, H, hd), causal, optional sliding window; k and v of one shape
+  on either device, as the JAX op takes them (it refuses MLA's v, narrower
+  than q and k);
 * `paged_decode_attention`: q (B, 1, H, hd) for the current token against
   one layer's page pools k/v (P, ps, Hkv, hd) (page 0 the never-read
   null page) through int32 tables (B, npp) and lengths (B,) that include
@@ -23,6 +25,9 @@ from . import kernel, ref
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: int | None = None) -> torch.Tensor:
+    if k.shape != v.shape:
+        raise ValueError(f"flash_attention: k and v must share one shape, got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     return kernel.flash_attention_cuda(q, k, v, causal=causal, window=window)

@@ -137,19 +137,22 @@ def prepare(mcfg: ModelConfig, *, policy: ExecutionPolicy | None = None,
         for ln in lines:
             log(ln)
         eng_kwargs.pop("mesh_tp")
-    return mcfg, api.init_params(mcfg, seed, device=dev), dict(eng_kwargs, device=dev)
+    params = api.init_params(mcfg, seed, device=dev)
+    return mcfg, params, dict(eng_kwargs, device=dev)
 
 
 def build_engine(mcfg: ModelConfig, *, policy: ExecutionPolicy | None = None,
                  max_batch: int = 4, max_len: int = 128, seed: int = 0,
                  device=None, kv_quant: bool | str = False, paged: bool = True,
-                 log=print) -> ServingEngine:
+                 enc_len: int | None = None, log=print) -> ServingEngine:
     """Apply `policy` (if any) to `mcfg`, draw seeded weights on `device`
-    and build the engine (`kv_quant`, `paged`: the engine's switches)."""
+    and build the engine (`kv_quant`, `paged`, `enc_len`: the engine's
+    switches; `enc_len`, whisper's encoder window, defaults to `max_len`
+    as in the JAX package)."""
     mcfg, params, eng_kwargs = prepare(mcfg, policy=policy, max_batch=max_batch,
                                        seed=seed, device=device, log=log)
     return ServingEngine(mcfg, params, max_len=max_len, kv_quant=kv_quant,
-                         paged=paged, **eng_kwargs)
+                         paged=paged, enc_len=enc_len, **eng_kwargs)
 
 
 def serve(engine: ServingEngine, requests: list[Request]) -> dict:

@@ -1,7 +1,11 @@
 """Model facade of the port (from `repro.models.api`): family dispatch
-for the dense transformer, RWKV6 and the RG-LRU hybrid (whisper is not
-ported yet).  Entry points run on CUDA unless the caller passes
+for the transformer, RWKV6, the RG-LRU hybrid and the whisper
+encoder-decoder.  Entry points run on CUDA unless the caller passes
 `device="cpu"`, and raise where CUDA is asked for and missing.
+
+Batch dicts as in the JAX package: {"tokens": (B, S)[, "embeds": (B, P,
+d)]} (a transformer's vision-stub prefix); whisper takes {"embeds":
+frames (B, T, d), "tokens": decoder tokens}.
 """
 from __future__ import annotations
 
@@ -11,12 +15,13 @@ import torch
 
 from repro_torch.device import resolve_device
 
-from . import rglru, rwkv6, transformer
+from . import rglru, rwkv6, transformer, whisper
 from .config import ModelConfig
 
 Params = Any
 
-_FAMS = {"transformer": transformer, "rglru": rglru, "rwkv6": rwkv6}
+_FAMS = {"transformer": transformer, "rglru": rglru, "rwkv6": rwkv6,
+         "whisper": whisper}
 
 
 def family_module(cfg: ModelConfig):
@@ -26,27 +31,46 @@ def family_module(cfg: ModelConfig):
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> Params:
-    """Random weights from a seeded `torch.Generator` (drawn on the CPU,
-    then moved to `device`)."""
+    """Random weights from a `torch.Generator` seeded on `device` and drawn
+    there (no host copy of a large tensor; a seed gives other weights on
+    CUDA than on the CPU)."""
     dev = resolve_device(device)
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     return family_module(cfg).init_params(cfg, gen, dev)
 
 
 def forward(cfg: ModelConfig, params: Params, batch: dict):
-    return family_module(cfg).forward(cfg, params, batch["tokens"])
+    m = family_module(cfg)
+    if cfg.family == "whisper":
+        return m.forward(cfg, params, batch["embeds"], batch["tokens"])
+    if cfg.family == "transformer":
+        return m.forward(cfg, params, batch.get("tokens"),
+                         embeds=batch.get("embeds"))
+    return m.forward(cfg, params, batch["tokens"])
 
 
 def prefill(cfg: ModelConfig, params: Params, batch: dict, max_len: int):
-    return family_module(cfg).prefill(cfg, params, batch["tokens"], max_len)
+    m = family_module(cfg)
+    if cfg.family == "whisper":
+        return m.prefill(cfg, params, batch["embeds"], batch["tokens"], max_len)
+    if cfg.family == "transformer":
+        return m.prefill(cfg, params, batch.get("tokens"), max_len,
+                         embeds=batch.get("embeds"))
+    return m.prefill(cfg, params, batch["tokens"], max_len)
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None,
+               enc_len: int | None = None):
     """A zero cache for `batch` rows: the dense KV rectangles of a
-    transformer (a ring of `window` slots for a sliding-window model),
-    the recurrent state (and rglru's ring KV) otherwise."""
-    return family_module(cfg).init_cache(cfg, batch, max_len,
-                                         device=resolve_device(device))
+    transformer (a ring of `window` slots for a sliding-window model,
+    latents for MLA), the recurrent state (and rglru's ring KV), or
+    whisper's self and cross KV over an `enc_len` window (default
+    `max_len`, as in the JAX package)."""
+    dev = resolve_device(device)
+    if cfg.family == "whisper":
+        return whisper.init_cache(cfg, batch, max_len, enc_len or max_len,
+                                  device=dev)
+    return family_module(cfg).init_cache(cfg, batch, max_len, device=dev)
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int, *,

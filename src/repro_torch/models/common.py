@@ -1,7 +1,7 @@
 """Shared building blocks of the port (from `repro.models.common`):
-RMSNorm with the fused dispatch, seeded weight draws, GELU, the dense
-MLP, RoPE and the attention dispatch.  Params are nested dicts of
-tensors, as on the JAX side.
+RMSNorm with the fused dispatch, LayerNorm, seeded weight draws, GELU,
+the dense MLP, RoPE and M-RoPE tables and the attention dispatch.
+Params are nested dicts of tensors, as on the JAX side.
 """
 from __future__ import annotations
 
@@ -31,19 +31,34 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     return (y * (1.0 + scale.float())).to(x.dtype)
 
 
-def init_norm(cfg: ModelConfig) -> Params:
-    """RMSNorm parameters: a zero scale (the norm multiplies by 1 + scale)."""
-    _require_rmsnorm(cfg)
-    return {"scale": torch.zeros((cfg.d_model,), dtype=cfg.tparam_dtype)}
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5):
+    """LayerNorm in float32 (population variance), scale and bias
+    promoted to float32 by the product, cast back to x's dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(x.dtype)
 
 
-def _require_rmsnorm(cfg: ModelConfig) -> None:
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm={cfg.norm} is not ported yet")
+def init_norm(cfg: ModelConfig, lead: tuple = (),
+              device: torch.device | str = "cpu") -> Params:
+    """Norm parameters of shape (*lead, d): RMSNorm a zero scale (it
+    multiplies by 1 + scale), LayerNorm a unit scale and a zero bias."""
+    shape = (*lead, cfg.d_model)
+    pd = cfg.tparam_dtype
+    if cfg.norm == "layernorm":
+        return {"scale": torch.ones(shape, dtype=pd, device=device),
+                "bias": torch.zeros(shape, dtype=pd, device=device)}
+    return {"scale": torch.zeros(shape, dtype=pd, device=device)}
 
 
 def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    _require_rmsnorm(cfg)
+    """LayerNorm (plain torch: no kernel computes it), else RMSNorm, one
+    CUDA kernel with cfg.norm_impl == "fused"."""
+    if cfg.norm == "layernorm":
+        return layernorm(x, p["scale"], p["bias"], cfg.norm_eps)
     if cfg.norm_impl == "fused":
         return nops.fused_rmsnorm(x, p["scale"], eps=cfg.norm_eps)
     return rmsnorm(x, p["scale"], cfg.norm_eps)
@@ -52,9 +67,9 @@ def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 def apply_norm_residual(cfg: ModelConfig, p: Params, res: torch.Tensor,
                         delta: torch.Tensor):
     """(res + delta, norm(res + delta)); one CUDA kernel with
-    cfg.norm_impl == "fused", else the plain two-op reference."""
-    _require_rmsnorm(cfg)
-    if cfg.norm_impl == "fused":
+    cfg.norm_impl == "fused" on an RMSNorm model, else the plain two-op
+    reference."""
+    if cfg.norm_impl == "fused" and cfg.norm != "layernorm":
         return nops.fused_rmsnorm_residual(res, delta, p["scale"],
                                            eps=cfg.norm_eps)
     s = res + delta
@@ -69,10 +84,10 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
-    """scale * N(0, 1) of `shape`, drawn from `gen` in float32 on the CPU,
-    cast to `dtype`."""
-    return (torch.randn(shape, generator=gen, dtype=torch.float32)
-            * scale).to(dtype)
+    """scale * N(0, 1) of `shape`, drawn from `gen` in float32 on the
+    generator's device, cast to `dtype`."""
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+    return x.mul_(scale).to(dtype)
 
 
 def dense(gen: torch.Generator, shape, dtype, scale: float | None = None):
@@ -112,6 +127,19 @@ def rope_tables(positions: torch.Tensor, hd: int, theta: float):
     for positions (B, S); computed once and shared by every layer."""
     freqs = rope_freqs(hd, theta, positions.device)          # (hd/2,)
     ang = positions[..., None].float() * freqs               # (B, S, hd/2)
+    return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+
+
+def mrope_tables(positions3: torch.Tensor, hd: int, theta: float,
+                 sections: tuple[int, int, int]):
+    """Qwen2-VL M-RoPE as `rope_tables`: positions3 (3, B, S) temporal /
+    height / width ids; frequency slot i takes its angle from the stream
+    of its section (`sections` slots each, summing to hd/2), so
+    `apply_rope` applies it unchanged."""
+    freqs = rope_freqs(hd, theta, positions3.device)         # (hd/2,)
+    pos = torch.cat([positions3[i, :, :, None].expand(-1, -1, n)
+                     for i, n in enumerate(sections)], -1)  # (B, S, hd/2)
+    ang = pos.float() * freqs
     return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
 
 

@@ -56,7 +56,7 @@ def _init_rec(cfg: ModelConfig, gen: torch.Generator) -> Params:
             "conv_w": normal(gen, (cfg.conv_width, w), 0.1, pd),
             "conv_b": torch.zeros((w,), dtype=pd),
             "wa": dense(gen, (w, w), pd), "wx_in": dense(gen, (w, w), pd),
-            "lam": torch.rand((w,), generator=gen) * 0.5 + 0.4,
+            "lam": torch.rand((w,), generator=gen, device=gen.device) * 0.5 + 0.4,
             "w_out": dense(gen, (w, d), pd, 0.02 / math.sqrt(2 * cfg.n_layers))}
 
 
@@ -76,7 +76,7 @@ def _init_mlp(cfg: ModelConfig, gen: torch.Generator) -> Params:
 def init_params(cfg: ModelConfig, gen: torch.Generator,
                 device: torch.device | str = "cpu") -> Params:
     """Weights of the JAX `init_params` tree, shapes, scales and dtypes,
-    drawn from `gen` on the CPU and moved to `device`.  Embeddings are
+    drawn from `gen` on its own device and moved to `device`.  Embeddings are
     tied (the unembed is x @ embed.T)."""
     layers = []
     for i in range(cfg.n_layers):

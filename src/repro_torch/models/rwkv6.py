@@ -51,7 +51,7 @@ def _init_layer(cfg: ModelConfig, gen: torch.Generator) -> Params:
            "wr": dense(gen, (d, d), pd), "wk": dense(gen, (d, d), pd),
            "wv": dense(gen, (d, d), pd), "wg": dense(gen, (d, d), pd),
            "wo": dense(gen, (d, d), pd, out_scale),
-           "w0": torch.rand((d,), generator=gen) * 2.0 - 1.0,
+           "w0": torch.rand((d,), generator=gen, device=gen.device) * 2.0 - 1.0,
            "wa": dense(gen, (d, r), pd), "wb": dense(gen, (r, d), pd, 0.01),
            "u": normal(gen, (h, cfg.hd), 0.1, torch.float32),
            "gn_scale": torch.ones((h, cfg.hd), dtype=pd)}
@@ -65,7 +65,7 @@ def _init_layer(cfg: ModelConfig, gen: torch.Generator) -> Params:
 def init_params(cfg: ModelConfig, gen: torch.Generator,
                 device: torch.device | str = "cpu") -> Params:
     """Weights of the JAX `init_params` tree, shapes, scales and dtypes,
-    drawn from `gen` on the CPU and moved to `device`."""
+    drawn from `gen` on its own device and moved to `device`."""
     pd = cfg.tparam_dtype
     layers = [_init_layer(cfg, gen) for _ in range(cfg.n_layers)]
     params = {"embed": normal(gen, (cfg.vocab, cfg.d_model), 0.02, pd),

@@ -1,14 +1,17 @@
 """Decoder-only transformer of the port (from `repro.models.transformer`):
-GQA attention with or without QKV bias, RMSNorm, RoPE, SwiGLU/GELU MLP,
-tied or separate embeddings, sliding-window attention over a ring KV
-cache, and capacity-routed top-k MoE layers (shared experts and leading
-dense layers included).
+GQA attention with or without QKV bias, RMSNorm or LayerNorm, RoPE or
+Qwen2-VL's M-RoPE, SwiGLU/GELU MLP, tied or separate embeddings, a
+vision-stub `embeds` prefix, sliding-window attention over a ring KV
+cache, DeepSeek-V3's MLA (latent KV cache, absorbed one-token decode) and
+capacity-routed top-k MoE layers (shared experts and leading dense
+layers included).
 
 Params keep the JAX tree and layout: each segment's layer weights are
 stacked on a leading axis under `segments[i]["kind_dense"]` or
 `["kind_moe"]`, and the layers run in a Python loop where JAX used
-`lax.scan`.  MLA, M-RoPE, MTP and the grouped / shard_map MoE dispatch
-variants raise NotImplementedError.
+`lax.scan`.  An MTP config also builds the JAX `mtp` subtree (projection,
+norm, one dense layer); serving never reads it.  The grouped /
+shard_map MoE dispatch variants raise NotImplementedError.
 
 Caches are updated in place (the JAX functions return fresh arrays):
 `decode_step` writes the new token's k/v into the cache tensors it is
@@ -24,12 +27,13 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch.bridge import tree_to
+from repro_torch.bridge import tree_map, tree_to
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.moe_mlp import ops as moe_ops
 
 from .common import (apply_norm, apply_norm_residual, apply_rope, attention,
-                     gelu, mlp_block, normal, rope_tables)
+                     gelu, init_norm, mlp_block, mrope_tables, normal,
+                     rmsnorm, rope_tables)
 from .config import ModelConfig
 
 Params = Any
@@ -39,8 +43,6 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise for the variants the port does not serve yet."""
     missing = [name for name, on in (
         ("family " + cfg.family, cfg.family != "transformer"),
-        ("MLA", cfg.use_mla), ("M-RoPE", cfg.mrope_sections is not None),
-        ("MTP", cfg.mtp), ("norm " + cfg.norm, cfg.norm != "rmsnorm"),
         ("grouped MoE dispatch (moe_groups)", cfg.moe_groups > 0),
         ("shard_map MoE dispatch", cfg.moe_shard_map)) if on]
     if missing:
@@ -67,18 +69,26 @@ def _init_layers(cfg: ModelConfig, gen: torch.Generator, kind: str,
     pd = cfg.tparam_dtype
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
+    dev = gen.device
 
     def dense(shape, scale=None):
         """`count` layers of `shape`, each drawn in float32 and cast on its
-        own, so the host never holds more than one float32 layer (a
-        mixtral expert tensor is 1.9 GB a layer in float32)."""
+        own, so no more than one float32 layer is held at a time (a
+        mixtral expert tensor is 1.9 GB a layer in float32, deepseek-v3's
+        15 GB); a float32 model's layers are drawn in place."""
         # the JAX dense_init's fan-in is the first axis, E for an expert
         # tensor (E, d, f)
         s = scale if scale is not None else 1.0 / math.sqrt(shape[0])
-        out = torch.empty((count, *shape), dtype=pd)
+        out = torch.empty((count, *shape), dtype=pd, device=dev)
         for i in range(count):
-            out[i] = normal(gen, shape, s, pd)
+            if pd == torch.float32:      # the same draw, into place
+                torch.randn(shape, generator=gen, out=out[i]).mul_(s)
+            else:
+                out[i] = normal(gen, shape, s, pd)
         return out
+
+    def zeros(*shape):
+        return torch.zeros((count, *shape), dtype=pd, device=dev)
 
     def mlp(f):
         p = {"w_in": dense((d, f)), "w_out": dense((f, d), out_scale)}
@@ -86,15 +96,21 @@ def _init_layers(cfg: ModelConfig, gen: torch.Generator, kind: str,
             p["w_gate"] = dense((d, f))
         return p
 
-    attn = {"wq": dense((d, qd)), "wk": dense((d, kvd)),
-            "wv": dense((d, kvd)), "wo": dense((qd, d), out_scale)}
-    if cfg.qkv_bias:
-        attn.update(bq=torch.zeros((count, qd), dtype=pd),
-                    bk=torch.zeros((count, kvd), dtype=pd),
-                    bv=torch.zeros((count, kvd), dtype=pd))
-    layers = {"norm1": {"scale": torch.zeros((count, d), dtype=pd)},
-              "attn": attn,
-              "norm2": {"scale": torch.zeros((count, d), dtype=pd)}}
+    if cfg.use_mla:
+        rd, qr, kvr, hd = cfg.mla_rope_dim, cfg.mla_q_rank, cfg.mla_kv_rank, cfg.hd
+        attn = {"wdq": dense((d, qr)), "q_norm": {"scale": zeros(qr)},
+                "wuq": dense((qr, cfg.n_heads * (hd + rd))),
+                "wdkv": dense((d, kvr + rd)), "kv_norm": {"scale": zeros(kvr)},
+                "wuk": dense((kvr, cfg.n_heads * hd)),
+                "wuv": dense((kvr, cfg.n_heads * hd)),
+                "wo": dense((qd, d), out_scale)}
+    else:
+        attn = {"wq": dense((d, qd)), "wk": dense((d, kvd)),
+                "wv": dense((d, kvd)), "wo": dense((qd, d), out_scale)}
+    if cfg.qkv_bias and not cfg.use_mla:
+        attn.update(bq=zeros(qd), bk=zeros(kvd), bv=zeros(kvd))
+    layers = {"norm1": init_norm(cfg, (count,), dev), "attn": attn,
+              "norm2": init_norm(cfg, (count,), dev)}
     if kind == "moe":
         e, f = cfg.n_experts, cfg.routed_ff
         moe = {"router": dense((d, e)), "experts_in": dense((e, d, f)),
@@ -111,18 +127,26 @@ def _init_layers(cfg: ModelConfig, gen: torch.Generator, kind: str,
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
                 device: torch.device | str = "cpu") -> Params:
-    """Weights of the same shapes and scales as the JAX `init_params`,
-    drawn from `gen` (on the CPU, so a seed gives the same weights on
-    every machine) and moved to `device`."""
+    """Weights of the same tree, shapes and scales as the JAX
+    `init_params` (the `mtp` subtree included), drawn from `gen` on its
+    own device (a CPU generator gives the same weights on every machine)
+    and moved to `device`."""
     check_supported(cfg)
     pd = cfg.tparam_dtype
     segments = [{f"kind_{kind}": _init_layers(cfg, gen, kind, count)}
                 for kind, count in layer_segments(cfg)]
     params = {"embed": normal(gen, (cfg.vocab, cfg.d_model), 0.02, pd),
-              "final_norm": {"scale": torch.zeros((cfg.d_model,), dtype=pd)},
+              "final_norm": init_norm(cfg, (), gen.device),
               "segments": segments}
     if not cfg.tie_embeddings:
         params["head"] = normal(gen, (cfg.d_model, cfg.vocab), 0.02, pd)
+    if cfg.mtp:
+        layer = _init_layers(cfg, gen, "dense", 1)
+        params["mtp"] = {
+            "proj": normal(gen, (2 * cfg.d_model, cfg.d_model),
+                           1.0 / math.sqrt(2 * cfg.d_model), pd),
+            "norm": init_norm(cfg, (), gen.device),
+            "layer": tree_map(lambda t: t[0], layer)}
     return tree_to(params, device)
 
 
@@ -164,18 +188,75 @@ def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor):
             v.reshape(bsz, s, cfg.kv_heads, cfg.hd))
 
 
+def rope_for(cfg: ModelConfig, positions: torch.Tensor,
+             mrope_positions: torch.Tensor | None = None):
+    """The rotation tables every layer shares for token positions (B, S):
+    RoPE over hd, over MLA's rope slice of `mla_rope_dim`, or M-RoPE of
+    three position streams (B, S) each, `mrope_positions` (3, B, S) where
+    given and else the 1-D positions on all three, as the JAX
+    `_rope_qk`."""
+    if cfg.use_mla:
+        return rope_tables(positions, cfg.mla_rope_dim, cfg.rope_theta)
+    if cfg.mrope_sections is not None:
+        mp = mrope_positions if mrope_positions is not None \
+            else positions[None].expand(3, *positions.shape)
+        return mrope_tables(mp, cfg.hd, cfg.rope_theta, cfg.mrope_sections)
+    return rope_tables(positions, cfg.hd, cfg.rope_theta)
+
+
 def _roped_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, rope):
     q, k, v = _qkv(cfg, p, x)
     return apply_rope(q, rope), apply_rope(k, rope), v
 
 
+def _mla_q(cfg: ModelConfig, p: Params, x: torch.Tensor, rope):
+    """MLA queries (B, S, H, hd) without and (B, S, H, rd) with rotation,
+    through the normed q latent; `rmsnorm` is the plain RMSNorm, as the
+    JAX `rmsnorm_latent` is."""
+    bsz, s, _ = x.shape
+    dt, hd = cfg.tdtype, cfg.hd
+    cq = rmsnorm(x @ p["wdq"].to(dt), p["q_norm"]["scale"], cfg.norm_eps)
+    q = (cq @ p["wuq"].to(dt)).reshape(bsz, s, cfg.n_heads, hd + cfg.mla_rope_dim)
+    return q[..., :hd], apply_rope(q[..., hd:], rope)
+
+
+def _mla_latent(cfg: ModelConfig, p: Params, x: torch.Tensor, rope):
+    """The latent cache entry (B, S, kv_rank + rd): the normed KV latent
+    and the rotated shared rope key."""
+    kvr = cfg.mla_kv_rank
+    ckv_full = x @ p["wdkv"].to(cfg.tdtype)
+    ckv = rmsnorm(ckv_full[..., :kvr], p["kv_norm"]["scale"], cfg.norm_eps)
+    k_rope = apply_rope(ckv_full[:, :, None, kvr:], rope)[:, :, 0]
+    return torch.cat([ckv, k_rope], -1)
+
+
+def _mla_attn_block(cfg: ModelConfig, p: Params, x: torch.Tensor, rope):
+    """MLA prefill: keys and values up-projected from the latent, the
+    rope key shared by every head; q and k of width hd + rd, v of hd.
+    Returns (out, {"latent": (B, S, kv_rank + rd)})."""
+    bsz, s, _ = x.shape
+    dt, hd, kvr, h = cfg.tdtype, cfg.hd, cfg.mla_kv_rank, cfg.n_heads
+    q_nope, q_rope = _mla_q(cfg, p, x, rope)
+    lat = _mla_latent(cfg, p, x, rope)
+    ckv = lat[..., :kvr]
+    k_nope = (ckv @ p["wuk"].to(dt)).reshape(bsz, s, h, hd)
+    v = (ckv @ p["wuv"].to(dt)).reshape(bsz, s, h, hd)
+    k_rope = lat[:, :, None, kvr:].expand(bsz, s, h, cfg.mla_rope_dim)
+    o = attention(cfg, torch.cat([q_nope, q_rope], -1),
+                  torch.cat([k_nope, k_rope], -1), v, causal=True)
+    return o.reshape(bsz, s, cfg.q_dim) @ p["wo"].to(dt), {"latent": lat}
+
+
 def attn_block(cfg: ModelConfig, p: Params, x: torch.Tensor, rope):
-    """Full-sequence (prefill) attention: (out, (k, v)), k/v in cache
-    layout (B, S, Hkv, hd).  rope: `rope_tables` of the positions."""
+    """Full-sequence (prefill) attention: (out, the cache entries), k/v
+    {"k", "v"} in cache layout (B, S, Hkv, hd), MLA {"latent"}.  rope:
+    `rope_for` the positions."""
+    if cfg.use_mla:
+        return _mla_attn_block(cfg, p, x, rope)
     bsz, s, _ = x.shape
     q, k, v = _roped_qkv(cfg, p, x, rope)
     o = attention(cfg, q, k, v, causal=True)
-    return o.reshape(bsz, s, cfg.q_dim) @ p["wo"].to(cfg.tdtype), (k, v)
+    return o.reshape(bsz, s, cfg.q_dim) @ p["wo"].to(cfg.tdtype), {"k": k, "v": v}
 
 
 def capacity(cfg: ModelConfig, n: int) -> int:
@@ -269,33 +350,51 @@ def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor):
     return x @ params["head"].to(cfg.tdtype)
 
 
-def hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
-           collect_kv: bool = False):
-    """Final-normed hidden states (B, S, d) and, with collect_kv, one
-    ((L, B, S, Hkv, hd) k, v) pair per segment."""
+def hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor | None,
+           *, collect_kv: bool = False, embeds: torch.Tensor | None = None,
+           positions: torch.Tensor | None = None,
+           mrope_positions: torch.Tensor | None = None):
+    """Final-normed hidden states (B, S, d) and, with collect_kv, one dict
+    a segment of the layers' cache entries stacked on a leading L axis
+    ({"k", "v"} (L, B, S, Hkv, hd), MLA {"latent"} (L, B, S, kv_rank +
+    rd)).  `embeds` (B, P, d), a modality-stub prefix, goes before the
+    token embeddings, or replaces them when `tokens` is None; `positions`
+    (B, S) default to 0 .. S-1 and `mrope_positions` (3, B, S) to those on
+    every stream."""
     check_supported(cfg)
-    x = embed_tokens(cfg, params, tokens)
+    if tokens is None:
+        x = embeds.to(cfg.tdtype)
+    else:
+        x = embed_tokens(cfg, params, tokens)
+        if embeds is not None:
+            x = torch.cat([embeds.to(cfg.tdtype), x], 1)
     bsz, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)[None].expand(bsz, s)
-    rope = rope_tables(positions, cfg.hd, cfg.rope_theta)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None].expand(bsz, s)
+    rope = rope_for(cfg, positions, mrope_positions)
     kvs = []
     for seg in params["segments"]:
         kind, sp = _segment(seg)
-        ks, vs = [], []
+        entries = []
         for lp in _layers(sp):
-            x, (k, v) = layer_fwd(cfg, kind, lp, x, rope)
+            x, kv = layer_fwd(cfg, kind, lp, x, rope)
             if collect_kv:
-                ks.append(k)
-                vs.append(v)
-        kvs.append((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
+                entries.append(kv)
+        kvs.append({key: torch.stack([e[key] for e in entries])
+                    for key in entries[0]} if collect_kv else None)
     return apply_norm(cfg, params["final_norm"], x), kvs
 
 
-def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor | None = None,
+            *, embeds: torch.Tensor | None = None,
+            positions: torch.Tensor | None = None,
+            mrope_positions: torch.Tensor | None = None,
             collect_kv: bool = False):
     """Logits (B, S, V); with collect_kv, (logits, hidden, kvs) as the JAX
-    `forward(collect_kv=True)` returns."""
-    x, kvs = hidden(cfg, params, tokens, collect_kv=collect_kv)
+    `forward(collect_kv=True)` returns.  `embeds`, `positions` and
+    `mrope_positions` as `hidden` takes them."""
+    x, kvs = hidden(cfg, params, tokens, collect_kv=collect_kv, embeds=embeds,
+                    positions=positions, mrope_positions=mrope_positions)
     logits = unembed(cfg, params, x)
     if collect_kv:
         return logits, x, kvs
@@ -311,53 +410,60 @@ def cache_len(cfg: ModelConfig, max_len: int) -> int:
     return min(max_len, cfg.window) if cfg.window else max_len
 
 
+def entry_shapes(cfg: ModelConfig, count: int, rows: int, cols: int) -> dict:
+    """Cache leaf shapes of one segment over a (rows, cols) rectangle:
+    {"k", "v"} (count, rows, cols, Hkv, hd), or MLA's {"latent"} (count,
+    rows, cols, kv_rank + rope_dim)."""
+    if cfg.use_mla:
+        return {"latent": (count, rows, cols, cfg.mla_kv_rank + cfg.mla_rope_dim)}
+    kv = (count, rows, cols, cfg.kv_heads, cfg.hd)
+    return {"k": kv, "v": kv}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: torch.device | str = "cpu", dtype=None) -> Params:
-    """Zero dense KV rectangles (count, B, C, Hkv, hd) per segment, C the
-    ring length, and a scalar index."""
+    """Zero dense KV rectangles per segment (`entry_shapes` over (B, C),
+    C the ring length) and a scalar index."""
     check_supported(cfg)
     dt = dtype or cfg.tdtype
     clen = cache_len(cfg, max_len)
-    segs = []
-    for _, count in layer_segments(cfg):
-        shape = (count, batch, clen, cfg.kv_heads, cfg.hd)
-        segs.append({"k": torch.zeros(shape, dtype=dt, device=device),
-                     "v": torch.zeros(shape, dtype=dt, device=device)})
+    segs = [{key: torch.zeros(shape, dtype=dt, device=device)
+             for key, shape in entry_shapes(cfg, count, batch, clen).items()}
+            for _, count in layer_segments(cfg)]
     return {"segments": segs,
             "index": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int, *,
                      device: torch.device | str = "cpu", dtype=None) -> list:
-    """Per-segment KV page pools (count, num_pages, page_size, Hkv, hd);
-    page 0 is the null page every unused page-table entry points at."""
+    """Per-segment KV page pools (`entry_shapes` over (num_pages,
+    page_size)); page 0 is the null page every unused page-table entry
+    points at."""
     check_supported(cfg)
     dt = dtype or cfg.tdtype
-    segs = []
-    for _, count in layer_segments(cfg):
-        shape = (count, num_pages, page_size, cfg.kv_heads, cfg.hd)
-        segs.append({"k": torch.zeros(shape, dtype=dt, device=device),
-                     "v": torch.zeros(shape, dtype=dt, device=device)})
-    return segs
+    return [{key: torch.zeros(shape, dtype=dt, device=device)
+             for key, shape in entry_shapes(cfg, count, num_pages, page_size).items()}
+            for _, count in layer_segments(cfg)]
 
 
-def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-            max_len: int):
-    """Run the prompt, fill a dense cache: (last-token logits, cache).
-    A prompt longer than a sliding-window ring keeps its last `clen`
-    positions, rolled so that position p sits in slot p % clen."""
-    x, kvs = hidden(cfg, params, tokens, collect_kv=True)
-    bsz, s = tokens.shape
-    cache = init_cache(cfg, bsz, max_len, device=tokens.device)
+def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor | None,
+            max_len: int, *, embeds: torch.Tensor | None = None):
+    """Run the prompt (after an `embeds` prefix, if any), fill a dense
+    cache: (last-token logits, cache).  A prompt longer than a
+    sliding-window ring keeps its last `clen` positions, rolled so that
+    position p sits in slot p % clen."""
+    x, kvs = hidden(cfg, params, tokens, collect_kv=True, embeds=embeds)
+    bsz, s = x.shape[:2]
+    cache = init_cache(cfg, bsz, max_len, device=x.device)
     clen = cache_len(cfg, max_len)
     take = min(s, clen)
-    for (k, v), seg in zip(kvs, cache["segments"]):
-        for key, src in (("k", k), ("v", v)):
+    for seg_kv, seg in zip(kvs, cache["segments"]):
+        for key, src in seg_kv.items():
             last = src[:, :, s - take:]
             if cfg.window and take == clen:
                 last = torch.roll(last, shifts=s % clen, dims=2)
             seg[key][:, :, :take] = last.to(seg[key].dtype)
-    cache["index"] = torch.tensor(s, dtype=torch.int32, device=tokens.device)
+    cache["index"] = torch.tensor(s, dtype=torch.int32, device=x.device)
     return unembed(cfg, params, x[:, -1:]), cache
 
 
@@ -419,17 +525,40 @@ def _decode_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return o.reshape(bsz, 1, cfg.q_dim) @ p["wo"].to(dt)
 
 
+def _mla_decode_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                     L: torch.Tensor, slot: torch.Tensor, rope,
+                     mask: torch.Tensor):
+    """MLA's absorbed one-token attention against the latent cache L (B,
+    C, kv_rank + rd), written in place at slot[b]: the query is absorbed
+    through W_uk into the latent space (scores q_nope^T W_uk c_kv plus
+    the rope part), and the latent output is up-projected through W_uv
+    afterwards, so no per-head key or value is ever formed."""
+    bsz = x.shape[0]
+    dt, hd, kvr, h = cfg.tdtype, cfg.hd, cfg.mla_kv_rank, cfg.n_heads
+    q_nope, q_rope = _mla_q(cfg, p, x, rope)
+    _write_slot(L, _mla_latent(cfg, p, x, rope), slot)
+    lat, lat_rope = L[..., :kvr].to(dt), L[..., kvr:].to(dt)
+    q_abs = torch.einsum("bqhd,khd->bqhk", q_nope, p["wuk"].to(dt).reshape(kvr, h, hd))
+    s_n = torch.einsum("bqhk,bck->bhqc", q_abs, lat)
+    s_r = torch.einsum("bqhd,bcd->bhqc", q_rope, lat_rope)
+    scores = (s_n + s_r).float() / math.sqrt(hd + cfg.mla_rope_dim)
+    scores = scores.masked_fill(~mask[:, None, None, :], -1e30)
+    probs = torch.softmax(scores, dim=-1).to(dt)
+    o_lat = torch.einsum("bhqc,bck->bqhk", probs, lat)
+    o = torch.einsum("bqhk,khd->bqhd", o_lat, p["wuv"].to(dt).reshape(kvr, h, hd))
+    return o.reshape(bsz, 1, cfg.q_dim) @ p["wo"].to(dt)
+
+
 def _decode_layers(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    index: torch.Tensor, caches: list, layer_attn):
     """The decode layer loop that the dense, the paged and the window
     steps share.  tokens (B, S); index (B,) long, the positions before a
     one-token step, or (B, S), the tokens' positions; caches: per
-    segment, a dict of tensors stacked by layer ({"k", "v"}, and the int8
-    pool's scales).  layer_attn(p, h, lc, rope) writes the tokens' k/v
+    segment, a dict of tensors stacked by layer ({"k", "v"} or MLA's
+    {"latent"}, and the int8 pool's scales).  layer_attn(p, h, lc, rope) writes the tokens' k/v
     into one layer's cache lc (the dict's per-layer views) and returns
     the attention output (B, S, d).  Returns the (B, S, V) logits."""
-    rope = rope_tables(index[:, None] if index.dim() == 1 else index, cfg.hd,
-                       cfg.rope_theta)
+    rope = rope_for(cfg, index[:, None] if index.dim() == 1 else index)
     x = embed_tokens(cfg, params, tokens)
     for seg, seg_cache in zip(params["segments"], caches):
         kind, sp = _segment(seg)
@@ -455,11 +584,14 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     raw = torch.as_tensor(cache["index"], device=tokens.device)
     index = raw.expand(tokens.shape[0]) if raw.dim() == 0 else raw
     index = index.long()
-    clen = cache["segments"][0]["k"].shape[2]      # every segment's ring
+    # every segment's ring: {"k", "v"} or {"latent"} (L, B, C, ...)
+    clen = next(iter(cache["segments"][0].values())).shape[2]
     slot = _ring_slot(cfg, index, clen)
     mask = _decode_mask(cfg, index, clen)
 
     def attn(p, h, lc, rope):
+        if cfg.use_mla:
+            return _mla_decode_attn(cfg, p, h, lc["latent"], slot, rope, mask)
         return _decode_attn(cfg, p, h, lc["k"], lc["v"], slot, rope, mask)
 
     logits = _decode_layers(cfg, params, tokens, index, cache["segments"], attn)
@@ -530,8 +662,13 @@ def paged_decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     index + 1 live positions through the table.  tokens (n, 1); tables
     (n, npp) int32; index (n,) int (positions before the step).  Returns
     the (n, 1, V) logits.  Plain (no ring) attention only, as paged
-    serving is (`paged.paged_supported`)."""
+    serving is (`paged.paged_supported`); MLA latents have no pool route
+    (the JAX paged kernel attends over k/v pages), and flash prefill
+    refuses MLA before a decode can start."""
     check_supported(cfg)
+    if cfg.use_mla:
+        raise NotImplementedError("paged_decode_step: MLA latents decode "
+                                  "by the gather route")
     n = tokens.shape[0]
     index = index.long()
     ps = segments[0]["k"].shape[2]

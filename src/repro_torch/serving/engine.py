@@ -1,7 +1,7 @@
 """Serving engine of the port (from `repro.serving.engine`): slot-based
 continuous batching over the block-paged KV pool (plain transformers),
-the dense KV rectangles (every other transformer) or the gathered
-recurrent state (rglru, rwkv6).
+the dense KV rectangles (every other transformer), the gathered
+recurrent state (rglru, rwkv6) or whisper's cross-attention state.
 
 A fixed pool of `max_batch` slots decodes in lock step; finished slots
 are refilled by prefilling queued requests into them.  The scheduling is
@@ -30,13 +30,14 @@ NaN guard on, deadline shedding on, queue bound 0 = unbounded).  The
 state is chosen as the JAX engine chooses it: `PagedKVState` when paged
 serving applies (a transformer with no sliding window and no MoE),
 `DenseKVState` for every other transformer (`paged=False` included),
-`RecurrentState` for rglru and rwkv6 (always compact).  `kv_quant`
+`CrossAttnState` for whisper (each request's `frames` encoded at
+admission over an `enc_len` window, default `max_len`), `RecurrentState`
+for rglru and rwkv6 (the last two always compact).  `kv_quant`
 stores KV in int8 with per-head scales (`serving/quant.py`), resolved as
 the JAX engine resolves it (`_kv_quant_mode`): any truthy value
 quantizes a paged engine's pool, the value "dense" a non-paged
 transformer's rectangles (no sliding window); the resolved mode is
-`engine.kv_quant_mode`.  Whisper (its cross-attention state) is not
-ported and raises NotImplementedError.
+`engine.kv_quant_mode`.
 """
 from __future__ import annotations
 
@@ -54,7 +55,7 @@ from repro_torch.models.config import ModelConfig
 from . import paged as paged_kv
 from .resilience import logits_finite
 from .sampling import sample
-from .state import DenseKVState, PagedKVState, RecurrentState
+from .state import CrossAttnState, DenseKVState, PagedKVState, RecurrentState
 
 Params = Any
 
@@ -67,7 +68,8 @@ class Request:
     temperature: float = 0.0
     # SLO deadline in seconds from t_submit; None = no deadline
     deadline_s: float | None = None
-    # encoder frame embeddings (whisper); unused by the transformer
+    # encoder frame embeddings (F, d_model) (whisper; None encodes a
+    # zero window); other families ignore them
     frames: np.ndarray | None = None
     # cluster routing tag (None = any replica)
     model: str | None = None
@@ -105,6 +107,7 @@ class ServingEngine:
                  compact: bool = True, paged: bool = True,
                  page_size: int = 16, num_pages: int | None = None,
                  bucket_min: int = 16, kv_quant: bool | str = False,
+                 enc_len: int | None = None,
                  queue_bound: int = 0, guard_nan: bool = True,
                  shed_deadlines: bool = True, seed: int = 0,
                  device: str | torch.device | None = None):
@@ -112,17 +115,15 @@ class ServingEngine:
         # paged + bucketed serving is exact only for the plain transformer
         # cache (no sliding-window ring, no MoE router) — paged_supported
         self.paged = paged and paged_kv.paged_supported(mcfg)
-        if mcfg.family == "whisper":
-            raise NotImplementedError(
-                f"{mcfg.name}: the cross-attention state (whisper) is not "
-                f"ported yet")
+        self.enc_len = enc_len
         self.kv_quant_mode = _kv_quant_mode(kv_quant, self.paged, mcfg)
         self.mcfg = mcfg
         self.params = tree_to(params, self.device)
         self.max_batch = max_batch
         self.max_len = max_len
         self.decode_batch = decode_batch or max_batch
-        # recurrent state cannot be rewound: its decode always compacts
+        # recurrent and cross-attention state cannot be rewound: their
+        # decode always compacts
         self.compact = compact if mcfg.family == "transformer" else True
         self._next_slot = 0           # rotation cursor: a SLOT ID
         self.eos_id = eos_id
@@ -149,7 +150,7 @@ class ServingEngine:
 
     def _new_state(self, *, page_size: int, num_pages: int | None, bucket_min: int):
         """The decode state this engine serves from: the page pool, dense
-        KV rectangles or recurrent state."""
+        KV rectangles, cross-attention or recurrent state."""
         mcfg = self.mcfg
         if self.paged:
             return PagedKVState(
@@ -162,6 +163,10 @@ class ServingEngine:
                 mcfg, self.max_batch, self.max_len, decode_batch=self.decode_batch,
                 compact=self.compact, device=self.device,
                 quantized=self.kv_quant_mode == "dense")
+        if mcfg.family == "whisper":
+            return CrossAttnState(
+                mcfg, self.max_batch, self.max_len, decode_batch=self.decode_batch,
+                device=self.device, enc_len=self.enc_len)
         return RecurrentState(
             mcfg, self.max_batch, self.max_len, decode_batch=self.decode_batch,
             device=self.device)
@@ -275,7 +280,7 @@ class ServingEngine:
             # +1: the next decode writes KV at position plen
             if self.paged and not self.pool.ensure(b, plen + 1):
                 break       # pool dry — wait for decode-side frees
-            last = self.state.prefill(self.params, b, seq)
+            last = self.state.prefill(self.params, b, seq, frames=req.frames)
             self.queue.pop(qi)
             self.slots[b] = req
             req.admit_seq = self._admit_counter

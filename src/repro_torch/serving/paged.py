@@ -287,10 +287,10 @@ def paged_prefill(mcfg: ModelConfig, params, toks: torch.Tensor, plen: int,
     row = torch.as_tensor(np.where(page_live, table_row, 0), dtype=torch.long,
                           device=dev)
     pad = torch.arange(bucket, device=dev) >= plen
-    for i, (seg_pool, (k, v)) in enumerate(zip(segments, kvs)):
-        for key, kv in (("k", k), ("v", v)):  # kv: (L, 1, bucket, Hkv, hd)
+    for i, (seg_pool, seg_kv) in enumerate(zip(segments, kvs)):
+        for key, kv in seg_kv.items():  # (L, 1, bucket, ...)
             a = seg_pool[key]
-            kv = kv[:, 0].masked_fill(pad[None, :, None, None], 0)
+            kv = kv[:, 0].masked_fill(pad.view(1, -1, *([1] * (kv.dim() - 3))), 0)
             pages = kv.reshape(a.shape[0], npp_b, page_size, *a.shape[3:])
             if scales is None:
                 a[:, row] = pages.to(a.dtype)

@@ -81,8 +81,10 @@ def requantize(x: torch.Tensor, lengths: torch.Tensor, pos_axis: int,
 
 
 def scale_struct(segments: list, device=None) -> list:
-    """Zero scales matching a paged pool's segments ({"k", "v"} leaves of
-    (L, P, ps, Hkv, hd); page axis 1, positions axis 2)."""
+    """Zero scales matching a pool's or a rectangle's segments: {"k", "v"}
+    leaves (L, P, ps, Hkv, hd) take (L, P, 1, Hkv, 1), MLA's {"latent"}
+    leaves (L, P, ps, D) take (L, P, 1, 1) (page or slot axis 1, positions
+    axis 2)."""
     out = []
     for seg in segments:
         leaves = {}
@@ -97,12 +99,11 @@ def scale_struct(segments: list, device=None) -> list:
 
 
 def _page_shapes(mcfg: ModelConfig, page_size: int) -> list[tuple[int, ...]]:
-    """The shapes of one page's k and v leaves over every layer, as
-    `transformer.init_paged_cache` lays them out with one page."""
-    shapes = []
-    for _, count in transformer.layer_segments(mcfg):
-        shapes += [(count, 1, page_size, mcfg.kv_heads, mcfg.hd)] * 2
-    return shapes
+    """The shapes of one page's leaves ({"k", "v"} or MLA's {"latent"})
+    over every layer, as `transformer.init_paged_cache` lays them out
+    with one page."""
+    return [shape for _, count in transformer.layer_segments(mcfg)
+            for shape in transformer.entry_shapes(mcfg, count, 1, page_size).values()]
 
 
 def kv_page_nbytes(mcfg: ModelConfig, page_size: int, quant: bool) -> int:
@@ -117,8 +118,8 @@ def kv_page_nbytes(mcfg: ModelConfig, page_size: int, quant: bool) -> int:
         for x in shape:
             n *= x
         total += n * elem
-        if quant:                             # (L, 1, 1, Hkv, 1) float32
-            total += shape[0] * shape[3] * 4
+        if quant:          # (L, 1, 1, Hkv, 1) or (L, 1, 1, 1) float32
+            total += n // (shape[2] * shape[-1]) * 4
     return total
 
 

@@ -152,7 +152,8 @@ class SpecKVState(DenseKVState):
         self.draft = DenseKVState(draft_cfg, max_batch, max_len,
                                   decode_batch=decode_batch, compact=True, device=device)
 
-    def prefill(self, params: Params, b: int, seq: np.ndarray) -> torch.Tensor:
+    def prefill(self, params: Params, b: int, seq: np.ndarray,
+                frames=None) -> torch.Tensor:
         last = super().prefill(params, b, seq)
         self.draft.prefill(self.draft_params, b, seq)
         return last

@@ -6,10 +6,11 @@ owns the per-slot model state and knows how to (a) prefill a request
 into slot b and (b) advance the active slots one decode step at a fixed
 lane width.  Ported: `PagedKVState` (compact and full width) for the
 plain transformer, `DenseKVState` for every other transformer (sliding
-window, MoE, or `paged=False`), and `RecurrentState` for the rglru and
-rwkv6 families.  Both KV states take int8 storage (`quantized`,
-`serving/quant.py`).  The cross-attention state (whisper) is not ported
-yet.
+window, MoE, MLA latents, or `paged=False`), `RecurrentState` for the
+rglru and rwkv6 families and `CrossAttnState` for whisper.  Both KV
+states take int8 storage (`quantized`, `serving/quant.py`).  Every
+state's `prefill` takes the request's `frames`; only the cross-attention
+state reads them.
 """
 from __future__ import annotations
 
@@ -67,8 +68,9 @@ def scatter_slots(cache, sub, idx: torch.Tensor, n: int) -> None:
 
 class DenseKVState:
     """Transformer dense KV rectangles {"segments": [{"k", "v": (L, B, C,
-    Hkv, hd)}], "index": (B,)}, C the ring length of a sliding-window
-    model, updated in place.
+    Hkv, hd)} or MLA's {"latent": (L, B, C, kv_rank + rope_dim)}],
+    "index": (B,)}, C the ring length of a sliding-window model, updated
+    in place.
 
     Prefill runs each prompt at its exact length and splices the batch-1
     cache into slot b (on the batch axis always: the JAX `_tree_set_slot`
@@ -80,7 +82,8 @@ class DenseKVState:
     have their index rewound by one batched update.
 
     `quantized`: the rectangles are int8 codes with one float32 scale per
-    (layer, slot, kv head) over the whole rectangle (`self.scales`).
+    (layer, slot, kv head) over the whole rectangle, per (layer, slot)
+    for latents (`self.scales`).
     Decode is then always the gathered form: the selected slots are
     dequantized to the model dtype, decoded, their positions past the old
     index zeroed and the whole rectangles requantized with fresh scales,
@@ -113,7 +116,8 @@ class DenseKVState:
                 self.cache["segments"])
             self.scales = kvq.scale_struct(self.cache["segments"])
 
-    def prefill(self, params: Params, b: int, seq: np.ndarray) -> torch.Tensor:
+    def prefill(self, params: Params, b: int, seq: np.ndarray,
+                frames=None) -> torch.Tensor:
         toks = torch.as_tensor(np.asarray(seq)[None, :], dtype=torch.long,
                                device=self.device)
         last, cache1 = api.prefill(self.mcfg, params, {"tokens": toks},
@@ -215,7 +219,8 @@ class PagedKVState:
         self.buckets = paged_kv.prefill_buckets(max_len, bucket_min)
         self.capacity = paged_kv.pool_token_capacity(self.pool, max_len)
 
-    def prefill(self, params: Params, b: int, seq: np.ndarray) -> torch.Tensor:
+    def prefill(self, params: Params, b: int, seq: np.ndarray,
+                frames=None) -> torch.Tensor:
         """Bucket-padded prefill of `seq` into slot b's pages; returns
         the (1, 1, V) last-real-token logits."""
         plen = len(seq)
@@ -252,30 +257,29 @@ class PagedKVState:
         self.pool.release(b)
 
 
-# -- recurrent (rglru / rwkv6) ------------------------------------------------
+# -- recurrent (rglru / rwkv6) and encoder-decoder (whisper) -----------------
 
 
-class RecurrentState:
-    """rglru conv + hidden state (and the ring KV of its attention
-    layers) / rwkv6 wkv + token-shift state: {"layers": [(B, ...)],
-    "index": (B,)} caches with the batch on axis 0 of every leaf,
-    gathered and scattered per slot in place.
+class _LayersState:
+    """{"layers": [(B, ...)], "index": (B,)} caches, the batch on axis 0
+    of every leaf, gathered and scattered per slot in place.
 
     Prefill runs each prompt at its exact length (no buckets, as in the
-    JAX package) and splices the batch-1 cache into the slot.  Decode is
-    always the gathered sub-batch form at width `decode_batch`: recurrent
-    state advances irreversibly, so a slot that is not active must never
-    run through the model.  Padding lanes repeat `active[0]`; only the
-    active lanes are scattered back (the JAX state scatters the padding
-    too, writing the same values again)."""
+    JAX package) and splices the batch-1 cache into the slot (on axis 0
+    always: the JAX `_tree_set_slot` finds no batch axis with one slot).
+    Decode is always the gathered sub-batch form at width `decode_batch`:
+    recurrent state advances irreversibly, so a slot that is not active
+    must never run through the model.  Padding lanes repeat `active[0]`;
+    only the active lanes are scattered back (the JAX state scatters the
+    padding too, writing the same values again)."""
 
-    kind = "recurrent"
     paged = False
     pool = None
     buckets: tuple = ()
 
     def __init__(self, mcfg: ModelConfig, max_batch: int, max_len: int, *,
-                 decode_batch: int, device: torch.device):
+                 decode_batch: int, device: torch.device,
+                 enc_len: int | None = None):
         self.mcfg = mcfg
         self.max_batch = max_batch
         self.max_len = max_len
@@ -283,7 +287,9 @@ class RecurrentState:
         self.compact = True           # gathered decode is structural here
         self.capacity = max_len
         self.device = device
-        self.cache = api.init_cache(mcfg, max_batch, max_len, device=device)
+        self.enc_len = enc_len or max_len
+        self.cache = api.init_cache(mcfg, max_batch, max_len, device=device,
+                                    enc_len=self.enc_len)
         self.cache["index"] = torch.zeros((max_batch,), dtype=torch.int32,
                                           device=device)
 
@@ -293,13 +299,9 @@ class RecurrentState:
             dst[b].copy_(src[0])
         self.cache["index"][b] = plen
 
-    def prefill(self, params: Params, b: int, seq: np.ndarray) -> torch.Tensor:
-        toks = torch.as_tensor(np.asarray(seq)[None, :], dtype=torch.long,
+    def _tokens(self, seq: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(seq)[None, :], dtype=torch.long,
                                device=self.device)
-        last, cache1 = api.prefill(self.mcfg, params, {"tokens": toks},
-                                   self.max_len)
-        self._splice(b, cache1, len(seq))
-        return last
 
     def decode(self, params: Params, next_token: np.ndarray,
                active: list[int]):
@@ -317,3 +319,45 @@ class RecurrentState:
 
     def release(self, b: int) -> None:
         pass
+
+
+class RecurrentState(_LayersState):
+    """rglru conv + hidden state (and the ring KV of its attention
+    layers) / rwkv6 wkv + token-shift state."""
+
+    kind = "recurrent"
+
+    def prefill(self, params: Params, b: int, seq: np.ndarray,
+                frames=None) -> torch.Tensor:
+        last, cache1 = api.prefill(self.mcfg, params,
+                                   {"tokens": self._tokens(seq)}, self.max_len)
+        self._splice(b, cache1, len(seq))
+        return last
+
+
+class CrossAttnState(_LayersState):
+    """Whisper: the decoder's self KV and the encoder output's cross KV.
+    A request's frame embeddings are padded with zeros or truncated to
+    the fixed `enc_len` window, so every prefill encodes one window
+    shape; a request without frames encodes a zero (silence) window."""
+
+    kind = "cross_attn"
+
+    def _fixed_frames(self, frames) -> torch.Tensor:
+        out = np.zeros((1, self.enc_len, self.mcfg.d_model), np.float32)
+        if frames is not None:
+            f = np.asarray(frames, np.float32)
+            if f.ndim == 3:
+                f = f[0]
+            take = min(f.shape[0], self.enc_len)
+            out[0, :take] = f[:take]
+        return torch.as_tensor(out, device=self.device)
+
+    def prefill(self, params: Params, b: int, seq: np.ndarray,
+                frames=None) -> torch.Tensor:
+        last, cache1 = api.prefill(
+            self.mcfg, params,
+            {"embeds": self._fixed_frames(frames), "tokens": self._tokens(seq)},
+            self.max_len)
+        self._splice(b, cache1, len(seq))
+        return last

@@ -127,14 +127,19 @@ def test_init_params_shapes_match_jax_and_default_to_cuda():
 
 
 def test_unported_variants_raise():
-    """Sliding windows and capacity MoE are ported; MLA, M-RoPE, layernorm
-    and the grouped / shard_map MoE dispatch variants still raise."""
+    """Sliding windows, capacity MoE, MLA, M-RoPE, the MTP subtree and
+    LayerNorm init (their trees are held against JAX in
+    tests/test_torch_{mla,variants,whisper}.py); only the grouped and
+    shard_map MoE dispatch variants still raise."""
     cfg = configs.get_smoke_config("smollm-135m")
-    for kw in (dict(window=8), dict(n_experts=4, top_k=2)):
-        api.init_params(cfg.replace(**kw), 0, device="cpu")
     moe = dict(n_experts=4, top_k=2)
-    for kw in (dict(mla_q_rank=64, mla_kv_rank=32), dict(mrope_sections=(4, 6, 6)),
-               dict(norm="layernorm"), dict(moe, moe_groups=2),
-               dict(moe, moe_shard_map=True)):
+    for kw in (dict(window=8), moe, dict(mla_q_rank=64, mla_kv_rank=32),
+               dict(mrope_sections=(4, 6, 6)), dict(norm="layernorm"),
+               dict(mla_q_rank=64, mla_kv_rank=32, mtp=True)):
+        p = api.init_params(cfg.replace(**kw), 0, device="cpu")
+        assert ("mtp" in p) == kw.get("mtp", False)
+        if kw.get("norm") == "layernorm":
+            assert set(p["final_norm"]) == {"scale", "bias"}
+    for kw in (dict(moe, moe_groups=2), dict(moe, moe_shard_map=True)):
         with pytest.raises(NotImplementedError):
             api.init_params(cfg.replace(**kw), 0, device="cpu")

@@ -254,8 +254,9 @@ def test_single_slot_engine_matches_two_slot_jax(family):
 
 
 def test_engine_state_choice():
-    """The state follows the JAX engine's choice; what is not ported
-    raises with a message that says so."""
+    """The state follows the JAX engine's choice: recurrent for rwkv6,
+    dense for an unpaged transformer, cross-attention for whisper (always
+    compact, with an encoder window of max_len by default)."""
     cfg = configs.get_smoke_config("rwkv6-3b")
     params = api.init_params(cfg, 0, device="cpu")
     eng = ServingEngine(cfg, params, max_batch=2, max_len=16, compact=False,
@@ -264,8 +265,10 @@ def test_engine_state_choice():
     assert eng.capacity == 16 and eng.state.cache["index"].shape == (2,)
     tf = configs.get_smoke_config("smollm-135m")
     assert ServingEngine(tf, {}, paged=False, device="cpu").state.kind == "dense"
-    with pytest.raises(NotImplementedError, match="whisper"):
-        ServingEngine(tf.replace(family="whisper", name="whisper"), {}, device="cpu")
+    eng = ServingEngine(tf.replace(family="whisper", name="whisper"), {},
+                        max_batch=2, max_len=16, compact=False, device="cpu")
+    assert eng.state.kind == "cross_attn" and eng.compact and not eng.paged
+    assert eng.state.cache["layers"][0]["ck"].shape[:2] == (2, 16)
 
 
 # -- serve CLI -------------------------------------------------------------------

@@ -191,7 +191,8 @@ def test_page_pool_rules():
 def test_engine_defaults_to_cuda_and_rejects_unported_states():
     """A transformer that cannot serve paged (paged=False, a sliding
     window, MoE) takes the dense KV state; int8 KV resolves to the JAX
-    engine's mode (tests/test_torch_kv_quant.py); whisper raises."""
+    engine's mode (tests/test_torch_kv_quant.py); whisper takes the
+    cross-attention state (tests/test_torch_whisper.py)."""
     cfg = configs.get_smoke_config("smollm-135m")
     for c, kw in ((cfg, dict(paged=False)), (cfg.replace(window=8), {}),
                   (configs.get_smoke_config("mixtral-8x7b"), {})):
@@ -200,8 +201,8 @@ def test_engine_defaults_to_cuda_and_rejects_unported_states():
     assert ServingEngine(cfg, {}, kv_quant=True, device="cpu").kv_quant_mode == "paged"
     assert ServingEngine(cfg, {}, kv_quant="dense", paged=False,
                          device="cpu").kv_quant_mode == "dense"
-    with pytest.raises(NotImplementedError):
-        ServingEngine(cfg.replace(family="whisper"), {}, device="cpu")
+    eng = ServingEngine(cfg.replace(family="whisper"), {}, device="cpu")
+    assert eng.state.kind == "cross_attn" and not eng.paged and eng.compact
 
 
 # -- policies -----------------------------------------------------------------
