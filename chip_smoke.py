@@ -61,7 +61,15 @@ exit, no result line) when a check fails:
    heads of 128, its int8 row in `Q8_ROWS`, the MLP tile at N 4 at
    h2o-danube-1.8b's, qwen2-vl-2b's and deepseek-v3-671b's widths,
    moe_mlp over deepseek-v3's 256 experts at capacities 8 and 16, one
-   call's extra device memory within 64 MB); kernel,
+   call's extra device memory within 64 MB); then each of the seven
+   ops under autograd, float32 (`grad_rows`: the norms, the fused MLP
+   with and without a gate, flash with a window and k / v without a
+   gradient, moe_mlp, rglru_scan, wkv6 in both layouts): one kernel
+   launch in the forward and none in the backward, each output within
+   the op's float32 tolerance of the plain version's, the gradients
+   within 1e-5 of each input's largest of the plain version's (a check
+   of the route's plumbing: the backward is the plain version's), and
+   the paged decode ops raising under grad; kernel,
    plain-version and library times from CUDA events and from the
    profiler's device time, and the least time the card could take (bytes
    over 3.35 TB/s or operations over the type's peak).  Every bfloat16
@@ -99,7 +107,14 @@ exit, no result line) when a check fails:
    kernel impls (flash off: it refuses MLA's v), and h2o-danube-1.8b (2
    layers) with two prompts past its window of 4096 through the plain
    and the kernel impls: equal greedy tokens (`qwen2_vl_e2e_phase`,
-   `danube_e2e_phase`, `deepseek_e2e_phase`).
+   `danube_e2e_phase`, `deepseek_e2e_phase`).  One `value_and_grad` step
+   through the kernel route and through the plain route, float32 at full
+   width (`grad_e2e_phase`): smollm-135m (4 layers, flash, fused MLP and
+   norms against einsum, dense and the plain norm, both on the card),
+   rwkv6-3b (2 layers), recurrentgemma-2b (3 layers, the fused norms and
+   flash) and mixtral-8x7b (1 layer, all three flags) on the card against
+   the CPU; every kernel of the route launched in the forward, losses
+   within 1e-4 and every gradient leaf within 1e-3 of its largest.
 4. Main paths, each at full width in bfloat16 with random weights from a
    seed, through `repro_torch.launch.serve`: smollm-135m with a policy
    that turns all three fusion flags on (12 requests), rwkv6-3b and
@@ -134,7 +149,22 @@ exit, no result line) when a check fails:
    4 of its 61 layers (3 dense, 1 MoE; flash off; moe_mlp once a MoE
    layer and fused_mlp once a dense layer or shared expert a prefill and
    a decode step) and whisper-base (6 + 6 layers, 8 requests with 1500
-   frames each; no kernel of the port may launch).  Launch counts are
+   frames each; no kernel of the port may launch); then the training
+   path (`train_path_phase`): smollm-135m at 30 layers, bf16, the three
+   flags, through `repro_torch.training.loop.train` for 30 AdamW steps of
+   8 x 256 SyntheticLM tokens with checkpoints every 10 steps: every loss
+   finite, the last at least 1 nat below the first, the norms, the fused
+   MLP and flash launched (31, 30, 30 and 30 a step) under autograd, the
+   last checkpoint restored on the card bit-equal to the trained weights
+   and a save / restore of the whole state bit-equal; each of one step's
+   121 kernel calls held against its plain version on its own bf16
+   inputs (2.5e-2), the first of each op also a timed row with its bound
+   and library call; that step's loss and gradients by the kernel route
+   within 1e-2 and 5e-2 (relative L2) of the plain route's; train()'s
+   tokens/s between two checkpoints and over its whole run, and the step
+   rate on batches already on the card (CUDA events) and its peak device
+   memory by both routes, printed with the card's name and power
+   limit.  Launch counts are
    set to 0 just before each path
    and read just after; every kernel of the path must have run, each
    recurrent layer's kernel and each MoE layer's moe_mlp exactly once a
@@ -163,8 +193,10 @@ exit, no result line) when a check fails:
    are broken down the same way; whisper's step must run none of the
    port's kernels.
 
-The last two lines are one JSON object listing the kernels and one with
-the device: `{"ok": true, "device": {"platform": "gpu", ...}}`.
+Before the closing lines, one JSON object `{"train_path": {...}}` with
+the training path's numbers, the gradient checks and the op rows.  The
+last two lines are one JSON object listing the kernels and one with the
+device: `{"ok": true, "device": {"platform": "gpu", ...}}`.
 """
 from __future__ import annotations
 
@@ -305,6 +337,19 @@ DS_CAPS = (8, 16)
 DS_LAYERS = 4
 WHISPER_ENC = 1500
 WHISPER_MAX_LEN = 256
+# training (PR 21): the main training path and the gradient checks
+TRAIN_STEPS = 30
+TRAIN_BATCH, TRAIN_SEQ = 8, 256
+TRAIN_DROP = 1.0          # nats the last logged loss must lie below the first
+# one bf16 step, kernel route against plain route (30 layers): the losses'
+# relative gap, and the gradient trees' gap in relative L2 norm (bf16
+# rounds each op's output to 2^-8 of its size, in another place by each route)
+TRAIN_BF16_LOSS_TOL = 1e-2
+TRAIN_BF16_GRAD_TOL = 5e-2
+GRAD_DEPTHS = (("smollm-135m", 4), ("rwkv6-3b", 2), ("recurrentgemma-2b", 3),
+               ("mixtral-8x7b", 1))
+GRAD_TOL = 1e-3           # a leaf's gradient: |kernels - plain| <= GRAD_TOL x max |plain| + 1e-6
+GRAD_OP_TOL = 1e-5        # an op's gradient against its plain version's, the same form
 
 
 def check(ok: bool, msg: str) -> None:
@@ -376,6 +421,17 @@ def device_ms(torch, fn, iters: int = 10) -> float | None:
 
     us = sum(t for t, _ in profiled(torch, calls).values())
     return us / iters / 1e3 if us > 0 else None
+
+
+def agreement(torch, out, ref, tol) -> tuple[float, bool]:
+    """max |out - ref| over every output, and whether each output is
+    finite with |out - ref| <= tol + tol * |ref|."""
+    o, r = [t.float() for t in (out if isinstance(out, tuple) else (out,))], \
+        [t.float() for t in (ref if isinstance(ref, tuple) else (ref,))]
+    e = max(float((a - b).abs().max()) for a, b in zip(o, r))
+    ok = all(bool(((a - b).abs() <= tol + tol * b.abs()).all()) and
+             bool(torch.isfinite(a).all()) for a, b in zip(o, r))
+    return e, ok
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -532,7 +588,8 @@ def paged_row(torch, record, dtype, q, kp, vp, tables, lens_d, extra=None):
 
 
 def kernel_phase(torch, F):
-    """Check each kernel against its plain version and time it."""
+    """Check each kernel against its plain version and time it.  Returns
+    the rows and `record`, which checks, times and appends one more."""
     from repro_torch.kernels import _build as B
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -561,15 +618,6 @@ def kernel_phase(torch, F):
     def rand(shape, dt, scale=1.0):
         return (torch.randn(shape, generator=dgen, device=dev) * scale).to(dt)
 
-    def err(out, ref, tol):
-        """max |out - ref| and whether |out - ref| <= tol + tol * |ref|."""
-        o, r = [t.float() for t in (out if isinstance(out, tuple) else (out,))], \
-            [t.float() for t in (ref if isinstance(ref, tuple) else (ref,))]
-        e = max(float((a - b).abs().max()) for a, b in zip(o, r))
-        ok = all(bool(((a - b).abs() <= tol + tol * b.abs()).all()) and
-                 bool(torch.isfinite(a).all()) for a, b in zip(o, r))
-        return e, ok
-
     rows = []
 
     launchers = {"fused_rmsnorm": nk.RMSNORM,
@@ -594,7 +642,7 @@ def kernel_phase(torch, F):
         events) is taken again, up to PROFILE_TRIES times, else recorded as
         not measured (None) and named in `invalid_readings`."""
         tol = tol or TOL.get(dtype, TOL_F32[name])
-        e, ok = err(out, ref, tol)
+        e, ok = agreement(torch, out, ref, tol)
         check(ok, f"{name} {shape} {dtype}: kernel disagrees with its plain "
                   f"version (max abs err {e:.3g}, tol {tol})")
         same = None
@@ -639,6 +687,7 @@ def kernel_phase(torch, F):
             row["invalid_readings"] = invalid
         rows.append(row)
         print(json.dumps(row), flush=True)
+        return row
 
     for dtype, dt in dts.items():
         es = torch.tensor([], dtype=dt).element_size()
@@ -970,7 +1019,7 @@ def kernel_phase(torch, F):
     int8_paged_rows(torch, record, rand)
     nan_paged_rows(torch, rand)
     variant_rows(torch, record, rand, F)
-    return rows
+    return rows, record
 
 
 def widths_rows(torch, record, rand, dts, F) -> None:
@@ -2353,6 +2402,536 @@ def whisper_path_phase(torch, launchers) -> dict:
     return counts
 
 
+def _bits(torch, t):
+    """t's raw bits as an integer tensor of its element size."""
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def _grad_gap(torch, got, want) -> float:
+    """max |got - want| over max |want| (1 where want is all 0 and got
+    is not)."""
+    scale = float(want.abs().max())
+    return float((got.float() - want.float()).abs().max()) / max(scale, 1e-30)
+
+
+def grad_rows(torch) -> dict:
+    """Each of the seven ops under autograd on the card (float32, TF32
+    off): the forward launches its kernel once (its launcher's count) and
+    the backward launches none; each output of the autograd route within
+    the op's TOL_F32 of the plain version's on the same inputs.  The
+    gradients are held against the plain version's autograd within
+    GRAD_OP_TOL of each input's largest: a check of the route's plumbing
+    (which inputs get a gradient, in which dtype), not of the kernel,
+    since the backward recomputes the plain version.  The paged decode
+    ops raise under grad.  Returns {row: {"out_err", "grad_gap"}}."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.fused_mlp import kernel as mk
+    from repro_torch.kernels.fused_mlp import ops as mops
+    from repro_torch.kernels.fused_mlp import ref as mref
+    from repro_torch.kernels.fused_norm import kernel as nk
+    from repro_torch.kernels.fused_norm import ops as nops
+    from repro_torch.kernels.fused_norm import ref as nref
+    from repro_torch.kernels.moe_mlp import kernel as ek
+    from repro_torch.kernels.moe_mlp import ops as eops
+    from repro_torch.kernels.moe_mlp import ref as eref
+    from repro_torch.kernels.rglru_scan import kernel as gk
+    from repro_torch.kernels.rglru_scan import ops as gops
+    from repro_torch.kernels.rglru_scan import ref as gref
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.kernels.wkv6 import ops as wops
+    from repro_torch.kernels.wkv6 import ref as wref
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def t(*shape, grad=True, scale=1.0):
+        x = torch.randn(shape, generator=gen, device="cuda") * scale
+        return x.requires_grad_(grad)
+
+    def scan_in():
+        a = torch.sigmoid(t(2, 256, LRU_W, grad=False) + 2.0).requires_grad_(True)
+        return [a, t(2, 256, LRU_W), t(2, LRU_W, grad=False)]
+
+    def wkv_in(lead, u_shape, s_shape):
+        logw = (-torch.exp(t(*lead, RWKV_D, grad=False) - 1.0)).requires_grad_(True)
+        return [t(*lead, RWKV_D, scale=0.5), t(*lead, RWKV_D, scale=0.5),
+                t(*lead, RWKV_D), logw, t(*u_shape, scale=0.1), t(*s_shape, scale=0.1)]
+
+    cases = (
+        ("fused_rmsnorm", nk.RMSNORM, nops.fused_rmsnorm, nref.fused_rmsnorm_ref,
+         lambda: [t(64, D), t(D, scale=0.1)], {"eps": 1e-6}),
+        ("fused_rmsnorm_residual", nk.RMSNORM_RESIDUAL, nops.fused_rmsnorm_residual,
+         nref.fused_rmsnorm_residual_ref,
+         lambda: [t(64, D), t(64, D), t(D, scale=0.1)], {"eps": 1e-6}),
+        ("fused_mlp", mk.MLP, mops.fused_mlp, mref.fused_mlp_ref,
+         lambda: [t(2, 128, D), t(D, F_FF, scale=D ** -0.5), t(D, F_FF, scale=D ** -0.5),
+                  t(F_FF, D, scale=F_FF ** -0.5)], {"swiglu": True}),
+        ("fused_mlp gelu", mk.MLP, mops.fused_mlp, mref.fused_mlp_ref,
+         lambda: [t(2, 128, D), None, t(D, F_FF, scale=D ** -0.5),
+                  t(F_FF, D, scale=F_FF ** -0.5)], {"swiglu": False}),
+        ("flash_attention", fk.FLASH, fops.flash_attention, fref.flash_attention_ref,
+         lambda: [t(2, 256, H, HD), t(2, 256, HKV, HD), t(2, 256, HKV, HD)],
+         {"causal": True, "window": None}),
+        ("flash_attention window, k/v no grad", fk.FLASH, fops.flash_attention,
+         fref.flash_attention_ref,
+         lambda: [t(2, 256, H, HD), t(2, 256, HKV, HD, grad=False),
+                  t(2, 256, HKV, HD, grad=False)], {"causal": True, "window": 64}),
+        ("moe_mlp", ek.MOE, eops.moe_mlp, eref.moe_mlp_ref,
+         lambda: [t(8, 24, 512), t(8, 512, 1024, scale=512 ** -0.5),
+                  t(8, 512, 1024, scale=512 ** -0.5), t(8, 1024, 512, scale=1024 ** -0.5)],
+         {"swiglu": True}),
+        ("moe_mlp gelu", ek.MOE, eops.moe_mlp, eref.moe_mlp_ref,
+         lambda: [t(8, 24, 512), None, t(8, 512, 1024, scale=512 ** -0.5),
+                  t(8, 1024, 512, scale=1024 ** -0.5)], {"swiglu": False}),
+        ("rglru_scan", gk.SCAN, gops.rglru_scan, gref.rglru_scan_ref, scan_in, {}),
+        ("wkv6_bshd", wk.WKV6, wops.wkv6_bshd, wref.wkv6_bshd_ref,
+         lambda: wkv_in((1, 256, RWKV_H), (RWKV_H, RWKV_D), (1, RWKV_H, RWKV_D, RWKV_D)),
+         {"chunk": 32}),
+        ("wkv6", wk.WKV6, wops.wkv6, wref.wkv6_ref,
+         lambda: wkv_in((8, 128), (8, 1, RWKV_D), (8, RWKV_D, RWKV_D)), {"chunk": 32}),
+    )
+    tol_of = {nk.RMSNORM: "fused_rmsnorm", nk.RMSNORM_RESIDUAL: "fused_rmsnorm_residual",
+              mk.MLP: "fused_mlp", fk.FLASH: "flash_attention", ek.MOE: "moe_mlp",
+              gk.SCAN: "rglru_scan", wk.WKV6: "wkv6"}
+    gaps = {}
+    for name, launcher, op, plain, make, kw in cases:
+        inputs = make()
+        wrt = [x for x in inputs if x is not None and x.requires_grad]
+        before = launcher.launches
+        out = op(*inputs, **kw)
+        first = out[0] if isinstance(out, tuple) else out
+        check(type(first.grad_fn).__name__ == "_KernelFunctionBackward",
+              f"grad {name}: the forward did not take the kernel's autograd route")
+        launched = launcher.launches - before
+        outs = out if isinstance(out, tuple) else (out,)
+        ws = [torch.randn(o.shape, generator=gen, device="cuda") for o in outs]
+
+        def loss(res):
+            res = res if isinstance(res, tuple) else (res,)
+            return sum((o.float() * w).sum() for o, w in zip(res, ws))
+
+        got = torch.autograd.grad(loss(out), wrt)
+        torch.cuda.synchronize()
+        check(launched == 1 and launcher.launches - before == 1,
+              f"grad {name}: {launched} launches in the forward, "
+              f"{launcher.launches - before - launched} in the backward (want 1, 0)")
+        ref = plain(*inputs, **kw)
+        tol = TOL_F32[tol_of[launcher]]
+        out_err, ok = agreement(torch, tuple(o.detach() for o in outs),
+                                tuple(r.detach() for r in
+                                      (ref if isinstance(ref, tuple) else (ref,))), tol)
+        check(ok, f"grad {name}: the autograd route's output differs from the plain "
+              f"version's by {out_err:.3g} (tol {tol})")
+        want = torch.autograd.grad(loss(ref), wrt)
+        gap = max(_grad_gap(torch, g, w) for g, w in zip(got, want))
+        check(all(g.dtype == x.dtype for g, x in zip(got, wrt)),
+              f"grad {name}: a gradient is not in its input's dtype")
+        check(gap <= GRAD_OP_TOL, f"grad {name}: gradients differ from the plain "
+              f"version's by {gap:.3g} of the largest (tol {GRAD_OP_TOL})")
+        gaps[name] = {"out_err": out_err, "grad_gap": gap}
+    q = t(DECODE_N, 1, H, HD)
+    pool = torch.zeros((3, PAGE, HKV, HD), device="cuda")
+    tables = torch.ones((DECODE_N, 1), dtype=torch.int32, device="cuda")
+    lens = torch.full((DECODE_N,), 4, dtype=torch.int32, device="cuda")
+    for what, call in (
+            ("paged_decode", lambda: fops.paged_decode_attention(q, pool, pool, tables,
+                                                                 lens)),
+            ("paged_decode_int8", lambda: fops.paged_decode_attention_int8(
+                q, pool.to(torch.int8), pool.to(torch.int8),
+                torch.ones((3, HKV), device="cuda"), torch.ones((3, HKV), device="cuda"),
+                tables, lens, pool[0, :1].expand(DECODE_N, HKV, HD).contiguous(),
+                pool[0, :1].expand(DECODE_N, HKV, HD).contiguous()))):
+        try:
+            call()
+            raised = False
+        except RuntimeError as e:
+            raised = "no gradient" in str(e)
+        check(raised, f"grad {what}: no RuntimeError under grad")
+    print(f"[smoke] the ops under autograd (f32, TF32 off), max abs error of the "
+          f"outputs against the plain version and worst gradient gap of the "
+          f"largest: { {k: [float(f'{v:.3g}') for v in g.values()] for k, g in gaps.items()} }"
+          f"; one launch a forward, none a backward; the paged decode ops raise "
+          f"under grad", flush=True)
+    return gaps
+
+
+def grad_e2e_phase(torch) -> dict:
+    """One value_and_grad step at full width and cut depth (GRAD_DEPTHS),
+    float32, TF32 off, through the kernel route and through the plain
+    route: smollm-135m both on the card (flash, fused MLP and norms
+    against einsum, dense and the plain norm); rwkv6-3b, recurrentgemma-2b
+    (two recurrent layers and one attention layer, with the fused norms and
+    flash) and mixtral-8x7b (one MoE layer, all three flags) on the card
+    against the CPU, whose ops run the plain versions, as the e2e phases
+    reach theirs.  Every kernel of the path must launch in the forward
+    (by its count); the losses within 1e-4; each gradient leaf within
+    GRAD_TOL of the leaf's largest gradient.  Returns {arch: summary}."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.bridge import tree_paths, tree_to
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.fused_mlp import kernel as mk
+    from repro_torch.kernels.fused_norm import kernel as nk
+    from repro_torch.kernels.moe_mlp import kernel as ek
+    from repro_torch.kernels.rglru_scan import kernel as gk
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.models import api
+    from repro_torch.training.loop import value_and_grad
+
+    launchers = {"fused_rmsnorm": nk.RMSNORM, "fused_rmsnorm_residual": nk.RMSNORM_RESIDUAL,
+                 "fused_mlp": mk.MLP, "flash_attention": fk.FLASH, "moe_mlp": ek.MOE,
+                 "wkv6": wk.WKV6, "rglru_scan": gk.SCAN}
+    flags = dict(attn_impl="flash", mlp_impl="fused", norm_impl="fused")
+    summary = {}
+    for arch, depth in GRAD_DEPTHS:
+        base = configs.get_config(arch).replace(n_layers=depth, dtype="float32",
+                                                param_dtype="float32")
+        kern = base.replace(**flags) if base.family != "rwkv6" else base
+        on_card = arch == "smollm-135m"
+        plain = base.replace(attn_impl="einsum", mlp_impl="dense", norm_impl="ref") \
+            if on_card else kern
+        want = {"smollm-135m": dict(fused_rmsnorm=depth + 1, fused_rmsnorm_residual=depth,
+                                    fused_mlp=depth, flash_attention=depth),
+                "rwkv6-3b": dict(wkv6=depth),
+                "recurrentgemma-2b": dict(fused_rmsnorm=2 * depth + 1, flash_attention=1,
+                                          rglru_scan=depth - 1),
+                "mixtral-8x7b": dict(fused_rmsnorm=depth + 1, fused_rmsnorm_residual=depth,
+                                     flash_attention=depth, moe_mlp=depth)}[arch]
+        t0 = time.perf_counter()
+        params = api.init_params(base, 1, device="cuda" if on_card else "cpu")
+        draw_s = time.perf_counter() - t0
+        b, s = (2, 256) if on_card else (1, 128)
+        rng = np.random.default_rng(1)
+        batch = {k: torch.as_tensor(rng.integers(0, base.vocab, (b, s)).astype(np.int32))
+                 for k in ("tokens", "labels")}
+        for ln in launchers.values():
+            ln.launches = 0
+        loss_k, grads_k = value_and_grad(kern, tree_to(params, "cuda"),
+                                         tree_to(batch, "cuda"))
+        torch.cuda.synchronize()
+        counts = {name: ln.launches for name, ln in launchers.items() if ln.launches}
+        dev = "cuda" if on_card else "cpu"
+        loss_p, grads_p = value_and_grad(plain, tree_to(params, dev), tree_to(batch, dev))
+        gk_, gp_ = tree_paths(grads_k), tree_paths(grads_p)
+        check([p for p, _ in gk_] == [p for p, _ in gp_], f"grad e2e {arch}: trees differ")
+        gaps = {"/".join(map(str, p)): _grad_gap(torch, a.cpu(), b_.cpu())
+                for (p, a), (_, b_) in zip(gk_, gp_)}
+        worst = max(gaps, key=gaps.get)
+        zero = [p for (p, a) in gk_ if not bool(a.abs().max() > 0)]
+        loss_gap = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+        summary[arch] = {"layers": depth, "batch": [b, s], "plain_on": dev,
+                         "loss": float(loss_k), "loss_rel_gap": loss_gap,
+                         "worst_leaf": worst, "worst_gap": gaps[worst],
+                         "leaves": len(gaps), "launches": counts}
+        print(f"[smoke] grad e2e {arch} f32 {depth} layers full width, kernels on "
+              f"the card vs plain on the {'card' if on_card else 'CPU'} (B {b} x S "
+              f"{s}): loss {float(loss_k):.5f} vs {float(loss_p):.5f}, {len(gaps)} "
+              f"leaves, worst gap {gaps[worst]:.3g} of the largest gradient "
+              f"({worst}); launches in the forward {counts} (weights drawn in "
+              f"{draw_s:.1f}s)", flush=True)
+        check(counts == want, f"grad e2e {arch}: launches {counts}, want {want}")
+        check(loss_gap <= 1e-4, f"grad e2e {arch}: losses differ by {loss_gap:.3g}")
+        check(not zero, f"grad e2e {arch}: no gradient reached {zero[:4]}")
+        check(gaps[worst] <= GRAD_TOL, f"grad e2e {arch}: leaf {worst} differs by "
+              f"{gaps[worst]:.3g} of its largest gradient (tol {GRAD_TOL})")
+        del params, grads_k, grads_p
+        free(torch)
+    return summary
+
+
+def train_path_phase(torch, record, F) -> dict:
+    """The main training path: smollm-135m at full width (30 layers, bf16,
+    random weights from seed 0) with the fused norms, the fused MLP and
+    flash, through `repro_torch.training.loop.train`: SyntheticLM
+    batches of TRAIN_BATCH x TRAIN_SEQ tokens, AdamW at lr 3e-4 (10 warm-up
+    steps, cosine to TRAIN_STEPS), a loss logged every step, checkpoints
+    every 10 steps into build/train_ckpt.  Every loss finite, the last
+    TRAIN_DROP nats below the first; the four kernels launched under
+    autograd exactly as often as the steps imply (launch counts set to 0
+    just before `train` and read just after); the final checkpoint
+    restored on the card holds the trained weights bit for bit, and the
+    whole restored (params, opt_state) saved and restored again is bit-
+    equal.  train()'s own rate: tokens over the wall time between the
+    logs of steps 10 and 19 (the data pipeline, the host-to-device copy
+    and the optimizer inside, no checkpoint save), and over its whole
+    run (warm-up and checkpoints too).
+
+    Then one value_and_grad on the restored weights with every kernel
+    call's inputs captured: each of the 121 calls (31 norms, 30 residual
+    norms, 30 MLP tiles, 30 flash calls at B 8 x S 256) is held against
+    its plain version at the bf16 TOL, and the first of each op is also
+    a row (`record`: times, bound, library call).  The same step by the
+    plain route (einsum attention, dense MLP, plain norm): the losses
+    within TRAIN_BF16_LOSS_TOL of each other, the gradient trees within
+    TRAIN_BF16_GRAD_TOL in relative L2 norm.  Then the step rate: ms a
+    step by CUDA events over 10 steps on batches already on the card
+    (no data pipeline, no host-to-device copy, no checkpoint) and the
+    peak device memory of those steps, by the kernel route and by the
+    plain route, and one profiled step of the kernel route.  Returns
+    the summary."""
+    import shutil
+
+    from repro_torch import configs
+    from repro_torch.bridge import tree_leaves, tree_paths
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import DataConfig, DataPipeline
+    from repro_torch.kernels import _grad
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.fused_mlp import kernel as mk
+    from repro_torch.kernels.fused_norm import kernel as nk
+    from repro_torch.training.loop import (TrainConfig, make_train_step, train,
+                                           value_and_grad)
+    from repro_torch.training.optimizer import OptimizerConfig, init_opt
+
+    cfg = configs.get_config("smollm-135m").replace(
+        attn_impl="flash", mlp_impl="fused", norm_impl="fused")
+    plain_cfg = cfg.replace(attn_impl="einsum", mlp_impl="dense", norm_impl="ref")
+    ocfg = OptimizerConfig(lr=3e-4, warmup_steps=10, total_steps=TRAIN_STEPS)
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    tcfg = TrainConfig(steps=TRAIN_STEPS, log_every=1, ckpt_every=10,
+                       ckpt_dir=str(ckpt_dir), seed=0)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0)
+    launchers = {"fused_rmsnorm": nk.RMSNORM, "fused_rmsnorm_residual": nk.RMSNORM_RESIDUAL,
+                 "fused_mlp": mk.MLP, "flash_attention": fk.FLASH}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    logged = []                   # the wall clock at each logged step (log_every 1)
+    torch.cuda.reset_peak_memory_stats()
+    for ln in launchers.values():
+        ln.launches = 0
+    t0 = time.perf_counter()
+    out = train(cfg, ocfg, tcfg, dcfg, device="cuda",
+                log_fn=lambda line: logged.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: ln.launches for name, ln in launchers.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [loss for _, loss in out["losses"]]
+    L = cfg.n_layers
+    want = {"fused_rmsnorm": (L + 1) * TRAIN_STEPS,
+            "fused_rmsnorm_residual": L * TRAIN_STEPS,
+            "fused_mlp": L * TRAIN_STEPS, "flash_attention": L * TRAIN_STEPS}
+    check(all(math.isfinite(v) for v in losses), f"train: a loss is not finite: {losses}")
+    check(len(losses) == TRAIN_STEPS and len(logged) == TRAIN_STEPS,
+          f"train: {len(losses)} losses logged")
+    check(losses[0] - losses[-1] >= TRAIN_DROP, f"train: the loss fell from "
+          f"{losses[0]:.4f} to {losses[-1]:.4f}, less than {TRAIN_DROP}")
+    check(counts == want, f"train: launches {counts}, want {want}")
+    # train()'s rate between the checkpoints after steps 10 and 20: each
+    # log follows the step's loss read back, so the window holds whole steps
+    w0, w1 = tcfg.ckpt_every, 2 * tcfg.ckpt_every - 1
+    window_ms = (logged[w1] - logged[w0]) * 1e3 / (w1 - w0)
+    # the card's checkpoints: the last one holds the trained weights
+    mgr = CheckpointManager(str(ckpt_dir))
+    check(mgr.steps() == [10, 20, 30], f"train: checkpoints {mgr.steps()}")
+    params = out["params"]
+    (rp, ropt), meta = mgr.restore((params, {"inner": init_opt(ocfg, params)}))
+    check(meta == {"next_step": TRAIN_STEPS}, f"train: checkpoint meta {meta}")
+
+    def bit_equal(a_tree, b_tree):
+        return all(a.device.type == "cuda" and a.dtype == b.dtype and
+                   torch.equal(_bits(torch, a), _bits(torch, b))
+                   for a, b in zip(tree_leaves(a_tree), tree_leaves(b_tree)))
+
+    check(bit_equal(rp, params), "train: the restored weights differ from the trained")
+    again_dir = ROOT / "build" / "train_ckpt_again"
+    shutil.rmtree(again_dir, ignore_errors=True)
+    again = CheckpointManager(str(again_dir))
+    again.save(TRAIN_STEPS, (rp, ropt))
+    back, _ = again.restore((rp, ropt))
+    check(bit_equal(back, (rp, ropt)) and
+          [p for p, _ in tree_paths(back)] == [p for p, _ in tree_paths((rp, ropt))],
+          "train: a save and restore on the card changed the tree")
+    shutil.rmtree(again_dir, ignore_errors=True)
+    del out, params, back
+    free(torch)
+
+    # one step's own inputs to every kernel call, captured where the ops
+    # hand them to the autograd route
+    data = DataPipeline(dcfg)
+    batches = [{k: torch.from_numpy(v).to("cuda") for k, v in
+                data.batch(TRAIN_STEPS + i).items()} for i in range(10)]
+    calls = []
+    run = _grad.run
+
+    def capture(kernel, plain, *inputs, **kw):
+        calls.append((kernel, plain, [None if x is None else x.detach().clone()
+                                      for x in inputs], kw))
+        return run(kernel, plain, *inputs, **kw)
+
+    _grad.run = capture
+    try:
+        loss_k, grads_k = value_and_grad(cfg, rp, batches[0])
+    finally:
+        _grad.run = run
+    op_of = {"fused_rmsnorm_ref": "fused_rmsnorm",
+             "fused_rmsnorm_residual_ref": "fused_rmsnorm_residual",
+             "fused_mlp_ref": "fused_mlp", "flash_attention_ref": "flash_attention"}
+    checked: dict = {}
+    firsts = {}
+    with torch.no_grad():
+        for kernel, plain, inputs, kw in calls:
+            name = op_of[plain.__name__]
+            e, ok = agreement(torch, kernel(*inputs, **kw), plain(*inputs, **kw),
+                              TOL["bfloat16"])
+            check(ok, f"train: {name} call {checked.get(name, [0])[0]} of the step "
+                  f"differs from its plain version on its own inputs (max abs err "
+                  f"{e:.3g}, tol {TOL['bfloat16']})")
+            n, worst = checked.get(name, (0, 0.0))
+            checked[name] = (n + 1, max(worst, e))
+            firsts.setdefault(name, (kernel, plain, inputs, kw))
+    check({k: n for k, (n, _) in checked.items()} == {k: v // TRAIN_STEPS
+                                                      for k, v in want.items()},
+          f"train: kernel calls in one step {checked}")
+    del calls
+    sdpa_gqa = tuple(int(p) for p in torch.__version__.split(".")[:2]) >= (2, 5)
+    rms_norm = getattr(F, "rms_norm", None)
+    train_rows = []
+    with torch.no_grad():
+        for name, (kernel, plain, inputs, kw) in firsts.items():
+            es = inputs[0].element_size()
+            if name == "flash_attention":
+                q, k, v = inputs
+                b, sq, h, hd = q.shape
+                hkv = k.shape[2]
+                shape = [b, sq, h, hkv, hd]
+                nbytes = (2 * b * sq * h * hd + 2 * b * sq * hkv * hd) * es
+                flops = 4 * hd * (sq * (sq + 1) // 2) * h * b
+                lib = None
+                if sdpa_gqa and kw.get("window") is None:
+                    def lib(i, q=q, k=k, v=v):
+                        return F.scaled_dot_product_attention(
+                            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                            is_causal=True, enable_gqa=True)
+            elif name == "fused_mlp":
+                x, wg, wi, wo = inputs
+                d, f = wi.shape
+                n = x.numel() // d
+                shape = [n, d, f]
+                nbytes, flops = (2 * n * d + 3 * d * f) * es, 6 * n * d * f
+
+                def lib(i, x2=x.reshape(n, d), wg=wg, wi=wi, wo=wo):
+                    return (F.silu(x2 @ wg) * (x2 @ wi)) @ wo
+            else:
+                d = inputs[0].shape[-1]
+                n = inputs[0].numel() // d
+                shape = [n, d]
+                lib = None
+                if name == "fused_rmsnorm":
+                    nbytes, flops = (2 * n * d + d) * es, 4 * n * d
+                    if rms_norm is not None:
+                        x, sc = inputs
+
+                        def lib(i, x=x, w1=(1.0 + sc.float()).to(sc.dtype), d=d,
+                                eps=kw["eps"]):
+                            return rms_norm(x, (d,), weight=w1, eps=eps)
+                else:
+                    nbytes, flops = (4 * n * d + d) * es, 5 * n * d
+            row = record(name, shape, "bfloat16", kernel(*inputs, **kw),
+                         plain(*inputs, **kw),
+                         lambda i, a=inputs, kw=kw, kern=kernel: kern(*a, **kw),
+                         lambda i, a=inputs, kw=kw, ref=plain: ref(*a, **kw), lib,
+                         nbytes, flops, iters=20,
+                         act="swiglu" if name == "fused_mlp" else None,
+                         extra={"path": "train", "calls_checked": checked[name][0],
+                                "calls_worst_err": checked[name][1]})
+            train_rows.append({k: row[k] for k in (
+                "name", "shape", "max_err", "tol", "kernel_ms", "plain_ms",
+                "library_ms", "bound_ms", "bound_by", "calls_checked",
+                "calls_worst_err")})
+    del firsts
+    # the same step by the plain route, on the same weights and batch
+    loss_p, grads_p = value_and_grad(plain_cfg, rp, batches[0])
+    pairs = list(zip(tree_paths(grads_k), tree_paths(grads_p)))
+    diff2 = sum(float((a.float() - b_.float()).square().sum()) for (_, a), (_, b_) in pairs)
+    norm2 = sum(float(b_.float().square().sum()) for _, (_, b_) in pairs)
+    grad_rel = math.sqrt(diff2 / norm2)
+    leaf_gaps = {"/".join(map(str, p)): _grad_gap(torch, a, b_)
+                 for (p, a), (_, b_) in pairs}
+    worst_leaf = max(leaf_gaps, key=leaf_gaps.get)
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    print(f"[smoke] train step bf16 30L, kernel route vs plain route on the same "
+          f"weights and batch: loss {float(loss_k):.5f} vs {float(loss_p):.5f} "
+          f"(rel {loss_rel:.3g}, tol {TRAIN_BF16_LOSS_TOL}); gradients' relative L2 "
+          f"gap {grad_rel:.3g} (tol {TRAIN_BF16_GRAD_TOL}), worst leaf {worst_leaf} "
+          f"{leaf_gaps[worst_leaf]:.3g} of its largest", flush=True)
+    check(loss_rel <= TRAIN_BF16_LOSS_TOL, f"train: bf16 losses differ by {loss_rel:.3g}")
+    check(grad_rel <= TRAIN_BF16_GRAD_TOL,
+          f"train: bf16 gradients differ by {grad_rel:.3g} in relative L2")
+    del grads_k, grads_p, pairs
+    free(torch)
+
+    # the step rate on batches already on the card, each route from the
+    # restored state, and its peak device memory
+    def step_rate(mcfg, profile):
+        step_fn = make_train_step(mcfg, ocfg, tcfg)
+        state = [rp, ropt]
+
+        def one(i):
+            state[0], state[1], _ = step_fn(state[0], state[1], batches[i % len(batches)])
+
+        free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(torch, one, iters=10, warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        rec = profiled(torch, lambda: one(0), need=("flash_tc_kernel",)) if profile else None
+        del state
+        return ms, peak, rec
+
+    ms, step_peak_gb, rec = step_rate(cfg, True)
+    plain_ms, plain_peak_gb, _ = step_rate(plain_cfg, False)
+    dev_ms = sum(t for t, _ in rec.values()) / 1e3 or None
+    own_ms = sum(t for n, (t, _) in rec.items() if any(k in n for k in OWN_KERNELS)) / 1e3
+    top = sorted(((round(t / 1e3, 3), n[:60]) for n, (t, _) in rec.items()),
+                 reverse=True)[:6]
+    card = card_line()
+    summary = {"arch": "smollm-135m", "layers": L, "dtype": cfg.dtype,
+               "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+               "optimizer": "adamw", "lr": ocfg.lr, "loss_first": losses[0],
+               "loss_last": losses[-1], "losses": losses,
+               "train_window_steps": [w0 + 1, w1], "train_window_ms_per_step": window_ms,
+               "train_window_tokens_per_s": tokens * 1e3 / window_ms,
+               "train_wall_s": wall, "train_wall_tokens_per_s": tokens * TRAIN_STEPS / wall,
+               "train_peak_device_gb": peak_gb,
+               "step_ms": ms, "step_tokens_per_s": tokens * 1e3 / ms,
+               "step_peak_device_gb": step_peak_gb,
+               "plain_step_ms": plain_ms, "plain_step_tokens_per_s": tokens * 1e3 / plain_ms,
+               "plain_step_peak_device_gb": plain_peak_gb,
+               "bf16_vs_plain": {"loss_rel_gap": loss_rel, "grad_rel_l2": grad_rel,
+                                 "worst_leaf": worst_leaf,
+                                 "worst_leaf_gap": leaf_gaps[worst_leaf]},
+               "kernel_rows": train_rows,
+               "device_ms_per_step": dev_ms,
+               "device_busy": dev_ms / ms if dev_ms else None,
+               "own_kernels_ms_per_step": own_ms,
+               "kernels_per_step": sum(n for _, n in rec.values()),
+               "top_kernels_ms": top, "launches": counts,
+               "launches_per_step": {k: v // TRAIN_STEPS for k, v in counts.items()},
+               "checkpoints": mgr.steps(), "card": card}
+    print(f"[smoke] train path smollm-135m {L}L bf16 (fused norms, fused MLP, flash; "
+          f"AdamW): {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; train() steps {w0 + 1}-{w1} "
+          f"{window_ms:.2f} ms a step = {tokens * 1e3 / window_ms:.0f} tokens/s (data "
+          f"pipeline and host-to-device copy inside), whole run {wall:.2f}s = "
+          f"{tokens * TRAIN_STEPS / wall:.0f} tokens/s with warm-up and checkpoints, "
+          f"peak device memory {peak_gb:.2f} GB; step rate on staged batches "
+          f"(CUDA events) {ms:.2f} ms = {tokens * 1e3 / ms:.0f} tokens/s, peak "
+          f"{step_peak_gb:.2f} GB; plain route {plain_ms:.2f} ms = "
+          f"{tokens * 1e3 / plain_ms:.0f} tokens/s, peak {plain_peak_gb:.2f} GB; "
+          f"device {'not measured' if dev_ms is None else f'{dev_ms:.2f}'} ms a "
+          f"step ({own_ms:.2f} in our kernels, "
+          f"{summary['kernels_per_step']} kernels; heaviest {top}); "
+          f"launches {counts}; checkpoint restored bit-equal on the card; kernel "
+          f"calls of one step checked on their own inputs {checked}; card {card}",
+          flush=True)
+    del rp, ropt, batches
+    free(torch)
+    return summary
+
+
 def free(torch) -> None:
     import gc
     gc.collect()
@@ -2930,7 +3509,8 @@ def main() -> int:
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
 
     norm_trace(torch)
-    rows = kernel_phase(torch, F)
+    rows, record = kernel_phase(torch, F)
+    grad_gaps = grad_rows(torch)
     e2e_phase(torch)
     moe_e2e_phase(torch, 2)
     free(torch)
@@ -2942,6 +3522,7 @@ def main() -> int:
     qwen2_vl_e2e_phase(torch, 4)
     danube_e2e_phase(torch, 2)
     deepseek_e2e_phase(torch, 2)
+    grad_check = grad_e2e_phase(torch)
     norms = {"fused_rmsnorm": nk.RMSNORM,
              "fused_rmsnorm_residual": nk.RMSNORM_RESIDUAL}
     eng, counts, s = main_path_phase(
@@ -3014,6 +3595,7 @@ def main() -> int:
     variant_path_phases(torch, dict(norms, fused_mlp=mk.MLP, flash_attention=fk.FLASH,
                                     paged_decode=fk.PAGED, paged_decode_int8=fk.PAGED_INT8,
                                     moe_mlp=ek.MOE, wkv6=wk.WKV6, rglru_scan=gk.SCAN))
+    train_summary = train_path_phase(torch, record, F)
 
     meta = {
         "fused_rmsnorm": ("fused_norm.cu", "fused_norm/kernel.py:51",
@@ -3050,6 +3632,8 @@ def main() -> int:
                         "library_device_ms": row["library_device_ms"],
                         "kernel_device_ms": row["kernel_device_ms"], "shape": shape,
                         "dtype": dtype, "build_s": build_s})
+    print(json.dumps({"train_path": dict(train_summary, grad_check=grad_check,
+                                         grad_rows=grad_gaps)}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,10 @@ JAX bf16 arrays arrive as numpy arrays of the `ml_dtypes` bfloat16
 dtype, which `torch.from_numpy` refuses; they cross as their raw 16-bit
 patterns (`uint16` -> `int16` -> a `torch.bfloat16` view), so no value
 is rounded and `ml_dtypes` is never imported.
+
+The tree helpers walk nested dicts, lists and tuples as JAX's pytrees
+do (`tree_paths` in `tree_flatten_with_path` order), so the optimizer
+state and checkpoint leaves line up with the JAX package's.
 """
 from __future__ import annotations
 
@@ -30,14 +34,55 @@ def array_to_tensor(a: Any, device: str | torch.device = "cpu") -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
-def tree_map(fn, tree: Any) -> Any:
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
     """`fn` applied to every leaf of nested dicts/lists/tuples, in the
-    same structure."""
+    same structure; with `rest`, fn(leaf, *the same position of each
+    other tree), the structure followed being the first tree's (so a
+    leaf of it may meet a whole subtree of another)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_unzip(structure: Any, tree: Any, n: int) -> list:
+    """n trees of `structure`'s shape out of `tree`, which holds an
+    n-tuple at each of structure's leaves."""
+    return [tree_map(lambda _, t, i=i: t[i], structure, tree) for i in range(n)]
+
+
+def tree_paths(tree: Any, prefix: tuple = ()) -> list[tuple[tuple, Any]]:
+    """(path, leaf) of every leaf in JAX's `tree_flatten_with_path` order:
+    dict keys sorted, list and tuple indices in order, None leaves left
+    out (an empty subtree to JAX)."""
+    if isinstance(tree, dict):
+        return [e for k in sorted(tree) for e in tree_paths(tree[k], prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [e for i, v in enumerate(tree) for e in tree_paths(v, prefix + (i,))]
+    return [] if tree is None else [(prefix, tree)]
+
+
+def tree_leaves(tree: Any) -> list:
+    """The leaves in `tree_paths` order (`jax.tree_util.tree_leaves`')."""
+    return [leaf for _, leaf in tree_paths(tree)]
+
+
+def tree_unflatten(template: Any, leaves: list) -> Any:
+    """`template`'s structure (dict key order kept) holding `leaves`, given
+    in `tree_paths` order; None leaves stay None."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            built = {k: build(t[k]) for k in sorted(t)}
+            return {k: built[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return None if t is None else next(it)
+
+    return build(template)
 
 
 def tree_to_torch(tree: Any, device: str | torch.device = "cpu") -> Any:

@@ -14,10 +14,15 @@
 
 A CPU tensor takes the plain PyTorch version (`ref`); a CUDA tensor
 launches the CUDA kernel, which raises on anything it does not take.
+Under autograd flash's kernel forward takes the plain version's
+gradients (`_grad.run`; k and v may or may not require one); the paged
+ops serve decode only and raise when a gradient is wanted on the card.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels import _grad
 
 from . import kernel, ref
 
@@ -30,7 +35,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(k.shape)} and {tuple(v.shape)}")
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    return kernel.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    return _grad.run(kernel.flash_attention_cuda, ref.flash_attention_ref, q, k, v,
+                     causal=causal, window=window)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -39,6 +45,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type == "cpu":
         return ref.paged_decode_attention_ref(q, k_pages, v_pages, tables,
                                               lengths)
+    _grad.refuse("paged_decode_attention", q, k_pages, v_pages)
     return kernel.paged_decode_attention_cuda(q, k_pages, v_pages, tables,
                                               lengths)
 
@@ -51,4 +58,5 @@ def paged_decode_attention_int8(q: torch.Tensor, k_pages: torch.Tensor,
     args = (q, k_pages, v_pages, k_scales, v_scales, tables, lengths, k_new, v_new)
     if q.device.type == "cpu":
         return ref.paged_decode_attention_int8_ref(*args)
+    _grad.refuse("paged_decode_attention_int8", *args)
     return kernel.paged_decode_attention_int8_cuda(*args)

@@ -3,10 +3,14 @@
 
 A CPU tensor takes the plain PyTorch version (`ref`); a CUDA tensor
 launches the CUDA kernel, which raises on anything it does not take.
+Under autograd the kernel's forward takes the plain version's gradients
+(`_grad.run`).
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels import _grad
 
 from . import kernel, ref
 
@@ -16,4 +20,5 @@ def moe_mlp(x: torch.Tensor, wg: torch.Tensor | None, wi: torch.Tensor,
     """wg is only read when swiglu=True; pass None for GELU experts."""
     if x.device.type == "cpu":
         return ref.moe_mlp_ref(x, wg, wi, wo, swiglu=swiglu)
-    return kernel.moe_mlp_cuda(x, wg, wi, wo, swiglu=swiglu)
+    return _grad.run(kernel.moe_mlp_cuda, ref.moe_mlp_ref, x, wg, wi, wo,
+                     swiglu=swiglu)

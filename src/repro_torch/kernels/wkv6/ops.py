@@ -9,12 +9,28 @@ A CPU tensor takes the plain PyTorch version (`ref`); a CUDA tensor
 launches the CUDA kernel, which raises on anything it does not take.
 `chunk` sets the plain version's chunk length; the kernel picks its own
 (64 for D <= 64, else 32; `csrc/wkv6.cu`).
+
+Under autograd the kernel's forward takes the plain version's gradients
+(`_grad.run`, the plain version at `chunk`); a loss that drops s_final
+passes no gradient for it.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _grad
+
 from . import kernel, ref
+
+
+def _bshd_on_card(r, k, v, logw, u, s0, *, chunk):
+    return kernel.wkv6_cuda(r, k, v, logw, u, s0)
+
+
+def _bh_on_card(r, k, v, logw, u, s0, *, chunk):
+    o, s = kernel.wkv6_cuda(r[:, :, None], k[:, :, None], v[:, :, None],
+                            logw[:, :, None], u, s0[:, None])
+    return o[:, :, 0], s[:, 0]
 
 
 def wkv6_bshd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -22,7 +38,8 @@ def wkv6_bshd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               chunk: int = 64):
     if r.device.type == "cpu":
         return ref.wkv6_bshd_ref(r, k, v, logw, u, s0, chunk=chunk)
-    return kernel.wkv6_cuda(r, k, v, logw, u, s0)
+    return _grad.run(_bshd_on_card, ref.wkv6_bshd_ref, r, k, v, logw, u, s0,
+                     chunk=chunk)
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -30,6 +47,4 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          chunk: int = 64):
     if r.device.type == "cpu":
         return ref.wkv6_ref(r, k, v, logw, u, s0, chunk=chunk)
-    o, s = kernel.wkv6_cuda(r[:, :, None], k[:, :, None], v[:, :, None],
-                            logw[:, :, None], u, s0[:, None])
-    return o[:, :, 0], s[:, 0]
+    return _grad.run(_bh_on_card, ref.wkv6_ref, r, k, v, logw, u, s0, chunk=chunk)

@@ -13,6 +13,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.bridge import tree_leaves
 from repro_torch.device import resolve_device
 
 from . import rglru, rwkv6, transformer, whisper
@@ -37,6 +38,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> Params:
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return family_module(cfg).init_params(cfg, gen, dev)
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tensor:
+    """The family's training loss of a batch {"tokens", "labels"[,
+    "embeds"]} (whisper: "embeds" are the frames), a 0-d float32 tensor."""
+    return family_module(cfg).loss_fn(cfg, params, batch)
 
 
 def forward(cfg: ModelConfig, params: Params, batch: dict):
@@ -94,3 +101,8 @@ def decode_window(cfg: ModelConfig, params: Params, tokens, cache):
         raise NotImplementedError(
             f"decode_window is transformer-only, not {cfg.family}")
     return transformer.decode_window(cfg, params, tokens, cache)
+
+
+def param_count(params: Params) -> int:
+    """Elements over every tensor of the tree."""
+    return sum(t.numel() for t in tree_leaves(params))

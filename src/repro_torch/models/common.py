@@ -1,15 +1,18 @@
 """Shared building blocks of the port (from `repro.models.common`):
 RMSNorm with the fused dispatch, LayerNorm, seeded weight draws, GELU,
-the dense MLP, RoPE and M-RoPE tables and the attention dispatch.
-Params are nested dicts of tensors, as on the JAX side.
+the dense MLP, RoPE and M-RoPE tables, the attention dispatch, the
+training loss and activation recomputation.  Params are nested dicts of
+tensors, as on the JAX side.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any
+from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.fused_mlp import ops as mops
@@ -285,3 +288,48 @@ def attention(cfg: ModelConfig, q, k, v, *, causal: bool = True,
                             chunk=cfg.attn_chunk, q_offset=q_offset)
     return attn_einsum(q, k, v, causal=causal, window=cfg.window,
                        q_offset=q_offset)
+
+
+# --- training: recomputation and the loss -------------------------------------
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Keep the outputs of the 2-D products, recompute everything else:
+    `checkpoint_dots_with_no_batch_dims` (an (B, S, d) @ (d, f) product
+    runs as one `mm`; attention's batched products are recomputed)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def maybe_remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """`fn` under activation recomputation as cfg.remat asks: "full"
+    saves only its inputs and recomputes the rest in the backward,
+    "dots" also keeps the 2-D products' outputs, "none" is `fn` itself.
+    The numbers do not change, only what is kept for the backward."""
+    if cfg.remat == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                         _save_dots))
+    return fn
+
+
+def cross_entropy_sum(logits: torch.Tensor, labels: torch.Tensor,
+                      ignore_id: int = -1) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the summed cross-entropy, the count) over the positions whose
+    label is not `ignore_id`; logits (B, S, V) taken in float32."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = lf.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    valid = (labels != ignore_id).float()
+    return ((lse - ll) * valid).sum(), valid.sum()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_id: int = -1) -> torch.Tensor:
+    """Mean cross-entropy over the positions whose label is not
+    `ignore_id`; logits (B, S, V) taken in float32."""
+    total, count = cross_entropy_sum(logits, labels, ignore_id)
+    return total / count.clamp(min=1.0)

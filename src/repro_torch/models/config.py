@@ -131,6 +131,13 @@ class ModelConfig:
         if self.family == "transformer" and \
                 self.n_heads % max(self.kv_heads, 1):
             raise ValueError("n_heads must be a multiple of kv_heads")
+        if self.use_moe and not 0 < self.top_k <= self.n_experts:
+            raise ValueError(f"top_k must lie in (0, n_experts={self.n_experts}], "
+                             f"got {self.top_k}")
+        if self.family == "rglru" and self.attn_every < 2:
+            raise ValueError(f"rglru needs attn_every >= 2, got {self.attn_every}")
+        if self.family == "whisper" and self.n_enc_layers <= 0:
+            raise ValueError(f"whisper needs n_enc_layers > 0, got {self.n_enc_layers}")
 
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:

@@ -23,6 +23,7 @@ ring tensors it is given (in place) and returns them.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
@@ -32,8 +33,8 @@ import torch.nn.functional as F
 from repro_torch.bridge import tree_to
 from repro_torch.kernels.rglru_scan import ops as sops
 
-from .common import (NEG_INF, apply_norm, apply_rope, attention, dense, gelu,
-                     init_norm, normal, rope_tables)
+from .common import (NEG_INF, apply_norm, apply_rope, attention, cross_entropy,
+                     dense, gelu, init_norm, maybe_remat, normal, rope_tables)
 from .config import ModelConfig
 
 Params = Any
@@ -179,6 +180,17 @@ def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor):
     return x @ params["embed"].to(cfg.tdtype).T
 
 
+def _layer(cfg: ModelConfig, i: int, p: Params, x: torch.Tensor, rope):
+    """Layer i over a whole sequence: (x out, its state)."""
+    hn = apply_norm(cfg, p["norm1"], x)
+    if is_attn_layer(cfg, i):
+        a, st = attn_full(cfg, p["attn"], hn, rope)
+    else:
+        a, st = rec_block(cfg, p["rec"], hn)
+    x = x + a
+    return x + mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x)), st
+
+
 def hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor):
     """Final-normed hidden states (B, S, d) and the per-layer states: a
     (k, v) pair for attention layers, {"h", "conv"} for recurrent ones."""
@@ -188,13 +200,7 @@ def hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor):
     rope = rope_tables(positions, cfg.hd, cfg.rope_theta)
     states = []
     for i, p in enumerate(params["layers"]):
-        hn = apply_norm(cfg, p["norm1"], x)
-        if is_attn_layer(cfg, i):
-            a, st = attn_full(cfg, p["attn"], hn, rope)
-        else:
-            a, st = rec_block(cfg, p["rec"], hn)
-        x = x + a
-        x = x + mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+        x, st = maybe_remat(functools.partial(_layer, cfg, i), cfg)(p, x, rope)
         states.append(st)
     return apply_norm(cfg, params["final_norm"], x), states
 
@@ -206,6 +212,10 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     if collect_state:
         return logits, states
     return logits
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tensor:
+    return cross_entropy(forward(cfg, params, batch["tokens"]), batch["labels"])
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,

@@ -16,6 +16,7 @@ are a list.  The state is {"layers": [{"shift_att", "wkv", "shift_ffn"}],
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
@@ -25,7 +26,7 @@ import torch.nn.functional as F
 from repro_torch.bridge import tree_to
 from repro_torch.kernels.wkv6 import ops as wops
 
-from .common import dense, normal, rmsnorm
+from .common import cross_entropy, dense, maybe_remat, normal, rmsnorm
 from .config import ModelConfig
 
 Params = Any
@@ -166,9 +167,10 @@ def hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     """Final-normed hidden states (B, S, d) and the advanced state."""
     x = params["embed"].to(cfg.tdtype)[tokens]
     st = state or init_state(cfg, tokens.shape[0], device=tokens.device)
+    body = maybe_remat(functools.partial(_layer, cfg), cfg)
     new_layers = []
     for p, ls in zip(params["layers"], st["layers"]):
-        x, ns = _layer(cfg, p, x, ls)
+        x, ns = body(p, x, ls)
         new_layers.append(ns)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return x, {"layers": new_layers, "index": st["index"] + tokens.shape[1]}
@@ -185,6 +187,10 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     if collect_state:
         return logits, new_state
     return logits
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tensor:
+    return cross_entropy(forward(cfg, params, batch["tokens"]), batch["labels"])
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,

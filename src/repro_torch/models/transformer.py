@@ -9,9 +9,10 @@ layers included).
 Params keep the JAX tree and layout: each segment's layer weights are
 stacked on a leading axis under `segments[i]["kind_dense"]` or
 `["kind_moe"]`, and the layers run in a Python loop where JAX used
-`lax.scan`.  An MTP config also builds the JAX `mtp` subtree (projection,
-norm, one dense layer); serving never reads it.  The grouped /
-shard_map MoE dispatch variants raise NotImplementedError.
+`lax.scan`, each under `maybe_remat`.  An MTP config also builds the JAX
+`mtp` subtree (projection, norm, one dense layer); only `loss_fn` reads
+it.  The grouped / shard_map MoE dispatch variants raise
+NotImplementedError.
 
 Caches are updated in place (the JAX functions return fresh arrays):
 `decode_step` writes the new token's k/v into the cache tensors it is
@@ -21,6 +22,7 @@ them directly.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
@@ -32,8 +34,8 @@ from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.moe_mlp import ops as moe_ops
 
 from .common import (apply_norm, apply_norm_residual, apply_rope, attention,
-                     gelu, init_norm, mlp_block, mrope_tables, normal,
-                     rmsnorm, rope_tables)
+                     cross_entropy, cross_entropy_sum, gelu, init_norm, maybe_remat,
+                     mlp_block, mrope_tables, normal, rmsnorm, rope_tables)
 from .config import ModelConfig
 
 Params = Any
@@ -375,9 +377,10 @@ def hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor | None,
     kvs = []
     for seg in params["segments"]:
         kind, sp = _segment(seg)
+        body = maybe_remat(functools.partial(layer_fwd, cfg, kind), cfg)
         entries = []
         for lp in _layers(sp):
-            x, kv = layer_fwd(cfg, kind, lp, x, rope)
+            x, kv = body(lp, x, rope)
             if collect_kv:
                 entries.append(kv)
         kvs.append({key: torch.stack([e[key] for e in entries])
@@ -389,16 +392,69 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor | None = None
             *, embeds: torch.Tensor | None = None,
             positions: torch.Tensor | None = None,
             mrope_positions: torch.Tensor | None = None,
-            collect_kv: bool = False):
+            collect_kv: bool = False, return_hidden: bool = False):
     """Logits (B, S, V); with collect_kv, (logits, hidden, kvs) as the JAX
-    `forward(collect_kv=True)` returns.  `embeds`, `positions` and
+    `forward(collect_kv=True)` returns, and with return_hidden alone
+    (None, hidden, kvs), no unembedding.  `embeds`, `positions` and
     `mrope_positions` as `hidden` takes them."""
     x, kvs = hidden(cfg, params, tokens, collect_kv=collect_kv, embeds=embeds,
                     positions=positions, mrope_positions=mrope_positions)
+    if return_hidden and not collect_kv:
+        return None, x, kvs
     logits = unembed(cfg, params, x)
     if collect_kv:
         return logits, x, kvs
     return logits
+
+
+def chunked_cross_entropy(cfg: ModelConfig, params: Params,
+                          hidden_states: torch.Tensor, labels: torch.Tensor,
+                          chunk: int = 512) -> torch.Tensor:
+    """The `fused_ce` loss: the unembedding and cross-entropy over
+    sequence chunks of `chunk` positions (the tail padded with ignored
+    labels), so only (B, chunk, V) float32 logits are formed at a time;
+    the same mean as `cross_entropy` over the whole (B, S, V)."""
+    s = hidden_states.shape[1]
+    pad = (-s) % chunk
+    if pad:
+        hidden_states = F.pad(hidden_states, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    num = den = 0.0
+    for c0 in range(0, s + pad, chunk):
+        total, count = cross_entropy_sum(
+            unembed(cfg, params, hidden_states[:, c0:c0 + chunk]),
+            labels[:, c0:c0 + chunk])
+        num, den = num + total, den + count
+    return num / den.clamp(min=1.0)
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tensor:
+    """Mean next-token cross-entropy of batch {"tokens", "labels"[,
+    "embeds"]} (labels -1 ignored; an `embeds` prefix carries none);
+    `fused_ce` takes it in sequence chunks; an MTP config adds 0.3 times
+    the loss of its one-layer head predicting the token after next."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    embeds = batch.get("embeds")
+    _, h, _ = forward(cfg, params, tokens, embeds=embeds, return_hidden=True)
+    if cfg.fused_ce and not cfg.mtp:
+        if embeds is not None:
+            h = h[:, embeds.shape[1]:]
+        return chunked_cross_entropy(cfg, params, h, labels)
+    logits = unembed(cfg, params, h)
+    if embeds is not None:      # prefix positions carry no labels
+        logits = logits[:, embeds.shape[1]:]
+    loss = cross_entropy(logits, labels)
+    if cfg.mtp:
+        mp = params["mtp"]
+        emb_next = embed_tokens(cfg, params, F.pad(tokens[:, 1:], (0, 1)))
+        hh = torch.cat([h, emb_next], -1) @ mp["proj"].to(cfg.tdtype)
+        bsz, s, _ = hh.shape
+        pos = torch.arange(s, device=hh.device)[None].expand(bsz, s)
+        hh, _ = layer_fwd(cfg, "dense", mp["layer"], hh, rope_for(cfg, pos))
+        hh = apply_norm(cfg, mp["norm"], hh)
+        mtp_labels = F.pad(labels[:, 1:], (0, 1), value=-1)
+        loss = loss + 0.3 * cross_entropy(unembed(cfg, params, hh), mtp_labels)
+    return loss
 
 
 # ---------------------------------------------------------------------------

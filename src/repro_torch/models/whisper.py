@@ -17,6 +17,7 @@ package's policy has no hook for it): everything is plain PyTorch.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
@@ -24,7 +25,7 @@ import torch
 
 from repro_torch.bridge import tree_to
 
-from .common import attention, gelu, layernorm, normal
+from .common import attention, cross_entropy, gelu, layernorm, maybe_remat, normal
 from .config import ModelConfig
 
 Params = Any
@@ -132,14 +133,21 @@ def _mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     return h @ p["w_out"].to(dt) + p["b_out"].to(dt)
 
 
+def _enc_attn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """An encoder layer's attention with its residual (the part the JAX
+    encoder recomputes under remat)."""
+    hn = _ln_apply(x, p["ln1"])
+    return x + _mha(cfg, p["attn"], hn, hn, causal=False)[0]
+
+
 def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor) -> torch.Tensor:
     """frames (B, T, d) -> the normed encoder output (B, T, d)."""
     dt = cfg.tdtype
     x = frames.to(dt) + _sinusoid(frames.shape[1], cfg.d_model, dt,
                                   frames.device)[None]
+    attn = maybe_remat(functools.partial(_enc_attn, cfg), cfg)
     for p in params["enc_layers"]:
-        hn = _ln_apply(x, p["ln1"])
-        x = x + _mha(cfg, p["attn"], hn, hn, causal=False)[0]
+        x = attn(p, x)
         x = x + _mlp(cfg, p["mlp"], _ln_apply(x, p["ln2"]))
     return _ln_apply(x, params["enc_ln"])
 
@@ -168,6 +176,13 @@ def decode_train(cfg: ModelConfig, params: Params, enc_out: torch.Tensor,
 def forward(cfg: ModelConfig, params: Params, frames: torch.Tensor,
             tokens: torch.Tensor) -> torch.Tensor:
     return decode_train(cfg, params, encode(cfg, params, frames), tokens)[0]
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tensor:
+    """Cross-entropy of the decoder over batch {"embeds": frames,
+    "tokens", "labels"}."""
+    logits = forward(cfg, params, batch["embeds"], batch["tokens"])
+    return cross_entropy(logits, batch["labels"])
 
 
 # --- cache + decode -----------------------------------------------------------
