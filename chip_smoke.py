@@ -61,7 +61,13 @@ exit, no result line) when a check fails:
    heads of 128, its int8 row in `Q8_ROWS`, the MLP tile at N 4 at
    h2o-danube-1.8b's, qwen2-vl-2b's and deepseek-v3-671b's widths,
    moe_mlp over deepseek-v3's 256 experts at capacities 8 and 16, one
-   call's extra device memory within 64 MB); then each of the seven
+   call's extra device memory within 64 MB); then the rows at the local
+   shapes tensor parallelism over 2 ranks gives the kernels (`tp_rows`:
+   the MLP tile at smollm-135m's F 768, h2o-danube-1.8b's F 3456,
+   qwen2-vl-2b's F 4480 and deepseek-v3's shared expert at F 1024;
+   flash at danube's 16 / 4 heads of 80, qwen2-vl's 6 / 1 of 128 and
+   mixtral's 16 / 4 of 128; paged decode at qwen2-vl's 6 / 1 heads;
+   moe_mlp at mixtral's E 4 and deepseek-v3's E 128); then each of the seven
    ops under autograd, float32 (`grad_rows`: the norms, the fused MLP
    with and without a gate, flash with a window and k / v without a
    gradient, moe_mlp, rglru_scan, wkv6 in both layouts): one kernel
@@ -164,7 +170,22 @@ exit, no result line) when a check fails:
    tokens/s between two checkpoints and over its whole run, and the step
    rate on batches already on the card (CUDA events) and its peak device
    memory by both routes, printed with the card's name and power
-   limit.  Launch counts are
+   limit; then serving on a mesh (`tp_path_phase`): two ranks spawned on
+   the one card over gloo, a (1, 2) mesh, smollm-135m (30 layers, bf16,
+   the three flags) serving the main path's 12 requests through the
+   paged engine with tensor parallelism (every rank's kernel launches
+   and collectives per layer per step as the sharding implies, the
+   kernels at their local shapes, bf16 logits of a prefill and 3 decode
+   steps within `TP_LOGITS_SLACK` of the unsharded engine's distance from
+   the float32 route; tokens/s, TTFT and TPOT printed as two ranks
+   sharing one card), smollm-135m (4 layers), h2o-danube-1.8b (2 layers,
+   16 / 4 heads a rank) and mixtral-8x7b with EP (2 layers) in float32
+   token-equal to the unsharded engine, deepseek-v3 (2 layers) with the
+   shard_map MoE dispatch (its bf16 logits, at a capacity factor that
+   drops no choice, within `TP_LOGITS_SLACK` of the unsharded engine's
+   distance from the bf16 plain route) and mixtral-8x7b with
+   moe_groups=4 on one rank (float32, no drops, token-equal to
+   moe_groups=0).  Each rank draws only its blocks of the weights.  Launch counts are
    set to 0 just before each path
    and read just after; every kernel of the path must have run, each
    recurrent layer's kernel and each MoE layer's moe_mlp exactly once a
@@ -193,8 +214,9 @@ exit, no result line) when a check fails:
    are broken down the same way; whisper's step must run none of the
    port's kernels.
 
-Before the closing lines, one JSON object `{"train_path": {...}}` with
-the training path's numbers, the gradient checks and the op rows.  The
+Before the closing lines, one JSON object `{"tp_path": {...}}` with the
+mesh path's record and one `{"train_path": {...}}` with the training
+path's numbers, the gradient checks and the op rows.  The
 last two lines are one JSON object listing the kernels and one with the
 device: `{"ok": true, "device": {"platform": "gpu", ...}}`.
 """
@@ -318,6 +340,19 @@ FINISH_REASONS = ("eos", "max_new_tokens", "length", "rejected", "capacity", "sh
 # the spec-decode path: smollm-135m's 30 layers, the CLI's shared-trunk
 # draft of a quarter of them (7 layers), k 4
 SPEC_K = 4
+# serving on a mesh: 2 ranks (gloo) share the one card; a sharded MLP
+# rounds its two partial sums to bfloat16 and adds them (one rounding
+# more than the unsharded MLP's), so its logits may lie up to twice as
+# far from the float32 route as the unsharded engine's, plus a floor
+TP = 2
+TP_LOGITS_SLACK = (2.0, 1e-3)
+# (arch, d, F / 2, N), (arch, H / 2, Hkv / 2, hd, window), (arch, E / 2, d, F, C)
+TP_MLP = (("smollm-135m", 576, 768, (DECODE_N, 300)), ("h2o-danube-1.8b", 2560, 3456, (DECODE_N,)),
+          ("qwen2-vl-2b", 1536, 4480, (DECODE_N,)),
+          ("deepseek-v3-671b shared expert", 7168, 1024, (DECODE_N,)))
+TP_FLASH = (("h2o-danube-1.8b", 16, 4, 80, 4096), ("qwen2-vl-2b", 6, 1, 128, None),
+            ("mixtral-8x7b", 16, 4, 128, 4096))
+TP_MOE = (("mixtral-8x7b", 4, 4096, 14336, 8), ("deepseek-v3-671b", 128, 7168, 2048, 8))
 # the variant archs' served paths (bf16, full width, weights drawn on the card):
 # h2o-danube-1.8b's prompts, 6 of 16-300 tokens and 2 past its window of
 # 4096 (the ring wraps, the window cuts), and its max_len; qwen2-vl-2b's
@@ -1019,6 +1054,7 @@ def kernel_phase(torch, F):
     int8_paged_rows(torch, record, rand)
     nan_paged_rows(torch, rand)
     variant_rows(torch, record, rand, F)
+    tp_rows(torch, record, rand, F)
     return rows, record
 
 
@@ -2932,6 +2968,519 @@ def train_path_phase(torch, record, F) -> dict:
     return summary
 
 
+def tp_rows(torch, record, rand, F) -> None:
+    """Kernel rows at the local shapes tensor parallelism over 2 ranks
+    gives the kernels (`tp_path_phase`), bfloat16, each against its plain
+    version with its times and bound: the MLP tile at smollm-135m's F 768
+    (N 4 and 300), h2o-danube-1.8b's F 3456, qwen2-vl-2b's F 4480 and
+    deepseek-v3's shared expert (d 7168, F 1024) at N 4; flash attention
+    at danube's 16 / 4 heads of 80 (window 4096), qwen2-vl's 6 / 1 of 128
+    and mixtral-8x7b's 16 / 4 of 128 (window 4096), S 300; paged decode
+    at qwen2-vl's 6 / 1 heads over 4 slots; moe_mlp at mixtral's E 4
+    (capacity 8, a decode step) and deepseek-v3's E 128 (capacity 8).
+    smollm's 9 / 3 heads do not split over 2: its attention runs whole on
+    each rank, at the rows phase 2 already has."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.fused_mlp import kernel as mk
+    from repro_torch.kernels.fused_mlp.ref import fused_mlp_ref
+    from repro_torch.kernels.moe_mlp import kernel as ek
+    from repro_torch.kernels.moe_mlp.ref import moe_mlp_ref
+
+    bf, es = torch.bfloat16, 2
+    sdpa = tuple(int(p) for p in torch.__version__.split(".")[:2]) >= (2, 5)
+    tag = {"tp": TP}
+    for arch, d, f, ns in TP_MLP:
+        wg, wi, wo = rand((d, f), bf, d ** -0.5), rand((d, f), bf, d ** -0.5), \
+            rand((f, d), bf, f ** -0.5)
+        for n in ns:
+            xm = rand((n, d), bf)
+            record("fused_mlp", [n, d, f], "bfloat16", mk.fused_mlp_cuda(xm, wg, wi, wo),
+                   fused_mlp_ref(xm, wg, wi, wo),
+                   lambda i, xm=xm: mk.fused_mlp_cuda(xm, wg, wi, wo),
+                   lambda i, xm=xm: fused_mlp_ref(xm, wg, wi, wo),
+                   lambda i, xm=xm: (F.silu(xm @ wg) * (xm @ wi)) @ wo,
+                   (2 * n * d + 3 * d * f) * es, 6 * n * d * f, extra=dict(tag, arch=arch))
+            del xm
+        del wg, wi, wo
+    s = WIDE_FLASH_S
+    for arch, h, hkv, hd, w in TP_FLASH:
+        q, k, v = rand((1, s, h, hd), bf), rand((1, s, hkv, hd), bf), rand((1, s, hkv, hd), bf)
+
+        def lib(i, q=q, k=k, v=v):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+                enable_gqa=True)
+
+        # S 300 lies inside every window: the windowed mask is the causal one
+        record("flash_attention", [1, s, h, hkv, hd] + ([w] if w else []), "bfloat16",
+               fk.flash_attention_cuda(q, k, v, window=w), flash_attention_ref(q, k, v, window=w),
+               lambda i, q=q, k=k, v=v: fk.flash_attention_cuda(q, k, v, window=w),
+               lambda i, q=q, k=k, v=v: flash_attention_ref(q, k, v, window=w),
+               lib if sdpa else None, (2 * s * h * hd + 2 * s * hkv * hd) * es,
+               4 * hd * s * (s + 1) // 2 * h, extra=dict(tag, arch=arch))
+        del q, k, v
+    h, hkv, hd = QVL_ATTN[0] // TP, QVL_ATTN[1] // TP, QVL_ATTN[2]
+    prng = torch.Generator().manual_seed(9)
+    lens = torch.randint(16, 333, (DECODE_N,), generator=prng)
+    tables, pages = paged_tables(torch, lens.tolist(), 512 // PAGE, prng)
+    q = rand((DECODE_N, 1, h, hd), bf)
+    kp, vp = rand((pages, PAGE, hkv, hd), bf), rand((pages, PAGE, hkv, hd), bf)
+    paged_row(torch, record, "bfloat16", q, kp, vp, tables,
+              lens.to("cuda", torch.int32), extra=dict(tag, arch="qwen2-vl-2b"))
+    del q, kp, vp
+    free(torch)
+    for arch, e, d, f, cap in TP_MOE:
+        ewg, ewi = (rand((e, d, f), bf, d ** -0.5) for _ in range(2))
+        ewo = rand((e, f, d), bf, f ** -0.5)
+        chunk = 32
+
+        def plain(xe, ewg=ewg, ewi=ewi, ewo=ewo):
+            return torch.cat([moe_mlp_ref(xe[j:j + chunk], ewg[j:j + chunk], ewi[j:j + chunk],
+                                          ewo[j:j + chunk]) for j in range(0, e, chunk)])
+
+        xe = rand((e, cap, d), bf)
+        record("moe_mlp", [e, cap, d, f], "bfloat16", ek.moe_mlp_cuda(xe, ewg, ewi, ewo),
+               plain(xe), lambda i, xe=xe: ek.moe_mlp_cuda(xe, ewg, ewi, ewo),
+               lambda i, xe=xe: plain(xe),
+               lambda i, xe=xe: torch.bmm(F.silu(torch.bmm(xe, ewg)) * torch.bmm(xe, ewi), ewo),
+               (2 * e * cap * d + 3 * e * d * f) * es, 6 * e * cap * d * f, iters=5,
+               extra=dict(tag, arch=arch))
+        del ewg, ewi, ewo, xe
+        free(torch)
+
+
+def kernel_shapes():
+    """A context that records the shapes the port's kernel ops are called
+    at, by wrapping each op in its module (the model code looks them up
+    there at every call): flash (query heads, KV heads, hd), paged decode
+    (query heads, KV heads, hd), the fused MLP (d, F), moe_mlp (E, d, F).
+    Yields {op: set of shapes}."""
+    import contextlib
+
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.fused_mlp import ops as mops
+    from repro_torch.kernels.moe_mlp import ops as eops
+
+    taps = ((fops, "flash_attention", lambda a: (a[0].shape[2], a[1].shape[2], a[0].shape[3])),
+            (fops, "paged_decode_attention",
+             lambda a: (a[0].shape[2], a[1].shape[2], a[0].shape[3])),
+            (mops, "fused_mlp", lambda a: tuple(a[2].shape)),
+            (eops, "moe_mlp", lambda a: tuple(a[2].shape)))
+
+    @contextlib.contextmanager
+    def ctx():
+        seen = {name: set() for _, name, _ in taps}
+        real = {name: getattr(mod, name) for mod, name, _ in taps}
+
+        def tap(name, shape_of):
+            def call(*a, **kw):
+                seen[name].add(tuple(int(x) for x in shape_of(a)))
+                return real[name](*a, **kw)
+            return call
+
+        for mod, name, shape_of in taps:
+            setattr(mod, name, tap(name, shape_of))
+        try:
+            yield seen
+        finally:
+            for mod, name, _ in taps:
+                setattr(mod, name, real[name])
+
+    return ctx()
+
+
+def _tp_launchers():
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.fused_mlp import kernel as mk
+    from repro_torch.kernels.fused_norm import kernel as nk
+    from repro_torch.kernels.moe_mlp import kernel as ek
+    return {"fused_rmsnorm": nk.RMSNORM, "fused_rmsnorm_residual": nk.RMSNORM_RESIDUAL,
+            "fused_mlp": mk.MLP, "flash_attention": fk.FLASH, "paged_decode": fk.PAGED,
+            "moe_mlp": ek.MOE}
+
+
+def _tp_serve(torch, eng, reqs):
+    """Serve `reqs` on `eng` with every launch count and collective set to
+    0 just before and read just after, recording the kernels' shapes:
+    (summary, launches, collectives, shapes)."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.parallel import collectives as coll
+
+    launchers = _tp_launchers()
+    for ln in launchers.values():
+        ln.launches = 0
+    coll.reset()
+    with kernel_shapes() as seen:
+        s = serve(eng, reqs)
+    return (s, {k: ln.launches for k, ln in launchers.items()}, dict(coll.COUNTS),
+            {k: sorted(v) for k, v in seen.items()})
+
+
+def _tp_logits(torch, mesh, cfg, sharded, full, toks, steps: int, ref_cfg):
+    """bfloat16 logits of the prefill of `toks` (B, S) and `steps` decode
+    steps fed the `ref_cfg` route's greedy tokens: sharded (every rank,
+    its blocks `sharded`) and unsharded (rank 0, the whole tree `full`),
+    each against the `ref_cfg` route (rank 0) on the same weights.
+    Returns the sharded run's collectives and rank 0's max |diff| of each
+    route over all rows and positions (None on other ranks)."""
+    from repro_torch.models import transformer
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import sharding
+
+    bsz, n = toks.shape
+
+    def run(c, params, feed):
+        last, cache = transformer.prefill(c, params, toks, n + steps + 1)
+        out = [last[:, -1].float()]
+        for t in feed:
+            lg, cache = transformer.decode_step(c, params, t[:, None], cache)
+            out.append(lg[:, -1].float())
+        return torch.stack(out)
+
+    feed = torch.zeros((steps, bsz), dtype=torch.long, device=mesh.device)
+    if mesh.rank == 0:               # the reference route's greedy tokens
+        last, cache = transformer.prefill(ref_cfg, full, toks, n + steps + 1)
+        for i in range(steps):
+            feed[i] = last[:, -1].argmax(-1)
+            last, cache = transformer.decode_step(ref_cfg, full, feed[i][:, None], cache)
+    feed = coll.broadcast(feed, mesh)
+    coll.reset()
+    with sharding.use_mesh(mesh):
+        got = run(cfg, sharded, feed)
+    out = {"collectives": dict(coll.COUNTS)}
+    if mesh.rank != 0:
+        return out
+    ref, plain = run(ref_cfg, full, feed), run(cfg, full, feed)
+    for x in (got, plain, ref):
+        check(bool(torch.isfinite(x).all()), "tp logits: non-finite logits")
+    return dict(out, sharded=float((got - ref).abs().max()),
+                unsharded=float((plain - ref).abs().max()),
+                sharded_vs_unsharded=float((got - plain).abs().max()))
+
+
+def _tp_tokens(torch, mesh, name, cfg, prompts, max_new, want_equal=True, **eng_kw):
+    """`cfg` served on the mesh, each rank drawing its blocks of the seeded
+    weights (`api.init_params(mesh=)`), and (rank 0, where `want_equal`)
+    unsharded from the whole draw; returns rank 0's record: launches,
+    collectives and kernel shapes of the sharded run, whether the token
+    streams are equal (held equal)."""
+    import torch.distributed as dist
+
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    eng = ServingEngine(cfg, _draw_blocks(torch, mesh, cfg), max_batch=4, mesh=mesh,
+                        **eng_kw)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=max_new) for i, p in enumerate(prompts)]
+    s, launches, colls, shapes = _tp_serve(torch, eng, reqs)
+    check(all(r.finish_reason == "max_new_tokens" for r in reqs) and s["nan_steps"] == 0,
+          f"tp {name}: a request did not finish with {max_new} tokens")
+    out = {"launches": launches, "collectives": colls, "shapes": shapes, "summary": s,
+           "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del eng
+    free(torch)
+    if mesh.rank == 0 and want_equal:
+        _, rreqs = _serve_unsharded(torch, mesh.device, cfg, prompts, max_new, **eng_kw)
+        same = sum(a.out_tokens == b.out_tokens for a, b in zip(reqs, rreqs))
+        out["equal_streams"] = f"{same}/{len(reqs)}"
+        check(same == len(reqs), f"tp {name}: {same}/{len(reqs)} request streams equal "
+                                 f"the unsharded engine's")
+    dist.barrier()
+    return out
+
+
+def _draw_blocks(torch, mesh, cfg):
+    """This rank's blocks of `cfg`'s weights from seed 1, the ranks drawing
+    one at a time (a rank's draw holds one layer's whole leaf, deepseek's
+    expert leaf 15 GB in float32)."""
+    import torch.distributed as dist
+
+    from repro_torch.models import api
+
+    params = None
+    for r in range(mesh.size):
+        if mesh.rank == r:
+            params = api.init_params(cfg, 1, mesh=mesh)
+            free(torch)
+        dist.barrier()
+    return params
+
+
+def _serve_unsharded(torch, device, cfg, prompts, max_new, params=None, **eng_kw):
+    """`cfg` served on `device` alone (no mesh) from the seeded weights (or
+    `params`): ((summary, launches, collectives, shapes), the requests)."""
+    from repro_torch.models import api
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    if params is None:
+        params = api.init_params(cfg, 1, device=device)
+    eng = ServingEngine(cfg, params, max_batch=4, device=device, **eng_kw)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=max_new) for i, p in enumerate(prompts)]
+    got = _tp_serve(torch, eng, reqs)
+    del eng, params
+    free(torch)
+    return got, reqs
+
+
+def _tp_rank(rank: int, world: int, store: str, policy: str, out: str) -> None:
+    """One rank of `tp_path_phase`: gloo over the one card, a (1, world)
+    mesh; rank 0 writes the record."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.policy import load_policy
+    from repro_torch.launch.serve import build_engine, serve
+    from repro_torch.models import api
+    from repro_torch.parallel import sharding
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=600))
+    mesh = make_host_mesh(world, backend="gloo", device_type="cuda")
+    rec = {}
+    kern = dict(attn_impl="flash", mlp_impl="fused", norm_impl="fused")
+
+    # full width: smollm-135m, 30 layers, bf16, the three flags, the
+    # main path's 12 requests through the paged engine
+    cfg = configs.get_config("smollm-135m")
+    t0 = time.perf_counter()
+    eng = build_engine(cfg, policy=load_policy(policy), max_batch=4, max_len=512, seed=0,
+                       mesh=mesh, log=lambda s: None)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(eng.paged and eng.mcfg.attn_impl == "flash", "tp smollm: not the paged flash engine")
+    # one gloo all_reduce of a decode step's activations between the ranks
+    # (host clock around 50 calls ending in a synchronize)
+    from repro_torch.parallel import collectives as coll
+    act = torch.ones((DECODE_N, cfg.d_model), dtype=torch.bfloat16, device=mesh.device)
+    for _ in range(5):
+        coll.all_reduce(act, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        coll.all_reduce(act, mesh)
+    torch.cuda.synchronize()
+    all_reduce_ms = (time.perf_counter() - t0) / 50 * 1e3
+    rng = np.random.default_rng(0)
+    serve(eng, _requests(rng, cfg.vocab, 2, 16, 40, 4))            # warm-up
+    reqs = _requests(rng, cfg.vocab, 12, 16, 300, 32)
+    s, launches, colls, shapes = _tp_serve(torch, eng, reqs)
+    L = cfg.n_layers
+    calls = s["prefills"] + s["decode_steps"]
+    want = {"fused_rmsnorm": (L + 1) * calls, "fused_rmsnorm_residual": L * calls,
+            "fused_mlp": L * calls, "flash_attention": L * s["prefills"],
+            "paged_decode": L * s["decode_steps"], "moe_mlp": 0}
+    check(launches == want, f"tp smollm rank {rank}: launches {launches}, expected {want}")
+    # heads 9 / 3 do not split over 2 (replicated attention: no reduce);
+    # the MLP (F 1536) and the vocab (49152) do
+    cwant = {"all_reduce": (L + 1) * calls, "all_gather": calls, "all_to_all": 0,
+             "broadcast": calls}
+    print(f"[smoke] tp smollm rank {rank}: launches {launches}, collectives {colls}; a layer "
+          f"a step: fused_mlp {launches['fused_mlp'] / calls / L:g}, all_reduce "
+          f"{(colls['all_reduce'] - calls) / calls / L:g} (+1 a step for the embedding), "
+          f"all_gather {colls['all_gather'] / calls:g} a step; kernel shapes {shapes}",
+          flush=True)
+    check(colls == cwant, f"tp smollm rank {rank}: collectives {colls}, expected {cwant}")
+    check(shapes["fused_mlp"] == [(cfg.d_model, cfg.d_ff // world)] and
+          shapes["flash_attention"] == [(9, 3, 64)] and
+          shapes["paged_decode_attention"] == [(9, 3, 64)],
+          f"tp smollm rank {rank}: kernel shapes {shapes}")
+    check(all(r.finish_reason == "max_new_tokens" and len(r.out_tokens) == 32 for r in reqs)
+          and s["nan_steps"] == 0, "tp smollm: a request did not finish with 32 tokens")
+    full = api.init_params(eng.mcfg, 0, device=mesh.device) if rank == 0 else None
+    toks = torch.as_tensor(np.random.default_rng(4).integers(0, cfg.vocab, (1, 300)),
+                           device=mesh.device)
+    ref32 = eng.mcfg.replace(dtype="float32", attn_impl="einsum", mlp_impl="dense",
+                             norm_impl="ref")
+    logits = _tp_logits(torch, mesh, eng.mcfg, eng.params, full, toks, 3, ref32)
+    rec["smollm"] = {"n_layers": L, "all_reduce_ms": all_reduce_ms,
+                     "summary": s, "launches": launches, "collectives": colls,
+                     "shapes": shapes, "build_engine_s": build_s,
+                     "per_layer_per_step": {"all_reduce": colls["all_reduce"] / calls,
+                                            "fused_mlp": launches["fused_mlp"] / calls / L},
+                     "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if rank == 0:
+        slack, floor = TP_LOGITS_SLACK
+        rec["smollm"]["logits"] = logits
+        check(logits["sharded"] <= slack * logits["unsharded"] + floor,
+              f"tp smollm: bf16 logits off the float32 route by {logits}")
+    del eng, full
+    free(torch)
+
+    # token equality in float32 at cut depth: smollm-135m 4 layers (paged,
+    # the pool route), h2o-danube-1.8b 2 layers (16 / 4 heads a rank)
+    prng = np.random.default_rng(21)
+    prompts = [prng.integers(0, 32000, size=int(n)).astype(np.int32)
+               for n in prng.integers(16, 301, size=4)]
+    f32 = dict(kern, dtype="float32", param_dtype="float32")
+    rec["smollm_f32"] = _tp_tokens(
+        torch, mesh, "smollm f32", configs.get_config("smollm-135m").replace(n_layers=4, **f32),
+        prompts, 16, max_len=512)
+    rec["danube_f32"] = _tp_tokens(
+        torch, mesh, "danube f32",
+        configs.get_config("h2o-danube-1.8b").replace(n_layers=2, **f32), prompts, 16,
+        max_len=512)
+    check(rec["danube_f32"]["shapes"]["flash_attention"] == [(16, 4, 80)] and
+          rec["danube_f32"]["shapes"]["fused_mlp"] == [(2560, 3456)],
+          f"tp danube: kernel shapes {rec['danube_f32']['shapes']}")
+    # mixtral-8x7b with EP (4 experts a rank), float32, 2 layers: token-equal
+    rec["mixtral_ep_f32"] = _tp_tokens(
+        torch, mesh, "mixtral EP f32",
+        configs.get_config("mixtral-8x7b").replace(n_layers=2, **f32), prompts, 8,
+        max_len=512)
+    check(rec["mixtral_ep_f32"]["shapes"]["moe_mlp"] == [(4, 4096, 14336)] and
+          rec["mixtral_ep_f32"]["shapes"]["flash_attention"] == [(16, 4, 128)],
+          f"tp mixtral EP: kernel shapes {rec['mixtral_ep_f32']['shapes']}")
+    # deepseek-v3 (1 dense + 1 MoE layer, bf16, flash off) with the
+    # shard_map dispatch: even prompts, so prefill and decode both split
+    even = [p[: len(p) // 2 * 2] for p in prompts]
+    dcfg = configs.get_config("deepseek-v3-671b").replace(
+        n_layers=2, first_dense_layers=1, moe_shard_map=True, mlp_impl="fused",
+        norm_impl="fused")
+    ds = _tp_tokens(torch, mesh, "deepseek shard_map", dcfg, even, 8, want_equal=False,
+                    max_len=512)
+    dcalls = ds["summary"]["prefills"] + ds["summary"]["decode_steps"]
+    check(ds["collectives"]["all_to_all"] == 2 * dcalls and
+          ds["launches"]["moe_mlp"] == dcalls and
+          ds["shapes"]["moe_mlp"] == [(128, 7168, 2048)],
+          f"tp deepseek shard_map: {ds['collectives']}, {ds['launches']}, {ds['shapes']}")
+    # its tokens are not the unsharded engine's: each rank's capacity
+    # (cap_l, no floor of 8) drops other choices than the unsharded
+    # buffers do.  With a capacity factor of E / k no choice is dropped on
+    # either side, so the dispatch (the all_to_all's block order, the
+    # gather) must give the unsharded logits: two rows of 64 tokens and 3
+    # decode steps (every call splits over the ranks), within
+    # `TP_LOGITS_SLACK` of the unsharded kernel route's distance from the
+    # bf16 plain route (a float32 route would cast the 256 experts to
+    # 45 GB).  The other ranks draw their blocks first; rank 0 then draws
+    # the whole 27 GB tree and cuts its blocks out of it (`shard_params`:
+    # the blocks `init_params(mesh=)` draws, without a second draw's
+    # float32 transient)
+    nd = dcfg.replace(capacity_factor=dcfg.n_experts / dcfg.top_k)
+    local = full = None
+    if rank != 0:
+        local = api.init_params(nd, 1, mesh=mesh)
+    dist.barrier()
+    if rank == 0:
+        full = api.init_params(nd, 1, device=mesh.device)
+        local = sharding.shard_params(full, mesh, nd)
+    free(torch)
+    toks = torch.as_tensor(np.random.default_rng(5).integers(0, nd.vocab, (2, 64)),
+                           device=mesh.device)
+    dl = _tp_logits(torch, mesh, nd, local, full, toks, 3,
+                    nd.replace(mlp_impl="dense", norm_impl="ref"))
+    check(dl["collectives"]["all_to_all"] == 2 * 4,
+          f"tp deepseek shard_map logits: collectives {dl['collectives']}, expected "
+          f"2 all_to_all a call over 4 calls")
+    ds["logits_no_drop"] = dl
+    if rank == 0:
+        slack, floor = TP_LOGITS_SLACK
+        check(dl["sharded"] <= slack * dl["unsharded"] + floor,
+              f"tp deepseek shard_map: bf16 logits off the plain route by {dl}")
+    del local, full
+    free(torch)
+    rec["deepseek_shard_map"] = ds
+    dist.barrier()
+    if rank == 0:
+        # mixtral-8x7b with moe_groups=4 on this one rank (no mesh): bf16 at
+        # the config's capacity, then float32 with a capacity factor of
+        # E / k (no choice dropped, per group or over all tokens) token-
+        # equal to moe_groups=0 on the same weights
+        gcfg = configs.get_config("mixtral-8x7b").replace(n_layers=2, moe_groups=4,
+                                                          mlp_impl="fused", norm_impl="fused")
+        four = [p[: len(p) // 4 * 4] for p in prompts]
+        (gs, gl, _, gshapes), greqs = _serve_unsharded(torch, mesh.device, gcfg, four, 8,
+                                                       max_len=512)
+        gcalls = gs["prefills"] + gs["decode_steps"]
+        check(gl["moe_mlp"] == 2 * gcalls and gs["nan_steps"] == 0 and
+              all(r.finish_reason == "max_new_tokens" for r in greqs),
+              f"mixtral moe_groups=4: launches {gl}, summary {gs}")
+        g32 = gcfg.replace(capacity_factor=gcfg.n_experts / gcfg.top_k, **f32)
+        params = api.init_params(g32, 1, device=mesh.device)
+        _, g32reqs = _serve_unsharded(torch, mesh.device, g32, four, 8, params=params,
+                                      max_len=512)
+        _, refreqs = _serve_unsharded(torch, mesh.device, g32.replace(moe_groups=0), four, 8,
+                                      params=params, max_len=512)
+        del params
+        free(torch)
+        same = sum(a.out_tokens == b.out_tokens for a, b in zip(g32reqs, refreqs))
+        check(same == len(four), f"mixtral moe_groups=4 f32: {same}/{len(four)} streams "
+                                 f"equal moe_groups=0's")
+        rec["mixtral_groups"] = {"summary": gs, "launches": gl, "shapes": gshapes,
+                                 "equal_streams": f"{same}/{len(four)} (f32, no drops, "
+                                                  f"against moe_groups=0)"}
+        Path(out).write_text(json.dumps(rec))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def tp_path_phase(torch) -> dict:
+    """Serving on a mesh: two ranks spawned on the one card, joined over
+    gloo (NCCL takes one card a rank), a (1, 2) mesh (`_tp_rank`).  At
+    full width smollm-135m (30 layers, bf16, the three flags) serves the
+    main path's 12 requests through the paged engine with tensor
+    parallelism: per rank, every kernel launch and collective per layer
+    per step must be what the sharding implies (the MLP at F 768, the
+    vocab split, smollm's 9 / 3 heads whole on each rank), and its bf16
+    logits of a 300-token prefill and 3 decode steps must lie within
+    `TP_LOGITS_SLACK` of the unsharded engine's distance from the float32
+    plain route.  Then at cut depth: smollm-135m (4 layers) and
+    h2o-danube-1.8b (2 layers, 16 / 4 heads of 80 a rank) in float32 and
+    mixtral-8x7b with EP (2 layers, float32, moe_mlp at E 4) token-equal
+    to the unsharded engine on the card; deepseek-v3 (2 layers, bf16)
+    with the shard_map dispatch (two all_to_alls and moe_mlp at E 128 a
+    MoE layer a step; with a capacity factor of E / k its bf16 logits of
+    2 x 64 tokens and 3 decode steps within `TP_LOGITS_SLACK` of the
+    unsharded kernel route's distance from the bf16 plain route); and
+    mixtral-8x7b with moe_groups=4 on one rank (bf16 at its own
+    capacity; float32 at E / k token-equal to moe_groups=0).
+    Tokens/s, TTFT and TPOT are printed as what they are: two ranks
+    sharing one card (no speed of parallelism is measured)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    free(torch)
+    policy = smoke_policy("smollm-135m")
+    tmp = Path(tempfile.mkdtemp(prefix="tp_smoke_"))
+    out = tmp / "rank0.json"
+    t0 = time.perf_counter()
+    mp.start_processes(_tp_rank, args=(TP, str(tmp / "store"), str(policy), str(out)),
+                       nprocs=TP, join=True, start_method="spawn")
+    rec = json.loads(out.read_text())
+    secs = time.perf_counter() - t0
+    sm = rec["smollm"]
+    s = sm["summary"]
+    card = card_line()
+    print(f"[smoke] tp path smollm-135m {sm['n_layers']}L bf16 on a (1, {TP}) mesh, two ranks share one "
+          f"card ({card}): {s['tokens_out']} tokens, {s['prefills']} prefills, "
+          f"{s['decode_steps']} decode steps in {s['seconds']:.3f}s = "
+          f"{s['tokens_per_s']:.1f} tok/s (two ranks share one card); TTFT p50 "
+          f"{s['ttft_p50_ms']:.1f} ms (two ranks share one card), TPOT p50 "
+          f"{s['tpot_p50_ms']:.2f} ms (two ranks share one card); one gloo all_reduce of "
+          f"{DECODE_N} x 576 bf16 {sm['all_reduce_ms']:.3f} ms", flush=True)
+    print(f"[smoke] tp path rank 0 launches {sm['launches']}, collectives "
+          f"{sm['collectives']}, per layer per step {sm['per_layer_per_step']}, kernel "
+          f"shapes {sm['shapes']}; bf16 logits against the float32 plain route "
+          f"{sm['logits']} (bound {TP_LOGITS_SLACK[0]} x unsharded + "
+          f"{TP_LOGITS_SLACK[1]})", flush=True)
+    for key in ("smollm_f32", "danube_f32", "mixtral_ep_f32", "deepseek_shard_map",
+                "mixtral_groups"):
+        r = rec[key]
+        print(f"[smoke] tp {key}: equal streams {r.get('equal_streams', 'not compared')}, "
+              f"launches {r['launches']}, collectives {r.get('collectives', 'one rank')}, "
+              f"kernel shapes {r['shapes']}, {r['summary']['tokens_per_s']:.1f} tok/s",
+              flush=True)
+    print(json.dumps({"tp_path": dict(rec, seconds=secs, card=card)}), flush=True)
+    return rec
+
+
 def free(torch) -> None:
     import gc
     gc.collect()
@@ -3596,6 +4145,7 @@ def main() -> int:
                                     paged_decode=fk.PAGED, paged_decode_int8=fk.PAGED_INT8,
                                     moe_mlp=ek.MOE, wkv6=wk.WKV6, rglru_scan=gk.SCAN))
     train_summary = train_path_phase(torch, record, F)
+    tp_path_phase(torch)
 
     meta = {
         "fused_rmsnorm": ("fused_norm.cu", "fused_norm/kernel.py:51",

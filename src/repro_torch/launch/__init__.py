@@ -1,1 +1,2 @@
-"""Launchers of the port: execution policies and the serve entry point."""
+"""Launchers of the port: execution policies, device meshes and the serve
+and train entry points."""

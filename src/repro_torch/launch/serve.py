@@ -21,13 +21,20 @@ and applies it as the JAX launcher does: flash_attention ->
 attn_impl="flash" (flash prefill, paged decode from the page pool),
 fused_mlp -> mlp_impl="fused" (the fused MLP, or `moe_mlp` on MoE
 layers), fused_norm -> norm_impl="fused" (the CUDA kernels), and the
-policy's batch split sets the engine's max/decode batch.  The port runs
-on one device: a policy with tp > 1 runs unsharded.  Weights are
-random, from `--seed`.
+policy's batch split sets the engine's max/decode batch.  A policy with
+tp > 1 whose tp the cards divide (and fit) runs on a mesh: `main` starts
+tp ranks, one card each, over NCCL (`tcp://localhost`, a free port),
+each builds a (1, tp) `launch.mesh` mesh and serves the same requests
+through a tensor-parallel engine; rank 0 prints.  With fewer cards the
+policy runs unsharded, as in JAX.  `--replicas` on a mesh is refused (the
+cluster's per-replica meshes come later).  Weights are random, from
+`--seed`.
 """
 from __future__ import annotations
 
 import argparse
+import socket
+import sys
 import time
 from typing import Any
 
@@ -116,18 +123,26 @@ def apply_policy(pol: ExecutionPolicy, mcfg: ModelConfig, max_batch: int,
                      f"gathered at width {dec_batch} (recurrent state is "
                      f"irreversible; no full-width emulation)")
     tp = pol.tp_degree
-    if tp > 1:
-        lines.append(f"[serve] policy tp={tp}: {n_devices} device(s), "
-                     f"running unsharded (tp=1)")
+    if tp > 1 and n_devices % tp == 0 and n_devices >= tp:
+        lines.append(f"[serve] policy tp={tp}: building mesh with model "
+                     f"axis {tp} over {n_devices} device(s); engine "
+                     f"params/cache/compute shard over it")
+        mesh_tp = tp
+    else:
+        if tp > 1:
+            lines.append(f"[serve] policy tp={tp}: only {n_devices} "
+                         f"device(s), running unsharded (tp=1)")
+        mesh_tp = 1
     return mcfg, {"max_batch": eng_batch, "decode_batch": dec_batch,
-                  "mesh_tp": 1}, lines
+                  "mesh_tp": mesh_tp}, lines
 
 
 def prepare(mcfg: ModelConfig, *, policy: ExecutionPolicy | None = None,
-            max_batch: int = 4, seed: int = 0, device=None, log=print
+            max_batch: int = 4, seed: int = 0, device=None, mesh=None, log=print
             ) -> tuple[ModelConfig, Any, dict]:
     """Apply `policy` (if any) to `mcfg` and draw seeded weights on
-    `device`: (model config, params, engine kwargs: device and batch)."""
+    `device` (under `mesh` this rank's blocks only): (model config,
+    params, engine kwargs: device and batch)."""
     dev = resolve_device(device)
     eng_kwargs = {"max_batch": max_batch}
     if policy is not None:
@@ -137,22 +152,26 @@ def prepare(mcfg: ModelConfig, *, policy: ExecutionPolicy | None = None,
         for ln in lines:
             log(ln)
         eng_kwargs.pop("mesh_tp")
-    params = api.init_params(mcfg, seed, device=dev)
+    params = api.init_params(mcfg, seed, device=dev, mesh=mesh)
     return mcfg, params, dict(eng_kwargs, device=dev)
 
 
 def build_engine(mcfg: ModelConfig, *, policy: ExecutionPolicy | None = None,
                  max_batch: int = 4, max_len: int = 128, seed: int = 0,
                  device=None, kv_quant: bool | str = False, paged: bool = True,
-                 enc_len: int | None = None, log=print) -> ServingEngine:
+                 enc_len: int | None = None, mesh=None, log=print) -> ServingEngine:
     """Apply `policy` (if any) to `mcfg`, draw seeded weights on `device`
-    and build the engine (`kv_quant`, `paged`, `enc_len`: the engine's
-    switches; `enc_len`, whisper's encoder window, defaults to `max_len`
-    as in the JAX package)."""
+    and build the engine (`kv_quant`, `paged`, `enc_len`, `mesh`: the
+    engine's switches; `enc_len`, whisper's encoder window, defaults to
+    `max_len` as in the JAX package; under `mesh` every rank draws the
+    model from the seed one layer's leaf at a time and keeps its blocks:
+    a card holds its shards, not the whole model)."""
+    if mesh is not None and device is None:
+        device = mesh.device
     mcfg, params, eng_kwargs = prepare(mcfg, policy=policy, max_batch=max_batch,
-                                       seed=seed, device=device, log=log)
+                                       seed=seed, device=device, mesh=mesh, log=log)
     return ServingEngine(mcfg, params, max_len=max_len, kv_quant=kv_quant,
-                         paged=paged, enc_len=enc_len, **eng_kwargs)
+                         paged=paged, enc_len=enc_len, mesh=mesh, **eng_kwargs)
 
 
 def serve(engine: ServingEngine, requests: list[Request]) -> dict:
@@ -281,13 +300,13 @@ def serve_specdec(mcfg: ModelConfig, params, requests: list[Request], *, k: int 
                 tokens_per_iteration=st.tokens_per_iteration, engine=eng)
 
 
-def main(argv: list[str] | None = None) -> None:
+def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--arch", required=True, choices=configs.ARCH_IDS)
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--policy", default=None, metavar="DEPLOYMENT_JSON",
                    help="mozart deployment artifact (or bare policy JSON) "
-                        "to apply: fusion flags and microbatches")
+                        "to apply: fusion flags, microbatches and tp")
     p.add_argument("--policy-network", default=None,
                    help="which network's policy to take from a "
                         "multi-network artifact")
@@ -328,12 +347,30 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--scenario", default="", choices=("", "specdec"),
                    help="serving scenario: specdec serves through the live "
                         "SpecDecodeEngine (shared-trunk draft)")
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv: list[str] | None = None) -> None:
+    args = _parser().parse_args(argv)
 
     mcfg = configs.get_smoke_config(args.arch) if args.smoke \
         else configs.get_config(args.arch)
     pol = load_policy(args.policy, args.policy_network) if args.policy \
         else None
+    mesh_tp = 1
+    if pol is not None and resolve_device(args.device).type == "cuda":
+        mesh_tp = apply_policy(pol, mcfg, args.max_batch,
+                               n_devices=torch.cuda.device_count())[1]["mesh_tp"]
+    if mesh_tp > 1:
+        if args.specdec or args.scenario or args.replicas > 1:
+            raise NotImplementedError(
+                f"a tp={mesh_tp} mesh serves the plain engine only: --replicas, "
+                f"--scenario and --specdec on a mesh come with the cluster's "
+                f"per-replica meshes")
+        import torch.multiprocessing as mp
+        mp.spawn(_serve_rank, args=(mesh_tp, free_port(), list(argv or sys.argv[1:])),
+                 nprocs=mesh_tp, join=True)
+        return
     if args.specdec or args.scenario or args.replicas > 1:
         mcfg, params, eng_kwargs = prepare(mcfg, policy=pol, max_batch=args.max_batch,
                                            seed=args.seed, device=args.device)
@@ -363,6 +400,45 @@ def main(argv: list[str] | None = None) -> None:
                        kv_quant={"0": False, "1": True}.get(args.kv_quant,
                                                             args.kv_quant),
                        paged=not args.no_paged)
+    _report(serve(eng, _cli_requests(args, eng.mcfg)), eng)
+
+
+def free_port() -> int:
+    """A free TCP port on localhost (for a process group's rendezvous)."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _serve_rank(rank: int, world: int, port: int, argv: list[str]) -> None:
+    """One rank of `main` on a mesh: NCCL over `world` cards, a (1, world)
+    mesh, the same requests as every other rank; rank 0 reports."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_host_mesh(model_axis=world, backend="nccl")
+        args = _parser().parse_args(argv)
+        mcfg = configs.get_smoke_config(args.arch) if args.smoke \
+            else configs.get_config(args.arch)
+        eng = build_engine(mcfg, policy=load_policy(args.policy, args.policy_network),
+                           max_batch=args.max_batch, max_len=args.max_len,
+                           seed=args.seed, mesh=mesh,
+                           kv_quant={"0": False, "1": True}.get(args.kv_quant,
+                                                                args.kv_quant),
+                           paged=not args.no_paged,
+                           log=print if rank == 0 else (lambda _: None))
+        s = serve(eng, _cli_requests(args, eng.mcfg))
+        if rank == 0:
+            _report(s, eng)
+    finally:
+        dist.destroy_process_group()
+
+
+def _cli_requests(args, mcfg: ModelConfig) -> list[Request]:
     rng = np.random.default_rng(args.seed)
     reqs = []
     for i in range(args.requests):
@@ -370,12 +446,16 @@ def main(argv: list[str] | None = None) -> None:
         reqs.append(Request(
             rid=i, prompt=rng.integers(0, mcfg.vocab, size=plen)
             .astype(np.int32), max_new_tokens=args.max_new))
-    s = serve(eng, reqs)
+    return reqs
+
+
+def _report(s: dict, eng: ServingEngine) -> None:
+    mesh = "" if eng.mesh is None else f", mesh {eng.mesh.shape}"
     print(f"[serve] {s['tokens_out']} tokens, {s['decode_steps']} steps, "
           f"{s['prefills']} prefills in {s['seconds']:.2f}s "
           f"({s['tokens_per_s']:.1f} tok/s, occupancy {s['occupancy']:.2f}), "
           f"ttft p50 {s['ttft_p50_ms']:.1f}ms, tpot p50 "
-          f"{s['tpot_p50_ms']:.2f}ms on {eng.device}"
+          f"{s['tpot_p50_ms']:.2f}ms on {eng.device}{mesh}"
           + (f", int8 KV ({eng.kv_quant_mode})" if eng.kv_quant_mode else ""))
 
 

@@ -17,6 +17,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.fused_mlp import ops as mops
 from repro_torch.kernels.fused_norm import ops as nops
+from repro_torch.parallel import collectives as coll
 
 from .config import ModelConfig
 
@@ -102,20 +103,26 @@ def dense(gen: torch.Generator, shape, dtype, scale: float | None = None):
 
 # --- dense MLP --------------------------------------------------------------
 
-def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
+              mesh=None) -> torch.Tensor:
     """SwiGLU / GELU MLP.  cfg.mlp_impl == "fused" runs the whole block as
-    one CUDA kernel; "dense" is plain PyTorch in the model dtype."""
+    one CUDA kernel; "dense" is plain PyTorch in the model dtype.
+    `mesh`: the weights are this rank's shards over the mesh's "model"
+    axis, w_in / w_gate by columns and w_out by rows (the kernel runs at
+    F / tp), and the partial outputs are summed by one all_reduce."""
     dt = cfg.tdtype
     if cfg.mlp_impl == "fused":
         wg = p["w_gate"].to(dt) if cfg.swiglu else None
-        return mops.fused_mlp(x, wg, p["w_in"].to(dt), p["w_out"].to(dt),
-                              swiglu=cfg.swiglu)
-    h = x @ p["w_in"].to(dt)
-    if cfg.swiglu:
-        h = F.silu(x @ p["w_gate"].to(dt)) * h
+        y = mops.fused_mlp(x, wg, p["w_in"].to(dt), p["w_out"].to(dt),
+                           swiglu=cfg.swiglu)
     else:
-        h = gelu(h)
-    return h @ p["w_out"].to(dt)
+        h = x @ p["w_in"].to(dt)
+        if cfg.swiglu:
+            h = F.silu(x @ p["w_gate"].to(dt)) * h
+        else:
+            h = gelu(h)
+        y = h @ p["w_out"].to(dt)
+    return y if mesh is None else coll.all_reduce(y, mesh)
 
 
 # --- RoPE -------------------------------------------------------------------

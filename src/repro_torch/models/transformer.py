@@ -11,8 +11,19 @@ stacked on a leading axis under `segments[i]["kind_dense"]` or
 `["kind_moe"]`, and the layers run in a Python loop where JAX used
 `lax.scan`, each under `maybe_remat`.  An MTP config also builds the JAX
 `mtp` subtree (projection, norm, one dense layer); only `loss_fn` reads
-it.  The grouped / shard_map MoE dispatch variants raise
-NotImplementedError.
+it.  MoE dispatches by capacity over all tokens, by token group
+(`moe_groups`) or, under a mesh, by explicit all-to-all
+(`moe_shard_map`), as the JAX variants do.
+
+Under a mesh (`parallel.sharding.use_mesh`, which the serving engine
+enters) each rank holds its blocks of the weights (drawn by
+`init_params(mesh=)` or cut by `sharding.shard_params`) and runs tensor
+parallelism over the mesh's "model" axis (`sharding.tp_plan`):
+attention on its whole heads (head counts are read off the local
+weights) with a row-parallel `wo`, the MLP column- then row-parallel,
+MoE by experts (EP) or on f, the embedding vocab-parallel; each sharded
+part ends in one `all_reduce` (the unembedding in an `all_gather` of the
+vocab shards).  With no mesh nothing changes.
 
 Caches are updated in place (the JAX functions return fresh arrays):
 `decode_step` writes the new token's k/v into the cache tensors it is
@@ -32,6 +43,8 @@ import torch.nn.functional as F
 from repro_torch.bridge import tree_map, tree_to
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.moe_mlp import ops as moe_ops
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import sharding
 
 from .common import (apply_norm, apply_norm_residual, apply_rope, attention,
                      cross_entropy, cross_entropy_sum, gelu, init_norm, maybe_remat,
@@ -42,14 +55,24 @@ Params = Any
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the variants the port does not serve yet."""
-    missing = [name for name, on in (
-        ("family " + cfg.family, cfg.family != "transformer"),
-        ("grouped MoE dispatch (moe_groups)", cfg.moe_groups > 0),
-        ("shard_map MoE dispatch", cfg.moe_shard_map)) if on]
-    if missing:
+    """Raise for a config this module does not run (another family)."""
+    if cfg.family != "transformer":
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet")
+            f"{cfg.name}: family {cfg.family} is not a transformer")
+
+
+def _plan(cfg: ModelConfig):
+    """The tensor-parallel plan under the current mesh, None without one."""
+    mesh = sharding.current_mesh()
+    return None if mesh is None else sharding.tp_plan(cfg, mesh)
+
+
+def _attn_sum(cfg: ModelConfig, a: torch.Tensor) -> torch.Tensor:
+    """The attention output summed over the "model" axis where the
+    attention runs on head shards under the current mesh (its
+    row-parallel `wo` gives partial sums); else a."""
+    plan = _plan(cfg)
+    return coll.all_reduce(a, plan.mesh) if plan is not None and plan.attn else a
 
 
 def layer_segments(cfg: ModelConfig) -> list[tuple[str, int]]:
@@ -66,87 +89,112 @@ def layer_segments(cfg: ModelConfig) -> list[tuple[str, int]]:
 # Init
 # ---------------------------------------------------------------------------
 
+def _whole(path: str, shape):
+    """Keep a leaf whole: (its shape, the identity)."""
+    return tuple(shape), lambda t: t
+
+
 def _init_layers(cfg: ModelConfig, gen: torch.Generator, kind: str,
-                 count: int) -> Params:
+                 count: int, keep=_whole, at: str = "") -> Params:
+    """`count` stacked layers of `kind`.  `keep(path, shape)`: (the shape
+    kept of one layer's leaf at `at + path`, the function cutting it out
+    of the layer's draw)."""
     pd = cfg.tparam_dtype
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
     dev = gen.device
 
-    def dense(shape, scale=None):
+    def dense(path, shape, scale=None):
         """`count` layers of `shape`, each drawn in float32 and cast on its
         own, so no more than one float32 layer is held at a time (a
         mixtral expert tensor is 1.9 GB a layer in float32, deepseek-v3's
-        15 GB); a float32 model's layers are drawn in place."""
+        15 GB); a float32 model's whole layers are drawn in place."""
         # the JAX dense_init's fan-in is the first axis, E for an expert
         # tensor (E, d, f)
         s = scale if scale is not None else 1.0 / math.sqrt(shape[0])
-        out = torch.empty((count, *shape), dtype=pd, device=dev)
+        local, cut = keep(at + path, shape)
+        out = torch.empty((count, *local), dtype=pd, device=dev)
         for i in range(count):
-            if pd == torch.float32:      # the same draw, into place
+            if pd == torch.float32 and local == tuple(shape):   # the same draw, into place
                 torch.randn(shape, generator=gen, out=out[i]).mul_(s)
             else:
-                out[i] = normal(gen, shape, s, pd)
+                out[i] = cut(normal(gen, shape, s, pd))
         return out
 
-    def zeros(*shape):
-        return torch.zeros((count, *shape), dtype=pd, device=dev)
+    def zeros(path, n):
+        return torch.zeros((count, *keep(at + path, (n,))[0]), dtype=pd, device=dev)
 
-    def mlp(f):
-        p = {"w_in": dense((d, f)), "w_out": dense((f, d), out_scale)}
+    def mlp(path, f):
+        p = {"w_in": dense(path + "/w_in", (d, f)),
+             "w_out": dense(path + "/w_out", (f, d), out_scale)}
         if cfg.swiglu:
-            p["w_gate"] = dense((d, f))
+            p["w_gate"] = dense(path + "/w_gate", (d, f))
         return p
 
     if cfg.use_mla:
         rd, qr, kvr, hd = cfg.mla_rope_dim, cfg.mla_q_rank, cfg.mla_kv_rank, cfg.hd
-        attn = {"wdq": dense((d, qr)), "q_norm": {"scale": zeros(qr)},
-                "wuq": dense((qr, cfg.n_heads * (hd + rd))),
-                "wdkv": dense((d, kvr + rd)), "kv_norm": {"scale": zeros(kvr)},
-                "wuk": dense((kvr, cfg.n_heads * hd)),
-                "wuv": dense((kvr, cfg.n_heads * hd)),
-                "wo": dense((qd, d), out_scale)}
+        attn = {"wdq": dense("attn/wdq", (d, qr)), "q_norm": {"scale": zeros("attn/q_norm/scale", qr)},
+                "wuq": dense("attn/wuq", (qr, cfg.n_heads * (hd + rd))),
+                "wdkv": dense("attn/wdkv", (d, kvr + rd)),
+                "kv_norm": {"scale": zeros("attn/kv_norm/scale", kvr)},
+                "wuk": dense("attn/wuk", (kvr, cfg.n_heads * hd)),
+                "wuv": dense("attn/wuv", (kvr, cfg.n_heads * hd)),
+                "wo": dense("attn/wo", (qd, d), out_scale)}
     else:
-        attn = {"wq": dense((d, qd)), "wk": dense((d, kvd)),
-                "wv": dense((d, kvd)), "wo": dense((qd, d), out_scale)}
+        attn = {"wq": dense("attn/wq", (d, qd)), "wk": dense("attn/wk", (d, kvd)),
+                "wv": dense("attn/wv", (d, kvd)), "wo": dense("attn/wo", (qd, d), out_scale)}
     if cfg.qkv_bias and not cfg.use_mla:
-        attn.update(bq=zeros(qd), bk=zeros(kvd), bv=zeros(kvd))
+        attn.update(bq=zeros("attn/bq", qd), bk=zeros("attn/bk", kvd),
+                    bv=zeros("attn/bv", kvd))
     layers = {"norm1": init_norm(cfg, (count,), dev), "attn": attn,
               "norm2": init_norm(cfg, (count,), dev)}
     if kind == "moe":
         e, f = cfg.n_experts, cfg.routed_ff
-        moe = {"router": dense((d, e)), "experts_in": dense((e, d, f)),
-               "experts_out": dense((e, f, d), out_scale)}
+        moe = {"router": dense("moe/router", (d, e)),
+               "experts_in": dense("moe/experts_in", (e, d, f)),
+               "experts_out": dense("moe/experts_out", (e, f, d), out_scale)}
         if cfg.swiglu:
-            moe["experts_gate"] = dense((e, d, f))
+            moe["experts_gate"] = dense("moe/experts_gate", (e, d, f))
         if cfg.n_shared_experts:
-            moe["shared"] = mlp(f * cfg.n_shared_experts)
+            moe["shared"] = mlp("moe/shared", f * cfg.n_shared_experts)
         layers["moe"] = moe
     else:
-        layers["mlp"] = mlp(cfg.d_ff)
+        layers["mlp"] = mlp("mlp", cfg.d_ff)
     return layers
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
-                device: torch.device | str = "cpu") -> Params:
+                device: torch.device | str = "cpu", *, mesh=None) -> Params:
     """Weights of the same tree, shapes and scales as the JAX
     `init_params` (the `mtp` subtree included), drawn from `gen` on its
     own device (a CPU generator gives the same weights on every machine)
-    and moved to `device`."""
+    and moved to `device`.  `mesh`: keep this rank's blocks only
+    (`sharding.shard_params`' blocks of the whole draw, bit for bit),
+    each cut from a layer's leaf as it is drawn, so a rank holds its
+    shards and one layer's leaf at most."""
     check_supported(cfg)
     pd = cfg.tparam_dtype
-    segments = [{f"kind_{kind}": _init_layers(cfg, gen, kind, count)}
-                for kind, count in layer_segments(cfg)]
-    params = {"embed": normal(gen, (cfg.vocab, cfg.d_model), 0.02, pd),
+
+    def keep(path, shape):
+        return _whole(path, shape) if mesh is None else \
+            sharding.leaf_block(mesh, cfg, path, shape)
+
+    def draw(path, shape, scale):
+        return keep(path, shape)[1](normal(gen, shape, scale, pd))
+
+    segments = [{f"kind_{kind}": _init_layers(cfg, gen, kind, count, keep,
+                                              f"segments/{i}/kind_{kind}/")}
+                for i, (kind, count) in enumerate(layer_segments(cfg))]
+    params = {"embed": draw("embed", (cfg.vocab, cfg.d_model), 0.02),
               "final_norm": init_norm(cfg, (), gen.device),
               "segments": segments}
     if not cfg.tie_embeddings:
-        params["head"] = normal(gen, (cfg.d_model, cfg.vocab), 0.02, pd)
+        params["head"] = draw("head", (cfg.d_model, cfg.vocab), 0.02)
     if cfg.mtp:
-        layer = _init_layers(cfg, gen, "dense", 1)
+        layer = _init_layers(cfg, gen, "dense", 1, keep, "mtp/layer/")
         params["mtp"] = {
-            "proj": normal(gen, (2 * cfg.d_model, cfg.d_model),
-                           1.0 / math.sqrt(2 * cfg.d_model), pd),
+            "proj": draw("mtp/proj", (2 * cfg.d_model, cfg.d_model),
+                         1.0 / math.sqrt(2 * cfg.d_model)),
             "norm": init_norm(cfg, (), gen.device),
             "layer": tree_map(lambda t: t[0], layer)}
     return tree_to(params, device)
@@ -185,9 +233,9 @@ def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor):
     v = x @ p["wv"].to(dt)
     if cfg.qkv_bias:
         q, k, v = q + p["bq"].to(dt), k + p["bk"].to(dt), v + p["bv"].to(dt)
-    return (q.reshape(bsz, s, cfg.n_heads, cfg.hd),
-            k.reshape(bsz, s, cfg.kv_heads, cfg.hd),
-            v.reshape(bsz, s, cfg.kv_heads, cfg.hd))
+    # local heads: a rank's shards hold whole heads
+    return (q.reshape(bsz, s, -1, cfg.hd), k.reshape(bsz, s, -1, cfg.hd),
+            v.reshape(bsz, s, -1, cfg.hd))
 
 
 def rope_for(cfg: ModelConfig, positions: torch.Tensor,
@@ -218,7 +266,7 @@ def _mla_q(cfg: ModelConfig, p: Params, x: torch.Tensor, rope):
     bsz, s, _ = x.shape
     dt, hd = cfg.tdtype, cfg.hd
     cq = rmsnorm(x @ p["wdq"].to(dt), p["q_norm"]["scale"], cfg.norm_eps)
-    q = (cq @ p["wuq"].to(dt)).reshape(bsz, s, cfg.n_heads, hd + cfg.mla_rope_dim)
+    q = (cq @ p["wuq"].to(dt)).reshape(bsz, s, -1, hd + cfg.mla_rope_dim)
     return q[..., :hd], apply_rope(q[..., hd:], rope)
 
 
@@ -237,8 +285,9 @@ def _mla_attn_block(cfg: ModelConfig, p: Params, x: torch.Tensor, rope):
     rope key shared by every head; q and k of width hd + rd, v of hd.
     Returns (out, {"latent": (B, S, kv_rank + rd)})."""
     bsz, s, _ = x.shape
-    dt, hd, kvr, h = cfg.tdtype, cfg.hd, cfg.mla_kv_rank, cfg.n_heads
+    dt, hd, kvr = cfg.tdtype, cfg.hd, cfg.mla_kv_rank
     q_nope, q_rope = _mla_q(cfg, p, x, rope)
+    h = q_nope.shape[2]
     lat = _mla_latent(cfg, p, x, rope)
     ckv = lat[..., :kvr]
     k_nope = (ckv @ p["wuk"].to(dt)).reshape(bsz, s, h, hd)
@@ -246,19 +295,20 @@ def _mla_attn_block(cfg: ModelConfig, p: Params, x: torch.Tensor, rope):
     k_rope = lat[:, :, None, kvr:].expand(bsz, s, h, cfg.mla_rope_dim)
     o = attention(cfg, torch.cat([q_nope, q_rope], -1),
                   torch.cat([k_nope, k_rope], -1), v, causal=True)
-    return o.reshape(bsz, s, cfg.q_dim) @ p["wo"].to(dt), {"latent": lat}
+    return o.reshape(bsz, s, -1) @ p["wo"].to(dt), {"latent": lat}
 
 
 def attn_block(cfg: ModelConfig, p: Params, x: torch.Tensor, rope):
     """Full-sequence (prefill) attention: (out, the cache entries), k/v
     {"k", "v"} in cache layout (B, S, Hkv, hd), MLA {"latent"}.  rope:
-    `rope_for` the positions."""
+    `rope_for` the positions.  Under a mesh, out is this rank's partial
+    sum (the caller reduces it)."""
     if cfg.use_mla:
         return _mla_attn_block(cfg, p, x, rope)
     bsz, s, _ = x.shape
     q, k, v = _roped_qkv(cfg, p, x, rope)
     o = attention(cfg, q, k, v, causal=True)
-    return o.reshape(bsz, s, cfg.q_dim) @ p["wo"].to(cfg.tdtype), {"k": k, "v": v}
+    return o.reshape(bsz, s, -1) @ p["wo"].to(cfg.tdtype), {"k": k, "v": v}
 
 
 def capacity(cfg: ModelConfig, n: int) -> int:
@@ -270,10 +320,10 @@ def capacity(cfg: ModelConfig, n: int) -> int:
 
 
 def route(cfg: ModelConfig, p: Params, xf: torch.Tensor):
-    """Top-k routing of flat tokens xf (n, d): (weights (n, k) renormalised
-    and cast to the model dtype, expert ids (n, k)).  The router runs in
-    float32 (the JAX product promotes x); `torch.topk` gives the k experts
-    in descending order, as `jax.lax.top_k` does."""
+    """Top-k routing of flat tokens xf (..., d): (weights (..., k)
+    renormalised and cast to the model dtype, expert ids (..., k)).  The
+    router runs in float32 (the JAX product promotes x); `torch.topk`
+    gives the k experts in descending order, as `jax.lax.top_k` does."""
     probs = torch.softmax(xf.float() @ p["router"].float(), dim=-1)
     w, idx = torch.topk(probs, cfg.top_k, dim=-1)
     w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -295,11 +345,52 @@ def expert_mlp(cfg: ModelConfig, p: Params, buf: torch.Tensor) -> torch.Tensor:
     return torch.bmm(h, wo)
 
 
+def _slots(cfg: ModelConfig, flat_idx: torch.Tensor, cap: int):
+    """(slot, keep) of each (token, choice) along the last axis of
+    flat_idx (..., n*k): the next free slot of its expert's buffer in
+    flat order, clamped to the last slot and dropped past `cap`."""
+    pos = F.one_hot(flat_idx, cfg.n_experts).cumsum(-2) - 1
+    slot = pos.gather(-1, flat_idx[..., None])[..., 0]
+    keep = slot < cap
+    return torch.where(keep, slot, cap - 1), keep
+
+
+def _local_experts(cfg: ModelConfig, p: Params, plan) -> int:
+    """The first expert this rank holds: EP's shard start, else 0."""
+    if plan is None or plan.moe != "ep":
+        return 0
+    return plan.mesh.coord("model") * p["experts_in"].shape[0]
+
+
+def _combine(cfg: ModelConfig, p: Params, x: torch.Tensor, y: torch.Tensor,
+             plan) -> torch.Tensor:
+    """The routed output y (B, S, d), summed over "model" where the
+    experts are sharded, plus the shared experts (a TP MLP of their own)."""
+    if plan is not None and plan.moe:
+        y = coll.all_reduce(y, plan.mesh)
+    if cfg.n_shared_experts:
+        mesh = plan.mesh if plan is not None and plan.shared else None
+        y = y + mlp_block(cfg, p["shared"], x, mesh=mesh)
+    return y
+
+
 def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """Capacity-based top-k MoE (Switch-style dense dispatch), the JAX
-    `moe_block`'s plain path: each (token, choice) in flat (token, k)
-    order takes the next slot of its expert's buffer; past `capacity` it
-    is dropped (clamped to the last slot and added as zeros)."""
+    `moe_block`: each (token, choice) in flat (token, k) order takes the
+    next slot of its expert's buffer; past `capacity` it is dropped
+    (clamped to the last slot and added as zeros).  `moe_shard_map` under
+    a mesh takes `moe_block_shard_map`, `moe_groups` (when it divides
+    the tokens) `moe_block_grouped`.
+
+    Under a mesh with EP each rank runs its own experts over their rows of
+    the buffer (`moe_mlp` at E / tp) and combines only the choices routed
+    to them; with TP on f every expert runs on the rank's f columns; the
+    partial outputs are summed by one all_reduce."""
+    plan = _plan(cfg)
+    if cfg.moe_shard_map and plan is not None:
+        return moe_block_shard_map(cfg, p, x)
+    if cfg.moe_groups > 0 and (x.shape[0] * x.shape[1]) % cfg.moe_groups == 0:
+        return moe_block_grouped(cfg, p, x)
     bsz, s, d = x.shape
     n, k, e = bsz * s, cfg.top_k, cfg.n_experts
     dt = cfg.tdtype
@@ -307,32 +398,138 @@ def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     w, idx = route(cfg, p, xf)
     cap = capacity(cfg, n)
     flat_idx = idx.reshape(-1)                               # (n*k,)
-    pos = F.one_hot(flat_idx, e).cumsum(0) - 1
-    slot = pos.gather(1, flat_idx[:, None])[:, 0]
-    keep = slot < cap
-    slot = torch.where(keep, slot, cap - 1)
+    slot, keep = _slots(cfg, flat_idx, cap)
     vals = torch.where(keep[:, None], xf.repeat_interleave(k, dim=0), 0).to(dt)
     buf = torch.zeros((e, cap, d), dtype=dt, device=x.device)
     # each kept (expert, slot) receives exactly one value and the drops add
     # zeros, so the accumulation is exact in any order (the JAX .at[].add)
     buf.index_put_((flat_idx, slot), vals, accumulate=True)
-    out = expert_mlp(cfg, p, buf)
-    gathered = torch.where(keep[:, None], out[flat_idx, slot], 0)
+    e0 = _local_experts(cfg, p, plan)
+    el = p["experts_in"].shape[0]
+    out = expert_mlp(cfg, p, buf[e0:e0 + el])
+    mine = keep & (flat_idx >= e0) & (flat_idx < e0 + el)
+    gathered = torch.where(mine[:, None], out[(flat_idx - e0).clamp(0, el - 1), slot], 0)
     y = (gathered.reshape(n, k, d) * w[..., None]).sum(1).to(dt)
-    y = y.reshape(bsz, s, d)
+    return _combine(cfg, p, x, y.reshape(bsz, s, d), plan)
+
+
+def moe_block_grouped(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The JAX `moe_block_grouped`: two-hop expert dispatch.  The n tokens
+    split into `moe_groups` groups of m; each group fills its own
+    capacity buffers (max(8, min(ceil(m k / E cf), m)) rounded up to 8
+    slots an expert), the (G, E, cap, d) buffers are regrouped expert
+    major, (E, G cap, d), the experts run once over all groups
+    (`expert_mlp`: the `moe_mlp` kernel), and each group gathers its
+    outputs back.  Under a mesh the experts shard as in `moe_block`."""
+    plan = _plan(cfg)
+    bsz, s, d = x.shape
+    n = bsz * s
+    g = cfg.moe_groups
+    if g <= 0 or n % g:
+        raise ValueError(f"moe_groups {g} does not divide {n} tokens")
+    m = n // g
+    k, e = cfg.top_k, cfg.n_experts
+    dt = cfg.tdtype
+    xf = x.reshape(g, m, d)
+    w, idx = route(cfg, p, xf)                               # (g, m, k)
+    cap = int(math.ceil(m * k / e * cfg.capacity_factor))
+    cap = max(8, min(cap, m))
+    cap = (cap + 7) // 8 * 8
+    flat_idx = idx.reshape(g, m * k)
+    slot, keep = _slots(cfg, flat_idx, cap)
+    vals = torch.where(keep[..., None], xf.repeat_interleave(k, dim=1), 0).to(dt)
+    gix = torch.arange(g, device=x.device)[:, None].expand(g, m * k)
+    buf = torch.zeros((g, e, cap, d), dtype=dt, device=x.device)
+    buf.index_put_((gix, flat_idx, slot), vals, accumulate=True)
+    e0 = _local_experts(cfg, p, plan)
+    el = p["experts_in"].shape[0]
+    bufe = buf[:, e0:e0 + el].transpose(0, 1).reshape(el, g * cap, d)
+    outg = expert_mlp(cfg, p, bufe).reshape(el, g, cap, d).transpose(0, 1)
+    mine = keep & (flat_idx >= e0) & (flat_idx < e0 + el)
+    gathered = torch.where(mine[..., None],
+                           outg[gix, (flat_idx - e0).clamp(0, el - 1), slot], 0)
+    y = (gathered.reshape(g, m, k, d) * w[..., None]).sum(2).to(dt)
+    return _combine(cfg, p, x, y.reshape(bsz, s, d), plan)
+
+
+EP_AXES = ("data", "model")
+
+
+def moe_block_shard_map(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The JAX `moe_block_shard_map`: explicit expert parallelism over the
+    mesh's ("data", "model") ranks.  The n tokens split over all ranks
+    (nl each); each rank routes its own and fills local capacity buffers
+    (E, cap_l, d), cap_l = max(1, ceil(nl k / E cf)) (no floor of 8, no
+    rounding); one all_to_all ships each expert's rows to the rank that
+    owns it (E / n_ep experts a rank), the local experts run over every
+    rank's rows (`moe_mlp`), the inverse all_to_all brings the outputs
+    home, each rank combines its tokens and the token stream is gathered
+    back.  Falls back to `moe_block` where E or n does not split over the
+    ranks, as JAX does.
+
+    The experts are held sharded over "model" alone (EP, the param
+    rules): rank (d, m) holds expert blocks m D .. m D + D - 1 of E / n_ep
+    each and runs block m D + d, so the all_to_all sends block m D + d to
+    the rank at (d, m), a fixed permutation of the JAX owner order that
+    changes no value."""
+    plan = _plan(cfg)
+    mesh = plan.mesh
+    n_ep = sharding.axis_size(mesh, EP_AXES)
+    bsz, s, d = x.shape
+    n = bsz * s
+    k, e = cfg.top_k, cfg.n_experts
+    if e % n_ep or n % n_ep:
+        return moe_block(cfg.replace(moe_shard_map=False), p, x)
+    dt = cfg.tdtype
+    el, nl = e // n_ep, n // n_ep
+    cap_l = max(1, int(math.ceil(nl * k / e * cfg.capacity_factor)))
+    me = mesh.axis_rank(EP_AXES)
+    xl = x.reshape(n, d)[me * nl:(me + 1) * nl]
+    w, idx = route(cfg, p, xl)                               # (nl, k)
+    flat_idx = idx.reshape(-1)
+    slot, keep = _slots(cfg, flat_idx, cap_l)
+    buf = torch.zeros((e, cap_l, d), dtype=dt, device=x.device)
+    buf.index_put_((flat_idx, slot),
+                   torch.where(keep[:, None], xl.repeat_interleave(k, dim=0), 0).to(dt),
+                   accumulate=True)
+    # block b of el experts runs on the rank at (d, m) with b = m D + d
+    dsz, msz = sharding.axis_size(mesh, "data"), sharding.axis_size(mesh, "model")
+    owner_block = [(r % msz) * dsz + r // msz for r in range(n_ep)]
+    order = torch.as_tensor(owner_block, device=x.device)
+    recv = coll.all_to_all(buf.reshape(n_ep, el, cap_l, d)[order].reshape(e, cap_l, d),
+                           mesh, EP_AXES)
+    # (n_ep sources, el, cap_l, d) -> this rank's experts over every source
+    buf2 = recv.reshape(n_ep, el, cap_l, d).transpose(0, 1).reshape(el, n_ep * cap_l, d)
+    held = mesh.coord("data") * el     # within the experts of the model shard
+    pe = {key: p[key][held:held + el] for key in ("experts_in", "experts_out",
+                                                    "experts_gate") if key in p}
+    oute = expert_mlp(cfg, pe, buf2)
+    back = coll.all_to_all(
+        oute.reshape(el, n_ep, cap_l, d).transpose(0, 1).reshape(e, cap_l, d),
+        mesh, EP_AXES)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(n_ep, device=x.device)
+    back = back.reshape(n_ep, el, cap_l, d)[inv].reshape(e, cap_l, d)
+    gathered = torch.where(keep[:, None], back[flat_idx, slot], 0)
+    yl = (gathered.reshape(nl, k, d) * w[..., None]).sum(1).to(dt)
+    y = coll.all_gather(yl, mesh, EP_AXES, dim=0).reshape(bsz, s, d)
     if cfg.n_shared_experts:
-        y = y + mlp_block(cfg, p["shared"], x)
+        smesh = mesh if plan.shared else None
+        y = y + mlp_block(cfg, p["shared"], x, mesh=smesh)
     return y
 
 
 def _ffn(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor):
     if kind == "moe":
         return moe_block(cfg, p["moe"], h)
-    return mlp_block(cfg, p["mlp"], h)
+    plan = _plan(cfg)
+    return mlp_block(cfg, p["mlp"], h,
+                     mesh=plan.mesh if plan is not None and plan.mlp else None)
 
 
 def layer_fwd(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, rope):
     a, kv = attn_block(cfg, p["attn"], apply_norm(cfg, p["norm1"], x), rope)
+    a = _attn_sum(cfg, a)
     # fused norm_impl runs the attn-residual add + norm2 as one kernel
     x, h = apply_norm_residual(cfg, p["norm2"], x, a)
     return x + _ffn(cfg, kind, p, h), kv
@@ -343,13 +540,31 @@ def layer_fwd(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, rope):
 # ---------------------------------------------------------------------------
 
 def embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor):
-    return params["embed"].to(cfg.tdtype)[tokens]
+    """Token embeddings; under a mesh with the vocab sharded, each rank
+    looks up the tokens in its rows (zeros elsewhere) and one all_reduce
+    sums them."""
+    emb = params["embed"].to(cfg.tdtype)
+    plan = _plan(cfg)
+    if plan is None or not plan.vocab:
+        return emb[tokens]
+    rows = emb.shape[0]
+    local = tokens - plan.mesh.coord("model") * rows
+    ok = (local >= 0) & (local < rows)
+    x = emb[local.clamp(0, rows - 1)].masked_fill(~ok[..., None], 0)
+    return coll.all_reduce(x, plan.mesh)
 
 
 def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor):
+    """Logits (..., V); under a mesh with the vocab sharded, each rank's
+    columns (rows of a tied embedding) and one all_gather of them."""
     if cfg.tie_embeddings:
-        return x @ params["embed"].to(cfg.tdtype).T
-    return x @ params["head"].to(cfg.tdtype)
+        logits = x @ params["embed"].to(cfg.tdtype).T
+    else:
+        logits = x @ params["head"].to(cfg.tdtype)
+    plan = _plan(cfg)
+    if plan is None or not plan.vocab:
+        return logits
+    return coll.all_gather(logits, plan.mesh, "model", dim=-1)
 
 
 def hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor | None,
@@ -466,25 +681,28 @@ def cache_len(cfg: ModelConfig, max_len: int) -> int:
     return min(max_len, cfg.window) if cfg.window else max_len
 
 
-def entry_shapes(cfg: ModelConfig, count: int, rows: int, cols: int) -> dict:
+def entry_shapes(cfg: ModelConfig, count: int, rows: int, cols: int,
+                 kv_heads: int | None = None) -> dict:
     """Cache leaf shapes of one segment over a (rows, cols) rectangle:
-    {"k", "v"} (count, rows, cols, Hkv, hd), or MLA's {"latent"} (count,
-    rows, cols, kv_rank + rope_dim)."""
+    {"k", "v"} (count, rows, cols, Hkv, hd), Hkv `kv_heads` (a rank's
+    local heads) or the config's, or MLA's {"latent"} (count, rows, cols,
+    kv_rank + rope_dim)."""
     if cfg.use_mla:
         return {"latent": (count, rows, cols, cfg.mla_kv_rank + cfg.mla_rope_dim)}
-    kv = (count, rows, cols, cfg.kv_heads, cfg.hd)
+    kv = (count, rows, cols, kv_heads or cfg.kv_heads, cfg.hd)
     return {"k": kv, "v": kv}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device: torch.device | str = "cpu", dtype=None) -> Params:
+               device: torch.device | str = "cpu", dtype=None,
+               kv_heads: int | None = None) -> Params:
     """Zero dense KV rectangles per segment (`entry_shapes` over (B, C),
-    C the ring length) and a scalar index."""
+    C the ring length, at `kv_heads`) and a scalar index."""
     check_supported(cfg)
     dt = dtype or cfg.tdtype
     clen = cache_len(cfg, max_len)
     segs = [{key: torch.zeros(shape, dtype=dt, device=device)
-             for key, shape in entry_shapes(cfg, count, batch, clen).items()}
+             for key, shape in entry_shapes(cfg, count, batch, clen, kv_heads).items()}
             for _, count in layer_segments(cfg)]
     return {"segments": segs,
             "index": torch.zeros((), dtype=torch.int32, device=device)}
@@ -505,12 +723,15 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int, *,
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor | None,
             max_len: int, *, embeds: torch.Tensor | None = None):
     """Run the prompt (after an `embeds` prefix, if any), fill a dense
-    cache: (last-token logits, cache).  A prompt longer than a
-    sliding-window ring keeps its last `clen` positions, rolled so that
-    position p sits in slot p % clen."""
+    cache (`init_cache`'s layout, at this rank's KV heads under a mesh):
+    (last-token logits, cache).  A prompt longer than a sliding-window
+    ring keeps its last `clen` positions, rolled so that position p sits
+    in slot p % clen."""
     x, kvs = hidden(cfg, params, tokens, collect_kv=True, embeds=embeds)
     bsz, s = x.shape[:2]
-    cache = init_cache(cfg, bsz, max_len, device=x.device)
+    kv = kvs[0].get("k")                    # (L, B, S, Hkv, hd): the local heads
+    cache = init_cache(cfg, bsz, max_len, device=x.device,
+                       kv_heads=None if kv is None else kv.shape[3])
     clen = cache_len(cfg, max_len)
     take = min(s, clen)
     for seg_kv, seg in zip(kvs, cache["segments"]):
@@ -565,20 +786,31 @@ def _decode_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
                  rope, mask: torch.Tensor):
     """One-token attention against the cache; writes the token's k/v into
     K/V (B, C, Hkv, hd) in place at cache slot slot[b].  x: (B, 1, d);
-    rope: `rope_tables` of the token positions; mask (B, C): `_decode_mask`."""
+    rope: `rope_tables` of the token positions; mask (B, C): `_decode_mask`.
+    `cfg.gqa_einsum` contracts each group of n_rep query heads against its
+    own KV head (the JAX grouped branch), so K and V are read once and
+    never repeated; else K and V are repeated to the query heads."""
     bsz = x.shape[0]
     dt = cfg.tdtype
     q, k, v = _roped_qkv(cfg, p, x, rope)
     _write_slot(K, k, slot)
     _write_slot(V, v, slot)
-    n_rep = cfg.n_heads // cfg.kv_heads
+    h, hkv = q.shape[2], K.shape[2]
+    n_rep = h // hkv
+    if cfg.gqa_einsum and n_rep > 1:
+        qg = q.reshape(bsz, 1, hkv, n_rep, cfg.hd)
+        scores = torch.einsum("bqkgd,bckd->bkgqc", qg, K.to(dt)).float() / math.sqrt(cfg.hd)
+        scores = scores.masked_fill(~mask[:, None, None, None, :], -1e30)
+        probs = torch.softmax(scores, dim=-1).to(dt)
+        o = torch.einsum("bkgqc,bckd->bqkgd", probs, V.to(dt)).reshape(bsz, 1, h, cfg.hd)
+        return o.reshape(bsz, 1, -1) @ p["wo"].to(dt)
     Kr = K.to(dt).repeat_interleave(n_rep, dim=2) if n_rep > 1 else K.to(dt)
     Vr = V.to(dt).repeat_interleave(n_rep, dim=2) if n_rep > 1 else V.to(dt)
     scores = torch.einsum("bqhd,bchd->bhqc", q, Kr).float() / math.sqrt(cfg.hd)
     scores = scores.masked_fill(~mask[:, None, None, :], -1e30)
     probs = torch.softmax(scores, dim=-1).to(dt)
     o = torch.einsum("bhqc,bchd->bqhd", probs, Vr)
-    return o.reshape(bsz, 1, cfg.q_dim) @ p["wo"].to(dt)
+    return o.reshape(bsz, 1, -1) @ p["wo"].to(dt)
 
 
 def _mla_decode_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -590,8 +822,9 @@ def _mla_decode_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
     the rope part), and the latent output is up-projected through W_uv
     afterwards, so no per-head key or value is ever formed."""
     bsz = x.shape[0]
-    dt, hd, kvr, h = cfg.tdtype, cfg.hd, cfg.mla_kv_rank, cfg.n_heads
+    dt, hd, kvr = cfg.tdtype, cfg.hd, cfg.mla_kv_rank
     q_nope, q_rope = _mla_q(cfg, p, x, rope)
+    h = q_nope.shape[2]
     _write_slot(L, _mla_latent(cfg, p, x, rope), slot)
     lat, lat_rope = L[..., :kvr].to(dt), L[..., kvr:].to(dt)
     q_abs = torch.einsum("bqhd,khd->bqhk", q_nope, p["wuk"].to(dt).reshape(kvr, h, hd))
@@ -602,7 +835,7 @@ def _mla_decode_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
     probs = torch.softmax(scores, dim=-1).to(dt)
     o_lat = torch.einsum("bhqc,bck->bqhk", probs, lat)
     o = torch.einsum("bqhk,khd->bqhd", o_lat, p["wuv"].to(dt).reshape(kvr, h, hd))
-    return o.reshape(bsz, 1, cfg.q_dim) @ p["wo"].to(dt)
+    return o.reshape(bsz, 1, -1) @ p["wo"].to(dt)
 
 
 def _decode_layers(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -613,7 +846,8 @@ def _decode_layers(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     segment, a dict of tensors stacked by layer ({"k", "v"} or MLA's
     {"latent"}, and the int8 pool's scales).  layer_attn(p, h, lc, rope) writes the tokens' k/v
     into one layer's cache lc (the dict's per-layer views) and returns
-    the attention output (B, S, d).  Returns the (B, S, V) logits."""
+    the attention output (B, S, d) (under a mesh this rank's partial sum,
+    reduced here).  Returns the (B, S, V) logits."""
     rope = rope_for(cfg, index[:, None] if index.dim() == 1 else index)
     x = embed_tokens(cfg, params, tokens)
     for seg, seg_cache in zip(params["segments"], caches):
@@ -623,6 +857,7 @@ def _decode_layers(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         for lp, views in zip(_layers(sp), per_layer):
             a = layer_attn(lp["attn"], apply_norm(cfg, lp["norm1"], x),
                            dict(zip(keys, views)), rope)
+            a = _attn_sum(cfg, a)
             x, h = apply_norm_residual(cfg, lp["norm2"], x, a)
             x = x + _ffn(cfg, kind, lp, h)
     x = apply_norm(cfg, params["final_norm"], x)
@@ -671,7 +906,7 @@ def _window_attn(cfg: ModelConfig, p: Params, x: torch.Tensor, K: torch.Tensor,
     rows = torch.arange(bsz, device=x.device)[:, None]
     K[rows, pos] = k.to(K.dtype)
     V[rows, pos] = v.to(V.dtype)
-    n_rep = cfg.n_heads // cfg.kv_heads
+    n_rep = q.shape[2] // K.shape[2]
     Kr = K.to(dt).repeat_interleave(n_rep, dim=2) if n_rep > 1 else K.to(dt)
     Vr = V.to(dt).repeat_interleave(n_rep, dim=2) if n_rep > 1 else V.to(dt)
     scores = torch.einsum("bqhd,bchd->bhqc", q, Kr).float() / math.sqrt(cfg.hd)
@@ -679,7 +914,7 @@ def _window_attn(cfg: ModelConfig, p: Params, x: torch.Tensor, K: torch.Tensor,
     scores = scores.masked_fill(~mask[:, None], -1e30)
     probs = torch.softmax(scores, dim=-1).to(dt)
     o = torch.einsum("bhqc,bchd->bqhd", probs, Vr)
-    return o.reshape(bsz, w, cfg.q_dim) @ p["wo"].to(dt)
+    return o.reshape(bsz, w, -1) @ p["wo"].to(dt)
 
 
 def decode_window(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -742,6 +977,6 @@ def paged_decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         Kp[pages, offs] = k[:, 0].to(Kp.dtype)
         Vp[pages, offs] = v[:, 0].to(Vp.dtype)
         o = fops.paged_decode_attention(q, Kp, Vp, tables, lengths)
-        return o.reshape(n, 1, cfg.q_dim) @ p["wo"].to(cfg.tdtype)
+        return o.reshape(n, 1, -1) @ p["wo"].to(cfg.tdtype)
 
     return _decode_layers(cfg, params, tokens, index, segments, attn)

@@ -1,0 +1,469 @@
+"""Sharding rules of the port (from `repro.parallel.sharding`): one place
+that maps every parameter and cache leaf to a spec over the ("pod",
+"data", "model") mesh, and the explicit tensor parallelism that carries
+them out over `torch.distributed`.
+
+A spec is a tuple with one entry a dim: None (replicated), an axis name
+or a tuple of axis names (the dim split over their flattened grid), as
+a JAX `PartitionSpec`.  The rules are the JAX table, regex for regex
+(TP over "model", DP over ("pod", "data"), EP = experts over "model"):
+
+  * attention: wq/wuq sharded on the head (output) dim, wo on the input
+    dim, wk/wv when the kv dim divides the model axis;
+  * MLP: w_in/w_gate on d_ff, w_out on d_ff (its input dim);
+  * MoE: experts_* on the expert dim (EP), else TP on f;
+  * embed/head: vocab-sharded;
+  * a dim shards only when the axis divides it, else it is replicated.
+Stacked-layer params (under "segments/") have a leading layer dim that
+never shards.
+
+**One departure from GSPMD.**  GSPMD may split a head's columns (smollm's
+wq of 576 columns over 2 ranks holds 4.5 heads a rank) and reshards
+around the attention.  Explicit tensor parallelism runs each rank's
+heads whole, so given the model config (`cfg=`) the port shards the
+head-carrying leaves of an attention only on whole heads: all of its
+query and KV heads (MLA: its heads) must divide the axis, else the
+attention's leaves are replicated.  With `cfg` the QKV biases shard with
+their projections' columns (the JAX rules, with no bias rule, replicate
+them: GSPMD reshards the add).  Without `cfg`, `param_spec_map` gives
+the JAX table exactly.
+
+Under a mesh the model reads `current_mesh()`: the one mesh the serving
+engine enters (`use_mesh`) around prefill and decode; None outside it.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+import re
+from typing import Any
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.bridge import tree_map
+from repro_torch.parallel.mesh import Mesh, MeshShape
+
+Spec = tuple
+
+
+def axis_size(mesh, name) -> int:
+    if mesh is None:
+        return 1
+    if isinstance(name, (tuple, list)):
+        n = 1
+        for a in name:
+            n *= axis_size(mesh, a)
+        return n
+    return mesh.shape[name] if name in mesh.shape else 1
+
+
+def _div(n: int, k: int) -> bool:
+    return k > 0 and n % k == 0
+
+
+DP_AXES = ("pod", "data")
+
+
+def dp_axes(mesh):
+    return tuple(a for a in DP_AXES if a in mesh.shape) or None
+
+
+# --- parameter rules --------------------------------------------------------
+
+def _shard_axis(mesh, dim: int, fsdp: bool):
+    """The widest candidate axis (fsdp: over DP too, ZeRO-3 style) that
+    divides `dim`, else None."""
+    cands = ([("pod", "data", "model"), ("data", "model"), "model"]
+             if fsdp else ["model"])
+    for c in cands:
+        names = c if isinstance(c, tuple) else (c,)
+        if all(n in mesh.shape for n in names) and _div(dim, axis_size(mesh, c)):
+            return c
+    return None
+
+
+def _param_rules():
+    def col(mesh, shape, fsdp):     # shard last dim
+        return (*([None] * (len(shape) - 1)), _shard_axis(mesh, shape[-1], fsdp))
+
+    def row(mesh, shape, fsdp):     # shard first-of-matrix dim
+        return (_shard_axis(mesh, shape[0], fsdp), *([None] * (len(shape) - 1)))
+
+    def expert_in(mesh, shape, fsdp):   # (E, d, f): EP, else TP on f
+        ax = _shard_axis(mesh, shape[0], fsdp)
+        if ax is not None:
+            return (ax, *([None] * (len(shape) - 1)))
+        return (None, *([None] * (len(shape) - 2)),
+                _shard_axis(mesh, shape[-1], False))
+
+    def expert_out(mesh, shape, fsdp):  # (E, f, d): EP, else TP on f
+        ax = _shard_axis(mesh, shape[0], fsdp)
+        if ax is not None:
+            return (ax, *([None] * (len(shape) - 1)))
+        return (None, _shard_axis(mesh, shape[1], False), *([None] * (len(shape) - 2)))
+
+    def repl(mesh, shape, fsdp):
+        return (None,) * len(shape)
+
+    return [
+        (r"(^|/)embed$", row),                      # (V, d) vocab-sharded
+        (r"(^|/)head$", col),                       # (d, V)
+        (r"(^|/)dec_pos$", repl),
+        (r"/attn/w(q|uq)$", col),
+        (r"/attn/w(k|v)$", col),
+        (r"/attn/wo$", row),
+        (r"/attn/w(dq|dkv)$", repl),
+        (r"/attn/w(uk|uv)$", col),
+        (r"/(self_attn|cross_attn)/w[qkv]$", col),
+        (r"/(self_attn|cross_attn)/wo$", row),
+        (r"/mlp/w_(in|gate)$", col),
+        (r"/mlp/w_out$", row),
+        (r"/moe/experts_(in|gate)$", expert_in),
+        (r"/moe/experts_out$", expert_out),
+        (r"/moe/router$", repl),
+        (r"/moe/shared/w_(in|gate)$", col),
+        (r"/moe/shared/w_out$", row),
+        # rglru
+        (r"/rec/w_(x|gate)$", col),
+        (r"/rec/w_out$", row),
+        (r"/rec/(wa|wx_in)$", col),
+        (r"/rec/(conv_w|conv_b|lam)$", repl),
+        # rwkv6
+        (r"/att/w[rkvg]$", col),
+        (r"/att/wo$", row),
+        (r"/att/w[ab]$", repl),
+        (r"/ffn/wk$", col),
+        (r"/ffn/wv$", row),
+        (r"/ffn/wr$", col),
+        (r"/mtp/proj$", repl),
+    ]
+
+
+_RULES = _param_rules()
+
+# leaves whose sharded dim carries attention heads (whole-heads rule)
+HEAD_LEAVES = re.compile(
+    r"/attn/w(q|k|v|o|uq|uk|uv)$|/(self_attn|cross_attn)/w[qkvo]$|/att/w[rkvgo]$")
+# QKV biases: sharded with their projection's columns under the cfg rules
+BIAS_LEAVES = re.compile(r"/(attn|self_attn|cross_attn)/b[qkv]$")
+
+
+def attn_heads(cfg) -> tuple[int, ...]:
+    """The head counts an attention's shards must split whole: query and
+    KV heads, MLA's query heads (its latent has none)."""
+    return (cfg.n_heads,) if cfg.use_mla else (cfg.n_heads, cfg.kv_heads)
+
+
+def heads_shard(cfg, n: int) -> bool:
+    """Whether an attention shards over n ranks on whole heads."""
+    return n > 1 and all(_div(h, n) for h in attn_heads(cfg))
+
+
+def path_str(path: tuple) -> str:
+    return "/".join(str(p) for p in path)
+
+
+def param_spec(mesh, path: str, shape, stacked: bool, fsdp: bool = False,
+               cfg=None) -> Spec:
+    """The spec of the leaf at `path` ('/'-joined) of `shape`; `stacked`:
+    a leading layer dim that never shards.  `cfg`: apply the whole-heads
+    rule and shard the QKV biases (see the module docstring)."""
+    base_shape = tuple(shape[1:]) if stacked else tuple(shape)
+    spec = None
+    if cfg is not None and BIAS_LEAVES.search(path):
+        spec = (_shard_axis(mesh, base_shape[-1], fsdp),)
+    for pat, fn in _RULES:
+        if spec is None and re.search(pat, path):
+            spec = fn(mesh, base_shape, fsdp)
+    if spec is None:
+        spec = (None,) * len(base_shape)
+    if cfg is not None and (HEAD_LEAVES.search(path) or BIAS_LEAVES.search(path)):
+        ax = next((a for a in spec if a is not None), None)
+        if ax is not None and not heads_shard(cfg, axis_size(mesh, ax)):
+            spec = (None,) * len(base_shape)
+    return (None, *spec) if stacked else tuple(spec)
+
+
+def _leaves_with_paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves_with_paths(v, prefix + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves_with_paths(v, prefix + (i,))
+    elif tree is not None:
+        yield prefix, tree
+
+
+def _stacked(ps: str, x) -> bool:
+    return "segments/" in ps and len(x.shape) >= 1
+
+
+def param_spec_map(mesh, params: Any, fsdp: bool = False, *, cfg=None) -> dict[str, Spec]:
+    """'/'-joined path -> spec for every leaf of a params tree (of tensors,
+    or of anything with a `.shape`)."""
+    out = {}
+    for path, x in _leaves_with_paths(params):
+        ps = path_str(path)
+        out[ps] = param_spec(mesh, ps, tuple(x.shape), _stacked(ps, x), fsdp, cfg)
+    return out
+
+
+def local_shape(shape, spec: Spec, mesh) -> tuple:
+    """A leaf's per-rank shape under `spec`."""
+    return tuple(n if a is None else n // axis_size(mesh, a)
+                 for n, a in zip(shape, spec))
+
+
+def leaf_block(mesh: Mesh, cfg, path: str, shape, stacked: bool = False):
+    """(this rank's shape, a function cutting its block out of a tensor of
+    `shape`) for the leaf at `path`, by `param_spec` with the whole-heads
+    rule (no FSDP: the model gathers no weight)."""
+    shape = tuple(shape)
+    spec = param_spec(mesh, path, shape, stacked, cfg=cfg)
+    if all(a is None for a in spec):
+        return shape, lambda t: t
+    return local_shape(shape, spec, mesh), lambda t: local_slice(t, spec, mesh)
+
+
+def local_slice(t: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
+    """This rank's block of t under `spec`, as a tensor of its own."""
+    for dim, a in enumerate(spec):
+        if a is None:
+            continue
+        n = axis_size(mesh, a)
+        size = t.shape[dim] // n
+        t = t.narrow(dim, mesh.axis_rank(a) * size, size)
+    return t.clone()
+
+
+def shard_params(params: Any, mesh: Mesh, cfg) -> Any:
+    """This rank's blocks of every parameter of a whole tree (`leaf_block`;
+    the same tree, replicated leaves the tensors given).  The blocks
+    `api.init_params(mesh=)` draws are these, bit for bit."""
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            return {k: walk(v, prefix + (k,)) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, prefix + (i,)) for i, v in enumerate(tree))
+        if tree is None:
+            return None
+        ps = path_str(prefix)
+        return leaf_block(mesh, cfg, ps, tree.shape, _stacked(ps, tree))[1](tree)
+    return walk(params, ())
+
+
+def check_shards(cfg, params: Any, mesh: Mesh) -> None:
+    """Raise ValueError unless `params` hold this rank's blocks under
+    `mesh`: the embedding's rows and the first layer's query columns
+    must be the widths `tp_plan` cuts them to (a whole tree run where
+    blocks belong would be summed over the ranks)."""
+    plan = tp_plan(cfg, mesh)
+    attn = next(iter(params["segments"][0].values()))["attn"]
+    q = cfg.n_heads * (cfg.hd + (cfg.mla_rope_dim if cfg.use_mla else 0))
+    got = (params["embed"].shape[0], attn["wuq" if cfg.use_mla else "wq"].shape[-1])
+    want = (cfg.vocab // plan.tp if plan.vocab else cfg.vocab,
+            q // plan.tp if plan.attn else q)
+    if got != want:
+        raise ValueError(f"params are not this rank's shards over {dict(mesh.shape)}: "
+                         f"embedding rows and query columns {got}, expected {want} "
+                         f"(draw them with api.init_params(mesh=) or cut them with "
+                         f"shard_params)")
+
+
+# --- activation / batch / cache rules ----------------------------------------
+
+def batch_spec(mesh, batch_size: int, ndim: int) -> Spec:
+    dp = dp_axes(mesh)
+    if dp and _div(batch_size, axis_size(mesh, dp)):
+        return (dp, *([None] * (ndim - 1)))
+    return (None,) * ndim
+
+
+def cache_specs(mesh, cache: Any, kv_heads: int, batch_size: int,
+                seq_shard: bool = False, *, n_heads: int | None = None) -> Any:
+    """Specs of a dense cache tree (the JAX `cache_shardings`): the batch
+    over DP when it divides (a batch of one long sequence: its length
+    over "data", SP); a {k, v} leaf's kv-head dim (axis -2 of (L, B, C,
+    Hkv, hd)) over "model" when the heads split whole (`n_heads`: the
+    query heads, checked too where given).  MLA's latent (L, B, C, D) has
+    no head dim and stays replicated on "model" (GSPMD splits its length
+    there; explicit TP reads the whole latent on every rank).
+    `seq_shard`: where the heads do not shard, the cache length goes over
+    "model" instead (a rule no served path takes yet).  The serving
+    engine splits no slot over "data" and takes `kv_head_specs`."""
+    dp = dp_axes(mesh)
+    dsz = axis_size(mesh, dp) if dp else 1
+    msz = axis_size(mesh, "model")
+    heads_ok = n_heads is None or _div(n_heads, msz)
+
+    def leaf(path, x):
+        ps = path_str(path)
+        shape = tuple(x.shape)
+        if len(shape) == 0:
+            return ()
+        dims: list = [None] * len(shape)
+        bdim = 1 if ("segments" in ps and len(shape) >= 3) else 0
+        if dp and _div(shape[bdim], dsz) and shape[bdim] > 1:
+            dims[bdim] = dp
+        elif len(shape) > bdim + 1 and dp and _div(shape[bdim + 1], dsz) \
+                and shape[bdim] == 1 and shape[bdim + 1] >= dsz:
+            dims[bdim + 1] = dp            # SP on the cache length dim
+        assigned = False
+        if len(shape) == 5 and heads_ok and shape[3] == kv_heads \
+                and _div(kv_heads, msz) and kv_heads >= msz:
+            dims[3] = "model"
+            assigned = True
+        cdim = bdim + 1
+        if seq_shard and not assigned and len(shape) >= cdim + 2 \
+                and dims[cdim] is None and _div(shape[cdim], msz) \
+                and shape[cdim] >= 4 * msz:
+            dims[cdim] = "model"
+        return tuple(dims)
+
+    return _map_with_path(leaf, cache)
+
+
+def kv_head_specs(mesh, pool_segments: Any, kv_heads: int, *,
+                  n_heads: int | None = None) -> Any:
+    """Specs of the paged pools (the JAX `paged_cache_shardings`): only the
+    kv-head dim of a (L, pages, page_size, Hkv, hd) pool (or of its int8
+    scales, (L, pages, 1, Hkv, 1)) shards over "model", on whole heads;
+    the page dims never shard (one global pool addressed through per-slot
+    tables), and MLA's latent pool stays replicated.  The serving engine's
+    dense (L, slots, C, Hkv, hd) rectangles take the same rule: every rank
+    holds every slot."""
+    msz = axis_size(mesh, "model")
+    heads_ok = n_heads is None or _div(n_heads, msz)
+
+    def leaf(path, x):
+        shape = tuple(x.shape)
+        dims: list = [None] * len(shape)
+        if len(shape) == 5 and heads_ok and shape[3] == kv_heads \
+                and _div(kv_heads, msz) and kv_heads >= msz:
+            dims[3] = "model"
+        return tuple(dims)
+
+    return _map_with_path(leaf, pool_segments)
+
+
+def _map_with_path(fn, tree, prefix=()):
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, prefix + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(fn, v, prefix + (i,)) for i, v in enumerate(tree))
+    return fn(prefix, tree)
+
+
+def local_cache_shapes(mesh, cache: Any, specs: Any) -> Any:
+    """Each cache leaf's per-rank shape under its spec (a tree of tuples)."""
+    return tree_map(lambda x, s: local_shape(tuple(x.shape), s, mesh), cache, specs)
+
+
+def place(mesh, cache: Any, specs: Any) -> Any:
+    """A zero cache of per-rank shapes: every leaf reallocated at its
+    local shape, dtype and device kept (the states place before any
+    prefill, so no value is carried)."""
+    return tree_map(lambda x, s: torch.zeros(local_shape(tuple(x.shape), s, mesh),
+                                             dtype=x.dtype, device=x.device),
+                    cache, specs)
+
+
+# --- the explicit TP plan the model follows ------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TPPlan:
+    """Which parts of a transformer layer run sharded over "model" (tp
+    ranks) under the param rules: attention on whole heads, the dense MLP
+    on d_ff, the vocab, MoE by experts ("ep") or on f ("f"), the shared
+    expert on its f.  Each sharded part ends in one `all_reduce` (the
+    unembedding in an `all_gather`)."""
+    mesh: Any
+    tp: int
+    attn: bool
+    mlp: bool
+    vocab: bool
+    moe: str
+    shared: bool
+
+
+def tp_plan(cfg, mesh) -> TPPlan:
+    tp = axis_size(mesh, "model")
+    sharded = lambda n: tp > 1 and _shard_axis(mesh, n, False) == "model"  # noqa: E731
+    moe = ""
+    if cfg.use_moe and tp > 1:
+        moe = "ep" if sharded(cfg.n_experts) else ("f" if sharded(cfg.routed_ff) else "")
+    return TPPlan(mesh=mesh, tp=tp, attn=heads_shard(cfg, tp), mlp=sharded(cfg.d_ff),
+                  vocab=sharded(cfg.vocab), moe=moe,
+                  shared=bool(cfg.n_shared_experts)
+                  and sharded(cfg.routed_ff * cfg.n_shared_experts))
+
+
+_MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh", default=None)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Run the enclosed model calls sharded over `mesh` (None: unsharded);
+    the mesh is forgotten on exit."""
+    token = _MESH.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESH.reset(token)
+
+
+def current_mesh():
+    """The mesh of the enclosing `use_mesh`, else None."""
+    return _MESH.get()
+
+
+# --- multi-replica serving ----------------------------------------------------
+
+def replica_meshes(mesh, n: int) -> list:
+    """Split `mesh` into `n` per-replica meshes along its "data" axis, each
+    keeping the whole "model" (and "pod") extent (the JAX
+    `replica_meshes`).  `mesh=None` gives `[None] * n`, n == 1 `[mesh]`;
+    a mesh with no "data" axis, or one whose data axis `n` does not
+    divide, raises ValueError.
+
+    A `MeshShape` splits into shapes.  A rank's `Mesh` splits into the
+    `Mesh` of the replica holding this rank (with its own subgroups) and
+    `MeshShape`s of the others; every rank must call it, in the same
+    order (it makes subgroups)."""
+    if mesh is None:
+        return [None] * n
+    if n == 1:
+        return [mesh]
+    names = list(mesh.axis_names)
+    if "data" not in names:
+        raise ValueError(f"mesh {names} has no 'data' axis to split {n} replicas over")
+    dsz = mesh.shape["data"]
+    if dsz % n != 0:
+        raise ValueError(f"data axis of size {dsz} does not divide into {n} replicas")
+    shape = dict(mesh.shape, data=dsz // n)
+    if not isinstance(mesh, Mesh):
+        return [MeshShape(tuple(names), dict(shape)) for _ in range(n)]
+    m = shape["model"]
+    d = shape["data"]
+    out: list = []
+    for i in range(n):
+        base = i * d * m
+        ranks = list(range(base, base + d * m))
+        groups: dict = {}
+        for key, blocks in (
+                (("data",), [[base + a * m + j for a in range(d)] for j in range(m)]),
+                (("model",), [[base + a * m + j for j in range(m)] for a in range(d)]),
+                (("data", "model"), [ranks])):
+            for rs in blocks:
+                g = dist.new_group([mesh.root + r for r in rs]) if len(rs) > 1 else None
+                if mesh.rank in rs:
+                    groups[key] = g
+        if mesh.rank in ranks:
+            out.append(Mesh(mesh.axis_names, dict(shape), mesh.rank - base,
+                            mesh.device, groups, root=mesh.root + base))
+        else:
+            out.append(MeshShape(tuple(names), dict(shape)))
+    return out

@@ -38,6 +38,17 @@ the JAX engine resolves it (`_kv_quant_mode`): any truthy value
 quantizes a paged engine's pool, the value "dense" a non-paged
 transformer's rectangles (no sliding window); the resolved mode is
 `engine.kv_quant_mode`.
+
+`mesh` (a `parallel.mesh.Mesh`, one engine a rank, every rank given
+the same requests) serves a transformer with tensor parallelism:
+`params` are this rank's blocks of the weights (`api.init_params(mesh=)`
+draws them, `parallel.sharding.shard_params` cuts them out of a whole
+tree; a whole tree is refused), the engine places its state at the
+local KV heads and runs prefill and decode inside `sharding.use_mesh`.  Every
+rank runs the same scheduler; each sampled token, and each deadline
+shedding verdict (the only decision read off the host clock), is rank
+0's, broadcast, so the ranks cannot drift.  `mesh=None` is the
+single-device path, unchanged.
 """
 from __future__ import annotations
 
@@ -51,6 +62,8 @@ import torch
 from repro_torch.bridge import tree_to
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import sharding
 
 from . import paged as paged_kv
 from .resilience import logits_finite
@@ -110,7 +123,10 @@ class ServingEngine:
                  enc_len: int | None = None,
                  queue_bound: int = 0, guard_nan: bool = True,
                  shed_deadlines: bool = True, seed: int = 0,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, mesh=None):
+        self.mesh = mesh
+        if mesh is not None and device is None:
+            device = mesh.device
         self.device = resolve_device(device)
         # paged + bucketed serving is exact only for the plain transformer
         # cache (no sliding-window ring, no MoE router) — paged_supported
@@ -136,6 +152,9 @@ class ServingEngine:
         self._est_step_s = 0.0        # EWMA of step wall time
         self.state = self._new_state(page_size=page_size, num_pages=num_pages,
                                      bucket_min=bucket_min)
+        if mesh is not None:
+            sharding.check_shards(mcfg, self.params, mesh)
+            self.state.place(mesh)
         self.pool = self.state.pool
         self.buckets = self.state.buckets
         self.capacity = self.state.capacity
@@ -232,10 +251,22 @@ class ServingEngine:
             return False
         now = time.monotonic()
         remaining = (req.t_submit or now) + req.deadline_s - now
-        if remaining <= 0:
-            return True
         left = max(req.max_new_tokens - len(req.out_tokens), 0)
-        return self._est_step_s > 0.0 and self._est_step_s * left > remaining
+        late = remaining <= 0 or (self._est_step_s > 0.0
+                                  and self._est_step_s * left > remaining)
+        return bool(self._agree([int(late)])[0])
+
+    def _agree(self, values: list[int]) -> list[int]:
+        """Rank 0's values on every rank of the mesh (as given without one)."""
+        if self.mesh is None:
+            return values
+        t = torch.as_tensor(values, dtype=torch.long, device=self.device)
+        return coll.broadcast(t, self.mesh).tolist()
+
+    def _run_model(self, fn, *args, **kw):
+        """A state call (prefill or decode) under this engine's mesh."""
+        with sharding.use_mesh(self.mesh):
+            return fn(self.params, *args, **kw)
 
     def _next_admission(self) -> int | None:
         while self.queue:
@@ -280,7 +311,7 @@ class ServingEngine:
             # +1: the next decode writes KV at position plen
             if self.paged and not self.pool.ensure(b, plen + 1):
                 break       # pool dry — wait for decode-side frees
-            last = self.state.prefill(self.params, b, seq, frames=req.frames)
+            last = self._run_model(self.state.prefill, b, seq, frames=req.frames)
             self.queue.pop(qi)
             self.slots[b] = req
             req.admit_seq = self._admit_counter
@@ -289,7 +320,7 @@ class ServingEngine:
             if resumed:
                 self.next_token[b, 0] = req.out_tokens[-1]
                 continue
-            tok = self._sample_one(last[0, -1:], req)
+            tok = self._agree([self._sample_one(last[0, -1:], req)])[0]
             req.out_tokens.append(tok)
             if req.t_first is None:
                 req.t_first = time.monotonic()
@@ -339,7 +370,7 @@ class ServingEngine:
     def _advance(self, active: list[int]) -> bool:
         """Decode the active slots one step, guard, sample, finish.
         Returns False when the NaN guard swallowed the step."""
-        logits, lane = self.state.decode(self.params, self.next_token, active)
+        logits, lane = self._run_model(self.state.decode, self.next_token, active)
         last = logits[:, -1]
         if self.guard_nan and not logits_finite(last):
             # emit nothing from non-finite logits; flag for the watchdog
@@ -347,12 +378,11 @@ class ServingEngine:
             self.stats["nan_steps"] += 1
             return False
         greedy = last.argmax(dim=-1).tolist()
-        for b in active:
+        toks = self._agree([greedy[lane[b]] if self.slots[b].temperature <= 0.0
+                            else self._sample_one(last[lane[b]][None], self.slots[b])
+                            for b in active])
+        for b, tok in zip(active, toks):
             req = self.slots[b]
-            if req.temperature <= 0.0:
-                tok = greedy[lane[b]]
-            else:
-                tok = self._sample_one(last[lane[b]][None], req)
             req.out_tokens.append(tok)
             self.next_token[b, 0] = tok
             self.stats["tokens_out"] += 1

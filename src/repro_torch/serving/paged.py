@@ -233,7 +233,7 @@ def paged_decode_step_int8(cfg: ModelConfig, params, tokens: torch.Tensor,
                                              k[:, 0], v[:, 0])
         _requantize_page(lc["k"], lc["ks"], pages, offs, k[:, 0])
         _requantize_page(lc["v"], lc["vs"], pages, offs, v[:, 0])
-        return o.reshape(n, 1, cfg.q_dim) @ p["wo"].to(cfg.tdtype)
+        return o.reshape(n, 1, -1) @ p["wo"].to(cfg.tdtype)
 
     return transformer._decode_layers(cfg, params, tokens, index, caches, attn)
 

@@ -185,6 +185,8 @@ class SpecDecodeEngine(ServingEngine):
             raise ValueError("draft config must be a plain-attention transformer too")
         if k < 2:
             raise ValueError(f"spec-decode needs k >= 2, got {k}")
+        if kw.get("mesh") is not None:
+            raise NotImplementedError("spec-decode on a mesh is not served yet")
         self.k = k
         self.draft_cfg = draft_cfg
         self.draft_params = draft_params

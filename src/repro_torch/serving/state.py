@@ -11,6 +11,15 @@ rglru and rwkv6 families and `CrossAttnState` for whisper.  Both KV
 states take int8 storage (`quantized`, `serving/quant.py`).  Every
 state's `prefill` takes the request's `frames`; only the cross-attention
 state reads them.
+
+`place(mesh)` readies a state for tensor parallelism before any prefill
+(the JAX states' `place`): the KV states reallocate their rectangles or
+pools, and int8 scales, at this rank's KV heads (`parallel.sharding`'s
+`kv_head_specs`: KV heads over "model" when the attention shards on
+whole heads; MLA latents replicated).  The slots are
+not split over "data": the engine's ranks run one scheduler over every
+slot, so a data rank holds every slot's cache as its model peers do.
+The recurrent and cross-attention states raise under a mesh.
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ import torch
 from repro_torch.bridge import tree_map
 from repro_torch.models import api
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import sharding
 
 from . import paged as paged_kv
 from . import quant as kvq
@@ -64,6 +74,12 @@ def scatter_slots(cache, sub, idx: torch.Tensor, n: int) -> None:
     for full, part in _leaf_pairs(cache["segments"], sub["segments"]):
         full.index_copy_(1, idx[:n], part[:, :n].to(full.dtype))
     cache["index"].index_copy_(0, idx[:n], sub["index"][:n].to(cache["index"].dtype))
+
+
+def _local_heads(mesh, cfg: ModelConfig, tree: Params) -> Params:
+    """A zero KV tree at this rank's KV heads (`sharding.kv_head_specs`)."""
+    return sharding.place(mesh, tree, sharding.kv_head_specs(
+        mesh, tree, cfg.kv_heads, n_heads=cfg.n_heads))
 
 
 class DenseKVState:
@@ -115,6 +131,13 @@ class DenseKVState:
                 lambda a: torch.zeros(a.shape, dtype=torch.int8, device=device),
                 self.cache["segments"])
             self.scales = kvq.scale_struct(self.cache["segments"])
+
+    def place(self, mesh) -> None:
+        """The rectangles (and int8 scales) at this rank's KV heads; the
+        slot axis stays whole (see the module docstring)."""
+        self.cache["segments"] = _local_heads(mesh, self.mcfg, self.cache["segments"])
+        if self.scales is not None:
+            self.scales = _local_heads(mesh, self.mcfg, self.scales)
 
     def prefill(self, params: Params, b: int, seq: np.ndarray,
                 frames=None) -> torch.Tensor:
@@ -219,6 +242,14 @@ class PagedKVState:
         self.buckets = paged_kv.prefill_buckets(max_len, bucket_min)
         self.capacity = paged_kv.pool_token_capacity(self.pool, max_len)
 
+    def place(self, mesh) -> None:
+        """The page pools (and int8 scales) at this rank's KV heads; the
+        page dims never shard (the JAX `paged_cache_shardings`)."""
+        pool = self.pool
+        pool.segments = _local_heads(mesh, self.mcfg, pool.segments)
+        if pool.scales is not None:
+            pool.scales = _local_heads(mesh, self.mcfg, pool.scales)
+
     def prefill(self, params: Params, b: int, seq: np.ndarray,
                 frames=None) -> torch.Tensor:
         """Bucket-padded prefill of `seq` into slot b's pages; returns
@@ -319,6 +350,12 @@ class _LayersState:
 
     def release(self, b: int) -> None:
         pass
+
+    def place(self, mesh) -> None:
+        if mesh is not None:
+            raise NotImplementedError(
+                f"{self.mcfg.family}: serving on a mesh covers the transformer "
+                f"family; the {self.kind} state is not sharded yet")
 
 
 class RecurrentState(_LayersState):

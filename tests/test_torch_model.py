@@ -129,8 +129,8 @@ def test_init_params_shapes_match_jax_and_default_to_cuda():
 def test_unported_variants_raise():
     """Sliding windows, capacity MoE, MLA, M-RoPE, the MTP subtree and
     LayerNorm init (their trees are held against JAX in
-    tests/test_torch_{mla,variants,whisper}.py); only the grouped and
-    shard_map MoE dispatch variants still raise."""
+    tests/test_torch_{mla,variants,whisper}.py); the transformer module
+    still raises for another family."""
     cfg = configs.get_smoke_config("smollm-135m")
     moe = dict(n_experts=4, top_k=2)
     for kw in (dict(window=8), moe, dict(mla_q_rank=64, mla_kv_rank=32),
@@ -140,6 +140,15 @@ def test_unported_variants_raise():
         assert ("mtp" in p) == kw.get("mtp", False)
         if kw.get("norm") == "layernorm":
             assert set(p["final_norm"]) == {"scale", "bias"}
-    for kw in (dict(moe, moe_groups=2), dict(moe, moe_shard_map=True)):
-        with pytest.raises(NotImplementedError):
-            api.init_params(cfg.replace(**kw), 0, device="cpu")
+    with pytest.raises(NotImplementedError):
+        transformer.init_params(cfg.replace(family="rwkv6"), torch.Generator())
+
+
+@pytest.mark.parametrize("dispatch", [dict(moe_groups=2), dict(moe_shard_map=True)],
+                         ids=["groups", "shard_map"])
+def test_moe_dispatch_variants_init(dispatch):
+    """The grouped and shard_map MoE dispatch variants init (their outputs
+    are held against JAX in tests/test_torch_moe_dispatch.py)."""
+    cfg = configs.get_smoke_config("smollm-135m").replace(n_experts=4, top_k=2, **dispatch)
+    p = api.init_params(cfg, 0, device="cpu")
+    assert "moe" in p["segments"][0]["kind_moe"]
