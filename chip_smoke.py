@@ -67,7 +67,9 @@ exit, no result line) when a check fails:
    qwen2-vl-2b's F 4480 and deepseek-v3's shared expert at F 1024;
    flash at danube's 16 / 4 heads of 80, qwen2-vl's 6 / 1 of 128 and
    mixtral's 16 / 4 of 128; paged decode at qwen2-vl's 6 / 1 heads;
-   moe_mlp at mixtral's E 4 and deepseek-v3's E 128); then each of the seven
+   moe_mlp at mixtral's E 4 and deepseek-v3's E 128; wkv6 at rwkv6-3b's 20
+   of 40 heads and rglru_scan at recurrentgemma-2b's 1280 of 2560
+   channels, a decode step and a 256-token prefill, float32); then each of the seven
    ops under autograd, float32 (`grad_rows`: the norms, the fused MLP
    with and without a gate, flash with a window and k / v without a
    gradient, moe_mlp, rglru_scan, wkv6 in both layouts): one kernel
@@ -185,7 +187,25 @@ exit, no result line) when a check fails:
    drops no choice, within `TP_LOGITS_SLACK` of the unsharded engine's
    distance from the bf16 plain route) and mixtral-8x7b with
    moe_groups=4 on one rank (float32, no drops, token-equal to
-   moe_groups=0).  Each rank draws only its blocks of the weights.  Launch counts are
+   moe_groups=0).  Each rank draws only its blocks of the weights.  Then
+   every family on that (1, 2) mesh (`family_mesh_phase`): rwkv6-3b (32
+   layers, wkv6 at 20 heads), recurrentgemma-2b (26 layers, rglru_scan at
+   1280 channels, flash and the fused norm, its 10 / 1 heads replicated)
+   and whisper-base (6 + 6 layers, 1500-frame windows) at full width in
+   bf16, 8 requests each, every rank's launches and collectives per layer
+   per step as the sharding implies and bf16 logits held to
+   `TP_LOGITS_SLACK`; rwkv6 and whisper at 2 layers, recurrentgemma at 3
+   in float32 token-equal to the unsharded engine; spec-decode with the
+   target sharded and the 7-layer draft whole on each rank (bf16, the
+   one-card engine's streams compared and printed; at 8 layers in float32
+   tokens and acceptance counts equal to the one-card engine's); then the
+   cluster on a (2, 2) mesh of four ranks (`cluster_mesh_phase`): 2
+   replicas x tp 2 of smollm-135m (30 layers, bf16, the three flags), 16
+   `LoadGenerator` requests under the seed-0 chaos script, every rank
+   ending with the same request records, paged_decode once a layer for
+   every decode step of the rank's own replica's engines, and at 4 layers
+   in float32 the same prompts as a burst under the chaos script
+   token-equal to the one-card 2-replica cluster.  Launch counts are
    set to 0 just before each path
    and read just after; every kernel of the path must have run, each
    recurrent layer's kernel and each MoE layer's moe_mlp exactly once a
@@ -353,6 +373,21 @@ TP_MLP = (("smollm-135m", 576, 768, (DECODE_N, 300)), ("h2o-danube-1.8b", 2560, 
 TP_FLASH = (("h2o-danube-1.8b", 16, 4, 80, 4096), ("qwen2-vl-2b", 6, 1, 128, None),
             ("mixtral-8x7b", 16, 4, 128, 4096))
 TP_MOE = (("mixtral-8x7b", 4, 4096, 14336, 8), ("deepseek-v3-671b", 128, 7168, 2048, 8))
+# every family, the cluster and spec-decode on a mesh (ranks share the one
+# card over gloo): the float32 cut depths of the families' token checks
+# (recurrentgemma's 3 layers hold its one attention layer, layer 2 at
+# attn_every 3), the float32 spec-decode check (target layers, draft =
+# a quarter) and the float32 cluster check's depth; the cluster path runs
+# 2 replicas x tp 2 on four ranks
+FAM_F32_LAYERS = (("rwkv6-3b", 2), ("recurrentgemma-2b", 3), ("whisper-base", 2))
+RGLRU_KERNELS = dict(attn_impl="flash", norm_impl="fused")
+SPEC_F32_LAYERS = 8
+CLUSTER_MESH = (2, 2)
+CLUSTER_F32_LAYERS = 4
+# four ranks share the one card there: a cluster step takes ~5x the
+# one-card cluster's, so its deadlines are 10x `CLUSTER_DEADLINE_MS` (at
+# 2000 ms, 13 of 16 requests were shed before a token on an H100)
+CLUSTER_MESH_DEADLINE_MS = 10 * CLUSTER_DEADLINE_MS
 # the variant archs' served paths (bf16, full width, weights drawn on the card):
 # h2o-danube-1.8b's prompts, 6 of 16-300 tokens and 2 past its window of
 # 4096 (the ring wraps, the window cuts), and its max_len; qwen2-vl-2b's
@@ -3048,25 +3083,63 @@ def tp_rows(torch, record, rand, F) -> None:
                extra=dict(tag, arch=arch))
         del ewg, ewi, ewo, xe
         free(torch)
+    from repro_torch.kernels.rglru_scan import kernel as gk
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.kernels.wkv6 import ops as wops
+    from repro_torch.kernels.wkv6.ref import wkv6_bshd_ref
+
+    f32, h, d = torch.float32, RWKV_H // TP, RWKV_D
+    for b, s in ((DECODE_N, 1), (1, 256)):
+        r, k, v = (rand((b, s, h * d), f32, 0.5).reshape(b, s, h, d) for _ in range(3))
+        logw = torch.log(torch.exp(-torch.exp(rand((b, s, h * d), f32).clamp(-1.0, 1.0)))
+                         .clamp(min=1e-12)).reshape(b, s, h, d)
+        u, s0 = rand((h, d), f32, 0.1), rand((b, h, d, d), f32, 0.1)
+
+        def wkern(i, r=r, k=k, v=v, logw=logw, u=u, s0=s0):
+            return wops.wkv6_bshd(r, k, v, logw, u, s0, chunk=32)
+
+        def wplain(i, r=r, k=k, v=v, logw=logw, u=u, s0=s0):
+            return wkv6_bshd_ref(r, k, v, logw, u, s0, chunk=32)
+
+        record("wkv6", [b, s, h, d], "float32", wkern(0), wplain(0), wkern, wplain, None,
+               4 * (5 * b * h * s * d + h * d + 2 * b * h * d * d), 4 * b * h * s * d * d,
+               extra=dict(tag, arch="rwkv6-3b"))
+        del r, k, v, logw, u, s0
+    w = LRU_W // TP
+    for b, s in ((DECODE_N, 1), (1, 256)):
+        a = torch.sigmoid(rand((b, s, w), f32))
+        x, h0 = rand((b, s, w), f32), rand((b, w), f32)
+        record("rglru_scan", [b, s, w], "float32", gk.rglru_scan_cuda(a, x, h0),
+               rglru_scan_ref(a, x, h0), lambda i, a=a, x=x, h0=h0: gk.rglru_scan_cuda(a, x, h0),
+               lambda i, a=a, x=x, h0=h0: rglru_scan_ref(a, x, h0), None,
+               4 * (3 * b * s * w + b * w), 2 * b * s * w,
+               extra=dict(tag, arch="recurrentgemma-2b"))
+        del a, x, h0
+    free(torch)
 
 
 def kernel_shapes():
     """A context that records the shapes the port's kernel ops are called
     at, by wrapping each op in its module (the model code looks them up
     there at every call): flash (query heads, KV heads, hd), paged decode
-    (query heads, KV heads, hd), the fused MLP (d, F), moe_mlp (E, d, F).
+    (query heads, KV heads, hd), the fused MLP (d, F), moe_mlp (E, d, F),
+    wkv6 in the model's layout (heads, hd), rglru_scan (channels,).
     Yields {op: set of shapes}."""
     import contextlib
 
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.fused_mlp import ops as mops
     from repro_torch.kernels.moe_mlp import ops as eops
+    from repro_torch.kernels.rglru_scan import ops as sops
+    from repro_torch.kernels.wkv6 import ops as wops
 
     taps = ((fops, "flash_attention", lambda a: (a[0].shape[2], a[1].shape[2], a[0].shape[3])),
             (fops, "paged_decode_attention",
              lambda a: (a[0].shape[2], a[1].shape[2], a[0].shape[3])),
             (mops, "fused_mlp", lambda a: tuple(a[2].shape)),
-            (eops, "moe_mlp", lambda a: tuple(a[2].shape)))
+            (eops, "moe_mlp", lambda a: tuple(a[2].shape)),
+            (wops, "wkv6_bshd", lambda a: (a[0].shape[2], a[0].shape[3])),
+            (sops, "rglru_scan", lambda a: (a[0].shape[-1],)))
 
     @contextlib.contextmanager
     def ctx():
@@ -3090,24 +3163,29 @@ def kernel_shapes():
     return ctx()
 
 
-def _tp_launchers():
+def _tp_launchers(recurrent: bool = False):
+    """The launchers of the transformer's kernels (and with `recurrent`,
+    of wkv6 and rglru_scan)."""
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.fused_mlp import kernel as mk
     from repro_torch.kernels.fused_norm import kernel as nk
     from repro_torch.kernels.moe_mlp import kernel as ek
-    return {"fused_rmsnorm": nk.RMSNORM, "fused_rmsnorm_residual": nk.RMSNORM_RESIDUAL,
-            "fused_mlp": mk.MLP, "flash_attention": fk.FLASH, "paged_decode": fk.PAGED,
-            "moe_mlp": ek.MOE}
+    from repro_torch.kernels.rglru_scan import kernel as gk
+    from repro_torch.kernels.wkv6 import kernel as wk
+    out = {"fused_rmsnorm": nk.RMSNORM, "fused_rmsnorm_residual": nk.RMSNORM_RESIDUAL,
+           "fused_mlp": mk.MLP, "flash_attention": fk.FLASH, "paged_decode": fk.PAGED,
+           "moe_mlp": ek.MOE}
+    return dict(out, wkv6=wk.WKV6, rglru_scan=gk.SCAN) if recurrent else out
 
 
-def _tp_serve(torch, eng, reqs):
+def _tp_serve(torch, eng, reqs, recurrent: bool = False):
     """Serve `reqs` on `eng` with every launch count and collective set to
     0 just before and read just after, recording the kernels' shapes:
     (summary, launches, collectives, shapes)."""
     from repro_torch.launch.serve import serve
     from repro_torch.parallel import collectives as coll
 
-    launchers = _tp_launchers()
+    launchers = _tp_launchers(recurrent)
     for ln in launchers.values():
         ln.launches = 0
     coll.reset()
@@ -3172,7 +3250,7 @@ def _tp_tokens(torch, mesh, name, cfg, prompts, max_new, want_equal=True, **eng_
     eng = ServingEngine(cfg, _draw_blocks(torch, mesh, cfg), max_batch=4, mesh=mesh,
                         **eng_kw)
     reqs = [Request(rid=i, prompt=p, max_new_tokens=max_new) for i, p in enumerate(prompts)]
-    s, launches, colls, shapes = _tp_serve(torch, eng, reqs)
+    s, launches, colls, shapes = _tp_serve(torch, eng, reqs, cfg.family != "transformer")
     check(all(r.finish_reason == "max_new_tokens" for r in reqs) and s["nan_steps"] == 0,
           f"tp {name}: a request did not finish with {max_new} tokens")
     out = {"launches": launches, "collectives": colls, "shapes": shapes, "summary": s,
@@ -3478,6 +3556,475 @@ def tp_path_phase(torch) -> dict:
               f"kernel shapes {r['shapes']}, {r['summary']['tokens_per_s']:.1f} tok/s",
               flush=True)
     print(json.dumps({"tp_path": dict(rec, seconds=secs, card=card)}), flush=True)
+    return rec
+
+
+def _fam_logits(torch, mesh, cfg, sharded, full, batch, steps: int, ref_cfg):
+    """`_tp_logits` through `api` for any family: bfloat16 logits of the
+    prefill of `batch` and `steps` decode steps fed the `ref_cfg` route's
+    greedy tokens, sharded (every rank) and unsharded (rank 0), each
+    against the `ref_cfg` route.  Returns the sharded run's collectives
+    and rank 0's max |diff| of each route."""
+    from repro_torch.models import api
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import sharding
+
+    bsz, n = batch["tokens"].shape
+    max_len = n + steps + 1
+
+    def run(c, params, feed):
+        last, cache = api.prefill(c, params, batch, max_len)
+        out = [last[:, -1].float()]
+        for t in feed:
+            lg, cache = api.decode_step(c, params, t[:, None], cache)
+            out.append(lg[:, -1].float())
+        return torch.stack(out)
+
+    feed = torch.zeros((steps, bsz), dtype=torch.long, device=mesh.device)
+    if mesh.rank == 0:
+        last, cache = api.prefill(ref_cfg, full, batch, max_len)
+        for i in range(steps):
+            feed[i] = last[:, -1].argmax(-1)
+            last, cache = api.decode_step(ref_cfg, full, feed[i][:, None], cache)
+    feed = coll.broadcast(feed, mesh)
+    coll.reset()
+    with sharding.use_mesh(mesh):
+        got = run(cfg, sharded, feed)
+    out = {"collectives": dict(coll.COUNTS)}
+    if mesh.rank != 0:
+        return out
+    ref, plain = run(ref_cfg, full, feed), run(cfg, full, feed)
+    for x in (got, plain, ref):
+        check(bool(torch.isfinite(x).all()), f"{cfg.name} tp logits: non-finite logits")
+    return dict(out, sharded=float((got - ref).abs().max()),
+                unsharded=float((plain - ref).abs().max()),
+                sharded_vs_unsharded=float((got - plain).abs().max()))
+
+
+def _fam_path(torch, mesh, arch: str) -> dict:
+    """`arch` at full width (bfloat16, weights from seed 0, this rank's
+    blocks) through `launch.serve` on the mesh: 8 requests (whisper: 4-64
+    token prompts over `WHISPER_ENC` frames), 32 new tokens each; every
+    kernel launch and collective per layer per step as the sharding
+    implies; the bf16 logits of a prefill and 3 decode steps within
+    `TP_LOGITS_SLACK` of the unsharded engine's distance from the float32
+    plain route."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import build_engine, serve
+    from repro_torch.models import api, rglru
+    from repro_torch.serving import workload
+    from repro_torch.serving.engine import Request
+
+    cfg = configs.get_config(arch)
+    if cfg.family == "rglru":
+        cfg = cfg.replace(**RGLRU_KERNELS)
+    whisper = cfg.family == "whisper"
+    rng = np.random.default_rng(0)
+
+    def reqs(n, lo, hi, max_new):
+        if not whisper:
+            return _requests(rng, cfg.vocab, n, lo, hi, max_new)
+        return [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=int(p)).astype(np.int32),
+                        max_new_tokens=max_new,
+                        frames=workload.synthetic_frames(rng, WHISPER_ENC, cfg.d_model))
+                for i, p in enumerate(rng.integers(4, 65, size=n))]
+
+    t0 = time.perf_counter()
+    eng = build_engine(cfg, max_batch=4, max_len=WHISPER_MAX_LEN if whisper else 512,
+                       enc_len=WHISPER_ENC if whisper else None, seed=0, mesh=mesh,
+                       log=lambda x: None)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    serve(eng, reqs(2, 16, 40, 4))                                     # warm-up
+    rs = reqs(8, 16, 300, 32)
+    s, launches, colls, shapes = _tp_serve(torch, eng, rs, recurrent=True)
+    L, calls, pre = cfg.n_layers, s["prefills"] + s["decode_steps"], s["prefills"]
+    tp = mesh.shape["model"]
+    zero = dict.fromkeys(launches, 0)
+    if cfg.family == "rwkv6":
+        lwant = dict(zero, wkv6=L * calls)
+        cwant = {"all_reduce": calls * (1 + 2 * L), "all_gather": calls * (1 + L)}
+        swant = {"wkv6_bshd": [(RWKV_H // tp, RWKV_D)]}
+    elif cfg.family == "rglru":
+        n_attn = sum(rglru.is_attn_layer(cfg, i) for i in range(L))
+        n_rec = L - n_attn
+        lwant = dict(zero, rglru_scan=n_rec * calls, flash_attention=n_attn * pre,
+                     fused_rmsnorm=(2 * L + 1) * calls)
+        # its 10 / 1 heads do not split over 2: the attention is replicated
+        cwant = {"all_reduce": calls * (1 + n_rec + L), "all_gather": calls * (1 + n_rec)}
+        swant = {"rglru_scan": [(LRU_W // tp,)],
+                 "flash_attention": [(cfg.n_heads, cfg.kv_heads, cfg.hd)]}
+    else:
+        lwant = zero
+        # vocab 51,865 does not split: no embedding reduce, no logits gather
+        cwant = {"all_reduce": pre * 2 * cfg.n_enc_layers + calls * 3 * L, "all_gather": 0}
+        swant = {}
+    cwant.update(all_to_all=0, broadcast=calls)
+    layers = L + (cfg.n_enc_layers if whisper else 0)
+    print(f"[smoke] fam mesh {arch} rank {mesh.rank}: launches {launches}, collectives "
+          f"{colls}; a layer a step: all_reduce {colls['all_reduce'] / calls / layers:.3f}, "
+          f"all_gather {colls['all_gather'] / calls / layers:.3f}; kernel shapes "
+          f"{ {k: v for k, v in shapes.items() if v} }", flush=True)
+    check(launches == lwant, f"fam mesh {arch} rank {mesh.rank}: launches {launches}, "
+                             f"expected {lwant}")
+    check(colls == cwant, f"fam mesh {arch} rank {mesh.rank}: collectives {colls}, "
+                          f"expected {cwant}")
+    check(all(shapes[k] == v for k, v in swant.items()),
+          f"fam mesh {arch} rank {mesh.rank}: kernel shapes {shapes}, expected {swant}")
+    check(all(r.finish_reason == "max_new_tokens" and len(r.out_tokens) == 32 for r in rs)
+          and s["nan_steps"] == 0, f"fam mesh {arch}: a request did not finish with 32 tokens")
+    full = api.init_params(cfg, 0, device=mesh.device) if mesh.rank == 0 else None
+    lrng = np.random.default_rng(4)
+    batch = {"tokens": torch.as_tensor(lrng.integers(0, cfg.vocab, (1, 64 if whisper else 300)),
+                                       device=mesh.device)}
+    if whisper:
+        batch["embeds"] = torch.as_tensor(workload.synthetic_frames(
+            lrng, WHISPER_ENC, cfg.d_model)[None], device=mesh.device)
+    ref32 = cfg.replace(dtype="float32", attn_impl="einsum", mlp_impl="dense",
+                        norm_impl="ref")
+    logits = _fam_logits(torch, mesh, eng.mcfg, eng.params, full, batch, 3, ref32)
+    rec = {"n_layers": L, "summary": s, "launches": launches, "collectives": colls,
+           "shapes": {k: v for k, v in shapes.items() if v}, "build_engine_s": build_s,
+           "per_layer_per_step": {"all_reduce": colls["all_reduce"] / calls / layers,
+                                  "all_gather": colls["all_gather"] / calls / layers},
+           "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if mesh.rank == 0:
+        slack, floor = TP_LOGITS_SLACK
+        rec["logits"] = logits
+        check(logits["sharded"] <= slack * logits["unsharded"] + floor,
+              f"fam mesh {arch}: bf16 logits off the float32 route by {logits}")
+    del eng, full
+    free(torch)
+    return rec
+
+
+def _spec_mesh(torch, mesh, policy: str) -> dict:
+    """Spec-decode on the mesh: smollm-135m (30 layers, bf16, the three
+    flags) with the CLI's 7-layer shared-trunk draft, k `SPEC_K`, 8
+    requests of 16-300 tokens, 32 new each, through `serve_specdec(mesh=)`
+    (the target sharded, the draft whole on each rank), beside the
+    one-card `SpecDecodeEngine` on the same weights (the share of equal
+    streams and the acceptance, printed: the sharded MLP rounds its
+    partial sums once more); then at `SPEC_F32_LAYERS` layers in float32
+    (a 2-layer draft) tokens and acceptance counts equal to the one-card
+    engine's."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.launch.policy import load_policy
+    from repro_torch.launch.serve import configure, serve, serve_specdec
+    from repro_torch.models import api
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.serving.specdec import SpecDecodeEngine, shared_trunk_draft
+
+    cfg, kw = configure(configs.get_config("smollm-135m"), policy=load_policy(policy),
+                        device=mesh.device, log=lambda x: None)
+    out = {}
+    for tag, c, max_new in (("bf16", cfg, 32),
+                            ("f32", cfg.replace(n_layers=SPEC_F32_LAYERS, dtype="float32",
+                                                param_dtype="float32"), 16)):
+        full = api.init_params(c, 0, device=mesh.device)    # the draft is replicated
+
+        def requests():
+            return _requests(np.random.default_rng(9), c.vocab, 8, 16, 300, max_new)
+
+        launchers = _tp_launchers()
+        for ln in launchers.values():
+            ln.launches = 0
+        coll.reset()
+        with kernel_shapes() as seen:
+            reqs = requests()
+            s = serve_specdec(c, full, reqs, k=SPEC_K, max_len=512, mesh=mesh,
+                              log=lambda x: None, **kw)
+        launches = {k: ln.launches for k, ln in launchers.items()}
+        colls = dict(coll.COUNTS)
+        eng = s.pop("engine")
+        n_draft = eng.draft_cfg.n_layers
+        pre, ver = s["prefills"], s["decode_steps"]
+        stats = eng.spec_stats
+        rec = {"summary": s, "launches": launches, "collectives": colls,
+               "shapes": {k: sorted(v) for k, v in seen.items() if v},
+               "draft_layers": n_draft,
+               "spec_stats": [stats.iterations, stats.proposed, stats.accepted, stats.bonus]}
+        del eng
+        # every target call (prefills, verifies) reduces its MLPs and the
+        # embedding and gathers the vocab; rank 0's first tokens, drafts and
+        # accepted tokens are broadcast
+        cwant = {"all_reduce": (pre + ver) * (1 + c.n_layers), "all_gather": pre + ver,
+                 "all_to_all": 0, "broadcast": pre + 2 * ver}
+        check(colls == cwant, f"spec mesh {tag}: collectives {colls}, expected {cwant}")
+        check(launches["flash_attention"] == (c.n_layers + n_draft) * pre
+              and launches["fused_mlp"] > 0
+              and (c.d_model, c.d_ff // mesh.shape["model"]) in seen["fused_mlp"],
+              f"spec mesh {tag}: launches {launches}, shapes {rec['shapes']}")
+        check(all(r.finish_reason == "max_new_tokens" for r in reqs) and s["nan_steps"] == 0,
+              f"spec mesh {tag}: a request did not finish")
+        if mesh.rank == 0:
+            dcfg, dparams = shared_trunk_draft(c, full, n_draft)
+            one = SpecDecodeEngine(c, full, dcfg, dparams, k=SPEC_K, max_len=512, **kw)
+            ref = requests()
+            serve(one, ref)
+            same = sum(a.out_tokens == b.out_tokens for a, b in zip(reqs, ref))
+            ost = one.spec_stats
+            rec.update(equal_streams=f"{same}/{len(reqs)}",
+                       one_card_spec_stats=[ost.iterations, ost.proposed, ost.accepted,
+                                            ost.bonus])
+            if tag == "f32":
+                check(same == len(reqs) and rec["spec_stats"] == rec["one_card_spec_stats"],
+                      f"spec mesh f32: {same}/{len(reqs)} streams equal the one-card "
+                      f"engine's, spec stats {rec['spec_stats']} vs "
+                      f"{rec['one_card_spec_stats']}")
+            del one
+        out[tag] = rec
+        del full
+        free(torch)
+    return out
+
+
+def _fam_rank(rank: int, world: int, store: str, policy: str, out: str) -> None:
+    """One rank of `family_mesh_phase`: gloo over the one card, a (1,
+    world) mesh; rank 0 writes the record."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=600))
+    mesh = make_host_mesh(world, backend="gloo", device_type="cuda")
+    rec = {arch: _fam_path(torch, mesh, arch)
+           for arch in ("rwkv6-3b", "recurrentgemma-2b", "whisper-base")}
+    prng = np.random.default_rng(21)
+    prompts = [prng.integers(0, 32000, size=int(n)).astype(np.int32)
+               for n in prng.integers(16, 301, size=4)]
+    f32 = dict(dtype="float32", param_dtype="float32")
+    for arch, n in FAM_F32_LAYERS:
+        cfg = configs.get_config(arch).replace(n_layers=n, **f32)
+        if cfg.family == "rglru":
+            cfg = cfg.replace(**RGLRU_KERNELS)
+        if cfg.family == "whisper":
+            cfg = cfg.replace(n_enc_layers=n)
+        rec[f"{arch}_f32"] = _tp_tokens(torch, mesh, f"{arch} f32", cfg, prompts, 16,
+                                        max_len=512)
+    check(rec["rwkv6-3b_f32"]["shapes"]["wkv6_bshd"] == [(RWKV_H // world, RWKV_D)] and
+          rec["recurrentgemma-2b_f32"]["shapes"]["rglru_scan"] == [(LRU_W // world,)],
+          f"fam mesh f32: kernel shapes {rec['rwkv6-3b_f32']['shapes']}, "
+          f"{rec['recurrentgemma-2b_f32']['shapes']}")
+    rec["spec"] = _spec_mesh(torch, mesh, policy)
+    if rank == 0:
+        Path(out).write_text(json.dumps(rec))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _spawn(fn, world: int, policy: str, tag: str) -> dict:
+    """`fn` on `world` ranks spawned on the one card (gloo through a file
+    store); rank 0's record."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tmp = Path(tempfile.mkdtemp(prefix=f"{tag}_smoke_"))
+    out = tmp / "rank0.json"
+    mp.start_processes(fn, args=(world, str(tmp / "store"), policy, str(out)),
+                       nprocs=world, join=True, start_method="spawn")
+    return json.loads(out.read_text())
+
+
+def family_mesh_phase(torch) -> dict:
+    """Every family on a mesh: two ranks spawned on the one card over
+    gloo, a (1, 2) mesh (`_fam_rank`).  At full width, bf16: rwkv6-3b (32
+    layers, wkv6 at 20 of 40 heads, decode and chunked prefill),
+    recurrentgemma-2b (26 layers, rglru_scan at 1280 of 2560 channels,
+    flash and the fused norm; its 10 / 1 heads replicated) and
+    whisper-base (6 + 6 layers, no kernel of the port), 8 requests each,
+    every rank's launches and collectives per layer per step as the
+    sharding implies and bf16 logits within `TP_LOGITS_SLACK` of the
+    unsharded engine's distance from the float32 route; then rwkv6 and
+    whisper at 2 layers and recurrentgemma at 3 (its attention layer) in
+    float32 token-equal to the unsharded engine; then spec-decode
+    (`_spec_mesh`).  Tokens/s, TTFT and TPOT are printed as what they
+    are: two ranks sharing one card."""
+    free(torch)
+    t0 = time.perf_counter()
+    rec = _spawn(_fam_rank, TP, str(smoke_policy("smollm-135m")), "fam")
+    secs = time.perf_counter() - t0
+    card = card_line()
+    for arch in ("rwkv6-3b", "recurrentgemma-2b", "whisper-base"):
+        r = rec[arch]
+        s = r["summary"]
+        print(f"[smoke] fam mesh {arch} {r['n_layers']}L bf16 on a (1, {TP}) mesh, two ranks "
+              f"share one card ({card}): {s['tokens_out']} tokens, {s['prefills']} prefills, "
+              f"{s['decode_steps']} decode steps in {s['seconds']:.3f}s = "
+              f"{s['tokens_per_s']:.1f} tok/s (two ranks share one card); TTFT p50 "
+              f"{s['ttft_p50_ms']:.1f} ms (two ranks share one card), TPOT p50 "
+              f"{s['tpot_p50_ms']:.2f} ms (two ranks share one card); rank 0 collectives a "
+              f"layer a step {r['per_layer_per_step']}, kernel shapes {r['shapes']}; bf16 "
+              f"logits against the float32 route {r['logits']}", flush=True)
+    for key in ("rwkv6-3b_f32", "recurrentgemma-2b_f32", "whisper-base_f32"):
+        r = rec[key]
+        print(f"[smoke] fam mesh {key}: equal streams {r['equal_streams']}, launches "
+              f"{r['launches']}, collectives {r['collectives']}", flush=True)
+    for tag, r in rec["spec"].items():
+        s = r["summary"]
+        print(f"[smoke] spec mesh {tag} smollm-135m target sharded over {TP}, draft "
+              f"{r['draft_layers']} layers whole ({card}): {s['tokens_out']} tokens in "
+              f"{s['seconds']:.3f}s = {s['tokens_per_s']:.1f} tok/s (two ranks share one "
+              f"card), acceptance {s['acceptance']:.3f}; spec stats {r['spec_stats']} vs "
+              f"one card {r['one_card_spec_stats']}, equal streams {r['equal_streams']}",
+              flush=True)
+    print(json.dumps({"family_mesh": dict(rec, seconds=secs, card=card)}), flush=True)
+    return rec
+
+
+def _cluster_mesh_rank(rank: int, world: int, store: str, policy: str, out: str) -> None:
+    """One rank of `cluster_mesh_phase`: gloo over the one card, a
+    `CLUSTER_MESH` mesh, 2 replicas of tp 2; rank 0 writes the record."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.policy import load_policy
+    from repro_torch.launch.serve import configure, serve_cluster
+    from repro_torch.models import api
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.serving import cluster as cluster_mod
+    from repro_torch.serving.engine import ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=600))
+    mesh = make_host_mesh(CLUSTER_MESH[1], backend="gloo", device_type="cuda")
+    cfg, kw = configure(configs.get_config("smollm-135m"), policy=load_policy(policy),
+                        device=mesh.device, log=lambda x: None)
+    built = []                  # this rank's real engines, restarts included
+    new_engine = cluster_mod.ServingCluster._new_engine
+
+    def tap(self, i):
+        eng = new_engine(self, i)
+        if isinstance(eng, ServingEngine):
+            built.append(eng)
+        return eng
+
+    cluster_mod.ServingCluster._new_engine = tap
+    launchers = _tp_launchers()
+    for ln in launchers.values():
+        ln.launches = 0
+    coll.reset()
+    s = serve_cluster(cfg, lambda m: api.init_params(cfg, 0, mesh=m), n_replicas=2,
+                      rate=CLUSTER_RATE, deadline_ms=CLUSTER_MESH_DEADLINE_MS,
+                      n_requests=CLUSTER_REQUESTS, max_new=32, chaos_horizon=CLUSTER_HORIZON,
+                      max_len=512, mesh=mesh, log=lambda x: None, **kw)
+    counts = {k: ln.launches for k, ln in launchers.items()}
+    colls = dict(coll.COUNTS)
+    cl, reqs, agg, chaos = s["cluster"], s["requests"], s["aggregate"], s["chaos"]
+    steps = sum(e.stats["decode_steps"] + e.stats["nan_steps"] for e in built)
+    records = [(r.rid, r.out_tokens, r.finish_reason, r.done, r.requeues, r.admit_seq,
+                r.t_submit, r.t_first, r.t_done) for r in reqs]
+    every = [None] * world
+    dist.all_gather_object(every, records)
+    check(all(x == every[0] for x in every), "cluster mesh: the ranks' request records differ")
+    check(len({r.rid for r in reqs}) == CLUSTER_REQUESTS and all(
+        r.done and r.finish_reason in FINISH_REASONS and len(r.out_tokens) <= r.max_new_tokens
+        for r in reqs), "cluster mesh: a request is lost or not done with a finish reason")
+    check(agg["n_unrouted"] == 0 and not cl.pending_work,
+          f"cluster mesh: {agg['n_unrouted']} requests unrouted at the end")
+    check(steps > 0 and counts["paged_decode"] == cfg.n_layers * steps,
+          f"cluster mesh rank {rank}: {counts['paged_decode']} paged_decode launches for "
+          f"{steps} decode steps of its replica's engines")
+    check(all(counts[k] > 0 for k in ("fused_rmsnorm", "fused_rmsnorm_residual", "fused_mlp",
+                                      "flash_attention", "paged_decode")),
+          f"cluster mesh rank {rank}: a kernel of the path never launched: {counts}")
+    check(colls["all_gather"] >= cl.stats["steps"],
+          f"cluster mesh rank {rank}: {colls['all_gather']} all_gathers for "
+          f"{cl.stats['steps']} cluster steps")
+    if chaos.poisoned:
+        check("nan" in [why for _, _, why in cl.watchdog.events],
+              f"cluster mesh: a live slot was poisoned at {chaos.poisoned} but the watchdog "
+              f"logged {cl.watchdog.events}")
+    rec = {"aggregate": {k: agg[k] for k in (
+        "tokens_out", "ttft_p50_ms", "ttft_p99_ms", "tpot_p50_ms", "tpot_p99_ms",
+        "goodput_tokens", "deadline_met", "deadline_missed", "shed", "poisoned",
+        "quarantined", "restarts", "requeued", "n_unrouted")},
+        "seconds": s["seconds"], "tokens_per_s": s["tokens_per_s"],
+        "cluster_steps": cl.stats["steps"], "launches_rank0": counts,
+        "collectives_rank0": colls, "decode_steps_rank0_engines": steps,
+        "chaos_events": [(e.step, e.kind, e.replica) for e in chaos.events],
+        "nan_events_on_live_slots": chaos.poisoned, "watchdog": cl.watchdog.events,
+        "finish_reasons": {k: sum(r.finish_reason == k for r in reqs) for k in FINISH_REASONS},
+        "records_equal_on_ranks": world, "n_layers": cfg.n_layers}
+    del cl, s
+    free(torch)
+    # token-exact: float32 at cut depth, a burst (closed loop, no deadlines)
+    # under the seed-0 chaos script, against the one-card 2-replica cluster
+    c32 = cfg.replace(n_layers=CLUSTER_F32_LAYERS, dtype="float32", param_dtype="float32")
+    args = dict(n_replicas=2, n_requests=CLUSTER_REQUESTS, max_new=16,
+                chaos_horizon=CLUSTER_HORIZON, max_len=512, log=lambda x: None)
+    got = serve_cluster(c32, lambda m: api.init_params(c32, 1, mesh=m), mesh=mesh, **args,
+                        **kw)
+    if rank == 0:
+        cluster_mod.ServingCluster._new_engine = new_engine
+        want = serve_cluster(c32, api.init_params(c32, 1, device=mesh.device), **args, **kw)
+        a = {r.rid: (r.out_tokens, r.finish_reason) for r in got["requests"]}
+        b = {r.rid: (r.out_tokens, r.finish_reason) for r in want["requests"]}
+        same = sum(a[k] == b[k] for k in b)
+        rec["f32"] = {"equal_streams": f"{same}/{len(b)}",
+                      "requeued": got["aggregate"]["requeued"],
+                      "quarantined": got["aggregate"]["quarantined"],
+                      "restarts": got["aggregate"]["restarts"]}
+        check(same == len(b) and got["aggregate"]["requeued"] == want["aggregate"]["requeued"],
+              f"cluster mesh f32: {same}/{len(b)} request streams equal the one-card "
+              f"cluster's")
+        Path(out).write_text(json.dumps(rec))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def cluster_mesh_phase(torch) -> dict:
+    """The serving cluster on per-replica meshes: four ranks spawned on the
+    one card over gloo, a (2, 2) mesh, 2 replicas x tp 2
+    (`_cluster_mesh_rank`).  smollm-135m (30 layers, bf16, the three
+    flags) serves `CLUSTER_REQUESTS` `LoadGenerator` requests (Poisson at
+    `CLUSTER_RATE` a second, `CLUSTER_MESH_DEADLINE_MS` deadlines) under
+    the seed-0 chaos script over `CLUSTER_HORIZON` steps through
+    `serve_cluster(mesh=)`: every rank ends with the same request records,
+    every request done with a finish reason, none unrouted, paged_decode
+    once a layer for every decode step of the rank's own replica's
+    engines, a nan quarantine where a nan event found a live slot; then
+    at `CLUSTER_F32_LAYERS` layers in float32, the same prompts as a
+    burst under the chaos script token-equal to the one-card 2-replica
+    cluster's.  Tokens/s, TTFT and TPOT are printed as four ranks sharing
+    one card."""
+    free(torch)
+    t0 = time.perf_counter()
+    rec = _spawn(_cluster_mesh_rank, CLUSTER_MESH[0] * CLUSTER_MESH[1],
+                 str(smoke_policy("smollm-135m")), "cluster")
+    secs = time.perf_counter() - t0
+    card = card_line()
+    a = rec["aggregate"]
+    print(f"[smoke] cluster mesh smollm-135m {rec['n_layers']}L bf16, 2 replicas x tp 2 on a "
+          f"{CLUSTER_MESH} "
+          f"mesh, four ranks share one card ({card}): {a['tokens_out']} tokens in "
+          f"{rec['seconds']:.3f}s = {rec['tokens_per_s']:.1f} tok/s (four ranks share one "
+          f"card); TTFT p50 {a['ttft_p50_ms']:.1f} ms, TPOT p50 {a['tpot_p50_ms']:.2f} ms "
+          f"(four ranks share one card); chaos {rec['chaos_events']}, watchdog "
+          f"{rec['watchdog']}, finish {rec['finish_reasons']}; rank 0 launches "
+          f"{rec['launches_rank0']}, collectives {rec['collectives_rank0']} over "
+          f"{rec['cluster_steps']} cluster steps; float32 {CLUSTER_F32_LAYERS} layers "
+          f"{rec['f32']}", flush=True)
+    print(json.dumps({"cluster_mesh": dict(rec, seconds=secs, card=card)}), flush=True)
     return rec
 
 
@@ -4146,6 +4693,8 @@ def main() -> int:
                                     moe_mlp=ek.MOE, wkv6=wk.WKV6, rglru_scan=gk.SCAN))
     train_summary = train_path_phase(torch, record, F)
     tp_path_phase(torch)
+    family_mesh_phase(torch)
+    cluster_mesh_phase(torch)
 
     meta = {
         "fused_rmsnorm": ("fused_norm.cu", "fused_norm/kernel.py:51",

@@ -22,12 +22,22 @@ attn_impl="flash" (flash prefill, paged decode from the page pool),
 fused_mlp -> mlp_impl="fused" (the fused MLP, or `moe_mlp` on MoE
 layers), fused_norm -> norm_impl="fused" (the CUDA kernels), and the
 policy's batch split sets the engine's max/decode batch.  A policy with
-tp > 1 whose tp the cards divide (and fit) runs on a mesh: `main` starts
-tp ranks, one card each, over NCCL (`tcp://localhost`, a free port),
-each builds a (1, tp) `launch.mesh` mesh and serves the same requests
-through a tensor-parallel engine; rank 0 prints.  With fewer cards the
-policy runs unsharded, as in JAX.  `--replicas` on a mesh is refused (the
-cluster's per-replica meshes come later).  Weights are random, from
+tp > 1 whose tp the cards divide (and fit) runs on a mesh, for any
+family: `main` starts N x tp ranks, one card each, over NCCL
+(`tcp://localhost`, a free port), N the `--replicas` (1 without), each
+builds an (N, tp) `launch.mesh` mesh and serves the same requests: one
+tensor-parallel engine (N = 1), a `ServingCluster` whose replicas each
+take one data row of the mesh (N > 1), or, with `--scenario specdec`,
+a `SpecDecodeEngine` with the target sharded and the draft replicated
+(`--specdec`: the reference loop with the target's forward sharded);
+rank 0 prints.  With fewer cards than N x tp it raises and names the
+count; it never starts fewer ranks.  A policy whose tp the cards do not
+divide runs unsharded, as in JAX.
+
+**Departure from JAX.**  The JAX launcher builds an (n_devices / tp, tp)
+mesh and puts one engine's dense batch over "data".  Here each replica
+keeps one data row (an engine's slots never split over "data"): the
+mesh is (N, tp), and N = 1 uses tp cards.  Weights are random, from
 `--seed`.
 """
 from __future__ import annotations
@@ -137,12 +147,10 @@ def apply_policy(pol: ExecutionPolicy, mcfg: ModelConfig, max_batch: int,
                   "mesh_tp": mesh_tp}, lines
 
 
-def prepare(mcfg: ModelConfig, *, policy: ExecutionPolicy | None = None,
-            max_batch: int = 4, seed: int = 0, device=None, mesh=None, log=print
-            ) -> tuple[ModelConfig, Any, dict]:
-    """Apply `policy` (if any) to `mcfg` and draw seeded weights on
-    `device` (under `mesh` this rank's blocks only): (model config,
-    params, engine kwargs: device and batch)."""
+def configure(mcfg: ModelConfig, *, policy: ExecutionPolicy | None = None,
+              max_batch: int = 4, device=None, log=print) -> tuple[ModelConfig, dict]:
+    """Apply `policy` (if any) to `mcfg`: (model config, engine kwargs:
+    device and batch)."""
     dev = resolve_device(device)
     eng_kwargs = {"max_batch": max_batch}
     if policy is not None:
@@ -152,8 +160,19 @@ def prepare(mcfg: ModelConfig, *, policy: ExecutionPolicy | None = None,
         for ln in lines:
             log(ln)
         eng_kwargs.pop("mesh_tp")
-    params = api.init_params(mcfg, seed, device=dev, mesh=mesh)
-    return mcfg, params, dict(eng_kwargs, device=dev)
+    return mcfg, dict(eng_kwargs, device=dev)
+
+
+def prepare(mcfg: ModelConfig, *, policy: ExecutionPolicy | None = None,
+            max_batch: int = 4, seed: int = 0, device=None, mesh=None, log=print
+            ) -> tuple[ModelConfig, Any, dict]:
+    """Apply `policy` (if any) to `mcfg` and draw seeded weights on
+    `device` (under `mesh` this rank's blocks only): (model config,
+    params, engine kwargs: device and batch)."""
+    mcfg, eng_kwargs = configure(mcfg, policy=policy, max_batch=max_batch, device=device,
+                                 log=log)
+    params = api.init_params(mcfg, seed, device=eng_kwargs["device"], mesh=mesh)
+    return mcfg, params, eng_kwargs
 
 
 def build_engine(mcfg: ModelConfig, *, policy: ExecutionPolicy | None = None,
@@ -215,7 +234,9 @@ def serve_cluster(mcfg: ModelConfig, params, *, n_replicas: int,
                   max_new: int = 16, seed: int = 0, log=print, **engine_kwargs) -> dict:
     """Serve `n_requests` from the seeded `LoadGenerator` (Poisson at
     `rate`, deadline `deadline_ms`, 0 = none) through a `ServingCluster` of
-    `n_replicas` engines on one set of weights; `chaos_horizon` > 0
+    `n_replicas` engines on one set of weights (`mesh` in `engine_kwargs`:
+    per-replica meshes, `params` as `ServingCluster` takes them there);
+    `chaos_horizon` > 0
     replays `ChaosSchedule.generate(chaos_seed)` over that many steps (the
     CLI's `--chaos` passes max(requests x max-new, 64)).  Returns the
     cluster's `summary` with "seconds", "tokens_per_s", the cluster, its
@@ -235,8 +256,9 @@ def serve_cluster(mcfg: ModelConfig, params, *, n_replicas: int,
     trace = lg.schedule()
     t0 = time.perf_counter()
     summary = cl.drive(trace, chaos=schedule)
-    if cl.replicas[0].device.type == "cuda":
-        torch.cuda.synchronize(cl.replicas[0].device)
+    dev = next(e.device for e in cl.replicas if isinstance(e, ServingEngine))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
     agg = summary["aggregate"]
     log(f"[serve] cluster x{n_replicas} router={cl.router.policy} rate={rate:g}: "
@@ -256,10 +278,13 @@ def serve_cluster(mcfg: ModelConfig, params, *, n_replicas: int,
                 cluster=cl, requests=[r for _, r in trace], chaos=schedule)
 
 
-def _specdec_demo(mcfg: ModelConfig, params, args, rng, dev, log=print) -> None:
+def _specdec_demo(mcfg: ModelConfig, params, args, rng, dev, log=print, mesh=None) -> None:
     """The uncached reference loop: a fresh draft of a quarter of the
-    target's layers, one 12-token prompt."""
+    target's layers, one 12-token prompt.  `mesh`: `params` are this
+    rank's blocks and the target's forward runs sharded; the draft is
+    whole on every rank."""
     from repro_torch.models import transformer
+    from repro_torch.parallel import sharding
     from repro_torch.serving.specdec import spec_decode_greedy
 
     if mcfg.family != "transformer":
@@ -267,10 +292,14 @@ def _specdec_demo(mcfg: ModelConfig, params, args, rng, dev, log=print) -> None:
     dcfg = mcfg.replace(n_layers=max(1, mcfg.n_layers // 4))
     dparams = api.init_params(dcfg, args.seed + 1, device=dev)
     prompt = rng.integers(0, mcfg.vocab, size=12).astype(np.int32)
+
+    def target(t):
+        with sharding.use_mesh(mesh):
+            return transformer.forward(mcfg, params, t)
+
     t0 = time.perf_counter()
     out, st = spec_decode_greedy(
-        lambda t: transformer.forward(mcfg, params, t),
-        lambda t: transformer.forward(dcfg, dparams, t), prompt, k=args.k,
+        target, lambda t: transformer.forward(dcfg, dparams, t), prompt, k=args.k,
         max_new_tokens=args.max_new, device=dev)
     dt = time.perf_counter() - t0
     log(f"[serve] specdec: {len(out)} tokens in {dt:.2f}s; "
@@ -278,17 +307,21 @@ def _specdec_demo(mcfg: ModelConfig, params, args, rng, dev, log=print) -> None:
 
 
 def serve_specdec(mcfg: ModelConfig, params, requests: list[Request], *, k: int = SPEC_K,
-                  log=print, **engine_kwargs) -> dict:
+                  mesh=None, log=print, **engine_kwargs) -> dict:
     """The live spec-decode scenario: a `SpecDecodeEngine` with the
     target's first quarter of layers as a shared-trunk draft serves
     `requests`; returns `serve`'s summary with the acceptance, tokens an
-    iteration and the engine."""
+    iteration and the engine.  `mesh`: `params` is the whole tree; the
+    target takes this rank's blocks, the draft stays whole (replicated)."""
+    from repro_torch.parallel import sharding
     from repro_torch.serving.specdec import SpecDecodeEngine, shared_trunk_draft
 
     if mcfg.family != "transformer":
         raise SystemExit("--scenario specdec needs a transformer arch")
     dcfg, dparams = shared_trunk_draft(mcfg, params, max(1, mcfg.n_layers // 4))
-    eng = SpecDecodeEngine(mcfg, params, dcfg, dparams, k=k, **engine_kwargs)
+    if mesh is not None:
+        params = sharding.shard_params(params, mesh, mcfg)
+    eng = SpecDecodeEngine(mcfg, params, dcfg, dparams, k=k, mesh=mesh, **engine_kwargs)
     log(f"[serve] scenario=spec_decode: live spec-decode, k={k}, draft=shared-trunk "
         f"{dcfg.n_layers}/{mcfg.n_layers} layers")
     s = serve(eng, requests)
@@ -323,8 +356,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--no-paged", action="store_true",
                    help="dense KV rectangles instead of the page pool")
     p.add_argument("--replicas", type=int, default=1,
-                   help="serving-cluster replica count (> 1: a ServingCluster "
-                        "on the one device)")
+                   help="serving-cluster replica count (> 1: a ServingCluster, "
+                        "on the one device or, under a tp > 1 policy, on "
+                        "replicas x tp cards)")
     p.add_argument("--router", default=cluster_mod.ROUTER,
                    choices=cluster_mod.ROUTER_POLICIES,
                    help="cluster routing policy")
@@ -362,14 +396,16 @@ def main(argv: list[str] | None = None) -> None:
         mesh_tp = apply_policy(pol, mcfg, args.max_batch,
                                n_devices=torch.cuda.device_count())[1]["mesh_tp"]
     if mesh_tp > 1:
-        if args.specdec or args.scenario or args.replicas > 1:
-            raise NotImplementedError(
-                f"a tp={mesh_tp} mesh serves the plain engine only: --replicas, "
-                f"--scenario and --specdec on a mesh come with the cluster's "
-                f"per-replica meshes")
+        world = max(1, args.replicas) * mesh_tp
+        cards = torch.cuda.device_count()
+        if world > cards:
+            raise RuntimeError(
+                f"--replicas {args.replicas} x tp {mesh_tp} needs {world} cards "
+                f"(one a rank over NCCL); {cards} found")
         import torch.multiprocessing as mp
-        mp.spawn(_serve_rank, args=(mesh_tp, free_port(), list(argv or sys.argv[1:])),
-                 nprocs=mesh_tp, join=True)
+        mp.spawn(_serve_rank, args=(world, mesh_tp, free_port(),
+                                    list(argv or sys.argv[1:])),
+                 nprocs=world, join=True)
         return
     if args.specdec or args.scenario or args.replicas > 1:
         mcfg, params, eng_kwargs = prepare(mcfg, policy=pol, max_batch=args.max_batch,
@@ -410,9 +446,9 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _serve_rank(rank: int, world: int, port: int, argv: list[str]) -> None:
-    """One rank of `main` on a mesh: NCCL over `world` cards, a (1, world)
-    mesh, the same requests as every other rank; rank 0 reports."""
+def _serve_rank(rank: int, world: int, tp: int, port: int, argv: list[str]) -> None:
+    """One rank of `main` on a mesh: NCCL over `world` cards, a (world /
+    tp, tp) mesh, the same requests as every other rank; rank 0 reports."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_host_mesh
@@ -420,17 +456,38 @@ def _serve_rank(rank: int, world: int, port: int, argv: list[str]) -> None:
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=world)
     try:
-        mesh = make_host_mesh(model_axis=world, backend="nccl")
+        mesh = make_host_mesh(model_axis=tp, backend="nccl")
         args = _parser().parse_args(argv)
+        log = print if rank == 0 else (lambda _: None)
         mcfg = configs.get_smoke_config(args.arch) if args.smoke \
             else configs.get_config(args.arch)
-        eng = build_engine(mcfg, policy=load_policy(args.policy, args.policy_network),
-                           max_batch=args.max_batch, max_len=args.max_len,
-                           seed=args.seed, mesh=mesh,
-                           kv_quant={"0": False, "1": True}.get(args.kv_quant,
-                                                                args.kv_quant),
-                           paged=not args.no_paged,
-                           log=print if rank == 0 else (lambda _: None))
+        pol = load_policy(args.policy, args.policy_network)
+        kv_quant = {"0": False, "1": True}.get(args.kv_quant, args.kv_quant)
+        if args.replicas > 1 or args.scenario or args.specdec:
+            mcfg, eng_kwargs = configure(mcfg, policy=pol, max_batch=args.max_batch,
+                                         device=mesh.device, log=log)
+            rng = np.random.default_rng(args.seed)
+            if args.replicas > 1:
+                serve_cluster(mcfg, lambda m: api.init_params(mcfg, args.seed, mesh=m),
+                              n_replicas=args.replicas, router=args.router,
+                              rate=args.rate, deadline_ms=args.deadline_ms,
+                              chaos_horizon=max(args.requests * args.max_new, 64)
+                              if args.chaos else 0, chaos_seed=args.chaos_seed,
+                              n_requests=args.requests, max_new=args.max_new,
+                              seed=args.seed, max_len=args.max_len, kv_quant=kv_quant,
+                              paged=not args.no_paged, mesh=mesh, log=log, **eng_kwargs)
+            elif args.scenario == "specdec":
+                # the draft is replicated: every rank draws the whole tree
+                full = api.init_params(mcfg, args.seed, device=mesh.device)
+                serve_specdec(mcfg, full, _cli_requests(args, mcfg), k=args.k,
+                              max_len=args.max_len, mesh=mesh, log=log, **eng_kwargs)
+            else:
+                params = api.init_params(mcfg, args.seed, mesh=mesh)
+                _specdec_demo(mcfg, params, args, rng, mesh.device, log=log, mesh=mesh)
+            return
+        eng = build_engine(mcfg, policy=pol, max_batch=args.max_batch, max_len=args.max_len,
+                           seed=args.seed, mesh=mesh, kv_quant=kv_quant,
+                           paged=not args.no_paged, log=log)
         s = serve(eng, _cli_requests(args, eng.mcfg))
         if rank == 0:
             _report(s, eng)

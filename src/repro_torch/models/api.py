@@ -35,18 +35,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None, mesh=None) -> P
     """Random weights from a `torch.Generator` seeded on `device` (default:
     the mesh's) and drawn there (no host copy of a large tensor; a seed
     gives other weights on CUDA than on the CPU).  `mesh`: this rank's
-    blocks of the same draw (a transformer; the other families are not
-    sharded yet)."""
+    blocks of the same draw, for every family (`sharding.shard_params`'
+    blocks of the whole draw, bit for bit; each leaf cut as it is drawn,
+    so a rank holds its shards and one layer's leaf at most)."""
     if mesh is not None and device is None:
         device = mesh.device
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    if mesh is None:
-        return family_module(cfg).init_params(cfg, gen, dev)
-    if cfg.family != "transformer":
-        raise NotImplementedError(f"{cfg.family}: serving on a mesh covers the "
-                                  f"transformer family")
-    return transformer.init_params(cfg, gen, dev, mesh=mesh)
+    return family_module(cfg).init_params(cfg, gen, dev, mesh=mesh)
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tensor:

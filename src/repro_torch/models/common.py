@@ -125,6 +125,47 @@ def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     return y if mesh is None else coll.all_reduce(y, mesh)
 
 
+# --- tensor parallelism shared by the families -------------------------------
+
+def tp_plan(cfg: ModelConfig):
+    """The tensor-parallel plan under the current mesh, None without one."""
+    from repro_torch.parallel import sharding
+    mesh = sharding.current_mesh()
+    return None if mesh is None else sharding.tp_plan(cfg, mesh)
+
+
+def reduce_if(y: torch.Tensor, plan, sharded: bool) -> torch.Tensor:
+    """y summed over "model" where a part ran sharded (its row-parallel
+    product gave partial sums); else y."""
+    return coll.all_reduce(y, plan.mesh) if plan is not None and sharded else y
+
+
+def vocab_embed(emb: torch.Tensor, tokens: torch.Tensor, plan) -> torch.Tensor:
+    """emb[tokens]; under a plan with the vocab sharded, each rank looks
+    the tokens up in its rows (zeros elsewhere) and one all_reduce sums
+    them (exact: every row but one adds zeros)."""
+    if plan is None or not plan.vocab:
+        return emb[tokens]
+    rows = emb.shape[0]
+    local = tokens - plan.mesh.coord("model") * rows
+    ok = (local >= 0) & (local < rows)
+    x = emb[local.clamp(0, rows - 1)].masked_fill(~ok[..., None], 0)
+    return coll.all_reduce(x, plan.mesh)
+
+
+def gather_if(x: torch.Tensor, plan, sharded: bool) -> torch.Tensor:
+    """The ranks' column blocks of x gathered along its last dim, in rank
+    order, where a part ran sharded on its columns; else x."""
+    return coll.all_gather(x, plan.mesh, "model", dim=-1) \
+        if plan is not None and sharded else x
+
+
+def vocab_logits(logits: torch.Tensor, plan) -> torch.Tensor:
+    """A rank's vocab columns of the logits gathered into whole rows where
+    the vocab is sharded; else the logits."""
+    return gather_if(logits, plan, plan is not None and plan.vocab)
+
+
 # --- RoPE -------------------------------------------------------------------
 
 def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:

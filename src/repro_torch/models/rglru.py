@@ -20,6 +20,18 @@ beside "norm1", "norm2" and "mlp"; `lam` float32).  The cache is
 {"layers": [{"h", "conv"} or {"k", "v"}], "index"} with the batch on
 axis 0 of every leaf; `decode_step` writes the new token's k/v into the
 ring tensors it is given (in place) and returns them.
+
+Under a mesh (`parallel.sharding.use_mesh`) each rank holds its blocks
+of the weights and runs tensor parallelism over "model"
+(`sharding.tp_plan`): a recurrent block's `w_x` and `w_gate` give the
+rank's lru channels, the depthwise conv runs on them (`conv_w`,
+`conv_b`, `lam` sliced), the gates' `wa` and `wx_in` read the whole
+conv output (one all_gather) and give the rank's channels, `rglru_scan`
+runs at w / tp channels and `w_out` is row-parallel (one all_reduce);
+the attention layers run on whole heads where they split (else
+replicated), the MLP column- then row-parallel (one all_reduce), the
+tied embedding vocab-parallel.  The cache holds the rank's channels of
+`h` and the conv window and its KV heads of the ring.
 """
 from __future__ import annotations
 
@@ -32,9 +44,11 @@ import torch.nn.functional as F
 
 from repro_torch.bridge import tree_to
 from repro_torch.kernels.rglru_scan import ops as sops
+from repro_torch.parallel import sharding
 
-from .common import (NEG_INF, apply_norm, apply_rope, attention, cross_entropy,
-                     dense, gelu, init_norm, maybe_remat, normal, rope_tables)
+from .common import (NEG_INF, apply_norm, apply_rope, attention, cross_entropy, dense,
+                     gather_if, gelu, init_norm, maybe_remat, normal, reduce_if,
+                     rope_tables, tp_plan, vocab_embed, vocab_logits)
 from .config import ModelConfig
 
 Params = Any
@@ -51,58 +65,72 @@ def _width(cfg: ModelConfig) -> int:
 
 # --- init -------------------------------------------------------------------
 
-def _init_rec(cfg: ModelConfig, gen: torch.Generator) -> Params:
+def _init_rec(cfg: ModelConfig, gen: torch.Generator, cut) -> Params:
     d, w, pd = cfg.d_model, _width(cfg), cfg.tparam_dtype
-    return {"w_x": dense(gen, (d, w), pd), "w_gate": dense(gen, (d, w), pd),
+    return {"w_x": cut("rec/w_x", dense(gen, (d, w), pd)),
+            "w_gate": cut("rec/w_gate", dense(gen, (d, w), pd)),
             "conv_w": normal(gen, (cfg.conv_width, w), 0.1, pd),
             "conv_b": torch.zeros((w,), dtype=pd),
-            "wa": dense(gen, (w, w), pd), "wx_in": dense(gen, (w, w), pd),
+            "wa": cut("rec/wa", dense(gen, (w, w), pd)),
+            "wx_in": cut("rec/wx_in", dense(gen, (w, w), pd)),
             "lam": torch.rand((w,), generator=gen, device=gen.device) * 0.5 + 0.4,
-            "w_out": dense(gen, (w, d), pd, 0.02 / math.sqrt(2 * cfg.n_layers))}
+            "w_out": cut("rec/w_out",
+                         dense(gen, (w, d), pd, 0.02 / math.sqrt(2 * cfg.n_layers)))}
 
 
-def _init_attn(cfg: ModelConfig, gen: torch.Generator) -> Params:
+def _init_attn(cfg: ModelConfig, gen: torch.Generator, cut) -> Params:
     d, qd, kvd, pd = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.tparam_dtype
-    return {"wq": dense(gen, (d, qd), pd), "wk": dense(gen, (d, kvd), pd),
-            "wv": dense(gen, (d, kvd), pd),
-            "wo": dense(gen, (qd, d), pd, 0.02 / math.sqrt(2 * cfg.n_layers))}
+    return {"wq": cut("attn/wq", dense(gen, (d, qd), pd)),
+            "wk": cut("attn/wk", dense(gen, (d, kvd), pd)),
+            "wv": cut("attn/wv", dense(gen, (d, kvd), pd)),
+            "wo": cut("attn/wo", dense(gen, (qd, d), pd, 0.02 / math.sqrt(2 * cfg.n_layers)))}
 
 
-def _init_mlp(cfg: ModelConfig, gen: torch.Generator) -> Params:
+def _init_mlp(cfg: ModelConfig, gen: torch.Generator, cut) -> Params:
     d, f, pd = cfg.d_model, cfg.d_ff, cfg.tparam_dtype
-    return {"w_in": dense(gen, (d, f), pd), "w_gate": dense(gen, (d, f), pd),
-            "w_out": dense(gen, (f, d), pd, 0.02 / math.sqrt(2 * cfg.n_layers))}
+    return {"w_in": cut("mlp/w_in", dense(gen, (d, f), pd)),
+            "w_gate": cut("mlp/w_gate", dense(gen, (d, f), pd)),
+            "w_out": cut("mlp/w_out",
+                         dense(gen, (f, d), pd, 0.02 / math.sqrt(2 * cfg.n_layers)))}
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
-                device: torch.device | str = "cpu") -> Params:
+                device: torch.device | str = "cpu", *, mesh=None) -> Params:
     """Weights of the JAX `init_params` tree, shapes, scales and dtypes,
     drawn from `gen` on its own device and moved to `device`.  Embeddings are
-    tied (the unembed is x @ embed.T)."""
+    tied (the unembed is x @ embed.T).  `mesh`: keep this rank's blocks
+    only (`sharding.shard_params`' blocks of the whole draw, bit for bit),
+    each cut from its leaf as it is drawn."""
+    block = sharding.block_cutter(mesh, cfg)
     layers = []
     for i in range(cfg.n_layers):
+        def cut(path, t, at=f"layers/{i}/"):
+            return block(at + path, t)
         p = {"norm1": init_norm(cfg), "norm2": init_norm(cfg),
-             "mlp": _init_mlp(cfg, gen)}
+             "mlp": _init_mlp(cfg, gen, cut)}
         if is_attn_layer(cfg, i):
-            p["attn"] = _init_attn(cfg, gen)
+            p["attn"] = _init_attn(cfg, gen, cut)
         else:
-            p["rec"] = _init_rec(cfg, gen)
+            p["rec"] = _init_rec(cfg, gen, cut)
         layers.append(p)
-    params = {"embed": normal(gen, (cfg.vocab, cfg.d_model), 0.02,
-                              cfg.tparam_dtype),
+    params = {"embed": block("embed", normal(gen, (cfg.vocab, cfg.d_model), 0.02,
+                                             cfg.tparam_dtype)),
               "final_norm": init_norm(cfg), "layers": layers}
     return tree_to(params, device)
 
 
 # --- RG-LRU block -----------------------------------------------------------
 
-def _rglru_coeffs(cfg: ModelConfig, p: Params, x: torch.Tensor):
-    """x: (B, S, w) after the conv.  Returns float32 (a, b) with
-    h_t = a_t h_{t-1} + b_t."""
+def _rglru_coeffs(cfg: ModelConfig, p: Params, x: torch.Tensor, plan=None,
+                  c0: int = 0):
+    """x: (B, S, w) after the conv (under a mesh the rank's channels from
+    c0, gathered whole for the gates' products).  Returns float32 (a, b)
+    with h_t = a_t h_{t-1} + b_t."""
     dt = cfg.tdtype
-    r = torch.sigmoid((x @ p["wa"].to(dt)).float())
-    i = torch.sigmoid((x @ p["wx_in"].to(dt)).float())
-    log_a = -RGLRU_C * F.softplus(p["lam"]) * r
+    xf = gather_if(x, plan, plan is not None and plan.rec)
+    r = torch.sigmoid((xf @ p["wa"].to(dt)).float())
+    i = torch.sigmoid((xf @ p["wx_in"].to(dt)).float())
+    log_a = -RGLRU_C * F.softplus(p["lam"][c0:c0 + x.shape[-1]]) * r
     a = torch.exp(log_a)
     gated = i * x.float()
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * gated
@@ -110,60 +138,77 @@ def _rglru_coeffs(cfg: ModelConfig, p: Params, x: torch.Tensor):
 
 
 def causal_conv(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                state: torch.Tensor | None = None):
-    """Short depthwise causal conv. x (B, S, w); state (B, cw-1, w): the
-    last cw-1 inputs before x.  Returns (out, new state)."""
+                state: torch.Tensor | None = None, c0: int = 0):
+    """Short depthwise causal conv. x (B, S, w) (the channels from c0 of
+    `conv_w` / `conv_b`); state (B, cw-1, w): the last cw-1 inputs before
+    x.  Returns (out, new state)."""
     cw = cfg.conv_width
+    w = x.shape[2]
+    cwt, cb = p["conv_w"][:, c0:c0 + w], p["conv_b"][c0:c0 + w]
     pad = state.to(x.dtype) if state is not None else \
-        x.new_zeros((x.shape[0], cw - 1, x.shape[2]))
+        x.new_zeros((x.shape[0], cw - 1, w))
     xp = torch.cat([pad, x], dim=1)
     s = x.shape[1]
-    out = xp[:, 0:s] * p["conv_w"][0].to(x.dtype)
+    out = xp[:, 0:s] * cwt[0].to(x.dtype)
     for i in range(1, cw):
-        out = out + xp[:, i:i + s] * p["conv_w"][i].to(x.dtype)
+        out = out + xp[:, i:i + s] * cwt[i].to(x.dtype)
     new_state = xp[:, -(cw - 1):] if cw > 1 else pad
-    return out + p["conv_b"].to(x.dtype), new_state
+    return out + cb.to(x.dtype), new_state
 
 
 def rec_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
               state: Params | None = None):
     """state: {"h": (B, w) float32, "conv": (B, cw-1, w)}, or None at
-    prefill (h0 = 0)."""
+    prefill (h0 = 0); under a mesh the rank's channels, and the output
+    summed over "model"."""
     dt = cfg.tdtype
+    plan = tp_plan(cfg)
+    sh = plan is not None and plan.rec
     u = x @ p["w_x"].to(dt)
     g = gelu(x @ p["w_gate"].to(dt))
-    u, conv_state = causal_conv(cfg, p, u, None if state is None else state["conv"])
-    a, b = _rglru_coeffs(cfg, p, u)
+    c0 = sharding.local_range(plan, _width(cfg), sh)[0]
+    u, conv_state = causal_conv(cfg, p, u, None if state is None else state["conv"], c0)
+    a, b = _rglru_coeffs(cfg, p, u, plan, c0)
     h0 = torch.zeros_like(a[:, 0]) if state is None else state["h"]
     h = sops.rglru_scan(a, b, h0)
     y = (h.to(dt) * g) @ p["w_out"].to(dt)
-    return y, {"h": h[:, -1], "conv": conv_state}
+    return reduce_if(y, plan, sh), {"h": h[:, -1], "conv": conv_state}
 
 
 # --- attention and MLP ------------------------------------------------------
 
 def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor):
+    """q, k, v (B, S, heads, hd) at the rank's heads (all without a mesh)."""
     bsz, s, _ = x.shape
     dt = cfg.tdtype
-    return ((x @ p["wq"].to(dt)).reshape(bsz, s, cfg.n_heads, cfg.hd),
-            (x @ p["wk"].to(dt)).reshape(bsz, s, cfg.kv_heads, cfg.hd),
-            (x @ p["wv"].to(dt)).reshape(bsz, s, cfg.kv_heads, cfg.hd))
+    return ((x @ p["wq"].to(dt)).reshape(bsz, s, -1, cfg.hd),
+            (x @ p["wk"].to(dt)).reshape(bsz, s, -1, cfg.hd),
+            (x @ p["wv"].to(dt)).reshape(bsz, s, -1, cfg.hd))
+
+
+def _attn_out(cfg: ModelConfig, p: Params, o: torch.Tensor) -> torch.Tensor:
+    """o (B, S, heads, hd) through `wo`, summed over "model" where the
+    attention runs on head shards."""
+    plan = tp_plan(cfg)
+    y = o.reshape(o.shape[0], o.shape[1], -1) @ p["wo"].to(cfg.tdtype)
+    return reduce_if(y, plan, plan is not None and plan.attn)
 
 
 def attn_full(cfg: ModelConfig, p: Params, x: torch.Tensor, rope):
     """Prefill attention: causal within the window.  Returns (out, (k, v))
     with k/v (B, S, Hkv, hd)."""
-    bsz, s, _ = x.shape
     q, k, v = _qkv(cfg, p, x)
     q, k = apply_rope(q, rope), apply_rope(k, rope)
     o = attention(cfg, q, k, v, causal=True)
-    return o.reshape(bsz, s, cfg.q_dim) @ p["wo"].to(cfg.tdtype), (k, v)
+    return _attn_out(cfg, p, o), (k, v)
 
 
 def mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """GeGLU MLP; under a mesh on the rank's f columns, summed."""
     dt = cfg.tdtype
+    plan = tp_plan(cfg)
     h = gelu(x @ p["w_gate"].to(dt)) * (x @ p["w_in"].to(dt))
-    return h @ p["w_out"].to(dt)
+    return reduce_if(h @ p["w_out"].to(dt), plan, plan is not None and plan.mlp)
 
 
 # --- forward / decode -------------------------------------------------------
@@ -171,13 +216,13 @@ def mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor):
     """Embedding times sqrt(d_model), the scale rounded to the model
     dtype first (as JAX's weakly typed scalar is)."""
-    x = params["embed"].to(cfg.tdtype)[tokens]
+    x = vocab_embed(params["embed"].to(cfg.tdtype), tokens, tp_plan(cfg))
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                             device=x.device)
 
 
 def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor):
-    return x @ params["embed"].to(cfg.tdtype).T
+    return vocab_logits(x @ params["embed"].to(cfg.tdtype).T, tp_plan(cfg))
 
 
 def _layer(cfg: ModelConfig, i: int, p: Params, x: torch.Tensor, rope):
@@ -221,8 +266,11 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tensor:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: torch.device | str = "cpu") -> Params:
     """Recurrent layers: h (B, w) float32 and the conv window (B, cw-1, w);
-    attention layers: a ring of clen = min(max_len, window) k/v slots."""
-    w = _width(cfg)
+    attention layers: a ring of clen = min(max_len, window) k/v slots.
+    Under a mesh the rank's channels and KV heads."""
+    plan = tp_plan(cfg)
+    w = sharding.local_range(plan, _width(cfg), plan is not None and plan.rec)[1]
+    hkv = sharding.local_range(plan, cfg.kv_heads, plan is not None and plan.attn)[1]
     clen = min(max_len, cfg.window or max_len)
     dt = cfg.tdtype
 
@@ -232,7 +280,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     layers = []
     for i in range(cfg.n_layers):
         if is_attn_layer(cfg, i):
-            shape = (batch, clen, cfg.kv_heads, cfg.hd)
+            shape = (batch, clen, hkv, cfg.hd)
             layers.append({"k": zeros(shape, dt), "v": zeros(shape, dt)})
         else:
             layers.append({"h": zeros((batch, w), torch.float32),
@@ -255,7 +303,7 @@ def _decode_attn(cfg: ModelConfig, p: Params, x: torch.Tensor, lc: Params,
     slot = index % clen
     K[rows, slot] = k[:, 0].to(K.dtype)
     V[rows, slot] = v[:, 0].to(V.dtype)
-    n_rep = cfg.n_heads // cfg.kv_heads
+    n_rep = q.shape[2] // K.shape[2]
     Kr = K.to(dt).repeat_interleave(n_rep, dim=2) if n_rep > 1 else K.to(dt)
     Vr = V.to(dt).repeat_interleave(n_rep, dim=2) if n_rep > 1 else V.to(dt)
     sc = torch.einsum("bqhd,bchd->bhqc", q, Kr).float() / math.sqrt(cfg.hd)
@@ -268,7 +316,7 @@ def _decode_attn(cfg: ModelConfig, p: Params, x: torch.Tensor, lc: Params,
     sc = sc.masked_fill(~mask[:, None, None, :], NEG_INF)
     pr = torch.softmax(sc, dim=-1).to(dt)
     o = torch.einsum("bhqc,bchd->bqhd", pr, Vr)
-    return o.reshape(bsz, 1, cfg.q_dim) @ p["wo"].to(dt), {"k": K, "v": V}
+    return _attn_out(cfg, p, o), {"k": K, "v": V}
 
 
 def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,

@@ -13,6 +13,19 @@ decode alike: the CUDA kernel on the card, on the CPU the plain version
 Params keep the JAX tree, names and dtypes (`w0`, `u` float32); layers
 are a list.  The state is {"layers": [{"shift_att", "wkv", "shift_ffn"}],
 "index"}, with the batch on axis 0 of every leaf.
+
+Under a mesh (`parallel.sharding.use_mesh`) each rank holds its blocks
+of the weights (`init_params(mesh=)` or `sharding.shard_params`) and
+runs tensor parallelism over "model" (`sharding.tp_plan`): the time mix
+on its whole heads (r, k, v, g column-parallel, the LoRA decay on its
+channels' columns of `wb`, `w0` / `u` / `gn_scale` sliced to its
+channels and heads, `wkv6` at H / tp heads, `wo` row-parallel then one
+all_reduce), the channel mix's key on its f columns and value
+row-parallel (one all_reduce) and its receptance on its d columns,
+gathered whole (one all_gather) before the gate; the embedding and head
+vocab-parallel.  A layer's collectives: two all_reduces and one
+all_gather.  The state holds the rank's heads of `wkv`; the token shifts
+stay whole (the residual stream is replicated).
 """
 from __future__ import annotations
 
@@ -25,8 +38,10 @@ import torch.nn.functional as F
 
 from repro_torch.bridge import tree_to
 from repro_torch.kernels.wkv6 import ops as wops
+from repro_torch.parallel import sharding
 
-from .common import cross_entropy, dense, maybe_remat, normal, rmsnorm
+from .common import (cross_entropy, dense, gather_if, maybe_remat, normal, reduce_if,
+                     rmsnorm, tp_plan, vocab_embed, vocab_logits)
 from .config import ModelConfig
 
 Params = Any
@@ -38,7 +53,9 @@ def n_heads(cfg: ModelConfig) -> int:
 
 # --- init -------------------------------------------------------------------
 
-def _init_layer(cfg: ModelConfig, gen: torch.Generator) -> Params:
+def _init_layer(cfg: ModelConfig, gen: torch.Generator, cut, at: str) -> Params:
+    """One layer's leaves, each drawn whole and passed through
+    `cut(at + path, leaf)` (a mesh rank keeps its block)."""
     d, f, r = cfg.d_model, cfg.d_ff, cfg.wkv_lora
     pd = cfg.tparam_dtype
     out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
@@ -49,29 +66,35 @@ def _init_layer(cfg: ModelConfig, gen: torch.Generator) -> Params:
 
     att = {"mu_r": full(0.5), "mu_k": full(0.5), "mu_v": full(0.5),
            "mu_g": full(0.5), "mu_w": full(0.5),
-           "wr": dense(gen, (d, d), pd), "wk": dense(gen, (d, d), pd),
-           "wv": dense(gen, (d, d), pd), "wg": dense(gen, (d, d), pd),
-           "wo": dense(gen, (d, d), pd, out_scale),
+           "wr": cut(at + "att/wr", dense(gen, (d, d), pd)),
+           "wk": cut(at + "att/wk", dense(gen, (d, d), pd)),
+           "wv": cut(at + "att/wv", dense(gen, (d, d), pd)),
+           "wg": cut(at + "att/wg", dense(gen, (d, d), pd)),
+           "wo": cut(at + "att/wo", dense(gen, (d, d), pd, out_scale)),
            "w0": torch.rand((d,), generator=gen, device=gen.device) * 2.0 - 1.0,
            "wa": dense(gen, (d, r), pd), "wb": dense(gen, (r, d), pd, 0.01),
            "u": normal(gen, (h, cfg.hd), 0.1, torch.float32),
            "gn_scale": torch.ones((h, cfg.hd), dtype=pd)}
     ffn = {"mu_k": full(0.5), "mu_r": full(0.5),
-           "wk": dense(gen, (d, f), pd), "wv": dense(gen, (f, d), pd, out_scale),
-           "wr": dense(gen, (d, d), pd)}
+           "wk": cut(at + "ffn/wk", dense(gen, (d, f), pd)),
+           "wv": cut(at + "ffn/wv", dense(gen, (f, d), pd, out_scale)),
+           "wr": cut(at + "ffn/wr", dense(gen, (d, d), pd))}
     return {"ln1": torch.zeros((d,), dtype=pd), "ln2": torch.zeros((d,), dtype=pd),
             "att": att, "ffn": ffn}
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
-                device: torch.device | str = "cpu") -> Params:
+                device: torch.device | str = "cpu", *, mesh=None) -> Params:
     """Weights of the JAX `init_params` tree, shapes, scales and dtypes,
-    drawn from `gen` on its own device and moved to `device`."""
+    drawn from `gen` on its own device and moved to `device`.  `mesh`:
+    keep this rank's blocks only (`sharding.shard_params`' blocks of the
+    whole draw, bit for bit), each cut from its leaf as it is drawn."""
     pd = cfg.tparam_dtype
-    layers = [_init_layer(cfg, gen) for _ in range(cfg.n_layers)]
-    params = {"embed": normal(gen, (cfg.vocab, cfg.d_model), 0.02, pd),
+    cut = sharding.block_cutter(mesh, cfg)
+    layers = [_init_layer(cfg, gen, cut, f"layers/{i}/") for i in range(cfg.n_layers)]
+    params = {"embed": cut("embed", normal(gen, (cfg.vocab, cfg.d_model), 0.02, pd)),
               "final_norm": torch.zeros((cfg.d_model,), dtype=pd),
-              "head": normal(gen, (cfg.d_model, cfg.vocab), 0.02, pd),
+              "head": cut("head", normal(gen, (cfg.d_model, cfg.vocab), 0.02, pd)),
               "layers": layers}
     return tree_to(params, device)
 
@@ -93,10 +116,15 @@ def _groupnorm(o: torch.Tensor, scale: torch.Tensor, eps: float = 64e-5):
 
 def time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
              shift_prev: torch.Tensor, s0: torch.Tensor):
-    """x: (B, S, d).  Returns (out, (last_x, s_final))."""
+    """x: (B, S, d).  Returns (out, (last_x, s_final)); under a mesh the
+    rank's heads run (`s0` holds them) and `out` is summed over "model"."""
     dt = cfg.tdtype
-    h, hd = n_heads(cfg), cfg.hd
+    hd = cfg.hd
     b, s, d = x.shape
+    plan = tp_plan(cfg)
+    sh = plan is not None and plan.attn
+    c0, dl = sharding.local_range(plan, d, sh)         # this rank's channels
+    h0, h = c0 // hd, dl // hd                         # and heads
     xx = _shift(x, shift_prev)
 
     def mix(mu):
@@ -110,24 +138,28 @@ def time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
     g = F.silu(xg @ p["wg"].to(dt))
     # data-dependent decay (the Finch mechanism), its log as the JAX
     # model takes it: log(max(w, 1e-12)) of the float32 w
-    dw = torch.tanh(xw @ p["wa"].to(dt)) @ p["wb"].to(dt)
-    w = torch.exp(-torch.exp(p["w0"] + dw.float()))
+    dw = torch.tanh(xw @ p["wa"].to(dt)) @ p["wb"][:, c0:c0 + dl].to(dt)
+    w = torch.exp(-torch.exp(p["w0"][c0:c0 + dl] + dw.float()))
     logw = torch.log(torch.clamp(w, min=1e-12)).reshape(b, s, h, hd)
-    o, s_fin = wops.wkv6_bshd(r, k, v, logw, p["u"], s0, chunk=cfg.wkv_chunk)
-    o = _groupnorm(o.to(dt), p["gn_scale"].to(dt))
-    o = (o.reshape(b, s, d) * g) @ p["wo"].to(dt)
-    return o, (x[:, -1:], s_fin)
+    o, s_fin = wops.wkv6_bshd(r, k, v, logw, p["u"][h0:h0 + h], s0, chunk=cfg.wkv_chunk)
+    o = _groupnorm(o.to(dt), p["gn_scale"][h0:h0 + h].to(dt))
+    o = (o.reshape(b, s, dl) * g) @ p["wo"].to(dt)
+    return reduce_if(o, plan, sh), (x[:, -1:], s_fin)
 
 
 def channel_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 shift_prev: torch.Tensor):
+    """Under a mesh: the key on the rank's f columns, the value
+    row-parallel and summed, the receptance on its d columns gathered."""
     dt = cfg.tdtype
+    plan = tp_plan(cfg)
     xx = _shift(x, shift_prev)
     xk = x + (xx - x) * p["mu_k"].to(dt)
     xr = x + (xx - x) * p["mu_r"].to(dt)
     kk = torch.square(torch.relu(xk @ p["wk"].to(dt)))
-    out = torch.sigmoid(xr @ p["wr"].to(dt)) * (kk @ p["wv"].to(dt))
-    return out, x[:, -1:]
+    val = reduce_if(kk @ p["wv"].to(dt), plan, plan is not None and plan.mlp)
+    rec = gather_if(torch.sigmoid(xr @ p["wr"].to(dt)), plan, plan is not None and plan.gate)
+    return rec * val, x[:, -1:]
 
 
 def _layer(cfg: ModelConfig, p: Params, x: torch.Tensor, st: Params):
@@ -144,7 +176,10 @@ def _layer(cfg: ModelConfig, p: Params, x: torch.Tensor, st: Params):
 
 def init_state(cfg: ModelConfig, batch: int, *,
                device: torch.device | str = "cpu") -> Params:
-    h, hd = n_heads(cfg), cfg.hd
+    """Zero state; under a mesh `wkv` holds the rank's heads."""
+    hd = cfg.hd
+    plan = tp_plan(cfg)
+    h = sharding.local_range(plan, n_heads(cfg), plan is not None and plan.attn)[1]
 
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -165,7 +200,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 def hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
            state: Params | None = None):
     """Final-normed hidden states (B, S, d) and the advanced state."""
-    x = params["embed"].to(cfg.tdtype)[tokens]
+    x = vocab_embed(params["embed"].to(cfg.tdtype), tokens, tp_plan(cfg))
     st = state or init_state(cfg, tokens.shape[0], device=tokens.device)
     body = maybe_remat(functools.partial(_layer, cfg), cfg)
     new_layers = []
@@ -177,7 +212,7 @@ def hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
 
 
 def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor):
-    return x @ params["head"].to(cfg.tdtype)
+    return vocab_logits(x @ params["head"].to(cfg.tdtype), tp_plan(cfg))
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,

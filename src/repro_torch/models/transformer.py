@@ -48,7 +48,8 @@ from repro_torch.parallel import sharding
 
 from .common import (apply_norm, apply_norm_residual, apply_rope, attention,
                      cross_entropy, cross_entropy_sum, gelu, init_norm, maybe_remat,
-                     mlp_block, mrope_tables, normal, rmsnorm, rope_tables)
+                     mlp_block, mrope_tables, normal, rmsnorm, rope_tables, tp_plan,
+                     vocab_embed, vocab_logits)
 from .config import ModelConfig
 
 Params = Any
@@ -61,10 +62,7 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: family {cfg.family} is not a transformer")
 
 
-def _plan(cfg: ModelConfig):
-    """The tensor-parallel plan under the current mesh, None without one."""
-    mesh = sharding.current_mesh()
-    return None if mesh is None else sharding.tp_plan(cfg, mesh)
+_plan = tp_plan
 
 
 def _attn_sum(cfg: ModelConfig, a: torch.Tensor) -> torch.Tensor:
@@ -540,18 +538,8 @@ def layer_fwd(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, rope):
 # ---------------------------------------------------------------------------
 
 def embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor):
-    """Token embeddings; under a mesh with the vocab sharded, each rank
-    looks up the tokens in its rows (zeros elsewhere) and one all_reduce
-    sums them."""
-    emb = params["embed"].to(cfg.tdtype)
-    plan = _plan(cfg)
-    if plan is None or not plan.vocab:
-        return emb[tokens]
-    rows = emb.shape[0]
-    local = tokens - plan.mesh.coord("model") * rows
-    ok = (local >= 0) & (local < rows)
-    x = emb[local.clamp(0, rows - 1)].masked_fill(~ok[..., None], 0)
-    return coll.all_reduce(x, plan.mesh)
+    """Token embeddings; vocab-parallel under a mesh (`vocab_embed`)."""
+    return vocab_embed(params["embed"].to(cfg.tdtype), tokens, _plan(cfg))
 
 
 def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor):
@@ -561,10 +549,7 @@ def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor):
         logits = x @ params["embed"].to(cfg.tdtype).T
     else:
         logits = x @ params["head"].to(cfg.tdtype)
-    plan = _plan(cfg)
-    if plan is None or not plan.vocab:
-        return logits
-    return coll.all_gather(logits, plan.mesh, "model", dim=-1)
+    return vocab_logits(logits, _plan(cfg))
 
 
 def hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor | None,

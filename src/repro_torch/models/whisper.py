@@ -14,6 +14,17 @@ and the cross-attention KV of the encoder window (B, enc_len, H, hd),
 the batch on axis 0 of every leaf; "index" is a scalar or a per-slot
 (B,) vector.  No hand-written kernel serves this family (the JAX
 package's policy has no hook for it): everything is plain PyTorch.
+
+Under a mesh (`parallel.sharding.use_mesh`) each rank holds its blocks
+of the weights and runs tensor parallelism over "model"
+(`sharding.tp_plan`): every attention (the encoder's, the decoder's self
+and cross attention) on the rank's whole heads (wq / wk / wv and the
+q / v biases column-parallel, `wo` row-parallel, then one all_reduce
+before the output bias), the MLP on its f columns (`b_in` sliced, `w_out`
+row-parallel, one all_reduce before `b_out`); the cross K and V are
+computed from the replicated encoder output at the rank's heads; the
+tied embedding is vocab-parallel where the vocab divides (whisper-base's
+51,865 does not: replicated).  The cache holds the rank's heads.
 """
 from __future__ import annotations
 
@@ -24,8 +35,10 @@ from typing import Any
 import torch
 
 from repro_torch.bridge import tree_to
+from repro_torch.parallel import sharding
 
-from .common import attention, cross_entropy, gelu, layernorm, maybe_remat, normal
+from .common import (attention, cross_entropy, gelu, layernorm, maybe_remat, normal,
+                     reduce_if, tp_plan, vocab_embed, vocab_logits)
 from .config import ModelConfig
 
 Params = Any
@@ -45,39 +58,47 @@ def _ln(cfg: ModelConfig, dev) -> Params:
             "bias": torch.zeros((cfg.d_model,), dtype=pd, device=dev)}
 
 
-def _init_attn(cfg: ModelConfig, gen: torch.Generator) -> Params:
+def _init_attn(cfg: ModelConfig, gen: torch.Generator, cut, at: str) -> Params:
     d, pd, dev = cfg.d_model, cfg.tparam_dtype, gen.device
     sc = 0.02 / math.sqrt(2 * (cfg.n_layers + cfg.n_enc_layers))
     w = 1.0 / math.sqrt(d)
-    return {"wq": normal(gen, (d, d), w, pd), "wk": normal(gen, (d, d), w, pd),
-            "wv": normal(gen, (d, d), w, pd), "wo": normal(gen, (d, d), sc, pd),
-            "bq": torch.zeros((d,), dtype=pd, device=dev),
-            "bv": torch.zeros((d,), dtype=pd, device=dev),
+    return {"wq": cut(at + "wq", normal(gen, (d, d), w, pd)),
+            "wk": cut(at + "wk", normal(gen, (d, d), w, pd)),
+            "wv": cut(at + "wv", normal(gen, (d, d), w, pd)),
+            "wo": cut(at + "wo", normal(gen, (d, d), sc, pd)),
+            "bq": cut(at + "bq", torch.zeros((d,), dtype=pd, device=dev)),
+            "bv": cut(at + "bv", torch.zeros((d,), dtype=pd, device=dev)),
             "bo": torch.zeros((d,), dtype=pd, device=dev)}
 
 
-def _init_mlp(cfg: ModelConfig, gen: torch.Generator) -> Params:
+def _init_mlp(cfg: ModelConfig, gen: torch.Generator, cut, at: str) -> Params:
     d, f, pd, dev = cfg.d_model, cfg.d_ff, cfg.tparam_dtype, gen.device
     sc = 0.02 / math.sqrt(2 * (cfg.n_layers + cfg.n_enc_layers))
-    return {"w_in": normal(gen, (d, f), 1.0 / math.sqrt(d), pd),
+    return {"w_in": cut(at + "w_in", normal(gen, (d, f), 1.0 / math.sqrt(d), pd)),
             "b_in": torch.zeros((f,), dtype=pd, device=dev),
-            "w_out": normal(gen, (f, d), sc, pd),
+            "w_out": cut(at + "w_out", normal(gen, (f, d), sc, pd)),
             "b_out": torch.zeros((d,), dtype=pd, device=dev)}
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
-                device: torch.device | str = "cpu") -> Params:
+                device: torch.device | str = "cpu", *, mesh=None) -> Params:
     """Weights of the JAX `init_params` tree, shapes and scales, drawn
-    from `gen` on its own device and moved to `device`."""
+    from `gen` on its own device and moved to `device`.  `mesh`: keep this
+    rank's blocks only (`sharding.shard_params`' blocks of the whole draw,
+    bit for bit), each cut from its leaf as it is drawn."""
     pd, dev = cfg.tparam_dtype, gen.device
-    enc = [{"ln1": _ln(cfg, dev), "attn": _init_attn(cfg, gen),
-            "ln2": _ln(cfg, dev), "mlp": _init_mlp(cfg, gen)}
-           for _ in range(cfg.n_enc_layers)]
-    dec = [{"ln1": _ln(cfg, dev), "self_attn": _init_attn(cfg, gen),
-            "ln2": _ln(cfg, dev), "cross_attn": _init_attn(cfg, gen),
-            "ln3": _ln(cfg, dev), "mlp": _init_mlp(cfg, gen)}
-           for _ in range(cfg.n_layers)]
-    params = {"embed": normal(gen, (cfg.vocab, cfg.d_model), 0.02, pd),
+    cut = sharding.block_cutter(mesh, cfg)
+
+    enc = [{"ln1": _ln(cfg, dev), "attn": _init_attn(cfg, gen, cut, f"enc_layers/{i}/attn/"),
+            "ln2": _ln(cfg, dev), "mlp": _init_mlp(cfg, gen, cut, f"enc_layers/{i}/mlp/")}
+           for i in range(cfg.n_enc_layers)]
+    dec = [{"ln1": _ln(cfg, dev),
+            "self_attn": _init_attn(cfg, gen, cut, f"dec_layers/{i}/self_attn/"),
+            "ln2": _ln(cfg, dev),
+            "cross_attn": _init_attn(cfg, gen, cut, f"dec_layers/{i}/cross_attn/"),
+            "ln3": _ln(cfg, dev), "mlp": _init_mlp(cfg, gen, cut, f"dec_layers/{i}/mlp/")}
+           for i in range(cfg.n_layers)]
+    params = {"embed": cut("embed", normal(gen, (cfg.vocab, cfg.d_model), 0.02, pd)),
               "dec_pos": normal(gen, (MAX_POS, cfg.d_model), 0.02, pd),
               "enc_ln": _ln(cfg, dev), "dec_ln": _ln(cfg, dev),
               "enc_layers": enc, "dec_layers": dec}
@@ -99,24 +120,29 @@ def _ln_apply(x: torch.Tensor, p: Params) -> torch.Tensor:
 
 
 def _q(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """q (B, S, heads, hd) at the rank's heads (all without a mesh)."""
     dt = cfg.tdtype
-    h, hd = _head_dims(cfg)
-    return (x @ p["wq"].to(dt) + p["bq"].to(dt)).reshape(x.shape[0], -1, h, hd)
+    hd = _head_dims(cfg)[1]
+    return (x @ p["wq"].to(dt) + p["bq"].to(dt)).reshape(x.shape[0], x.shape[1], -1, hd)
 
 
 def _kv(cfg: ModelConfig, p: Params, x: torch.Tensor):
-    """k, v (B, S, H, hd) of x (k has no bias, as in whisper)."""
+    """k, v (B, S, heads, hd) of x (k has no bias, as in whisper)."""
     dt = cfg.tdtype
-    h, hd = _head_dims(cfg)
-    k = (x @ p["wk"].to(dt)).reshape(x.shape[0], -1, h, hd)
-    v = (x @ p["wv"].to(dt) + p["bv"].to(dt)).reshape(x.shape[0], -1, h, hd)
+    hd = _head_dims(cfg)[1]
+    b, s = x.shape[:2]
+    k = (x @ p["wk"].to(dt)).reshape(b, s, -1, hd)
+    v = (x @ p["wv"].to(dt) + p["bv"].to(dt)).reshape(b, s, -1, hd)
     return k, v
 
 
 def _out(cfg: ModelConfig, p: Params, o: torch.Tensor) -> torch.Tensor:
+    """o through `wo` (summed over "model" where the heads are sharded),
+    then the output bias."""
     dt = cfg.tdtype
-    return o.reshape(o.shape[0], o.shape[1], cfg.d_model) @ p["wo"].to(dt) \
-        + p["bo"].to(dt)
+    plan = tp_plan(cfg)
+    y = o.reshape(o.shape[0], o.shape[1], -1) @ p["wo"].to(dt)
+    return reduce_if(y, plan, plan is not None and plan.attn) + p["bo"].to(dt)
 
 
 def _mha(cfg: ModelConfig, p: Params, xq: torch.Tensor, xkv: torch.Tensor, *,
@@ -128,9 +154,14 @@ def _mha(cfg: ModelConfig, p: Params, xq: torch.Tensor, xkv: torch.Tensor, *,
 
 
 def _mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """GELU MLP; under a mesh on the rank's f columns (`b_in` sliced),
+    summed before `b_out`."""
     dt = cfg.tdtype
-    h = gelu(x @ p["w_in"].to(dt) + p["b_in"].to(dt))
-    return h @ p["w_out"].to(dt) + p["b_out"].to(dt)
+    plan = tp_plan(cfg)
+    sh = plan is not None and plan.mlp
+    f0, fl = sharding.local_range(plan, cfg.d_ff, sh)
+    h = gelu(x @ p["w_in"].to(dt) + p["b_in"][f0:f0 + fl].to(dt))
+    return reduce_if(h @ p["w_out"].to(dt), plan, sh) + p["b_out"].to(dt)
 
 
 def _enc_attn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -138,6 +169,14 @@ def _enc_attn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     encoder recomputes under remat)."""
     hn = _ln_apply(x, p["ln1"])
     return x + _mha(cfg, p["attn"], hn, hn, causal=False)[0]
+
+
+def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return vocab_embed(params["embed"].to(cfg.tdtype), tokens, tp_plan(cfg))
+
+
+def _unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    return vocab_logits(x @ params["embed"].to(cfg.tdtype).T, tp_plan(cfg))
 
 
 def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor) -> torch.Tensor:
@@ -158,7 +197,7 @@ def decode_train(cfg: ModelConfig, params: Params, enc_out: torch.Tensor,
     ((k, v) self, (k, v) cross) pair a layer)."""
     dt = cfg.tdtype
     s = tokens.shape[1]
-    x = params["embed"].to(dt)[tokens] + params["dec_pos"][:s].to(dt)[None]
+    x = _embed(cfg, params, tokens) + params["dec_pos"][:s].to(dt)[None]
     kvs = []
     for p in params["dec_layers"]:
         hn = _ln_apply(x, p["ln1"])
@@ -170,7 +209,7 @@ def decode_train(cfg: ModelConfig, params: Params, enc_out: torch.Tensor,
         x = x + _mlp(cfg, p["mlp"], _ln_apply(x, p["ln3"]))
         kvs.append((self_kv, cross_kv))
     x = _ln_apply(x, params["dec_ln"])
-    return x @ params["embed"].to(dt).T, kvs
+    return _unembed(cfg, params, x), kvs
 
 
 def forward(cfg: ModelConfig, params: Params, frames: torch.Tensor,
@@ -190,8 +229,11 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tensor:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int, *,
                device: torch.device | str = "cpu") -> Params:
     """Zero self KV (B, max_len, H, hd) and cross KV (B, enc_len, H, hd)
-    for every decoder layer, and a scalar index."""
+    for every decoder layer (under a mesh the rank's heads), and a scalar
+    index."""
     h, hd = _head_dims(cfg)
+    plan = tp_plan(cfg)
+    h = sharding.local_range(plan, h, plan is not None and plan.attn)[1]
     dt = cfg.tdtype
 
     def z(n):
@@ -241,7 +283,7 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     b = tokens.shape[0]
     index = (raw.expand(b) if raw.dim() == 0 else raw).long()
     rows = torch.arange(b, device=tokens.device)
-    x = params["embed"].to(dt)[tokens] + params["dec_pos"][index].to(dt)[:, None]
+    x = _embed(cfg, params, tokens) + params["dec_pos"][index].to(dt)[:, None]
     for p, lc in zip(params["dec_layers"], cache["layers"]):
         hn = _ln_apply(x, p["ln1"])
         q, (k, v) = _q(cfg, p["self_attn"], hn), _kv(cfg, p["self_attn"], hn)
@@ -255,4 +297,4 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                      _softmax_attend(q, lc["ck"], lc["cv"], None, dt))
         x = x + _mlp(cfg, p["mlp"], _ln_apply(x, p["ln3"]))
     x = _ln_apply(x, params["dec_ln"])
-    return x @ params["embed"].to(dt).T, {"layers": cache["layers"], "index": raw + 1}
+    return _unembed(cfg, params, x), {"layers": cache["layers"], "index": raw + 1}

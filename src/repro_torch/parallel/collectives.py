@@ -1,7 +1,9 @@
 """The collectives explicit tensor parallelism needs, over the axes of a
 `parallel.mesh.Mesh`: a sum over "model" (after a row-parallel product or
-a vocab-parallel lookup), the gather of vocab shards, the all-to-all of
-the shard_map MoE dispatch and the broadcast of rank 0's sampled tokens.
+a vocab-parallel lookup), the gather of column shards (the vocab, rwkv6's
+receptance, rglru's recurrent input) and, over "data", of a cluster's
+per-step events, the all-to-all of the shard_map MoE dispatch and the
+broadcast of rank 0's sampled tokens (and of a cluster's clock).
 
 Each is a no-op over an axis of one rank (and with no mesh), and each
 counts its calls in `COUNTS` where it runs, as the kernel wrappers

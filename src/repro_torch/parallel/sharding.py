@@ -152,7 +152,10 @@ BIAS_LEAVES = re.compile(r"/(attn|self_attn|cross_attn)/b[qkv]$")
 
 def attn_heads(cfg) -> tuple[int, ...]:
     """The head counts an attention's shards must split whole: query and
-    KV heads, MLA's query heads (its latent has none)."""
+    KV heads, MLA's query heads (its latent has none), rwkv6's time-mix
+    heads (d_model / head_dim)."""
+    if cfg.family == "rwkv6":
+        return (cfg.d_model // cfg.hd,)
     return (cfg.n_heads,) if cfg.use_mla else (cfg.n_heads, cfg.kv_heads)
 
 
@@ -228,6 +231,15 @@ def leaf_block(mesh: Mesh, cfg, path: str, shape, stacked: bool = False):
     return local_shape(shape, spec, mesh), lambda t: local_slice(t, spec, mesh)
 
 
+def block_cutter(mesh, cfg):
+    """`cut(path, t)`: this rank's block of the leaf `t` at `path`
+    (`leaf_block`), or `t` itself without a mesh; the families' inits cut
+    each leaf as it is drawn."""
+    if mesh is None:
+        return lambda path, t: t
+    return lambda path, t: leaf_block(mesh, cfg, path, tuple(t.shape))[1](t)
+
+
 def local_slice(t: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
     """This rank's block of t under `spec`, as a tensor of its own."""
     for dim, a in enumerate(spec):
@@ -255,22 +267,53 @@ def shard_params(params: Any, mesh: Mesh, cfg) -> Any:
     return walk(params, ())
 
 
+def _probe(cfg, params: Any, plan) -> tuple:
+    """(got, expected) widths of a leaf `tp_plan` cuts in each family: the
+    embedding's rows and the first layer's query columns (rwkv6: its
+    receptance, rglru: its first recurrent block's `w_x` or its MLP)."""
+    rows = cfg.vocab // plan.tp if plan.vocab else cfg.vocab
+    fam = cfg.family
+    if fam == "transformer":
+        attn = next(iter(params["segments"][0].values()))["attn"]
+        q = cfg.n_heads * (cfg.hd + (cfg.mla_rope_dim if cfg.use_mla else 0))
+        col, want = attn["wuq" if cfg.use_mla else "wq"].shape[-1], q // plan.tp if plan.attn else q
+    elif fam == "rwkv6":
+        col, want = params["layers"][0]["att"]["wr"].shape[-1], \
+            cfg.d_model // plan.tp if plan.attn else cfg.d_model
+    elif fam == "whisper":
+        col, want = params["dec_layers"][0]["self_attn"]["wq"].shape[-1], \
+            cfg.d_model // plan.tp if plan.attn else cfg.d_model
+    else:
+        rec = next((p["rec"] for p in params["layers"] if "rec" in p), None)
+        if rec is not None:
+            w = cfg.lru_width or cfg.d_model
+            col, want = rec["w_x"].shape[-1], w // plan.tp if plan.rec else w
+        else:
+            col, want = params["layers"][0]["mlp"]["w_in"].shape[-1], \
+                cfg.d_ff // plan.tp if plan.mlp else cfg.d_ff
+    return (params["embed"].shape[0], col), (rows, want)
+
+
 def check_shards(cfg, params: Any, mesh: Mesh) -> None:
     """Raise ValueError unless `params` hold this rank's blocks under
-    `mesh`: the embedding's rows and the first layer's query columns
-    must be the widths `tp_plan` cuts them to (a whole tree run where
-    blocks belong would be summed over the ranks)."""
-    plan = tp_plan(cfg, mesh)
-    attn = next(iter(params["segments"][0].values()))["attn"]
-    q = cfg.n_heads * (cfg.hd + (cfg.mla_rope_dim if cfg.use_mla else 0))
-    got = (params["embed"].shape[0], attn["wuq" if cfg.use_mla else "wq"].shape[-1])
-    want = (cfg.vocab // plan.tp if plan.vocab else cfg.vocab,
-            q // plan.tp if plan.attn else q)
+    `mesh`: the embedding's rows and the first layer's query (or
+    recurrent) columns must be the widths `tp_plan` cuts them to (a whole
+    tree run where blocks belong would be summed over the ranks)."""
+    got, want = _probe(cfg, params, tp_plan(cfg, mesh))
     if got != want:
         raise ValueError(f"params are not this rank's shards over {dict(mesh.shape)}: "
                          f"embedding rows and query columns {got}, expected {want} "
                          f"(draw them with api.init_params(mesh=) or cut them with "
                          f"shard_params)")
+
+
+def local_range(plan, n: int, sharded: bool) -> tuple[int, int]:
+    """(start, length) of this rank's block of n channels or heads: its
+    "model" coordinate's n / tp where `sharded`, else the whole (0, n)."""
+    if plan is None or not sharded:
+        return 0, n
+    k = n // plan.tp
+    return plan.mesh.coord("model") * k, k
 
 
 # --- activation / batch / cache rules ----------------------------------------
@@ -349,6 +392,31 @@ def kv_head_specs(mesh, pool_segments: Any, kv_heads: int, *,
     return _map_with_path(leaf, pool_segments)
 
 
+def layer_state_specs(mesh, cfg, layers: Any) -> Any:
+    """Specs of the recurrent and cross-attention states' per-layer leaves
+    (batch on axis 0): rglru's `h` (B, w) and conv window (B, cw - 1, w)
+    at local channels where its recurrent block shards; rwkv6's `wkv`
+    (B, H, hd, hd) at local heads where its time mix shards; the KV of
+    rglru's ring and whisper's self and cross attention (B, C, H, hd) at
+    local heads where the attention shards on whole heads.  The token
+    shifts (B, 1, d) stay whole: the residual stream is replicated.  The
+    batch never shards (every rank holds every slot)."""
+    plan = tp_plan(cfg, mesh)
+
+    def leaf(path, x):
+        dims: list = [None] * len(x.shape)
+        name = path[-1]
+        if name in ("h", "conv") and plan.rec:
+            dims[-1] = "model"
+        elif name == "wkv" and plan.attn:
+            dims[1] = "model"
+        elif name in ("k", "v", "ck", "cv") and plan.attn:
+            dims[2] = "model"
+        return tuple(dims)
+
+    return _map_with_path(leaf, layers)
+
+
 def _map_with_path(fn, tree, prefix=()):
     if isinstance(tree, dict):
         return {k: _map_with_path(fn, v, prefix + (k,)) for k, v in tree.items()}
@@ -375,11 +443,14 @@ def place(mesh, cache: Any, specs: Any) -> Any:
 
 @dataclasses.dataclass(frozen=True)
 class TPPlan:
-    """Which parts of a transformer layer run sharded over "model" (tp
-    ranks) under the param rules: attention on whole heads, the dense MLP
-    on d_ff, the vocab, MoE by experts ("ep") or on f ("f"), the shared
-    expert on its f.  Each sharded part ends in one `all_reduce` (the
-    unembedding in an `all_gather`)."""
+    """Which parts of a layer run sharded over "model" (tp ranks) under
+    the param rules: attention on whole heads (rwkv6: the time mix), the
+    dense MLP on d_ff (rwkv6: the channel mix's key and value), the
+    vocab, MoE by experts ("ep") or on f ("f"), the shared expert on its
+    f, rglru's recurrent block on its lru width (`rec`) and rwkv6's
+    channel-mix receptance on d (`gate`).  Each sharded part ends in one
+    `all_reduce` (the unembedding, rwkv6's receptance and rglru's
+    recurrent input to its gates in an `all_gather`)."""
     mesh: Any
     tp: int
     attn: bool
@@ -387,6 +458,8 @@ class TPPlan:
     vocab: bool
     moe: str
     shared: bool
+    rec: bool = False
+    gate: bool = False
 
 
 def tp_plan(cfg, mesh) -> TPPlan:
@@ -398,7 +471,9 @@ def tp_plan(cfg, mesh) -> TPPlan:
     return TPPlan(mesh=mesh, tp=tp, attn=heads_shard(cfg, tp), mlp=sharded(cfg.d_ff),
                   vocab=sharded(cfg.vocab), moe=moe,
                   shared=bool(cfg.n_shared_experts)
-                  and sharded(cfg.routed_ff * cfg.n_shared_experts))
+                  and sharded(cfg.routed_ff * cfg.n_shared_experts),
+                  rec=cfg.family == "rglru" and sharded(cfg.lru_width or cfg.d_model),
+                  gate=cfg.family == "rwkv6" and sharded(cfg.d_model))
 
 
 _MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh", default=None)

@@ -35,9 +35,30 @@ prompt mix of `serving.workload`.  `ClusterMetrics` samples per-replica
 queue depth, live slots and free pages every step and reduces request
 marks into aggregate and per-replica TTFT/TPOT percentiles and counters.
 
-The replicas step round-robin in one host loop.  The JAX package places
-replicas on per-replica submeshes of a device mesh; this port serves
-every replica on one device.
+Without a mesh the replicas share one device and step round-robin in
+one host loop.  `ServingCluster(mesh=)` serves each replica on its own
+submesh, as the JAX cluster does: `sharding.replica_meshes` splits the
+mesh over "data", and each rank builds the real `ServingEngine` only
+for its own replica (on that replica's mesh, tensor-parallel over its
+"model" ranks).  Every rank runs the same router, admission, watchdog
+and chaos schedule over every replica, so their decisions must agree:
+each other replica is a `ReplicaView`, a host-side mirror the rank never
+computes, and after each cluster step one fixed-size exchange over
+"data" (an all_gather) brings every replica's events of that step to
+every rank: the tokens each request emitted, finishes, queue order,
+slot occupants, queue depth, live slots, free pages and the NaN flag
+(a stall is read off those, as without a mesh).  A replica's model
+peers hold the same scheduler state as its root (the engine broadcasts
+rank 0's tokens), so each contributes the same events.
+
+Clocks.  Every read of a clock must agree on every rank: on a mesh the
+cluster takes time from its global root's clock, broadcast (at each
+exchange and at each turn of `drive`).  Open-loop arrivals, the
+submission marks and the deadline verdicts read that agreed time; an
+engine's marks made during a step (TTFT, finishes) are stamped with the
+agreed time at the step's exchange on every rank, and its pace for
+deadline shedding is fed from the agreed step durations
+(`ServingEngine.observe_step`).
 """
 from __future__ import annotations
 
@@ -45,9 +66,14 @@ import dataclasses
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import sharding
+from repro_torch.parallel.mesh import Mesh
 
+from . import paged as paged_kv
 from . import resilience, workload
 from .engine import Request, ServingEngine
 
@@ -200,18 +226,74 @@ class ClusterMetrics:
         return {"aggregate": agg, "per_replica": per_replica}
 
 
+# engine counters a replica reports in each exchange, in order
+STAT_KEYS = ("tokens_out", "decode_steps", "prefills", "preemptions", "rejected", "shed",
+             "nan_steps")
+FINISH_CODES = (None, "eos", "max_new_tokens", "length", "capacity", "shed", "rejected",
+                "poison")
+TOKENS_A_STEP = 2          # at most: a prefill's first token and a decode's
+# a request's row: held, tokens emitted, the tokens, finish code, t_first
+# set, t_done set, admission order
+_REQ_FIELDS = 6 + TOKENS_A_STEP
+_HEAD = 4 + len(STAT_KEYS)      # active, counters, NaN flag, free pages, queue depth
+
+
+class _PoolView:
+    free_pages = 0
+
+
+class ReplicaView:
+    """Another replica as a rank of a cluster on a mesh sees it: the
+    scheduler state the router, watchdog, chaos schedule and metrics
+    read (slots, queue, counters, health, free pages), set from the
+    replica's events at each exchange and mutated by the cluster's own
+    routing as a real engine's would be.  No model runs behind it."""
+
+    remote = True
+
+    def __init__(self, mcfg: ModelConfig, *, max_batch: int, paged: bool,
+                 queue_bound: int):
+        self.mcfg = mcfg
+        self.paged = paged
+        self.pool = _PoolView() if paged else None
+        self.slots: list[Request | None] = [None] * max_batch
+        self.queue: list[Request] = []
+        self.queue_bound = queue_bound
+        self.stats = {k: 0 for k in STAT_KEYS}
+        self.health = {"nan_detected": False}
+        self.state = self
+
+    @property
+    def queue_full(self) -> bool:
+        return self.queue_bound > 0 and len(self.queue) >= self.queue_bound
+
+    def submit(self, req: Request) -> bool:
+        self.queue.append(req)
+        return True
+
+    def release(self, b: int) -> None:
+        pass
+
+
 class ServingCluster:
-    """N `ServingEngine` replicas behind one router, on one device.
+    """N `ServingEngine` replicas behind one router, on one device or on
+    per-replica meshes (see the module docstring).
 
     `engine_kwargs` go to every replica's engine (and to the engines
     `restart_replica` rebuilds); `replica_models` gives each replica its
-    own (config, params) pair."""
+    own (config, params) pair.  `mesh` (a rank's `parallel.mesh.Mesh`,
+    every rank of it constructing the cluster alike): the replicas split
+    it over "data" and this rank serves its own; `params` (and each
+    `replica_models` entry's) is then the whole tree, which the rank cuts
+    to its replica mesh's blocks (`sharding.shard_params`), or a function
+    of the replica mesh giving those blocks (e.g. `lambda m:
+    api.init_params(cfg, seed, mesh=m)`)."""
 
     def __init__(self, mcfg: ModelConfig, params, *, n_replicas: int | None = None,
                  router: Router | str = ROUTER, retry_budget: int = RETRY_BUDGET,
                  watchdog: resilience.Watchdog | None = None,
                  replica_models: list[tuple[ModelConfig, object]] | None = None,
-                 **engine_kwargs):
+                 mesh=None, **engine_kwargs):
         if replica_models is not None:
             n = n_replicas or len(replica_models)
             if len(replica_models) != n:
@@ -224,8 +306,20 @@ class ServingCluster:
         self._replica_models = list(replica_models) if replica_models is not None \
             else [(mcfg, params)] * n
         self._engine_kwargs = dict(engine_kwargs)
-        self.replicas = [ServingEngine(c, p, **engine_kwargs)
-                         for c, p in self._replica_models]
+        self.mesh = mesh
+        self._now = 0.0                 # the agreed clock (a mesh's)
+        self._pos: dict[int, int] = {}  # id(request) -> index in self.requests
+        if mesh is not None:
+            if not isinstance(mesh, Mesh):
+                raise ValueError("ServingCluster(mesh=) needs a rank's Mesh "
+                                 "(launch.mesh.make_host_mesh), not a shape")
+            self._meshes = sharding.replica_meshes(mesh, n)
+            self._own = next(i for i, m in enumerate(self._meshes) if isinstance(m, Mesh))
+            rcfg, rparams = self._replica_models[self._own]
+            own = self._meshes[self._own]
+            self._own_params = rparams(own) if callable(rparams) else \
+                sharding.shard_params(rparams, own, rcfg)
+        self.replicas = [self._new_engine(i) for i in range(n)]
         self.router = router if isinstance(router, Router) else Router(router)
         self.healthy: list[int] = list(range(n))
         self.requests: list[Request] = []
@@ -245,6 +339,114 @@ class ServingCluster:
         # summary (decode_steps / nan_steps: the fleet's decode-step total)
         self._retired = {"tokens_out": 0, "preemptions": 0, "rejected": 0, "shed": 0,
                          "decode_steps": 0, "nan_steps": 0}
+        if mesh is not None:
+            self._sync()
+
+    # -- replicas on a mesh ----------------------------------------------------
+
+    def _time(self) -> float:
+        """The cluster's clock: the agreed one on a mesh, else the host's."""
+        return self._now if self.mesh is not None else time.monotonic()
+
+    def _agree_time(self) -> float:
+        """The global root's clock, broadcast to every rank of the mesh."""
+        t = torch.tensor([time.monotonic()], dtype=torch.float64, device=self.mesh.device)
+        self._now = float(coll.broadcast(t, self.mesh)[0])
+        return self._now
+
+    def _new_engine(self, i: int):
+        """Replica i's engine: the real one on its own ranks (its blocks,
+        its mesh, the agreed clock), a `ReplicaView` elsewhere."""
+        rcfg, rparams = self._replica_models[i]
+        if self.mesh is None:
+            return ServingEngine(rcfg, rparams, **self._engine_kwargs)
+        if i == self._own:
+            eng = ServingEngine(rcfg, self._own_params, mesh=self._meshes[i],
+                                **self._engine_kwargs)
+            eng.clock = self._time
+            eng.self_paced = False
+            return eng
+        kw = self._engine_kwargs
+        return ReplicaView(rcfg, max_batch=kw.get("max_batch", 4),
+                           paged=kw.get("paged", True) and paged_kv.paged_supported(rcfg),
+                           queue_bound=kw.get("queue_bound", 0))
+
+    def _sync(self) -> None:
+        """An exchange outside a step: the views take their replicas'
+        state as it stands (a new engine's free pages, which routing reads
+        at once)."""
+        self._exchange({}, 0)
+
+    def _events(self, before: dict, active: int) -> torch.Tensor:
+        """This rank's replica's events since `before` (request index ->
+        (tokens, done, t_first unset, t_done unset) at the step's start),
+        as one int64 vector: a header (active slots, the counters, NaN
+        flag, free pages, queue depth), the slot occupants and the queue
+        (request indices, -1 past the end), then a row for every request
+        (held, tokens emitted this step, finish code, marks set, admission
+        order)."""
+        eng = self.replicas[self._own]
+        n = len(self.requests)
+        head = [active, *(eng.stats[k] for k in STAT_KEYS),
+                int(eng.health["nan_detected"]),
+                eng.pool.free_pages if eng.paged else 0, len(eng.queue)]
+        slots = [-1 if r is None else self._pos[id(r)] for r in eng.slots]
+        queue = [self._pos[id(r)] for r in eng.queue] + [-1] * (n - len(eng.queue))
+        rows = np.zeros((n, _REQ_FIELDS), np.int64)
+        for k, (n0, done0, first0, end0) in before.items():
+            r = self.requests[k]
+            new = r.out_tokens[n0:]
+            if len(new) > TOKENS_A_STEP:
+                raise RuntimeError(f"request {r.rid} emitted {len(new)} tokens in one "
+                                   f"step; the exchange carries {TOKENS_A_STEP}")
+            rows[k] = [1, len(new), *new, *[0] * (TOKENS_A_STEP - len(new)),
+                       FINISH_CODES.index(r.finish_reason) if r.done and not done0 else 0,
+                       int(first0 and r.t_first is not None),
+                       int(end0 and r.t_done is not None), r.admit_seq]
+        vec = np.concatenate([np.asarray(head + slots + queue, np.int64), rows.reshape(-1)])
+        return torch.as_tensor(vec, device=self.mesh.device)
+
+    def _exchange(self, before: dict, active: int) -> int:
+        """Every replica's events of this step on every rank (one
+        all_gather over "data") and the agreed end-of-step time (a
+        broadcast); applies them: the other replicas' tokens, finishes
+        and views, every replica's marks.  Returns the active slots over
+        all replicas."""
+        vec = self._events(before, active)
+        rows = coll.all_gather(vec, self.mesh, "data", dim=0).reshape(
+            self.mesh.shape["data"], -1).cpu().numpy()
+        t_end = self._agree_time()
+        per = self.mesh.shape["data"] // len(self.replicas)
+        n, ns = len(self.requests), len(STAT_KEYS)
+        total = 0
+        for i, eng in enumerate(self.replicas):
+            row = rows[i * per]                 # the replica's first data row
+            total += int(row[0])
+            mb = len(eng.slots)
+            req_rows = row[_HEAD + mb + n:].reshape(n, _REQ_FIELDS)
+            remote = i != self._own
+            for k in np.flatnonzero(req_rows[:, 0]):
+                r, f = self.requests[k], req_rows[k]
+                if remote:
+                    r.out_tokens.extend(int(t) for t in f[2:2 + f[1]])
+                    code = int(f[2 + TOKENS_A_STEP])
+                    if code:
+                        r.done, r.finish_reason = True, FINISH_CODES[code]
+                    r.admit_seq = int(f[-1])
+                if f[3 + TOKENS_A_STEP]:
+                    r.t_first = t_end
+                if f[4 + TOKENS_A_STEP]:
+                    r.t_done = t_end
+            if remote:
+                eng.stats.update(zip(STAT_KEYS, (int(x) for x in row[1:1 + ns])))
+                eng.health["nan_detected"] = bool(row[1 + ns])
+                if eng.paged:
+                    eng.pool.free_pages = int(row[2 + ns])
+                eng.slots = [None if j < 0 else self.requests[j]
+                             for j in row[_HEAD:_HEAD + mb]]
+                eng.queue = [self.requests[j]
+                             for j in row[_HEAD + mb:_HEAD + mb + int(row[3 + ns])]]
+        return total
 
     # -- request lifecycle ---------------------------------------------------
 
@@ -270,7 +472,8 @@ class ServingCluster:
         """Route one request; returns its replica, or -1 when it is parked
         (no eligible healthy replica) or shed (every such queue full)."""
         if req.t_submit is None:
-            req.t_submit = time.monotonic()
+            req.t_submit = self._time()
+        self._pos[id(req)] = len(self.requests)
         self.requests.append(req)
         eligible = self._eligible(req, self.healthy)
         if not eligible:
@@ -280,7 +483,7 @@ class ServingCluster:
         if not routable:
             req.done = True
             req.finish_reason = "shed"
-            req.t_done = time.monotonic()
+            req.t_done = self._time()
             self.stats["shed"] += 1
             return -1
         i = self.router.pick(self.replicas, routable)
@@ -295,7 +498,7 @@ class ServingCluster:
         if self.retry_budget >= 0 and req.requeues > self.retry_budget:
             req.done = True
             req.finish_reason = "poison"
-            req.t_done = time.monotonic()
+            req.t_done = self._time()
             self.stats["poisoned"] += 1
             return
         eligible = self._eligible(req, self.healthy)
@@ -338,8 +541,9 @@ class ServingCluster:
             self._retired[key] += old.stats[key]
         self.replicas[i] = None
         del old
-        rcfg, rparams = self._replica_models[i]
-        self.replicas[i] = ServingEngine(rcfg, rparams, **self._engine_kwargs)
+        self.replicas[i] = self._new_engine(i)
+        if self.mesh is not None:
+            self._sync()
         self.healthy.append(i)
         self.healthy.sort()
         self.stalled.discard(i)
@@ -385,12 +589,25 @@ class ServingCluster:
 
     def step(self) -> int:
         """Every healthy, unstalled replica with work takes one engine
-        step, then the watchdog quarantines sick replicas.  Returns the
-        active slots stepped."""
-        active = 0
+        step (on a mesh: this rank's own replica, the others on their
+        ranks, then the exchange), then the watchdog quarantines sick
+        replicas.  Returns the active slots stepped."""
+        active, stepped = 0, False
+        if self.mesh is not None:
+            t_start = self._now
+            own = self.replicas[self._own]
+            before = {self._pos[id(r)]: (len(r.out_tokens), r.done, r.t_first is None,
+                                         r.t_done is None)
+                      for r in [r for r in own.slots if r is not None] + own.queue}
         for i in self.healthy:
-            if i not in self.stalled and _has_work(self.replicas[i]):
+            if i not in self.stalled and _has_work(self.replicas[i]) \
+                    and (self.mesh is None or i == self._own):
                 active += self.replicas[i].step()
+                stepped = True
+        if self.mesh is not None:
+            active = self._exchange(before, active)
+            if stepped:     # the own engine's pace, from the agreed clock
+                own.observe_step(self._now - t_start)
         for i in list(self.healthy):
             reason = self.watchdog.check(i, self.replicas[i])
             if reason is not None:
@@ -416,14 +633,16 @@ class ServingCluster:
               chaos=None) -> dict:
         """Open-loop replay: submit each request at (or after) its arrival
         offset while stepping the replicas; idle gaps sleep until the
-        next arrival.  Returns `metrics.summary`."""
-        t0 = time.monotonic()
+        next arrival (on a mesh every turn reads the agreed clock).
+        Returns `metrics.summary`."""
+        clock = time.monotonic if self.mesh is None else self._agree_time
+        t0 = clock()
         idx, steps = 0, 0
         n = len(schedule)
         while steps < max_steps:
             if chaos is not None:
                 chaos.apply(self, self.stats["steps"])
-            now = time.monotonic() - t0
+            now = clock() - t0
             while idx < n and schedule[idx][0] <= now:
                 self.submit(schedule[idx][1])
                 idx += 1

@@ -47,8 +47,14 @@ tree; a whole tree is refused), the engine places its state at the
 local KV heads and runs prefill and decode inside `sharding.use_mesh`.  Every
 rank runs the same scheduler; each sampled token, and each deadline
 shedding verdict (the only decision read off the host clock), is rank
-0's, broadcast, so the ranks cannot drift.  `mesh=None` is the
-single-device path, unchanged.
+0's, broadcast, so the ranks cannot drift.  Any family takes a mesh.
+`mesh=None` is the single-device path, unchanged.
+
+Every mark and deadline verdict reads `engine.clock` (default
+`time.monotonic`).  A cluster on a mesh sets it to the clock its ranks
+agree on and sets `self_paced` False: it then feeds the engine's step
+pace (`observe_step`) from that clock, so every rank's deadline
+verdicts rest on the same numbers.
 """
 from __future__ import annotations
 
@@ -150,6 +156,8 @@ class ServingEngine:
         self.shed_deadlines = shed_deadlines
         self.health = {"nan_detected": False}
         self._est_step_s = 0.0        # EWMA of step wall time
+        self.clock = time.monotonic
+        self.self_paced = True
         self.state = self._new_state(page_size=page_size, num_pages=num_pages,
                                      bucket_min=bucket_min)
         if mesh is not None:
@@ -204,7 +212,7 @@ class ServingEngine:
     def submit(self, req: Request) -> bool:
         """Queue a request; returns False when the bounded queue sheds it."""
         if req.t_submit is None:
-            req.t_submit = time.monotonic()
+            req.t_submit = self.clock()
         if self.queue_bound > 0 and len(self.queue) >= self.queue_bound:
             self._shed(req)
             return False
@@ -214,7 +222,7 @@ class ServingEngine:
     def _shed(self, req: Request) -> None:
         req.done = True
         req.finish_reason = "shed"
-        req.t_done = time.monotonic()
+        req.t_done = self.clock()
         self.stats["shed"] += 1
 
     def _slot_pos(self, b: int) -> int:
@@ -228,7 +236,7 @@ class ServingEngine:
         req.done = True
         if req.finish_reason is None:
             req.finish_reason = reason
-        req.t_done = time.monotonic()
+        req.t_done = self.clock()
         self.slots[b] = None
         self.state.release(b)
 
@@ -249,7 +257,7 @@ class ServingEngine:
     def _deadline_infeasible(self, req: Request) -> bool:
         if not self.shed_deadlines or req.deadline_s is None:
             return False
-        now = time.monotonic()
+        now = self.clock()
         remaining = (req.t_submit or now) + req.deadline_s - now
         left = max(req.max_new_tokens - len(req.out_tokens), 0)
         late = remaining <= 0 or (self._est_step_s > 0.0
@@ -305,7 +313,7 @@ class ServingEngine:
                 self.queue.pop(qi)
                 req.done = True
                 req.finish_reason = "rejected"
-                req.t_done = time.monotonic()
+                req.t_done = self.clock()
                 self.stats["rejected"] += 1
                 continue
             # +1: the next decode writes KV at position plen
@@ -323,7 +331,7 @@ class ServingEngine:
             tok = self._agree([self._sample_one(last[0, -1:], req)])[0]
             req.out_tokens.append(tok)
             if req.t_first is None:
-                req.t_first = time.monotonic()
+                req.t_first = self.clock()
             self.next_token[b, 0] = tok
             self.stats["tokens_out"] += 1
             if len(req.out_tokens) >= req.max_new_tokens or \
@@ -346,7 +354,7 @@ class ServingEngine:
         """One lock-step decode over active slots; returns #active."""
         if self.health["nan_detected"]:
             return 0
-        t_step = time.monotonic()
+        t_step = self.clock()
         self._admit()
         live = [b for b, r in enumerate(self.slots) if r is not None]
         for b in list(live):
@@ -362,10 +370,14 @@ class ServingEngine:
             return 0
         self.stats["decode_steps"] += 1
         self.stats["slot_occupancy"].append(len(live) / self.max_batch)
-        dt = time.monotonic() - t_step
+        if self.self_paced:
+            self.observe_step(self.clock() - t_step)
+        return len(active)
+
+    def observe_step(self, dt: float) -> None:
+        """Fold one step's duration into the pace deadline shedding reads."""
         self._est_step_s = dt if self._est_step_s == 0.0 \
             else 0.8 * self._est_step_s + 0.2 * dt
-        return len(active)
 
     def _advance(self, active: list[int]) -> bool:
         """Decode the active slots one step, guard, sample, finish.

@@ -134,6 +134,10 @@ def inject_nan(eng) -> bool:
     live = [b for b, r in enumerate(eng.slots) if r is not None]
     if not live:
         return False
+    if getattr(eng, "remote", False):
+        # another rank's replica (`cluster.ReplicaView`): its own ranks
+        # poison it; a live slot always owns a page, so they find one
+        return True
     if eng.paged:
         pages = eng.pool.owned(live[0])
         if not pages:

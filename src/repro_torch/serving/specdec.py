@@ -12,6 +12,14 @@ verifies them in one batched forward.
   runs k draft `decode_step`s (propose) and one target `decode_window`
   (verify) over the gathered active slots and lands 1 to k tokens a slot,
   token-exact against target-only greedy decoding.
+
+On a mesh (`SpecDecodeEngine(mesh=)`) the target is sharded (its params
+are this rank's blocks, its KV at the rank's heads, the verify runs at
+local heads under the mesh) and the draft is replicated: every rank
+holds the whole draft and its whole KV and runs it unsharded, as the
+JAX engine leaves the draft unplaced.  Rank 0's drafts are broadcast
+before each verify and its accepted tokens and counts after it, so the
+ranks cannot drift.
 """
 from __future__ import annotations
 
@@ -25,6 +33,8 @@ from repro_torch.bridge import tree_map
 from repro_torch.device import resolve_device
 from repro_torch.models import api, transformer
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import sharding
 
 from .engine import Request, ServingEngine
 from .resilience import logits_finite
@@ -141,7 +151,8 @@ def spec_decode_sampled(target_fwd: Forward, draft_fwd: Forward, prompt: np.ndar
 class SpecKVState(DenseKVState):
     """The target's dense KV rectangles (compact) with the draft's beside
     them (`draft`): a prefill fills both, so draft and target share every
-    slot's context."""
+    slot's context.  `place` shards the target's alone; the draft runs
+    outside any mesh."""
 
     def __init__(self, mcfg: ModelConfig, draft_cfg: ModelConfig, draft_params: Params,
                  max_batch: int, max_len: int, *, decode_batch: int,
@@ -155,7 +166,8 @@ class SpecKVState(DenseKVState):
     def prefill(self, params: Params, b: int, seq: np.ndarray,
                 frames=None) -> torch.Tensor:
         last = super().prefill(params, b, seq)
-        self.draft.prefill(self.draft_params, b, seq)
+        with sharding.use_mesh(None):
+            self.draft.prefill(self.draft_params, b, seq)
         return last
 
 
@@ -173,7 +185,8 @@ class SpecDecodeEngine(ServingEngine):
     later overwritten).  Non-finite verify logits set
     `health["nan_detected"]` and emit nothing.  Plain-attention
     transformer target and draft (`transformer.window_supported`), dense
-    un-quantized KV."""
+    un-quantized KV.  `mesh`: the target's params are this rank's blocks
+    and `draft_params` the whole draft (see the module docstring)."""
 
     def __init__(self, mcfg: ModelConfig, params: Params, draft_cfg: ModelConfig,
                  draft_params: Params, *, k: int = SPEC_K, **kw):
@@ -185,8 +198,6 @@ class SpecDecodeEngine(ServingEngine):
             raise ValueError("draft config must be a plain-attention transformer too")
         if k < 2:
             raise ValueError(f"spec-decode needs k >= 2, got {k}")
-        if kw.get("mesh") is not None:
-            raise NotImplementedError("spec-decode on a mesh is not served yet")
         self.k = k
         self.draft_cfg = draft_cfg
         self.draft_params = draft_params
@@ -227,29 +238,36 @@ class SpecDecodeEngine(ServingEngine):
         dsub = gather_slots(self.draft_state.cache, idx)
         base = dsub["index"].clone()
         drafts, t = [], tok
-        for _ in range(k):
+        for _ in range(k):             # the draft runs whole on every rank
             logits, dsub = api.decode_step(self.draft_cfg, self.draft_params, t, dsub)
             t = logits[:, -1].argmax(-1, keepdim=True)
             drafts.append(t)
         drafts = torch.cat(drafts, 1)                                # (w, k)
+        if self.mesh is not None:        # the verify window must be rank 0's
+            drafts = coll.broadcast(drafts, self.mesh)
         tsub = gather_slots(self.state.cache, idx)
         window = torch.cat([tok, drafts[:, :-1]], 1)                 # (w, k)
-        logits, tsub = api.decode_window(self.mcfg, self.params, window, tsub)
+        with sharding.use_mesh(self.mesh):
+            logits, tsub = api.decode_window(self.mcfg, self.params, window, tsub)
         if self.guard_nan and not logits_finite(logits):
             self.health["nan_detected"] = True
             self.stats["nan_steps"] += 1
             return False                 # the sub-caches are dropped
+        choice = logits.argmax(-1)                                   # (w, k)
+        # accepted drafts a lane: the matching prefix, capped at k - 1
+        match = (drafts[:, :k - 1] == choice[:, :k - 1]).long().cumprod(1)
+        acc = torch.cat([match.sum(1, keepdim=True), choice], 1)     # (w, 1 + k)
+        if self.mesh is not None:        # rank 0's accepted tokens and counts
+            acc = coll.broadcast(acc, self.mesh)
         drafts_np = drafts.cpu().numpy()
-        choice_np = logits.argmax(-1).cpu().numpy()
+        acc_np = acc.cpu().numpy()
         lane = _lane_map(sel)
         consumed = np.zeros(len(sel), np.int64)
         for b in active:
             j = lane[b]
             req = self.slots[b]
-            n = 0
-            while n < k - 1 and drafts_np[j, n] == choice_np[j, n]:
-                n += 1
-            emitted = [int(x) for x in drafts_np[j, :n]] + [int(choice_np[j, n])]
+            n = int(acc_np[j, 0])
+            emitted = [int(x) for x in drafts_np[j, :n]] + [int(acc_np[j, 1 + n])]
             self.spec_stats.iterations += 1
             self.spec_stats.proposed += k - 1
             self.spec_stats.accepted += n

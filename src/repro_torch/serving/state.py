@@ -19,7 +19,11 @@ pools, and int8 scales, at this rank's KV heads (`parallel.sharding`'s
 whole heads; MLA latents replicated).  The slots are
 not split over "data": the engine's ranks run one scheduler over every
 slot, so a data rank holds every slot's cache as its model peers do.
-The recurrent and cross-attention states raise under a mesh.
+The recurrent and cross-attention states reallocate their per-layer
+leaves at this rank's channels and heads (`sharding.layer_state_specs`:
+rglru's `h` and conv window, rwkv6's `wkv`, the KV of rglru's ring and
+of whisper's self and cross attention; token shifts whole), so the
+batch-1 caches a prefill makes under the mesh splice in as they are.
 """
 from __future__ import annotations
 
@@ -352,10 +356,11 @@ class _LayersState:
         pass
 
     def place(self, mesh) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                f"{self.mcfg.family}: serving on a mesh covers the transformer "
-                f"family; the {self.kind} state is not sharded yet")
+        """The per-layer leaves at this rank's channels and heads; the
+        slot axis stays whole."""
+        layers = self.cache["layers"]
+        self.cache["layers"] = sharding.place(
+            mesh, layers, sharding.layer_state_specs(mesh, self.mcfg, layers))
 
 
 class RecurrentState(_LayersState):

@@ -206,11 +206,13 @@ def test_apply_policy_mesh_tp_matches_jax(tmp_path, n_devices):
 
 
 def test_serve_main_refuses_replicas_on_a_mesh(tmp_path, monkeypatch):
+    """2 replicas x tp 2 need 4 cards: with 2 it raises and names the
+    count (it never starts fewer ranks)."""
     from repro_torch.launch import serve as tserve
 
     _, path = _tp_policy(tmp_path, 2)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="replicas"):
+    with pytest.raises(RuntimeError, match="--replicas 2 x tp 2 needs 4 cards"):
         tserve.main(["--arch", "smollm-135m", "--smoke", "--policy", str(path),
                      "--replicas", "2"])
