@@ -408,6 +408,15 @@ DS_LAYERS = 4
 WHISPER_ENC = 1500
 WHISPER_MAX_LEN = 256
 # training (PR 21): the main training path and the gradient checks
+# training on a mesh: (a) float32 layers, steps, global rows, seq;
+# (b) bfloat16 steps, global rows, seq, checkpoint interval; (c) the
+# pipeline's microbatches (count, rows, seq), float32 depth, gradient gap
+TRAIN_MESH = (2, 2)
+TRAIN_MESH_F32 = (4, 3, 4, 128)
+TRAIN_MESH_BF16 = (10, 8, 256, 5)
+PIPE_MICRO = (4, 2, 256)
+PIPE_F32_LAYERS = 4
+PIPE_GRAD_TOL = 1e-4
 TRAIN_STEPS = 30
 TRAIN_BATCH, TRAIN_SEQ = 8, 256
 TRAIN_DROP = 1.0          # nats the last logged loss must lie below the first
@@ -3163,6 +3172,12 @@ def kernel_shapes():
     return ctx()
 
 
+def forward_collectives(coll) -> dict:
+    """The forward collectives counted since the last reset (a serving
+    path runs no backward, whose counts live under their own keys)."""
+    return {k: coll.COUNTS[k] for k in coll.FORWARD}
+
+
 def _tp_launchers(recurrent: bool = False):
     """The launchers of the transformer's kernels (and with `recurrent`,
     of wkv6 and rglru_scan)."""
@@ -3191,7 +3206,7 @@ def _tp_serve(torch, eng, reqs, recurrent: bool = False):
     coll.reset()
     with kernel_shapes() as seen:
         s = serve(eng, reqs)
-    return (s, {k: ln.launches for k, ln in launchers.items()}, dict(coll.COUNTS),
+    return (s, {k: ln.launches for k, ln in launchers.items()}, forward_collectives(coll),
             {k: sorted(v) for k, v in seen.items()})
 
 
@@ -3226,7 +3241,7 @@ def _tp_logits(torch, mesh, cfg, sharded, full, toks, steps: int, ref_cfg):
     coll.reset()
     with sharding.use_mesh(mesh):
         got = run(cfg, sharded, feed)
-    out = {"collectives": dict(coll.COUNTS)}
+    out = {"collectives": forward_collectives(coll)}
     if mesh.rank != 0:
         return out
     ref, plain = run(ref_cfg, full, feed), run(cfg, full, feed)
@@ -3590,7 +3605,7 @@ def _fam_logits(torch, mesh, cfg, sharded, full, batch, steps: int, ref_cfg):
     coll.reset()
     with sharding.use_mesh(mesh):
         got = run(cfg, sharded, feed)
-    out = {"collectives": dict(coll.COUNTS)}
+    out = {"collectives": forward_collectives(coll)}
     if mesh.rank != 0:
         return out
     ref, plain = run(ref_cfg, full, feed), run(cfg, full, feed)
@@ -3739,7 +3754,7 @@ def _spec_mesh(torch, mesh, policy: str) -> dict:
             s = serve_specdec(c, full, reqs, k=SPEC_K, max_len=512, mesh=mesh,
                               log=lambda x: None, **kw)
         launches = {k: ln.launches for k, ln in launchers.items()}
-        colls = dict(coll.COUNTS)
+        colls = forward_collectives(coll)
         eng = s.pop("engine")
         n_draft = eng.draft_cfg.n_layers
         pre, ver = s["prefills"], s["decode_steps"]
@@ -3928,7 +3943,7 @@ def _cluster_mesh_rank(rank: int, world: int, store: str, policy: str, out: str)
                       n_requests=CLUSTER_REQUESTS, max_new=32, chaos_horizon=CLUSTER_HORIZON,
                       max_len=512, mesh=mesh, log=lambda x: None, **kw)
     counts = {k: ln.launches for k, ln in launchers.items()}
-    colls = dict(coll.COUNTS)
+    colls = forward_collectives(coll)
     cl, reqs, agg, chaos = s["cluster"], s["requests"], s["aggregate"], s["chaos"]
     steps = sum(e.stats["decode_steps"] + e.stats["nan_steps"] for e in built)
     records = [(r.rid, r.out_tokens, r.finish_reason, r.done, r.requeues, r.admit_seq,
@@ -4025,6 +4040,349 @@ def cluster_mesh_phase(torch) -> dict:
           f"{rec['cluster_steps']} cluster steps; float32 {CLUSTER_F32_LAYERS} layers "
           f"{rec['f32']}", flush=True)
     print(json.dumps({"cluster_mesh": dict(rec, seconds=secs, card=card)}), flush=True)
+    return rec
+
+
+def _train_mesh_rank(rank: int, world: int, store: str, policy: str, out: str) -> None:
+    """One rank of `train_mesh_phase` (a) and (b): gloo over the one card,
+    a `TRAIN_MESH` mesh; rank 0 writes the record."""
+    import dataclasses
+    import datetime
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.bridge import tree_leaves, tree_paths
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import DataConfig, DataPipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import sharding
+    from repro_torch.training import loop
+    from repro_torch.training.optimizer import OptimizerConfig, lr_at
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=600))
+    mesh = make_host_mesh(TRAIN_MESH[1], backend="gloo", device_type="cuda")
+    launchers = {k: v for k, v in _tp_launchers().items()
+                 if k in ("fused_rmsnorm", "fused_rmsnorm_residual", "fused_mlp",
+                          "flash_attention")}
+    flags = dict(attn_impl="flash", mlp_impl="fused", norm_impl="fused")
+    rec: dict = {"mesh": dict(mesh.shape)}
+
+    def by_path(tree):
+        return {"/".join(map(str, k)): t for k, t in tree_paths(tree)}
+
+    # (a) float32, 4 layers: train(mesh=) against the unsharded train; each
+    # run's state is checkpointed every step so the elements past 1e-5 can
+    # be read with their gradients and Adam steps
+    layers, steps, rows, seq = TRAIN_MESH_F32
+    cfg = configs.get_config("smollm-135m").replace(n_layers=layers, dtype="float32",
+                                                    param_dtype="float32", **flags)
+    ocfg = OptimizerConfig(lr=1e-4, warmup_steps=1, total_steps=steps)
+    f32_dir = ROOT / "build" / "train_mesh_f32"
+    if rank == 0:
+        shutil.rmtree(f32_dir, ignore_errors=True)
+    dist.barrier()
+    tcfg = loop.TrainConfig(steps=steps, log_every=1, ckpt_every=1, ckpt_keep=steps,
+                            ckpt_dir=str(f32_dir / "mesh"), seed=0)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=rows, seed=0)
+    for ln in launchers.values():
+        ln.launches = 0
+    with kernel_shapes() as seen:
+        got = loop.train(cfg, ocfg, tcfg, dcfg, mesh=mesh, log_fn=lambda _: None)
+    counts = {k: ln.launches for k, ln in launchers.items()}
+    want = {"fused_rmsnorm": (layers + 1) * steps, "fused_rmsnorm_residual": layers * steps,
+            "fused_mlp": layers * steps, "flash_attention": layers * steps}
+    check(counts == want, f"train mesh f32 rank {rank}: launches {counts}, want {want} "
+          f"(the forward only)")
+    tp = mesh.shape["model"]
+    ht = tp if sharding.tp_plan(cfg, mesh).attn else 1     # smollm's 9 / 3 heads stay whole
+    check(seen["fused_mlp"] == {(cfg.d_model, cfg.d_ff // tp)} and
+          seen["flash_attention"] == {(cfg.n_heads // ht, cfg.kv_heads // ht, cfg.hd)},
+          f"train mesh f32 rank {rank}: kernel shapes {seen}")
+    specs = loop.param_specs(cfg, mesh)
+    mine = [(p, t.cpu()) for p, t in sharding.gather_tree(got["params"], specs, mesh)]
+    if rank == 0:
+        ref = loop.train(cfg, ocfg, dataclasses.replace(tcfg, ckpt_dir=str(f32_dir / "ref")),
+                         dcfg, device=mesh.device, log_fn=lambda _: None)
+        theirs = {p: t.cpu() for p, t in by_path(ref["params"]).items()}
+        loss_gap = max(abs(a - b) / abs(b) for (_, a), (_, b) in zip(got["losses"],
+                                                                   ref["losses"]))
+        gaps = torch.cat([(t - theirs[p]).abs().flatten() for p, t in mine])
+        param_gap, n_over = float(gaps.max()), int((gaps > 1e-5).sum())
+        # each element past 1e-5 (the 16 first): both runs' gradient g_k
+        # (from the first moments, mu_k = b1 mu_k-1 + (1 - b1) g_k) and
+        # Adam direction (mu_k / c1) / (sqrt(nu_k / c2) + eps) at every
+        # step k, read from the checkpoints, beside the step's lr
+        flagged = []
+        for p, t in mine:
+            d = (t - theirs[p]).abs().flatten()
+            flagged += [(p, i, float(d[i]), float(t.flatten()[i]),
+                         float(theirs[p].flatten()[i]))
+                        for i in torch.nonzero(d > 1e-5).flatten().tolist()]
+        flagged = flagged[:16]
+        tmpl = loop.init_train_state(cfg, ocfg, tcfg, "cpu")
+        moments = {}
+        for side in ("mesh", "ref"):
+            mgr = CheckpointManager(str(f32_dir / side))
+            moments[side] = []
+            for k in range(1, steps + 1):
+                o = mgr.restore(tmpl, step=k)[0][1]["inner"]
+                mu, nu = by_path(o["mu"]), by_path(o["nu"])
+                moments[side].append([(float(mu[p].flatten()[i]), float(nu[p].flatten()[i]))
+                                      for p, i, *_ in flagged])
+        over = []
+        for j, (p, i, gap, a, b) in enumerate(flagged):
+            e = {"path": p, "index": i, "gap": gap, "param": [a, b],
+                 "lr": [float(lr_at(ocfg, k)) for k in range(1, steps + 1)]}
+            for side, name in (("mesh", "mesh"), ("ref", "unsharded")):
+                prev, gs, dirs = 0.0, [], []
+                for k, row in enumerate(moments[side], 1):
+                    mu, nu = row[j]
+                    gs.append((mu - ocfg.b1 * prev) / (1 - ocfg.b1))
+                    dirs.append(mu / (1 - ocfg.b1 ** k)
+                                / (math.sqrt(nu / (1 - ocfg.b2 ** k)) + ocfg.eps))
+                    prev = mu
+                e[f"g_{name}"], e[f"adam_dir_{name}"] = gs, dirs
+            over.append(e)
+        rec["f32"] = {"layers": layers, "steps": steps, "losses": got["losses"],
+                      "unsharded_losses": ref["losses"], "loss_rel_gap": loss_gap,
+                      "param_max_gap": param_gap, "params_over_1e-5": n_over,
+                      "over_1e-5": over, "params": int(gaps.numel()),
+                      "launches_rank0": counts,
+                      "shapes_rank0": {k: sorted(v) for k, v in seen.items() if v}}
+        # test_torch_train_loop's tolerance: within 1e-5 save for at most 8
+        # elements, those within 2 x 2 lr (an Adam step near a zero
+        # gradient is sign-like, and a sign can flip between two sums)
+        check(loss_gap <= 1e-4 and n_over <= 8 and param_gap <= 4 * ocfg.lr,
+              f"train mesh f32: losses {got['losses']} vs {ref['losses']} (rel gap "
+              f"{loss_gap:.3g}), parameters {param_gap:.3g} apart, {n_over} past 1e-5")
+    dist.barrier()
+    del got, mine
+    free(torch)
+
+    # (b) bfloat16 at full width: 10 steps, checkpoints, the (4, 1) reshard
+    steps, rows, seq, every = TRAIN_MESH_BF16
+    cfg = configs.get_config("smollm-135m").replace(**flags)
+    ocfg = OptimizerConfig(lr=3e-4, warmup_steps=2, total_steps=steps)
+    ckpt_dir = ROOT / "build" / "train_mesh_ckpt"
+    if rank == 0:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    dist.barrier()
+    tcfg = loop.TrainConfig(steps=steps, log_every=1, ckpt_every=every,
+                            ckpt_dir=str(ckpt_dir), seed=0)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=rows, seed=0)
+    logged: list = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    coll.reset()
+    t0 = time.perf_counter()
+    got = loop.train(cfg, ocfg, tcfg, dcfg, mesh=mesh,
+                     log_fn=lambda line: logged.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    colls = dict(coll.COUNTS)
+    losses = [v for _, v in got["losses"]]
+    check(len(losses) == steps and all(math.isfinite(v) for v in losses) and
+          losses[-1] < losses[0], f"train mesh bf16 rank {rank}: losses {losses}")
+    # steps 1 .. every - 1: whole steps, no checkpoint save inside
+    step_ms = (logged[every - 1] - logged[1]) * 1e3 / (every - 2)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    specs = loop.param_specs(cfg, mesh)
+    trained = [(p, t.cpu()) for p, t in sharding.gather_tree(got["params"], specs, mesh)]
+    mgr = CheckpointManager(str(ckpt_dir))
+    check(mgr.steps() == list(range(every, steps + 1, every)),
+          f"train mesh bf16: checkpoints {mgr.steps()}")
+    del got
+    free(torch)
+    flat = make_host_mesh(1, backend="gloo", device_type="cuda")
+    params, opt = loop.init_train_state(cfg, ocfg, tcfg, mesh=flat)
+    fspecs = loop.state_specs(cfg, flat, opt)
+    (params, opt), meta = mgr.restore((params, opt), shardings=fspecs, mesh=flat)
+    check(meta == {"next_step": steps}, f"train mesh bf16: restored meta {meta}")
+    restored = dict(sharding.gather_tree(params, loop.param_specs(cfg, flat), flat))
+    check(all(torch.equal(restored[p].cpu(), t) for p, t in trained),
+          f"train mesh bf16 rank {rank}: the parameters restored on {dict(flat.shape)} "
+          f"differ from the ones trained on {dict(mesh.shape)}")
+    (wp, wo), _ = mgr.restore((params, opt))          # the leaves read whole
+    check(all(torch.equal(a, b) for a, b in zip(tree_leaves((params, opt)),
+                                                tree_leaves((wp, wo)))),
+          f"train mesh bf16 rank {rank}: the resharded state differs from the saved leaves")
+    del wp, wo
+    step = loop.make_train_step(cfg, ocfg, tcfg, mesh=flat)
+    batch = {k: torch.from_numpy(v).to(flat.device)
+             for k, v in DataPipeline(dcfg).batch(steps).items()}
+    _, _, m = step(params, opt, batch)
+    resumed = float(m["loss"])
+    check(math.isfinite(resumed), f"train mesh bf16: the step after the reshard gave {resumed}")
+    if rank == 0:
+        fwd = {k: colls[k] / steps for k in coll.FORWARD + ("shift",) if colls[k]}
+        bwd = {k: colls[k] / steps for k in coll.BACKWARD if colls[k]}
+        rec["bf16"] = {"layers": cfg.n_layers, "steps": steps, "losses": losses,
+                       "step_ms": step_ms, "tokens_per_s": rows * seq / (step_ms / 1e3),
+                       "wall_s": wall, "peak_gb_rank0": peak_gb,
+                       "collectives_per_step_fwd": fwd, "collectives_per_step_bwd": bwd,
+                       "checkpoints": mgr.steps(), "reshard_mesh": dict(flat.shape),
+                       "resumed_loss": resumed}
+        Path(out).write_text(json.dumps(rec))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _pipe_rank(rank: int, world: int, store: str, policy: str, out: str) -> None:
+    """One rank of `train_mesh_phase` (c): gloo over the one card, a
+    ("pp",) mesh of `world` stages; rank 0 writes the record."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.bridge import tree_map, tree_paths
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import api, transformer
+    from repro_torch.parallel import pipeline, sharding
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=600))
+    pp = make_mesh((world,), ("pp",), backend="gloo", device_type="cuda")
+    dev = pp.device
+    n_micro, mb, seq = PIPE_MICRO
+    flags = dict(attn_impl="flash", mlp_impl="fused", norm_impl="fused")
+    launchers = {k: v for k, v in _tp_launchers().items()
+                 if k in ("fused_rmsnorm", "fused_rmsnorm_residual", "fused_mlp",
+                          "flash_attention")}
+    rec: dict = {"stages": world}
+
+    def run(cfg, grad: bool):
+        stack = api.init_params(cfg, 0, device=dev)["segments"][0]["kind_dense"]
+        mine = tree_map(lambda t: sharding.local_slice(t, ("pp",) + (None,) * t.dim(), pp),
+                        pipeline.split_stages(stack, world))
+        gen = torch.Generator(device=dev).manual_seed(5)
+        x = torch.randn((n_micro, mb, seq, cfg.d_model), generator=gen, device=dev,
+                        dtype=torch.float32).to(cfg.tdtype)
+        pos = torch.arange(seq, device=dev)[None].expand(mb, seq)
+        rope = transformer.rope_for(cfg, pos)
+
+        def layer_fn(p, h):
+            for lp in transformer._layers(p):
+                h = transformer.layer_fwd(cfg, "dense", lp, h, rope)[0]
+            return h
+
+        if not grad:
+            for ln in launchers.values():
+                ln.launches = 0
+            with torch.no_grad():
+                y = pipeline.pipeline_apply(layer_fn, mine, x, mesh=pp)
+            counts = {k: ln.launches for k, ln in launchers.items()}
+            with torch.no_grad():
+                ref = torch.stack([layer_fn(stack, x[i]) for i in range(n_micro)]) \
+                    if rank == 0 else None
+            return y, ref, counts
+        c = torch.randn(x.shape, generator=gen, device=dev)
+        leaves = tree_map(lambda t: t.requires_grad_(True), mine)
+        xg = x.clone().requires_grad_(True)
+        (pipeline.pipeline_apply(layer_fn, leaves, xg, mesh=pp) * c).sum().backward()
+        grads = tree_map(lambda t: sharding.gather_whole(
+            t.grad, ("pp",) + (None,) * (t.dim() - 1), pp).flatten(0, 1), leaves)
+        if rank != 0:
+            return grads, None, xg.grad
+        wstack = tree_map(lambda t: t.detach().clone().requires_grad_(True), stack)
+        xs = x.clone().requires_grad_(True)
+        (torch.stack([layer_fn(wstack, xs[i]) for i in range(n_micro)]) * c).sum().backward()
+        return grads, tree_map(lambda t: t.grad, wstack), (xg.grad, xs.grad)
+
+    cfg = configs.get_config("smollm-135m").replace(**flags)
+    t0 = time.perf_counter()
+    y, ref, counts = run(cfg, grad=False)
+    ticks = n_micro + world - 1
+    per = cfg.n_layers // world
+    want = {"fused_rmsnorm": per * ticks, "fused_rmsnorm_residual": per * ticks,
+            "fused_mlp": per * ticks, "flash_attention": per * ticks}
+    check(counts == want, f"pipeline rank {rank}: launches {counts}, want {want}")
+    if rank == 0:
+        err, ok = agreement(torch, y, ref, TOL["bfloat16"])
+        rec["bf16"] = {"layers": cfg.n_layers, "microbatches": [n_micro, mb, seq],
+                       "max_abs_err": err, "bit_equal": bool(torch.equal(y, ref)),
+                       "launches_rank0": counts, "seconds": time.perf_counter() - t0}
+        check(ok, f"pipeline bf16: {err:.4g} from the sequential stack")
+    del y, ref
+    free(torch)
+    cfg = cfg.replace(n_layers=PIPE_F32_LAYERS, dtype="float32", param_dtype="float32")
+    grads, want_g, gx = run(cfg, grad=True)
+    if rank == 0:
+        # each leaf's largest gap relative to its largest gradient
+        gaps = {"/".join(map(str, p)): float((a - b).abs().max() / b.abs().max())
+                for (p, a), (_, b) in zip(tree_paths(grads), tree_paths(want_g))}
+        gaps["x"] = float((gx[0] - gx[1]).abs().max() / gx[1].abs().max())
+        rec["f32"] = {"layers": cfg.n_layers, "grad_gaps": gaps}
+        check(max(gaps.values()) <= PIPE_GRAD_TOL,
+              f"pipeline f32: gradients {gaps} from the sequential stack's")
+        Path(out).write_text(json.dumps(rec))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def train_mesh_phase(torch) -> dict:
+    """Training on a mesh: four ranks spawned on the one card over gloo, a
+    `TRAIN_MESH` ("data", "model") mesh (`_train_mesh_rank`).  (a) float32
+    smollm-135m at 4 layers with the fused norms, the fused MLP (at F / 2
+    = 768) and flash: 3 AdamW steps of `train(mesh=)` against 3 of the
+    unsharded `train` on the card on the same batches, losses within
+    rtol 1e-4 and parameters within 1e-5 (at most 8 elements within 2 x
+    2 lr: `test_torch_train_loop`'s tolerance), each kernel launched in the
+    forward only, as often as the layers and steps imply.  (b) bfloat16
+    smollm-135m at full width (30 layers): 10 steps of `train(mesh=)` on
+    SyntheticLM 8 x 256 (4 rows a data rank), checkpoints every 5 steps
+    into build/; every loss finite and the last below the first; ms a
+    step, tokens/s, the peak memory of a rank and the collectives a step
+    each way printed; the final checkpoint restored through
+    `restore(shardings=)` onto a (4, 1) mesh of the same ranks equal bit
+    for bit to the trained parameters and to the saved leaves, and one
+    step from it.  (c) `_pipe_rank`: two ranks of their own, a ("pp",)
+    mesh: bf16 smollm-135m's 30 layers split 15 / 15 by `split_stages`,
+    the port's dense layer with the kernel flags, 4 microbatches of 2 x
+    256, the output within the bf16 rows' tolerance of the sequential
+    stack on one rank; float32 at 4 layers under a randn cotangent, each
+    leaf's (and x's) gradient within 1e-4 of the sequential stack's,
+    relative to that leaf's largest.  All readings are of ranks that share one
+    card."""
+    free(torch)
+    t0 = time.perf_counter()
+    rec = _spawn(_train_mesh_rank, TRAIN_MESH[0] * TRAIN_MESH[1], "", "train_mesh")
+    t1 = time.perf_counter()
+    rec["pipeline"] = _spawn(_pipe_rank, 2, "", "pipe")
+    secs = time.perf_counter() - t0
+    card = card_line()
+    a, b, c = rec["f32"], rec["bf16"], rec["pipeline"]
+    print(f"[smoke] train mesh (a) smollm-135m {a['layers']}L f32 on a {TRAIN_MESH} mesh, "
+          f"four ranks share one card ({card}): losses {a['losses']} vs unsharded "
+          f"{a['unsharded_losses']} (rel gap {a['loss_rel_gap']:.3g}), parameters "
+          f"{a['param_max_gap']:.3g} apart ({a['params_over_1e-5']} of {a['params']} past "
+          f"1e-5), rank 0 launches {a['launches_rank0']}, shapes "
+          f"{a['shapes_rank0']}", flush=True)
+    print(f"[smoke] train mesh (b) smollm-135m {b['layers']}L bf16 on a {TRAIN_MESH} mesh, "
+          f"four ranks share one card ({card}): losses {b['losses'][0]:.4f} -> "
+          f"{b['losses'][-1]:.4f}; {b['step_ms']:.1f} ms a step = {b['tokens_per_s']:.0f} "
+          f"tokens/s (four ranks share one card); peak {b['peak_gb_rank0']:.2f} GB on rank "
+          f"0; collectives a step forward {b['collectives_per_step_fwd']}, backward "
+          f"{b['collectives_per_step_bwd']}; checkpoints {b['checkpoints']} restored onto "
+          f"{b['reshard_mesh']} bit-equal, next step's loss {b['resumed_loss']:.4f}",
+          flush=True)
+    print(f"[smoke] train mesh (c) pipeline {c['stages']} stages ({card}): bf16 "
+          f"{c['bf16']['layers']}L {c['bf16']['microbatches']} max |err| "
+          f"{c['bf16']['max_abs_err']:.3g} (bit-equal {c['bf16']['bit_equal']}), launches "
+          f"{c['bf16']['launches_rank0']}; f32 {c['f32']['layers']}L gradient gaps max "
+          f"{max(c['f32']['grad_gaps'].values()):.3g}", flush=True)
+    print(f"[smoke] train mesh phase {secs:.1f}s ((a) + (b) {t1 - t0:.1f}s)", flush=True)
+    print(json.dumps({"train_mesh": dict(rec, seconds=secs, card=card)}), flush=True)
     return rec
 
 
@@ -4695,6 +5053,7 @@ def main() -> int:
     tp_path_phase(torch)
     family_mesh_phase(torch)
     cluster_mesh_phase(torch)
+    train_mesh_phase(torch)
 
     meta = {
         "fused_rmsnorm": ("fused_norm.cu", "fused_norm/kernel.py:51",

@@ -18,6 +18,14 @@ descr "<V2", with "bfloat16" in the index; restore reads each leaf by
 the index's dtype.  The index is msgpack where `msgpack` imports, else
 JSON (as in JAX); the reader tells them apart by the first byte, so a
 JSON index reads back anywhere.
+
+On a mesh (`mesh=` with `shardings=`, the leaves' specs by checkpoint
+path, as `sharding.param_spec_map` gives them) a rank holds its blocks:
+`save` gathers every leaf whole and rank 0 writes it (as JAX's
+`device_get` does), so a checkpoint crosses packages and mesh shapes;
+`restore` has every rank read the whole leaf and keep its block
+(`sharding.local_slice`): the elastic reshard, e.g. saved on a (2, 2)
+mesh and restored on (4, 1).
 """
 from __future__ import annotations
 
@@ -29,8 +37,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.bridge import tree_paths, tree_unflatten
+from repro_torch.parallel import sharding
 
 try:
     import msgpack
@@ -88,17 +98,31 @@ class CheckpointManager:
         os.makedirs(self.directory, exist_ok=True)
 
     # -- save -----------------------------------------------------------
-    def save(self, step: int, tree: Params, meta: dict | None = None) -> str:
+    def save(self, step: int, tree: Params, meta: dict | None = None, *,
+             mesh=None, shardings: dict | None = None) -> str:
+        """Write `tree` as step `step` (atomically; a step already published
+        is kept).  On a mesh every rank calls it with its blocks: the
+        leaves are gathered whole, rank 0 writes, and all return once the
+        step is published."""
         name = f"step_{step:09d}"
-        tmp = os.path.join(self.directory, name + ".tmp")
         final = os.path.join(self.directory, name)
+        if mesh is not None:
+            whole = sharding.gather_tree(tree, shardings, mesh)
+            if mesh.rank == 0:
+                self._write(step, whole, meta, final)
+            _barrier(mesh)
+            return final
+        return self._write(step, _path_names(tree), meta, final)
+
+    def _write(self, step: int, leaves: list, meta: dict | None, final: str) -> str:
+        tmp = final + ".tmp"
         if os.path.exists(final):      # idempotent: step already published
             return final
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
         index = {"step": step, "meta": meta or {}, "leaves": []}
-        for i, (path, leaf) in enumerate(_path_names(tree)):
+        for i, (path, leaf) in enumerate(leaves):
             fn = f"arr_{i:06d}.npy"
             dtype, shape = _write_leaf(os.path.join(tmp, fn), leaf)
             index["leaves"].append({"path": path, "file": fn, "dtype": dtype,
@@ -126,12 +150,16 @@ class CheckpointManager:
         s = self.steps()
         return s[-1] if s else None
 
-    def restore(self, template: Params, step: int | None = None
-                ) -> tuple[Params, dict]:
+    def restore(self, template: Params, step: int | None = None,
+                shardings: dict | None = None, *, mesh=None) -> tuple[Params, dict]:
         """(the checkpoint at `step`, default the latest, in the structure
         of `template`, its meta).  Each leaf takes the index's dtype and
         the template leaf's device; KeyError for a leaf the checkpoint
-        lacks, ValueError for a shape that differs from the template's."""
+        lacks, ValueError for a shape that differs from the template's.
+        `shardings` over `mesh`: the template holds this rank's blocks,
+        and each leaf read whole is cut to its block under its spec."""
+        if (shardings is None) != (mesh is None):
+            raise ValueError("restore takes shardings and mesh together")
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
@@ -146,6 +174,8 @@ class CheckpointManager:
                 raise KeyError(f"checkpoint missing leaf {path}")
             t = _read_leaf(os.path.join(d, e["file"]), e["dtype"])
             want = tuple(getattr(leaf, "shape", t.shape))
+            if mesh is not None:
+                t = sharding.local_slice(t, shardings[path], mesh)
             if tuple(t.shape) != want:
                 raise ValueError(f"shape mismatch for {path}: ckpt "
                                  f"{tuple(t.shape)} vs template {want}")
@@ -159,3 +189,9 @@ class CheckpointManager:
         for s in steps[:-self.keep] if self.keep > 0 else []:
             shutil.rmtree(os.path.join(self.directory, f"step_{s:09d}"),
                           ignore_errors=True)
+
+
+def _barrier(mesh) -> None:
+    group = mesh.group(tuple(mesh.axis_names))
+    if group is not None:
+        dist.barrier(group=group)

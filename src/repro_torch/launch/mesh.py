@@ -45,8 +45,19 @@ def make_host_mesh(model_axis: int | None = None, *, backend: str | None = None,
     NCCL takes one card a rank: with more ranks than cards it raises and
     names gloo, which carries CUDA tensors for ranks that share a card;
     no backend is swapped in quietly."""
+    n = _world(backend, device_type)
+    m = model_axis or (2 if n % 2 == 0 and n > 1 else 1)
+    if n % m:
+        raise ValueError(f"model axis {m} does not divide {n} ranks")
+    return make_mesh((n // m, m), ("data", "model"), backend=backend,
+                     device_type=device_type)
+
+
+def _world(backend: str | None, device_type: str) -> int:
+    """The world size, after checking the backend against the group's and
+    (NCCL) the ranks against the cards."""
     if not dist.is_initialized():
-        raise RuntimeError("make_host_mesh needs an initialised process group "
+        raise RuntimeError("a mesh needs an initialised process group "
                            "(torch.distributed.init_process_group)")
     have = dist.get_backend()
     backend = backend or have
@@ -59,24 +70,51 @@ def make_host_mesh(model_axis: int | None = None, *, backend: str | None = None,
             raise RuntimeError(
                 f"nccl needs one card a rank: {n} ranks over {cards} card(s); "
                 f"use backend='gloo' for ranks that share a card")
-    m = model_axis or (2 if n % 2 == 0 and n > 1 else 1)
-    if n % m:
-        raise ValueError(f"model axis {m} does not divide {n} ranks")
-    d = n // m
+    return n
+
+
+def make_mesh(shape, axis_names, *, backend: str | None = None,
+              device_type: str = "cuda") -> Mesh:
+    """A mesh of `shape` over the named axes (the counterpart of
+    `jax.make_mesh`), rank r at the row-major coordinates of r, over
+    every rank of the initialised process group (the shape's product
+    must be the world size).  Every axis subset gets its process
+    subgroup (the whole set: the world).  Every rank must call it, in
+    the same order (it makes subgroups); NCCL and the cards as in
+    `make_host_mesh`."""
+    shape, names = tuple(int(v) for v in shape), tuple(axis_names)
+    if len(shape) != len(names):
+        raise ValueError(f"mesh shape {shape} does not match axes {names}")
+    n = _world(backend, device_type)
+    total = 1
+    for v in shape:
+        total *= v
+    if total != n:
+        raise ValueError(f"mesh {dict(zip(names, shape))} holds {total} ranks, the "
+                         f"process group {n}")
     rank = dist.get_rank()
-    shape = {"data": d, "model": m}
+    strides = [1] * len(shape)
+    for i in range(len(shape) - 2, -1, -1):
+        strides[i] = strides[i + 1] * shape[i + 1]
+    coords = [[(r // strides[i]) % shape[i] for i in range(len(shape))] for r in range(n)]
     # every rank builds every subgroup in the same order (new_group is
-    # collective over the whole world)
+    # collective over the whole world): the single axes first, in order
+    subsets = sorted((tuple(a for j, a in enumerate(names) if mask >> j & 1)
+                      for mask in range(1, 2 ** len(names))), key=len)
     groups: dict = {}
-    for key, blocks in (
-            (("data",), [[i * m + j for i in range(d)] for j in range(m)]),
-            (("model",), [[i * m + j for j in range(m)] for i in range(d)])):
-        for ranks in blocks:
+    for key in subsets:
+        if len(key) == len(names):
+            groups[key] = dist.group.WORLD if n > 1 else None
+            continue
+        fixed = [i for i, a in enumerate(names) if a not in key]
+        blocks: dict = {}
+        for r in range(n):
+            blocks.setdefault(tuple(coords[r][i] for i in fixed), []).append(r)
+        for ranks in blocks.values():
             g = dist.new_group(ranks) if len(ranks) > 1 else None
             if rank in ranks:
                 groups[key] = g
-    groups[("data", "model")] = dist.group.WORLD if n > 1 else None
     dev = local_device(device_type)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    return Mesh(("data", "model"), shape, rank, dev, groups)
+    return Mesh(names, dict(zip(names, shape)), rank, dev, groups)

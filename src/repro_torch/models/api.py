@@ -13,7 +13,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.bridge import tree_leaves
+from repro_torch.bridge import tree_leaves, tree_map
 from repro_torch.device import resolve_device
 
 from . import rglru, rwkv6, transformer, whisper
@@ -43,6 +43,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None, mesh=None) -> P
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return family_module(cfg).init_params(cfg, gen, dev, mesh=mesh)
+
+
+def param_shapes(cfg: ModelConfig) -> Params:
+    """The whole parameter tree as `meta` tensors (shapes and dtypes, no
+    storage): `init_params` traced under a `FakeTensorMode`, so no weight
+    is drawn.  On a mesh the sharding rules read the whole shapes from
+    it, where each rank holds only its blocks."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        fake = init_params(cfg, 0, device="cpu")
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), fake)
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tensor:

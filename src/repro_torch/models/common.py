@@ -109,8 +109,11 @@ def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     one CUDA kernel; "dense" is plain PyTorch in the model dtype.
     `mesh`: the weights are this rank's shards over the mesh's "model"
     axis, w_in / w_gate by columns and w_out by rows (the kernel runs at
-    F / tp), and the partial outputs are summed by one all_reduce."""
+    F / tp), and the partial outputs are summed by one all_reduce (under
+    autograd x enters through `copy_to`)."""
     dt = cfg.tdtype
+    if mesh is not None:
+        x = coll.copy_to(x, mesh)
     if cfg.mlp_impl == "fused":
         wg = p["w_gate"].to(dt) if cfg.swiglu else None
         y = mops.fused_mlp(x, wg, p["w_in"].to(dt), p["w_out"].to(dt),
@@ -132,6 +135,14 @@ def tp_plan(cfg: ModelConfig):
     from repro_torch.parallel import sharding
     mesh = sharding.current_mesh()
     return None if mesh is None else sharding.tp_plan(cfg, mesh)
+
+
+def copy_if(x: torch.Tensor, plan, sharded: bool) -> torch.Tensor:
+    """x entering a part that runs sharded over "model" (`coll.copy_to`:
+    x itself, its gradient summed over the ranks under autograd); a
+    replicated leaf a rank slices its block of goes through it before the
+    slice, so its gradient is whole on every rank."""
+    return coll.copy_to(x, plan.mesh) if plan is not None and sharded else x
 
 
 def reduce_if(y: torch.Tensor, plan, sharded: bool) -> torch.Tensor:
@@ -158,6 +169,12 @@ def gather_if(x: torch.Tensor, plan, sharded: bool) -> torch.Tensor:
     order, where a part ran sharded on its columns; else x."""
     return coll.all_gather(x, plan.mesh, "model", dim=-1) \
         if plan is not None and sharded else x
+
+
+def vocab_in(x: torch.Tensor, plan) -> torch.Tensor:
+    """The hidden states entering the unembedding (`copy_if` where the
+    vocab is sharded)."""
+    return copy_if(x, plan, plan is not None and plan.vocab)
 
 
 def vocab_logits(logits: torch.Tensor, plan) -> torch.Tensor:
@@ -375,9 +392,20 @@ def cross_entropy_sum(logits: torch.Tensor, labels: torch.Tensor,
     return ((lse - ll) * valid).sum(), valid.sum()
 
 
+def global_count(count: torch.Tensor) -> torch.Tensor:
+    """A count of labelled positions summed over the DP ranks where the
+    batch's rows are split (`use_mesh(data_split=True)`), else itself:
+    each rank's loss is then its share of the global mean (its sum over
+    the global count), and the shares sum to the global loss."""
+    from repro_torch.parallel import sharding
+    dp = sharding.split_axes()
+    return count if dp is None else coll.all_reduce(count.clone(), sharding.current_mesh(), dp)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   ignore_id: int = -1) -> torch.Tensor:
     """Mean cross-entropy over the positions whose label is not
-    `ignore_id`; logits (B, S, V) taken in float32."""
+    `ignore_id`; logits (B, S, V) taken in float32.  With the batch's
+    rows split over DP ranks, this rank's share (`global_count`)."""
     total, count = cross_entropy_sum(logits, labels, ignore_id)
-    return total / count.clamp(min=1.0)
+    return total / global_count(count).clamp(min=1.0)

@@ -47,8 +47,8 @@ from repro_torch.kernels.rglru_scan import ops as sops
 from repro_torch.parallel import sharding
 
 from .common import (NEG_INF, apply_norm, apply_rope, attention, cross_entropy, dense,
-                     gather_if, gelu, init_norm, maybe_remat, normal, reduce_if,
-                     rope_tables, tp_plan, vocab_embed, vocab_logits)
+                     copy_if, gather_if, gelu, init_norm, maybe_remat, normal, reduce_if,
+                     rope_tables, tp_plan, vocab_embed, vocab_in, vocab_logits)
 from .config import ModelConfig
 
 Params = Any
@@ -127,10 +127,12 @@ def _rglru_coeffs(cfg: ModelConfig, p: Params, x: torch.Tensor, plan=None,
     c0, gathered whole for the gates' products).  Returns float32 (a, b)
     with h_t = a_t h_{t-1} + b_t."""
     dt = cfg.tdtype
-    xf = gather_if(x, plan, plan is not None and plan.rec)
+    sh = plan is not None and plan.rec
+    # gathered whole, then into the gates' column shards (`copy_if`)
+    xf = copy_if(gather_if(x, plan, sh), plan, sh)
     r = torch.sigmoid((xf @ p["wa"].to(dt)).float())
     i = torch.sigmoid((xf @ p["wx_in"].to(dt)).float())
-    log_a = -RGLRU_C * F.softplus(p["lam"][c0:c0 + x.shape[-1]]) * r
+    log_a = -RGLRU_C * F.softplus(copy_if(p["lam"], plan, sh)[c0:c0 + x.shape[-1]]) * r
     a = torch.exp(log_a)
     gated = i * x.float()
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * gated
@@ -138,13 +140,16 @@ def _rglru_coeffs(cfg: ModelConfig, p: Params, x: torch.Tensor, plan=None,
 
 
 def causal_conv(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                state: torch.Tensor | None = None, c0: int = 0):
+                state: torch.Tensor | None = None, c0: int = 0, plan=None):
     """Short depthwise causal conv. x (B, S, w) (the channels from c0 of
-    `conv_w` / `conv_b`); state (B, cw-1, w): the last cw-1 inputs before
+    `conv_w` / `conv_b`, which enter through `copy_if` under `plan`'s
+    sharded recurrence); state (B, cw-1, w): the last cw-1 inputs before
     x.  Returns (out, new state)."""
     cw = cfg.conv_width
     w = x.shape[2]
-    cwt, cb = p["conv_w"][:, c0:c0 + w], p["conv_b"][c0:c0 + w]
+    sh = plan is not None and plan.rec
+    cwt = copy_if(p["conv_w"], plan, sh)[:, c0:c0 + w]
+    cb = copy_if(p["conv_b"], plan, sh)[c0:c0 + w]
     pad = state.to(x.dtype) if state is not None else \
         x.new_zeros((x.shape[0], cw - 1, w))
     xp = torch.cat([pad, x], dim=1)
@@ -164,10 +169,12 @@ def rec_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     dt = cfg.tdtype
     plan = tp_plan(cfg)
     sh = plan is not None and plan.rec
+    x = copy_if(x, plan, sh)
     u = x @ p["w_x"].to(dt)
     g = gelu(x @ p["w_gate"].to(dt))
     c0 = sharding.local_range(plan, _width(cfg), sh)[0]
-    u, conv_state = causal_conv(cfg, p, u, None if state is None else state["conv"], c0)
+    u, conv_state = causal_conv(cfg, p, u, None if state is None else state["conv"], c0,
+                                plan)
     a, b = _rglru_coeffs(cfg, p, u, plan, c0)
     h0 = torch.zeros_like(a[:, 0]) if state is None else state["h"]
     h = sops.rglru_scan(a, b, h0)
@@ -178,9 +185,12 @@ def rec_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
 # --- attention and MLP ------------------------------------------------------
 
 def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor):
-    """q, k, v (B, S, heads, hd) at the rank's heads (all without a mesh)."""
+    """q, k, v (B, S, heads, hd) at the rank's heads (all without a mesh;
+    x enters the head shards through `copy_if`)."""
     bsz, s, _ = x.shape
     dt = cfg.tdtype
+    plan = tp_plan(cfg)
+    x = copy_if(x, plan, plan is not None and plan.attn)
     return ((x @ p["wq"].to(dt)).reshape(bsz, s, -1, cfg.hd),
             (x @ p["wk"].to(dt)).reshape(bsz, s, -1, cfg.hd),
             (x @ p["wv"].to(dt)).reshape(bsz, s, -1, cfg.hd))
@@ -207,6 +217,7 @@ def mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """GeGLU MLP; under a mesh on the rank's f columns, summed."""
     dt = cfg.tdtype
     plan = tp_plan(cfg)
+    x = copy_if(x, plan, plan is not None and plan.mlp)
     h = gelu(x @ p["w_gate"].to(dt)) * (x @ p["w_in"].to(dt))
     return reduce_if(h @ p["w_out"].to(dt), plan, plan is not None and plan.mlp)
 
@@ -222,7 +233,8 @@ def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor):
 
 
 def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor):
-    return vocab_logits(x @ params["embed"].to(cfg.tdtype).T, tp_plan(cfg))
+    plan = tp_plan(cfg)
+    return vocab_logits(vocab_in(x, plan) @ params["embed"].to(cfg.tdtype).T, plan)
 
 
 def _layer(cfg: ModelConfig, i: int, p: Params, x: torch.Tensor, rope):

@@ -40,8 +40,8 @@ from repro_torch.bridge import tree_to
 from repro_torch.kernels.wkv6 import ops as wops
 from repro_torch.parallel import sharding
 
-from .common import (cross_entropy, dense, gather_if, maybe_remat, normal, reduce_if,
-                     rmsnorm, tp_plan, vocab_embed, vocab_logits)
+from .common import (copy_if, cross_entropy, dense, gather_if, maybe_remat, normal,
+                     reduce_if, rmsnorm, tp_plan, vocab_embed, vocab_in, vocab_logits)
 from .config import ModelConfig
 
 Params = Any
@@ -130,19 +130,23 @@ def time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
     def mix(mu):
         return x + (xx - x) * mu.to(dt)
 
-    xr, xk, xv, xg, xw = (mix(p["mu_r"]), mix(p["mu_k"]), mix(p["mu_v"]),
-                          mix(p["mu_g"]), mix(p["mu_w"]))
+    # each mixed input enters the head shards (`copy_if`), past the
+    # replicated mixing weights; so does the decay's low-rank hidden
+    xr, xk, xv, xg = (copy_if(mix(p[m]), plan, sh) for m in ("mu_r", "mu_k", "mu_v", "mu_g"))
+    xw = mix(p["mu_w"])
     r = (xr @ p["wr"].to(dt)).reshape(b, s, h, hd).float()
     k = (xk @ p["wk"].to(dt)).reshape(b, s, h, hd).float()
     v = (xv @ p["wv"].to(dt)).reshape(b, s, h, hd).float()
     g = F.silu(xg @ p["wg"].to(dt))
     # data-dependent decay (the Finch mechanism), its log as the JAX
     # model takes it: log(max(w, 1e-12)) of the float32 w
-    dw = torch.tanh(xw @ p["wa"].to(dt)) @ p["wb"][:, c0:c0 + dl].to(dt)
-    w = torch.exp(-torch.exp(p["w0"][c0:c0 + dl] + dw.float()))
+    dw = copy_if(torch.tanh(xw @ p["wa"].to(dt)), plan, sh) \
+        @ copy_if(p["wb"], plan, sh)[:, c0:c0 + dl].to(dt)
+    w = torch.exp(-torch.exp(copy_if(p["w0"], plan, sh)[c0:c0 + dl] + dw.float()))
     logw = torch.log(torch.clamp(w, min=1e-12)).reshape(b, s, h, hd)
-    o, s_fin = wops.wkv6_bshd(r, k, v, logw, p["u"][h0:h0 + h], s0, chunk=cfg.wkv_chunk)
-    o = _groupnorm(o.to(dt), p["gn_scale"][h0:h0 + h].to(dt))
+    o, s_fin = wops.wkv6_bshd(r, k, v, logw, copy_if(p["u"], plan, sh)[h0:h0 + h], s0,
+                              chunk=cfg.wkv_chunk)
+    o = _groupnorm(o.to(dt), copy_if(p["gn_scale"], plan, sh)[h0:h0 + h].to(dt))
     o = (o.reshape(b, s, dl) * g) @ p["wo"].to(dt)
     return reduce_if(o, plan, sh), (x[:, -1:], s_fin)
 
@@ -154,8 +158,8 @@ def channel_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
     dt = cfg.tdtype
     plan = tp_plan(cfg)
     xx = _shift(x, shift_prev)
-    xk = x + (xx - x) * p["mu_k"].to(dt)
-    xr = x + (xx - x) * p["mu_r"].to(dt)
+    xk = copy_if(x + (xx - x) * p["mu_k"].to(dt), plan, plan is not None and plan.mlp)
+    xr = copy_if(x + (xx - x) * p["mu_r"].to(dt), plan, plan is not None and plan.gate)
     kk = torch.square(torch.relu(xk @ p["wk"].to(dt)))
     val = reduce_if(kk @ p["wv"].to(dt), plan, plan is not None and plan.mlp)
     rec = gather_if(torch.sigmoid(xr @ p["wr"].to(dt)), plan, plan is not None and plan.gate)
@@ -212,7 +216,8 @@ def hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
 
 
 def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor):
-    return vocab_logits(x @ params["head"].to(cfg.tdtype), tp_plan(cfg))
+    plan = tp_plan(cfg)
+    return vocab_logits(vocab_in(x, plan) @ params["head"].to(cfg.tdtype), plan)
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,

@@ -23,7 +23,10 @@ attention on its whole heads (head counts are read off the local
 weights) with a row-parallel `wo`, the MLP column- then row-parallel,
 MoE by experts (EP) or on f, the embedding vocab-parallel; each sharded
 part ends in one `all_reduce` (the unembedding in an `all_gather` of the
-vocab shards).  With no mesh nothing changes.
+vocab shards) and, under autograd, starts at a `copy_to` of what enters
+it.  Training splits the batch's rows over "data" (`use_mesh(data_split=
+True)`): the capacity route then runs over the rows gathered from every
+data rank.  With no mesh nothing changes.
 
 Caches are updated in place (the JAX functions return fresh arrays):
 `decode_step` writes the new token's k/v into the cache tensors it is
@@ -46,10 +49,10 @@ from repro_torch.kernels.moe_mlp import ops as moe_ops
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import sharding
 
-from .common import (apply_norm, apply_norm_residual, apply_rope, attention,
-                     cross_entropy, cross_entropy_sum, gelu, init_norm, maybe_remat,
-                     mlp_block, mrope_tables, normal, rmsnorm, rope_tables, tp_plan,
-                     vocab_embed, vocab_logits)
+from .common import (apply_norm, apply_norm_residual, apply_rope, attention, copy_if,
+                     cross_entropy, cross_entropy_sum, gelu, global_count, init_norm,
+                     maybe_remat, mlp_block, mrope_tables, normal, rmsnorm, rope_tables,
+                     tp_plan, vocab_embed, vocab_in, vocab_logits)
 from .config import ModelConfig
 
 Params = Any
@@ -263,7 +266,9 @@ def _mla_q(cfg: ModelConfig, p: Params, x: torch.Tensor, rope):
     JAX `rmsnorm_latent` is."""
     bsz, s, _ = x.shape
     dt, hd = cfg.tdtype, cfg.hd
+    plan = _plan(cfg)
     cq = rmsnorm(x @ p["wdq"].to(dt), p["q_norm"]["scale"], cfg.norm_eps)
+    cq = copy_if(cq, plan, plan is not None and plan.attn)   # enters the head shards
     q = (cq @ p["wuq"].to(dt)).reshape(bsz, s, -1, hd + cfg.mla_rope_dim)
     return q[..., :hd], apply_rope(q[..., hd:], rope)
 
@@ -287,10 +292,12 @@ def _mla_attn_block(cfg: ModelConfig, p: Params, x: torch.Tensor, rope):
     q_nope, q_rope = _mla_q(cfg, p, x, rope)
     h = q_nope.shape[2]
     lat = _mla_latent(cfg, p, x, rope)
-    ckv = lat[..., :kvr]
+    plan = _plan(cfg)
+    latf = copy_if(lat, plan, plan is not None and plan.attn)  # enters the head shards
+    ckv = latf[..., :kvr]
     k_nope = (ckv @ p["wuk"].to(dt)).reshape(bsz, s, h, hd)
     v = (ckv @ p["wuv"].to(dt)).reshape(bsz, s, h, hd)
-    k_rope = lat[:, :, None, kvr:].expand(bsz, s, h, cfg.mla_rope_dim)
+    k_rope = latf[:, :, None, kvr:].expand(bsz, s, h, cfg.mla_rope_dim)
     o = attention(cfg, torch.cat([q_nope, q_rope], -1),
                   torch.cat([k_nope, k_rope], -1), v, causal=True)
     return o.reshape(bsz, s, -1) @ p["wo"].to(dt), {"latent": lat}
@@ -300,11 +307,14 @@ def attn_block(cfg: ModelConfig, p: Params, x: torch.Tensor, rope):
     """Full-sequence (prefill) attention: (out, the cache entries), k/v
     {"k", "v"} in cache layout (B, S, Hkv, hd), MLA {"latent"}.  rope:
     `rope_for` the positions.  Under a mesh, out is this rank's partial
-    sum (the caller reduces it)."""
+    sum (the caller reduces it), and x enters the head shards through
+    `copy_if` (MLA: its q latent and KV latent do, past the replicated
+    down-projections)."""
     if cfg.use_mla:
         return _mla_attn_block(cfg, p, x, rope)
     bsz, s, _ = x.shape
-    q, k, v = _roped_qkv(cfg, p, x, rope)
+    plan = _plan(cfg)
+    q, k, v = _roped_qkv(cfg, p, copy_if(x, plan, plan is not None and plan.attn), rope)
     o = attention(cfg, q, k, v, causal=True)
     return o.reshape(bsz, s, -1) @ p["wo"].to(cfg.tdtype), {"k": k, "v": v}
 
@@ -372,6 +382,36 @@ def _combine(cfg: ModelConfig, p: Params, x: torch.Tensor, y: torch.Tensor,
     return y
 
 
+def _dp_size(plan) -> int:
+    """The DP ranks the batch's rows are split over (1: the whole batch)."""
+    return 1 if plan is None or plan.dp is None else sharding.axis_size(plan.mesh, plan.dp)
+
+
+def _global_tokens(x: torch.Tensor, plan) -> torch.Tensor:
+    """Every DP rank's rows of x (the global batch) where the rows are
+    split: the capacity route numbers slots over all tokens, as GSPMD's
+    global view does.  Each rank's downstream keeps its own rows, so the
+    gather's backward sums over the ranks (reduce-scatter)."""
+    if _dp_size(plan) == 1:
+        return x
+    return coll.all_gather(x, plan.mesh, plan.dp, dim=0, backward="reduce_scatter")
+
+
+def _own_rows(y: torch.Tensor, plan, rows: int) -> torch.Tensor:
+    """This DP rank's `rows` rows of a global-batch y (`_global_tokens`)."""
+    if _dp_size(plan) == 1:
+        return y
+    return y.narrow(0, plan.mesh.axis_rank(plan.dp) * rows, rows)
+
+
+def _moe_inputs(plan, xf: torch.Tensor, w: torch.Tensor):
+    """The tokens and routing weights entering sharded experts (`copy_if`:
+    each rank combines only its experts' or its f columns' share, so
+    their gradients are partial sums over "model")."""
+    sh = plan is not None and bool(plan.moe)
+    return copy_if(xf, plan, sh), copy_if(w, plan, sh)
+
+
 def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """Capacity-based top-k MoE (Switch-style dense dispatch), the JAX
     `moe_block`: each (token, choice) in flat (token, k) order takes the
@@ -383,17 +423,28 @@ def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     Under a mesh with EP each rank runs its own experts over their rows of
     the buffer (`moe_mlp` at E / tp) and combines only the choices routed
     to them; with TP on f every expert runs on the rank's f columns; the
-    partial outputs are summed by one all_reduce."""
+    partial outputs are summed by one all_reduce.  With the batch's rows
+    split over DP ranks, the route runs over the global batch
+    (`_global_tokens`) and each rank keeps its rows."""
     plan = _plan(cfg)
     if cfg.moe_shard_map and plan is not None:
         return moe_block_shard_map(cfg, p, x)
-    if cfg.moe_groups > 0 and (x.shape[0] * x.shape[1]) % cfg.moe_groups == 0:
+    if cfg.moe_groups > 0 and (x.shape[0] * x.shape[1] * _dp_size(plan)) \
+            % cfg.moe_groups == 0:
         return moe_block_grouped(cfg, p, x)
+    y = _moe_capacity(cfg, p, _global_tokens(x, plan), plan)
+    return _combine(cfg, p, x, _own_rows(y, plan, x.shape[0]), plan)
+
+
+def _moe_capacity(cfg: ModelConfig, p: Params, x: torch.Tensor, plan) -> torch.Tensor:
+    """`moe_block`'s routed output (B, S, d) over x's tokens, before the
+    sum over "model" and the shared experts."""
     bsz, s, d = x.shape
     n, k, e = bsz * s, cfg.top_k, cfg.n_experts
     dt = cfg.tdtype
     xf = x.reshape(n, d)
     w, idx = route(cfg, p, xf)
+    xf, w = _moe_inputs(plan, xf, w)
     cap = capacity(cfg, n)
     flat_idx = idx.reshape(-1)                               # (n*k,)
     slot, keep = _slots(cfg, flat_idx, cap)
@@ -408,7 +459,7 @@ def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     mine = keep & (flat_idx >= e0) & (flat_idx < e0 + el)
     gathered = torch.where(mine[:, None], out[(flat_idx - e0).clamp(0, el - 1), slot], 0)
     y = (gathered.reshape(n, k, d) * w[..., None]).sum(1).to(dt)
-    return _combine(cfg, p, x, y.reshape(bsz, s, d), plan)
+    return y.reshape(bsz, s, d)
 
 
 def moe_block_grouped(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -418,18 +469,34 @@ def moe_block_grouped(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Ten
     slots an expert), the (G, E, cap, d) buffers are regrouped expert
     major, (E, G cap, d), the experts run once over all groups
     (`expert_mlp`: the `moe_mlp` kernel), and each group gathers its
-    outputs back.  Under a mesh the experts shard as in `moe_block`."""
+    outputs back.  Under a mesh the experts shard as in `moe_block`.
+    With the batch's rows split over D DP ranks, a rank's rows are G / D
+    whole groups where D divides G (the groups are shard-local), else
+    the groups run over the global batch (`_global_tokens`)."""
     plan = _plan(cfg)
-    bsz, s, d = x.shape
-    n = bsz * s
-    g = cfg.moe_groups
+    g, dsz = cfg.moe_groups, _dp_size(plan)
+    n = x.shape[0] * x.shape[1] * dsz
     if g <= 0 or n % g:
         raise ValueError(f"moe_groups {g} does not divide {n} tokens")
-    m = n // g
+    if g % dsz == 0:
+        y = _moe_grouped(cfg, p, x, g // dsz, plan)
+    else:
+        y = _own_rows(_moe_grouped(cfg, p, _global_tokens(x, plan), g, plan), plan,
+                      x.shape[0])
+    return _combine(cfg, p, x, y, plan)
+
+
+def _moe_grouped(cfg: ModelConfig, p: Params, x: torch.Tensor, g: int,
+                 plan) -> torch.Tensor:
+    """`moe_block_grouped`'s routed output (B, S, d) over x's tokens in
+    `g` groups."""
+    bsz, s, d = x.shape
+    m = bsz * s // g
     k, e = cfg.top_k, cfg.n_experts
     dt = cfg.tdtype
     xf = x.reshape(g, m, d)
     w, idx = route(cfg, p, xf)                               # (g, m, k)
+    xf, w = _moe_inputs(plan, xf, w)
     cap = int(math.ceil(m * k / e * cfg.capacity_factor))
     cap = max(8, min(cap, m))
     cap = (cap + 7) // 8 * 8
@@ -447,7 +514,7 @@ def moe_block_grouped(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Ten
     gathered = torch.where(mine[..., None],
                            outg[gix, (flat_idx - e0).clamp(0, el - 1), slot], 0)
     y = (gathered.reshape(g, m, k, d) * w[..., None]).sum(2).to(dt)
-    return _combine(cfg, p, x, y.reshape(bsz, s, d), plan)
+    return y.reshape(bsz, s, d)
 
 
 EP_AXES = ("data", "model")
@@ -469,21 +536,33 @@ def moe_block_shard_map(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.T
     rules): rank (d, m) holds expert blocks m D .. m D + D - 1 of E / n_ep
     each and runs block m D + d, so the all_to_all sends block m D + d to
     the rank at (d, m), a fixed permutation of the JAX owner order that
-    changes no value."""
+    changes no value.
+
+    With the batch's rows split over "data" (training), a rank's tokens
+    are its model index's share of its own rows (the same global split:
+    rank (d, m) holds global tokens (d M + m) nl ..), and the stream is
+    gathered over "model" alone.  Under autograd x and the router enter
+    through `copy_to` over the axes the tokens split over, and where the
+    rows are whole the held experts over "data" too (each data rank runs
+    its own block of them)."""
     plan = _plan(cfg)
     mesh = plan.mesh
     n_ep = sharding.axis_size(mesh, EP_AXES)
     bsz, s, d = x.shape
-    n = bsz * s
+    split = _dp_size(plan) > 1
+    if split and sharding.axis_size(mesh, plan.dp) != sharding.axis_size(mesh, "data"):
+        raise NotImplementedError(f"moe_shard_map with the rows split over {plan.dp}")
+    tok_axes = "model" if split else EP_AXES
+    n = bsz * s * (sharding.axis_size(mesh, "data") if split else 1)
     k, e = cfg.top_k, cfg.n_experts
     if e % n_ep or n % n_ep:
         return moe_block(cfg.replace(moe_shard_map=False), p, x)
     dt = cfg.tdtype
     el, nl = e // n_ep, n // n_ep
     cap_l = max(1, int(math.ceil(nl * k / e * cfg.capacity_factor)))
-    me = mesh.axis_rank(EP_AXES)
-    xl = x.reshape(n, d)[me * nl:(me + 1) * nl]
-    w, idx = route(cfg, p, xl)                               # (nl, k)
+    me = mesh.axis_rank(tok_axes)
+    xl = coll.copy_to(x, mesh, tok_axes).reshape(-1, d)[me * nl:(me + 1) * nl]
+    w, idx = route(cfg, {"router": coll.copy_to(p["router"], mesh, tok_axes)}, xl)
     flat_idx = idx.reshape(-1)
     slot, keep = _slots(cfg, flat_idx, cap_l)
     buf = torch.zeros((e, cap_l, d), dtype=dt, device=x.device)
@@ -499,8 +578,8 @@ def moe_block_shard_map(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.T
     # (n_ep sources, el, cap_l, d) -> this rank's experts over every source
     buf2 = recv.reshape(n_ep, el, cap_l, d).transpose(0, 1).reshape(el, n_ep * cap_l, d)
     held = mesh.coord("data") * el     # within the experts of the model shard
-    pe = {key: p[key][held:held + el] for key in ("experts_in", "experts_out",
-                                                    "experts_gate") if key in p}
+    pe = {key: (p[key] if split else coll.copy_to(p[key], mesh, "data"))[held:held + el]
+          for key in ("experts_in", "experts_out", "experts_gate") if key in p}
     oute = expert_mlp(cfg, pe, buf2)
     back = coll.all_to_all(
         oute.reshape(el, n_ep, cap_l, d).transpose(0, 1).reshape(e, cap_l, d),
@@ -510,7 +589,7 @@ def moe_block_shard_map(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.T
     back = back.reshape(n_ep, el, cap_l, d)[inv].reshape(e, cap_l, d)
     gathered = torch.where(keep[:, None], back[flat_idx, slot], 0)
     yl = (gathered.reshape(nl, k, d) * w[..., None]).sum(1).to(dt)
-    y = coll.all_gather(yl, mesh, EP_AXES, dim=0).reshape(bsz, s, d)
+    y = coll.all_gather(yl, mesh, tok_axes, dim=0).reshape(bsz, s, d)
     if cfg.n_shared_experts:
         smesh = mesh if plan.shared else None
         y = y + mlp_block(cfg, p["shared"], x, mesh=smesh)
@@ -545,11 +624,13 @@ def embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor):
 def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor):
     """Logits (..., V); under a mesh with the vocab sharded, each rank's
     columns (rows of a tied embedding) and one all_gather of them."""
+    plan = _plan(cfg)
+    x = vocab_in(x, plan)
     if cfg.tie_embeddings:
         logits = x @ params["embed"].to(cfg.tdtype).T
     else:
         logits = x @ params["head"].to(cfg.tdtype)
-    return vocab_logits(logits, _plan(cfg))
+    return vocab_logits(logits, plan)
 
 
 def hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor | None,
@@ -625,7 +706,7 @@ def chunked_cross_entropy(cfg: ModelConfig, params: Params,
             unembed(cfg, params, hidden_states[:, c0:c0 + chunk]),
             labels[:, c0:c0 + chunk])
         num, den = num + total, den + count
-    return num / den.clamp(min=1.0)
+    return num / global_count(den).clamp(min=1.0)
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tensor:

@@ -37,8 +37,8 @@ import torch
 from repro_torch.bridge import tree_to
 from repro_torch.parallel import sharding
 
-from .common import (attention, cross_entropy, gelu, layernorm, maybe_remat, normal,
-                     reduce_if, tp_plan, vocab_embed, vocab_logits)
+from .common import (attention, copy_if, cross_entropy, gelu, layernorm, maybe_remat,
+                     normal, reduce_if, tp_plan, vocab_embed, vocab_in, vocab_logits)
 from .config import ModelConfig
 
 Params = Any
@@ -119,10 +119,17 @@ def _ln_apply(x: torch.Tensor, p: Params) -> torch.Tensor:
     return layernorm(x, p["scale"], p["bias"])
 
 
+def _into_heads(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """x entering the head shards (`copy_if` where the heads shard)."""
+    plan = tp_plan(cfg)
+    return copy_if(x, plan, plan is not None and plan.attn)
+
+
 def _q(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """q (B, S, heads, hd) at the rank's heads (all without a mesh)."""
     dt = cfg.tdtype
     hd = _head_dims(cfg)[1]
+    x = _into_heads(cfg, x)
     return (x @ p["wq"].to(dt) + p["bq"].to(dt)).reshape(x.shape[0], x.shape[1], -1, hd)
 
 
@@ -131,6 +138,7 @@ def _kv(cfg: ModelConfig, p: Params, x: torch.Tensor):
     dt = cfg.tdtype
     hd = _head_dims(cfg)[1]
     b, s = x.shape[:2]
+    x = _into_heads(cfg, x)
     k = (x @ p["wk"].to(dt)).reshape(b, s, -1, hd)
     v = (x @ p["wv"].to(dt) + p["bv"].to(dt)).reshape(b, s, -1, hd)
     return k, v
@@ -160,7 +168,8 @@ def _mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     plan = tp_plan(cfg)
     sh = plan is not None and plan.mlp
     f0, fl = sharding.local_range(plan, cfg.d_ff, sh)
-    h = gelu(x @ p["w_in"].to(dt) + p["b_in"][f0:f0 + fl].to(dt))
+    x = copy_if(x, plan, sh)
+    h = gelu(x @ p["w_in"].to(dt) + copy_if(p["b_in"], plan, sh)[f0:f0 + fl].to(dt))
     return reduce_if(h @ p["w_out"].to(dt), plan, sh) + p["b_out"].to(dt)
 
 
@@ -176,7 +185,8 @@ def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tens
 
 
 def _unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
-    return vocab_logits(x @ params["embed"].to(cfg.tdtype).T, tp_plan(cfg))
+    plan = tp_plan(cfg)
+    return vocab_logits(vocab_in(x, plan) @ params["embed"].to(cfg.tdtype).T, plan)
 
 
 def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor) -> torch.Tensor:

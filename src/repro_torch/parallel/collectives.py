@@ -2,23 +2,46 @@
 `parallel.mesh.Mesh`: a sum over "model" (after a row-parallel product or
 a vocab-parallel lookup), the gather of column shards (the vocab, rwkv6's
 receptance, rglru's recurrent input) and, over "data", of a cluster's
-per-step events, the all-to-all of the shard_map MoE dispatch and the
-broadcast of rank 0's sampled tokens (and of a cluster's clock).
+per-step events or of a data-parallel batch, the all-to-all of the
+shard_map MoE dispatch, the broadcast of rank 0's sampled tokens (and of
+a cluster's clock), and the ring shift of the pipeline.
 
 Each is a no-op over an axis of one rank (and with no mesh), and each
 counts its calls in `COUNTS` where it runs, as the kernel wrappers
-count launches.  gloo carries all four for CUDA tensors (all_reduce in
-bfloat16 too; the list form of all-to-all it refuses, so the dispatch
-uses `all_to_all_single`), which lets several ranks share one card;
-NCCL carries them between cards.
+count launches.  gloo carries all_reduce, all_gather, all_to_all and
+broadcast for CUDA tensors (all_reduce in bfloat16 too; the list form of
+all-to-all it refuses, so the dispatch uses `all_to_all_single`), which
+lets several ranks share one card; NCCL carries them between cards.
+
+**Under autograd** (grad mode on and an input that requires a gradient)
+each runs as a `torch.autograd.Function` with Megatron's rules, and its
+backward counts under its own key ("<name>_bwd"):
+
+  * `all_reduce` (Megatron's g): the sum forward, the identity backward;
+  * `copy_to` (Megatron's f): the identity forward (no collective), the
+    sum of the gradient backward; it goes where a replicated tensor
+    enters a sharded part, so its gradient is whole on every rank;
+  * `all_gather`: backward "split" (the rank's own slice of the
+    gradient, where everything downstream is replicated over the axes)
+    or "reduce_scatter" (the sum over the ranks, then the rank's slice,
+    where each rank's downstream differs);
+  * `all_to_all`: its own inverse;
+  * `shift` (the pipeline's ring): backward the other way round.
+
+`broadcast` has no gradient.  Without autograd each runs as before:
+serving pays nothing, and the forward's collectives are the same.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
-# calls that ran, by collective; single-writer: the rank's own thread
-COUNTS = {"all_reduce": 0, "all_gather": 0, "all_to_all": 0, "broadcast": 0}
+# calls that ran, by collective (the backward's under "<name>_bwd");
+# single-writer: the rank's own thread
+FORWARD = ("all_reduce", "all_gather", "all_to_all", "broadcast")
+BACKWARD = ("all_reduce_bwd", "copy_to_bwd", "all_gather_bwd", "all_to_all_bwd",
+            "shift_bwd")
+COUNTS = {k: 0 for k in FORWARD + ("shift",) + BACKWARD}
 
 
 def reset() -> None:
@@ -26,61 +49,214 @@ def reset() -> None:
         COUNTS[k] = 0
 
 
+def _axes(axes) -> tuple:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
 def _size(mesh, axes) -> int:
     if mesh is None:
         return 1
-    axes = (axes,) if isinstance(axes, str) else tuple(axes)
     n = 1
-    for a in axes:
+    for a in _axes(axes):
         n *= mesh.shape.get(a, 1)
     return n
 
 
-def all_reduce(x: torch.Tensor, mesh, axes="model") -> torch.Tensor:
-    """The sum of x over `axes`, on every rank.  Reduces in place when x
-    is contiguous: the caller passes a tensor it does not read again."""
-    if _size(mesh, axes) == 1:
-        return x
+def _grad_path(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _sum(x: torch.Tensor, mesh, axes, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """x reduced over `axes` (in place when contiguous)."""
     y = x.contiguous()
-    dist.all_reduce(y, group=mesh.group(axes))
-    COUNTS["all_reduce"] += 1
+    dist.all_reduce(y, op=op, group=mesh.group(axes))
     return y
 
 
-def all_gather(x: torch.Tensor, mesh, axes="model", dim: int = -1) -> torch.Tensor:
-    """Every rank's x over `axes`, concatenated along `dim` in rank order
-    (the vocab shards of the logits back into one row)."""
-    n = _size(mesh, axes)
-    if n == 1:
-        return x
-    parts = [torch.empty_like(x) for _ in range(n)]
+def _gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    parts = [torch.empty_like(x) for _ in range(_size(mesh, axes))]
     dist.all_gather(parts, x.contiguous(), group=mesh.group(axes))
-    COUNTS["all_gather"] += 1
     return torch.cat(parts, dim)
+
+
+def _own(g: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """This rank's slice along `dim` of a gathered gradient."""
+    n = _size(mesh, axes)
+    size = g.shape[dim] // n
+    return g.narrow(dim, mesh.axis_rank(_axes(axes)) * size, size).contiguous()
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        # a copy: x may be a view another Function returned (a kernel
+        # wrapper's reshape), which autograd forbids writing in place
+        return _sum(x.clone(memory_format=torch.contiguous_format), mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        COUNTS["all_reduce_bwd"] += 1
+        return g, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        COUNTS["copy_to_bwd"] += 1
+        return _sum(g.clone(), ctx.mesh, ctx.axes), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim, backward):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.rule = mesh, axes, dim, backward
+        return _gather(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        COUNTS["all_gather_bwd"] += 1
+        if ctx.rule == "reduce_scatter":
+            # gloo has no reduce_scatter: the sum, then the rank's slice
+            g = _sum(g.contiguous().clone(), ctx.mesh, ctx.axes)
+        return _own(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None, None
+
+
+def _a2a(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.contiguous(), group=mesh.group(axes))
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return _a2a(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        COUNTS["all_to_all_bwd"] += 1
+        return _a2a(g, ctx.mesh, ctx.axes), None, None
+
+
+def all_reduce(x: torch.Tensor, mesh, axes="model") -> torch.Tensor:
+    """The sum of x over `axes`, on every rank.  Reduces in place when x
+    is contiguous: the caller passes a tensor it does not read again.
+    Under autograd it reduces a copy, and the gradient passes through
+    unchanged (g)."""
+    if _size(mesh, axes) == 1:
+        return x
+    COUNTS["all_reduce"] += 1
+    if _grad_path(x):
+        return _AllReduce.apply(x, mesh, axes)
+    return _sum(x, mesh, axes)
+
+
+def all_max(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The elementwise max of x over `axes` (in place when contiguous);
+    no gradient.  Counted as an all_reduce."""
+    if _size(mesh, axes) == 1:
+        return x
+    COUNTS["all_reduce"] += 1
+    return _sum(x, mesh, axes, dist.ReduceOp.MAX)
+
+
+def copy_to(x: torch.Tensor, mesh, axes="model") -> torch.Tensor:
+    """x itself forward; under autograd its gradient summed over `axes`
+    (f).  No collective in a forward, nothing over an axis of one rank."""
+    if _size(mesh, axes) == 1 or not _grad_path(x):
+        return x
+    return _CopyTo.apply(x, mesh, axes)
+
+
+def all_gather(x: torch.Tensor, mesh, axes="model", dim: int = -1, *,
+               backward: str = "split") -> torch.Tensor:
+    """Every rank's x over `axes`, concatenated along `dim` in rank order
+    (the vocab shards of the logits back into one row).  Under autograd
+    the rank's gradient is its own slice of the output's ("split": the
+    downstream is replicated over `axes`) or the slice of the output's
+    gradient summed over `axes` ("reduce_scatter": the ranks'
+    downstreams differ)."""
+    if backward not in ("split", "reduce_scatter"):
+        raise ValueError(f"all_gather backward {backward!r}: 'split' or 'reduce_scatter'")
+    if _size(mesh, axes) == 1:
+        return x
+    COUNTS["all_gather"] += 1
+    if _grad_path(x):
+        return _AllGather.apply(x, mesh, axes, dim, backward)
+    return _gather(x, mesh, axes, dim)
 
 
 def all_to_all(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """x's n equal chunks along dim 0 sent one to each rank of `axes`
     (chunk i to the rank at index i); returns the chunks received, in
     rank order along dim 0 (`lax.all_to_all(split_axis=0, concat_axis=0,
-    tiled=True)`)."""
+    tiled=True)`).  Under autograd the backward is the same exchange of
+    the gradient's chunks (the inverse all-to-all)."""
     n = _size(mesh, axes)
     if n == 1:
         return x
     if x.shape[0] % n:
         raise ValueError(f"all_to_all: dim 0 of {tuple(x.shape)} does not split "
                          f"over {n} ranks")
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x.contiguous(), group=mesh.group(axes))
     COUNTS["all_to_all"] += 1
-    return out
+    if _grad_path(x):
+        return _AllToAll.apply(x, mesh, axes)
+    return _a2a(x, mesh, axes)
 
 
 def broadcast(x: torch.Tensor, mesh) -> torch.Tensor:
-    """Rank 0's x on every rank of the mesh (in place)."""
+    """Rank 0's x on every rank of the mesh (in place); no gradient."""
     if _size(mesh, tuple(mesh.shape) if mesh is not None else ()) == 1:
         return x
     y = x.contiguous()
     dist.broadcast(y, src=mesh.root, group=mesh.group(tuple(mesh.axis_names)))
     COUNTS["broadcast"] += 1
     return y
+
+
+def _ring(x: torch.Tensor, mesh, axis: str, step: int) -> torch.Tensor:
+    """x sent to the rank `step` places on along `axis` (cyclically), and
+    the tensor of the rank `step` places back received.  gloo carries
+    point-to-point only for CPU tensors: a CUDA tensor crosses a gloo
+    group through host memory."""
+    n = mesh.shape[axis]
+    c = mesh.coord(axis)
+    to, frm = mesh.axis_peer(axis, (c + step) % n), mesh.axis_peer(axis, (c - step) % n)
+    group = mesh.group(axis)
+    host = x.is_cuda and dist.get_backend(group) == "gloo"
+    src = (x.cpu() if host else x).contiguous()
+    out = torch.empty_like(src)
+    for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, src, to, group),
+                                       dist.P2POp(dist.irecv, out, frm, group)]):
+        req.wait()
+    return out.to(x.device) if host else out
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _ring(x, mesh, axis, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        COUNTS["shift_bwd"] += 1
+        return _ring(g, ctx.mesh, ctx.axis, -1), None, None
+
+
+def shift(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The pipeline's ring shift: x to the next rank along `axis`, the
+    previous rank's x back (`lax.ppermute` with pairs (i, i + 1 mod n));
+    under autograd the gradient goes the other way round."""
+    if _size(mesh, axis) == 1:
+        return x
+    COUNTS["shift"] += 1
+    if _grad_path(x):
+        return _Shift.apply(x, mesh, axis)
+    return _ring(x, mesh, axis, 1)

@@ -56,6 +56,15 @@ class Mesh:
             r = r * self.shape.get(a, 1) + self.coord(a)
         return r
 
+    def axis_peer(self, axis: str, index: int) -> int:
+        """The global rank of the rank at `index` along `axis` whose other
+        coordinates are this rank's."""
+        names = list(self.axis_names)
+        stride = 1
+        for a in names[names.index(axis) + 1:]:
+            stride *= self.shape[a]
+        return self.root + self.rank + (index - self.coord(axis)) * stride
+
     def group(self, axes):
         """The process group over `axes` (a name or a tuple of names);
         None when it holds this rank alone."""

@@ -29,7 +29,13 @@ them: GSPMD reshards the add).  Without `cfg`, `param_spec_map` gives
 the JAX table exactly.
 
 Under a mesh the model reads `current_mesh()`: the one mesh the serving
-engine enters (`use_mesh`) around prefill and decode; None outside it.
+engine enters (`use_mesh`) around prefill and decode, or the training
+step around its loss (`use_mesh(data_split=True)`: each rank holds its
+rows of the global batch, `split_axes()`); None outside it.  For
+training, `optimizer_shardings` and `data_shardings` give the optimizer
+state's and the batch's specs (path -> spec maps, as `param_spec_map`),
+and `gather_whole` / `local_slice` move a leaf between its whole form
+and a rank's block.
 """
 from __future__ import annotations
 
@@ -42,7 +48,7 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-from repro_torch.bridge import tree_map
+from repro_torch.bridge import tree_map, tree_paths
 from repro_torch.parallel.mesh import Mesh, MeshShape
 
 Spec = tuple
@@ -325,6 +331,93 @@ def batch_spec(mesh, batch_size: int, ndim: int) -> Spec:
     return (None,) * ndim
 
 
+def data_shardings(mesh, batch: dict) -> dict[str, Spec]:
+    """key -> spec for every leaf of a batch dict (the JAX
+    `data_shardings`): the leading (batch) dim over DP where it divides,
+    every other dim replicated (embeds (B, S, d) likewise)."""
+    return {k: batch_spec(mesh, v.shape[0], len(v.shape)) for k, v in batch.items()}
+
+
+_OPT_PREFIXES = ("inner/mu/", "inner/nu/", "inner/v/", "error_feedback/")
+
+
+def optimizer_shardings(mesh, params_shape: Any, opt_shape: Any, *,
+                        cfg=None) -> dict[str, Spec]:
+    """'/'-joined path -> spec for every leaf of an optimizer-state tree
+    (the JAX `optimizer_shardings`): AdamW's moments, Adafactor's
+    unfactored `v` and the error feedback mirror their parameter's spec;
+    Adafactor's factored `vr` drops the last entry, `vc` the one before
+    the last; the step count (and any leaf without a parameter) is
+    replicated.  `params_shape`: the whole parameter tree (anything with
+    a `.shape`), `cfg` as `param_spec_map` takes it."""
+    pmap = param_spec_map(mesh, params_shape, False, cfg=cfg)
+    out = {}
+    for path, x in _leaves_with_paths(opt_shape):
+        ps = path_str(path)
+        ndim = len(x.shape)
+        rest, tail = ps, None
+        for prefix in _OPT_PREFIXES:
+            if ps.startswith(prefix):
+                rest = ps[len(prefix):]
+                break
+        for t in ("/vr", "/vc", "/v"):
+            if rest.endswith(t):
+                tail, rest = t, rest[: -len(t)]
+                break
+        spec = pmap.get(rest)
+        if spec is None:
+            out[ps] = (None,) * ndim
+            continue
+        parts = list(spec)
+        if tail == "/vr":
+            parts = parts[:-1]
+        elif tail == "/vc":
+            parts = parts[:-2] + parts[-1:]
+        out[ps] = tuple((parts + [None] * ndim)[:ndim])
+    return out
+
+
+def leaf_specs(tree: Any, specs: dict) -> list:
+    """The specs of `tree`'s leaves in `bridge.tree_leaves` order, read
+    from `specs` ('/'-joined path -> spec) at each leaf's path."""
+    return [specs[path_str(path)] for path, _ in tree_paths(tree)]
+
+
+def spec_axes(spec: Spec) -> tuple:
+    """The mesh axes a spec shards over, in the order of its dims."""
+    out: list = []
+    for a in spec:
+        for n in ((a,) if isinstance(a, str) else (a or ())):
+            if n not in out:
+                out.append(n)
+    return tuple(out)
+
+
+def global_shape(shape, spec: Spec, mesh) -> tuple:
+    """The whole leaf's shape of a rank's block of `shape` under `spec`."""
+    return tuple(n if a is None else n * axis_size(mesh, a) for n, a in zip(shape, spec))
+
+
+def gather_whole(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """The whole leaf from every rank's block `t` under `spec` (the
+    inverse of `local_slice`; no gradient)."""
+    from repro_torch.parallel import collectives as coll
+    with torch.no_grad():
+        for dim, a in enumerate(spec):
+            if a is not None:
+                t = coll.all_gather(t, mesh, a, dim=dim)
+    return t
+
+
+def gather_tree(tree: Any, specs: dict, mesh) -> list[tuple[str, torch.Tensor]]:
+    """('/'-joined path, the whole leaf) of every leaf of a tree of this
+    rank's blocks, in `bridge.tree_paths` order, `specs` by path (every
+    rank takes part in each gather)."""
+    return [(path_str(path), gather_whole(torch.as_tensor(t).detach(),
+                                          specs[path_str(path)], mesh))
+            for path, t in tree_paths(tree)]
+
+
 def cache_specs(mesh, cache: Any, kv_heads: int, batch_size: int,
                 seq_shard: bool = False, *, n_heads: int | None = None) -> Any:
     """Specs of a dense cache tree (the JAX `cache_shardings`): the batch
@@ -450,7 +543,10 @@ class TPPlan:
     f, rglru's recurrent block on its lru width (`rec`) and rwkv6's
     channel-mix receptance on d (`gate`).  Each sharded part ends in one
     `all_reduce` (the unembedding, rwkv6's receptance and rglru's
-    recurrent input to its gates in an `all_gather`)."""
+    recurrent input to its gates in an `all_gather`) and, under
+    autograd, starts at a `copy_to` of each replicated tensor entering
+    it.  `dp`: the DP axes the batch's rows are split over (training,
+    `use_mesh(data_split=True)`), else None."""
     mesh: Any
     tp: int
     attn: bool
@@ -460,6 +556,7 @@ class TPPlan:
     shared: bool
     rec: bool = False
     gate: bool = False
+    dp: Any = None
 
 
 def tp_plan(cfg, mesh) -> TPPlan:
@@ -473,17 +570,24 @@ def tp_plan(cfg, mesh) -> TPPlan:
                   shared=bool(cfg.n_shared_experts)
                   and sharded(cfg.routed_ff * cfg.n_shared_experts),
                   rec=cfg.family == "rglru" and sharded(cfg.lru_width or cfg.d_model),
-                  gate=cfg.family == "rwkv6" and sharded(cfg.d_model))
+                  gate=cfg.family == "rwkv6" and sharded(cfg.d_model),
+                  dp=split_axes() if mesh is current_mesh() else None)
 
 
-_MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh", default=None)
+_MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh",
+                                                       default=(None, None))
 
 
 @contextlib.contextmanager
-def use_mesh(mesh):
+def use_mesh(mesh, *, data_split: bool = False):
     """Run the enclosed model calls sharded over `mesh` (None: unsharded);
-    the mesh is forgotten on exit."""
-    token = _MESH.set(mesh)
+    the mesh is forgotten on exit.  `data_split`: the batch's rows are
+    split over the mesh's DP axes (training: each rank holds its rows of
+    the global batch), else every rank holds the whole batch (serving)."""
+    dp = dp_axes(mesh) if mesh is not None and data_split else None
+    if dp is not None and axis_size(mesh, dp) == 1:
+        dp = None
+    token = _MESH.set((mesh, dp))
     try:
         yield mesh
     finally:
@@ -492,7 +596,14 @@ def use_mesh(mesh):
 
 def current_mesh():
     """The mesh of the enclosing `use_mesh`, else None."""
-    return _MESH.get()
+    return _MESH.get()[0]
+
+
+def split_axes():
+    """The DP axes the batch's rows are split over inside the enclosing
+    `use_mesh(data_split=True)` (None where every rank holds the whole
+    batch, or the axes hold one rank)."""
+    return _MESH.get()[1]
 
 
 # --- multi-replica serving ----------------------------------------------------

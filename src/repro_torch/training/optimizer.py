@@ -9,6 +9,16 @@ checkpoint of either package restores into the other.  Arithmetic is in
 float32 whatever the parameter dtype; each new parameter is cast back to
 its own dtype.  Weight decay applies to every leaf with two or more
 axes, as in JAX: the stacked per-layer norm scales (L, d) included.
+
+On a mesh (`mesh=` with `specs=`, the parameters' specs by '/'-joined
+path, as `sharding.param_spec_map` gives them) each rank
+holds its blocks of the parameters, gradients and state (the state by
+`sharding.optimizer_shardings`), and every reduction is over the whole
+leaf, as JAX's global arrays give: the global norm sums each leaf's
+squares over the axes its spec shards (a replicated leaf counted once),
+Adafactor's row and column means and its update's RMS are taken over
+whole dims, and whether a leaf is factored is decided on its whole
+shape.  AdamW is elementwise and reads no spec.
 """
 from __future__ import annotations
 
@@ -18,7 +28,9 @@ from typing import Any
 
 import torch
 
-from repro_torch.bridge import tree_leaves, tree_map, tree_unzip
+from repro_torch.bridge import tree_leaves, tree_map, tree_unflatten, tree_unzip
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import sharding
 
 Params = Any
 
@@ -55,16 +67,25 @@ def lr_at(cfg: OptimizerConfig, step) -> torch.Tensor:
     return cfg.lr * warm * decay
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares over every leaf, in float32."""
-    return torch.sqrt(torch.stack([x.float().square().sum()
-                                   for x in tree_leaves(tree)]).sum())
+def global_norm(tree, mesh=None, specs=None) -> torch.Tensor:
+    """sqrt of the sum of squares over every leaf, in float32; on a mesh
+    each leaf's sum over the axes its spec (`specs`, by path) shards,
+    one all_reduce for each set of axes."""
+    sums = [x.float().square().sum() for x in tree_leaves(tree)]
+    if mesh is None:
+        return torch.sqrt(torch.stack(sums).sum())
+    by_axes: dict = {}
+    for sq, spec in zip(sums, sharding.leaf_specs(tree, specs)):
+        by_axes.setdefault(sharding.spec_axes(spec), []).append(sq)
+    total = [coll.all_reduce(torch.stack(v), mesh, axes).sum() if axes
+             else torch.stack(v).sum() for axes, v in by_axes.items()]
+    return torch.sqrt(torch.stack(total).sum())
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, mesh=None, specs=None):
     """(the float32 gradients scaled to a global norm of at most
     max_norm, their norm before scaling)."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, mesh, specs)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: g.float() * scale, grads), norm
 
@@ -113,30 +134,62 @@ def _factored(shape) -> bool:
     return len(shape) >= 2 and shape[-1] >= 2 and shape[-2] >= 2
 
 
-def adafactor_init(cfg: OptimizerConfig, params: Params) -> Params:
-    def mk(p):
+def _spec_tree(params, mesh, specs):
+    """`params`' structure holding each leaf's spec (None off a mesh)."""
+    if mesh is None:
+        return tree_map(lambda p: None, params)
+    return tree_unflatten(params, sharding.leaf_specs(params, specs))
+
+
+def _whole(p, spec, mesh) -> tuple:
+    """A leaf's whole shape (its own without a mesh)."""
+    return tuple(p.shape) if mesh is None else sharding.global_shape(p.shape, spec, mesh)
+
+
+def _mean(x: torch.Tensor, dims, spec, mesh, whole, keepdim: bool = False):
+    """x's mean over `dims` of the whole leaf: the local sum, summed over
+    the axes `spec` gives those dims (spec and `whole` index x's dims),
+    over the whole count."""
+    dims = tuple(d % x.dim() for d in dims)
+    total = x.sum(dims, keepdim=keepdim)
+    if mesh is not None:
+        axes = sharding.spec_axes(tuple(spec[d] for d in dims))
+        if axes:
+            total = coll.all_reduce(total, mesh, axes)
+    n = 1
+    for d in dims:
+        n *= whole[d]
+    return total / n
+
+
+def adafactor_init(cfg: OptimizerConfig, params: Params, mesh=None, specs=None) -> Params:
+
+    def mk(p, spec):
         def zeros(shape):
             return torch.zeros(shape, dtype=torch.float32, device=p.device)
-        if _factored(p.shape):
+        if _factored(_whole(p, spec, mesh)):
             return {"vr": zeros(p.shape[:-1]),
                     "vc": zeros(p.shape[:-2] + p.shape[-1:])}
         return {"v": zeros(p.shape)}
-    return {"v": tree_map(mk, params), "step": _step0(params)}
+    return {"v": tree_map(mk, params, _spec_tree(params, mesh, specs)),
+            "step": _step0(params)}
 
 
-def adafactor_update(cfg: OptimizerConfig, grads, state, params):
+def adafactor_update(cfg: OptimizerConfig, grads, state, params, mesh=None, specs=None):
     step = state["step"] + 1
     lr = lr_at(cfg, step)
     beta2 = 1.0 - (step.float() + 1.0) ** -0.8
 
-    def upd(p, g, v):
+    def upd(p, g, v, spec):
+        whole = _whole(p, spec, mesh)
         g = g.float()
         g2 = g * g + 1e-30
-        if _factored(p.shape):
-            vr = beta2 * v["vr"] + (1 - beta2) * g2.mean(-1)
-            vc = beta2 * v["vc"] + (1 - beta2) * g2.mean(-2)
-            denom = (vr / torch.clamp(vr.mean(-1, keepdim=True), min=1e-30)
-                     )[..., None] * vc[..., None, :]
+        if _factored(whole):
+            vr = beta2 * v["vr"] + (1 - beta2) * _mean(g2, (-1,), spec, mesh, whole)
+            vc = beta2 * v["vc"] + (1 - beta2) * _mean(g2, (-2,), spec, mesh, whole)
+            # vr's last dim is the leaf's dim -2
+            vr_mean = _mean(vr, (-1,), spec and spec[:-1], mesh, whole[:-1], keepdim=True)
+            denom = (vr / torch.clamp(vr_mean, min=1e-30))[..., None] * vc[..., None, :]
             update = g * torch.rsqrt(denom + 1e-30)
             v_n = {"vr": vr, "vc": vc}
         else:
@@ -144,31 +197,35 @@ def adafactor_update(cfg: OptimizerConfig, grads, state, params):
             update = g * torch.rsqrt(vv + 1e-30)
             v_n = {"v": vv}
         # update clipping (RMS <= 1) as in the paper
-        rms = torch.sqrt(torch.mean(update * update) + 1e-30)
+        rms = torch.sqrt(_mean(update * update, tuple(range(update.dim())), spec, mesh,
+                               whole) + 1e-30)
         update = update / torch.clamp(rms, min=1.0)
         if p.dim() >= 2:
             update = update + cfg.weight_decay * p.float()
         return (p.float() - lr * update).to(p.dtype), v_n
 
-    out = tree_map(upd, params, grads, state["v"])
+    out = tree_map(upd, params, grads, state["v"], _spec_tree(params, mesh, specs))
     new_params, new_v = tree_unzip(params, out, 2)
     return new_params, {"v": new_v, "step": step}
 
 
 # --- facade ------------------------------------------------------------------
 
-def init_opt(cfg: OptimizerConfig, params: Params) -> Params:
-    return adafactor_init(cfg, params) if cfg.name == "adafactor" \
+def init_opt(cfg: OptimizerConfig, params: Params, mesh=None, specs=None) -> Params:
+    """A fresh state for `params` (on a mesh the rank's blocks, `specs`
+    their specs by path)."""
+    return adafactor_init(cfg, params, mesh, specs) if cfg.name == "adafactor" \
         else adamw_init(cfg, params)
 
 
 @torch.no_grad()
-def apply_opt(cfg: OptimizerConfig, grads, state, params):
+def apply_opt(cfg: OptimizerConfig, grads, state, params, mesh=None, specs=None):
     """(new params, new state, the gradients' global norm before
-    clipping); the inputs are not written."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    clipping); the inputs are not written.  On a mesh (`specs`: the
+    parameters' specs by path) every reduction is over the whole leaf."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, mesh, specs)
     if cfg.name == "adafactor":
-        new_p, new_s = adafactor_update(cfg, grads, state, params)
+        new_p, new_s = adafactor_update(cfg, grads, state, params, mesh, specs)
     else:
         new_p, new_s = adamw_update(cfg, grads, state, params)
     return new_p, new_s, gnorm

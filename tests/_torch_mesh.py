@@ -12,8 +12,13 @@ through `api` for any family, whisper's frames in the batch), "engine"
 (greedy tokens of the port's `ServingEngine(mesh=...)`), "moe" (a MoE
 block's output), "replicas" (`replica_meshes` over the data axis),
 "cluster" (a `ServingCluster(mesh=...)` run: closed loop, the chaos
-drill or open loop with deadlines, with every rank's request records)
-or "spec" (`SpecDecodeEngine(mesh=...)` tokens and `spec_stats`).
+drill or open loop with deadlines, with every rank's request records),
+"spec" (`SpecDecodeEngine(mesh=...)` tokens and `spec_stats`), "grad"
+(`value_and_grad` under the mesh, the gradients gathered whole),
+"train" (`train(mesh=)` resumed from a checkpoint), "ckpt" (a checkpoint
+saved on the mesh and restored onto (n, 1)), "grad_rules" (each
+collective's gradient on toy tensors) or "pipeline" (`pipeline_apply`
+on a ("pp",) mesh of every rank).
 Each result carries the collectives it called (`collectives.COUNTS`).
 
 Imports no JAX: the children run the port alone.
@@ -71,10 +76,12 @@ def _child(rank, world, model_axis, store_path, job_path, out_path):
 
 
 def _counted(fn):
+    """(fn(), the forward collectives it called: `collectives.FORWARD`'s
+    counts, which a backward's never enter)."""
     from repro_torch.parallel import collectives as coll
     coll.reset()
     out = fn()
-    return out, dict(coll.COUNTS)
+    return out, {k: coll.COUNTS[k] for k in coll.FORWARD}
 
 
 def forward_job(mesh, cfg, params, tokens, max_len):
@@ -274,6 +281,170 @@ def spec_job(mesh, cfg, params, n_draft, k, prompts, max_new, **eng_kw):
     return dict(out, counts=counts)
 
 
+def grad_job(mesh, cfg, params, batch):
+    """The loss and every gradient leaf (gathered whole) of the port's
+    `value_and_grad(cfg, blocks, batch)` inside `use_mesh(mesh)`, the
+    blocks cut from the whole tree `params` by `shard_params`; `batch`
+    the global batch."""
+    from repro_torch.parallel import sharding
+    from repro_torch.training.loop import value_and_grad
+
+    sp = sharding.shard_params(params, mesh, cfg)
+    specs = sharding.param_spec_map(mesh, params, cfg=cfg)
+
+    from repro_torch.parallel import collectives as coll
+    coll.reset()
+    with sharding.use_mesh(mesh):
+        loss, grads = value_and_grad(cfg, sp, batch)
+    counts = dict(coll.COUNTS)
+    return {"loss": float(loss), "grads": sharding.gather_tree(grads, specs, mesh),
+            "counts": counts}
+
+
+def train_job(mesh, cfg, ocfg, tcfg, dcfg, init_dir, out_dir):
+    """`train(mesh=)` resumed from the checkpoint in `init_dir` (copied to
+    `out_dir`, one a mesh): its losses and the parameters of its final
+    checkpoint, read back whole."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.training.loop import init_train_state, train
+
+    out_dir = f"{out_dir}-{mesh.shape['data']}x{mesh.shape['model']}"
+    if dist.get_rank() == 0:
+        shutil.copytree(init_dir, out_dir, dirs_exist_ok=True)
+    dist.barrier()
+    tcfg = dataclasses.replace(tcfg, ckpt_dir=out_dir)
+    lines = []
+    out = train(cfg, ocfg, tcfg, dcfg, mesh=mesh, log_fn=lines.append)
+    params, opt = init_train_state(cfg, ocfg, tcfg, "cpu")
+    (whole, _), meta = CheckpointManager(out_dir).restore((params, opt))
+    from repro_torch import bridge
+    return {"losses": out["losses"], "lines": lines, "meta": meta,
+            "params": bridge.tree_paths(whole)}
+
+
+def ckpt_job(mesh, cfg, ocfg, tcfg, save_dir):
+    """Checkpoints across meshes, on the (2, 2) mesh: two steps of the
+    rank's blocks, saved through `save(mesh=, shardings=)` (every block
+    gathered whole, by path: "saved"); then the same ranks as a (4, 1)
+    mesh restore it through `restore(shardings=)` and gather their
+    blocks whole ("restored")."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import sharding
+    from repro_torch.training import loop
+
+    params, opt = loop.init_train_state(cfg, ocfg, tcfg, mesh=mesh)
+    step = loop.make_train_step(cfg, ocfg, tcfg, mesh=mesh)
+    rng = np.random.default_rng(5)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (4, 16)).astype(np.int32))
+             for k in ("tokens", "labels")}
+    for _ in range(2):        # so the optimizer state holds values
+        params, opt, _ = step(params, opt, batch)
+    specs = loop.state_specs(cfg, mesh, opt)
+    saved = sharding.gather_tree((params, opt), specs, mesh)
+    mgr = CheckpointManager(save_dir)
+    mgr.save(7, (params, opt), {"next_step": 7}, mesh=mesh, shardings=specs)
+    flat = make_host_mesh(1, backend="gloo", device_type="cpu")
+    params, opt = loop.init_train_state(cfg, ocfg, tcfg, mesh=flat)
+    specs = loop.state_specs(cfg, flat, opt)
+    (params, opt), meta = mgr.restore((params, opt), shardings=specs, mesh=flat)
+    return {"saved": saved, "restored": sharding.gather_tree((params, opt), specs, flat),
+            "meta": meta,
+            "flat_shape": dict(flat.shape)}
+
+
+def grad_rules_job(mesh):
+    """Each collective's gradient on toy tensors over a (2, 2) mesh, with
+    what the rule gives: {name: (gradient, expected)}.  m is the rank's
+    "model" index, c = (3, 5).
+
+    * all_gather of x = m + 1 over "model", a replicated downstream
+      sum(c y): "split" gives c[m]; "reduce_scatter" (the wrong rule
+      there) twice that, the axis size;
+    * the same gather with a per-rank downstream sum((m + 1) c y):
+      "reduce_scatter" gives the sum over the ranks, 3 c[m]; "split"
+      (the wrong rule there) (m + 1) c[m];
+    * copy_to of x = 2, downstream (m + 1) x: 1 + 2 = 3 on every rank;
+    * all_reduce of x = m + 1, downstream 4 y: 4 (the identity);
+    * all_to_all over ("data", "model") of 4 chunks, downstream
+      sum(w y), w = (1, 2, 3, 4): rank r's every chunk went to a rank
+      that weights it by w[r]."""
+    from repro_torch.kernels import _grad
+    from repro_torch.parallel import collectives as coll
+
+    m = mesh.coord("model")
+    c = torch.tensor([3.0, 5.0])
+
+    def grad(f, x):
+        x = x.clone().requires_grad_(True)
+        f(x).backward()
+        return x.grad.tolist()
+
+    def gathered(rule, weights):
+        return grad(lambda x: (coll.all_gather(x, mesh, "model", dim=0, backward=rule)
+                               * weights).sum(), torch.tensor([m + 1.0]))
+
+    r = mesh.axis_rank(("data", "model"))
+    w = torch.arange(1.0, 5.0)
+    return {
+        "split_replicated": (gathered("split", c), [float(c[m])]),
+        "reduce_scatter_replicated": (gathered("reduce_scatter", c), [2 * float(c[m])]),
+        "reduce_scatter_per_rank": (gathered("reduce_scatter", (m + 1) * c), [3 * float(c[m])]),
+        "split_per_rank": (gathered("split", (m + 1) * c), [(m + 1) * float(c[m])]),
+        "copy_to": (grad(lambda x: (coll.copy_to(x, mesh) * (m + 1)).sum(),
+                         torch.tensor([2.0])), [3.0]),
+        "all_reduce": (grad(lambda x: (coll.all_reduce(x * 1, mesh) * 4).sum(),
+                            torch.tensor([m + 1.0])), [4.0]),
+        # of a view a custom Function returned (as a kernel wrapper's
+        # reshape is): reduced without writing it in place
+        "all_reduce_of_a_view": (grad(lambda x: (coll.all_reduce(_grad._KernelFunction.apply(
+            lambda t: t.reshape(-1), lambda t: t.reshape(-1), {}, x), mesh) * 4).sum(),
+            torch.tensor([[m + 1.0]])), [[4.0]]),
+        "all_to_all": (grad(lambda x: (coll.all_to_all(x * 1, mesh, ("data", "model"))
+                                       * w).sum(), torch.arange(4.0) + 10 * r),
+                       [float(w[r])] * 4),
+    }
+
+
+def pipeline_job(mesh, ws, x, c):
+    """`pipeline_apply` of the tanh(h @ w) stack `ws` (L, d, d) on a
+    ("pp",) mesh of every rank (`make_mesh`), `split_stages` cutting the
+    L layers into one stage a rank: the output without autograd, and with
+    it the output, the gradients of sum(c * out) for x and for every
+    layer's w (each stage's gathered over "pp", in layer order), and the
+    collectives each way."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import pipeline, sharding
+
+    pp = make_mesh((dist.get_world_size(),), ("pp",), backend="gloo", device_type="cpu")
+    n = pp.shape["pp"]
+    stages = pipeline.split_stages({"w": ws}, n)
+    mine = {"w": sharding.local_slice(stages["w"], ("pp", None, None, None), pp)}
+
+    def layer(p, h):
+        for w in p["w"]:
+            h = torch.tanh(h @ w)
+        return h
+
+    with torch.no_grad():
+        plain = pipeline.pipeline_apply(layer, mine, x, mesh=pp)
+    coll.reset()
+    mine["w"].requires_grad_(True)
+    xg = x.clone().requires_grad_(True)
+    out = pipeline.pipeline_apply(layer, mine, xg, mesh=pp)
+    (out * c).sum().backward()
+    counts = {k: v for k, v in coll.COUNTS.items() if v}
+    gw = sharding.gather_whole(mine["w"].grad, ("pp", None, None, None), pp)
+    return {"plain": plain, "out": out.detach(), "grad_x": xg.grad,
+            "grad_w": gw.reshape(ws.shape), "stage_shape": tuple(mine["w"].shape),
+            "split_shape": tuple(stages["w"].shape), "counts": counts}
+
+
 KINDS = {"forward": forward_job, "family_forward": family_forward_job,
          "engine": engine_job, "moe": moe_job, "replicas": replicas_job,
-         "cluster": cluster_job, "spec": spec_job}
+         "cluster": cluster_job, "spec": spec_job, "grad": grad_job, "train": train_job,
+         "ckpt": ckpt_job, "grad_rules": grad_rules_job, "pipeline": pipeline_job}
