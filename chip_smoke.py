@@ -388,6 +388,11 @@ CLUSTER_F32_LAYERS = 4
 # one-card cluster's, so its deadlines are 10x `CLUSTER_DEADLINE_MS` (at
 # 2000 ms, 13 of 16 requests were shed before a token on an H100)
 CLUSTER_MESH_DEADLINE_MS = 10 * CLUSTER_DEADLINE_MS
+# serving with the batch over "data": world sizes of the (2, 1) and (2, 2)
+# meshes, and danube's SP path (a prompt past its 4096 ring, its depth)
+DATA_MESH_WORLDS = (2, 4)
+DATA_SP_PROMPT = 6000
+DATA_SP_LAYERS = 4
 # the variant archs' served paths (bf16, full width, weights drawn on the card):
 # h2o-danube-1.8b's prompts, 6 of 16-300 tokens and 2 past its window of
 # 4096 (the ring wraps, the window cuts), and its max_len; qwen2-vl-2b's
@@ -3252,7 +3257,8 @@ def _tp_logits(torch, mesh, cfg, sharded, full, toks, steps: int, ref_cfg):
                 sharded_vs_unsharded=float((got - plain).abs().max()))
 
 
-def _tp_tokens(torch, mesh, name, cfg, prompts, max_new, want_equal=True, **eng_kw):
+def _tp_tokens(torch, mesh, name, cfg, prompts, max_new, want_equal=True, max_batch=4,
+               **eng_kw):
     """`cfg` served on the mesh, each rank drawing its blocks of the seeded
     weights (`api.init_params(mesh=)`), and (rank 0, where `want_equal`)
     unsharded from the whole draw; returns rank 0's record: launches,
@@ -3262,7 +3268,7 @@ def _tp_tokens(torch, mesh, name, cfg, prompts, max_new, want_equal=True, **eng_
 
     from repro_torch.serving.engine import Request, ServingEngine
 
-    eng = ServingEngine(cfg, _draw_blocks(torch, mesh, cfg), max_batch=4, mesh=mesh,
+    eng = ServingEngine(cfg, _draw_blocks(torch, mesh, cfg), max_batch=max_batch, mesh=mesh,
                         **eng_kw)
     reqs = [Request(rid=i, prompt=p, max_new_tokens=max_new) for i, p in enumerate(prompts)]
     s, launches, colls, shapes = _tp_serve(torch, eng, reqs, cfg.family != "transformer")
@@ -3273,7 +3279,8 @@ def _tp_tokens(torch, mesh, name, cfg, prompts, max_new, want_equal=True, **eng_
     del eng
     free(torch)
     if mesh.rank == 0 and want_equal:
-        _, rreqs = _serve_unsharded(torch, mesh.device, cfg, prompts, max_new, **eng_kw)
+        _, rreqs = _serve_unsharded(torch, mesh.device, cfg, prompts, max_new,
+                                    max_batch=max_batch, **eng_kw)
         same = sum(a.out_tokens == b.out_tokens for a, b in zip(reqs, rreqs))
         out["equal_streams"] = f"{same}/{len(reqs)}"
         check(same == len(reqs), f"tp {name}: {same}/{len(reqs)} request streams equal "
@@ -3299,7 +3306,8 @@ def _draw_blocks(torch, mesh, cfg):
     return params
 
 
-def _serve_unsharded(torch, device, cfg, prompts, max_new, params=None, **eng_kw):
+def _serve_unsharded(torch, device, cfg, prompts, max_new, params=None, max_batch=4,
+                     **eng_kw):
     """`cfg` served on `device` alone (no mesh) from the seeded weights (or
     `params`): ((summary, launches, collectives, shapes), the requests)."""
     from repro_torch.models import api
@@ -3307,7 +3315,7 @@ def _serve_unsharded(torch, device, cfg, prompts, max_new, params=None, **eng_kw
 
     if params is None:
         params = api.init_params(cfg, 1, device=device)
-    eng = ServingEngine(cfg, params, max_batch=4, device=device, **eng_kw)
+    eng = ServingEngine(cfg, params, max_batch=max_batch, device=device, **eng_kw)
     reqs = [Request(rid=i, prompt=p, max_new_tokens=max_new) for i, p in enumerate(prompts)]
     got = _tp_serve(torch, eng, reqs)
     del eng, params
@@ -4040,6 +4048,267 @@ def cluster_mesh_phase(torch) -> dict:
           f"{rec['cluster_steps']} cluster steps; float32 {CLUSTER_F32_LAYERS} layers "
           f"{rec['f32']}", flush=True)
     print(json.dumps({"cluster_mesh": dict(rec, seconds=secs, card=card)}), flush=True)
+    return rec
+
+
+def _kv_bytes(state, mesh) -> tuple[int, int]:
+    """(this rank's bytes of a dense state's KV rectangles, their bytes at
+    the KV-head placement alone, where every data rank holds every slot
+    and position: `kv_head_specs` over the whole rectangles)."""
+    import math
+
+    from repro_torch.models import api
+    from repro_torch.parallel import sharding
+
+    whole = api.init_cache(state.mcfg, state.max_batch, state.max_len, device="meta")
+    heads = sharding.kv_head_specs(mesh, whole["segments"], state.mcfg.kv_heads,
+                                   n_heads=state.mcfg.n_heads)
+    model_only = sum(math.prod(sharding.local_shape(tuple(t.shape), sseg[k], mesh))
+                     * t.element_size()
+                     for seg, sseg in zip(whole["segments"], heads) for k, t in seg.items())
+    local = sum(t.nbytes for seg in state.cache["segments"] for t in seg.values())
+    return local, model_only
+
+
+def _data_logits(torch, mesh, cfg, sharded, full, prompts, steps: int, ref_cfg,
+                 max_len: int) -> dict:
+    """bfloat16 logits of a dense KV state placed on the mesh (its slots,
+    or its one slot's length, over "data"; every rank, its blocks
+    `sharded`) and unplaced (rank 0, the whole tree `full`), each against
+    the `ref_cfg` route (rank 0, unplaced) on the same weights: each
+    prompt prefilled into a slot of its own (the prefill's last logits),
+    then `steps` full-width decode steps fed the `ref_cfg` route's greedy
+    tokens.  Returns rank 0's max |diff| of each route over every slot
+    and step (the other ranks: {})."""
+    import numpy as np
+
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import sharding
+    from repro_torch.serving.state import DenseKVState
+
+    nb = len(prompts)
+
+    def run(c, params, m, feed=None):
+        st = DenseKVState(c, nb, max_len, decode_batch=nb, compact=True, device=mesh.device)
+        if m is not None:
+            st.place(m)
+        with sharding.use_mesh(m):
+            rows = [torch.stack([st.prefill(params, b, p)[0, -1].float()
+                                 for b, p in enumerate(prompts)])]
+            toks = []
+            for i in range(steps):
+                t = rows[-1].argmax(-1) if feed is None else feed[i]
+                toks.append(t)
+                lg, _ = st.decode(params, t.cpu().numpy()[:, None].astype(np.int64),
+                                  list(range(nb)))
+                rows.append(lg[:, -1].float())
+        return torch.stack(rows), torch.stack(toks)
+
+    feed = torch.zeros((steps, nb), dtype=torch.long, device=mesh.device)
+    if mesh.rank == 0:
+        ref, feed = run(ref_cfg, full, None)
+    feed = coll.broadcast(feed, mesh)
+    got, _ = run(cfg, sharded, mesh, feed)
+    if mesh.rank != 0:
+        return {}
+    plain, _ = run(cfg, full, None, feed)
+    for x in (got, plain, ref):
+        check(bool(torch.isfinite(x).all()), "data mesh logits: non-finite logits")
+    return {"sharded": float((got - ref).abs().max()),
+            "unsharded": float((plain - ref).abs().max()),
+            "sharded_vs_unsharded": float((got - plain).abs().max())}
+
+
+def _data_serve(torch, mesh, name, cfg, reqs, split, **eng_kw) -> dict:
+    """`cfg` served from the rank's blocks (seed 1) on the mesh, its dense
+    state split as `split` says: launches (each kernel of the path as
+    often as the layers and calls imply), collectives a decode step, the
+    state's KV bytes (half those of the KV-head placement alone), tokens
+    a second and TPOT p50 (ranks that share one card)."""
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.serving.engine import ServingEngine
+
+    eng = ServingEngine(cfg, _draw_blocks(torch, mesh, cfg), mesh=mesh, **eng_kw)
+    check(eng.state.kind == "dense" and eng.state.split == split,
+          f"data mesh {name}: state {eng.state.kind} split {eng.state.split}, not {split}")
+    kv, model_only = _kv_bytes(eng.state, mesh)
+    check(2 * kv == model_only, f"data mesh {name} rank {mesh.rank}: {kv} KV bytes, "
+                                f"not half of {model_only}")
+    in_decode = dict.fromkeys(coll.FORWARD, 0)
+    decode = eng.state.decode
+
+    def counted(*a, **k):          # the collectives inside the state's decode calls
+        before = forward_collectives(coll)
+        out = decode(*a, **k)
+        for key, v in forward_collectives(coll).items():
+            in_decode[key] += v - before[key]
+        return out
+
+    eng.state.decode = counted
+    s, launches, colls, shapes = _tp_serve(torch, eng, reqs)
+    L = cfg.n_layers
+    calls = s["prefills"] + s["decode_steps"]
+    want = {"fused_rmsnorm": (L + 1) * calls, "fused_rmsnorm_residual": L * calls,
+            "fused_mlp": L * calls, "flash_attention": L * s["prefills"],
+            "paged_decode": 0, "moe_mlp": 0}
+    check(launches == want, f"data mesh {name} rank {mesh.rank}: launches {launches}, "
+                            f"expected {want}")
+    check(all(r.finish_reason == "max_new_tokens" for r in reqs) and s["nan_steps"] == 0,
+          f"data mesh {name}: a request did not finish with its max_new_tokens")
+    out = {"summary": s, "launches": launches, "collectives": colls, "shapes": shapes,
+           "kv_bytes": kv, "kv_bytes_heads_only": model_only,
+           "collectives_per_decode_step": {k: v / s["decode_steps"]
+                                           for k, v in in_decode.items()},
+           "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del eng
+    free(torch)
+    return out
+
+
+def _data_mesh_rank(rank: int, world: int, store: str, policy: str, out: str) -> None:
+    """One rank of `data_mesh_phase`: gloo over the one card, a (2, world /
+    2) mesh; rank 0 writes the record."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import configure
+    from repro_torch.launch.policy import load_policy
+    from repro_torch.models import api
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=600))
+    mesh = make_host_mesh(world // 2, backend="gloo", device_type="cuda")
+    kern = dict(attn_impl="flash", mlp_impl="fused", norm_impl="fused")
+    slack, floor = TP_LOGITS_SLACK
+    rec = {}
+
+    # smollm-135m at full width, bf16, the three flags, dense KV: 4 slots,
+    # 2 a data row
+    cfg, kw = configure(configs.get_config("smollm-135m"), policy=load_policy(policy),
+                        device=mesh.device, log=lambda x: None)
+    rng = np.random.default_rng(0)
+    rec["smollm"] = _data_serve(torch, mesh, "smollm", cfg,
+                                _requests(rng, cfg.vocab, 8, 16, 300, 32), "rows",
+                                paged=False, max_len=512, **kw)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
+               for n in (300, 120, 57, 200)]
+    full = api.init_params(cfg, 1, device=mesh.device) if rank == 0 else None
+    ref32 = cfg.replace(dtype="float32", attn_impl="einsum", mlp_impl="dense",
+                        norm_impl="ref")
+    rec["smollm"]["logits"] = lg = _data_logits(
+        torch, mesh, cfg, _draw_blocks(torch, mesh, cfg), full, prompts, 3, ref32, 512)
+    if rank == 0:
+        check(lg["sharded"] <= slack * lg["unsharded"] + floor,
+              f"data mesh smollm: bf16 logits off the float32 route by {lg}")
+    del full
+    free(torch)
+    # float32 at full width: token-equal to the one-rank engine
+    prng = np.random.default_rng(21)
+    f32 = dict(kern, dtype="float32", param_dtype="float32")
+    rec["smollm_f32"] = _tp_tokens(
+        torch, mesh, "data smollm f32", configs.get_config("smollm-135m").replace(**f32),
+        [prng.integers(0, 32000, size=int(n)).astype(np.int32)
+         for n in prng.integers(16, 301, size=6)], 16, paged=False, max_len=512)
+
+    if mesh.shape["model"] == 1:
+        # h2o-danube-1.8b at full width, cut to `DATA_SP_LAYERS` layers: one
+        # slot, a prompt past the 4096 ring, its length over "data" (SP)
+        dcfg = configs.get_config("h2o-danube-1.8b").replace(n_layers=DATA_SP_LAYERS, **kern)
+        drng = np.random.default_rng(23)
+        long = [drng.integers(0, dcfg.vocab, size=DATA_SP_PROMPT).astype(np.int32)]
+        max_len = DATA_SP_PROMPT + 64
+        reqs = _requests(drng, dcfg.vocab, 1, DATA_SP_PROMPT, DATA_SP_PROMPT, 32)
+        rec["danube_sp"] = _data_serve(torch, mesh, "danube sp", dcfg, reqs, "seq",
+                                       max_batch=1, max_len=max_len)
+        check(rec["danube_sp"]["shapes"]["flash_attention"] == [(32, 8, 80)],
+              f"data mesh danube: kernel shapes {rec['danube_sp']['shapes']}")
+        full = api.init_params(dcfg, 1, device=mesh.device) if rank == 0 else None
+        lg = _data_logits(torch, mesh, dcfg, _draw_blocks(torch, mesh, dcfg), full, long, 3,
+                          dcfg.replace(dtype="float32", attn_impl="einsum", mlp_impl="dense",
+                                       norm_impl="ref"), max_len)
+        rec["danube_sp"]["logits"] = lg
+        if rank == 0:
+            check(lg["sharded"] <= slack * lg["unsharded"] + floor,
+                  f"data mesh danube sp: bf16 logits off the float32 route by {lg}")
+        del full
+        free(torch)
+        rec["danube_sp_f32"] = _tp_tokens(
+            torch, mesh, "data danube sp f32", dcfg.replace(dtype="float32",
+                                                            param_dtype="float32"),
+            long, 16, max_batch=1, max_len=max_len)
+        # mixtral-8x7b, 2 MoE layers, float32, compacted to 2 of 4 slots:
+        # each row's lanes routed over the batch gathered in lane order
+        mcfg = configs.get_config("mixtral-8x7b").replace(n_layers=2, **f32)
+        mx = rec["mixtral_f32"] = _tp_tokens(
+            torch, mesh, "data mixtral f32", mcfg,
+            [prng.integers(0, 32000, size=int(n)).astype(np.int32)
+             for n in prng.integers(16, 301, size=5)], 8, max_len=512, decode_batch=2)
+        calls = mx["summary"]["prefills"] + mx["summary"]["decode_steps"]
+        check(mx["launches"]["moe_mlp"] == mcfg.n_layers * calls and
+              mx["shapes"]["moe_mlp"] == [(8, 4096, 14336)],
+              f"data mesh mixtral: launches {mx['launches']}, shapes {mx['shapes']}")
+    if rank == 0:
+        rec["mesh"] = dict(mesh.shape)
+        Path(out).write_text(json.dumps(rec))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def data_mesh_phase(torch) -> dict:
+    """Serving with the batch over "data": ranks spawned on the one card
+    over gloo on a (2, 1) and then a (2, 2) mesh (`_data_mesh_rank`).
+    smollm-135m at full width (30 layers, bf16, the three flags, dense
+    KV, 4 slots: 2 a data row) serves 8 requests: every rank's state at
+    half the KV bytes of the KV-head placement alone, each kernel of the
+    path launched as the layers and calls imply, the collectives a decode
+    step printed; its bf16 logits over 4 slots (a prefill and 3 decode
+    steps) within `TP_LOGITS_SLACK` of the unsharded state's distance
+    from the float32 plain route; then in float32 at full width,
+    token-equal to the one-rank engine.  On (2, 1) also h2o-danube-1.8b
+    at full width cut to `DATA_SP_LAYERS` layers with one slot and a
+    `DATA_SP_PROMPT`-token prompt past its 4096 ring, the ring's length
+    over "data" (SP): the same checks, and float32 tokens equal to the
+    one-rank engine's; and mixtral-8x7b at 2 layers in float32,
+    compacted to 2 of 4 slots (its capacity route over the lanes
+    gathered from both rows, `moe_mlp` once a layer a call), token-equal
+    to the one-rank engine.  Tokens/s and TPOT are printed as what they
+    are: ranks that share one card."""
+    free(torch)
+    t0 = time.perf_counter()
+    policy = str(smoke_policy("smollm-135m"))
+    rec = {f"(2, {w // 2})": _spawn(_data_mesh_rank, w, policy, f"data{w}")
+           for w in DATA_MESH_WORLDS}
+    secs = time.perf_counter() - t0
+    card = card_line()
+    for tag, r in rec.items():
+        for key in ("smollm", "danube_sp"):
+            if key not in r:
+                continue
+            x, s = r[key], r[key]["summary"]
+            print(f"[smoke] data mesh {tag} {key} bf16 ({card}): rank 0 KV "
+                  f"{x['kv_bytes']} bytes (KV-head placement alone "
+                  f"{x['kv_bytes_heads_only']}), {s['tokens_out']} tokens, {s['prefills']} "
+                  f"prefills, {s['decode_steps']} decode steps in {s['seconds']:.3f}s = "
+                  f"{s['tokens_per_s']:.1f} tok/s, TPOT p50 {s['tpot_p50_ms']:.2f} ms (ranks "
+                  f"share one card); collectives a decode step in the model call "
+                  f"{x['collectives_per_decode_step']} (+1 broadcast of the tokens); "
+                  f"launches {x['launches']}; kernel shapes {x['shapes']}; bf16 logits "
+                  f"against the float32 route "
+                  f"{x['logits']}", flush=True)
+        for key in ("smollm_f32", "danube_sp_f32", "mixtral_f32"):
+            if key in r:
+                print(f"[smoke] data mesh {tag} {key}: equal streams "
+                      f"{r[key]['equal_streams']}, launches {r[key]['launches']}, "
+                      f"collectives {r[key]['collectives']}", flush=True)
+    print(f"[smoke] data mesh phase {secs:.1f}s", flush=True)
+    print(json.dumps({"data_mesh": dict(rec, seconds=secs, card=card)}), flush=True)
     return rec
 
 
@@ -5053,6 +5322,7 @@ def main() -> int:
     tp_path_phase(torch)
     family_mesh_phase(torch)
     cluster_mesh_phase(torch)
+    data_mesh_phase(torch)
     train_mesh_phase(torch)
 
     meta = {

@@ -22,23 +22,19 @@ attn_impl="flash" (flash prefill, paged decode from the page pool),
 fused_mlp -> mlp_impl="fused" (the fused MLP, or `moe_mlp` on MoE
 layers), fused_norm -> norm_impl="fused" (the CUDA kernels), and the
 policy's batch split sets the engine's max/decode batch.  A policy with
-tp > 1 whose tp the cards divide (and fit) runs on a mesh, for any
-family: `main` starts N x tp ranks, one card each, over NCCL
-(`tcp://localhost`, a free port), N the `--replicas` (1 without), each
-builds an (N, tp) `launch.mesh` mesh and serves the same requests: one
-tensor-parallel engine (N = 1), a `ServingCluster` whose replicas each
-take one data row of the mesh (N > 1), or, with `--scenario specdec`,
-a `SpecDecodeEngine` with the target sharded and the draft replicated
-(`--specdec`: the reference loop with the target's forward sharded);
-rank 0 prints.  With fewer cards than N x tp it raises and names the
-count; it never starts fewer ranks.  A policy whose tp the cards do not
-divide runs unsharded, as in JAX.
-
-**Departure from JAX.**  The JAX launcher builds an (n_devices / tp, tp)
-mesh and puts one engine's dense batch over "data".  Here each replica
-keeps one data row (an engine's slots never split over "data"): the
-mesh is (N, tp), and N = 1 uses tp cards.  Weights are random, from
-`--seed`.
+tp > 1 whose tp the cards divide runs on a mesh over every card, for
+any family, as the JAX launcher's `make_host_mesh(model_axis=tp)` does:
+`main` starts one rank a card over NCCL (`tcp://localhost`, a free
+port), each builds the (cards / tp, tp) `launch.mesh` mesh and serves
+the same requests: one engine (its dense KV batch, or one long
+sequence's cache length, over "data"; tensor-parallel over "model"), a
+`ServingCluster` of `--replicas N` replicas, `replica_meshes` carving
+the data axis into N blocks (an N that does not divide it is refused
+with JAX's error before any rank starts), or, with `--scenario
+specdec`, a `SpecDecodeEngine` with the target sharded and the draft
+replicated (`--specdec`: the reference loop with the target's forward
+sharded); rank 0 prints.  A policy whose tp the cards do not divide
+runs unsharded, as in JAX.  Weights are random, from `--seed`.
 """
 from __future__ import annotations
 
@@ -357,8 +353,8 @@ def _parser() -> argparse.ArgumentParser:
                    help="dense KV rectangles instead of the page pool")
     p.add_argument("--replicas", type=int, default=1,
                    help="serving-cluster replica count (> 1: a ServingCluster, "
-                        "on the one device or, under a tp > 1 policy, on "
-                        "replicas x tp cards)")
+                        "on the one device or, under a tp > 1 policy, over "
+                        "the mesh's data axis)")
     p.add_argument("--router", default=cluster_mod.ROUTER,
                    choices=cluster_mod.ROUTER_POLICIES,
                    help="cluster routing policy")
@@ -396,12 +392,13 @@ def main(argv: list[str] | None = None) -> None:
         mesh_tp = apply_policy(pol, mcfg, args.max_batch,
                                n_devices=torch.cuda.device_count())[1]["mesh_tp"]
     if mesh_tp > 1:
-        world = max(1, args.replicas) * mesh_tp
-        cards = torch.cuda.device_count()
-        if world > cards:
-            raise RuntimeError(
-                f"--replicas {args.replicas} x tp {mesh_tp} needs {world} cards "
-                f"(one a rank over NCCL); {cards} found")
+        # every card, as JAX's make_host_mesh takes every device: a
+        # (cards / tp, tp) mesh whose data axis the replicas split
+        world = torch.cuda.device_count()
+        data = world // mesh_tp
+        if args.replicas > 1 and data % args.replicas:
+            raise ValueError(f"data axis of size {data} does not divide into "
+                             f"{args.replicas} replicas")
         import torch.multiprocessing as mp
         mp.spawn(_serve_rank, args=(world, mesh_tp, free_port(),
                                     list(argv or sys.argv[1:])),

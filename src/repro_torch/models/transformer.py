@@ -24,9 +24,14 @@ weights) with a row-parallel `wo`, the MLP column- then row-parallel,
 MoE by experts (EP) or on f, the embedding vocab-parallel; each sharded
 part ends in one `all_reduce` (the unembedding in an `all_gather` of the
 vocab shards) and, under autograd, starts at a `copy_to` of what enters
-it.  Training splits the batch's rows over "data" (`use_mesh(data_split=
-True)`): the capacity route then runs over the rows gathered from every
-data rank.  With no mesh nothing changes.
+it.  Training, and a serving state whose slots split over "data", split
+the batch's rows over "data" (`use_mesh(data_split=True)`): the capacity
+route then runs over the rows gathered from every data rank (in the
+serving step's lane order where it gives `lanes`).  A serving state
+whose one slot's cache length splits over "data" decodes under
+`use_mesh(seq_split=True)`: each rank attends over its block of the
+cache and the partial softmaxes combine exactly over "data".  With no
+mesh nothing changes.
 
 Caches are updated in place (the JAX functions return fresh arrays):
 `decode_step` writes the new token's k/v into the cache tensors it is
@@ -390,17 +395,21 @@ def _dp_size(plan) -> int:
 def _global_tokens(x: torch.Tensor, plan) -> torch.Tensor:
     """Every DP rank's rows of x (the global batch) where the rows are
     split: the capacity route numbers slots over all tokens, as GSPMD's
-    global view does.  Each rank's downstream keeps its own rows, so the
-    gather's backward sums over the ranks (reduce-scatter)."""
+    global view does; in a serving step's lane order where the plan has
+    lanes (`sharding.row_lanes`).  Each rank's downstream keeps its own
+    rows, so the gather's backward sums over the ranks (reduce-scatter)."""
     if _dp_size(plan) == 1:
         return x
-    return coll.all_gather(x, plan.mesh, plan.dp, dim=0, backward="reduce_scatter")
+    g = coll.all_gather(x, plan.mesh, plan.dp, dim=0, backward="reduce_scatter")
+    return g if plan.lanes is None else g.index_select(0, plan.lanes[0])
 
 
 def _own_rows(y: torch.Tensor, plan, rows: int) -> torch.Tensor:
     """This DP rank's `rows` rows of a global-batch y (`_global_tokens`)."""
     if _dp_size(plan) == 1:
         return y
+    if plan.lanes is not None:
+        return y.index_select(0, plan.lanes[1])
     return y.narrow(0, plan.mesh.axis_rank(plan.dp) * rows, rows)
 
 
@@ -425,8 +434,15 @@ def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     to them; with TP on f every expert runs on the rank's f columns; the
     partial outputs are summed by one all_reduce.  With the batch's rows
     split over DP ranks, the route runs over the global batch
-    (`_global_tokens`) and each rank keeps its rows."""
+    (`_global_tokens`) and each rank keeps its rows; a serving step's
+    rows (`lanes`) are gathered in the step's lane order and run as one
+    whole batch, by whichever dispatch the config takes."""
     plan = _plan(cfg)
+    if plan is not None and plan.lanes is not None:
+        xg = _global_tokens(x, plan)
+        with sharding.use_mesh(plan.mesh):
+            y = moe_block(cfg, p, xg)
+        return _own_rows(y, plan, x.shape[0])
     if cfg.moe_shard_map and plan is not None:
         return moe_block_shard_map(cfg, p, x)
     if cfg.moe_groups > 0 and (x.shape[0] * x.shape[1] * _dp_size(plan)) \
@@ -835,6 +851,42 @@ def _decode_mask(cfg: ModelConfig, index: torch.Tensor, clen: int):
     return mask
 
 
+def _seq_block(cfg: ModelConfig, clen: int):
+    """Under a dense cache whose length is split over DP ranks (SP,
+    `sharding.seq_axes`): (mesh, axes, this rank's first position, the
+    whole length) of its block of `clen` positions; else None."""
+    plan = _plan(cfg)
+    if plan is None or plan.sp is None:
+        return None
+    n = sharding.axis_size(plan.mesh, plan.sp)
+    return plan.mesh, plan.sp, plan.mesh.axis_rank(plan.sp) * clen, clen * n
+
+
+def _block_slot(slot: torch.Tensor, off: int, clen: int) -> torch.Tensor:
+    """A whole-cache slot (B,) as this rank's block of `clen` from `off`
+    holds it: the local slot, or `clen` (dropped by `_write_slot`) where
+    another rank's block owns the position."""
+    return torch.where((slot >= off) & (slot < off + clen), slot - off, clen)
+
+
+def _attend_blocks(scores: torch.Tensor, mask: torch.Tensor, values, dt, sp):
+    """softmax(scores) over the last axis, masked to `mask`, through
+    `values` (weights in dt -> their values, the same leading dims) when
+    each SP rank holds a block of the keys: the rank's partial softmax
+    (its max, its sum of exp and its weighted values) is combined exactly
+    over the SP axes in float32 (one all_max, one all_reduce of the sums
+    and values packed together).  A rank whose block holds no valid key
+    adds nothing: its weights are 0 and its max scales to 0."""
+    mesh, axes = sp[0], sp[1]
+    scores = scores.masked_fill(~mask, -1e30)
+    m = scores.amax(-1, keepdim=True)
+    p = torch.exp(scores - m).masked_fill(~mask, 0.0)
+    scale = torch.exp(m - coll.all_max(m.clone(), mesh, axes))
+    o = values(p.to(dt)).float() * scale
+    ol = coll.all_reduce(torch.cat([o, p.sum(-1, keepdim=True) * scale], -1), mesh, axes)
+    return (ol[..., :-1] / ol[..., -1:]).to(dt)
+
+
 def _write_slot(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor):
     """cache (B, C, ...)[b, slot[b]] <- new (B, 1, ...)[b, 0], in place.  A
     slot past the cache is dropped, as the JAX scatter drops it (an empty
@@ -849,13 +901,15 @@ def _write_slot(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor):
 
 def _decode_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
                  K: torch.Tensor, V: torch.Tensor, slot: torch.Tensor,
-                 rope, mask: torch.Tensor):
+                 rope, mask: torch.Tensor, sp=None):
     """One-token attention against the cache; writes the token's k/v into
     K/V (B, C, Hkv, hd) in place at cache slot slot[b].  x: (B, 1, d);
     rope: `rope_tables` of the token positions; mask (B, C): `_decode_mask`.
     `cfg.gqa_einsum` contracts each group of n_rep query heads against its
     own KV head (the JAX grouped branch), so K and V are read once and
-    never repeated; else K and V are repeated to the query heads."""
+    never repeated; else K and V are repeated to the query heads.  `sp`
+    (`_seq_block`): K/V are this rank's block of the cache length, the
+    softmax combined over the SP ranks (`_attend_blocks`)."""
     bsz = x.shape[0]
     dt = cfg.tdtype
     q, k, v = _roped_qkv(cfg, p, x, rope)
@@ -866,6 +920,11 @@ def _decode_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
     if cfg.gqa_einsum and n_rep > 1:
         qg = q.reshape(bsz, 1, hkv, n_rep, cfg.hd)
         scores = torch.einsum("bqkgd,bckd->bkgqc", qg, K.to(dt)).float() / math.sqrt(cfg.hd)
+        if sp is not None:
+            o = _attend_blocks(scores, mask[:, None, None, None, :],
+                               lambda w: torch.einsum("bkgqc,bckd->bkgqd", w, V.to(dt)), dt, sp)
+            o = o.permute(0, 3, 1, 2, 4).reshape(bsz, 1, h, cfg.hd)
+            return o.reshape(bsz, 1, -1) @ p["wo"].to(dt)
         scores = scores.masked_fill(~mask[:, None, None, None, :], -1e30)
         probs = torch.softmax(scores, dim=-1).to(dt)
         o = torch.einsum("bkgqc,bckd->bqkgd", probs, V.to(dt)).reshape(bsz, 1, h, cfg.hd)
@@ -873,6 +932,10 @@ def _decode_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
     Kr = K.to(dt).repeat_interleave(n_rep, dim=2) if n_rep > 1 else K.to(dt)
     Vr = V.to(dt).repeat_interleave(n_rep, dim=2) if n_rep > 1 else V.to(dt)
     scores = torch.einsum("bqhd,bchd->bhqc", q, Kr).float() / math.sqrt(cfg.hd)
+    if sp is not None:
+        o = _attend_blocks(scores, mask[:, None, None, :],
+                           lambda w: torch.einsum("bhqc,bchd->bhqd", w, Vr), dt, sp)
+        return o.transpose(1, 2).reshape(bsz, 1, -1) @ p["wo"].to(dt)
     scores = scores.masked_fill(~mask[:, None, None, :], -1e30)
     probs = torch.softmax(scores, dim=-1).to(dt)
     o = torch.einsum("bhqc,bchd->bqhd", probs, Vr)
@@ -881,12 +944,13 @@ def _decode_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 def _mla_decode_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
                      L: torch.Tensor, slot: torch.Tensor, rope,
-                     mask: torch.Tensor):
+                     mask: torch.Tensor, sp=None):
     """MLA's absorbed one-token attention against the latent cache L (B,
     C, kv_rank + rd), written in place at slot[b]: the query is absorbed
     through W_uk into the latent space (scores q_nope^T W_uk c_kv plus
     the rope part), and the latent output is up-projected through W_uv
-    afterwards, so no per-head key or value is ever formed."""
+    afterwards, so no per-head key or value is ever formed.  `sp` as
+    `_decode_attn` takes it (L: this rank's block of the latents)."""
     bsz = x.shape[0]
     dt, hd, kvr = cfg.tdtype, cfg.hd, cfg.mla_kv_rank
     q_nope, q_rope = _mla_q(cfg, p, x, rope)
@@ -897,9 +961,14 @@ def _mla_decode_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
     s_n = torch.einsum("bqhk,bck->bhqc", q_abs, lat)
     s_r = torch.einsum("bqhd,bcd->bhqc", q_rope, lat_rope)
     scores = (s_n + s_r).float() / math.sqrt(hd + cfg.mla_rope_dim)
-    scores = scores.masked_fill(~mask[:, None, None, :], -1e30)
-    probs = torch.softmax(scores, dim=-1).to(dt)
-    o_lat = torch.einsum("bhqc,bck->bqhk", probs, lat)
+    if sp is not None:
+        o_lat = _attend_blocks(scores, mask[:, None, None, :],
+                               lambda w: torch.einsum("bhqc,bck->bhqk", w, lat), dt,
+                               sp).transpose(1, 2)
+    else:
+        scores = scores.masked_fill(~mask[:, None, None, :], -1e30)
+        probs = torch.softmax(scores, dim=-1).to(dt)
+        o_lat = torch.einsum("bhqc,bck->bqhk", probs, lat)
     o = torch.einsum("bqhk,khd->bqhd", o_lat, p["wuv"].to(dt).reshape(kvr, h, hd))
     return o.reshape(bsz, 1, -1) @ p["wo"].to(dt)
 
@@ -936,20 +1005,29 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     (uniform lengths) or a (B,) vector (per-slot lengths).  Returns
     (logits (B, 1, V), cache) with the cache advanced in place and
     index + 1.  A sliding-window model writes ring slot index % C and
-    attends to the last `window` positions."""
+    attends to the last `window` positions.  Under SP (`use_mesh(seq_split=
+    True)`) the cache holds this rank's block of the length: the masks are
+    the whole cache's cut to the block, the new k/v is written only by the
+    rank whose block holds its (ring) slot, and the softmax is combined
+    over the SP ranks."""
     check_supported(cfg)
     raw = torch.as_tensor(cache["index"], device=tokens.device)
     index = raw.expand(tokens.shape[0]) if raw.dim() == 0 else raw
     index = index.long()
     # every segment's ring: {"k", "v"} or {"latent"} (L, B, C, ...)
     clen = next(iter(cache["segments"][0].values())).shape[2]
-    slot = _ring_slot(cfg, index, clen)
-    mask = _decode_mask(cfg, index, clen)
+    sp = _seq_block(cfg, clen)
+    whole = clen if sp is None else sp[3]
+    slot = _ring_slot(cfg, index, whole)
+    mask = _decode_mask(cfg, index, whole)
+    if sp is not None:
+        mask = mask[:, sp[2]:sp[2] + clen]
+        slot = _block_slot(slot, sp[2], clen)
 
     def attn(p, h, lc, rope):
         if cfg.use_mla:
-            return _mla_decode_attn(cfg, p, h, lc["latent"], slot, rope, mask)
-        return _decode_attn(cfg, p, h, lc["k"], lc["v"], slot, rope, mask)
+            return _mla_decode_attn(cfg, p, h, lc["latent"], slot, rope, mask, sp)
+        return _decode_attn(cfg, p, h, lc["k"], lc["v"], slot, rope, mask, sp)
 
     logits = _decode_layers(cfg, params, tokens, index, cache["segments"], attn)
     return logits, {"segments": cache["segments"], "index": raw + 1}
@@ -961,22 +1039,37 @@ def window_supported(cfg: ModelConfig) -> bool:
 
 
 def _window_attn(cfg: ModelConfig, p: Params, x: torch.Tensor, K: torch.Tensor,
-                 V: torch.Tensor, pos: torch.Tensor, rope):
+                 V: torch.Tensor, pos: torch.Tensor, rope, sp=None):
     """W-token cached attention (the spec-decode verify): x (B, W, d) at
     positions pos (B, W); position p writes cache slot p of K/V (B, C,
     Hkv, hd) in place and attends causally to every slot <= p.  Einsum
-    attention, as in the JAX package (no Pallas kernel there)."""
+    attention, as in the JAX package (no Pallas kernel there).  `sp`
+    (`_seq_block`): K/V are this rank's block of the cache length; a
+    position is written by the rank whose block holds it, and the
+    softmax is combined over the SP ranks."""
     bsz, w = x.shape[:2]
     dt = cfg.tdtype
     q, k, v = _roped_qkv(cfg, p, x, rope)
     rows = torch.arange(bsz, device=x.device)[:, None]
-    K[rows, pos] = k.to(K.dtype)
-    V[rows, pos] = v.to(V.dtype)
+    off = 0 if sp is None else sp[2]
+    if sp is None:
+        K[rows, pos] = k.to(K.dtype)
+        V[rows, pos] = v.to(V.dtype)
+    else:
+        at = pos - off
+        ok = (at >= 0) & (at < K.shape[1])
+        r = rows.expand_as(pos)[ok]
+        K[r, at[ok]] = k[ok].to(K.dtype)
+        V[r, at[ok]] = v[ok].to(V.dtype)
     n_rep = q.shape[2] // K.shape[2]
     Kr = K.to(dt).repeat_interleave(n_rep, dim=2) if n_rep > 1 else K.to(dt)
     Vr = V.to(dt).repeat_interleave(n_rep, dim=2) if n_rep > 1 else V.to(dt)
     scores = torch.einsum("bqhd,bchd->bhqc", q, Kr).float() / math.sqrt(cfg.hd)
-    mask = torch.arange(K.shape[1], device=x.device)[None, None, :] <= pos[:, :, None]
+    mask = off + torch.arange(K.shape[1], device=x.device)[None, None, :] <= pos[:, :, None]
+    if sp is not None:
+        o = _attend_blocks(scores, mask[:, None],
+                           lambda wt: torch.einsum("bhqc,bchd->bhqd", wt, Vr), dt, sp)
+        return o.transpose(1, 2).reshape(bsz, w, -1) @ p["wo"].to(dt)
     scores = scores.masked_fill(~mask[:, None], -1e30)
     probs = torch.softmax(scores, dim=-1).to(dt)
     o = torch.einsum("bhqc,bchd->bqhd", probs, Vr)
@@ -992,7 +1085,8 @@ def decode_window(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     position come back, (B, W, V), with the cache's index + W.  Norms and
     MLP take the same dispatch as `decode_step` (at B * W rows).  The
     caller rewinds by resetting the index: slots past it are masked out
-    of every later attention."""
+    of every later attention.  Under SP the cache is this rank's block of
+    the length, as `decode_step` takes it."""
     if not window_supported(cfg):
         raise NotImplementedError(
             f"decode_window: plain-attention transformer only (family="
@@ -1002,9 +1096,10 @@ def decode_window(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     bsz, w = tokens.shape
     index = (raw.expand(bsz) if raw.dim() == 0 else raw).long()
     pos = index[:, None] + torch.arange(w, device=tokens.device)[None]
+    sp = _seq_block(cfg, cache["segments"][0]["k"].shape[2])
 
     def attn(p, h, lc, rope):
-        return _window_attn(cfg, p, h, lc["k"], lc["v"], pos, rope)
+        return _window_attn(cfg, p, h, lc["k"], lc["v"], pos, rope, sp)
 
     logits = _decode_layers(cfg, params, tokens, pos, cache["segments"], attn)
     return logits, {"segments": cache["segments"], "index": raw + w}

@@ -31,7 +31,12 @@ the JAX table exactly.
 Under a mesh the model reads `current_mesh()`: the one mesh the serving
 engine enters (`use_mesh`) around prefill and decode, or the training
 step around its loss (`use_mesh(data_split=True)`: each rank holds its
-rows of the global batch, `split_axes()`); None outside it.  For
+rows of the global batch, `split_axes()`); None outside it.  A dense KV
+state whose slots split over "data" decodes its own slots the same way
+(`use_mesh(data_split=True, lanes=...)`: `row_lanes()` says where its
+rows sit in the step's global lane order), and one whose single
+sequence's cache length splits over "data" decodes under
+`use_mesh(seq_split=True)` (`seq_axes()`).  For
 training, `optimizer_shardings` and `data_shardings` give the optimizer
 state's and the batch's specs (path -> spec maps, as `param_spec_map`),
 and `gather_whole` / `local_slice` move a leaf between its whole form
@@ -429,7 +434,9 @@ def cache_specs(mesh, cache: Any, kv_heads: int, batch_size: int,
     there; explicit TP reads the whole latent on every rank).
     `seq_shard`: where the heads do not shard, the cache length goes over
     "model" instead (a rule no served path takes yet).  The serving
-    engine splits no slot over "data" and takes `kv_head_specs`."""
+    engine's bf16 / f32 dense rectangles take this rule
+    (`DenseKVState.place`): a data rank holds its block of the slots, or
+    of one slot's cache length."""
     dp = dp_axes(mesh)
     dsz = axis_size(mesh, dp) if dp else 1
     msz = axis_size(mesh, "model")
@@ -469,8 +476,8 @@ def kv_head_specs(mesh, pool_segments: Any, kv_heads: int, *,
     scales, (L, pages, 1, Hkv, 1)) shards over "model", on whole heads;
     the page dims never shard (one global pool addressed through per-slot
     tables), and MLA's latent pool stays replicated.  The serving engine's
-    dense (L, slots, C, Hkv, hd) rectangles take the same rule: every rank
-    holds every slot."""
+    int8 dense rectangles (and their scales) take the same rule: every
+    rank holds every slot, as JAX leaves them unplaced."""
     msz = axis_size(mesh, "model")
     heads_ok = n_heads is None or _div(n_heads, msz)
 
@@ -523,6 +530,20 @@ def local_cache_shapes(mesh, cache: Any, specs: Any) -> Any:
     return tree_map(lambda x, s: local_shape(tuple(x.shape), s, mesh), cache, specs)
 
 
+def dense_split(mesh, specs: Any):
+    """How `cache_specs`' specs split a dense cache over the DP axes:
+    "rows" (the slots), "seq" (a single slot's cache length, SP) or None
+    (every data rank holds the whole rectangle: no DP axis of more than
+    one rank, or neither dim divides)."""
+    dp = dp_axes(mesh) if mesh is not None else None
+    if dp is None or axis_size(mesh, dp) == 1:
+        return None
+    spec = next(iter(specs["segments"][0].values()))
+    if spec[1] is not None:
+        return "rows"
+    return "seq" if spec[2] is not None else None
+
+
 def place(mesh, cache: Any, specs: Any) -> Any:
     """A zero cache of per-rank shapes: every leaf reallocated at its
     local shape, dtype and device kept (the states place before any
@@ -545,8 +566,11 @@ class TPPlan:
     `all_reduce` (the unembedding, rwkv6's receptance and rglru's
     recurrent input to its gates in an `all_gather`) and, under
     autograd, starts at a `copy_to` of each replicated tensor entering
-    it.  `dp`: the DP axes the batch's rows are split over (training,
-    `use_mesh(data_split=True)`), else None."""
+    it.  `dp`: the DP axes the batch's rows are split over (training, or
+    a dense KV state's slots: `use_mesh(data_split=True)`), else None;
+    `lanes`: where those rows sit in a serving step's global lane order
+    (`row_lanes`); `sp`: the DP axes a dense cache's length is split over
+    (`seq_axes`)."""
     mesh: Any
     tp: int
     attn: bool
@@ -557,6 +581,8 @@ class TPPlan:
     rec: bool = False
     gate: bool = False
     dp: Any = None
+    lanes: Any = None
+    sp: Any = None
 
 
 def tp_plan(cfg, mesh) -> TPPlan:
@@ -571,23 +597,34 @@ def tp_plan(cfg, mesh) -> TPPlan:
                   and sharded(cfg.routed_ff * cfg.n_shared_experts),
                   rec=cfg.family == "rglru" and sharded(cfg.lru_width or cfg.d_model),
                   gate=cfg.family == "rwkv6" and sharded(cfg.d_model),
-                  dp=split_axes() if mesh is current_mesh() else None)
+                  **(dict(dp=split_axes(), lanes=row_lanes(), sp=seq_axes())
+                     if mesh is current_mesh() else {}))
 
 
 _MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh",
-                                                       default=(None, None))
+                                                       default=(None, None, None, None))
 
 
 @contextlib.contextmanager
-def use_mesh(mesh, *, data_split: bool = False):
+def use_mesh(mesh, *, data_split: bool = False, lanes=None, seq_split: bool = False):
     """Run the enclosed model calls sharded over `mesh` (None: unsharded);
     the mesh is forgotten on exit.  `data_split`: the batch's rows are
-    split over the mesh's DP axes (training: each rank holds its rows of
-    the global batch), else every rank holds the whole batch (serving)."""
-    dp = dp_axes(mesh) if mesh is not None and data_split else None
+    split over the mesh's DP axes (training, or a dense KV state's slots:
+    each rank holds its rows of the global batch), else every rank holds
+    the whole batch.  `lanes` (with `data_split`): (order, own), long
+    tensors placing a serving step's rows in its global lane order:
+    `order` (W,) picks the W lanes, in order, out of the rows gathered
+    from every DP rank (rank-major), `own` (rows,) names the lane each
+    local row stands for; None: the global batch is the gathered rows
+    themselves.  `seq_split`: the dense cache's length is split over the
+    DP axes (a batch of one long sequence, SP): decode attention combines
+    the ranks' partial softmaxes."""
+    dp = dp_axes(mesh) if mesh is not None and (data_split or seq_split) else None
     if dp is not None and axis_size(mesh, dp) == 1:
         dp = None
-    token = _MESH.set((mesh, dp))
+    rows = dp if data_split else None
+    token = _MESH.set((mesh, rows, lanes if rows is not None else None,
+                       dp if seq_split else None))
     try:
         yield mesh
     finally:
@@ -604,6 +641,18 @@ def split_axes():
     `use_mesh(data_split=True)` (None where every rank holds the whole
     batch, or the axes hold one rank)."""
     return _MESH.get()[1]
+
+
+def row_lanes():
+    """The (order, own) lanes of the enclosing `use_mesh(data_split=True,
+    lanes=...)`, else None."""
+    return _MESH.get()[2]
+
+
+def seq_axes():
+    """The DP axes a dense cache's length is split over inside the
+    enclosing `use_mesh(seq_split=True)` (None: the length is whole)."""
+    return _MESH.get()[3]
 
 
 # --- multi-replica serving ----------------------------------------------------

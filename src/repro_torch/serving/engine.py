@@ -43,12 +43,17 @@ transformer's rectangles (no sliding window); the resolved mode is
 the same requests) serves a transformer with tensor parallelism:
 `params` are this rank's blocks of the weights (`api.init_params(mesh=)`
 draws them, `parallel.sharding.shard_params` cuts them out of a whole
-tree; a whole tree is refused), the engine places its state at the
-local KV heads and runs prefill and decode inside `sharding.use_mesh`.  Every
-rank runs the same scheduler; each sampled token, and each deadline
-shedding verdict (the only decision read off the host clock), is rank
-0's, broadcast, so the ranks cannot drift.  Any family takes a mesh.
-`mesh=None` is the single-device path, unchanged.
+tree; a whole tree is refused), the engine places its state (`place`:
+the local KV heads; a dense bf16 / f32 state's slots, or one slot's
+cache length, over "data", as JAX's `cache_shardings`) and runs prefill
+and decode inside `sharding.use_mesh`; a data-split state decodes each
+data row's own slots and gathers the rows' logits over the engine
+mesh's own data group (a cluster replica's, never its parent's), so
+every rank samples from the same logits.  Every rank runs the same
+scheduler; each sampled token, and each deadline shedding verdict (the
+only decision read off the host clock), is rank 0's, broadcast, so the
+ranks cannot drift.  Any family takes a mesh.  `mesh=None` is the
+single-device path, unchanged.
 
 Every mark and deadline verdict reads `engine.clock` (default
 `time.monotonic`).  A cluster on a mesh sets it to the clock its ranks

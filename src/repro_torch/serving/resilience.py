@@ -150,7 +150,11 @@ def inject_nan(eng) -> bool:
     if getattr(state, "quantized", False):
         _fill_nan(state.scales, b, 1)            # (L, B, 1, Hkv, 1)
     elif "segments" in eng.cache:
-        _fill_nan(eng.cache["segments"], b, 1)   # (L, B, C, Hkv, hd)
+        # (L, B, C, Hkv, hd): on the data row holding slot b where the
+        # slots split over "data" (under SP each row poisons its block)
+        at = state.local_slot(b)
+        if at is not None:
+            _fill_nan(eng.cache["segments"], at, 1)
     else:
         _fill_nan(eng.cache["layers"], b, 0)     # batch on axis 0
     return True

@@ -14,10 +14,12 @@ verifies them in one batched forward.
   token-exact against target-only greedy decoding.
 
 On a mesh (`SpecDecodeEngine(mesh=)`) the target is sharded (its params
-are this rank's blocks, its KV at the rank's heads, the verify runs at
-local heads under the mesh) and the draft is replicated: every rank
-holds the whole draft and its whole KV and runs it unsharded, as the
-JAX engine leaves the draft unplaced.  Rank 0's drafts are broadcast
+are this rank's blocks, its KV placed by the dense rule: heads over
+"model", the slots, or one slot's length, over "data"; each data row
+verifies its own slots and the rows' logits are gathered over "data")
+and the draft is replicated: every rank holds the whole draft and its
+whole KV and runs it unsharded, as the JAX engine leaves the draft
+unplaced.  Rank 0's drafts are broadcast
 before each verify and its accepted tokens and counts after it, so the
 ranks cannot drift.
 """
@@ -151,8 +153,8 @@ def spec_decode_sampled(target_fwd: Forward, draft_fwd: Forward, prompt: np.ndar
 class SpecKVState(DenseKVState):
     """The target's dense KV rectangles (compact) with the draft's beside
     them (`draft`): a prefill fills both, so draft and target share every
-    slot's context.  `place` shards the target's alone; the draft runs
-    outside any mesh."""
+    slot's context.  `place` shards the target's alone (the dense rule);
+    the draft runs outside any mesh."""
 
     def __init__(self, mcfg: ModelConfig, draft_cfg: ModelConfig, draft_params: Params,
                  max_batch: int, max_len: int, *, decode_batch: int,
@@ -245,10 +247,15 @@ class SpecDecodeEngine(ServingEngine):
         drafts = torch.cat(drafts, 1)                                # (w, k)
         if self.mesh is not None:        # the verify window must be rank 0's
             drafts = coll.broadcast(drafts, self.mesh)
-        tsub = gather_slots(self.state.cache, idx)
+        # the target verifies this rank's lanes (its data row's slots where
+        # they split over "data") and every rank reads every lane's logits
+        lanes = self.state.step_lanes(sel)
+        tsub = gather_slots(self.state.cache, lanes.idx)
         window = torch.cat([tok, drafts[:, :-1]], 1)                 # (w, k)
-        with sharding.use_mesh(self.mesh):
-            logits, tsub = api.decode_window(self.mcfg, self.params, window, tsub)
+        with sharding.use_mesh(self.mesh), self.state.split_run(lanes):
+            logits, tsub = api.decode_window(self.mcfg, self.params,
+                                             window.index_select(0, lanes.rows), tsub)
+        logits = self.state.gather_lanes(logits, lanes)
         if self.guard_nan and not logits_finite(logits):
             self.health["nan_detected"] = True
             self.stats["nan_steps"] += 1
@@ -286,8 +293,9 @@ class SpecDecodeEngine(ServingEngine):
         # rewind both caches' index to the consumed positions
         index = base + torch.as_tensor(consumed, device=self.device).to(base.dtype)
         n = len(active)
-        scatter_slots(self.state.cache, {"segments": tsub["segments"], "index": index},
-                      idx, n)
+        scatter_slots(self.state.cache, {"segments": tsub["segments"],
+                                         "index": index.index_select(0, lanes.rows)},
+                      lanes.idx, lanes.n)
         scatter_slots(self.draft_state.cache,
                       {"segments": dsub["segments"], "index": index}, idx, n)
         return True

@@ -12,21 +12,31 @@ states take int8 storage (`quantized`, `serving/quant.py`).  Every
 state's `prefill` takes the request's `frames`; only the cross-attention
 state reads them.
 
-`place(mesh)` readies a state for tensor parallelism before any prefill
-(the JAX states' `place`): the KV states reallocate their rectangles or
-pools, and int8 scales, at this rank's KV heads (`parallel.sharding`'s
-`kv_head_specs`: KV heads over "model" when the attention shards on
-whole heads; MLA latents replicated).  The slots are
-not split over "data": the engine's ranks run one scheduler over every
-slot, so a data rank holds every slot's cache as its model peers do.
-The recurrent and cross-attention states reallocate their per-layer
-leaves at this rank's channels and heads (`sharding.layer_state_specs`:
-rglru's `h` and conv window, rwkv6's `wkv`, the KV of rglru's ring and
-of whisper's self and cross attention; token shifts whole), so the
-batch-1 caches a prefill makes under the mesh splice in as they are.
+`place(mesh)` readies a state for a mesh before any prefill (the JAX
+states' `place`).  The dense bf16 / f32 rectangles take
+`sharding.cache_specs` (the JAX `cache_shardings`): KV heads over
+"model" when the attention shards on whole heads (MLA latents
+replicated there), and over "data" the slots when they divide, or, with
+one slot, its cache length (SP).  Every rank still runs the engine's one
+scheduler over every slot: prefill runs replicated over "data" and only
+the owning data row (SP: every row, its block of the length) keeps the
+splice; decode runs each row's own slots (`use_mesh(data_split=True)`,
+MoE routed over the batch gathered in the step's lane order) and
+gathers the rows' logits over "data", so every rank samples from the
+same logits in JAX's lane order; under SP each rank attends over its
+block and the softmax is combined over "data".  The page pools and the
+int8 dense rectangles take `kv_head_specs` (KV heads over "model"; every
+data rank holds every slot, as JAX leaves them).  The recurrent and
+cross-attention states reallocate their per-layer leaves at this rank's
+channels and heads (`sharding.layer_state_specs`: rglru's `h` and conv
+window, rwkv6's `wkv`, the KV of rglru's ring and of whisper's self and
+cross attention; token shifts whole; every slot on every data rank), so
+the batch-1 caches a prefill makes under the mesh splice in as they are.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from typing import Any
 
 import numpy as np
@@ -35,6 +45,7 @@ import torch
 from repro_torch.bridge import tree_map
 from repro_torch.models import api
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import sharding
 
 from . import paged as paged_kv
@@ -86,6 +97,23 @@ def _local_heads(mesh, cfg: ModelConfig, tree: Params) -> Params:
         mesh, tree, cfg.kv_heads, n_heads=cfg.n_heads))
 
 
+@dataclasses.dataclass(frozen=True)
+class Lanes:
+    """How this rank runs one step over the global lanes `sel` (slot ids,
+    padding lanes repeating a slot): `slots` (rows,) the global slot each
+    local row decodes, `idx` their local slot indices (long), the first
+    `n` rows real (the rest stand in for a data row with fewer lanes and
+    are never written back), `rows` (rows,) the global lane each local row
+    stands for, `order` (W,) the W lanes' rows among the rows gathered
+    from every data rank (rank-major; None: unsplit, the local rows are
+    the lanes)."""
+    slots: list
+    idx: torch.Tensor
+    n: int
+    rows: torch.Tensor
+    order: torch.Tensor | None = None
+
+
 class DenseKVState:
     """Transformer dense KV rectangles {"segments": [{"k", "v": (L, B, C,
     Hkv, hd)} or MLA's {"latent": (L, B, C, kv_rank + rope_dim)}],
@@ -108,12 +136,22 @@ class DenseKVState:
     dequantized to the model dtype, decoded, their positions past the old
     index zeroed and the whole rectangles requantized with fresh scales,
     as the JAX `_dense_quant_step_fn` does (no full-width rewind over int8
-    codes)."""
+    codes).
+
+    After `place(mesh)` the bf16 / f32 rectangles may be split over
+    "data" (`split`, see the module docstring): "rows", this data row
+    holds slots [lo, lo + rows) and decodes the step's lanes it holds
+    (`step_lanes`: at a fixed width a row, min(rows, lanes), so every
+    collective has one size on every rank; a row with no lane decodes a
+    stand-in row it never writes back), or "seq", each data row holds
+    its block of the one slot's cache length."""
 
     kind = "dense"
     paged = False
     pool = None
     buckets: tuple = ()
+    mesh = None
+    split = None        # "rows" | "seq" | None (see place)
 
     def __init__(self, mcfg: ModelConfig, max_batch: int, max_len: int, *,
                  decode_batch: int, compact: bool, device: torch.device,
@@ -137,18 +175,96 @@ class DenseKVState:
             self.scales = kvq.scale_struct(self.cache["segments"])
 
     def place(self, mesh) -> None:
-        """The rectangles (and int8 scales) at this rank's KV heads; the
-        slot axis stays whole (see the module docstring)."""
-        self.cache["segments"] = _local_heads(mesh, self.mcfg, self.cache["segments"])
-        if self.scales is not None:
+        """The rectangles at this rank's blocks of `sharding.cache_specs`
+        (KV heads over "model"; the slots, or one slot's length, over
+        "data"); int8 rectangles and scales at the local KV heads only,
+        every slot whole (see the module docstring)."""
+        if self.quantized:
+            self.cache["segments"] = _local_heads(mesh, self.mcfg, self.cache["segments"])
             self.scales = _local_heads(mesh, self.mcfg, self.scales)
+            return
+        specs = sharding.cache_specs(mesh, self.cache, self.mcfg.kv_heads,
+                                     self.max_batch, n_heads=self.mcfg.n_heads)
+        self.cache = sharding.place(mesh, self.cache, specs)
+        self.mesh = mesh
+        self.split = sharding.dense_split(mesh, specs)
+        self._dp = sharding.dp_axes(mesh)
+        self._row = mesh.axis_rank(self._dp) if self.split else 0
+        self._per_row = self.cache["index"].shape[0]
+
+    def local_slot(self, b: int) -> int | None:
+        """Slot b's index in this rank's rectangles (None: another data
+        row holds it; under SP every row holds its block of slot 0)."""
+        if self.split != "rows":
+            return b
+        lo = self._row * self._per_row
+        return b - lo if lo <= b < lo + self._per_row else None
+
+    def step_lanes(self, sel: list[int]) -> Lanes:
+        """The local rows of one step over the global lanes `sel` (slot ids
+        in JAX's lane order): every lane when the slots are whole; with
+        the slots split over "data", the distinct slots this row holds in
+        their lane order, padded to min(rows, len(sel)) rows with a
+        stand-in (this row's first slot, never written back), and where
+        every lane sits among the rows gathered from every data row."""
+        dev = self.device
+        if self.split != "rows":
+            return Lanes(list(sel), torch.as_tensor(sel, dtype=torch.long, device=dev),
+                         len(dict.fromkeys(sel)), torch.arange(len(sel), device=dev))
+        per = self._per_row
+        width = min(per, len(sel))
+        held: dict[int, list[int]] = {}
+        for b in dict.fromkeys(sel):
+            held.setdefault(b // per, []).append(b)
+        lane = _lane_map(sel)
+        order = [(b // per) * width + held[b // per].index(b) for b in sel]
+        mine = held.get(self._row, [])
+        lo = self._row * per
+        slots = mine + [lo] * (width - len(mine))
+        rows = [lane[b] for b in mine] + [0] * (width - len(mine))
+        return Lanes(slots, torch.as_tensor([b - lo for b in slots], dtype=torch.long,
+                                            device=dev),
+                     len(mine), torch.as_tensor(rows, dtype=torch.long, device=dev),
+                     torch.as_tensor(order, dtype=torch.long, device=dev))
+
+    def split_run(self, lanes: Lanes):
+        """The context a step over `lanes` runs its model calls in: this
+        row's slots split over "data" (with the lanes), the cache length
+        split (SP), or the enclosing mesh as it is."""
+        if self.split == "rows":
+            return sharding.use_mesh(self.mesh, data_split=True,
+                                     lanes=(lanes.order, lanes.rows))
+        if self.split == "seq":
+            return sharding.use_mesh(self.mesh, seq_split=True)
+        return contextlib.nullcontext()
+
+    def gather_lanes(self, out: torch.Tensor, lanes: Lanes) -> torch.Tensor:
+        """A step's per-row output (rows, ...) as every lane's (W, ...) in
+        lane order, on every rank: one all_gather over the mesh's DP axes
+        where the slots are split, else `out` itself."""
+        if self.split != "rows":
+            return out
+        return coll.all_gather(out, self.mesh, self._dp, dim=0).index_select(0, lanes.order)
 
     def prefill(self, params: Params, b: int, seq: np.ndarray,
                 frames=None) -> torch.Tensor:
+        """Prefill `seq` (its batch-1 cache made on every rank) and splice
+        it into slot b: the owning data row alone where the slots split,
+        each row's block of its length under SP."""
         toks = torch.as_tensor(np.asarray(seq)[None, :], dtype=torch.long,
                                device=self.device)
         last, cache1 = api.prefill(self.mcfg, params, {"tokens": toks},
                                    self.max_len)
+        if self.split is not None:
+            at = self.local_slot(b)
+            if at is None:
+                return last
+            for dst, src in _leaf_pairs(self.cache["segments"], cache1["segments"]):
+                clen = dst.shape[2]       # SP: this row's block of the length
+                off = self._row * clen if self.split == "seq" else 0
+                dst[:, at].copy_(src[:, 0, off:off + clen])
+            self.cache["index"][at] = len(seq)
+            return last
         if self.quantized:
             for (dst, src), (dsc, _) in zip(
                     _leaf_pairs(self.cache["segments"], cache1["segments"]),
@@ -188,32 +304,38 @@ class DenseKVState:
         self.cache["index"].index_copy_(0, idx, new["index"].to(torch.int32))
         return logits, _lane_map(sel)
 
+    def _tokens_of(self, next_token: np.ndarray, slots: list[int]) -> torch.Tensor:
+        return torch.as_tensor(next_token[np.asarray(slots)], dtype=torch.long,
+                               device=self.device)
+
     def decode(self, params: Params, next_token: np.ndarray,
                active: list[int]):
         if self.quantized:
             return self._decode_quantized(params, next_token, active)
         if self.compact and self.decode_batch < self.max_batch:
             sel = active + [active[0]] * (self.decode_batch - len(active))
-            idx = torch.as_tensor(sel, dtype=torch.long, device=self.device)
-            logits, new = api.decode_step(
-                self.mcfg, params,
-                torch.as_tensor(next_token[np.asarray(sel)], dtype=torch.long,
-                                device=self.device), gather_slots(self.cache, idx))
+            lanes = self.step_lanes(sel)
+            with self.split_run(lanes):
+                logits, new = api.decode_step(
+                    self.mcfg, params, self._tokens_of(next_token, lanes.slots),
+                    gather_slots(self.cache, lanes.idx))
             # padding lanes repeat active[0] with identical results: only
             # the active lanes are written back
-            scatter_slots(self.cache, new, idx, len(active))
-            return logits, _lane_map(sel)
-        logits, new = api.decode_step(
-            self.mcfg, params,
-            torch.as_tensor(next_token, dtype=torch.long, device=self.device),
-            self.cache)
+            scatter_slots(self.cache, new, lanes.idx, lanes.n)
+            return self.gather_lanes(logits, lanes), _lane_map(sel)
+        # full width: every slot this rank holds, in slot order
+        lanes = self.step_lanes(list(range(self.max_batch)))
+        with self.split_run(lanes):
+            logits, new = api.decode_step(
+                self.mcfg, params, self._tokens_of(next_token, lanes.slots), self.cache)
         self.cache = new
         # every slot advanced; those that were not active step back in one
         # batched update
-        inactive = [b for b in range(self.max_batch) if b not in active]
+        inactive = [at for at in (self.local_slot(b) for b in range(self.max_batch)
+                                  if b not in active) if at is not None]
         if inactive:
             self.cache["index"][torch.as_tensor(inactive, device=self.device)] -= 1
-        return logits, {b: b for b in active}
+        return self.gather_lanes(logits, lanes), {b: b for b in active}
 
     def release(self, b: int) -> None:
         pass

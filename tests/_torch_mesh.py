@@ -9,7 +9,8 @@ job name.  One spawn runs many jobs.  A job is (name, kind,
 kwargs): "forward" (logits of a forward, a prefill and two decode steps
 of the port's transformer under the mesh), "family_forward" (the same
 through `api` for any family, whisper's frames in the batch), "engine"
-(greedy tokens of the port's `ServingEngine(mesh=...)`), "moe" (a MoE
+(greedy tokens of the port's `ServingEngine(mesh=...)`, with its decode
+state's split and per-rank leaf shapes), "moe" (a MoE
 block's output), "replicas" (`replica_meshes` over the data axis),
 "cluster" (a `ServingCluster(mesh=...)` run: closed loop, the chaos
 drill or open loop with deadlines, with every rank's request records),
@@ -132,10 +133,24 @@ def family_forward_job(mesh, cfg, params, batch, max_len):
     return dict(out, counts=counts)
 
 
+def state_digest(state) -> dict:
+    """A decode state's split over "data" (None where it has none) and
+    the per-rank shape of each of its KV leaves by path (the rectangles
+    and index, or the page pools), with their bytes."""
+    from repro_torch import bridge
+
+    tree = state.cache if state.cache is not None else state.pool.segments
+    leaves = bridge.tree_paths(tree)
+    return {"split": getattr(state, "split", None),
+            "cache": [(path, tuple(t.shape)) for path, t in leaves],
+            "kv_bytes": sum(t.nbytes for _, t in leaves)}
+
+
 def engine_job(mesh, cfg, params, prompts, max_new, frames=None, **eng_kw):
     """Greedy tokens and finish reasons of the port's engine on the mesh
-    (its blocks of `params` cut by `shard_params`); `frames`: one frame
-    array (or None) a request, whisper's."""
+    (its blocks of `params` cut by `shard_params`) and its decode state's
+    `state_digest`; `frames`: one frame array (or None) a request,
+    whisper's."""
     from repro_torch.parallel import sharding
     from repro_torch.serving.engine import Request, ServingEngine
 
@@ -151,7 +166,7 @@ def engine_job(mesh, cfg, params, prompts, max_new, frames=None, **eng_kw):
         return {"tokens": [r.out_tokens for r in reqs],
                 "reasons": [r.finish_reason for r in reqs],
                 "decode_steps": eng.stats["decode_steps"],
-                "prefills": eng.stats["prefills"]}
+                "prefills": eng.stats["prefills"], "state": state_digest(eng.state)}
 
     out, counts = _counted(go)
     return dict(out, counts=counts)
@@ -275,7 +290,8 @@ def spec_job(mesh, cfg, params, n_draft, k, prompts, max_new, **eng_kw):
         st = eng.spec_stats
         return {"tokens": [r.out_tokens for r in reqs],
                 "reasons": [r.finish_reason for r in reqs],
-                "spec_stats": (st.iterations, st.proposed, st.accepted, st.bonus)}
+                "spec_stats": (st.iterations, st.proposed, st.accepted, st.bonus),
+                "state": state_digest(eng.state), "draft": state_digest(eng.draft_state)}
 
     out, counts = _counted(go)
     return dict(out, counts=counts)

@@ -21,8 +21,8 @@ Gloo ranks spawned on the CPU (`_torch_mesh.run`, one spawn a mesh):
   split, the draft whole on each rank): tokens, finish reasons and
   `spec_stats` equal to the JAX `SpecDecodeEngine`'s.
 
-And the launcher: `--replicas N` under a tp policy starts N x tp ranks,
-and raises, naming the count, when the cards are fewer.
+And the launcher: under a tp policy it starts one rank a card (JAX's
+(cards / tp, tp) mesh, whose data axis `--replicas N` splits).
 """
 import json
 

@@ -206,13 +206,48 @@ def test_apply_policy_mesh_tp_matches_jax(tmp_path, n_devices):
 
 
 def test_serve_main_refuses_replicas_on_a_mesh(tmp_path, monkeypatch):
-    """2 replicas x tp 2 need 4 cards: with 2 it raises and names the
-    count (it never starts fewer ranks)."""
+    """2 cards at tp 2 make a (1, 2) mesh: its data axis of 1 does not
+    divide into 2 replicas, and `main` refuses with JAX's
+    `replica_meshes` error before it starts any rank."""
+    import torch.multiprocessing as mp
+
+    from repro.parallel import sharding as jax_sharding
     from repro_torch.launch import serve as tserve
 
     _, path = _tp_policy(tmp_path, 2)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(RuntimeError, match="--replicas 2 x tp 2 needs 4 cards"):
+    monkeypatch.setattr(mp, "spawn", lambda *a, **k: pytest.fail("a rank was started"))
+    with pytest.raises(ValueError) as want:
+        jax_sharding.replica_meshes(jax.make_mesh((1, 1), ("data", "model")), 2)
+    with pytest.raises(ValueError) as got:
         tserve.main(["--arch", "smollm-135m", "--smoke", "--policy", str(path),
                      "--replicas", "2"])
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("replicas,shapes", [(1, [{"data": 2, "model": 2}]),
+                                             (2, [{"data": 1, "model": 2}] * 2)])
+def test_serve_main_spawns_a_rank_a_card(tmp_path, monkeypatch, replicas, shapes):
+    """4 cards at tp 2: one NCCL rank a card, on JAX's (cards / tp, tp) =
+    (2, 2) mesh; one engine serves it whole (its dense batch over
+    "data"), 2 replicas split its data axis into two (1, 2) meshes."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.launch import serve as tserve
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.mesh import MeshShape
+
+    _, path = _tp_policy(tmp_path, 2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    seen = {}
+    monkeypatch.setattr(mp, "spawn", lambda fn, args, nprocs, join: seen.update(
+        fn=fn, args=args, nprocs=nprocs))
+    tserve.main(["--arch", "smollm-135m", "--smoke", "--policy", str(path),
+                 "--replicas", str(replicas)])
+    world, tp = seen["args"][:2]
+    assert seen["fn"] is tserve._serve_rank and seen["nprocs"] == world == 4 and tp == 2
+    # the mesh each rank builds: make_host_mesh(model_axis=tp) over the world
+    mesh = MeshShape(("data", "model"), {"data": world // tp, "model": tp})
+    assert [dict(m.shape) for m in sharding.replica_meshes(mesh, replicas)] == shapes
