@@ -173,7 +173,7 @@ exit, no result line) when a check fails:
    rate on batches already on the card (CUDA events) and its peak device
    memory by both routes, printed with the card's name and power
    limit; then serving on a mesh (`tp_path_phase`): two ranks spawned on
-   the one card over gloo, a (1, 2) mesh, smollm-135m (30 layers, bf16,
+   the one card over gloo, a (1, 2) mesh, smollm-135m (15 of 30 layers, bf16,
    the three flags) serving the main path's 12 requests through the
    paged engine with tensor parallelism (every rank's kernel launches
    and collectives per layer per step as the sharding implies, the
@@ -188,8 +188,8 @@ exit, no result line) when a check fails:
    distance from the bf16 plain route) and mixtral-8x7b with
    moe_groups=4 on one rank (float32, no drops, token-equal to
    moe_groups=0).  Each rank draws only its blocks of the weights.  Then
-   every family on that (1, 2) mesh (`family_mesh_phase`): rwkv6-3b (32
-   layers, wkv6 at 20 heads), recurrentgemma-2b (26 layers, rglru_scan at
+   every family on that (1, 2) mesh (`family_mesh_phase`): rwkv6-3b (16
+   of 32 layers, wkv6 at 20 heads), recurrentgemma-2b (13 of 26 layers, rglru_scan at
    1280 channels, flash and the fused norm, its 10 / 1 heads replicated)
    and whisper-base (6 + 6 layers, 1500-frame windows) at full width in
    bf16, 8 requests each, every rank's launches and collectives per layer
@@ -200,7 +200,7 @@ exit, no result line) when a check fails:
    one-card engine's streams compared and printed; at 8 layers in float32
    tokens and acceptance counts equal to the one-card engine's); then the
    cluster on a (2, 2) mesh of four ranks (`cluster_mesh_phase`): 2
-   replicas x tp 2 of smollm-135m (30 layers, bf16, the three flags), 16
+   replicas x tp 2 of smollm-135m (15 of 30 layers, bf16, the three flags), 16
    `LoadGenerator` requests under the seed-0 chaos script, every rank
    ending with the same request records, paged_decode once a layer for
    every decode step of the rank's own replica's engines, and at 4 layers
@@ -244,6 +244,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -365,6 +366,7 @@ SPEC_K = 4
 # more than the unsharded MLP's), so its logits may lie up to twice as
 # far from the float32 route as the unsharded engine's, plus a floor
 TP = 2
+MESH_SMOLLM_LAYERS = 15      # smollm-135m's depth (of 30) on the serving meshes
 TP_LOGITS_SLACK = (2.0, 1e-3)
 # (arch, d, F / 2, N), (arch, H / 2, Hkv / 2, hd, window), (arch, E / 2, d, F, C)
 TP_MLP = (("smollm-135m", 576, 768, (DECODE_N, 300)), ("h2o-danube-1.8b", 2560, 3456, (DECODE_N,)),
@@ -380,6 +382,7 @@ TP_MOE = (("mixtral-8x7b", 4, 4096, 14336, 8), ("deepseek-v3-671b", 128, 7168, 2
 # a quarter) and the float32 cluster check's depth; the cluster path runs
 # 2 replicas x tp 2 on four ranks
 FAM_F32_LAYERS = (("rwkv6-3b", 2), ("recurrentgemma-2b", 3), ("whisper-base", 2))
+FAM_LAYERS = {"rwkv6-3b": 16, "recurrentgemma-2b": 13}   # of 32 and 26, full width
 RGLRU_KERNELS = dict(attn_impl="flash", norm_impl="fused")
 SPEC_F32_LAYERS = 8
 CLUSTER_MESH = (2, 2)
@@ -393,6 +396,7 @@ CLUSTER_MESH_DEADLINE_MS = 10 * CLUSTER_DEADLINE_MS
 DATA_MESH_WORLDS = (2, 4)
 DATA_SP_PROMPT = 6000
 DATA_SP_LAYERS = 4
+DATA_F32_LAYERS = 8         # smollm's float32 token check on the data mesh (of 30)
 # the variant archs' served paths (bf16, full width, weights drawn on the card):
 # h2o-danube-1.8b's prompts, 6 of 16-300 tokens and 2 past its window of
 # 4096 (the ring wraps, the window cuts), and its max_len; qwen2-vl-2b's
@@ -419,6 +423,7 @@ WHISPER_MAX_LEN = 256
 TRAIN_MESH = (2, 2)
 TRAIN_MESH_F32 = (4, 3, 4, 128)
 TRAIN_MESH_BF16 = (10, 8, 256, 5)
+TRAIN_MESH_BF16_LAYERS = 15  # of smollm-135m's 30
 PIPE_MICRO = (4, 2, 256)
 PIPE_F32_LAYERS = 4
 PIPE_GRAD_TOL = 1e-4
@@ -3347,9 +3352,9 @@ def _tp_rank(rank: int, world: int, store: str, policy: str, out: str) -> None:
     rec = {}
     kern = dict(attn_impl="flash", mlp_impl="fused", norm_impl="fused")
 
-    # full width: smollm-135m, 30 layers, bf16, the three flags, the
-    # main path's 12 requests through the paged engine
-    cfg = configs.get_config("smollm-135m")
+    # full width: smollm-135m, `MESH_SMOLLM_LAYERS` of 30 layers, bf16, the
+    # three flags, the main path's 12 requests through the paged engine
+    cfg = configs.get_config("smollm-135m").replace(n_layers=MESH_SMOLLM_LAYERS)
     t0 = time.perf_counter()
     eng = build_engine(cfg, policy=load_policy(policy), max_batch=4, max_len=512, seed=0,
                        mesh=mesh, log=lambda s: None)
@@ -3524,7 +3529,7 @@ def _tp_rank(rank: int, world: int, store: str, policy: str, out: str) -> None:
 def tp_path_phase(torch) -> dict:
     """Serving on a mesh: two ranks spawned on the one card, joined over
     gloo (NCCL takes one card a rank), a (1, 2) mesh (`_tp_rank`).  At
-    full width smollm-135m (30 layers, bf16, the three flags) serves the
+    full width smollm-135m (15 of 30 layers, bf16, the three flags) serves the
     main path's 12 requests through the paged engine with tensor
     parallelism: per rank, every kernel launch and collective per layer
     per step must be what the sharding implies (the MLP at F 768, the
@@ -3626,7 +3631,8 @@ def _fam_logits(torch, mesh, cfg, sharded, full, batch, steps: int, ref_cfg):
 
 def _fam_path(torch, mesh, arch: str) -> dict:
     """`arch` at full width (bfloat16, weights from seed 0, this rank's
-    blocks) through `launch.serve` on the mesh: 8 requests (whisper: 4-64
+    blocks; rwkv6-3b and recurrentgemma-2b `FAM_LAYERS` deep) through
+    `launch.serve` on the mesh: 8 requests (whisper: 4-64
     token prompts over `WHISPER_ENC` frames), 32 new tokens each; every
     kernel launch and collective per layer per step as the sharding
     implies; the bf16 logits of a prefill and 3 decode steps within
@@ -3641,6 +3647,8 @@ def _fam_path(torch, mesh, arch: str) -> dict:
     from repro_torch.serving.engine import Request
 
     cfg = configs.get_config(arch)
+    if arch in FAM_LAYERS:
+        cfg = cfg.replace(n_layers=FAM_LAYERS[arch])
     if cfg.family == "rglru":
         cfg = cfg.replace(**RGLRU_KERNELS)
     whisper = cfg.family == "whisper"
@@ -3724,7 +3732,7 @@ def _fam_path(torch, mesh, arch: str) -> dict:
 
 
 def _spec_mesh(torch, mesh, policy: str) -> dict:
-    """Spec-decode on the mesh: smollm-135m (30 layers, bf16, the three
+    """Spec-decode on the mesh: smollm-135m (15 of 30 layers, bf16, the three
     flags) with the CLI's 7-layer shared-trunk draft, k `SPEC_K`, 8
     requests of 16-300 tokens, 32 new each, through `serve_specdec(mesh=)`
     (the target sharded, the draft whole on each rank), beside the
@@ -3742,7 +3750,8 @@ def _spec_mesh(torch, mesh, policy: str) -> dict:
     from repro_torch.parallel import collectives as coll
     from repro_torch.serving.specdec import SpecDecodeEngine, shared_trunk_draft
 
-    cfg, kw = configure(configs.get_config("smollm-135m"), policy=load_policy(policy),
+    cfg, kw = configure(configs.get_config("smollm-135m").replace(n_layers=MESH_SMOLLM_LAYERS),
+                        policy=load_policy(policy),
                         device=mesh.device, log=lambda x: None)
     out = {}
     for tag, c, max_new in (("bf16", cfg, 32),
@@ -3864,9 +3873,9 @@ def _spawn(fn, world: int, policy: str, tag: str) -> dict:
 
 def family_mesh_phase(torch) -> dict:
     """Every family on a mesh: two ranks spawned on the one card over
-    gloo, a (1, 2) mesh (`_fam_rank`).  At full width, bf16: rwkv6-3b (32
-    layers, wkv6 at 20 of 40 heads, decode and chunked prefill),
-    recurrentgemma-2b (26 layers, rglru_scan at 1280 of 2560 channels,
+    gloo, a (1, 2) mesh (`_fam_rank`).  At full width, bf16: rwkv6-3b (16
+    of 32 layers, wkv6 at 20 of 40 heads, decode and chunked prefill),
+    recurrentgemma-2b (13 of 26 layers, rglru_scan at 1280 of 2560 channels,
     flash and the fused norm; its 10 / 1 heads replicated) and
     whisper-base (6 + 6 layers, no kernel of the port), 8 requests each,
     every rank's launches and collectives per layer per step as the
@@ -3930,7 +3939,8 @@ def _cluster_mesh_rank(rank: int, world: int, store: str, policy: str, out: str)
     dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
                             world_size=world, timeout=datetime.timedelta(seconds=600))
     mesh = make_host_mesh(CLUSTER_MESH[1], backend="gloo", device_type="cuda")
-    cfg, kw = configure(configs.get_config("smollm-135m"), policy=load_policy(policy),
+    cfg, kw = configure(configs.get_config("smollm-135m").replace(n_layers=MESH_SMOLLM_LAYERS),
+                        policy=load_policy(policy),
                         device=mesh.device, log=lambda x: None)
     built = []                  # this rank's real engines, restarts included
     new_engine = cluster_mod.ServingCluster._new_engine
@@ -4018,7 +4028,7 @@ def _cluster_mesh_rank(rank: int, world: int, store: str, policy: str, out: str)
 def cluster_mesh_phase(torch) -> dict:
     """The serving cluster on per-replica meshes: four ranks spawned on the
     one card over gloo, a (2, 2) mesh, 2 replicas x tp 2
-    (`_cluster_mesh_rank`).  smollm-135m (30 layers, bf16, the three
+    (`_cluster_mesh_rank`).  smollm-135m (15 of 30 layers, bf16, the three
     flags) serves `CLUSTER_REQUESTS` `LoadGenerator` requests (Poisson at
     `CLUSTER_RATE` a second, `CLUSTER_MESH_DEADLINE_MS` deadlines) under
     the seed-0 chaos script over `CLUSTER_HORIZON` steps through
@@ -4191,7 +4201,8 @@ def _data_mesh_rank(rank: int, world: int, store: str, policy: str, out: str) ->
 
     # smollm-135m at full width, bf16, the three flags, dense KV: 4 slots,
     # 2 a data row
-    cfg, kw = configure(configs.get_config("smollm-135m"), policy=load_policy(policy),
+    cfg, kw = configure(configs.get_config("smollm-135m").replace(n_layers=MESH_SMOLLM_LAYERS),
+                        policy=load_policy(policy),
                         device=mesh.device, log=lambda x: None)
     rng = np.random.default_rng(0)
     rec["smollm"] = _data_serve(torch, mesh, "smollm", cfg,
@@ -4209,11 +4220,13 @@ def _data_mesh_rank(rank: int, world: int, store: str, policy: str, out: str) ->
               f"data mesh smollm: bf16 logits off the float32 route by {lg}")
     del full
     free(torch)
-    # float32 at full width: token-equal to the one-rank engine
+    # float32 at full width, `DATA_F32_LAYERS` deep: token-equal to the
+    # one-rank engine
     prng = np.random.default_rng(21)
     f32 = dict(kern, dtype="float32", param_dtype="float32")
     rec["smollm_f32"] = _tp_tokens(
-        torch, mesh, "data smollm f32", configs.get_config("smollm-135m").replace(**f32),
+        torch, mesh, "data smollm f32",
+        configs.get_config("smollm-135m").replace(n_layers=DATA_F32_LAYERS, **f32),
         [prng.integers(0, 32000, size=int(n)).astype(np.int32)
          for n in prng.integers(16, 301, size=6)], 16, paged=False, max_len=512)
 
@@ -4264,14 +4277,14 @@ def _data_mesh_rank(rank: int, world: int, store: str, policy: str, out: str) ->
 def data_mesh_phase(torch) -> dict:
     """Serving with the batch over "data": ranks spawned on the one card
     over gloo on a (2, 1) and then a (2, 2) mesh (`_data_mesh_rank`).
-    smollm-135m at full width (30 layers, bf16, the three flags, dense
+    smollm-135m at full width (15 of 30 layers, bf16, the three flags, dense
     KV, 4 slots: 2 a data row) serves 8 requests: every rank's state at
     half the KV bytes of the KV-head placement alone, each kernel of the
     path launched as the layers and calls imply, the collectives a decode
     step printed; its bf16 logits over 4 slots (a prefill and 3 decode
     steps) within `TP_LOGITS_SLACK` of the unsharded state's distance
     from the float32 plain route; then in float32 at full width,
-    token-equal to the one-rank engine.  On (2, 1) also h2o-danube-1.8b
+    `DATA_F32_LAYERS` deep, token-equal to the one-rank engine.  On (2, 1) also h2o-danube-1.8b
     at full width cut to `DATA_SP_LAYERS` layers with one slot and a
     `DATA_SP_PROMPT`-token prompt past its 4096 ring, the ring's length
     over "data" (SP): the same checks, and float32 tokens equal to the
@@ -4435,9 +4448,10 @@ def _train_mesh_rank(rank: int, world: int, store: str, policy: str, out: str) -
     del got, mine
     free(torch)
 
-    # (b) bfloat16 at full width: 10 steps, checkpoints, the (4, 1) reshard
+    # (b) bfloat16 at full width, `TRAIN_MESH_BF16_LAYERS` deep: 10 steps,
+    # checkpoints, the (4, 1) reshard
     steps, rows, seq, every = TRAIN_MESH_BF16
-    cfg = configs.get_config("smollm-135m").replace(**flags)
+    cfg = configs.get_config("smollm-135m").replace(n_layers=TRAIN_MESH_BF16_LAYERS, **flags)
     ocfg = OptimizerConfig(lr=3e-4, warmup_steps=2, total_steps=steps)
     ckpt_dir = ROOT / "build" / "train_mesh_ckpt"
     if rank == 0:
@@ -4608,7 +4622,7 @@ def train_mesh_phase(torch) -> dict:
     rtol 1e-4 and parameters within 1e-5 (at most 8 elements within 2 x
     2 lr: `test_torch_train_loop`'s tolerance), each kernel launched in the
     forward only, as often as the layers and steps imply.  (b) bfloat16
-    smollm-135m at full width (30 layers): 10 steps of `train(mesh=)` on
+    smollm-135m at full width (`TRAIN_MESH_BF16_LAYERS` of 30 layers): 10 steps of `train(mesh=)` on
     SyntheticLM 8 x 256 (4 rows a data rank), checkpoints every 5 steps
     into build/; every loss finite and the last below the first; ms a
     step, tokens/s, the peak memory of a rank and the collectives a step
@@ -4652,6 +4666,290 @@ def train_mesh_phase(torch) -> dict:
           f"{max(c['f32']['grad_gaps'].values()):.3g}", flush=True)
     print(f"[smoke] train mesh phase {secs:.1f}s ((a) + (b) {t1 - t0:.1f}s)", flush=True)
     print(json.dumps({"train_mesh": dict(rec, seconds=secs, card=card)}), flush=True)
+    return rec
+
+
+DRYRUN_CELLS = (("smollm-135m", "train_4k", "single"), ("smollm-135m", "prefill_32k", "single"),
+                ("smollm-135m", "decode_32k", "single"), ("smollm-135m", "long_500k", "single"),
+                ("mixtral-8x7b", "train_4k", "multi"), ("deepseek-v3-671b", "decode_32k", "single"))
+DRYRUN_CARD = (8, 512)      # rows, seq of the smollm-135m step traced and run on the card
+FSDP_MESH = (2, 2)
+FSDP_LAYERS = 1             # mixtral-8x7b at full width (see fsdp_path_phase)
+FSDP_STEPS = 3
+FSDP_BATCH = (8, 128)       # rows, seq
+FSDP_F32 = dict(n_layers=2, d_model=1024, n_heads=8, kv_heads=4, d_ff=2048)
+FSDP_LOSS_RTOL = 1e-3       # bf16, FSDP against TP (see fsdp_path_phase)
+
+
+def dryrun_start():
+    """Start the dry run's cells (`DRYRUN_CELLS`) in a process of its own:
+    it traces on the CPU (fake tensors, a fake process group), so it runs
+    beside the card's phases.  Returns (the process, its output file)."""
+    import tempfile
+
+    out = Path(tempfile.mkdtemp(prefix="dryrun_smoke_")) / "records.jsonl"
+    code = ("import json, sys\n"
+            "import os\n"
+            "import torch\n"
+            "os.nice(19)\n"
+            "torch.set_num_threads(1)\n"
+            "from repro_torch.launch import dryrun\n"
+            "with open(sys.argv[1], 'w') as f:\n"
+            "    for a, s, m in json.loads(sys.argv[2]):\n"
+            "        r = dryrun.run_cell(a, s, m, save=False, verbose=False)\n"
+            "        f.write(json.dumps(r, default=float) + '\\n')\n"
+            "        f.flush()\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen([sys.executable, "-c", code, str(out), json.dumps(DRYRUN_CELLS)],
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, out
+
+
+def dryrun_phase(torch, started) -> dict:
+    """The dry run (`repro_torch.launch.dryrun`): the cells `dryrun_start`
+    traced beside the card's phases (smollm-135m on the four shapes of a
+    16 x 16 mesh, mixtral-8x7b train_4k on 2 x 16 x 16 with FSDP over 512
+    ranks, deepseek-v3-671b decode_32k), each `ok`, with their roofline
+    terms, bottleneck and model_flops_ratio printed (the terms divide by
+    the H100's data-sheet peaks: derived, not measured).  Then one
+    smollm-135m train step (AdamW, remat "dots", `DRYRUN_CARD` rows x
+    tokens) on a (1, 1) mesh, traced by the dry run and run on the card:
+    the traced argument bytes must equal the card step's inputs' bytes;
+    the traced peak is printed beside `torch.cuda.max_memory_allocated`
+    (the trace runs the plain route, the card the same config's)."""
+    from repro_torch import configs
+    from repro_torch.launch import analyze, dryrun
+    from repro_torch.parallel.mesh import Mesh
+    from repro_torch.training import loop
+    from repro_torch.training.optimizer import OptimizerConfig
+
+    proc, out = started
+    try:
+        log, _ = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0, f"dry run process exited {proc.returncode}: {log[-3000:]}")
+    recs = [json.loads(line) for line in out.read_text().splitlines() if line.strip()]
+    check(len(recs) == len(DRYRUN_CELLS), f"dry run: {len(recs)} records of {len(DRYRUN_CELLS)}")
+    rows = []
+    for r in recs:
+        check(r["ok"], f"dry run {r['arch']} x {r['shape']} x {r['mesh']}: {r.get('error')}")
+        rf, ma = r["roofline"], r["memory_analysis"]
+        row = {"cell": f"{r['arch']} x {r['shape']} x {r['mesh']}", "hold": r["hold"],
+               "trace_s": r["trace_s"], "t_compute": rf["t_compute"],
+               "t_memory": rf["t_memory"], "t_collective": rf["t_collective"],
+               "bottleneck": rf["bottleneck"], "model_flops_ratio": rf["model_flops_ratio"],
+               "flops": rf["flops_per_device"], "bytes": rf["bytes_per_device"],
+               "collective_bytes": rf["collective_bytes_per_device"],
+               "arg_bytes": ma["argument_size_in_bytes"], "temp_bytes": ma["temp_size_in_bytes"]}
+        rows.append(row)
+        print(f"[smoke] dryrun {row['cell']} (hold {row['hold']}, traced in "
+              f"{row['trace_s']:.1f}s): t_compute {row['t_compute']:.4g}s t_memory "
+              f"{row['t_memory']:.4g}s t_collective {row['t_collective']:.4g}s -> "
+              f"{row['bottleneck']}; model_flops_ratio {row['model_flops_ratio']:.4f}; "
+              f"args {row['arg_bytes'] / 1e9:.3f} GB, temps {row['temp_bytes'] / 1e9:.3f} GB "
+              f"a rank (H100 data-sheet peaks, derived)", flush=True)
+
+    rows_n, seq = DRYRUN_CARD
+    shape = configs.Shape("card_train", seq, rows_n, "train")
+    cfg = dryrun.tune_config(configs.get_config("smollm-135m"), shape)
+    groups = {("data",): None, ("model",): None, ("data", "model"): None}
+    names, sizes = ("data", "model"), {"data": 1, "model": 1}
+    counts, memory = dryrun.trace_cell(cfg, shape, Mesh(names, sizes, 0, torch.device("cpu"),
+                                                        groups), "adamw", "jax")
+    mesh = Mesh(names, sizes, 0, torch.device("cuda", 0), groups)
+    ocfg, tcfg = OptimizerConfig(), loop.TrainConfig()
+    free(torch)
+    params, opt = loop.init_train_state(cfg, ocfg, tcfg, mesh=mesh, hold="jax")
+    step = loop.make_train_step(cfg, ocfg, tcfg, mesh=mesh, hold="jax")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab, (rows_n, seq), generator=gen, device="cuda",
+                              dtype=torch.int32) for k in ("tokens", "labels")}
+    card_args = analyze.storage_bytes((params, opt, batch))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    new_p, new_o, m = step(params, opt, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    loss = float(m["loss"])
+    del params, opt, new_p, new_o
+    free(torch)
+    card = card_line()
+    check(math.isfinite(loss), f"dryrun card step: loss {loss}")
+    check(card_args == memory["argument_size_in_bytes"],
+          f"dryrun card step: traced argument bytes {memory['argument_size_in_bytes']}, the "
+          f"card step's inputs {card_args}")
+    res = {"cells": rows, "card_step": {
+        "rows_seq": [rows_n, seq], "arg_bytes": card_args,
+        "traced_arg_bytes": memory["argument_size_in_bytes"],
+        "traced_peak_bytes": memory["peak_size_in_bytes"],
+        "card_max_memory_allocated": peak, "loss": loss,
+        "traced_flops": counts["flops"], "card": card}}
+    print(f"[smoke] dryrun card step smollm-135m {rows_n} x {seq} on (1, 1) ({card}): argument "
+          f"bytes traced {memory['argument_size_in_bytes']} = on the card {card_args}; peak "
+          f"traced {memory['peak_size_in_bytes'] / 1e9:.3f} GB (plain route, unfused) vs "
+          f"torch.cuda.max_memory_allocated {peak / 1e9:.3f} GB; loss {loss:.4f}", flush=True)
+    print(json.dumps({"dryrun": res}), flush=True)
+    return res
+
+
+def _fsdp_rank(rank: int, world: int, store: str, policy: str, out: str) -> None:
+    """One rank of `fsdp_path_phase`: gloo over the one card, a `FSDP_MESH`
+    mesh; rank 0 writes the record."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.launch import analyze
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import sharding
+    from repro_torch.training import loop
+    from repro_torch.training.optimizer import OptimizerConfig
+
+    # (b) compares bits: the index backward's accumulation (the embedding's
+    # gradient) and cuBLAS in their deterministic modes
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    # four ranks' large blocks on one card: segments that grow, not fragment
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=600))
+    mesh = make_host_mesh(FSDP_MESH[1], backend="gloo", device_type="cuda")
+    launchers = {k: v for k, v in _tp_launchers().items()
+                 if k in ("fused_rmsnorm", "fused_rmsnorm_residual", "flash_attention",
+                          "moe_mlp")}
+    flags = dict(attn_impl="flash", mlp_impl="fused", norm_impl="fused")
+    rows, seq = FSDP_BATCH
+
+    def batch_for(vocab):
+        rng = np.random.default_rng(7)
+        return {k: torch.from_numpy(rng.integers(0, vocab, (rows, seq)).astype(np.int32))
+                .to(mesh.device) for k in ("tokens", "labels")}
+
+    def run(cfg, ocfg, steps, hold, gather=False):
+        tcfg = loop.TrainConfig(steps=steps, seed=0)
+        free(torch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params, opt = loop.init_train_state(cfg, ocfg, tcfg, mesh=mesh, hold=hold)
+        pbytes, obytes = analyze.storage_bytes(params), analyze.storage_bytes(opt)
+        step = loop.make_train_step(cfg, ocfg, tcfg, mesh=mesh, hold=hold)
+        batch = batch_for(cfg.vocab)
+        for ln in launchers.values():
+            ln.launches = 0
+        coll.reset()
+        losses, t0 = [], time.perf_counter()
+        with kernel_shapes() as seen:
+            for _ in range(steps):
+                params, opt, m = step(params, opt, batch)
+                losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        got = {"losses": losses, "seconds": time.perf_counter() - t0,
+               "param_bytes": pbytes, "opt_bytes": obytes,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": {k: ln.launches for k, ln in launchers.items()},
+               "shapes": {k: sorted(v) for k, v in seen.items() if v},
+               "held_gathers_per_step": coll.COUNTS["hold"] / steps,
+               "collective_bytes_per_step": {k: v / steps for k, v in
+                                             coll.collective_bytes().items()}}
+        if gather:
+            got["params"] = {p: t.cpu() for p, t in sharding.gather_tree(
+                params, loop.param_specs(cfg, mesh, hold), mesh)}
+        del params, opt
+        free(torch)
+        return got
+
+    # (a) bf16 at full width, Adafactor (factored: the state stays small)
+    cfg = configs.get_config("mixtral-8x7b").replace(n_layers=FSDP_LAYERS, **flags)
+    ocfg = OptimizerConfig(name="adafactor", lr=1e-5, warmup_steps=1, total_steps=FSDP_STEPS)
+    bf16 = {hold: run(cfg, ocfg, FSDP_STEPS, hold) for hold in ("fsdp", "tp")}
+    # (b) float32 at a reduced width, AdamW with a clip that does not bind
+    cfg32 = configs.get_config("mixtral-8x7b").replace(dtype="float32", param_dtype="float32",
+                                                     **FSDP_F32, **flags)
+    ocfg32 = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=2, clip_norm=1e9)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    f32 = {hold: run(cfg32, ocfg32, 2, hold, gather=True) for hold in ("fsdp", "tp")}
+    torch.use_deterministic_algorithms(False)
+    bits = all(torch.equal(t, f32["tp"]["params"][p]) for p, t in f32["fsdp"]["params"].items())
+    for r in f32.values():
+        del r["params"]
+    recs = [None] * world
+    dist.all_gather_object(recs, {"rank": rank, "bf16": bf16, "f32": f32, "f32_bit_equal": bits})
+    if rank == 0:
+        Path(out).write_text(json.dumps({"ranks": recs, "mesh": dict(mesh.shape),
+                                         "layers": FSDP_LAYERS, "batch": [rows, seq]}))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def fsdp_path_phase(torch) -> dict:
+    """FSDP on the card: four ranks spawned on the one card over gloo, a
+    `FSDP_MESH` ("data", "model") mesh (`_fsdp_rank`).  (a) bfloat16
+    mixtral-8x7b at full width (d 4096, 8 experts of F 14336, 32 / 8 heads,
+    vocab 32000), cut to `FSDP_LAYERS` layer: the TP run's state does not
+    fit four ranks on one 80 GB card at two, every rank holding half the
+    layers' weights, their gradients, the flattened float32 DP sum and
+    the optimizer's float32 temporaries.  Adafactor (deepseek's policy;
+    factored, so the state stays small), `FSDP_STEPS` steps on `FSDP_BATCH`
+    with the weights held as FSDP's blocks (`hold="fsdp"`) and as the TP
+    blocks, the fused norms, flash and moe_mlp on: the losses finite and
+    falling, the first step's equal (the same blocks enter the same
+    kernels), the later ones within rtol `FSDP_LOSS_RTOL` (Adafactor's
+    row, column and RMS means sum each FSDP block before the all_reduce,
+    another order of float32 sums than the TP blocks'; in bf16 a
+    parameter then rounds apart now and then: on an H100 at lr 3e-4 the
+    third step's loss moved 2.4e-3 apart), each kernel launched in both runs as often,
+    at the same shapes (the FSDP layers gather their TP blocks first), a
+    rank's parameter bytes about halved (the data size); each rank's
+    parameter and optimizer bytes, peak memory and kernels printed.
+    (b) float32 at `FSDP_F32` (2 layers), AdamW with a clip that does not
+    bind, 2 steps each way: the losses and the gathered parameters equal
+    bit for bit.  All readings are of ranks that share one card."""
+    free(torch)
+    t0 = time.perf_counter()
+    rec = _spawn(_fsdp_rank, FSDP_MESH[0] * FSDP_MESH[1], "", "fsdp")
+    secs = time.perf_counter() - t0
+    card = card_line()
+    for r in rec["ranks"]:
+        a, b = r["bf16"], r["f32"]
+        gap = max(abs(x - y) / abs(y) for x, y in zip(a["fsdp"]["losses"], a["tp"]["losses"]))
+        check(all(math.isfinite(v) for h in a.values() for v in h["losses"]) and
+              a["fsdp"]["losses"][0] == a["tp"]["losses"][0] and gap <= FSDP_LOSS_RTOL and
+              all(h["losses"][-1] < h["losses"][0] for h in a.values()),
+              f"fsdp rank {r['rank']}: losses {a['fsdp']['losses']} vs {a['tp']['losses']}")
+        check(a["fsdp"]["launches"] == a["tp"]["launches"] and
+              all(v > 0 for v in a["fsdp"]["launches"].values()) and
+              a["fsdp"]["shapes"] == a["tp"]["shapes"],
+              f"fsdp rank {r['rank']}: launches {a['fsdp']['launches']} vs "
+              f"{a['tp']['launches']}, shapes {a['fsdp']['shapes']} vs {a['tp']['shapes']}")
+        ratio = a["tp"]["param_bytes"] / a["fsdp"]["param_bytes"]
+        check(ratio >= 1.9, f"fsdp rank {r['rank']}: parameter bytes {a['fsdp']['param_bytes']}"
+              f" under FSDP vs {a['tp']['param_bytes']}")
+        check(b["fsdp"]["losses"] == b["tp"]["losses"] and r["f32_bit_equal"],
+              f"fsdp f32 rank {r['rank']}: losses {b['fsdp']['losses']} vs "
+              f"{b['tp']['losses']}, parameters bit-equal {r['f32_bit_equal']}")
+        for hold in ("fsdp", "tp"):
+            h = a[hold]
+            print(f"[smoke] fsdp (a) mixtral-8x7b {rec['layers']}L bf16 rank {r['rank']} hold "
+                  f"{hold} ({card}): params {h['param_bytes'] / 1e9:.3f} GB, optimizer "
+                  f"{h['opt_bytes'] / 1e9:.3f} GB, peak {h['peak_gb']:.2f} GB, losses "
+                  f"{[round(v, 5) for v in h['losses']]}, {h['seconds']:.1f}s for "
+                  f"{FSDP_STEPS} steps, launches {h['launches']}, held gathers a step "
+                  f"{h['held_gathers_per_step']:.0f}", flush=True)
+    r0 = rec["ranks"][0]
+    print(f"[smoke] fsdp (b) mixtral-8x7b f32 {FSDP_F32}: losses {r0['f32']['fsdp']['losses']}"
+          f" = {r0['f32']['tp']['losses']}, parameters bit-equal {r0['f32_bit_equal']}",
+          flush=True)
+    print(f"[smoke] fsdp phase {secs:.1f}s", flush=True)
+    print(json.dumps({"fsdp": dict(rec, seconds=secs, card=card)}), flush=True)
     return rec
 
 
@@ -5212,12 +5510,6 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import kernel as fk
-    from repro_torch.kernels.fused_mlp import kernel as mk
-    from repro_torch.kernels.fused_norm import kernel as nk
-    from repro_torch.kernels.moe_mlp import kernel as ek
-    from repro_torch.kernels.rglru_scan import kernel as gk
-    from repro_torch.kernels.wkv6 import kernel as wk
 
     card = card_line()
     print(f"[smoke] card: {card}; torch {torch.__version__} cuda "
@@ -5230,6 +5522,23 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"[smoke] allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
+
+    dryrun_started = dryrun_start()
+    try:
+        return _main(torch, F, build_s, dryrun_started)
+    finally:
+        if dryrun_started[0].poll() is None:
+            dryrun_started[0].kill()
+            dryrun_started[0].wait()
+
+
+def _main(torch, F, build_s, dryrun_started) -> int:
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.fused_mlp import kernel as mk
+    from repro_torch.kernels.fused_norm import kernel as nk
+    from repro_torch.kernels.moe_mlp import kernel as ek
+    from repro_torch.kernels.rglru_scan import kernel as gk
+    from repro_torch.kernels.wkv6 import kernel as wk
 
     norm_trace(torch)
     rows, record = kernel_phase(torch, F)
@@ -5324,6 +5633,8 @@ def main() -> int:
     cluster_mesh_phase(torch)
     data_mesh_phase(torch)
     train_mesh_phase(torch)
+    fsdp_path_phase(torch)
+    dryrun_phase(torch, dryrun_started)
 
     meta = {
         "fused_rmsnorm": ("fused_norm.cu", "fused_norm/kernel.py:51",

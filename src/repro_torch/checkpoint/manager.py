@@ -25,7 +25,8 @@ path, as `sharding.param_spec_map` gives them) a rank holds its blocks:
 `device_get` does), so a checkpoint crosses packages and mesh shapes;
 `restore` has every rank read the whole leaf and keep its block
 (`sharding.local_slice`): the elastic reshard, e.g. saved on a (2, 2)
-mesh and restored on (4, 1).
+mesh and restored on (4, 1), or saved from FSDP's blocks
+(`training.loop.state_specs(hold="fsdp")`) and restored as TP blocks.
 """
 from __future__ import annotations
 

@@ -1,2 +1,3 @@
-"""Launchers of the port: execution policies, device meshes and the serve
-and train entry points."""
+"""Launchers of the port: execution policies, device meshes, the serve
+and train entry points, and the dry run (`specs`, `analyze`, `dryrun`,
+`report`)."""

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.bridge import tree_leaves, tree_map
 from repro_torch.device import resolve_device
+from repro_torch.parallel import sharding
 
 from . import rglru, rwkv6, transformer, whisper
 from .config import ModelConfig
@@ -31,17 +32,23 @@ def family_module(cfg: ModelConfig):
     return _FAMS[cfg.family]
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, *, device=None, mesh=None) -> Params:
+def init_params(cfg: ModelConfig, seed: int = 0, *, device=None, mesh=None,
+                hold: str = "tp") -> Params:
     """Random weights from a `torch.Generator` seeded on `device` (default:
     the mesh's) and drawn there (no host copy of a large tensor; a seed
     gives other weights on CUDA than on the CPU).  `mesh`: this rank's
     blocks of the same draw, for every family (`sharding.shard_params`'
     blocks of the whole draw, bit for bit; each leaf cut as it is drawn,
-    so a rank holds its shards and one layer's leaf at most)."""
+    so a rank holds its shards and one layer's leaf at most).  `hold`:
+    which blocks (`sharding.HOLDS`: "fsdp" holds FSDP's blocks, over the
+    DP axes too); the transformer family alone takes another than "tp"."""
     if mesh is not None and device is None:
         device = mesh.device
+    sharding.check_hold(cfg, hold)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    if hold != "tp":
+        return transformer.init_params(cfg, gen, dev, mesh=mesh, hold=hold)
     return family_module(cfg).init_params(cfg, gen, dev, mesh=mesh)
 
 

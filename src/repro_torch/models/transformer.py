@@ -30,8 +30,11 @@ route then runs over the rows gathered from every data rank (in the
 serving step's lane order where it gives `lanes`).  A serving state
 whose one slot's cache length splits over "data" decodes under
 `use_mesh(seq_split=True)`: each rank attends over its block of the
-cache and the partial softmaxes combine exactly over "data".  With no
-mesh nothing changes.
+cache and the partial softmaxes combine exactly over "data".  A rank may
+hold its weights in other blocks than the TP blocks (`use_mesh(hold=)`:
+JAX's table, or FSDP's blocks over the DP axes too): each layer, the
+embedding and the head then gather their TP blocks as they run
+(`sharding.compute_tree`).  With no mesh nothing changes.
 
 Caches are updated in place (the JAX functions return fresh arrays):
 `decode_step` writes the new token's k/v into the cache tensors it is
@@ -170,20 +173,23 @@ def _init_layers(cfg: ModelConfig, gen: torch.Generator, kind: str,
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
-                device: torch.device | str = "cpu", *, mesh=None) -> Params:
+                device: torch.device | str = "cpu", *, mesh=None,
+                hold: str = "tp") -> Params:
     """Weights of the same tree, shapes and scales as the JAX
     `init_params` (the `mtp` subtree included), drawn from `gen` on its
     own device (a CPU generator gives the same weights on every machine)
     and moved to `device`.  `mesh`: keep this rank's blocks only
     (`sharding.shard_params`' blocks of the whole draw, bit for bit),
     each cut from a layer's leaf as it is drawn, so a rank holds its
-    shards and one layer's leaf at most."""
+    shards and one layer's leaf at most.  `hold`: the blocks a rank holds
+    (`sharding.HOLDS`; "fsdp" is FSDP's), which the layers gather to their
+    TP blocks while they run."""
     check_supported(cfg)
     pd = cfg.tparam_dtype
 
     def keep(path, shape):
         return _whole(path, shape) if mesh is None else \
-            sharding.leaf_block(mesh, cfg, path, shape)
+            sharding.leaf_block(mesh, cfg, path, shape, hold=hold)
 
     def draw(path, shape, scale):
         return keep(path, shape)[1](normal(gen, shape, scale, pd))
@@ -620,6 +626,14 @@ def _ffn(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor):
                      mesh=plan.mesh if plan is not None and plan.mlp else None)
 
 
+def _held_layer(cfg: ModelConfig, kind: str, at: str, p: Params, x: torch.Tensor, rope):
+    """`layer_fwd` of one layer of the segment at `at` from this rank's
+    held views `p`, gathered to its TP blocks first (`compute_tree`).
+    Inside the remat body: the backward gathers again, and autograd keeps
+    no gathered weight past its layer."""
+    return layer_fwd(cfg, kind, sharding.compute_tree(cfg, p, at, layer=True), x, rope)
+
+
 def layer_fwd(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, rope):
     a, kv = attn_block(cfg, p["attn"], apply_norm(cfg, p["norm1"], x), rope)
     a = _attn_sum(cfg, a)
@@ -634,7 +648,8 @@ def layer_fwd(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, rope):
 
 def embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor):
     """Token embeddings; vocab-parallel under a mesh (`vocab_embed`)."""
-    return vocab_embed(params["embed"].to(cfg.tdtype), tokens, _plan(cfg))
+    emb = sharding.compute_tree(cfg, params["embed"], "embed")
+    return vocab_embed(emb.to(cfg.tdtype), tokens, _plan(cfg))
 
 
 def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor):
@@ -643,9 +658,9 @@ def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor):
     plan = _plan(cfg)
     x = vocab_in(x, plan)
     if cfg.tie_embeddings:
-        logits = x @ params["embed"].to(cfg.tdtype).T
+        logits = x @ sharding.compute_tree(cfg, params["embed"], "embed").to(cfg.tdtype).T
     else:
-        logits = x @ params["head"].to(cfg.tdtype)
+        logits = x @ sharding.compute_tree(cfg, params["head"], "head").to(cfg.tdtype)
     return vocab_logits(logits, plan)
 
 
@@ -672,9 +687,10 @@ def hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor | None,
         positions = torch.arange(s, device=x.device)[None].expand(bsz, s)
     rope = rope_for(cfg, positions, mrope_positions)
     kvs = []
-    for seg in params["segments"]:
+    for i, seg in enumerate(params["segments"]):
         kind, sp = _segment(seg)
-        body = maybe_remat(functools.partial(layer_fwd, cfg, kind), cfg)
+        body = maybe_remat(functools.partial(_held_layer, cfg, kind,
+                                             f"segments/{i}/kind_{kind}"), cfg)
         entries = []
         for lp in _layers(sp):
             x, kv = body(lp, x, rope)
@@ -742,7 +758,7 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tensor:
         logits = logits[:, embeds.shape[1]:]
     loss = cross_entropy(logits, labels)
     if cfg.mtp:
-        mp = params["mtp"]
+        mp = sharding.compute_tree(cfg, params["mtp"], "mtp")
         emb_next = embed_tokens(cfg, params, F.pad(tokens[:, 1:], (0, 1)))
         hh = torch.cat([h, emb_next], -1) @ mp["proj"].to(cfg.tdtype)
         bsz, s, _ = hh.shape
@@ -985,11 +1001,12 @@ def _decode_layers(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     reduced here).  Returns the (B, S, V) logits."""
     rope = rope_for(cfg, index[:, None] if index.dim() == 1 else index)
     x = embed_tokens(cfg, params, tokens)
-    for seg, seg_cache in zip(params["segments"], caches):
+    for i, (seg, seg_cache) in enumerate(zip(params["segments"], caches)):
         kind, sp = _segment(seg)
         keys = list(seg_cache)
         per_layer = zip(*(seg_cache[k].unbind(0) for k in keys))
         for lp, views in zip(_layers(sp), per_layer):
+            lp = sharding.compute_tree(cfg, lp, f"segments/{i}/kind_{kind}", layer=True)
             a = layer_attn(lp["attn"], apply_norm(cfg, lp["norm1"], x),
                            dict(zip(keys, views)), rope)
             a = _attn_sum(cfg, a)

@@ -41,12 +41,25 @@ training, `optimizer_shardings` and `data_shardings` give the optimizer
 state's and the batch's specs (path -> spec maps, as `param_spec_map`),
 and `gather_whole` / `local_slice` move a leaf between its whole form
 and a rank's block.
+
+**What a rank holds** (`hold`).  By default ("tp") a rank holds each
+leaf as the block tensor parallelism computes with: `param_spec` with
+the whole-heads rule.  Two other layouts hold a leaf as JAX's table
+places it, without the whole-heads rule: "jax" (the table as JAX's
+`params_shardings` applies it) and "fsdp" (the table over DP too,
+ZeRO-3: a dim over ("data", "model") or ("pod", "data", "model"), as
+JAX's dry run sets for its FSDP archs).  The model then gathers each
+such leaf to its TP block only while its layer runs
+(`collectives.gather_held`; a rank holds at most one layer's gathered
+weights), and the gradient comes back to the held block already summed
+over the DP ranks.  Only the transformer family takes "jax" or "fsdp".
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 import dataclasses
+import functools
 import re
 from typing import Any
 
@@ -225,18 +238,43 @@ def param_spec_map(mesh, params: Any, fsdp: bool = False, *, cfg=None) -> dict[s
     return out
 
 
+HOLDS = ("tp", "jax", "fsdp")
+
+
+def held_spec(mesh, path: str, shape, stacked: bool, cfg, hold: str = "tp") -> Spec:
+    """The spec of the block a rank holds of the leaf at `path` under
+    `hold` (see the module docstring): the TP spec for "tp", JAX's table
+    (over DP too for "fsdp") otherwise."""
+    if hold not in HOLDS:
+        raise ValueError(f"hold {hold!r}: one of {HOLDS}")
+    if hold == "tp":
+        return param_spec(mesh, path, shape, stacked, cfg=cfg)
+    return param_spec(mesh, path, shape, stacked, fsdp=hold == "fsdp")
+
+
+def check_hold(cfg, hold: str) -> None:
+    """Raise NotImplementedError where a family cannot hold `hold`."""
+    if hold != "tp" and cfg.family != "transformer":
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family} holds its weights as its TP blocks "
+            f"only, not {hold!r} (no gather of held leaves is ported for it)")
+
+
 def local_shape(shape, spec: Spec, mesh) -> tuple:
     """A leaf's per-rank shape under `spec`."""
     return tuple(n if a is None else n // axis_size(mesh, a)
                  for n, a in zip(shape, spec))
 
 
-def leaf_block(mesh: Mesh, cfg, path: str, shape, stacked: bool = False):
+def leaf_block(mesh: Mesh, cfg, path: str, shape, stacked: bool = False,
+               hold: str = "tp"):
     """(this rank's shape, a function cutting its block out of a tensor of
-    `shape`) for the leaf at `path`, by `param_spec` with the whole-heads
-    rule (no FSDP: the model gathers no weight)."""
+    `shape`) for the leaf at `path`, by `held_spec`: the TP block with the
+    whole-heads rule ("tp"), or JAX's block ("jax", "fsdp"), which the
+    model gathers to the TP block while its layer runs."""
+    check_hold(cfg, hold)
     shape = tuple(shape)
-    spec = param_spec(mesh, path, shape, stacked, cfg=cfg)
+    spec = held_spec(mesh, path, shape, stacked, cfg, hold)
     if all(a is None for a in spec):
         return shape, lambda t: t
     return local_shape(shape, spec, mesh), lambda t: local_slice(t, spec, mesh)
@@ -262,10 +300,11 @@ def local_slice(t: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
     return t.clone()
 
 
-def shard_params(params: Any, mesh: Mesh, cfg) -> Any:
-    """This rank's blocks of every parameter of a whole tree (`leaf_block`;
-    the same tree, replicated leaves the tensors given).  The blocks
-    `api.init_params(mesh=)` draws are these, bit for bit."""
+def shard_params(params: Any, mesh: Mesh, cfg, hold: str = "tp") -> Any:
+    """This rank's blocks of every parameter of a whole tree (`leaf_block`
+    under `hold`; the same tree, replicated leaves the tensors given).
+    The blocks `api.init_params(mesh=, hold=)` draws are these, bit for
+    bit."""
     def walk(tree, prefix):
         if isinstance(tree, dict):
             return {k: walk(v, prefix + (k,)) for k, v in tree.items()}
@@ -274,8 +313,65 @@ def shard_params(params: Any, mesh: Mesh, cfg) -> Any:
         if tree is None:
             return None
         ps = path_str(prefix)
-        return leaf_block(mesh, cfg, ps, tree.shape, _stacked(ps, tree))[1](tree)
+        return leaf_block(mesh, cfg, ps, tree.shape, _stacked(ps, tree), hold)[1](tree)
     return walk(params, ())
+
+
+def held_spec_map(mesh, params: Any, cfg, hold: str = "tp") -> dict[str, Spec]:
+    """'/'-joined path -> `held_spec` for every leaf of a whole params tree
+    (anything with a `.shape`)."""
+    return {path_str(path): held_spec(mesh, path_str(path), tuple(x.shape),
+                                      _stacked(path_str(path), x), cfg, hold)
+            for path, x in _leaves_with_paths(params)}
+
+
+@functools.lru_cache(maxsize=32)
+def _spec_maps(cfg, names: tuple, sizes: tuple, hold: str):
+    mesh = MeshShape(names, dict(zip(names, sizes)))
+    whole = whole_shapes(cfg)
+    return held_spec_map(mesh, whole, cfg, hold), param_spec_map(mesh, whole, cfg=cfg)
+
+
+@functools.lru_cache(maxsize=32)
+def whole_shapes(cfg):
+    """`api.param_shapes(cfg)`, cached: the whole parameter tree as `meta`
+    tensors."""
+    from repro_torch.models import api
+    return api.param_shapes(cfg)
+
+
+def spec_maps(cfg, mesh, hold: str = "tp") -> tuple[dict, dict]:
+    """(held specs, TP specs) by '/'-joined path for every parameter of
+    `cfg` on `mesh` (read from the whole shapes, `api.param_shapes`;
+    cached by the mesh's shape)."""
+    names = tuple(mesh.axis_names)
+    return _spec_maps(cfg, names, tuple(mesh.shape[a] for a in names), hold)
+
+
+def compute_tree(cfg, tree: Any, prefix: str, layer: bool = False) -> Any:
+    """`tree` (this rank's held parameters at path `prefix`: a leaf, a
+    subtree, or with `layer` one layer's views of a stacked segment) with
+    every leaf held in a block other than its TP block gathered to the
+    TP block (`collectives.gather_held`) under the enclosing
+    `use_mesh(hold=)`; `tree` itself where the rank holds TP blocks."""
+    mesh, hold = current_mesh(), current_hold()
+    if mesh is None or hold == "tp":
+        return tree
+    from repro_torch.parallel import collectives as coll
+    held, comp = spec_maps(cfg, mesh, hold)
+    rows = split_axes()
+
+    def walk(t, at):
+        if isinstance(t, dict):
+            return {k: walk(v, f"{at}/{k}") for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v, f"{at}/{i}") for i, v in enumerate(t))
+        if t is None:
+            return None
+        h, c = held[at], comp[at]
+        return coll.gather_held(t, mesh, h[1:] if layer else h, c[1:] if layer else c, rows)
+
+    return walk(tree, prefix)
 
 
 def _probe(cfg, params: Any, plan) -> tuple:
@@ -305,11 +401,23 @@ def _probe(cfg, params: Any, plan) -> tuple:
     return (params["embed"].shape[0], col), (rows, want)
 
 
-def check_shards(cfg, params: Any, mesh: Mesh) -> None:
+def check_shards(cfg, params: Any, mesh: Mesh, hold: str = "tp") -> None:
     """Raise ValueError unless `params` hold this rank's blocks under
     `mesh`: the embedding's rows and the first layer's query (or
     recurrent) columns must be the widths `tp_plan` cuts them to (a whole
-    tree run where blocks belong would be summed over the ranks)."""
+    tree run where blocks belong would be summed over the ranks); under
+    another `hold`, every leaf's shape must be its held block's."""
+    check_hold(cfg, hold)
+    if hold != "tp":
+        held = spec_maps(cfg, mesh, hold)[0]
+        whole = {path_str(p): tuple(x.shape) for p, x in _leaves_with_paths(whole_shapes(cfg))}
+        bad = [(path_str(p), tuple(t.shape)) for p, t in _leaves_with_paths(params)
+               if tuple(t.shape) != local_shape(whole[path_str(p)], held[path_str(p)], mesh)]
+        if bad:
+            raise ValueError(f"params are not this rank's {hold!r} blocks over "
+                             f"{dict(mesh.shape)}: {bad[:3]} (draw them with "
+                             f"api.init_params(mesh=, hold=) or cut them with shard_params)")
+        return
     got, want = _probe(cfg, params, tp_plan(cfg, mesh))
     if got != want:
         raise ValueError(f"params are not this rank's shards over {dict(mesh.shape)}: "
@@ -347,15 +455,18 @@ _OPT_PREFIXES = ("inner/mu/", "inner/nu/", "inner/v/", "error_feedback/")
 
 
 def optimizer_shardings(mesh, params_shape: Any, opt_shape: Any, *,
-                        cfg=None) -> dict[str, Spec]:
+                        cfg=None, hold: str = "tp") -> dict[str, Spec]:
     """'/'-joined path -> spec for every leaf of an optimizer-state tree
     (the JAX `optimizer_shardings`): AdamW's moments, Adafactor's
     unfactored `v` and the error feedback mirror their parameter's spec;
     Adafactor's factored `vr` drops the last entry, `vc` the one before
     the last; the step count (and any leaf without a parameter) is
     replicated.  `params_shape`: the whole parameter tree (anything with
-    a `.shape`), `cfg` as `param_spec_map` takes it."""
-    pmap = param_spec_map(mesh, params_shape, False, cfg=cfg)
+    a `.shape`), `cfg` as `param_spec_map` takes it; `hold`: the state
+    mirrors the held blocks (`held_spec`: "fsdp" is JAX's
+    `optimizer_shardings(fsdp=True)`)."""
+    pmap = param_spec_map(mesh, params_shape, False, cfg=cfg) if hold == "tp" \
+        else held_spec_map(mesh, params_shape, cfg, hold)
     out = {}
     for path, x in _leaves_with_paths(opt_shape):
         ps = path_str(path)
@@ -601,12 +712,13 @@ def tp_plan(cfg, mesh) -> TPPlan:
                      if mesh is current_mesh() else {}))
 
 
-_MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh",
-                                                       default=(None, None, None, None))
+_MESH: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_mesh", default=(None, None, None, None, "tp"))
 
 
 @contextlib.contextmanager
-def use_mesh(mesh, *, data_split: bool = False, lanes=None, seq_split: bool = False):
+def use_mesh(mesh, *, data_split: bool = False, lanes=None, seq_split: bool = False,
+             hold: str | None = None):
     """Run the enclosed model calls sharded over `mesh` (None: unsharded);
     the mesh is forgotten on exit.  `data_split`: the batch's rows are
     split over the mesh's DP axes (training, or a dense KV state's slots:
@@ -618,13 +730,20 @@ def use_mesh(mesh, *, data_split: bool = False, lanes=None, seq_split: bool = Fa
     local row stands for; None: the global batch is the gathered rows
     themselves.  `seq_split`: the dense cache's length is split over the
     DP axes (a batch of one long sequence, SP): decode attention combines
-    the ranks' partial softmaxes."""
+    the ranks' partial softmaxes.  `hold`: how the ranks hold the weights
+    (`HOLDS`); None keeps the enclosing context's on the same mesh, else
+    "tp"."""
     dp = dp_axes(mesh) if mesh is not None and (data_split or seq_split) else None
     if dp is not None and axis_size(mesh, dp) == 1:
         dp = None
     rows = dp if data_split else None
+    if hold is None:
+        outer = _MESH.get()
+        hold = outer[4] if mesh is not None and outer[0] is mesh else "tp"
+    elif hold not in HOLDS:
+        raise ValueError(f"hold {hold!r}: one of {HOLDS}")
     token = _MESH.set((mesh, rows, lanes if rows is not None else None,
-                       dp if seq_split else None))
+                       dp if seq_split else None, hold))
     try:
         yield mesh
     finally:
@@ -653,6 +772,12 @@ def seq_axes():
     """The DP axes a dense cache's length is split over inside the
     enclosing `use_mesh(seq_split=True)` (None: the length is whole)."""
     return _MESH.get()[3]
+
+
+def current_hold() -> str:
+    """How the ranks hold the weights inside the enclosing `use_mesh`
+    (`HOLDS`; "tp" outside one)."""
+    return _MESH.get()[4]
 
 
 # --- multi-replica serving ----------------------------------------------------

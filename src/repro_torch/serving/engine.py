@@ -52,8 +52,10 @@ mesh's own data group (a cluster replica's, never its parent's), so
 every rank samples from the same logits.  Every rank runs the same
 scheduler; each sampled token, and each deadline shedding verdict (the
 only decision read off the host clock), is rank 0's, broadcast, so the
-ranks cannot drift.  Any family takes a mesh.  `mesh=None` is the
-single-device path, unchanged.
+ranks cannot drift.  Any family takes a mesh.  `hold` (a transformer's):
+how `params` hold the weights (`sharding.HOLDS`; "fsdp" holds FSDP's
+blocks, and each layer gathers its TP blocks while it runs).
+`mesh=None` is the single-device path, unchanged.
 
 Every mark and deadline verdict reads `engine.clock` (default
 `time.monotonic`).  A cluster on a mesh sets it to the clock its ranks
@@ -134,8 +136,10 @@ class ServingEngine:
                  enc_len: int | None = None,
                  queue_bound: int = 0, guard_nan: bool = True,
                  shed_deadlines: bool = True, seed: int = 0,
-                 device: str | torch.device | None = None, mesh=None):
+                 device: str | torch.device | None = None, mesh=None,
+                 hold: str = "tp"):
         self.mesh = mesh
+        self.hold = hold
         if mesh is not None and device is None:
             device = mesh.device
         self.device = resolve_device(device)
@@ -166,7 +170,7 @@ class ServingEngine:
         self.state = self._new_state(page_size=page_size, num_pages=num_pages,
                                      bucket_min=bucket_min)
         if mesh is not None:
-            sharding.check_shards(mcfg, self.params, mesh)
+            sharding.check_shards(mcfg, self.params, mesh, hold)
             self.state.place(mesh)
         self.pool = self.state.pool
         self.buckets = self.state.buckets
@@ -278,7 +282,7 @@ class ServingEngine:
 
     def _run_model(self, fn, *args, **kw):
         """A state call (prefill or decode) under this engine's mesh."""
-        with sharding.use_mesh(self.mesh):
+        with sharding.use_mesh(self.mesh, hold=self.hold):
             return fn(self.params, *args, **kw)
 
     def _next_admission(self) -> int | None:

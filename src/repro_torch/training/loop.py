@@ -20,6 +20,13 @@ over whole leaves, and checkpoints hold whole leaves (rank 0 writes;
 every rank restores its blocks).  The numbers are JAX's unsharded
 step's.  JAX's `train` replicates the optimizer state on a mesh; the
 port keeps the rank's blocks, the layout JAX's dry run plans.
+
+`hold="fsdp"` (`sharding.HOLDS`) holds the parameters and the optimizer
+state as FSDP's blocks, over the DP axes too: each layer gathers its
+leaves to their TP blocks while it runs, and their gradients come back
+reduce-scattered (already summed over the DP ranks), so the flattened
+DP sum leaves them out; the global-norm clip sums each leaf's squares
+over every axis its held spec splits.
 """
 from __future__ import annotations
 
@@ -30,7 +37,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.bridge import tree_leaves, tree_map, tree_unflatten
+from repro_torch.bridge import tree_leaves, tree_map, tree_paths, tree_unflatten
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.pipeline import DataConfig, DataPipeline
 from repro_torch.device import resolve_device
@@ -82,69 +89,102 @@ def _rows(mesh, batch: dict) -> dict:
     return {k: sharding.local_slice(v, specs[k], mesh) for k, v in batch.items()}
 
 
-def _dp_sum(mesh, dp, loss: torch.Tensor, grads: Params):
-    """The loss shares and gradients summed over the DP axes `dp` in one
-    flattened float32 all_reduce (each leaf cast back to its dtype)."""
+DP_BUCKET = 1 << 28      # elements a flattened DP sum holds (1 GiB of float32)
+
+
+def _dp_sum(mesh, dp, loss: torch.Tensor, grads: Params, summed: frozenset = frozenset()):
+    """The loss shares and gradients summed over the DP axes `dp` in
+    flattened float32 all_reduces, each over whole leaves of at most
+    `DP_BUCKET` elements together (one, unless the gradients are larger;
+    each leaf cast back to its dtype: an element's sum does not depend on
+    the bucket); the leaves at the paths in `summed` (held leaves, whose
+    gradients come back from their gather already summed) are left as
+    they are."""
     if dp is None:
         return loss, grads
+    paths = [sharding.path_str(p) for p, _ in tree_paths(grads)]
     leaves = tree_leaves(grads)
-    flat = torch.cat([loss.reshape(1).float()] + [g.reshape(-1).float() for g in leaves])
-    flat = coll.all_reduce(flat, mesh, dp)
-    out, at = [], 1
-    for g in leaves:
-        out.append(flat[at:at + g.numel()].reshape(g.shape).to(g.dtype))
-        at += g.numel()
-    return flat[0], tree_unflatten(grads, out)
-
-
-def value_and_grad(mcfg: ModelConfig, params: Params, batch: dict, mesh=None):
-    """(the detached loss, the gradient tree, each leaf in its parameter's
-    dtype; zeros where the loss does not reach a parameter, as JAX
-    gives).  On a mesh (`mesh`, default the enclosing `use_mesh`'s)
-    `params` are this rank's blocks and `batch` the global batch: the
-    rank takes its rows, and the loss and the gradients (its blocks)
-    are the global ones, summed over the DP ranks."""
-    mesh = mesh if mesh is not None else sharding.current_mesh()
-    if mesh is None:
-        return _local_value_and_grad(mcfg, params, batch)
-    dp = _split(mesh, next(iter(batch.values())).shape[0])
-    with sharding.use_mesh(mesh, data_split=dp is not None):
-        loss, grads = _local_value_and_grad(mcfg, params, _rows(mesh, batch))
-    return _dp_sum(mesh, dp, loss, grads)
-
-
-_whole_shapes = functools.lru_cache(maxsize=8)(api.param_shapes)
+    out: list = list(leaves)
+    buckets: list = [[]]
+    size = 1                                  # the loss leads the first bucket
+    for i, (p, g) in enumerate(zip(paths, leaves)):
+        if p in summed:
+            continue
+        if buckets[-1] and size + g.numel() > DP_BUCKET:
+            buckets.append([])
+            size = 0
+        buckets[-1].append(i)
+        size += g.numel()
+    for b, idx in enumerate(buckets):
+        head = [loss.reshape(1).float()] if b == 0 else []
+        flat = coll.all_reduce(torch.cat(head + [leaves[i].reshape(-1).float() for i in idx]),
+                               mesh, dp)
+        at = len(head)
+        if b == 0:
+            loss = flat[0]
+        for i in idx:
+            g = leaves[i]
+            out[i] = flat[at:at + g.numel()].reshape(g.shape).to(g.dtype)
+            at += g.numel()
+    return loss, tree_unflatten(grads, out)
 
 
 @functools.lru_cache(maxsize=8)
-def param_specs(mcfg: ModelConfig, mesh) -> dict:
+def _gathered(mcfg: ModelConfig, mesh, hold: str) -> frozenset:
+    """The paths of the leaves a rank holds in another block than its TP
+    block under `hold` (their gradients arrive summed over DP)."""
+    held, comp = sharding.spec_maps(mcfg, mesh, hold)
+    return frozenset(p for p, s in held.items() if s != comp[p])
+
+
+def value_and_grad(mcfg: ModelConfig, params: Params, batch: dict, mesh=None,
+                   hold: str | None = None):
+    """(the detached loss, the gradient tree, each leaf in its parameter's
+    dtype; zeros where the loss does not reach a parameter, as JAX
+    gives).  On a mesh (`mesh`, default the enclosing `use_mesh`'s)
+    `params` are this rank's blocks (held as `hold`, default the
+    enclosing context's) and `batch` the global batch: the rank takes
+    its rows, and the loss and the gradients (its blocks) are the global
+    ones, summed over the DP ranks."""
+    mesh = mesh if mesh is not None else sharding.current_mesh()
+    if mesh is None:
+        return _local_value_and_grad(mcfg, params, batch)
+    hold = hold or sharding.current_hold()
+    dp = _split(mesh, next(iter(batch.values())).shape[0])
+    with sharding.use_mesh(mesh, data_split=dp is not None, hold=hold):
+        loss, grads = _local_value_and_grad(mcfg, params, _rows(mesh, batch))
+    return _dp_sum(mesh, dp, loss, grads, _gathered(mcfg, mesh, hold))
+
+
+def param_specs(mcfg: ModelConfig, mesh, hold: str = "tp") -> dict:
     """'/'-joined path -> spec of every parameter on `mesh`, from the whole
-    shapes (`api.param_shapes`) with the whole-heads rule: the blocks
-    `api.init_params(mesh=)` draws."""
-    return sharding.param_spec_map(mesh, _whole_shapes(mcfg), cfg=mcfg)
+    shapes (`api.param_shapes`): the blocks `api.init_params(mesh=,
+    hold=)` draws (for "tp" with the whole-heads rule)."""
+    return sharding.spec_maps(mcfg, mesh, hold)[0]
 
 
-def state_specs(mcfg: ModelConfig, mesh, opt_state) -> dict:
+def state_specs(mcfg: ModelConfig, mesh, opt_state, hold: str = "tp") -> dict:
     """Specs by checkpoint path of a (params, opt_state) pair on `mesh`:
     the parameters' and `sharding.optimizer_shardings`' (over the whole
-    shapes)."""
-    out = {f"0/{k}": v for k, v in param_specs(mcfg, mesh).items()}
+    shapes), both as held under `hold`."""
+    out = {f"0/{k}": v for k, v in param_specs(mcfg, mesh, hold).items()}
     out.update({f"1/{k}": v for k, v in sharding.optimizer_shardings(
-        mesh, _whole_shapes(mcfg), opt_state, cfg=mcfg).items()})
+        mesh, sharding.whole_shapes(mcfg), opt_state, cfg=mcfg, hold=hold).items()})
     return out
 
 
 def make_train_step(mcfg: ModelConfig, ocfg: OptimizerConfig,
-                    tcfg: TrainConfig, mesh=None) -> Callable:
+                    tcfg: TrainConfig, mesh=None, hold: str = "tp") -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics).  With n
     microbatches the batch is cut to (n, B / n, ...) and the gradients
     summed in float32 in microbatch order, then divided by n; the loss is
     the mean of the microbatches' losses.  On a mesh the state holds the
     rank's blocks and `batch` is the global batch: each microbatch's
     rows are split over the DP ranks, and the gradients summed over them
-    once a step."""
+    once a step (`hold`: how the state is held, `sharding.HOLDS`)."""
     n_micro = tcfg.microbatches
-    specs = None if mesh is None else param_specs(mcfg, mesh)
+    specs = None if mesh is None else param_specs(mcfg, mesh, hold)
+    summed = frozenset() if mesh is None else _gathered(mcfg, mesh, hold)
 
     def grads_of(params, batch):
         if n_micro == 1:
@@ -168,9 +208,9 @@ def make_train_step(mcfg: ModelConfig, ocfg: OptimizerConfig,
             loss, grads = grads_of(params, batch)
         else:
             dp = _split(mesh, next(iter(batch.values())).shape[0] // n_micro)
-            with sharding.use_mesh(mesh, data_split=dp is not None):
+            with sharding.use_mesh(mesh, data_split=dp is not None, hold=hold):
                 loss, grads = grads_of(params, batch)
-            loss, grads = _dp_sum(mesh, dp, loss, grads)
+            loss, grads = _dp_sum(mesh, dp, loss, grads, summed)
         if n_micro > 1:
             grads = tree_map(lambda g: g / n_micro, grads)
             loss = loss / n_micro
@@ -188,12 +228,13 @@ def make_train_step(mcfg: ModelConfig, ocfg: OptimizerConfig,
 
 
 def init_train_state(mcfg: ModelConfig, ocfg: OptimizerConfig,
-                     tcfg: TrainConfig, device=None, mesh=None) -> tuple[Params, Params]:
+                     tcfg: TrainConfig, device=None, mesh=None,
+                     hold: str = "tp") -> tuple[Params, Params]:
     """Random weights from tcfg.seed on `device` and a fresh optimizer
     state ({"inner"[, "error_feedback"]}); on a mesh this rank's blocks
-    of both, on the mesh's device."""
-    params = api.init_params(mcfg, tcfg.seed, device=device, mesh=mesh)
-    specs = None if mesh is None else param_specs(mcfg, mesh)
+    of both (held as `hold`), on the mesh's device."""
+    params = api.init_params(mcfg, tcfg.seed, device=device, mesh=mesh, hold=hold)
+    specs = None if mesh is None else param_specs(mcfg, mesh, hold)
     opt_state: dict = {"inner": init_opt(ocfg, params, mesh, specs)}
     if tcfg.grad_compression:
         opt_state["error_feedback"] = compression.init_error_feedback(params)
@@ -201,22 +242,23 @@ def init_train_state(mcfg: ModelConfig, ocfg: OptimizerConfig,
 
 
 def train(mcfg: ModelConfig, ocfg: OptimizerConfig, tcfg: TrainConfig,
-          dcfg: DataConfig, *, device=None, mesh=None, fail_at_step: int | None = None,
+          dcfg: DataConfig, *, device=None, mesh=None, hold: str = "tp",
+          fail_at_step: int | None = None,
           log_fn: Callable[[str], None] = print) -> dict:
     """Run (or resume, from the latest checkpoint in tcfg.ckpt_dir) a
     training job on `device` (CUDA unless the caller names another), or
     on `mesh` (every rank calls it; the mesh's device): see the module
     docstring.  Returns {"losses": [(step, loss)] at every log_every-th
-    and the last step, "params" (on a mesh the rank's blocks), "wall_s",
-    "straggler_events"}.
+    and the last step, "params" (on a mesh the rank's blocks, held as
+    `hold`), "wall_s", "straggler_events"}.
 
     fail_at_step: raise after that step's checkpoint (fault injection for
     the restart drill)."""
     dev = mesh.device if mesh is not None and device is None else resolve_device(device)
-    step_fn = make_train_step(mcfg, ocfg, tcfg, mesh=mesh)
-    params, opt_state = init_train_state(mcfg, ocfg, tcfg, dev, mesh=mesh)
+    step_fn = make_train_step(mcfg, ocfg, tcfg, mesh=mesh, hold=hold)
+    params, opt_state = init_train_state(mcfg, ocfg, tcfg, dev, mesh=mesh, hold=hold)
     on_mesh = {} if mesh is None else {
-        "mesh": mesh, "shardings": state_specs(mcfg, mesh, opt_state)}
+        "mesh": mesh, "shardings": state_specs(mcfg, mesh, opt_state, hold)}
 
     ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.ckpt_keep) \
         if tcfg.ckpt_dir else None

@@ -82,12 +82,24 @@ def global_norm(tree, mesh=None, specs=None) -> torch.Tensor:
     return torch.sqrt(torch.stack(total).sum())
 
 
+def clip_scale(grads, max_norm: float, mesh=None, specs=None):
+    """(the factor that scales the gradients to a global norm of at most
+    max_norm, their norm)."""
+    norm = global_norm(grads, mesh, specs)
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0), norm
+
+
 def clip_by_global_norm(grads, max_norm: float, mesh=None, specs=None):
     """(the float32 gradients scaled to a global norm of at most
     max_norm, their norm before scaling)."""
-    norm = global_norm(grads, mesh, specs)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    scale, norm = clip_scale(grads, max_norm, mesh, specs)
     return tree_map(lambda g: g.float() * scale, grads), norm
+
+
+def _f32(g: torch.Tensor, scale) -> torch.Tensor:
+    """A gradient in float32, times the clip `scale` where given (the same
+    bits as scaling the whole tree first, one leaf alive at a time)."""
+    return g.float() if scale is None else g.float() * scale
 
 
 def _step0(params) -> torch.Tensor:
@@ -106,7 +118,7 @@ def adamw_init(cfg: OptimizerConfig, params: Params) -> Params:
             "step": _step0(params)}
 
 
-def adamw_update(cfg: OptimizerConfig, grads, state, params):
+def adamw_update(cfg: OptimizerConfig, grads, state, params, scale=None):
     step = state["step"] + 1
     lr = lr_at(cfg, step)
     t = step.float()
@@ -114,7 +126,7 @@ def adamw_update(cfg: OptimizerConfig, grads, state, params):
     c2 = 1.0 - cfg.b2 ** t
 
     def upd(p, g, mu, nu):
-        g = g.float()
+        g = _f32(g, scale)
         mu_n = cfg.b1 * mu.float() + (1 - cfg.b1) * g
         nu_n = cfg.b2 * nu.float() + (1 - cfg.b2) * g * g
         delta = (mu_n / c1) / (torch.sqrt(nu_n / c2) + cfg.eps)
@@ -175,14 +187,15 @@ def adafactor_init(cfg: OptimizerConfig, params: Params, mesh=None, specs=None) 
             "step": _step0(params)}
 
 
-def adafactor_update(cfg: OptimizerConfig, grads, state, params, mesh=None, specs=None):
+def adafactor_update(cfg: OptimizerConfig, grads, state, params, mesh=None, specs=None,
+                     scale=None):
     step = state["step"] + 1
     lr = lr_at(cfg, step)
     beta2 = 1.0 - (step.float() + 1.0) ** -0.8
 
     def upd(p, g, v, spec):
         whole = _whole(p, spec, mesh)
-        g = g.float()
+        g = _f32(g, scale)
         g2 = g * g + 1e-30
         if _factored(whole):
             vr = beta2 * v["vr"] + (1 - beta2) * _mean(g2, (-1,), spec, mesh, whole)
@@ -222,10 +235,12 @@ def init_opt(cfg: OptimizerConfig, params: Params, mesh=None, specs=None) -> Par
 def apply_opt(cfg: OptimizerConfig, grads, state, params, mesh=None, specs=None):
     """(new params, new state, the gradients' global norm before
     clipping); the inputs are not written.  On a mesh (`specs`: the
-    parameters' specs by path) every reduction is over the whole leaf."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, mesh, specs)
+    parameters' specs by path) every reduction is over the whole leaf.
+    The clip scales each leaf as its update reads it, so one float32
+    gradient is alive at a time (`clip_by_global_norm`'s bits)."""
+    scale, gnorm = clip_scale(grads, cfg.clip_norm, mesh, specs)
     if cfg.name == "adafactor":
-        new_p, new_s = adafactor_update(cfg, grads, state, params, mesh, specs)
+        new_p, new_s = adafactor_update(cfg, grads, state, params, mesh, specs, scale)
     else:
-        new_p, new_s = adamw_update(cfg, grads, state, params)
+        new_p, new_s = adamw_update(cfg, grads, state, params, scale)
     return new_p, new_s, gnorm

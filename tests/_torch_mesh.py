@@ -18,8 +18,11 @@ drill or open loop with deadlines, with every rank's request records),
 (`value_and_grad` under the mesh, the gradients gathered whole),
 "train" (`train(mesh=)` resumed from a checkpoint), "ckpt" (a checkpoint
 saved on the mesh and restored onto (n, 1)), "grad_rules" (each
-collective's gradient on toy tensors) or "pipeline" (`pipeline_apply`
-on a ("pp",) mesh of every rank).
+collective's gradient on toy tensors), "pipeline" (`pipeline_apply`
+on a ("pp",) mesh of every rank), "fsdp_train" (training steps with
+the weights held as FSDP's blocks and as the TP blocks), "fsdp_ckpt"
+(an FSDP checkpoint restored onto (n, 1) without FSDP) or "fsdp_layout"
+(`gather_held` on leaves of known values).
 Each result carries the collectives it called (`collectives.COUNTS`).
 
 Imports no JAX: the children run the port alone.
@@ -27,6 +30,7 @@ Imports no JAX: the children run the port alone.
 from __future__ import annotations
 
 import datetime
+import math
 
 import numpy as np
 import torch
@@ -146,17 +150,17 @@ def state_digest(state) -> dict:
             "kv_bytes": sum(t.nbytes for _, t in leaves)}
 
 
-def engine_job(mesh, cfg, params, prompts, max_new, frames=None, **eng_kw):
+def engine_job(mesh, cfg, params, prompts, max_new, frames=None, hold="tp", **eng_kw):
     """Greedy tokens and finish reasons of the port's engine on the mesh
-    (its blocks of `params` cut by `shard_params`) and its decode state's
-    `state_digest`; `frames`: one frame array (or None) a request,
-    whisper's."""
+    (its blocks of `params` cut by `shard_params`, held as `hold`) and
+    its decode state's `state_digest`; `frames`: one frame array (or
+    None) a request, whisper's."""
     from repro_torch.parallel import sharding
     from repro_torch.serving.engine import Request, ServingEngine
 
     def go():
-        eng = ServingEngine(cfg, sharding.shard_params(params, mesh, cfg), device="cpu",
-                            mesh=mesh, **eng_kw)
+        eng = ServingEngine(cfg, sharding.shard_params(params, mesh, cfg, hold), device="cpu",
+                            mesh=mesh, hold=hold, **eng_kw)
         reqs = [Request(rid=i, prompt=np.asarray(p, np.int32), max_new_tokens=max_new,
                         frames=None if frames is None else frames[i])
                 for i, p in enumerate(prompts)]
@@ -460,7 +464,133 @@ def pipeline_job(mesh, ws, x, c):
             "split_shape": tuple(stages["w"].shape), "counts": counts}
 
 
+def fsdp_train_job(mesh, cfg, params, batch, ocfg, steps):
+    """`steps` of `make_train_step` from the whole weights `params`, held as
+    the TP blocks ("tp") and as FSDP's blocks ("fsdp"): by hold, the
+    losses, the gradients' norms, the parameters gathered whole, whether
+    every parameter and optimizer leaf has its held block's shape, and
+    the held-leaf gathers a step."""
+    from repro_torch.bridge import tree_paths
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import sharding
+    from repro_torch.training import loop
+    from repro_torch.training.optimizer import init_opt
+
+    whole = {"/".join(map(str, p)): tuple(t.shape) for p, t in tree_paths(params)}
+    tcfg = loop.TrainConfig(steps=steps)
+    out = {}
+    for hold in ("tp", "fsdp"):
+        specs = loop.param_specs(cfg, mesh, hold)
+        p = sharding.shard_params(params, mesh, cfg, hold)
+        opt = {"inner": init_opt(ocfg, p, mesh, specs)}
+        step = loop.make_train_step(cfg, ocfg, tcfg, mesh=mesh, hold=hold)
+        losses, norms = [], []
+        coll.reset()
+        for _ in range(steps):
+            p, opt, m = step(p, opt, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        holds = coll.COUNTS["hold"] / steps
+        ospecs = sharding.optimizer_shardings(mesh, sharding.whole_shapes(cfg), opt,
+                                              cfg=cfg, hold=hold)
+        shapes_ok = all(tuple(t.shape) == sharding.local_shape(whole[path], specs[path], mesh)
+                        for path, t in ((sharding.path_str(q), t) for q, t in tree_paths(p)))
+        opt_whole = dict(sharding.gather_tree(opt, ospecs, mesh))
+        opt_ok = all(tuple(t.shape) == sharding.local_shape(tuple(opt_whole[path].shape),
+                                                            ospecs[path], mesh)
+                     for path, t in ((sharding.path_str(q), t) for q, t in tree_paths(opt)))
+        out[hold] = {"losses": losses, "grad_norms": norms, "holds_per_step": holds,
+                     "params": dict(sharding.gather_tree(p, specs, mesh)),
+                     "param_shapes_ok": shapes_ok, "opt_shapes_ok": opt_ok,
+                     "opt_specs": ospecs,
+                     "param_specs": specs, "opt_local": {sharding.path_str(q): tuple(t.shape)
+                                                         for q, t in tree_paths(opt)}}
+    return out
+
+
+def fsdp_ckpt_job(mesh, cfg, ocfg, tcfg, save_dir):
+    """An FSDP checkpoint across layouts: two steps of the rank's FSDP
+    blocks, saved through `save(mesh=, shardings=)` ("saved", every leaf
+    gathered whole by path); the same ranks as a (4, 1) mesh without FSDP
+    restore it through `restore(shardings=)` and gather it ("restored")."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import sharding
+    from repro_torch.training import loop
+
+    params, opt = loop.init_train_state(cfg, ocfg, tcfg, mesh=mesh, hold="fsdp")
+    step = loop.make_train_step(cfg, ocfg, tcfg, mesh=mesh, hold="fsdp")
+    rng = np.random.default_rng(5)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (4, 16)).astype(np.int32))
+             for k in ("tokens", "labels")}
+    for _ in range(2):
+        params, opt, _ = step(params, opt, batch)
+    specs = loop.state_specs(cfg, mesh, opt, "fsdp")
+    saved = sharding.gather_tree((params, opt), specs, mesh)
+    CheckpointManager(save_dir).save(7, (params, opt), {"next_step": 7}, mesh=mesh,
+                                     shardings=specs)
+    flat = make_host_mesh(1, backend="gloo", device_type="cpu")
+    params, opt = loop.init_train_state(cfg, ocfg, tcfg, mesh=flat)
+    fspecs = loop.state_specs(cfg, flat, opt)
+    (params, opt), meta = CheckpointManager(save_dir).restore((params, opt), shardings=fspecs,
+                                                              mesh=flat)
+    return {"saved": saved, "restored": sharding.gather_tree((params, opt), fspecs, flat),
+            "meta": meta, "flat_shape": dict(flat.shape),
+            "fsdp_specs": {k: v for k, v in specs.items() if "data" in str(v)}}
+
+
+def fsdp_layout_job(mesh):
+    """`gather_held` on leaves of known values, every rank checking its own
+    result: each held block (`local_slice` under the held spec) to the TP
+    block (`local_slice` under the TP spec), and the held block's gradient
+    against the whole gradient (every rank's TP-block cotangent placed in
+    the leaf and summed over the ranks; where the TP spec keeps the leaf
+    whole, over the ranks of this rank's "model" coordinate) cut to the
+    held block.  Cases: an exchange on dim 0 and on dim
+    1, a gather (TP whole), a cut (held whole)."""
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import sharding
+
+    n = mesh.size
+    msz = mesh.shape["model"]
+    cases = {"exchange0": ((12 * n, 3), (("data", "model"), None), ("model", None)),
+             "exchange1": ((2, 6 * n), (None, ("data", "model")), (None, "model")),
+             "gather": ((4 * n, 3), (("data", "model"), None), (None, None)),
+             "cut": ((3, 2 * msz), (None, None), (None, "model"))}
+    out = {}
+    for name, (shape, held, comp) in cases.items():
+        whole = torch.arange(math.prod(shape), dtype=torch.float64).reshape(shape)
+        x = sharding.local_slice(whole, held, mesh).requires_grad_(True)
+        y = coll.gather_held(x, mesh, held, comp, ("data",))
+        fwd_ok = torch.equal(y.detach(), sharding.local_slice(whole, comp, mesh))
+        # rank r's cotangent: known to every rank, so each can sum them all
+        def cot(r):
+            return torch.arange(y.numel(), dtype=torch.float64).reshape(y.shape) + 1000.0 * r
+        y.backward(cot(mesh.rank))
+        split = any(a == "model" for a in comp)
+        grad = torch.zeros(shape, dtype=torch.float64)
+        for r in range(n):
+            m = r % msz
+            if not split and m != mesh.coord("model"):
+                continue        # a TP-whole leaf's gradient sums over "data" alone
+            view = grad
+            for dim, a in enumerate(comp):
+                if a == "model":
+                    size = shape[dim] // msz
+                    view = view.narrow(dim, m * size, size)
+            view += cot(r)
+        want = sharding.local_slice(grad, held, mesh)
+        grad_ok = torch.equal(x.grad, want)
+        if not (fwd_ok and grad_ok):
+            raise AssertionError(f"rank {mesh.rank} {name}: forward {fwd_ok}, grad {grad_ok}")
+        out[name] = {"forward_ok": fwd_ok, "grad_ok": grad_ok,
+                     "held": tuple(x.shape), "tp": tuple(y.shape)}
+    return out
+
+
 KINDS = {"forward": forward_job, "family_forward": family_forward_job,
          "engine": engine_job, "moe": moe_job, "replicas": replicas_job,
          "cluster": cluster_job, "spec": spec_job, "grad": grad_job, "train": train_job,
-         "ckpt": ckpt_job, "grad_rules": grad_rules_job, "pipeline": pipeline_job}
+         "ckpt": ckpt_job, "grad_rules": grad_rules_job, "pipeline": pipeline_job,
+         "fsdp_train": fsdp_train_job, "fsdp_ckpt": fsdp_ckpt_job,
+         "fsdp_layout": fsdp_layout_job}
