@@ -95,20 +95,20 @@ exit, no result line) when a check fails:
    impls (decode attention from the page pool: one paged_decode launch a
    layer a step) and through the dense KV state (paged=False), and its
    first decode's logits by the pool route are held against the gather
-   route's; mixtral-8x7b (2 layers), rwkv6-3b (4 layers) and
+   route's; mixtral-8x7b (2 layers), rwkv6-3b (2 layers) and
    recurrentgemma-2b (3 layers: two recurrent, one attention) serve one
    trace on the card, which runs the kernels, and on the CPU, which runs
    the plain versions.  Greedy tokens must be equal and the first
-   prefill's logits within 1e-3.  smollm-135m (4 layers) with int8 KV
+   prefill's logits within 1e-3.  smollm-135m (2 layers) with int8 KV
    serves one trace by the int8 pool route and by the gather route: equal
    greedy tokens (`int8_e2e_phase`).  smollm-135m (4 layers, the kernel
    impls) on 2 cluster replicas through a scripted fault drill (kill,
    restart, stall, nan; watchdog stall_steps 5): every request's tokens
    equal a fault-free engine's, one "nan" and one "stall" quarantine,
    requests requeued, none unrouted (`cluster_drill_phase`); and a
-   `SpecDecodeEngine` (4-layer target, 1-layer shared-trunk draft, k 4)
+   `SpecDecodeEngine` (2-layer target, 1-layer shared-trunk draft, k 4)
    emits the target-only engine's greedy tokens (`spec_e2e_phase`).
-   qwen2-vl-2b (4 layers; M-RoPE) serves one trace through the plain
+   qwen2-vl-2b (2 layers; M-RoPE) serves one trace through the plain
    impls, the kernel impls (pool route) and the kernel impls with the
    gather route, and deepseek-v3-671b (2 layers: one dense, one MoE over
    256 experts; weights drawn on the card) through the plain and the
@@ -173,7 +173,7 @@ exit, no result line) when a check fails:
    rate on batches already on the card (CUDA events) and its peak device
    memory by both routes, printed with the card's name and power
    limit; then serving on a mesh (`tp_path_phase`): two ranks spawned on
-   the one card over gloo, a (1, 2) mesh, smollm-135m (15 of 30 layers, bf16,
+   the one card over gloo, a (1, 2) mesh, smollm-135m (6 of 30 layers, bf16,
    the three flags) serving the main path's 12 requests through the
    paged engine with tensor parallelism (every rank's kernel launches
    and collectives per layer per step as the sharding implies, the
@@ -188,8 +188,8 @@ exit, no result line) when a check fails:
    distance from the bf16 plain route) and mixtral-8x7b with
    moe_groups=4 on one rank (float32, no drops, token-equal to
    moe_groups=0).  Each rank draws only its blocks of the weights.  Then
-   every family on that (1, 2) mesh (`family_mesh_phase`): rwkv6-3b (16
-   of 32 layers, wkv6 at 20 heads), recurrentgemma-2b (13 of 26 layers, rglru_scan at
+   every family on that (1, 2) mesh (`family_mesh_phase`): rwkv6-3b (6
+   of 32 layers, wkv6 at 20 heads), recurrentgemma-2b (4 of 26 layers, rglru_scan at
    1280 channels, flash and the fused norm, its 10 / 1 heads replicated)
    and whisper-base (6 + 6 layers, 1500-frame windows) at full width in
    bf16, 8 requests each, every rank's launches and collectives per layer
@@ -200,7 +200,7 @@ exit, no result line) when a check fails:
    one-card engine's streams compared and printed; at 8 layers in float32
    tokens and acceptance counts equal to the one-card engine's); then the
    cluster on a (2, 2) mesh of four ranks (`cluster_mesh_phase`): 2
-   replicas x tp 2 of smollm-135m (15 of 30 layers, bf16, the three flags), 16
+   replicas x tp 2 of smollm-135m (6 of 30 layers, bf16, the three flags), 16
    `LoadGenerator` requests under the seed-0 chaos script, every rank
    ending with the same request records, paged_decode once a layer for
    every decode step of the rank's own replica's engines, and at 4 layers
@@ -366,7 +366,7 @@ SPEC_K = 4
 # more than the unsharded MLP's), so its logits may lie up to twice as
 # far from the float32 route as the unsharded engine's, plus a floor
 TP = 2
-MESH_SMOLLM_LAYERS = 15      # smollm-135m's depth (of 30) on the serving meshes
+MESH_SMOLLM_LAYERS = 6       # smollm-135m's depth (of 30) on the serving meshes
 TP_LOGITS_SLACK = (2.0, 1e-3)
 # (arch, d, F / 2, N), (arch, H / 2, Hkv / 2, hd, window), (arch, E / 2, d, F, C)
 TP_MLP = (("smollm-135m", 576, 768, (DECODE_N, 300)), ("h2o-danube-1.8b", 2560, 3456, (DECODE_N,)),
@@ -382,7 +382,7 @@ TP_MOE = (("mixtral-8x7b", 4, 4096, 14336, 8), ("deepseek-v3-671b", 128, 7168, 2
 # a quarter) and the float32 cluster check's depth; the cluster path runs
 # 2 replicas x tp 2 on four ranks
 FAM_F32_LAYERS = (("rwkv6-3b", 2), ("recurrentgemma-2b", 3), ("whisper-base", 2))
-FAM_LAYERS = {"rwkv6-3b": 16, "recurrentgemma-2b": 13}   # of 32 and 26, full width
+FAM_LAYERS = {"rwkv6-3b": 6, "recurrentgemma-2b": 4}     # of 32 and 26, full width
 RGLRU_KERNELS = dict(attn_impl="flash", norm_impl="fused")
 SPEC_F32_LAYERS = 8
 CLUSTER_MESH = (2, 2)
@@ -395,7 +395,7 @@ CLUSTER_MESH_DEADLINE_MS = 10 * CLUSTER_DEADLINE_MS
 # meshes, and danube's SP path (a prompt past its 4096 ring, its depth)
 DATA_MESH_WORLDS = (2, 4)
 DATA_SP_PROMPT = 6000
-DATA_SP_LAYERS = 4
+DATA_SP_LAYERS = 2
 DATA_F32_LAYERS = 8         # smollm's float32 token check on the data mesh (of 30)
 # the variant archs' served paths (bf16, full width, weights drawn on the card):
 # h2o-danube-1.8b's prompts, 6 of 16-300 tokens and 2 past its window of
@@ -422,8 +422,8 @@ WHISPER_MAX_LEN = 256
 # pipeline's microbatches (count, rows, seq), float32 depth, gradient gap
 TRAIN_MESH = (2, 2)
 TRAIN_MESH_F32 = (4, 3, 4, 128)
-TRAIN_MESH_BF16 = (10, 8, 256, 5)
-TRAIN_MESH_BF16_LAYERS = 15  # of smollm-135m's 30
+TRAIN_MESH_BF16 = (6, 8, 256, 3)
+TRAIN_MESH_BF16_LAYERS = 10  # of smollm-135m's 30
 PIPE_MICRO = (4, 2, 256)
 PIPE_F32_LAYERS = 4
 PIPE_GRAD_TOL = 1e-4
@@ -3529,7 +3529,7 @@ def _tp_rank(rank: int, world: int, store: str, policy: str, out: str) -> None:
 def tp_path_phase(torch) -> dict:
     """Serving on a mesh: two ranks spawned on the one card, joined over
     gloo (NCCL takes one card a rank), a (1, 2) mesh (`_tp_rank`).  At
-    full width smollm-135m (15 of 30 layers, bf16, the three flags) serves the
+    full width smollm-135m (6 of 30 layers, bf16, the three flags) serves the
     main path's 12 requests through the paged engine with tensor
     parallelism: per rank, every kernel launch and collective per layer
     per step must be what the sharding implies (the MLP at F 768, the
@@ -3732,7 +3732,7 @@ def _fam_path(torch, mesh, arch: str) -> dict:
 
 
 def _spec_mesh(torch, mesh, policy: str) -> dict:
-    """Spec-decode on the mesh: smollm-135m (15 of 30 layers, bf16, the three
+    """Spec-decode on the mesh: smollm-135m (6 of 30 layers, bf16, the three
     flags) with the CLI's 7-layer shared-trunk draft, k `SPEC_K`, 8
     requests of 16-300 tokens, 32 new each, through `serve_specdec(mesh=)`
     (the target sharded, the draft whole on each rank), beside the
@@ -3873,9 +3873,9 @@ def _spawn(fn, world: int, policy: str, tag: str) -> dict:
 
 def family_mesh_phase(torch) -> dict:
     """Every family on a mesh: two ranks spawned on the one card over
-    gloo, a (1, 2) mesh (`_fam_rank`).  At full width, bf16: rwkv6-3b (16
+    gloo, a (1, 2) mesh (`_fam_rank`).  At full width, bf16: rwkv6-3b (6
     of 32 layers, wkv6 at 20 of 40 heads, decode and chunked prefill),
-    recurrentgemma-2b (13 of 26 layers, rglru_scan at 1280 of 2560 channels,
+    recurrentgemma-2b (4 of 26 layers, rglru_scan at 1280 of 2560 channels,
     flash and the fused norm; its 10 / 1 heads replicated) and
     whisper-base (6 + 6 layers, no kernel of the port), 8 requests each,
     every rank's launches and collectives per layer per step as the
@@ -4028,7 +4028,7 @@ def _cluster_mesh_rank(rank: int, world: int, store: str, policy: str, out: str)
 def cluster_mesh_phase(torch) -> dict:
     """The serving cluster on per-replica meshes: four ranks spawned on the
     one card over gloo, a (2, 2) mesh, 2 replicas x tp 2
-    (`_cluster_mesh_rank`).  smollm-135m (15 of 30 layers, bf16, the three
+    (`_cluster_mesh_rank`).  smollm-135m (6 of 30 layers, bf16, the three
     flags) serves `CLUSTER_REQUESTS` `LoadGenerator` requests (Poisson at
     `CLUSTER_RATE` a second, `CLUSTER_MESH_DEADLINE_MS` deadlines) under
     the seed-0 chaos script over `CLUSTER_HORIZON` steps through
@@ -4129,12 +4129,13 @@ def _data_logits(torch, mesh, cfg, sharded, full, prompts, steps: int, ref_cfg,
             "sharded_vs_unsharded": float((got - plain).abs().max())}
 
 
-def _data_serve(torch, mesh, name, cfg, reqs, split, **eng_kw) -> dict:
+def _data_serve(torch, mesh, name, cfg, reqs, split, parts=2, **eng_kw) -> dict:
     """`cfg` served from the rank's blocks (seed 1) on the mesh, its dense
     state split as `split` says: launches (each kernel of the path as
     often as the layers and calls imply), collectives a decode step, the
-    state's KV bytes (half those of the KV-head placement alone), tokens
-    a second and TPOT p50 (ranks that share one card)."""
+    state's KV bytes (1 / `parts` of those of the KV-head placement
+    alone), tokens a second and TPOT p50 (ranks that share one card)."""
+    from repro_torch.models import transformer
     from repro_torch.parallel import collectives as coll
     from repro_torch.serving.engine import ServingEngine
 
@@ -4142,8 +4143,8 @@ def _data_serve(torch, mesh, name, cfg, reqs, split, **eng_kw) -> dict:
     check(eng.state.kind == "dense" and eng.state.split == split,
           f"data mesh {name}: state {eng.state.kind} split {eng.state.split}, not {split}")
     kv, model_only = _kv_bytes(eng.state, mesh)
-    check(2 * kv == model_only, f"data mesh {name} rank {mesh.rank}: {kv} KV bytes, "
-                                f"not half of {model_only}")
+    check(parts * kv == model_only, f"data mesh {name} rank {mesh.rank}: {kv} KV bytes, "
+                                    f"not 1/{parts} of {model_only}")
     in_decode = dict.fromkeys(coll.FORWARD, 0)
     decode = eng.state.decode
 
@@ -4158,9 +4159,11 @@ def _data_serve(torch, mesh, name, cfg, reqs, split, **eng_kw) -> dict:
     s, launches, colls, shapes = _tp_serve(torch, eng, reqs)
     L = cfg.n_layers
     calls = s["prefills"] + s["decode_steps"]
+    n_moe = sum(n for kind, n in transformer.layer_segments(cfg) if kind == "moe")
     want = {"fused_rmsnorm": (L + 1) * calls, "fused_rmsnorm_residual": L * calls,
-            "fused_mlp": L * calls, "flash_attention": L * s["prefills"],
-            "paged_decode": 0, "moe_mlp": 0}
+            "fused_mlp": (L - n_moe + (n_moe if cfg.n_shared_experts else 0)) * calls,
+            "flash_attention": L * s["prefills"] if cfg.attn_impl == "flash" else 0,
+            "paged_decode": 0, "moe_mlp": n_moe * calls}
     check(launches == want, f"data mesh {name} rank {mesh.rank}: launches {launches}, "
                             f"expected {want}")
     check(all(r.finish_reason == "max_new_tokens" for r in reqs) and s["nan_steps"] == 0,
@@ -4277,7 +4280,7 @@ def _data_mesh_rank(rank: int, world: int, store: str, policy: str, out: str) ->
 def data_mesh_phase(torch) -> dict:
     """Serving with the batch over "data": ranks spawned on the one card
     over gloo on a (2, 1) and then a (2, 2) mesh (`_data_mesh_rank`).
-    smollm-135m at full width (15 of 30 layers, bf16, the three flags, dense
+    smollm-135m at full width (6 of 30 layers, bf16, the three flags, dense
     KV, 4 slots: 2 a data row) serves 8 requests: every rank's state at
     half the KV bytes of the KV-head placement alone, each kernel of the
     path launched as the layers and calls imply, the collectives a decode
@@ -4448,7 +4451,7 @@ def _train_mesh_rank(rank: int, world: int, store: str, policy: str, out: str) -
     del got, mine
     free(torch)
 
-    # (b) bfloat16 at full width, `TRAIN_MESH_BF16_LAYERS` deep: 10 steps,
+    # (b) bfloat16 at full width, `TRAIN_MESH_BF16_LAYERS` deep: 6 steps,
     # checkpoints, the (4, 1) reshard
     steps, rows, seq, every = TRAIN_MESH_BF16
     cfg = configs.get_config("smollm-135m").replace(n_layers=TRAIN_MESH_BF16_LAYERS, **flags)
@@ -4622,9 +4625,9 @@ def train_mesh_phase(torch) -> dict:
     rtol 1e-4 and parameters within 1e-5 (at most 8 elements within 2 x
     2 lr: `test_torch_train_loop`'s tolerance), each kernel launched in the
     forward only, as often as the layers and steps imply.  (b) bfloat16
-    smollm-135m at full width (`TRAIN_MESH_BF16_LAYERS` of 30 layers): 10 steps of `train(mesh=)` on
-    SyntheticLM 8 x 256 (4 rows a data rank), checkpoints every 5 steps
-    into build/; every loss finite and the last below the first; ms a
+    smollm-135m at full width (`TRAIN_MESH_BF16_LAYERS` of 30 layers): 6
+    steps of `train(mesh=)` on SyntheticLM 8 x 256 (4 rows a data rank),
+    checkpoints every 3 steps into build/; every loss finite and the last below the first; ms a
     step, tokens/s, the peak memory of a rank and the collectives a step
     each way printed; the final checkpoint restored through
     `restore(shardings=)` onto a (4, 1) mesh of the same ranks equal bit
@@ -4669,13 +4672,26 @@ def train_mesh_phase(torch) -> dict:
     return rec
 
 
-DRYRUN_CELLS = (("smollm-135m", "train_4k", "single"), ("smollm-135m", "prefill_32k", "single"),
-                ("smollm-135m", "decode_32k", "single"), ("smollm-135m", "long_500k", "single"),
-                ("mixtral-8x7b", "train_4k", "multi"), ("deepseek-v3-671b", "decode_32k", "single"))
+DRYRUN_CELLS = (("smollm-135m", "train_4k", "single", {}),
+                ("smollm-135m", "prefill_32k", "single", {}),
+                ("smollm-135m", "decode_32k", "single", {}),
+                ("smollm-135m", "long_500k", "single", {}),
+                ("mixtral-8x7b", "train_4k", "multi", {}),
+                ("deepseek-v3-671b", "decode_32k", "single", {}),
+                ("deepseek-v3-671b", "decode_32k", "multi", {}),
+                ("internlm2-1.8b", "decode_32k", "single", {"cache_seq_shard": True}),
+                ("rwkv6-3b", "decode_32k", "single", {}))
+# a rank's argument bytes under JAX's own specs (`cache_shardings`, the
+# param table) for the cells whose layout follows JAX's: what
+# tests/test_torch_dryrun.py holds the port's traced bytes to on the CPU
+DRYRUN_ARG_BYTES = {("deepseek-v3-671b", "decode_32k", "single"): 8676761636,
+                    ("deepseek-v3-671b", "decode_32k", "multi"): 8048779284,
+                    ("internlm2-1.8b", "decode_32k", "single"): 1846939684,
+                    ("rwkv6-3b", "decode_32k", "single"): 408622116}
 DRYRUN_CARD = (8, 512)      # rows, seq of the smollm-135m step traced and run on the card
 FSDP_MESH = (2, 2)
 FSDP_LAYERS = 1             # mixtral-8x7b at full width (see fsdp_path_phase)
-FSDP_STEPS = 3
+FSDP_STEPS = 2
 FSDP_BATCH = (8, 128)       # rows, seq
 FSDP_F32 = dict(n_layers=2, d_model=1024, n_heads=8, kv_heads=4, d_ff=2048)
 FSDP_LOSS_RTOL = 1e-3       # bf16, FSDP against TP (see fsdp_path_phase)
@@ -4695,8 +4711,8 @@ def dryrun_start():
             "torch.set_num_threads(1)\n"
             "from repro_torch.launch import dryrun\n"
             "with open(sys.argv[1], 'w') as f:\n"
-            "    for a, s, m in json.loads(sys.argv[2]):\n"
-            "        r = dryrun.run_cell(a, s, m, save=False, verbose=False)\n"
+            "    for a, s, m, o in json.loads(sys.argv[2]):\n"
+            "        r = dryrun.run_cell(a, s, m, save=False, verbose=False, overrides=o)\n"
             "        f.write(json.dumps(r, default=float) + '\\n')\n"
             "        f.flush()\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
@@ -4710,9 +4726,12 @@ def dryrun_phase(torch, started) -> dict:
     """The dry run (`repro_torch.launch.dryrun`): the cells `dryrun_start`
     traced beside the card's phases (smollm-135m on the four shapes of a
     16 x 16 mesh, mixtral-8x7b train_4k on 2 x 16 x 16 with FSDP over 512
-    ranks, deepseek-v3-671b decode_32k), each `ok`, with their roofline
-    terms, bottleneck and model_flops_ratio printed (the terms divide by
-    the H100's data-sheet peaks: derived, not measured).  Then one
+    ranks, deepseek-v3-671b decode_32k on both meshes, internlm2-1.8b
+    decode_32k with `cache_seq_shard`, rwkv6-3b decode_32k), each `ok`,
+    with their roofline terms, bottleneck and model_flops_ratio printed
+    (the terms divide by the H100's data-sheet peaks: derived, not
+    measured), and the argument bytes of the cells whose layout follows
+    JAX's equal to JAX's specs' (`DRYRUN_ARG_BYTES`).  Then one
     smollm-135m train step (AdamW, remat "dots", `DRYRUN_CARD` rows x
     tokens) on a (1, 1) mesh, traced by the dry run and run on the card:
     the traced argument bytes must equal the card step's inputs' bytes;
@@ -4738,7 +4757,13 @@ def dryrun_phase(torch, started) -> dict:
     for r in recs:
         check(r["ok"], f"dry run {r['arch']} x {r['shape']} x {r['mesh']}: {r.get('error')}")
         rf, ma = r["roofline"], r["memory_analysis"]
-        row = {"cell": f"{r['arch']} x {r['shape']} x {r['mesh']}", "hold": r["hold"],
+        want = DRYRUN_ARG_BYTES.get((r["arch"], r["shape"], r["mesh"]))
+        check(want is None or ma["argument_size_in_bytes"] == want,
+              f"dry run {r['arch']} x {r['shape']} x {r['mesh']} {r['overrides']}: argument "
+              f"bytes {ma['argument_size_in_bytes']}, JAX's specs {want}")
+        row = {"cell": f"{r['arch']} x {r['shape']} x {r['mesh']}"
+                       + "".join(f" {k}={v}" for k, v in r["overrides"].items()),
+               "hold": r["hold"], "jax_arg_bytes": want,
                "trace_s": r["trace_s"], "t_compute": rf["t_compute"],
                "t_memory": rf["t_memory"], "t_collective": rf["t_collective"],
                "bottleneck": rf["bottleneck"], "model_flops_ratio": rf["model_flops_ratio"],
@@ -4950,6 +4975,299 @@ def fsdp_path_phase(torch) -> dict:
           flush=True)
     print(f"[smoke] fsdp phase {secs:.1f}s", flush=True)
     print(json.dumps({"fsdp": dict(rec, seconds=secs, card=card)}), flush=True)
+    return rec
+
+
+# a cache length over "model", the shard_map MoE on a pod mesh and a family
+# held as JAX's and FSDP's blocks (see `length_mesh_phase`)
+LEN_DS = dict(n_layers=2, first_dense_layers=1)    # deepseek-v3-671b: 1 dense + 1 MoE of 61
+LEN_DS_F32_EXPERTS = 16     # of 256: four float32 ranks of 256 experts do not fit 80 GB
+LEN_DS_MAX_LEN = 512
+LEN_MIXTRAL = (3, 2, 1500)  # (model ranks, layers of 32, max_len): see length_mesh_phase
+LEN_REQUESTS = (4, 16, 300, 16)     # requests, shortest and longest prompt, new tokens
+POD_MESH = (2, 1, 2)        # ("pod", "data", "model")
+POD_X = (4, 64)             # rows, seq of the MoE block's input
+POD_TOL = 1e-4              # float32: |port - reference| <= POD_TOL x max |reference|
+POD_TIMED = 10
+HOLD_ARCH, HOLD_LAYERS = "rwkv6-3b", 2
+HOLD_BATCH = (8, 128)
+
+
+def _shard_map_reference(torch, cfg, p, x, n_tot: int):
+    """JAX's `moe_block_shard_map` on one device, from its definition: the
+    tokens cut into `n_tot` chunks, each routed into capacity buffers of
+    max(1, ceil(nl k / E cf)) slots, every expert over every chunk's
+    buffer (batched products), the choices combined; no shared expert."""
+    from repro_torch.models import transformer
+
+    bsz, s, d = x.shape
+    k, e = cfg.top_k, cfg.n_experts
+    nl = bsz * s // n_tot
+    cap = max(1, int(math.ceil(nl * k / e * cfg.capacity_factor)))
+    plain = cfg.replace(mlp_impl="dense")
+    out = []
+    for xl in x.reshape(n_tot, nl, d):
+        w, idx = transformer.route(cfg, p, xl)
+        flat = idx.reshape(-1)
+        slot, keep = transformer._slots(cfg, flat, cap)
+        buf = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
+        buf.index_put_((flat, slot), torch.where(keep[:, None], xl.repeat_interleave(k, dim=0),
+                                                 0), accumulate=True)
+        o = transformer.expert_mlp(plain, p, buf)
+        g = torch.where(keep[:, None], o[flat, slot], 0)
+        out.append((g.reshape(nl, k, d) * w[..., None]).sum(1))
+    return torch.cat(out).reshape(bsz, s, d)
+
+
+def _pod_moe(torch, mesh) -> dict:
+    """mixtral-8x7b's MoE block at full width on the pod mesh, dispatched by
+    `moe_block_shard_map`: float32 (rows whole, and rows split over
+    ("pod", "data")) against `_shard_map_reference` on rank 0; then bf16
+    calls timed by CUDA events, with the collectives and moe_mlp launches
+    a call."""
+    from repro_torch import configs
+    from repro_torch.kernels.moe_mlp import kernel as ek
+    from repro_torch.models import transformer
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import sharding
+
+    base = configs.get_config("mixtral-8x7b").replace(n_layers=1, moe_shard_map=True,
+                                                     mlp_impl="fused")
+    n_tot = mesh.size
+    rec = {}
+    for dt in ("float32", "bfloat16"):
+        cfg = base.replace(dtype=dt, param_dtype=dt)
+        gen = torch.Generator(device=mesh.device).manual_seed(5)
+        tdt = cfg.tparam_dtype
+        d, f, e = cfg.d_model, cfg.routed_ff, cfg.n_experts
+        whole = {"router": torch.randn((d, e), generator=gen, device=mesh.device) * 0.02}
+        for key, shape in (("experts_in", (e, d, f)), ("experts_gate", (e, d, f)),
+                           ("experts_out", (e, f, d))):
+            whole[key] = (torch.randn(shape, generator=gen, device=mesh.device,
+                                      dtype=tdt) * 0.02)
+        x = torch.randn((*POD_X, d), generator=gen, device=mesh.device).to(cfg.tdtype)
+        ref = _shard_map_reference(torch, cfg, whole, x, n_tot) if \
+            mesh.rank == 0 and dt == "float32" else None
+        p = {k: (v if k == "router" else sharding.local_slice(v, ("model", None, None), mesh))
+             for k, v in whole.items()}
+        del whole
+        free(torch)
+        dp = sharding.dp_axes(mesh)
+        for split in (False, True):
+            xin = sharding.local_slice(x, (dp, None, None), mesh) if split else x
+            ek.MOE.launches = 0
+            coll.reset()
+            with torch.no_grad(), sharding.use_mesh(mesh, data_split=split):
+                y = transformer.moe_block(cfg, p, xin)
+            counts = forward_collectives(coll)
+            if split:
+                y = coll.all_gather(y, mesh, dp, dim=0)
+            tag = f"{dt}_{'rows' if split else 'whole'}"
+            r = {"moe_mlp_launches": ek.MOE.launches, "collectives": counts}
+            check(ek.MOE.launches == 1 and counts["all_to_all"] == 2,
+                  f"pod moe {tag} rank {mesh.rank}: {r}")
+            if ref is not None:
+                err = float((y.float() - ref.float()).abs().max() / ref.float().abs().max())
+                r["rel_err"] = err
+                check(err <= POD_TOL, f"pod moe {tag}: relative error {err}")
+            rec[tag] = r
+        if dt == "bfloat16":
+            with torch.no_grad(), sharding.use_mesh(mesh):
+                transformer.moe_block(cfg, p, x)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(POD_TIMED):
+                    transformer.moe_block(cfg, p, x)
+                torch.cuda.synchronize()
+            rec["bf16_ms_a_call"] = (time.perf_counter() - t0) * 1e3 / POD_TIMED
+        del p, x
+        free(torch)
+    nl = POD_X[0] * POD_X[1] // n_tot
+    rec["cap_l"] = max(1, int(math.ceil(nl * base.top_k / base.n_experts
+                                        * base.capacity_factor)))
+    return rec
+
+
+def _held_family(torch, mesh) -> dict:
+    """`HOLD_ARCH` at full width, `HOLD_LAYERS` layers, float32: one AdamW
+    step (a clip that does not bind) from the same seed held as the TP
+    blocks, as JAX's table and as FSDP's blocks, deterministic: the losses
+    and the gathered parameters bit-equal; each hold's parameter bytes a
+    rank and the wkv6 launches (at least one a layer, the same in every
+    hold)."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.launch import analyze
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import sharding
+    from repro_torch.training import loop
+    from repro_torch.training.optimizer import OptimizerConfig
+
+    cfg = configs.get_config(HOLD_ARCH).replace(n_layers=HOLD_LAYERS, dtype="float32",
+                                                param_dtype="float32")
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=2, clip_norm=1e9)
+    tcfg = loop.TrainConfig(steps=1, seed=0)
+    rows, seq = HOLD_BATCH
+    rng = np.random.default_rng(9)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (rows, seq)).astype(np.int32))
+             .to(mesh.device) for k in ("tokens", "labels")}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    out, whole = {}, {}
+    for hold in ("tp", "jax", "fsdp"):
+        params, opt = loop.init_train_state(cfg, ocfg, tcfg, mesh=mesh, hold=hold)
+        pbytes = analyze.storage_bytes(params)
+        step = loop.make_train_step(cfg, ocfg, tcfg, mesh=mesh, hold=hold)
+        wk.WKV6.launches = 0
+        coll.reset()
+        params, opt, m = step(params, opt, batch)
+        out[hold] = {"loss": float(m["loss"]), "param_bytes": pbytes,
+                     "wkv6_launches": wk.WKV6.launches, "held_gathers": coll.COUNTS["hold"]}
+        whole[hold] = dict(sharding.gather_tree(params, loop.param_specs(cfg, mesh, hold),
+                                                mesh))
+        del params, opt
+        free(torch)
+    torch.use_deterministic_algorithms(False)
+    for hold in ("jax", "fsdp"):
+        out[hold]["bit_equal"] = out[hold]["loss"] == out["tp"]["loss"] and all(
+            torch.equal(t, whole["tp"][p]) for p, t in whole[hold].items())
+        check(out[hold]["bit_equal"], f"held {HOLD_ARCH} {hold} rank {mesh.rank}: "
+                                      f"{out[hold]} vs {out['tp']}")
+    # over "model" 2 JAX's table is rwkv6's TP blocks; FSDP's blocks are not
+    check(out["fsdp"]["held_gathers"] > 0, f"held {HOLD_ARCH} rank {mesh.rank}: {out}")
+    check(len({h["wkv6_launches"] for h in out.values()}) == 1 and
+          out["tp"]["wkv6_launches"] >= HOLD_LAYERS,
+          f"held {HOLD_ARCH} rank {mesh.rank}: wkv6 launches {out}")
+    check(out["fsdp"]["param_bytes"] < out["tp"]["param_bytes"],
+          f"held {HOLD_ARCH} rank {mesh.rank}: parameter bytes {out}")
+    return out
+
+
+def _length_mesh_rank(rank: int, world: int, store: str, policy: str, out: str) -> None:
+    """One rank of `length_mesh_phase`: gloo over the one card; four ranks
+    run deepseek on (2, 2), the pod MoE on (2, 1, 2) and the held family
+    on (2, 2), three ranks mixtral on (1, 3); rank 0 writes the record."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=600))
+    n, lo, hi, new = LEN_REQUESTS
+    f32 = dict(dtype="float32", param_dtype="float32")
+    rec = {}
+    if world == 4:
+        mesh = make_host_mesh(2, backend="gloo", device_type="cuda")
+        pod = make_mesh(POD_MESH, ("pod", "data", "model"), backend="gloo",
+                        device_type="cuda")
+        # deepseek-v3 at full width: the latent's length over "model", the
+        # 4 slots over "data" (MLA: flash stays off)
+        kern = dict(mlp_impl="fused", norm_impl="fused")
+        cfg = configs.get_config("deepseek-v3-671b").replace(**LEN_DS, **kern)
+        rng = np.random.default_rng(31)
+        rec["deepseek"] = _data_serve(torch, mesh, "deepseek latent", cfg,
+                                      _requests(rng, cfg.vocab, n, lo, hi, new), "rows",
+                                      parts=4, paged=False, max_len=LEN_DS_MAX_LEN)
+        rec["deepseek_f32"] = _tp_tokens(
+            torch, mesh, "deepseek latent f32",
+            cfg.replace(n_experts=LEN_DS_F32_EXPERTS, **f32),
+            [rng.integers(0, cfg.vocab, size=int(k)).astype(np.int32)
+             for k in rng.integers(lo, hi + 1, size=n)], new, paged=False,
+            max_len=LEN_DS_MAX_LEN)
+        rec["pod_moe"] = _pod_moe(torch, pod)
+        rec["held"] = _held_family(torch, mesh)
+    else:
+        # mixtral-8x7b with cache_seq_shard: its 8 KV heads do not split
+        # over 3 ranks, so the ring's length does (max_len / 3 a rank)
+        model, layers, max_len = LEN_MIXTRAL
+        mesh = make_host_mesh(model, backend="gloo", device_type="cuda")
+        kern = dict(attn_impl="flash", mlp_impl="fused", norm_impl="fused")
+        cfg = configs.get_config("mixtral-8x7b").replace(n_layers=layers,
+                                                        cache_seq_shard=True, **kern)
+        rng = np.random.default_rng(32)
+        rec["mixtral"] = _data_serve(torch, mesh, "mixtral seq_shard", cfg,
+                                     _requests(rng, cfg.vocab, n, lo, hi, new), None,
+                                     parts=model, paged=False, max_len=max_len)
+        rec["mixtral_f32"] = _tp_tokens(
+            torch, mesh, "mixtral seq_shard f32", cfg.replace(n_layers=1, **f32),
+            [rng.integers(0, cfg.vocab, size=int(k)).astype(np.int32)
+             for k in rng.integers(lo, hi + 1, size=n)], new, paged=False, max_len=max_len)
+    if rank == 0:
+        rec["mesh"] = dict(mesh.shape)
+        Path(out).write_text(json.dumps(rec))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def length_mesh_phase(torch) -> dict:
+    """A decode cache split along its length over "model", the shard_map
+    MoE on a mesh with "pod", and a family held as JAX's blocks: ranks
+    spawned on the one card over gloo (`_length_mesh_rank`).
+    (a) deepseek-v3-671b at full width, 2 of 61 layers (1 dense, 1 MoE of
+    256 experts), bf16, the fused MLP, moe_mlp and the fused norms (flash
+    refuses MLA's v), dense state of 4 slots on a (2, 2) mesh: the slots
+    over "data", the latent's length over "model" (JAX's
+    `cache_shardings`), so a rank holds a quarter of the latent bytes;
+    each kernel launched as the layers and calls imply; TPOT and the
+    collectives a decode step printed; then in float32 with
+    `LEN_DS_F32_EXPERTS` experts, token-equal to the one-rank engine.
+    (b) mixtral-8x7b with `cache_seq_shard`, 2 of 32 layers, bf16, on a
+    (1, 3) mesh: on (1, 2) its 8 KV heads split over "model" and the rule
+    leaves the length whole; over 3 they do not, so the sliding-window
+    ring's length does (`LEN_MIXTRAL`'s max_len below the 4096 window,
+    divisible by 3: the ring does not wrap here; the CPU tests wrap it);
+    a rank holds a third of the KV bytes; the same checks, then float32
+    at 1 layer token-equal to the one-rank engine.  (c) mixtral's MoE
+    block at full width on a (2, 1, 2) ("pod", "data", "model") mesh by
+    `moe_block_shard_map`: float32 within `POD_TOL` of JAX's definition
+    computed on one rank, rows whole and split over ("pod", "data"), one
+    moe_mlp launch and two all_to_alls a call; bf16 ms a call.  (d)
+    `HOLD_ARCH` at full width, `HOLD_LAYERS` layers, one float32 training
+    step held as the TP blocks, as JAX's table and as FSDP's blocks:
+    bit-equal, wkv6 launched once a layer in each.  All readings are of
+    ranks that share one card."""
+    free(torch)
+    t0 = time.perf_counter()
+    rec = {"(2, 2)": _spawn(_length_mesh_rank, 4, "", "len4"),
+           "(1, 3)": _spawn(_length_mesh_rank, LEN_MIXTRAL[0], "", "len3")}
+    secs = time.perf_counter() - t0
+    card = card_line()
+    for tag, key in (("(2, 2)", "deepseek"), ("(1, 3)", "mixtral")):
+        x, s = rec[tag][key], rec[tag][key]["summary"]
+        print(f"[smoke] length mesh {tag} {key} bf16 ({card}): rank 0 KV {x['kv_bytes']} "
+              f"bytes (KV-head placement alone {x['kv_bytes_heads_only']}), "
+              f"{s['tokens_out']} tokens, {s['prefills']} prefills, {s['decode_steps']} decode "
+              f"steps in {s['seconds']:.3f}s = {s['tokens_per_s']:.1f} tok/s, TPOT p50 "
+              f"{s['tpot_p50_ms']:.2f} ms (ranks share one card); collectives a decode step "
+              f"in the model call {x['collectives_per_decode_step']}; launches "
+              f"{x['launches']}; kernel shapes {x['shapes']}; peak "
+              f"{x['peak_device_gb']:.2f} GB", flush=True)
+        r = rec[tag][f"{key}_f32"]
+        print(f"[smoke] length mesh {tag} {key}_f32: equal streams {r['equal_streams']}, "
+              f"launches {r['launches']}, collectives {r['collectives']}", flush=True)
+    pm = rec["(2, 2)"]["pod_moe"]
+    print(f"[smoke] pod moe {POD_MESH} mixtral-8x7b MoE block {POD_X} ({card}): cap_l "
+          f"{pm['cap_l']}, float32 relative error rows whole {pm['float32_whole']['rel_err']:.3g}"
+          f", rows over (pod, data) {pm['float32_rows']['rel_err']:.3g}; collectives a call "
+          f"{pm['bfloat16_whole']['collectives']}; bf16 {pm['bf16_ms_a_call']:.3f} ms a call "
+          f"(ranks share one card)", flush=True)
+    h = rec["(2, 2)"]["held"]
+    print(f"[smoke] held {HOLD_ARCH} {HOLD_LAYERS}L f32 on (2, 2) ({card}): parameter bytes a "
+          f"rank tp {h['tp']['param_bytes']}, jax {h['jax']['param_bytes']}, fsdp "
+          f"{h['fsdp']['param_bytes']}; bit-equal jax {h['jax']['bit_equal']} fsdp "
+          f"{h['fsdp']['bit_equal']}; wkv6 launches {h['tp']['wkv6_launches']}", flush=True)
+    print(f"[smoke] length mesh phase {secs:.1f}s", flush=True)
+    print(json.dumps({"length_mesh": dict(rec, seconds=secs, card=card)}), flush=True)
     return rec
 
 
@@ -5540,21 +5858,33 @@ def _main(torch, F, build_s, dryrun_started) -> int:
     from repro_torch.kernels.rglru_scan import kernel as gk
     from repro_torch.kernels.wkv6 import kernel as wk
 
+    t_main = time.perf_counter()
+
+    def mark(what: str) -> None:       # where the script's time goes, phase by phase
+        print(f"[smoke] {time.perf_counter() - t_main:.1f}s into the checks: {what} done",
+              flush=True)
+
     norm_trace(torch)
     rows, record = kernel_phase(torch, F)
     grad_gaps = grad_rows(torch)
+    mark("kernel rows")
     e2e_phase(torch)
     moe_e2e_phase(torch, 2)
     free(torch)
-    recurrent_e2e_phase(torch, "rwkv6-3b", 4)
+    mark("float32 smollm and mixtral checks")
+    recurrent_e2e_phase(torch, "rwkv6-3b", 2)
     recurrent_e2e_phase(torch, "recurrentgemma-2b", 3)
-    int8_e2e_phase(torch, 4)
+    mark("float32 recurrent checks (card against the host)")
+    int8_e2e_phase(torch, 2)
     cluster_drill_phase(torch, 4)
-    spec_e2e_phase(torch, 4)
-    qwen2_vl_e2e_phase(torch, 4)
+    spec_e2e_phase(torch, 2)
+    mark("float32 int8, drill and spec-decode checks")
+    qwen2_vl_e2e_phase(torch, 2)
     danube_e2e_phase(torch, 2)
     deepseek_e2e_phase(torch, 2)
+    mark("float32 qwen2-vl, danube and deepseek checks")
     grad_check = grad_e2e_phase(torch)
+    mark("float32 end-to-end checks")
     norms = {"fused_rmsnorm": nk.RMSNORM,
              "fused_rmsnorm_residual": nk.RMSNORM_RESIDUAL}
     eng, counts, s = main_path_phase(
@@ -5572,6 +5902,7 @@ def _main(torch, F, build_s, dryrun_started) -> int:
     flash_logits_check(torch, eng, "smollm-135m", 300)
     del eng
     free(torch)
+    mark("smollm-135m path")
     launchers = dict(norms, wkv6=wk.WKV6, rglru_scan=gk.SCAN)
     eng, path = recurrent_path_phase(torch, "rwkv6-3b", launchers, "wkv6")
     counts["wkv6"] = path["wkv6"]
@@ -5617,6 +5948,7 @@ def _main(torch, F, build_s, dryrun_started) -> int:
                     forbid=("paged_tc_kernel", "mlp_partial_kernel"))
     del eng
     free(torch)
+    mark("rwkv6, recurrentgemma, mixtral and int8 paths")
     cluster_path_phase(torch, dict(norms, fused_mlp=mk.MLP, flash_attention=fk.FLASH,
                                    paged_decode=fk.PAGED))
     eng, _ = spec_path_phase(torch, dict(norms, fused_mlp=mk.MLP,
@@ -5627,14 +5959,22 @@ def _main(torch, F, build_s, dryrun_started) -> int:
     variant_path_phases(torch, dict(norms, fused_mlp=mk.MLP, flash_attention=fk.FLASH,
                                     paged_decode=fk.PAGED, paged_decode_int8=fk.PAGED_INT8,
                                     moe_mlp=ek.MOE, wkv6=wk.WKV6, rglru_scan=gk.SCAN))
+    mark("cluster, spec-decode and variant paths")
     train_summary = train_path_phase(torch, record, F)
+    mark("training path")
     tp_path_phase(torch)
+    mark("tp mesh")
     family_mesh_phase(torch)
+    mark("family mesh")
     cluster_mesh_phase(torch)
+    mark("cluster mesh")
     data_mesh_phase(torch)
     train_mesh_phase(torch)
     fsdp_path_phase(torch)
+    mark("data, training and FSDP meshes")
+    length_mesh_phase(torch)
     dryrun_phase(torch, dryrun_started)
+    mark("length mesh and dry run")
 
     meta = {
         "fused_rmsnorm": ("fused_norm.cu", "fused_norm/kernel.py:51",

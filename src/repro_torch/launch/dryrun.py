@@ -19,10 +19,12 @@ backend, which moves nothing but lets every size be counted.
 
 The train step is `training.loop.make_train_step` (autograd and the
 optimizer), prefill is `api.prefill`, decode is `api.decode_step` with
-the cache placed by `sharding.cache_specs`.  The weights are held as
-JAX's dry run places them (`hold`: "fsdp" where `ARCH_POLICY` sets FSDP,
-JAX's table for the other transformers, the port's TP blocks for the
-recurrent families and whisper, which hold no other layout).
+the cache placed by `sharding.cache_specs` (JAX's `cache_shardings`:
+MLA's latent and, with `cache_seq_shard`, a cache whose KV heads do not
+split have their length over "model" and decode by the partial-softmax
+combine over "model").  The weights are held as JAX's dry run places
+them (`hold`: "fsdp" where `ARCH_POLICY` sets FSDP, JAX's table for
+every other cell).
 
 Records land in experiments/dryrun_torch/<arch>__<shape>__<mesh>.json
 with JAX's keys (`trace_s` in place of `lower_s` and `compile_s`), apart
@@ -80,10 +82,9 @@ def tune_config(cfg: ModelConfig, shape) -> ModelConfig:
 
 
 def hold_for(cfg: ModelConfig, fsdp: bool) -> str:
-    """How a cell's ranks hold the weights (`sharding.HOLDS`)."""
-    if fsdp:
-        return "fsdp"
-    return "jax" if cfg.family == "transformer" else "tp"
+    """How a cell's ranks hold the weights (`sharding.HOLDS`): JAX's
+    `params_shardings(fsdp=)` blocks."""
+    return "fsdp" if fsdp else "jax"
 
 
 def production_shape(multi_pod: bool) -> tuple[tuple, tuple]:
@@ -132,25 +133,25 @@ def _rank_batch(batch: dict, mesh):
 def cache_rank_specs(cfg: ModelConfig, mesh, cache, batch: int):
     """The specs of a rank's block of the whole decode cache: JAX's
     `cache_shardings` (`sharding.cache_specs`: the batch over DP, a
-    single long sequence's length over DP, KV heads over "model"); a
-    recurrent family's or whisper's per-layer state takes its "model"
-    dims from `sharding.layer_state_specs`, where the port's TP computes
-    them, and a batch of one sequence stays whole (only the transformer
-    decodes a cache length split over "data").  Raises
-    NotImplementedError for `cache_seq_shard` where it would split a
-    cache length over "model": no decode path of the port combines
+    single long sequence's length over DP, KV heads over "model", MLA's
+    latent length and, with `cache_seq_shard`, a cache length over
+    "model" where its heads do not split); a recurrent family's or
+    whisper's per-layer state takes its "model" dims from
+    `sharding.layer_state_specs`, where the port's TP computes them, and
+    a batch of one sequence stays whole (only the transformer decodes a
+    cache length split over "data").  Raises NotImplementedError for
+    `cache_seq_shard` where it would split whisper's or recurrentgemma's
+    attention cache length over "model": their decoders do not combine
     attention over "model"."""
-    specs = sharding.cache_specs(mesh, cache, cfg.kv_heads, batch, seq_shard=False,
-                                 n_heads=cfg.n_heads)
-    if cfg.cache_seq_shard:
-        seq = sharding.cache_specs(mesh, cache, cfg.kv_heads, batch, seq_shard=True,
-                                   n_heads=cfg.n_heads)
-        if json.dumps(seq) != json.dumps(specs):
-            raise NotImplementedError(
-                f"{cfg.name}: cache_seq_shard splits the cache length over 'model', and "
-                f"no decode path of the port combines attention over 'model'")
+    specs = sharding.cache_specs(mesh, cache, cfg.kv_heads, batch,
+                                 seq_shard=cfg.cache_seq_shard, n_heads=cfg.n_heads)
     if cfg.family == "transformer":
         return specs
+    if cfg.cache_seq_shard and json.dumps(specs) != json.dumps(
+            sharding.cache_specs(mesh, cache, cfg.kv_heads, batch, n_heads=cfg.n_heads)):
+        raise NotImplementedError(
+            f"{cfg.name}: cache_seq_shard splits the {cfg.family} attention cache's "
+            f"length over 'model', and its decoder does not combine attention over 'model'")
     tp = sharding.layer_state_specs(mesh, cfg, cache["layers"])
     layers = [{k: tuple("model" if b == "model" else (a if d == 0 and a != "model" else None)
                         for d, (a, b) in enumerate(zip(dp[k], tp[i][k]))) for k in dp}
@@ -194,8 +195,11 @@ def build_step(cfg: ModelConfig, shape, mesh, opt_name: str, hold: str):
     specs = cache_rank_specs(cfg, mesh, cspec, shape.global_batch)
     cache = _local(cspec, specs, mesh)
     split = dict(data_split=True) if dp is not None else {}
-    if cfg.family == "transformer" and sharding.dense_split(mesh, specs) == "seq":
-        split = dict(seq_split=True)
+    if cfg.family == "transformer":
+        if sharding.dense_split(mesh, specs) == "seq":
+            split = dict(seq_split=True)
+        if sharding.length_axes(mesh, specs) == ("model",):
+            split["seq_split"] = "model"
 
     def serve_step():
         with torch.no_grad(), sharding.use_mesh(mesh, hold=hold, **split):

@@ -41,15 +41,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None, mesh=None,
     blocks of the whole draw, bit for bit; each leaf cut as it is drawn,
     so a rank holds its shards and one layer's leaf at most).  `hold`:
     which blocks (`sharding.HOLDS`: "fsdp" holds FSDP's blocks, over the
-    DP axes too); the transformer family alone takes another than "tp"."""
+    DP axes too), which every family's layers gather to their TP blocks
+    while they run."""
     if mesh is not None and device is None:
         device = mesh.device
-    sharding.check_hold(cfg, hold)
+    if hold not in sharding.HOLDS:
+        raise ValueError(f"hold {hold!r}: one of {sharding.HOLDS}")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    if hold != "tp":
-        return transformer.init_params(cfg, gen, dev, mesh=mesh, hold=hold)
-    return family_module(cfg).init_params(cfg, gen, dev, mesh=mesh)
+    return family_module(cfg).init_params(cfg, gen, dev, mesh=mesh, hold=hold)
 
 
 def param_shapes(cfg: ModelConfig) -> Params:

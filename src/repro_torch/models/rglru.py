@@ -31,7 +31,9 @@ runs at w / tp channels and `w_out` is row-parallel (one all_reduce);
 the attention layers run on whole heads where they split (else
 replicated), the MLP column- then row-parallel (one all_reduce), the
 tied embedding vocab-parallel.  The cache holds the rank's channels of
-`h` and the conv window and its KV heads of the ring.
+`h` and the conv window and its KV heads of the ring.  A rank may hold
+its weights in other blocks than its TP blocks (`use_mesh(hold=)`): each
+layer gathers them while it runs (`sharding.compute_tree`).
 """
 from __future__ import annotations
 
@@ -95,13 +97,14 @@ def _init_mlp(cfg: ModelConfig, gen: torch.Generator, cut) -> Params:
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
-                device: torch.device | str = "cpu", *, mesh=None) -> Params:
+                device: torch.device | str = "cpu", *, mesh=None,
+                hold: str = "tp") -> Params:
     """Weights of the JAX `init_params` tree, shapes, scales and dtypes,
     drawn from `gen` on its own device and moved to `device`.  Embeddings are
     tied (the unembed is x @ embed.T).  `mesh`: keep this rank's blocks
-    only (`sharding.shard_params`' blocks of the whole draw, bit for bit),
-    each cut from its leaf as it is drawn."""
-    block = sharding.block_cutter(mesh, cfg)
+    only (`sharding.shard_params`' blocks of the whole draw under `hold`,
+    bit for bit), each cut from its leaf as it is drawn."""
+    block = sharding.block_cutter(mesh, cfg, hold)
     layers = []
     for i in range(cfg.n_layers):
         def cut(path, t, at=f"layers/{i}/"):
@@ -224,21 +227,32 @@ def mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 # --- forward / decode -------------------------------------------------------
 
-def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor):
-    """Embedding times sqrt(d_model), the scale rounded to the model
-    dtype first (as JAX's weakly typed scalar is)."""
-    x = vocab_embed(params["embed"].to(cfg.tdtype), tokens, tp_plan(cfg))
+def _embedding(cfg: ModelConfig, params: Params) -> torch.Tensor:
+    """The tied embedding at this rank's TP block, gathered once a call
+    where the rank holds another block (`sharding.compute_tree`), so the
+    lookup's and the unembedding's gradients sum before it goes back."""
+    return sharding.compute_tree(cfg, params["embed"], "embed")
+
+
+def _embed(cfg: ModelConfig, emb: torch.Tensor, tokens: torch.Tensor):
+    """Embedding (`_embedding`) times sqrt(d_model), the scale rounded to
+    the model dtype first (as JAX's weakly typed scalar is)."""
+    x = vocab_embed(emb.to(cfg.tdtype), tokens, tp_plan(cfg))
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                             device=x.device)
 
 
-def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor):
+def unembed(cfg: ModelConfig, emb: torch.Tensor, x: torch.Tensor):
     plan = tp_plan(cfg)
-    return vocab_logits(vocab_in(x, plan) @ params["embed"].to(cfg.tdtype).T, plan)
+    return vocab_logits(vocab_in(x, plan) @ emb.to(cfg.tdtype).T, plan)
 
 
 def _layer(cfg: ModelConfig, i: int, p: Params, x: torch.Tensor, rope):
-    """Layer i over a whole sequence: (x out, its state)."""
+    """Layer i over a whole sequence: (x out, its state), from this rank's
+    held leaves, gathered to their TP blocks first
+    (`sharding.compute_tree`; inside the remat body the backward gathers
+    again)."""
+    p = sharding.compute_tree(cfg, p, f"layers/{i}")
     hn = apply_norm(cfg, p["norm1"], x)
     if is_attn_layer(cfg, i):
         a, st = attn_full(cfg, p["attn"], hn, rope)
@@ -248,10 +262,11 @@ def _layer(cfg: ModelConfig, i: int, p: Params, x: torch.Tensor, rope):
     return x + mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x)), st
 
 
-def hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor):
+def hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor, emb: torch.Tensor):
     """Final-normed hidden states (B, S, d) and the per-layer states: a
-    (k, v) pair for attention layers, {"h", "conv"} for recurrent ones."""
-    x = _embed(cfg, params, tokens)
+    (k, v) pair for attention layers, {"h", "conv"} for recurrent ones;
+    `emb`: `_embedding`."""
+    x = _embed(cfg, emb, tokens)
     bsz, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(bsz, s)
     rope = rope_tables(positions, cfg.hd, cfg.rope_theta)
@@ -264,8 +279,9 @@ def hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor):
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             collect_state: bool = False):
-    x, states = hidden(cfg, params, tokens)
-    logits = unembed(cfg, params, x)
+    emb = _embedding(cfg, params)
+    x, states = hidden(cfg, params, tokens, emb)
+    logits = unembed(cfg, emb, x)
     if collect_state:
         return logits, states
     return logits
@@ -338,9 +354,11 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     raw = torch.as_tensor(cache["index"], device=tokens.device)
     index = (raw.expand(tokens.shape[0]) if raw.dim() == 0 else raw).long()
     rope = rope_tables(index[:, None], cfg.hd, cfg.rope_theta)
-    x = _embed(cfg, params, tokens)
+    emb = _embedding(cfg, params)
+    x = _embed(cfg, emb, tokens)
     new_layers = []
     for i, (p, lc) in enumerate(zip(params["layers"], cache["layers"])):
+        p = sharding.compute_tree(cfg, p, f"layers/{i}")
         hn = apply_norm(cfg, p["norm1"], x)
         if is_attn_layer(cfg, i):
             a, nc = _decode_attn(cfg, p["attn"], hn, lc, index, rope)
@@ -350,7 +368,7 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         x = x + mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
         new_layers.append(nc)
     x = apply_norm(cfg, params["final_norm"], x)
-    return unembed(cfg, params, x), {"layers": new_layers, "index": raw + 1}
+    return unembed(cfg, emb, x), {"layers": new_layers, "index": raw + 1}
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -360,7 +378,8 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     position p sits at ring slot p % clen.  Only the last position is
     unembedded."""
     s = tokens.shape[1]
-    x, states = hidden(cfg, params, tokens)
+    emb = _embedding(cfg, params)
+    x, states = hidden(cfg, params, tokens, emb)
     cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
     clen = min(max_len, cfg.window or max_len)
     take = min(s, clen)
@@ -376,4 +395,4 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             else:
                 dst.copy_(torch.roll(last, shifts=s % clen, dims=1))
     cache["index"] = torch.tensor(s, dtype=torch.int32, device=tokens.device)
-    return unembed(cfg, params, x[:, -1:]), cache
+    return unembed(cfg, emb, x[:, -1:]), cache

@@ -25,7 +25,13 @@ row-parallel (one all_reduce) and its receptance on its d columns,
 gathered whole (one all_gather) before the gate; the embedding and head
 vocab-parallel.  A layer's collectives: two all_reduces and one
 all_gather.  The state holds the rank's heads of `wkv`; the token shifts
-stay whole (the residual stream is replicated).
+stay whole (the residual stream is replicated).  Where the heads do not
+split whole over "model" but the head dim does (`TPPlan.keys`), every
+rank runs every head of the time mix and the WKV recurrence on its block
+of each head's key dim (the state split as JAX's `cache_shardings`
+splits it), the output summed over "model".  A rank may hold its
+weights in other blocks than its TP blocks (`use_mesh(hold=)`): each
+layer gathers them while it runs (`sharding.compute_tree`).
 """
 from __future__ import annotations
 
@@ -84,13 +90,15 @@ def _init_layer(cfg: ModelConfig, gen: torch.Generator, cut, at: str) -> Params:
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
-                device: torch.device | str = "cpu", *, mesh=None) -> Params:
+                device: torch.device | str = "cpu", *, mesh=None,
+                hold: str = "tp") -> Params:
     """Weights of the JAX `init_params` tree, shapes, scales and dtypes,
     drawn from `gen` on its own device and moved to `device`.  `mesh`:
     keep this rank's blocks only (`sharding.shard_params`' blocks of the
-    whole draw, bit for bit), each cut from its leaf as it is drawn."""
+    whole draw under `hold`, bit for bit), each cut from its leaf as it
+    is drawn."""
     pd = cfg.tparam_dtype
-    cut = sharding.block_cutter(mesh, cfg)
+    cut = sharding.block_cutter(mesh, cfg, hold)
     layers = [_init_layer(cfg, gen, cut, f"layers/{i}/") for i in range(cfg.n_layers)]
     params = {"embed": cut("embed", normal(gen, (cfg.vocab, cfg.d_model), 0.02, pd)),
               "final_norm": torch.zeros((cfg.d_model,), dtype=pd),
@@ -117,12 +125,16 @@ def _groupnorm(o: torch.Tensor, scale: torch.Tensor, eps: float = 64e-5):
 def time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
              shift_prev: torch.Tensor, s0: torch.Tensor):
     """x: (B, S, d).  Returns (out, (last_x, s_final)); under a mesh the
-    rank's heads run (`s0` holds them) and `out` is summed over "model"."""
+    rank's heads run (`s0` holds them) and `out` is summed over "model",
+    or, where the heads do not split whole (`TPPlan.keys`), every head
+    runs on the rank's block of its key dim (`s0` (B, H, hd / tp, hd))
+    and the WKV output is summed over "model"."""
     dt = cfg.tdtype
     hd = cfg.hd
     b, s, d = x.shape
     plan = tp_plan(cfg)
     sh = plan is not None and plan.attn
+    keys = plan is not None and plan.keys
     c0, dl = sharding.local_range(plan, d, sh)         # this rank's channels
     h0, h = c0 // hd, dl // hd                         # and heads
     xx = _shift(x, shift_prev)
@@ -144,8 +156,15 @@ def time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
         @ copy_if(p["wb"], plan, sh)[:, c0:c0 + dl].to(dt)
     w = torch.exp(-torch.exp(copy_if(p["w0"], plan, sh)[c0:c0 + dl] + dw.float()))
     logw = torch.log(torch.clamp(w, min=1e-12)).reshape(b, s, h, hd)
-    o, s_fin = wops.wkv6_bshd(r, k, v, logw, copy_if(p["u"], plan, sh)[h0:h0 + h], s0,
-                              chunk=cfg.wkv_chunk)
+    u = copy_if(p["u"], plan, sh)[h0:h0 + h]
+    if keys:
+        # the rank's block of each head's key dim: o sums over it
+        kb = hd // plan.tp
+        k0 = plan.mesh.coord("model") * kb
+        r, k, logw, u = (copy_if(t, plan, True)[..., k0:k0 + kb] for t in (r, k, logw, u))
+        v = copy_if(v, plan, True)
+    o, s_fin = wops.wkv6_bshd(r, k, v, logw, u, s0, chunk=cfg.wkv_chunk)
+    o = reduce_if(o, plan, keys)
     o = _groupnorm(o.to(dt), copy_if(p["gn_scale"], plan, sh)[h0:h0 + h].to(dt))
     o = (o.reshape(b, s, dl) * g) @ p["wo"].to(dt)
     return reduce_if(o, plan, sh), (x[:, -1:], s_fin)
@@ -180,16 +199,18 @@ def _layer(cfg: ModelConfig, p: Params, x: torch.Tensor, st: Params):
 
 def init_state(cfg: ModelConfig, batch: int, *,
                device: torch.device | str = "cpu") -> Params:
-    """Zero state; under a mesh `wkv` holds the rank's heads."""
+    """Zero state; under a mesh `wkv` holds the rank's heads, or every
+    head's block of its key dim (`TPPlan.keys`)."""
     hd = cfg.hd
     plan = tp_plan(cfg)
     h = sharding.local_range(plan, n_heads(cfg), plan is not None and plan.attn)[1]
+    kd = hd // plan.tp if plan is not None and plan.keys else hd
 
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
 
     layers = [{"shift_att": zeros((batch, 1, cfg.d_model), cfg.tdtype),
-               "wkv": zeros((batch, h, hd, hd), torch.float32),
+               "wkv": zeros((batch, h, kd, hd), torch.float32),
                "shift_ffn": zeros((batch, 1, cfg.d_model), cfg.tdtype)}
               for _ in range(cfg.n_layers)]
     return {"layers": layers, "index": zeros((), torch.int32)}
@@ -201,15 +222,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     return init_state(cfg, batch, device=device)
 
 
+def _held_layer(cfg: ModelConfig, i: int, p: Params, x: torch.Tensor, st: Params):
+    """`_layer` i from this rank's held leaves, gathered to their TP blocks
+    first (`sharding.compute_tree`; inside the remat body the backward
+    gathers again)."""
+    return _layer(cfg, sharding.compute_tree(cfg, p, f"layers/{i}"), x, st)
+
+
 def hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
            state: Params | None = None):
     """Final-normed hidden states (B, S, d) and the advanced state."""
-    x = vocab_embed(params["embed"].to(cfg.tdtype), tokens, tp_plan(cfg))
+    emb = sharding.compute_tree(cfg, params["embed"], "embed")
+    x = vocab_embed(emb.to(cfg.tdtype), tokens, tp_plan(cfg))
     st = state or init_state(cfg, tokens.shape[0], device=tokens.device)
-    body = maybe_remat(functools.partial(_layer, cfg), cfg)
     new_layers = []
-    for p, ls in zip(params["layers"], st["layers"]):
-        x, ns = body(p, x, ls)
+    for i, (p, ls) in enumerate(zip(params["layers"], st["layers"])):
+        x, ns = maybe_remat(functools.partial(_held_layer, cfg, i), cfg)(p, x, ls)
         new_layers.append(ns)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return x, {"layers": new_layers, "index": st["index"] + tokens.shape[1]}
@@ -217,7 +245,8 @@ def hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
 
 def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor):
     plan = tp_plan(cfg)
-    return vocab_logits(vocab_in(x, plan) @ params["head"].to(cfg.tdtype), plan)
+    head = sharding.compute_tree(cfg, params["head"], "head")
+    return vocab_logits(vocab_in(x, plan) @ head.to(cfg.tdtype), plan)
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,

@@ -30,7 +30,11 @@ route then runs over the rows gathered from every data rank (in the
 serving step's lane order where it gives `lanes`).  A serving state
 whose one slot's cache length splits over "data" decodes under
 `use_mesh(seq_split=True)`: each rank attends over its block of the
-cache and the partial softmaxes combine exactly over "data".  A rank may
+cache and the partial softmaxes combine exactly over "data".  A cache
+whose length splits over "model" (MLA's latent, as JAX's
+`cache_shardings` places it; a GQA cache whose KV heads do not split,
+with `cache_seq_shard`) decodes under `use_mesh(seq_split="model")` by
+the same combine over "model".  A rank may
 hold its weights in other blocks than the TP blocks (`use_mesh(hold=)`:
 JAX's table, or FSDP's blocks over the DP axes too): each layer, the
 embedding and the head then gather their TP blocks as they run
@@ -540,19 +544,22 @@ def _moe_grouped(cfg: ModelConfig, p: Params, x: torch.Tensor, g: int,
 
 
 EP_AXES = ("data", "model")
+TOKEN_AXES = ("pod", "data", "model")
 
 
 def moe_block_shard_map(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """The JAX `moe_block_shard_map`: explicit expert parallelism over the
-    mesh's ("data", "model") ranks.  The n tokens split over all ranks
-    (nl each); each rank routes its own and fills local capacity buffers
-    (E, cap_l, d), cap_l = max(1, ceil(nl k / E cf)) (no floor of 8, no
-    rounding); one all_to_all ships each expert's rows to the rank that
-    owns it (E / n_ep experts a rank), the local experts run over every
+    """The JAX `moe_block_shard_map`: explicit expert parallelism.  The n
+    tokens split over every axis of ("pod", "data", "model") the mesh has
+    (n_tot ranks, nl = n / n_tot each); each rank routes its own and
+    fills local capacity buffers (E, cap_l, d), cap_l = max(1, ceil(nl k
+    / E cf)) (no floor of 8, no rounding); one all_to_all over ("data",
+    "model") inside each pod ships each expert's rows to the rank that
+    owns it (E / n_ep experts a rank, n_ep = data x model; the experts
+    are replicated over "pod"), the local experts run over every pod
     rank's rows (`moe_mlp`), the inverse all_to_all brings the outputs
     home, each rank combines its tokens and the token stream is gathered
-    back.  Falls back to `moe_block` where E or n does not split over the
-    ranks, as JAX does.
+    back.  Falls back to `moe_block` where E % n_ep or n % n_tot, as JAX
+    does.
 
     The experts are held sharded over "model" alone (EP, the param
     rules): rank (d, m) holds expert blocks m D .. m D + D - 1 of E / n_ep
@@ -560,27 +567,34 @@ def moe_block_shard_map(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.T
     the rank at (d, m), a fixed permutation of the JAX owner order that
     changes no value.
 
-    With the batch's rows split over "data" (training), a rank's tokens
-    are its model index's share of its own rows (the same global split:
-    rank (d, m) holds global tokens (d M + m) nl ..), and the stream is
-    gathered over "model" alone.  Under autograd x and the router enter
-    through `copy_to` over the axes the tokens split over, and where the
-    rows are whole the held experts over "data" too (each data rank runs
-    its own block of them)."""
+    With the batch's rows split over the DP axes ("pod", "data"; training,
+    the multi-pod dry run), a rank's tokens are its model index's share
+    of its own rows (the same global split: rank (p, d, m) holds global
+    tokens ((p D + d) M + m) nl ..), and the stream is gathered over
+    "model" alone.  Under autograd x and the router enter through
+    `copy_to` over the axes the tokens split over, and where the rows are
+    whole the held experts over the DP axes too (each data rank runs its
+    own block of them)."""
     plan = _plan(cfg)
     mesh = plan.mesh
-    n_ep = sharding.axis_size(mesh, EP_AXES)
+    names = tuple(mesh.axis_names)
+    ep_axes = tuple(a for a in EP_AXES if a in names)
+    all_axes = tuple(a for a in TOKEN_AXES if a in names)
+    n_ep, n_tot = sharding.axis_size(mesh, ep_axes), sharding.axis_size(mesh, all_axes)
+    msz = sharding.axis_size(mesh, "model")
     bsz, s, d = x.shape
     split = _dp_size(plan) > 1
-    if split and sharding.axis_size(mesh, plan.dp) != sharding.axis_size(mesh, "data"):
-        raise NotImplementedError(f"moe_shard_map with the rows split over {plan.dp}")
-    tok_axes = "model" if split else EP_AXES
-    n = bsz * s * (sharding.axis_size(mesh, "data") if split else 1)
+    if split and _dp_size(plan) * msz != n_tot:
+        raise NotImplementedError(f"moe_shard_map with the rows split over {plan.dp} "
+                                  f"of a {dict(mesh.shape)} mesh")
+    tok_axes = "model" if split else all_axes
+    rep_axes = tuple(a for a in all_axes if a != "model")   # the held experts' copies
+    n = bsz * s * _dp_size(plan)
     k, e = cfg.top_k, cfg.n_experts
-    if e % n_ep or n % n_ep:
+    if e % n_ep or n % n_tot:
         return moe_block(cfg.replace(moe_shard_map=False), p, x)
     dt = cfg.tdtype
-    el, nl = e // n_ep, n // n_ep
+    el, nl = e // n_ep, n // n_tot
     cap_l = max(1, int(math.ceil(nl * k / e * cfg.capacity_factor)))
     me = mesh.axis_rank(tok_axes)
     xl = coll.copy_to(x, mesh, tok_axes).reshape(-1, d)[me * nl:(me + 1) * nl]
@@ -592,20 +606,21 @@ def moe_block_shard_map(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.T
                    torch.where(keep[:, None], xl.repeat_interleave(k, dim=0), 0).to(dt),
                    accumulate=True)
     # block b of el experts runs on the rank at (d, m) with b = m D + d
-    dsz, msz = sharding.axis_size(mesh, "data"), sharding.axis_size(mesh, "model")
+    dsz = sharding.axis_size(mesh, "data")
     owner_block = [(r % msz) * dsz + r // msz for r in range(n_ep)]
     order = torch.as_tensor(owner_block, device=x.device)
     recv = coll.all_to_all(buf.reshape(n_ep, el, cap_l, d)[order].reshape(e, cap_l, d),
-                           mesh, EP_AXES)
+                           mesh, ep_axes)
     # (n_ep sources, el, cap_l, d) -> this rank's experts over every source
     buf2 = recv.reshape(n_ep, el, cap_l, d).transpose(0, 1).reshape(el, n_ep * cap_l, d)
     held = mesh.coord("data") * el     # within the experts of the model shard
-    pe = {key: (p[key] if split else coll.copy_to(p[key], mesh, "data"))[held:held + el]
+    pe = {key: (p[key] if split or not rep_axes
+                else coll.copy_to(p[key], mesh, rep_axes))[held:held + el]
           for key in ("experts_in", "experts_out", "experts_gate") if key in p}
     oute = expert_mlp(cfg, pe, buf2)
     back = coll.all_to_all(
         oute.reshape(el, n_ep, cap_l, d).transpose(0, 1).reshape(e, cap_l, d),
-        mesh, EP_AXES)
+        mesh, ep_axes)
     inv = torch.empty_like(order)
     inv[order] = torch.arange(n_ep, device=x.device)
     back = back.reshape(n_ep, el, cap_l, d)[inv].reshape(e, cap_l, d)
@@ -868,9 +883,10 @@ def _decode_mask(cfg: ModelConfig, index: torch.Tensor, clen: int):
 
 
 def _seq_block(cfg: ModelConfig, clen: int):
-    """Under a dense cache whose length is split over DP ranks (SP,
-    `sharding.seq_axes`): (mesh, axes, this rank's first position, the
-    whole length) of its block of `clen` positions; else None."""
+    """Under a dense cache whose length is split over ranks (the DP axes,
+    SP, or "model": `sharding.seq_axes`): (mesh, axes, this rank's first
+    position, the whole length) of its block of `clen` positions; else
+    None."""
     plan = _plan(cfg)
     if plan is None or plan.sp is None:
         return None
@@ -888,11 +904,12 @@ def _block_slot(slot: torch.Tensor, off: int, clen: int) -> torch.Tensor:
 def _attend_blocks(scores: torch.Tensor, mask: torch.Tensor, values, dt, sp):
     """softmax(scores) over the last axis, masked to `mask`, through
     `values` (weights in dt -> their values, the same leading dims) when
-    each SP rank holds a block of the keys: the rank's partial softmax
-    (its max, its sum of exp and its weighted values) is combined exactly
-    over the SP axes in float32 (one all_max, one all_reduce of the sums
-    and values packed together).  A rank whose block holds no valid key
-    adds nothing: its weights are 0 and its max scales to 0."""
+    each rank of the split (`_seq_block`) holds a block of the keys: the
+    rank's partial softmax (its max, its sum of exp and its weighted
+    values) is combined exactly over the split's axes in float32 (one
+    all_max, one all_reduce of the sums and values packed together).  A
+    rank whose block holds no valid key adds nothing: its weights are 0
+    and its max scales to 0."""
     mesh, axes = sp[0], sp[1]
     scores = scores.masked_fill(~mask, -1e30)
     m = scores.amax(-1, keepdim=True)
@@ -966,7 +983,13 @@ def _mla_decode_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
     through W_uk into the latent space (scores q_nope^T W_uk c_kv plus
     the rope part), and the latent output is up-projected through W_uv
     afterwards, so no per-head key or value is ever formed.  `sp` as
-    `_decode_attn` takes it (L: this rank's block of the latents)."""
+    `_decode_attn` takes it (L: this rank's block of the latents).  Where
+    the length is split over "model" and the heads are too, a rank's
+    heads and its latent block cover different things: the small
+    absorbed queries (B, 1, H, kv_rank + rd) are gathered over "model",
+    every head is scored against the local block, the partial softmaxes
+    are combined over "model", and the rank keeps its own heads' latent
+    outputs for the W_uv up-projection (the latent is never gathered)."""
     bsz = x.shape[0]
     dt, hd, kvr = cfg.tdtype, cfg.hd, cfg.mla_kv_rank
     q_nope, q_rope = _mla_q(cfg, p, x, rope)
@@ -974,6 +997,11 @@ def _mla_decode_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
     _write_slot(L, _mla_latent(cfg, p, x, rope), slot)
     lat, lat_rope = L[..., :kvr].to(dt), L[..., kvr:].to(dt)
     q_abs = torch.einsum("bqhd,khd->bqhk", q_nope, p["wuk"].to(dt).reshape(kvr, h, hd))
+    plan = _plan(cfg)
+    heads = sp is not None and "model" in sp[1] and plan.attn
+    if heads:
+        q_abs = coll.all_gather(q_abs, plan.mesh, "model", dim=2)
+        q_rope = coll.all_gather(q_rope, plan.mesh, "model", dim=2)
     s_n = torch.einsum("bqhk,bck->bhqc", q_abs, lat)
     s_r = torch.einsum("bqhd,bcd->bhqc", q_rope, lat_rope)
     scores = (s_n + s_r).float() / math.sqrt(hd + cfg.mla_rope_dim)
@@ -981,6 +1009,8 @@ def _mla_decode_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
         o_lat = _attend_blocks(scores, mask[:, None, None, :],
                                lambda w: torch.einsum("bhqc,bck->bhqk", w, lat), dt,
                                sp).transpose(1, 2)
+        if heads:
+            o_lat = o_lat.narrow(2, plan.mesh.coord("model") * h, h)
     else:
         scores = scores.masked_fill(~mask[:, None, None, :], -1e30)
         probs = torch.softmax(scores, dim=-1).to(dt)
@@ -1022,11 +1052,12 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     (uniform lengths) or a (B,) vector (per-slot lengths).  Returns
     (logits (B, 1, V), cache) with the cache advanced in place and
     index + 1.  A sliding-window model writes ring slot index % C and
-    attends to the last `window` positions.  Under SP (`use_mesh(seq_split=
-    True)`) the cache holds this rank's block of the length: the masks are
-    the whole cache's cut to the block, the new k/v is written only by the
-    rank whose block holds its (ring) slot, and the softmax is combined
-    over the SP ranks."""
+    attends to the last `window` positions.  Under a split length
+    (`use_mesh(seq_split=True)` over "data", `seq_split="model"` over
+    "model") the cache holds this rank's block of the length: the masks
+    are the whole cache's cut to the block, the new k/v is written only by
+    the rank whose block holds its (ring) slot, and the softmax is
+    combined over the ranks of the split."""
     check_supported(cfg)
     raw = torch.as_tensor(cache["index"], device=tokens.device)
     index = raw.expand(tokens.shape[0]) if raw.dim() == 0 else raw

@@ -24,7 +24,10 @@ before the output bias), the MLP on its f columns (`b_in` sliced, `w_out`
 row-parallel, one all_reduce before `b_out`); the cross K and V are
 computed from the replicated encoder output at the rank's heads; the
 tied embedding is vocab-parallel where the vocab divides (whisper-base's
-51,865 does not: replicated).  The cache holds the rank's heads.
+51,865 does not: replicated).  The cache holds the rank's heads.  A rank
+may hold its weights in other blocks than its TP blocks
+(`use_mesh(hold=)`): each layer gathers them while it runs
+(`sharding.compute_tree`).
 """
 from __future__ import annotations
 
@@ -81,13 +84,14 @@ def _init_mlp(cfg: ModelConfig, gen: torch.Generator, cut, at: str) -> Params:
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
-                device: torch.device | str = "cpu", *, mesh=None) -> Params:
+                device: torch.device | str = "cpu", *, mesh=None,
+                hold: str = "tp") -> Params:
     """Weights of the JAX `init_params` tree, shapes and scales, drawn
     from `gen` on its own device and moved to `device`.  `mesh`: keep this
-    rank's blocks only (`sharding.shard_params`' blocks of the whole draw,
-    bit for bit), each cut from its leaf as it is drawn."""
+    rank's blocks only (`sharding.shard_params`' blocks of the whole draw
+    under `hold`, bit for bit), each cut from its leaf as it is drawn."""
     pd, dev = cfg.tparam_dtype, gen.device
-    cut = sharding.block_cutter(mesh, cfg)
+    cut = sharding.block_cutter(mesh, cfg, hold)
 
     enc = [{"ln1": _ln(cfg, dev), "attn": _init_attn(cfg, gen, cut, f"enc_layers/{i}/attn/"),
             "ln2": _ln(cfg, dev), "mlp": _init_mlp(cfg, gen, cut, f"enc_layers/{i}/mlp/")}
@@ -180,13 +184,20 @@ def _enc_attn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     return x + _mha(cfg, p["attn"], hn, hn, causal=False)[0]
 
 
-def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return vocab_embed(params["embed"].to(cfg.tdtype), tokens, tp_plan(cfg))
+def _embedding(cfg: ModelConfig, params: Params) -> torch.Tensor:
+    """The tied embedding at this rank's TP block, gathered once a call
+    where the rank holds another block (`sharding.compute_tree`), so the
+    lookup's and the unembedding's gradients sum before it goes back."""
+    return sharding.compute_tree(cfg, params["embed"], "embed")
 
 
-def _unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+def _embed(cfg: ModelConfig, emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return vocab_embed(emb.to(cfg.tdtype), tokens, tp_plan(cfg))
+
+
+def _unembed(cfg: ModelConfig, emb: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     plan = tp_plan(cfg)
-    return vocab_logits(vocab_in(x, plan) @ params["embed"].to(cfg.tdtype).T, plan)
+    return vocab_logits(vocab_in(x, plan) @ emb.to(cfg.tdtype).T, plan)
 
 
 def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor) -> torch.Tensor:
@@ -195,7 +206,8 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor) -> torch.Tens
     x = frames.to(dt) + _sinusoid(frames.shape[1], cfg.d_model, dt,
                                   frames.device)[None]
     attn = maybe_remat(functools.partial(_enc_attn, cfg), cfg)
-    for p in params["enc_layers"]:
+    for i, p in enumerate(params["enc_layers"]):
+        p = sharding.compute_tree(cfg, p, f"enc_layers/{i}")
         x = attn(p, x)
         x = x + _mlp(cfg, p["mlp"], _ln_apply(x, p["ln2"]))
     return _ln_apply(x, params["enc_ln"])
@@ -207,9 +219,11 @@ def decode_train(cfg: ModelConfig, params: Params, enc_out: torch.Tensor,
     ((k, v) self, (k, v) cross) pair a layer)."""
     dt = cfg.tdtype
     s = tokens.shape[1]
-    x = _embed(cfg, params, tokens) + params["dec_pos"][:s].to(dt)[None]
+    emb = _embedding(cfg, params)
+    x = _embed(cfg, emb, tokens) + params["dec_pos"][:s].to(dt)[None]
     kvs = []
-    for p in params["dec_layers"]:
+    for i, p in enumerate(params["dec_layers"]):
+        p = sharding.compute_tree(cfg, p, f"dec_layers/{i}")
         hn = _ln_apply(x, p["ln1"])
         a, self_kv = _mha(cfg, p["self_attn"], hn, hn, causal=True)
         x = x + a
@@ -219,7 +233,7 @@ def decode_train(cfg: ModelConfig, params: Params, enc_out: torch.Tensor,
         x = x + _mlp(cfg, p["mlp"], _ln_apply(x, p["ln3"]))
         kvs.append((self_kv, cross_kv))
     x = _ln_apply(x, params["dec_ln"])
-    return _unembed(cfg, params, x), kvs
+    return _unembed(cfg, emb, x), kvs
 
 
 def forward(cfg: ModelConfig, params: Params, frames: torch.Tensor,
@@ -293,8 +307,10 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     b = tokens.shape[0]
     index = (raw.expand(b) if raw.dim() == 0 else raw).long()
     rows = torch.arange(b, device=tokens.device)
-    x = _embed(cfg, params, tokens) + params["dec_pos"][index].to(dt)[:, None]
-    for p, lc in zip(params["dec_layers"], cache["layers"]):
+    emb = _embedding(cfg, params)
+    x = _embed(cfg, emb, tokens) + params["dec_pos"][index].to(dt)[:, None]
+    for i, (p, lc) in enumerate(zip(params["dec_layers"], cache["layers"])):
+        p = sharding.compute_tree(cfg, p, f"dec_layers/{i}")
         hn = _ln_apply(x, p["ln1"])
         q, (k, v) = _q(cfg, p["self_attn"], hn), _kv(cfg, p["self_attn"], hn)
         K, V = lc["k"], lc["v"]
@@ -307,4 +323,4 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                      _softmax_attend(q, lc["ck"], lc["cv"], None, dt))
         x = x + _mlp(cfg, p["mlp"], _ln_apply(x, p["ln3"]))
     x = _ln_apply(x, params["dec_ln"])
-    return _unembed(cfg, params, x), {"layers": cache["layers"], "index": raw + 1}
+    return _unembed(cfg, emb, x), {"layers": cache["layers"], "index": raw + 1}

@@ -52,7 +52,7 @@ JAX's dry run sets for its FSDP archs).  The model then gathers each
 such leaf to its TP block only while its layer runs
 (`collectives.gather_held`; a rank holds at most one layer's gathered
 weights), and the gradient comes back to the held block already summed
-over the DP ranks.  Only the transformer family takes "jax" or "fsdp".
+over the DP ranks.  Every family takes every hold.
 """
 from __future__ import annotations
 
@@ -252,14 +252,6 @@ def held_spec(mesh, path: str, shape, stacked: bool, cfg, hold: str = "tp") -> S
     return param_spec(mesh, path, shape, stacked, fsdp=hold == "fsdp")
 
 
-def check_hold(cfg, hold: str) -> None:
-    """Raise NotImplementedError where a family cannot hold `hold`."""
-    if hold != "tp" and cfg.family != "transformer":
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family} holds its weights as its TP blocks "
-            f"only, not {hold!r} (no gather of held leaves is ported for it)")
-
-
 def local_shape(shape, spec: Spec, mesh) -> tuple:
     """A leaf's per-rank shape under `spec`."""
     return tuple(n if a is None else n // axis_size(mesh, a)
@@ -272,7 +264,6 @@ def leaf_block(mesh: Mesh, cfg, path: str, shape, stacked: bool = False,
     `shape`) for the leaf at `path`, by `held_spec`: the TP block with the
     whole-heads rule ("tp"), or JAX's block ("jax", "fsdp"), which the
     model gathers to the TP block while its layer runs."""
-    check_hold(cfg, hold)
     shape = tuple(shape)
     spec = held_spec(mesh, path, shape, stacked, cfg, hold)
     if all(a is None for a in spec):
@@ -280,13 +271,13 @@ def leaf_block(mesh: Mesh, cfg, path: str, shape, stacked: bool = False,
     return local_shape(shape, spec, mesh), lambda t: local_slice(t, spec, mesh)
 
 
-def block_cutter(mesh, cfg):
-    """`cut(path, t)`: this rank's block of the leaf `t` at `path`
-    (`leaf_block`), or `t` itself without a mesh; the families' inits cut
-    each leaf as it is drawn."""
+def block_cutter(mesh, cfg, hold: str = "tp"):
+    """`cut(path, t)`: this rank's block of the leaf `t` at `path` held as
+    `hold` (`leaf_block`), or `t` itself without a mesh; the families'
+    inits cut each leaf as it is drawn."""
     if mesh is None:
         return lambda path, t: t
-    return lambda path, t: leaf_block(mesh, cfg, path, tuple(t.shape))[1](t)
+    return lambda path, t: leaf_block(mesh, cfg, path, tuple(t.shape), hold=hold)[1](t)
 
 
 def local_slice(t: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
@@ -407,7 +398,8 @@ def check_shards(cfg, params: Any, mesh: Mesh, hold: str = "tp") -> None:
     recurrent) columns must be the widths `tp_plan` cuts them to (a whole
     tree run where blocks belong would be summed over the ranks); under
     another `hold`, every leaf's shape must be its held block's."""
-    check_hold(cfg, hold)
+    if hold not in HOLDS:
+        raise ValueError(f"hold {hold!r}: one of {HOLDS}")
     if hold != "tp":
         held = spec_maps(cfg, mesh, hold)[0]
         whole = {path_str(p): tuple(x.shape) for p, x in _leaves_with_paths(whole_shapes(cfg))}
@@ -536,18 +528,20 @@ def gather_tree(tree: Any, specs: dict, mesh) -> list[tuple[str, torch.Tensor]]:
 
 def cache_specs(mesh, cache: Any, kv_heads: int, batch_size: int,
                 seq_shard: bool = False, *, n_heads: int | None = None) -> Any:
-    """Specs of a dense cache tree (the JAX `cache_shardings`): the batch
-    over DP when it divides (a batch of one long sequence: its length
-    over "data", SP); a {k, v} leaf's kv-head dim (axis -2 of (L, B, C,
-    Hkv, hd)) over "model" when the heads split whole (`n_heads`: the
-    query heads, checked too where given).  MLA's latent (L, B, C, D) has
-    no head dim and stays replicated on "model" (GSPMD splits its length
-    there; explicit TP reads the whole latent on every rank).
-    `seq_shard`: where the heads do not shard, the cache length goes over
-    "model" instead (a rule no served path takes yet).  The serving
-    engine's bf16 / f32 dense rectangles take this rule
-    (`DenseKVState.place`): a data rank holds its block of the slots, or
-    of one slot's cache length."""
+    """Specs of a dense cache tree, JAX's `cache_shardings` leaf for leaf:
+    the batch over DP when it divides (a batch of one long sequence: its
+    length over "data", SP); then "model" on the second-to-last dim when
+    it divides, is at least the axis and is not the batch dim or already
+    split: the kv-head dim of a {k, v} leaf (L, B, C, Hkv, hd), where
+    the heads split whole (`n_heads`: the query heads, checked too where
+    given), and the cache length C of MLA's latent (L, B, C, D).
+    `seq_shard`: where no dim took "model", the cache length goes over
+    "model" when it divides and C >= 4 x the axis.  A length over "model"
+    decodes by the partial-softmax combine over "model"
+    (`use_mesh(seq_split="model")`).  The serving engine's bf16 / f32
+    dense rectangles take this rule (`DenseKVState.place`): a data rank
+    holds its block of the slots, or of one slot's cache length, and a
+    model rank its KV heads or its block of the length."""
     dp = dp_axes(mesh)
     dsz = axis_size(mesh, dp) if dp else 1
     msz = axis_size(mesh, "model")
@@ -556,22 +550,24 @@ def cache_specs(mesh, cache: Any, kv_heads: int, batch_size: int,
     def leaf(path, x):
         ps = path_str(path)
         shape = tuple(x.shape)
-        if len(shape) == 0:
+        nd = len(shape)
+        if nd == 0:
             return ()
-        dims: list = [None] * len(shape)
-        bdim = 1 if ("segments" in ps and len(shape) >= 3) else 0
+        dims: list = [None] * nd
+        bdim = 1 if ("segments" in ps and nd >= 3) else 0
         if dp and _div(shape[bdim], dsz) and shape[bdim] > 1:
             dims[bdim] = dp
-        elif len(shape) > bdim + 1 and dp and _div(shape[bdim + 1], dsz) \
+        elif nd > bdim + 1 and dp and _div(shape[bdim + 1], dsz) \
                 and shape[bdim] == 1 and shape[bdim + 1] >= dsz:
             dims[bdim + 1] = dp            # SP on the cache length dim
         assigned = False
-        if len(shape) == 5 and heads_ok and shape[3] == kv_heads \
-                and _div(kv_heads, msz) and kv_heads >= msz:
-            dims[3] = "model"
+        i = nd - 2
+        if i > bdim and dims[i] is None and _div(shape[i], msz) and shape[i] >= msz \
+                and (nd != 5 or heads_ok):
+            dims[i] = "model"
             assigned = True
         cdim = bdim + 1
-        if seq_shard and not assigned and len(shape) >= cdim + 2 \
+        if seq_shard and not assigned and nd >= cdim + 2 \
                 and dims[cdim] is None and _div(shape[cdim], msz) \
                 and shape[cdim] >= 4 * msz:
             dims[cdim] = "model"
@@ -605,13 +601,16 @@ def kv_head_specs(mesh, pool_segments: Any, kv_heads: int, *,
 
 def layer_state_specs(mesh, cfg, layers: Any) -> Any:
     """Specs of the recurrent and cross-attention states' per-layer leaves
-    (batch on axis 0): rglru's `h` (B, w) and conv window (B, cw - 1, w)
-    at local channels where its recurrent block shards; rwkv6's `wkv`
-    (B, H, hd, hd) at local heads where its time mix shards; the KV of
-    rglru's ring and whisper's self and cross attention (B, C, H, hd) at
-    local heads where the attention shards on whole heads.  The token
-    shifts (B, 1, d) stay whole: the residual stream is replicated.  The
-    batch never shards (every rank holds every slot)."""
+    (batch on axis 0), on the "model" dims the port's TP computes with:
+    rglru's `h` (B, w) and conv window (B, cw - 1, w) at local channels
+    where its recurrent block shards; rwkv6's `wkv` (B, H, hd, hd) at
+    local heads where its time mix shards, else at the rank's block of
+    each head's key dim where hd splits (`TPPlan.keys`: JAX's
+    `cache_shardings` split); the KV of rglru's ring and whisper's self
+    and cross attention (B, C, H, hd) at local heads where the attention
+    shards on whole heads.  The token shifts (B, 1, d) stay whole: the
+    residual stream is replicated.  The batch never shards (every rank
+    holds every slot)."""
     plan = tp_plan(cfg, mesh)
 
     def leaf(path, x):
@@ -619,8 +618,8 @@ def layer_state_specs(mesh, cfg, layers: Any) -> Any:
         name = path[-1]
         if name in ("h", "conv") and plan.rec:
             dims[-1] = "model"
-        elif name == "wkv" and plan.attn:
-            dims[1] = "model"
+        elif name == "wkv" and (plan.attn or plan.keys):
+            dims[2 if plan.keys else 1] = "model"
         elif name in ("k", "v", "ck", "cv") and plan.attn:
             dims[2] = "model"
         return tuple(dims)
@@ -645,14 +644,27 @@ def dense_split(mesh, specs: Any):
     """How `cache_specs`' specs split a dense cache over the DP axes:
     "rows" (the slots), "seq" (a single slot's cache length, SP) or None
     (every data rank holds the whole rectangle: no DP axis of more than
-    one rank, or neither dim divides)."""
+    one rank, or neither dim divides).  The cache length may split over
+    "model" besides (`length_axes`)."""
     dp = dp_axes(mesh) if mesh is not None else None
     if dp is None or axis_size(mesh, dp) == 1:
         return None
     spec = next(iter(specs["segments"][0].values()))
     if spec[1] is not None:
         return "rows"
-    return "seq" if spec[2] is not None else None
+    return "seq" if spec[2] is not None and "model" not in spec_axes((spec[2],)) else None
+
+
+def length_axes(mesh, specs: Any):
+    """The mesh axes of more than one rank that `cache_specs`' specs split
+    a dense cache's length over (dim 2 of its (L, B, C, ...) leaves): the
+    DP axes under SP, ("model",) where the length goes over "model" (MLA's
+    latent, `seq_shard`), else None."""
+    if mesh is None:
+        return None
+    spec = next(iter(specs["segments"][0].values()))
+    axes = tuple(a for a in spec_axes((spec[2],)) if axis_size(mesh, a) > 1)
+    return axes or None
 
 
 def place(mesh, cache: Any, specs: Any) -> Any:
@@ -672,15 +684,18 @@ class TPPlan:
     the param rules: attention on whole heads (rwkv6: the time mix), the
     dense MLP on d_ff (rwkv6: the channel mix's key and value), the
     vocab, MoE by experts ("ep") or on f ("f"), the shared expert on its
-    f, rglru's recurrent block on its lru width (`rec`) and rwkv6's
-    channel-mix receptance on d (`gate`).  Each sharded part ends in one
-    `all_reduce` (the unembedding, rwkv6's receptance and rglru's
-    recurrent input to its gates in an `all_gather`) and, under
-    autograd, starts at a `copy_to` of each replicated tensor entering
-    it.  `dp`: the DP axes the batch's rows are split over (training, or
+    f, rglru's recurrent block on its lru width (`rec`), rwkv6's
+    channel-mix receptance on d (`gate`) and, where its time mix's heads
+    do not split whole but its head dim does, its WKV recurrence on the
+    rank's block of each head's key dim (`keys`: the state split as JAX's
+    `cache_shardings` splits it, the output summed over "model").  Each
+    sharded part ends in one `all_reduce` (the unembedding, rwkv6's
+    receptance and rglru's recurrent input to its gates in an
+    `all_gather`) and, under autograd, starts at a `copy_to` of each
+    replicated tensor entering it.  `dp`: the DP axes the batch's rows are split over (training, or
     a dense KV state's slots: `use_mesh(data_split=True)`), else None;
     `lanes`: where those rows sit in a serving step's global lane order
-    (`row_lanes`); `sp`: the DP axes a dense cache's length is split over
+    (`row_lanes`); `sp`: the axes a dense cache's length is split over
     (`seq_axes`)."""
     mesh: Any
     tp: int
@@ -691,6 +706,7 @@ class TPPlan:
     shared: bool
     rec: bool = False
     gate: bool = False
+    keys: bool = False
     dp: Any = None
     lanes: Any = None
     sp: Any = None
@@ -702,12 +718,14 @@ def tp_plan(cfg, mesh) -> TPPlan:
     moe = ""
     if cfg.use_moe and tp > 1:
         moe = "ep" if sharded(cfg.n_experts) else ("f" if sharded(cfg.routed_ff) else "")
-    return TPPlan(mesh=mesh, tp=tp, attn=heads_shard(cfg, tp), mlp=sharded(cfg.d_ff),
+    attn = heads_shard(cfg, tp)
+    return TPPlan(mesh=mesh, tp=tp, attn=attn, mlp=sharded(cfg.d_ff),
                   vocab=sharded(cfg.vocab), moe=moe,
                   shared=bool(cfg.n_shared_experts)
                   and sharded(cfg.routed_ff * cfg.n_shared_experts),
                   rec=cfg.family == "rglru" and sharded(cfg.lru_width or cfg.d_model),
                   gate=cfg.family == "rwkv6" and sharded(cfg.d_model),
+                  keys=cfg.family == "rwkv6" and tp > 1 and not attn and _div(cfg.hd, tp),
                   **(dict(dp=split_axes(), lanes=row_lanes(), sp=seq_axes())
                      if mesh is current_mesh() else {}))
 
@@ -717,7 +735,7 @@ _MESH: contextvars.ContextVar = contextvars.ContextVar(
 
 
 @contextlib.contextmanager
-def use_mesh(mesh, *, data_split: bool = False, lanes=None, seq_split: bool = False,
+def use_mesh(mesh, *, data_split: bool = False, lanes=None, seq_split: bool | str = False,
              hold: str | None = None):
     """Run the enclosed model calls sharded over `mesh` (None: unsharded);
     the mesh is forgotten on exit.  `data_split`: the batch's rows are
@@ -728,22 +746,27 @@ def use_mesh(mesh, *, data_split: bool = False, lanes=None, seq_split: bool = Fa
     `order` (W,) picks the W lanes, in order, out of the rows gathered
     from every DP rank (rank-major), `own` (rows,) names the lane each
     local row stands for; None: the global batch is the gathered rows
-    themselves.  `seq_split`: the dense cache's length is split over the
-    DP axes (a batch of one long sequence, SP): decode attention combines
-    the ranks' partial softmaxes.  `hold`: how the ranks hold the weights
+    themselves.  `seq_split`: the dense cache's length is split, True over
+    the DP axes (a batch of one long sequence, SP), "model" over "model"
+    (MLA's latent, `cache_seq_shard`; with `data_split` or alone): decode
+    attention combines the ranks' partial softmaxes.  `hold`: how the ranks hold the weights
     (`HOLDS`); None keeps the enclosing context's on the same mesh, else
     "tp"."""
-    dp = dp_axes(mesh) if mesh is not None and (data_split or seq_split) else None
+    if seq_split not in (False, True, "model"):
+        raise ValueError(f"seq_split {seq_split!r}: False, True or 'model'")
+    dp = dp_axes(mesh) if mesh is not None and (data_split or seq_split is True) else None
     if dp is not None and axis_size(mesh, dp) == 1:
         dp = None
     rows = dp if data_split else None
+    sp = dp if seq_split is True else None
+    if seq_split == "model" and mesh is not None and axis_size(mesh, "model") > 1:
+        sp = ("model",)
     if hold is None:
         outer = _MESH.get()
         hold = outer[4] if mesh is not None and outer[0] is mesh else "tp"
     elif hold not in HOLDS:
         raise ValueError(f"hold {hold!r}: one of {HOLDS}")
-    token = _MESH.set((mesh, rows, lanes if rows is not None else None,
-                       dp if seq_split else None, hold))
+    token = _MESH.set((mesh, rows, lanes if rows is not None else None, sp, hold))
     try:
         yield mesh
     finally:
@@ -769,8 +792,9 @@ def row_lanes():
 
 
 def seq_axes():
-    """The DP axes a dense cache's length is split over inside the
-    enclosing `use_mesh(seq_split=True)` (None: the length is whole)."""
+    """The axes a dense cache's length is split over inside the enclosing
+    `use_mesh(seq_split=)`: the DP axes (True) or ("model",) ("model");
+    None: the length is whole."""
     return _MESH.get()[3]
 
 

@@ -15,23 +15,27 @@ state reads them.
 `place(mesh)` readies a state for a mesh before any prefill (the JAX
 states' `place`).  The dense bf16 / f32 rectangles take
 `sharding.cache_specs` (the JAX `cache_shardings`): KV heads over
-"model" when the attention shards on whole heads (MLA latents
-replicated there), and over "data" the slots when they divide, or, with
-one slot, its cache length (SP).  Every rank still runs the engine's one
-scheduler over every slot: prefill runs replicated over "data" and only
-the owning data row (SP: every row, its block of the length) keeps the
-splice; decode runs each row's own slots (`use_mesh(data_split=True)`,
-MoE routed over the batch gathered in the step's lane order) and
-gathers the rows' logits over "data", so every rank samples from the
-same logits in JAX's lane order; under SP each rank attends over its
-block and the softmax is combined over "data".  The page pools and the
-int8 dense rectangles take `kv_head_specs` (KV heads over "model"; every
-data rank holds every slot, as JAX leaves them).  The recurrent and
-cross-attention states reallocate their per-layer leaves at this rank's
-channels and heads (`sharding.layer_state_specs`: rglru's `h` and conv
-window, rwkv6's `wkv`, the KV of rglru's ring and of whisper's self and
-cross attention; token shifts whole; every slot on every data rank), so
-the batch-1 caches a prefill makes under the mesh splice in as they are.
+"model" when the attention shards on whole heads, MLA latents' cache
+length over "model", and over "data" the slots when they divide, or,
+with one slot, its cache length (SP).  With the config's
+`cache_seq_shard` (which JAX reads in its dry run alone) a cache whose
+KV heads do not split has its length over "model" too.  Every rank
+still runs the engine's one scheduler over every slot: prefill runs
+replicated over "data" and only the owning data row (SP: every row, its
+block of the length) keeps the splice, each rank its block of a length
+split over "model"; decode runs each row's own slots
+(`use_mesh(data_split=True)`, MoE routed over the batch gathered in the
+step's lane order) and gathers the rows' logits over "data", so every
+rank samples from the same logits in JAX's lane order; under a split
+length each rank attends over its block and the softmax is combined
+over the split's ranks.  The page pools and the int8 dense rectangles
+take `kv_head_specs` (KV heads over "model"; every data rank holds every
+slot, as JAX leaves them).  The recurrent and cross-attention states
+reallocate their per-layer leaves at this rank's channels and heads
+(`sharding.layer_state_specs`: rglru's `h` and conv window, rwkv6's
+`wkv`, the KV of rglru's ring and of whisper's self and cross
+attention; token shifts whole; every slot on every data rank), so the
+batch-1 caches a prefill makes under the mesh splice in as they are.
 """
 from __future__ import annotations
 
@@ -144,7 +148,9 @@ class DenseKVState:
     (`step_lanes`: at a fixed width a row, min(rows, lanes), so every
     collective has one size on every rank; a row with no lane decodes a
     stand-in row it never writes back), or "seq", each data row holds
-    its block of the one slot's cache length."""
+    its block of the one slot's cache length.  `length`: the axes the
+    cache length splits over ("model" where `cache_specs` puts it there,
+    the DP axes under "seq"), each rank holding its block."""
 
     kind = "dense"
     paged = False
@@ -152,6 +158,7 @@ class DenseKVState:
     buckets: tuple = ()
     mesh = None
     split = None        # "rows" | "seq" | None (see place)
+    length = None       # the axes the cache length splits over (see place)
 
     def __init__(self, mcfg: ModelConfig, max_batch: int, max_len: int, *,
                  decode_batch: int, compact: bool, device: torch.device,
@@ -176,20 +183,24 @@ class DenseKVState:
 
     def place(self, mesh) -> None:
         """The rectangles at this rank's blocks of `sharding.cache_specs`
-        (KV heads over "model"; the slots, or one slot's length, over
-        "data"); int8 rectangles and scales at the local KV heads only,
-        every slot whole (see the module docstring)."""
+        (KV heads, or the cache length, over "model"; the slots, or one
+        slot's length, over "data"); int8 rectangles and scales at the
+        local KV heads only, every slot whole (see the module
+        docstring)."""
         if self.quantized:
             self.cache["segments"] = _local_heads(mesh, self.mcfg, self.cache["segments"])
             self.scales = _local_heads(mesh, self.mcfg, self.scales)
             return
         specs = sharding.cache_specs(mesh, self.cache, self.mcfg.kv_heads,
-                                     self.max_batch, n_heads=self.mcfg.n_heads)
+                                     self.max_batch, self.mcfg.cache_seq_shard,
+                                     n_heads=self.mcfg.n_heads)
         self.cache = sharding.place(mesh, self.cache, specs)
         self.mesh = mesh
         self.split = sharding.dense_split(mesh, specs)
+        self.length = sharding.length_axes(mesh, specs)
         self._dp = sharding.dp_axes(mesh)
         self._row = mesh.axis_rank(self._dp) if self.split else 0
+        self._block = mesh.axis_rank(self.length) if self.length else 0
         self._per_row = self.cache["index"].shape[0]
 
     def local_slot(self, b: int) -> int | None:
@@ -230,13 +241,16 @@ class DenseKVState:
     def split_run(self, lanes: Lanes):
         """The context a step over `lanes` runs its model calls in: this
         row's slots split over "data" (with the lanes), the cache length
-        split (SP), or the enclosing mesh as it is."""
+        split over "data" (SP) or over "model" (`length`), or the
+        enclosing mesh as it is."""
+        kw: dict = {}
         if self.split == "rows":
-            return sharding.use_mesh(self.mesh, data_split=True,
-                                     lanes=(lanes.order, lanes.rows))
-        if self.split == "seq":
-            return sharding.use_mesh(self.mesh, seq_split=True)
-        return contextlib.nullcontext()
+            kw = dict(data_split=True, lanes=(lanes.order, lanes.rows))
+        elif self.split == "seq":
+            kw = dict(seq_split=True)
+        if self.length == ("model",):
+            kw["seq_split"] = "model"
+        return sharding.use_mesh(self.mesh, **kw) if kw else contextlib.nullcontext()
 
     def gather_lanes(self, out: torch.Tensor, lanes: Lanes) -> torch.Tensor:
         """A step's per-row output (rows, ...) as every lane's (W, ...) in
@@ -255,13 +269,13 @@ class DenseKVState:
                                device=self.device)
         last, cache1 = api.prefill(self.mcfg, params, {"tokens": toks},
                                    self.max_len)
-        if self.split is not None:
+        if self.split is not None or self.length is not None:
             at = self.local_slot(b)
             if at is None:
                 return last
             for dst, src in _leaf_pairs(self.cache["segments"], cache1["segments"]):
-                clen = dst.shape[2]       # SP: this row's block of the length
-                off = self._row * clen if self.split == "seq" else 0
+                clen = dst.shape[2]       # a split length: this rank's block
+                off = self._block * clen
                 dst[:, at].copy_(src[:, 0, off:off + clen])
             self.cache["index"][at] = len(seq)
             return last

@@ -5,9 +5,11 @@
 `FileStore` under `tmp_path` (so no port is shared between pytest-xdist
 workers), build a ("data", "model") mesh with that model axis, run
 every job (or those naming the mesh) and return rank 0's results by
-job name.  One spawn runs many jobs.  A job is (name, kind,
-kwargs): "forward" (logits of a forward, a prefill and two decode steps
-of the port's transformer under the mesh), "family_forward" (the same
+job name.  A mesh given as three sizes (pod, data, model) is a
+("pod", "data", "model") mesh of their product's ranks.  One spawn runs
+many jobs.  A job is (name, kind, kwargs): "forward" (logits of a
+forward, a prefill and two decode steps of the port's transformer
+under the mesh), "family_forward" (the same
 through `api` for any family, whisper's frames in the batch), "engine"
 (greedy tokens of the port's `ServingEngine(mesh=...)`, with its decode
 state's split and per-rank leaf shapes), "moe" (a MoE
@@ -39,17 +41,19 @@ import torch.multiprocessing as mp
 
 
 def run(tmp_path, meshes: list, jobs: list, meanwhile=None):
-    """Run `jobs` on each mesh of `meshes` ((world, model axis) pairs, all
-    spawned at once); returns {mesh: rank 0's results by job name}.
+    """Run `jobs` on each mesh of `meshes` ((world, model axis) pairs, or
+    (pod, data, model) sizes, all spawned at once); returns {mesh: rank
+    0's results by job name}.
     `meanwhile`: a function called while the ranks run; then returns
     (its result, the results)."""
     job_path = tmp_path / "jobs.pt"
     torch.save(jobs, job_path)
     procs = {}
-    for world, model_axis in meshes:
-        tag = f"{world}x{model_axis}"
-        procs[(world, model_axis)] = (tmp_path / f"out-{tag}.pt", mp.start_processes(
-            _child, args=(world, model_axis, str(tmp_path / f"store-{tag}"),
+    for key in meshes:
+        tag = "x".join(map(str, key))
+        world = math.prod(key) if len(key) == 3 else key[0]
+        procs[tuple(key)] = (tmp_path / f"out-{tag}.pt", mp.start_processes(
+            _child, args=(tuple(key), str(tmp_path / f"store-{tag}"),
                           str(job_path), str(tmp_path / f"out-{tag}.pt")),
             nprocs=world, join=False, start_method="spawn"))
     side = meanwhile() if meanwhile is not None else None
@@ -62,18 +66,22 @@ def run(tmp_path, meshes: list, jobs: list, meanwhile=None):
     return got if meanwhile is None else (side, got)
 
 
-def _child(rank, world, model_axis, store_path, job_path, out_path):
-    from repro_torch.launch.mesh import make_host_mesh
+def _child(rank, key, store_path, job_path, out_path):
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
 
+    world = math.prod(key) if len(key) == 3 else key[0]
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
                             rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=120))
-    mesh = make_host_mesh(model_axis, backend="gloo", device_type="cpu")
-    # a job may name the (world, model axis) meshes it runs on (4th entry)
+    if len(key) == 3:
+        mesh = make_mesh(key, ("pod", "data", "model"), backend="gloo", device_type="cpu")
+    else:
+        mesh = make_host_mesh(key[1], backend="gloo", device_type="cpu")
+    # a job may name the meshes it runs on (4th entry), as `run` takes them
     results = {job[0]: KINDS[job[1]](mesh, **job[2])
                for job in torch.load(job_path, weights_only=False)
-               if len(job) < 4 or (world, model_axis) in job[3]}
+               if len(job) < 4 or key in job[3]}
     if rank == 0:
         torch.save(results, out_path)
     dist.barrier()
@@ -145,22 +153,28 @@ def state_digest(state) -> dict:
 
     tree = state.cache if state.cache is not None else state.pool.segments
     leaves = bridge.tree_paths(tree)
-    return {"split": getattr(state, "split", None),
+    return {"split": getattr(state, "split", None), "length": getattr(state, "length", None),
             "cache": [(path, tuple(t.shape)) for path, t in leaves],
             "kv_bytes": sum(t.nbytes for _, t in leaves)}
 
 
-def engine_job(mesh, cfg, params, prompts, max_new, frames=None, hold="tp", **eng_kw):
+def engine_job(mesh, cfg, params, prompts, max_new, frames=None, hold="tp",
+               record_logits=False, **eng_kw):
     """Greedy tokens and finish reasons of the port's engine on the mesh
     (its blocks of `params` cut by `shard_params`, held as `hold`) and
     its decode state's `state_digest`; `frames`: one frame array (or
-    None) a request, whisper's."""
+    None) a request, whisper's; `record_logits`: every decode step's
+    logits too ("logits")."""
     from repro_torch.parallel import sharding
     from repro_torch.serving.engine import Request, ServingEngine
+
+    seen: list = []
 
     def go():
         eng = ServingEngine(cfg, sharding.shard_params(params, mesh, cfg, hold), device="cpu",
                             mesh=mesh, hold=hold, **eng_kw)
+        if record_logits:
+            eng.state.decode = _recording(eng.state.decode, seen)
         reqs = [Request(rid=i, prompt=np.asarray(p, np.int32), max_new_tokens=max_new,
                         frames=None if frames is None else frames[i])
                 for i, p in enumerate(prompts)]
@@ -173,12 +187,24 @@ def engine_job(mesh, cfg, params, prompts, max_new, frames=None, hold="tp", **en
                 "prefills": eng.stats["prefills"], "state": state_digest(eng.state)}
 
     out, counts = _counted(go)
-    return dict(out, counts=counts)
+    return dict(out, counts=counts, logits=seen)
 
 
-def moe_job(mesh, cfg, params, x):
+def _recording(decode, seen: list):
+    """A decode state's `decode` that appends each step's logits to `seen`."""
+    def run(*args, **kw):
+        out = decode(*args, **kw)
+        seen.append(out[0].detach().clone())
+        return out
+    return run
+
+
+def moe_job(mesh, cfg, params, x, data_split=False):
     """transformer.moe_block(cfg, params, x) under the mesh (params: one
-    MoE layer's tree, sharded here as a stacked segment's would be)."""
+    MoE layer's tree, sharded here as a stacked segment's would be).
+    `data_split`: each rank runs its rows of x over the mesh's DP axes
+    (`use_mesh(data_split=True)`, as training does) and the rows' outputs
+    are gathered back to the whole y."""
     from repro_torch.models import transformer
     from repro_torch.parallel import sharding
 
@@ -191,11 +217,18 @@ def moe_job(mesh, cfg, params, x):
     sp = {k: ({kk: vv[0] for kk, vv in v.items()} if isinstance(v, dict) else v[0])
           for k, v in sp.items()}
 
+    dp = sharding.dp_axes(mesh)
+    if data_split:
+        x = sharding.local_slice(x, (dp, None, None), mesh)
+
     def go():
-        with sharding.use_mesh(mesh):
+        with sharding.use_mesh(mesh, data_split=data_split):
             return transformer.moe_block(cfg, sp, x)
 
     out, counts = _counted(go)
+    if data_split:
+        from repro_torch.parallel import collectives as coll
+        out = coll.all_gather(out, mesh, dp, dim=0)
     return {"y": out, "counts": counts}
 
 
@@ -464,12 +497,12 @@ def pipeline_job(mesh, ws, x, c):
             "split_shape": tuple(stages["w"].shape), "counts": counts}
 
 
-def fsdp_train_job(mesh, cfg, params, batch, ocfg, steps):
+def fsdp_train_job(mesh, cfg, params, batch, ocfg, steps, holds=("tp", "fsdp")):
     """`steps` of `make_train_step` from the whole weights `params`, held as
-    the TP blocks ("tp") and as FSDP's blocks ("fsdp"): by hold, the
-    losses, the gradients' norms, the parameters gathered whole, whether
-    every parameter and optimizer leaf has its held block's shape, and
-    the held-leaf gathers a step."""
+    each of `holds` (the TP blocks "tp", JAX's table "jax", FSDP's blocks
+    "fsdp"): by hold, the losses, the gradients' norms, the parameters
+    gathered whole, whether every parameter and optimizer leaf has its
+    held block's shape, and the held-leaf gathers a step."""
     from repro_torch.bridge import tree_paths
     from repro_torch.parallel import collectives as coll
     from repro_torch.parallel import sharding
@@ -479,7 +512,7 @@ def fsdp_train_job(mesh, cfg, params, batch, ocfg, steps):
     whole = {"/".join(map(str, p)): tuple(t.shape) for p, t in tree_paths(params)}
     tcfg = loop.TrainConfig(steps=steps)
     out = {}
-    for hold in ("tp", "fsdp"):
+    for hold in holds:
         specs = loop.param_specs(cfg, mesh, hold)
         p = sharding.shard_params(params, mesh, cfg, hold)
         opt = {"inner": init_opt(ocfg, p, mesh, specs)}

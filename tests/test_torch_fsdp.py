@@ -29,7 +29,7 @@ every job while the JAX reference is computed:
   (3, 2) mesh (an FSDP block d M + m lies in TP block (d M + m) // D):
   forward to the TP block and the gradient back to the held block,
   exact, on every rank.
-* rwkv6, recurrentgemma and whisper refuse `hold="fsdp"`.
+The other families' held layouts are `test_torch_family_hold.py`'s.
 """
 import concurrent.futures
 
@@ -48,8 +48,6 @@ from repro.serving.engine import Request as JaxRequest
 from repro.serving.engine import ServingEngine as JaxEngine
 from repro.training import optimizer as jax_opt
 from repro_torch import bridge, configs
-from repro_torch.models import api
-from repro_torch.parallel import sharding
 from repro_torch.training.optimizer import OptimizerConfig
 
 TRAIN_RTOL, PARAM_ATOL = 1e-4, 1e-5          # as test_torch_train_mesh
@@ -234,11 +232,3 @@ def test_gather_held_layout(runs, mesh):
     out = got[mesh]["layout"]
     assert set(out) == {"exchange0", "exchange1", "gather", "cut"}
     assert all(c["forward_ok"] and c["grad_ok"] for c in out.values())
-
-
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-2b", "whisper-base"])
-def test_other_families_refuse_fsdp(arch):
-    cfg = configs.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="fsdp"):
-        api.init_params(cfg, 0, device="cpu", mesh=sharding.MeshShape(
-            ("data", "model"), {"data": 2, "model": 2}), hold="fsdp")

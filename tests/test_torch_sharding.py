@@ -157,7 +157,8 @@ def test_cache_rules():
              "index": torch.empty(4)}
     specs = sharding.cache_specs(mesh, cache, kv_heads=2, batch_size=4, n_heads=4)
     assert specs["segments"][0]["k"] == (None, ("data",), None, "model", None)
-    assert specs["segments"][1]["latent"] == (None, ("data",), None, None)
+    # MLA's latent: its length over "model", as JAX's cache_shardings puts it
+    assert specs["segments"][1]["latent"] == (None, ("data",), "model", None)
     assert specs["index"] == (("data",),)
     # the engine's rectangles: KV heads only, slots whole; heads that do
     # not split whole stay replicated
