@@ -3294,10 +3294,10 @@ def _tp_tokens(torch, mesh, name, cfg, prompts, max_new, want_equal=True, max_ba
     return out
 
 
-def _draw_blocks(torch, mesh, cfg):
-    """This rank's blocks of `cfg`'s weights from seed 1, the ranks drawing
-    one at a time (a rank's draw holds one layer's whole leaf, deepseek's
-    expert leaf 15 GB in float32)."""
+def _draw_blocks(torch, mesh, cfg, hold: str = "tp"):
+    """This rank's blocks of `cfg`'s weights from seed 1, held as `hold`,
+    the ranks drawing one at a time (a rank's draw holds one layer's
+    whole leaf, deepseek's expert leaf 15 GB in float32)."""
     import torch.distributed as dist
 
     from repro_torch.models import api
@@ -3305,7 +3305,7 @@ def _draw_blocks(torch, mesh, cfg):
     params = None
     for r in range(mesh.size):
         if mesh.rank == r:
-            params = api.init_params(cfg, 1, mesh=mesh)
+            params = api.init_params(cfg, 1, mesh=mesh, hold=hold)
             free(torch)
         dist.barrier()
     return params
@@ -4680,14 +4680,18 @@ DRYRUN_CELLS = (("smollm-135m", "train_4k", "single", {}),
                 ("deepseek-v3-671b", "decode_32k", "single", {}),
                 ("deepseek-v3-671b", "decode_32k", "multi", {}),
                 ("internlm2-1.8b", "decode_32k", "single", {"cache_seq_shard": True}),
-                ("rwkv6-3b", "decode_32k", "single", {}))
+                ("rwkv6-3b", "decode_32k", "single", {}),
+                ("whisper-base", "decode_32k", "single", {"cache_seq_shard": True}),
+                ("recurrentgemma-2b", "long_500k", "single", {}))
 # a rank's argument bytes under JAX's own specs (`cache_shardings`, the
 # param table) for the cells whose layout follows JAX's: what
 # tests/test_torch_dryrun.py holds the port's traced bytes to on the CPU
 DRYRUN_ARG_BYTES = {("deepseek-v3-671b", "decode_32k", "single"): 8676761636,
                     ("deepseek-v3-671b", "decode_32k", "multi"): 8048779284,
                     ("internlm2-1.8b", "decode_32k", "single"): 1846939684,
-                    ("rwkv6-3b", "decode_32k", "single"): 408622116}
+                    ("rwkv6-3b", "decode_32k", "single"): 408622116,
+                    ("whisper-base", "decode_32k", "single"): 318843940,
+                    ("recurrentgemma-2b", "long_500k", "single"): 364011784}
 DRYRUN_CARD = (8, 512)      # rows, seq of the smollm-135m step traced and run on the card
 FSDP_MESH = (2, 2)
 FSDP_LAYERS = 1             # mixtral-8x7b at full width (see fsdp_path_phase)
@@ -4727,7 +4731,10 @@ def dryrun_phase(torch, started) -> dict:
     traced beside the card's phases (smollm-135m on the four shapes of a
     16 x 16 mesh, mixtral-8x7b train_4k on 2 x 16 x 16 with FSDP over 512
     ranks, deepseek-v3-671b decode_32k on both meshes, internlm2-1.8b
-    decode_32k with `cache_seq_shard`, rwkv6-3b decode_32k), each `ok`,
+    decode_32k with `cache_seq_shard`, rwkv6-3b decode_32k, whisper-base
+    decode_32k with `cache_seq_shard` (its self and cross KV's lengths
+    over "model") and recurrentgemma-2b long_500k (its ring's length and
+    `h` over "data")), each `ok`,
     with their roofline terms, bottleneck and model_flops_ratio printed
     (the terms divide by the H100's data-sheet peaks: derived, not
     measured), and the argument bytes of the cells whose layout follows
@@ -4991,6 +4998,14 @@ POD_TOL = 1e-4              # float32: |port - reference| <= POD_TOL x max |refe
 POD_TIMED = 10
 HOLD_ARCH, HOLD_LAYERS = "rwkv6-3b", 2
 HOLD_BATCH = (8, 128)
+# recurrentgemma's and whisper's decode over a split cache length (see
+# `_split_decode`): layers, (rows, prompt length), max_len, hold, parts
+SPLIT_RG_LAYERS = 3         # of 26: two recurrent layers and one attention layer
+SPLIT_RG = {"recurrentgemma seq_shard": ((4, 2100), 4096, "jax", 2),
+            "recurrentgemma one sequence": ((1, 3000), 4096, "jax", 2)}
+SPLIT_WHISPER = ((4, 32), 480, "tp", 3)     # 480 self KV positions and 1500 frames over 3
+SPLIT_FRAMES = 1500
+SPLIT_STEPS = 8
 
 
 def _shard_map_reference(torch, cfg, p, x, n_tot: int):
@@ -5144,10 +5159,109 @@ def _held_family(torch, mesh) -> dict:
     return out
 
 
+def _split_decode(torch, mesh, name, cfg, shape, max_len, hold, parts, ref=False) -> dict:
+    """`cfg` prefilled on the mesh from this rank's blocks (seed 1, held as
+    `hold`), the whole cache cut to the rank's blocks of JAX's
+    `cache_specs` (`sharding.local_tree`), then `SPLIT_STEPS` greedy
+    decode steps under the split those specs imply
+    (`sharding.decode_split`; the rows over "data" where they divide).
+    Checks a rank's KV bytes (1 / `parts` of its rows' KV at the whole
+    length), finite logits and every launch (as the layers and calls
+    imply); returns them with TPOT p50 (host clock, synced: ranks that
+    share one card) and the collectives a decode step.  `ref` (float32):
+    rank 0 decodes the whole draw alone, and the token streams must be
+    equal."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch import bridge
+    from repro_torch.models import api
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import sharding
+
+    rows, plen = shape
+    rng = np.random.default_rng(41)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (rows, plen)))
+             .to(mesh.device)}
+    if cfg.family == "whisper":
+        batch["embeds"] = torch.from_numpy(rng.standard_normal(
+            (rows, SPLIT_FRAMES, cfg.d_model)).astype(np.float32)).to(mesh.device)
+    params = _draw_blocks(torch, mesh, cfg, hold)
+    launchers = _tp_launchers(recurrent=True)
+    for ln in launchers.values():
+        ln.launches = 0
+    with torch.no_grad(), sharding.use_mesh(mesh, hold=hold):
+        last, cache = api.prefill(cfg, params, batch, max_len)
+
+    def kv(tree):
+        return sum(t.nbytes for p, t in bridge.tree_paths(tree) if p[-1] in sharding.KV_LEAVES)
+
+    specs = sharding.cache_specs(mesh, cache, cfg.kv_heads, rows, cfg.cache_seq_shard,
+                                 n_heads=cfg.n_heads)
+    whole = kv(cache)
+    cache = sharding.local_tree(cache, specs, mesh)
+    dp = sharding.batch_spec(mesh, rows, 1)[0]
+    row_parts = sharding.axis_size(mesh, dp) if dp else 1
+    check(kv(cache) * parts * row_parts == whole,
+          f"split {name} rank {mesh.rank}: {kv(cache)} KV bytes of {whole}, not 1/{parts} of "
+          f"its rows' {whole // row_parts}")
+    split = dict(data_split=dp is not None, **sharding.decode_split(mesh, specs))
+    tok = last[:, -1].argmax(-1, keepdim=True)
+    tokens, times = [tok], []
+    coll.reset()
+    for _ in range(SPLIT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad(), sharding.use_mesh(mesh, hold=hold, **split):
+            lg, cache = api.decode_step(cfg, params, sharding.local_slice(tok, (dp, None), mesh),
+                                        cache)
+        lg = coll.all_gather(lg, mesh, dp, dim=0) if dp else lg
+        check(bool(torch.isfinite(lg).all()), f"split {name}: non-finite logits")
+        tok = lg[:, -1].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        tokens.append(tok)
+    colls = {k: v / SPLIT_STEPS for k, v in forward_collectives(coll).items()}
+    launches = {k: ln.launches for k, ln in launchers.items()}
+    calls = 1 + SPLIT_STEPS
+    n_rec = sum(1 for lc in cache["layers"] if "h" in lc) if cfg.family == "rglru" else 0
+    fused_norm = cfg.norm_impl == "fused" and cfg.norm != "layernorm"
+    want = dict.fromkeys(launchers, 0)
+    want.update(fused_rmsnorm=(2 * cfg.n_layers + 1) * calls if fused_norm else 0,
+                rglru_scan=n_rec * calls,
+                flash_attention=(cfg.n_layers - n_rec) if cfg.attn_impl == "flash" else 0)
+    check(launches == want, f"split {name} rank {mesh.rank}: launches {launches}, "
+                            f"expected {want}")
+    out = {"kv_bytes": kv(cache), "kv_bytes_whole": whole, "parts": parts * row_parts,
+           "split": {k: sorted(v) if isinstance(v, frozenset) else v for k, v in split.items()},
+           "tpot_p50_ms": float(np.median(times)), "collectives_per_decode_step": colls,
+           "launches": launches, "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}
+    got = torch.cat(tokens, 1)
+    del params, cache
+    free(torch)
+    if ref and mesh.rank == 0:
+        full = api.init_params(cfg, 1, device=mesh.device)
+        with torch.no_grad():
+            last, cache = api.prefill(cfg, full, batch, max_len)
+            want_tok = [last[:, -1].argmax(-1, keepdim=True)]
+            for _ in range(SPLIT_STEPS):
+                lg, cache = api.decode_step(cfg, full, want_tok[-1], cache)
+                want_tok.append(lg[:, -1].argmax(-1, keepdim=True))
+        same = sum(bool(torch.equal(a, b)) for a, b in zip(got, torch.cat(want_tok, 1)))
+        out["equal_streams"] = f"{same}/{rows}"
+        check(same == rows, f"split {name}: {same}/{rows} token streams equal the one-rank "
+                            f"run's")
+        del full, cache
+        free(torch)
+    dist.barrier()
+    return out
+
+
 def _length_mesh_rank(rank: int, world: int, store: str, policy: str, out: str) -> None:
     """One rank of `length_mesh_phase`: gloo over the one card; four ranks
-    run deepseek on (2, 2), the pod MoE on (2, 1, 2) and the held family
-    on (2, 2), three ranks mixtral on (1, 3); rank 0 writes the record."""
+    run deepseek on (2, 2), the pod MoE on (2, 1, 2), the held family and
+    recurrentgemma's split ring on (2, 2), three ranks mixtral and
+    whisper on (1, 3); rank 0 writes the record."""
     import datetime
 
     import numpy as np
@@ -5186,6 +5300,16 @@ def _length_mesh_rank(rank: int, world: int, store: str, policy: str, out: str) 
             max_len=LEN_DS_MAX_LEN)
         rec["pod_moe"] = _pod_moe(torch, pod)
         rec["held"] = _held_family(torch, mesh)
+        # recurrentgemma at full width: the ring's length over "model" (the
+        # slots over "data"), and one long sequence's ring and `h` over "data"
+        rg = configs.get_config("recurrentgemma-2b").replace(
+            n_layers=SPLIT_RG_LAYERS, attn_impl="flash", norm_impl="fused")
+        for name, (shape, max_len, hold, parts) in SPLIT_RG.items():
+            cfg = rg.replace(cache_seq_shard=shape[0] > 1)
+            rec[name] = _split_decode(torch, mesh, name, cfg, shape, max_len, hold, parts)
+            rec[f"{name} f32"] = _split_decode(torch, mesh, f"{name} f32",
+                                               cfg.replace(**f32), shape, max_len, hold,
+                                               parts, ref=True)
     else:
         # mixtral-8x7b with cache_seq_shard: its 8 KV heads do not split
         # over 3 ranks, so the ring's length does (max_len / 3 a rank)
@@ -5202,6 +5326,15 @@ def _length_mesh_rank(rank: int, world: int, store: str, policy: str, out: str) 
             torch, mesh, "mixtral seq_shard f32", cfg.replace(n_layers=1, **f32),
             [rng.integers(0, cfg.vocab, size=int(k)).astype(np.int32)
              for k in rng.integers(lo, hi + 1, size=n)], new, paged=False, max_len=max_len)
+        # whisper-base at full width and depth: its 8 heads do not split over
+        # 3, so the self and cross KV's lengths do (`cache_seq_shard`)
+        shape, max_len, hold, parts = SPLIT_WHISPER
+        cfg = configs.get_config("whisper-base").replace(cache_seq_shard=True)
+        rec["whisper seq_shard"] = _split_decode(torch, mesh, "whisper seq_shard", cfg, shape,
+                                                 max_len, hold, parts)
+        rec["whisper seq_shard f32"] = _split_decode(
+            torch, mesh, "whisper seq_shard f32", cfg.replace(**f32), shape, max_len, hold,
+            parts, ref=True)
     if rank == 0:
         rec["mesh"] = dict(mesh.shape)
         Path(out).write_text(json.dumps(rec))
@@ -5234,8 +5367,21 @@ def length_mesh_phase(torch) -> dict:
     moe_mlp launch and two all_to_alls a call; bf16 ms a call.  (d)
     `HOLD_ARCH` at full width, `HOLD_LAYERS` layers, one float32 training
     step held as the TP blocks, as JAX's table and as FSDP's blocks:
-    bit-equal, wkv6 launched once a layer in each.  All readings are of
-    ranks that share one card."""
+    bit-equal, wkv6 launched once a layer in each.  (e) recurrentgemma-2b
+    at full width, `SPLIT_RG_LAYERS` of 26 layers (two recurrent, one
+    attention), bf16, fused norm and flash prefill, on (2, 2), held as
+    JAX's table (`h` and the conv window whole on "model", moved to the
+    recurrent block's channels around it): with `cache_seq_shard` 4 slots
+    of 2100-token prompts (past the 2048 window) with the ring's length
+    over "model" and the slots over "data", and one 3000-token sequence
+    with the ring's length and `h`'s channels over "data"
+    (`_split_decode`: the cache cut to JAX's `cache_specs`, a rank's KV
+    bytes half its rows', launches as the layers imply); (f) whisper-base
+    at full width and depth, bf16, `cache_seq_shard` on (1, 3): its 8
+    heads do not split over 3, so the self KV (480) and cross KV (1500
+    frames) lengths do, a third of the KV bytes a rank.  Each of (e) and
+    (f) again in float32, token-equal to the one-rank run.  All readings
+    are of ranks that share one card."""
     free(torch)
     t0 = time.perf_counter()
     rec = {"(2, 2)": _spawn(_length_mesh_rank, 4, "", "len4"),
@@ -5266,6 +5412,15 @@ def length_mesh_phase(torch) -> dict:
           f"rank tp {h['tp']['param_bytes']}, jax {h['jax']['param_bytes']}, fsdp "
           f"{h['fsdp']['param_bytes']}; bit-equal jax {h['jax']['bit_equal']} fsdp "
           f"{h['fsdp']['bit_equal']}; wkv6 launches {h['tp']['wkv6_launches']}", flush=True)
+    for tag, names in (("(2, 2)", SPLIT_RG), ("(1, 3)", ("whisper seq_shard",))):
+        for name in names:
+            x, r = rec[tag][name], rec[tag][f"{name} f32"]
+            print(f"[smoke] split length {tag} {name} bf16 ({card}): rank 0 KV "
+                  f"{x['kv_bytes']} bytes of {x['kv_bytes_whole']} (1/{x['parts']}), split "
+                  f"{x['split']}, TPOT p50 {x['tpot_p50_ms']:.2f} ms (ranks share one card), "
+                  f"collectives a decode step {x['collectives_per_decode_step']}, launches "
+                  f"{x['launches']}, peak {x['peak_device_gb']:.2f} GB; f32 equal streams "
+                  f"{r['equal_streams']}", flush=True)
     print(f"[smoke] length mesh phase {secs:.1f}s", flush=True)
     print(json.dumps({"length_mesh": dict(rec, seconds=secs, card=card)}), flush=True)
     return rec

@@ -19,10 +19,12 @@ backend, which moves nothing but lets every size be counted.
 
 The train step is `training.loop.make_train_step` (autograd and the
 optimizer), prefill is `api.prefill`, decode is `api.decode_step` with
-the cache placed by `sharding.cache_specs` (JAX's `cache_shardings`:
-MLA's latent and, with `cache_seq_shard`, a cache whose KV heads do not
-split have their length over "model" and decode by the partial-softmax
-combine over "model").  The weights are held as JAX's dry run places
+the cache placed by `sharding.cache_specs` for every family (JAX's
+`cache_shardings`: MLA's latent and, with `cache_seq_shard`, a KV cache
+whose heads do not split have their length over "model", a single long
+sequence's over DP, and decode by the partial-softmax combine over
+them; a recurrent state held so is moved to the blocks its block
+computes with and back).  The weights are held as JAX's dry run places
 them (`hold`: "fsdp" where `ARCH_POLICY` sets FSDP, JAX's table for
 every other cell).
 
@@ -119,9 +121,9 @@ def _zeros(tree):
 
 def _local(tree, specs, mesh):
     """Fake zeros of the rank's blocks of a whole `meta` tree under `specs`
-    (a tree of specs of the same structure)."""
-    return tree_map(lambda t, s: torch.zeros(sharding.local_shape(tuple(t.shape), s, mesh),
-                                             dtype=t.dtype), tree, specs)
+    (a tree of specs of the same structure), cut as `sharding.local_tree`
+    cuts a whole tree."""
+    return sharding.local_tree(_zeros(tree), specs, mesh)
 
 
 def _rank_batch(batch: dict, mesh):
@@ -131,32 +133,15 @@ def _rank_batch(batch: dict, mesh):
 
 
 def cache_rank_specs(cfg: ModelConfig, mesh, cache, batch: int):
-    """The specs of a rank's block of the whole decode cache: JAX's
-    `cache_shardings` (`sharding.cache_specs`: the batch over DP, a
-    single long sequence's length over DP, KV heads over "model", MLA's
-    latent length and, with `cache_seq_shard`, a cache length over
-    "model" where its heads do not split); a recurrent family's or
-    whisper's per-layer state takes its "model" dims from
-    `sharding.layer_state_specs`, where the port's TP computes them, and
-    a batch of one sequence stays whole (only the transformer decodes a
-    cache length split over "data").  Raises NotImplementedError for
-    `cache_seq_shard` where it would split whisper's or recurrentgemma's
-    attention cache length over "model": their decoders do not combine
-    attention over "model"."""
-    specs = sharding.cache_specs(mesh, cache, cfg.kv_heads, batch,
-                                 seq_shard=cfg.cache_seq_shard, n_heads=cfg.n_heads)
-    if cfg.family == "transformer":
-        return specs
-    if cfg.cache_seq_shard and json.dumps(specs) != json.dumps(
-            sharding.cache_specs(mesh, cache, cfg.kv_heads, batch, n_heads=cfg.n_heads)):
-        raise NotImplementedError(
-            f"{cfg.name}: cache_seq_shard splits the {cfg.family} attention cache's "
-            f"length over 'model', and its decoder does not combine attention over 'model'")
-    tp = sharding.layer_state_specs(mesh, cfg, cache["layers"])
-    layers = [{k: tuple("model" if b == "model" else (a if d == 0 and a != "model" else None)
-                        for d, (a, b) in enumerate(zip(dp[k], tp[i][k]))) for k in dp}
-              for i, dp in enumerate(specs["layers"])]
-    return dict(specs, layers=layers)
+    """The specs of a rank's block of the whole decode cache, for every
+    family: JAX's `cache_shardings` (`sharding.cache_specs`: the batch
+    over DP, a single long sequence's length (and rglru's `h`) over DP,
+    KV heads over "model", MLA's latent length and, with
+    `cache_seq_shard`, a KV cache length over "model" where its heads do
+    not split).  The decoders combine attention over a split length and
+    move a recurrent state held so to the blocks they compute with."""
+    return sharding.cache_specs(mesh, cache, cfg.kv_heads, batch,
+                                seq_shard=cfg.cache_seq_shard, n_heads=cfg.n_heads)
 
 
 def build_step(cfg: ModelConfig, shape, mesh, opt_name: str, hold: str):
@@ -194,12 +179,7 @@ def build_step(cfg: ModelConfig, shape, mesh, opt_name: str, hold: str):
     tokens = tokens["t"]
     specs = cache_rank_specs(cfg, mesh, cspec, shape.global_batch)
     cache = _local(cspec, specs, mesh)
-    split = dict(data_split=True) if dp is not None else {}
-    if cfg.family == "transformer":
-        if sharding.dense_split(mesh, specs) == "seq":
-            split = dict(seq_split=True)
-        if sharding.length_axes(mesh, specs) == ("model",):
-            split["seq_split"] = "model"
+    split = dict(data_split=dp is not None, **sharding.decode_split(mesh, specs))
 
     def serve_step():
         with torch.no_grad(), sharding.use_mesh(mesh, hold=hold, **split):

@@ -355,6 +355,64 @@ def attention(cfg: ModelConfig, q, k, v, *, causal: bool = True,
                        q_offset=q_offset)
 
 
+# --- one-token attention over a cache length split over ranks ------------------
+
+def seq_block(cfg: ModelConfig, clen: int, leaf: str | None = None):
+    """Under a dense cache whose length is split over ranks (the DP axes,
+    SP, or "model": `sharding.length_split`): (mesh, axes, this rank's
+    first position, the whole length) of its block of `clen` positions
+    of the cache leaf `leaf` (None: the decoder's one cache); else
+    None."""
+    from repro_torch.parallel import sharding
+    plan = tp_plan(cfg)
+    axes = sharding.length_split(leaf) if plan is not None else None
+    if axes is None:
+        return None
+    n = sharding.axis_size(plan.mesh, axes)
+    return plan.mesh, axes, plan.mesh.axis_rank(axes) * clen, clen * n
+
+
+def block_slot(slot: torch.Tensor, off: int, clen: int) -> torch.Tensor:
+    """A whole-cache slot (B,) as this rank's block of `clen` from `off`
+    holds it: the local slot, or `clen` (dropped by `write_slot`) where
+    another rank's block owns the position."""
+    return torch.where((slot >= off) & (slot < off + clen), slot - off, clen)
+
+
+def attend_blocks(scores: torch.Tensor, mask: torch.Tensor | None, values, dt, sp):
+    """softmax(scores) over the last axis, masked to `mask` (None: every
+    key), through `values` (weights in dt -> their values, the same
+    leading dims) when each rank of the split (`seq_block`) holds a block
+    of the keys: the rank's partial softmax (its max, its sum of exp and
+    its weighted values) is combined exactly over the split's axes in
+    float32 (one all_max, one all_reduce of the sums and values packed
+    together).  A rank whose block holds no valid key adds nothing: its
+    weights are 0 and its max scales to 0."""
+    mesh, axes = sp[0], sp[1]
+    if mask is not None:
+        scores = scores.masked_fill(~mask, NEG_INF)
+    m = scores.amax(-1, keepdim=True)
+    p = torch.exp(scores - m)
+    if mask is not None:
+        p = p.masked_fill(~mask, 0.0)
+    scale = torch.exp(m - coll.all_max(m.clone(), mesh, axes))
+    o = values(p.to(dt)).float() * scale
+    ol = coll.all_reduce(torch.cat([o, p.sum(-1, keepdim=True) * scale], -1), mesh, axes)
+    return (ol[..., :-1] / ol[..., -1:]).to(dt)
+
+
+def write_slot(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor):
+    """cache (B, C, ...)[b, slot[b]] <- new (B, 1, ...)[b, 0], in place.  A
+    slot past the cache is dropped, as the JAX scatter drops it (an empty
+    slot of a full-width step may sit at index C, and `block_slot` sends
+    another rank's position there): its row writes back what it holds."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    c = cache.shape[1]
+    at = slot.clamp(max=c - 1)
+    ok = (slot < c).view(-1, *([1] * (new.dim() - 2)))
+    cache[rows, at] = torch.where(ok, new[:, 0].to(cache.dtype), cache[rows, at])
+
+
 # --- training: recomputation and the loss -------------------------------------
 
 def _save_dots(ctx, op, *args, **kwargs):

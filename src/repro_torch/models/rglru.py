@@ -33,7 +33,14 @@ replicated), the MLP column- then row-parallel (one all_reduce), the
 tied embedding vocab-parallel.  The cache holds the rank's channels of
 `h` and the conv window and its KV heads of the ring.  A rank may hold
 its weights in other blocks than its TP blocks (`use_mesh(hold=)`): each
-layer gathers them while it runs (`sharding.compute_tree`).
+layer gathers them while it runs (`sharding.compute_tree`); under "jax"
+and "fsdp" it holds `h` and the conv window as JAX's `cache_shardings`
+places them, moved to its channels around each recurrent block
+(`sharding.move_state`).  The ring's length may split over ranks (over
+"model" with `cache_seq_shard`, over the DP axes for one long sequence:
+`use_mesh(seq_split=)`): each rank holds a contiguous block of the ring's
+slots, and the attention combines the ranks' partial softmaxes
+(`common.attend_blocks`).
 """
 from __future__ import annotations
 
@@ -48,9 +55,10 @@ from repro_torch.bridge import tree_to
 from repro_torch.kernels.rglru_scan import ops as sops
 from repro_torch.parallel import sharding
 
-from .common import (NEG_INF, apply_norm, apply_rope, attention, cross_entropy, dense,
-                     copy_if, gather_if, gelu, init_norm, maybe_remat, normal, reduce_if,
-                     rope_tables, tp_plan, vocab_embed, vocab_in, vocab_logits)
+from .common import (NEG_INF, apply_norm, apply_rope, attend_blocks, attention, block_slot,
+                     copy_if, cross_entropy, dense, gather_if, gelu, init_norm, maybe_remat,
+                     normal, reduce_if, rope_tables, seq_block, tp_plan, vocab_embed,
+                     vocab_in, vocab_logits, write_slot)
 from .config import ModelConfig
 
 Params = Any
@@ -316,44 +324,83 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     return {"layers": layers, "index": zeros((), torch.int32)}
 
 
-def _decode_attn(cfg: ModelConfig, p: Params, x: torch.Tensor, lc: Params,
-                 index: torch.Tensor, rope):
-    """One cached-attention step for x (B, 1, d) at per-slot positions
-    index (B,): writes the token's k/v at ring slot index % clen in place
-    and attends the positions the ring still holds inside the window."""
-    bsz = x.shape[0]
+def _ring(cfg: ModelConfig, index: torch.Tensor, clen: int):
+    """(sp, slot, mask) of one decode step over a ring of `clen` slots
+    this rank holds: the token at index (B,) writes ring slot index % C of
+    the whole ring of C slots and attends the positions the ring still
+    holds inside the window; mask (B, clen).  `sp` (`seq_block`, None
+    where the ring is whole): the rank holds its block of the ring, the
+    slot and the whole ring's mask cut to it (another rank's slot:
+    `clen`, dropped by `write_slot`)."""
+    sp = seq_block(cfg, clen, "k")
+    whole = clen if sp is None else sp[3]
+    pos1 = index[:, None]
+    j = torch.arange(whole, device=index.device)[None]
+    kpos = pos1 - torch.remainder(pos1 - j, whole)        # (B, whole)
+    mask = (kpos >= 0) & (kpos <= pos1)
+    if cfg.window:
+        mask &= kpos > pos1 - cfg.window
+    slot = index % whole
+    if sp is not None:
+        plan = tp_plan(cfg)
+        if "model" in sp[1] and plan.attn:
+            raise NotImplementedError(f"{cfg.name}: a ring length over 'model' with its KV "
+                                      f"heads split over 'model' too")
+        mask = mask[:, sp[2]:sp[2] + clen]
+        slot = block_slot(slot, sp[2], clen)
+    return sp, slot, mask
+
+
+def _decode_attn(cfg: ModelConfig, p: Params, x: torch.Tensor, lc: Params, rope,
+                 ring):
+    """One cached-attention step for x (B, 1, d): writes the token's k/v
+    into the ring tensors in place and attends the slots the mask keeps;
+    ring: `_ring`'s (sp, slot, mask).  Under `sp` the softmax combines
+    over the split's ranks (`attend_blocks`)."""
+    sp, slot, mask = ring
     dt = cfg.tdtype
     q, k, v = _qkv(cfg, p, x)
     q, k = apply_rope(q, rope), apply_rope(k, rope)
     K, V = lc["k"], lc["v"]
-    clen = K.shape[1]
-    rows = torch.arange(bsz, device=x.device)
-    slot = index % clen
-    K[rows, slot] = k[:, 0].to(K.dtype)
-    V[rows, slot] = v[:, 0].to(V.dtype)
+    write_slot(K, k, slot)
+    write_slot(V, v, slot)
     n_rep = q.shape[2] // K.shape[2]
     Kr = K.to(dt).repeat_interleave(n_rep, dim=2) if n_rep > 1 else K.to(dt)
     Vr = V.to(dt).repeat_interleave(n_rep, dim=2) if n_rep > 1 else V.to(dt)
     sc = torch.einsum("bqhd,bchd->bhqc", q, Kr).float() / math.sqrt(cfg.hd)
-    pos1 = index[:, None]
-    j = torch.arange(clen, device=x.device)[None]
-    kpos = pos1 - torch.remainder(pos1 - j, clen)        # (B, clen)
-    mask = (kpos >= 0) & (kpos <= pos1)
-    if cfg.window:
-        mask &= kpos > pos1 - cfg.window
+    if sp is not None:
+        o = attend_blocks(sc, mask[:, None, None, :],
+                          lambda w: torch.einsum("bhqc,bchd->bhqd", w, Vr), dt,
+                          sp).transpose(1, 2)
+        return _attn_out(cfg, p, o), {"k": K, "v": V}
     sc = sc.masked_fill(~mask[:, None, None, :], NEG_INF)
     pr = torch.softmax(sc, dim=-1).to(dt)
     o = torch.einsum("bhqc,bchd->bqhd", pr, Vr)
     return _attn_out(cfg, p, o), {"k": K, "v": V}
 
 
+def _state_layouts(cfg: ModelConfig, batch: int):
+    """`sharding.state_layouts` of a recurrent layer's `h` and conv window."""
+    w = _width(cfg)
+    return sharding.state_layouts(cfg, batch, {"h": (w,), "conv": (cfg.conv_width - 1, w)})
+
+
 def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                 cache: Params):
     """tokens (B, 1).  cache["index"] is a scalar or a per-slot (B,)
-    vector.  Returns (logits (B, 1, V), cache with index + 1)."""
+    vector.  Returns (logits (B, 1, V), cache with index + 1).  Under a
+    split ring length (`use_mesh(seq_split=)`: over "model" with
+    `cache_seq_shard`, over the DP axes for one long sequence) each rank
+    holds its block of the ring (`_ring`).  Under a held layout
+    (`use_mesh(hold=)` "jax" / "fsdp") the recurrent state is held as
+    JAX's `cache_shardings` places it and moved to the recurrent block's
+    channels and back around it (`sharding.move_state`)."""
     raw = torch.as_tensor(cache["index"], device=tokens.device)
     index = (raw.expand(tokens.shape[0]) if raw.dim() == 0 else raw).long()
     rope = rope_tables(index[:, None], cfg.hd, cfg.rope_theta)
+    layouts = _state_layouts(cfg, tokens.shape[0])
+    ring = next((_ring(cfg, index, lc["k"].shape[1]) for lc in cache["layers"] if "k" in lc),
+                None)
     emb = _embedding(cfg, params)
     x = _embed(cfg, emb, tokens)
     new_layers = []
@@ -361,9 +408,10 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         p = sharding.compute_tree(cfg, p, f"layers/{i}")
         hn = apply_norm(cfg, p["norm1"], x)
         if is_attn_layer(cfg, i):
-            a, nc = _decode_attn(cfg, p["attn"], hn, lc, index, rope)
+            a, nc = _decode_attn(cfg, p["attn"], hn, lc, rope, ring)
         else:
-            a, nc = rec_block(cfg, p["rec"], hn, state=lc)
+            a, nc = rec_block(cfg, p["rec"], hn, state=sharding.move_state(lc, layouts))
+            nc = sharding.move_state(nc, layouts, back=True)
         x = x + a
         x = x + mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
         new_layers.append(nc)
@@ -383,9 +431,10 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
     clen = min(max_len, cfg.window or max_len)
     take = min(s, clen)
+    layouts = _state_layouts(cfg, tokens.shape[0])
     for i, st in enumerate(states):
         if not is_attn_layer(cfg, i):
-            cache["layers"][i] = st
+            cache["layers"][i] = sharding.move_state(st, layouts, back=True)
             continue
         for name, src in zip(("k", "v"), st):        # (B, S, Hkv, hd)
             last = src[:, s - take:s]

@@ -262,17 +262,32 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tensor:
     return cross_entropy(forward(cfg, params, batch["tokens"]), batch["labels"])
 
 
+def _held_state(cfg: ModelConfig, state: Params, back: bool) -> Params:
+    """`state`'s `wkv` leaves moved from their held blocks to the time
+    mix's (`back`: the other way round) under a held layout
+    (`use_mesh(hold=)` "jax" / "fsdp": JAX's `cache_shardings` holds
+    `wkv` on its key dim where the time mix holds whole heads);
+    `state` itself where the two agree."""
+    layouts = sharding.state_layouts(cfg, state["layers"][0]["wkv"].shape[0],
+                                     {"wkv": (n_heads(cfg), cfg.hd, cfg.hd)})
+    if layouts is None:
+        return state
+    return dict(state, layers=[sharding.move_state(ls, layouts, back)
+                               for ls in state["layers"]])
+
+
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             max_len: int = 0):
     """(last-token logits (B, 1, V), state).  Only the last position is
     unembedded: the others' logits are never read."""
     x, state = hidden(cfg, params, tokens)
-    return unembed(cfg, params, x[:, -1:]), state
+    return unembed(cfg, params, x[:, -1:]), _held_state(cfg, state, back=True)
 
 
 def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                 cache: Params):
     """One token per row: (logits (B, 1, V), advanced state).  The cache
-    tensors are not written; the state returned is new."""
-    x, state = hidden(cfg, params, tokens, state=cache)
-    return unembed(cfg, params, x), state
+    tensors are not written; the state returned is new, held as the
+    cache was (`_held_state`)."""
+    x, state = hidden(cfg, params, tokens, state=_held_state(cfg, cache, back=False))
+    return unembed(cfg, params, x), _held_state(cfg, state, back=True)

@@ -61,10 +61,11 @@ from repro_torch.kernels.moe_mlp import ops as moe_ops
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import sharding
 
-from .common import (apply_norm, apply_norm_residual, apply_rope, attention, copy_if,
-                     cross_entropy, cross_entropy_sum, gelu, global_count, init_norm,
-                     maybe_remat, mlp_block, mrope_tables, normal, rmsnorm, rope_tables,
-                     tp_plan, vocab_embed, vocab_in, vocab_logits)
+from .common import (apply_norm, apply_norm_residual, apply_rope, attend_blocks, attention,
+                     block_slot, copy_if, cross_entropy, cross_entropy_sum, gelu,
+                     global_count, init_norm, maybe_remat, mlp_block, mrope_tables, normal,
+                     rmsnorm, rope_tables, seq_block, tp_plan, vocab_embed, vocab_in,
+                     vocab_logits, write_slot)
 from .config import ModelConfig
 
 Params = Any
@@ -882,56 +883,6 @@ def _decode_mask(cfg: ModelConfig, index: torch.Tensor, clen: int):
     return mask
 
 
-def _seq_block(cfg: ModelConfig, clen: int):
-    """Under a dense cache whose length is split over ranks (the DP axes,
-    SP, or "model": `sharding.seq_axes`): (mesh, axes, this rank's first
-    position, the whole length) of its block of `clen` positions; else
-    None."""
-    plan = _plan(cfg)
-    if plan is None or plan.sp is None:
-        return None
-    n = sharding.axis_size(plan.mesh, plan.sp)
-    return plan.mesh, plan.sp, plan.mesh.axis_rank(plan.sp) * clen, clen * n
-
-
-def _block_slot(slot: torch.Tensor, off: int, clen: int) -> torch.Tensor:
-    """A whole-cache slot (B,) as this rank's block of `clen` from `off`
-    holds it: the local slot, or `clen` (dropped by `_write_slot`) where
-    another rank's block owns the position."""
-    return torch.where((slot >= off) & (slot < off + clen), slot - off, clen)
-
-
-def _attend_blocks(scores: torch.Tensor, mask: torch.Tensor, values, dt, sp):
-    """softmax(scores) over the last axis, masked to `mask`, through
-    `values` (weights in dt -> their values, the same leading dims) when
-    each rank of the split (`_seq_block`) holds a block of the keys: the
-    rank's partial softmax (its max, its sum of exp and its weighted
-    values) is combined exactly over the split's axes in float32 (one
-    all_max, one all_reduce of the sums and values packed together).  A
-    rank whose block holds no valid key adds nothing: its weights are 0
-    and its max scales to 0."""
-    mesh, axes = sp[0], sp[1]
-    scores = scores.masked_fill(~mask, -1e30)
-    m = scores.amax(-1, keepdim=True)
-    p = torch.exp(scores - m).masked_fill(~mask, 0.0)
-    scale = torch.exp(m - coll.all_max(m.clone(), mesh, axes))
-    o = values(p.to(dt)).float() * scale
-    ol = coll.all_reduce(torch.cat([o, p.sum(-1, keepdim=True) * scale], -1), mesh, axes)
-    return (ol[..., :-1] / ol[..., -1:]).to(dt)
-
-
-def _write_slot(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor):
-    """cache (B, C, ...)[b, slot[b]] <- new (B, 1, ...)[b, 0], in place.  A
-    slot past the cache is dropped, as the JAX scatter drops it (an empty
-    slot of a full-width step may sit at index C): its row writes back
-    what it holds."""
-    rows = torch.arange(cache.shape[0], device=cache.device)
-    c = cache.shape[1]
-    at = slot.clamp(max=c - 1)
-    ok = (slot < c).view(-1, *([1] * (new.dim() - 2)))
-    cache[rows, at] = torch.where(ok, new[:, 0].to(cache.dtype), cache[rows, at])
-
-
 def _decode_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
                  K: torch.Tensor, V: torch.Tensor, slot: torch.Tensor,
                  rope, mask: torch.Tensor, sp=None):
@@ -941,20 +892,20 @@ def _decode_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
     `cfg.gqa_einsum` contracts each group of n_rep query heads against its
     own KV head (the JAX grouped branch), so K and V are read once and
     never repeated; else K and V are repeated to the query heads.  `sp`
-    (`_seq_block`): K/V are this rank's block of the cache length, the
-    softmax combined over the SP ranks (`_attend_blocks`)."""
+    (`seq_block`): K/V are this rank's block of the cache length, the
+    softmax combined over the SP ranks (`attend_blocks`)."""
     bsz = x.shape[0]
     dt = cfg.tdtype
     q, k, v = _roped_qkv(cfg, p, x, rope)
-    _write_slot(K, k, slot)
-    _write_slot(V, v, slot)
+    write_slot(K, k, slot)
+    write_slot(V, v, slot)
     h, hkv = q.shape[2], K.shape[2]
     n_rep = h // hkv
     if cfg.gqa_einsum and n_rep > 1:
         qg = q.reshape(bsz, 1, hkv, n_rep, cfg.hd)
         scores = torch.einsum("bqkgd,bckd->bkgqc", qg, K.to(dt)).float() / math.sqrt(cfg.hd)
         if sp is not None:
-            o = _attend_blocks(scores, mask[:, None, None, None, :],
+            o = attend_blocks(scores, mask[:, None, None, None, :],
                                lambda w: torch.einsum("bkgqc,bckd->bkgqd", w, V.to(dt)), dt, sp)
             o = o.permute(0, 3, 1, 2, 4).reshape(bsz, 1, h, cfg.hd)
             return o.reshape(bsz, 1, -1) @ p["wo"].to(dt)
@@ -966,7 +917,7 @@ def _decode_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
     Vr = V.to(dt).repeat_interleave(n_rep, dim=2) if n_rep > 1 else V.to(dt)
     scores = torch.einsum("bqhd,bchd->bhqc", q, Kr).float() / math.sqrt(cfg.hd)
     if sp is not None:
-        o = _attend_blocks(scores, mask[:, None, None, :],
+        o = attend_blocks(scores, mask[:, None, None, :],
                            lambda w: torch.einsum("bhqc,bchd->bhqd", w, Vr), dt, sp)
         return o.transpose(1, 2).reshape(bsz, 1, -1) @ p["wo"].to(dt)
     scores = scores.masked_fill(~mask[:, None, None, :], -1e30)
@@ -994,7 +945,7 @@ def _mla_decode_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
     dt, hd, kvr = cfg.tdtype, cfg.hd, cfg.mla_kv_rank
     q_nope, q_rope = _mla_q(cfg, p, x, rope)
     h = q_nope.shape[2]
-    _write_slot(L, _mla_latent(cfg, p, x, rope), slot)
+    write_slot(L, _mla_latent(cfg, p, x, rope), slot)
     lat, lat_rope = L[..., :kvr].to(dt), L[..., kvr:].to(dt)
     q_abs = torch.einsum("bqhd,khd->bqhk", q_nope, p["wuk"].to(dt).reshape(kvr, h, hd))
     plan = _plan(cfg)
@@ -1006,7 +957,7 @@ def _mla_decode_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
     s_r = torch.einsum("bqhd,bcd->bhqc", q_rope, lat_rope)
     scores = (s_n + s_r).float() / math.sqrt(hd + cfg.mla_rope_dim)
     if sp is not None:
-        o_lat = _attend_blocks(scores, mask[:, None, None, :],
+        o_lat = attend_blocks(scores, mask[:, None, None, :],
                                lambda w: torch.einsum("bhqc,bck->bhqk", w, lat), dt,
                                sp).transpose(1, 2)
         if heads:
@@ -1064,13 +1015,13 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     index = index.long()
     # every segment's ring: {"k", "v"} or {"latent"} (L, B, C, ...)
     clen = next(iter(cache["segments"][0].values())).shape[2]
-    sp = _seq_block(cfg, clen)
+    sp = seq_block(cfg, clen)
     whole = clen if sp is None else sp[3]
     slot = _ring_slot(cfg, index, whole)
     mask = _decode_mask(cfg, index, whole)
     if sp is not None:
         mask = mask[:, sp[2]:sp[2] + clen]
-        slot = _block_slot(slot, sp[2], clen)
+        slot = block_slot(slot, sp[2], clen)
 
     def attn(p, h, lc, rope):
         if cfg.use_mla:
@@ -1092,7 +1043,7 @@ def _window_attn(cfg: ModelConfig, p: Params, x: torch.Tensor, K: torch.Tensor,
     positions pos (B, W); position p writes cache slot p of K/V (B, C,
     Hkv, hd) in place and attends causally to every slot <= p.  Einsum
     attention, as in the JAX package (no Pallas kernel there).  `sp`
-    (`_seq_block`): K/V are this rank's block of the cache length; a
+    (`seq_block`): K/V are this rank's block of the cache length; a
     position is written by the rank whose block holds it, and the
     softmax is combined over the SP ranks."""
     bsz, w = x.shape[:2]
@@ -1115,7 +1066,7 @@ def _window_attn(cfg: ModelConfig, p: Params, x: torch.Tensor, K: torch.Tensor,
     scores = torch.einsum("bqhd,bchd->bhqc", q, Kr).float() / math.sqrt(cfg.hd)
     mask = off + torch.arange(K.shape[1], device=x.device)[None, None, :] <= pos[:, :, None]
     if sp is not None:
-        o = _attend_blocks(scores, mask[:, None],
+        o = attend_blocks(scores, mask[:, None],
                            lambda wt: torch.einsum("bhqc,bchd->bhqd", wt, Vr), dt, sp)
         return o.transpose(1, 2).reshape(bsz, w, -1) @ p["wo"].to(dt)
     scores = scores.masked_fill(~mask[:, None], -1e30)
@@ -1144,7 +1095,7 @@ def decode_window(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     bsz, w = tokens.shape
     index = (raw.expand(bsz) if raw.dim() == 0 else raw).long()
     pos = index[:, None] + torch.arange(w, device=tokens.device)[None]
-    sp = _seq_block(cfg, cache["segments"][0]["k"].shape[2])
+    sp = seq_block(cfg, cache["segments"][0]["k"].shape[2])
 
     def attn(p, h, lc, rope):
         return _window_attn(cfg, p, h, lc["k"], lc["v"], pos, rope, sp)

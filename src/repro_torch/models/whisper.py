@@ -24,7 +24,11 @@ before the output bias), the MLP on its f columns (`b_in` sliced, `w_out`
 row-parallel, one all_reduce before `b_out`); the cross K and V are
 computed from the replicated encoder output at the rank's heads; the
 tied embedding is vocab-parallel where the vocab divides (whisper-base's
-51,865 does not: replicated).  The cache holds the rank's heads.  A rank
+51,865 does not: replicated).  The cache holds the rank's heads; with
+`cache_seq_shard`, where the heads do not split, each rank holds its block
+of the self KV's length and of the cross KV's where it divides
+(`use_mesh(seq_split="model")`), and both attentions combine the ranks'
+partial softmaxes (`common.attend_blocks`).  A rank
 may hold its weights in other blocks than its TP blocks
 (`use_mesh(hold=)`): each layer gathers them while it runs
 (`sharding.compute_tree`).
@@ -40,8 +44,9 @@ import torch
 from repro_torch.bridge import tree_to
 from repro_torch.parallel import sharding
 
-from .common import (attention, copy_if, cross_entropy, gelu, layernorm, maybe_remat,
-                     normal, reduce_if, tp_plan, vocab_embed, vocab_in, vocab_logits)
+from .common import (attend_blocks, attention, block_slot, copy_if, cross_entropy, gelu,
+                     layernorm, maybe_remat, normal, reduce_if, seq_block, tp_plan,
+                     vocab_embed, vocab_in, vocab_logits, write_slot)
 from .config import ModelConfig
 
 Params = Any
@@ -287,40 +292,76 @@ def prefill(cfg: ModelConfig, params: Params, frames: torch.Tensor,
 
 
 def _softmax_attend(q: torch.Tensor, K: torch.Tensor, V: torch.Tensor,
-                    mask: torch.Tensor | None, dt) -> torch.Tensor:
-    """One query (B, 1, H, hd) over K/V (B, C, H, hd); mask (B, C)."""
+                    mask: torch.Tensor | None, dt, sp=None) -> torch.Tensor:
+    """One query (B, 1, H, hd) over K/V (B, C, H, hd); mask (B, C).  `sp`
+    (`seq_block`): K/V are this rank's block of the length, the softmax
+    combined over the split's ranks (`attend_blocks`)."""
     sc = torch.einsum("bqhd,bchd->bhqc", q, K.to(dt)).float() / math.sqrt(q.shape[-1])
+    if sp is not None:
+        return attend_blocks(sc, None if mask is None else mask[:, None, None, :],
+                             lambda w: torch.einsum("bhqc,bchd->bhqd", w, V.to(dt)), dt,
+                             sp).transpose(1, 2)
     if mask is not None:
         sc = sc.masked_fill(~mask[:, None, None, :], -1e30)
     pr = torch.softmax(sc, dim=-1).to(dt)
     return torch.einsum("bhqc,bchd->bqhd", pr, V.to(dt))
 
 
+def _check_cache(cfg: ModelConfig, lc: Params, sp) -> None:
+    """Raise where the cache's blocks are not what the attention computes
+    with: its heads a rank must be the attention's (the cache rule splits
+    whisper's `n_heads`, the TP plan needs `kv_heads` to split too), and a
+    length split over "model" needs the heads whole."""
+    plan = tp_plan(cfg)
+    heads = sharding.local_range(plan, cfg.n_heads, plan is not None and plan.attn)[1]
+    if lc["k"].shape[2] != heads or lc["ck"].shape[2] != heads:
+        raise ValueError(f"{cfg.name}: the cache holds {lc['k'].shape[2]} heads a rank, the "
+                         f"attention computes on {heads} (n_heads {cfg.n_heads}, kv_heads "
+                         f"{cfg.kv_heads}: keep them equal, as whisper's config does)")
+    if sp is not None and "model" in sp[1] and plan.attn:
+        raise NotImplementedError(f"{cfg.name}: a cache length over 'model' with its heads "
+                                  f"split over 'model' too")
+
+
 def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                 cache: Params):
     """One decoder token against the self cache and the cross KV: tokens
     (B, 1); cache["index"] a scalar or a per-slot (B,) vector.  The
-    token's self k/v are written in place at index[b]; returns (logits
-    (B, 1, V), cache) with index + 1."""
+    token's self k/v are written in place at index[b] (a write at
+    max_len, an empty full-width lane's, is dropped); returns (logits
+    (B, 1, V), cache) with index + 1.  Under a split length
+    (`use_mesh(seq_split=)`: the self KV, and the cross KV where
+    `seq_leaves` names it) each rank holds its block of the length: the
+    self mask is the whole cache's cut to the block, the token's k/v is
+    written only by the rank whose block holds its position, and each
+    attention combines the ranks' partial softmaxes."""
     dt = cfg.tdtype
     raw = torch.as_tensor(cache["index"], device=tokens.device)
     b = tokens.shape[0]
     index = (raw.expand(b) if raw.dim() == 0 else raw).long()
-    rows = torch.arange(b, device=tokens.device)
+    lc0 = cache["layers"][0]
+    clen = lc0["k"].shape[1]
+    sp = seq_block(cfg, clen, "k")
+    csp = seq_block(cfg, lc0["ck"].shape[1], "ck")
+    _check_cache(cfg, lc0, sp or csp)
+    whole = clen if sp is None else sp[3]
+    mask = torch.arange(whole, device=tokens.device)[None] <= index[:, None]
+    slot = index
+    if sp is not None:
+        mask = mask[:, sp[2]:sp[2] + clen]
+        slot = block_slot(index, sp[2], clen)
     emb = _embedding(cfg, params)
     x = _embed(cfg, emb, tokens) + params["dec_pos"][index].to(dt)[:, None]
     for i, (p, lc) in enumerate(zip(params["dec_layers"], cache["layers"])):
         p = sharding.compute_tree(cfg, p, f"dec_layers/{i}")
         hn = _ln_apply(x, p["ln1"])
         q, (k, v) = _q(cfg, p["self_attn"], hn), _kv(cfg, p["self_attn"], hn)
-        K, V = lc["k"], lc["v"]
-        K[rows, index] = k[:, 0].to(K.dtype)
-        V[rows, index] = v[:, 0].to(V.dtype)
-        mask = torch.arange(K.shape[1], device=K.device)[None] <= index[:, None]
-        x = x + _out(cfg, p["self_attn"], _softmax_attend(q, K, V, mask, dt))
+        write_slot(lc["k"], k, slot)
+        write_slot(lc["v"], v, slot)
+        x = x + _out(cfg, p["self_attn"], _softmax_attend(q, lc["k"], lc["v"], mask, dt, sp))
         q = _q(cfg, p["cross_attn"], _ln_apply(x, p["ln2"]))
         x = x + _out(cfg, p["cross_attn"],
-                     _softmax_attend(q, lc["ck"], lc["cv"], None, dt))
+                     _softmax_attend(q, lc["ck"], lc["cv"], None, dt, csp))
         x = x + _mlp(cfg, p["mlp"], _ln_apply(x, p["ln3"]))
     x = _ln_apply(x, params["dec_ln"])
     return _unembed(cfg, emb, x), {"layers": cache["layers"], "index": raw + 1}

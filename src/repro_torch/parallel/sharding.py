@@ -36,7 +36,12 @@ state whose slots split over "data" decodes its own slots the same way
 (`use_mesh(data_split=True, lanes=...)`: `row_lanes()` says where its
 rows sit in the step's global lane order), and one whose single
 sequence's cache length splits over "data" decodes under
-`use_mesh(seq_split=True)` (`seq_axes()`).  For
+`use_mesh(seq_split=True)` (`seq_axes()`); a cache whose length splits
+over "model" under `use_mesh(seq_split="model")`.  `decode_split` reads
+those keywords off a cache's `cache_specs` for every family (with
+`seq_leaves`, the KV leaves whose length splits: whisper's cross KV may
+stay whole where its self KV splits), and `local_tree` cuts a whole
+cache to a rank's blocks.  For
 training, `optimizer_shardings` and `data_shardings` give the optimizer
 state's and the batch's specs (path -> spec maps, as `param_spec_map`),
 and `gather_whole` / `local_slice` move a leaf between its whole form
@@ -52,7 +57,12 @@ JAX's dry run sets for its FSDP archs).  The model then gathers each
 such leaf to its TP block only while its layer runs
 (`collectives.gather_held`; a rank holds at most one layer's gathered
 weights), and the gradient comes back to the held block already summed
-over the DP ranks.  Every family takes every hold.
+over the DP ranks.  Every family takes every hold.  Under "jax" and
+"fsdp" a recurrent state is held as JAX's `cache_shardings` places it
+(`state_specs`): rglru's `h` and conv window whole on "model" (at
+long_500k `h`'s channels over the DP axes), rwkv6's `wkv` on its key
+dim; the decoder moves each leaf to the block its layer computes with
+and the new state back (`state_layouts`, `move_state`, `reshard`).
 """
 from __future__ import annotations
 
@@ -289,6 +299,34 @@ def local_slice(t: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
         size = t.shape[dim] // n
         t = t.narrow(dim, mesh.axis_rank(a) * size, size)
     return t.clone()
+
+
+def local_tree(tree: Any, specs: Any, mesh: Mesh) -> Any:
+    """This rank's blocks of every leaf of a whole tree under `specs` (a
+    tree of specs of the same structure): `local_slice` mapped over it,
+    e.g. a whole decode cache cut to a rank's blocks of `cache_specs`.  A
+    block is a contiguous run of each split dim, so a ring's slot order,
+    and a cross KV's encoder positions, survive the cut."""
+    return tree_map(lambda t, s: local_slice(t, s, mesh), tree, specs)
+
+
+def reshard(t: torch.Tensor, mesh, src: Spec, dst: Spec) -> torch.Tensor:
+    """A rank's block `t` of a leaf under spec `src` as its block of the
+    same leaf under `dst`: along each dim whose entries differ, the block
+    gathered whole over `src`'s axes (a counted `all_gather`, so the dry
+    run's collective bytes include the move), then cut to `dst`'s block.
+    Either way round: held -> compute and compute -> held.  `t` itself
+    where the specs agree; no gradient."""
+    from repro_torch.parallel import collectives as coll
+    moved = [d for d, (a, b) in enumerate(zip(src, dst)) if spec_axes((a,)) != spec_axes((b,))]
+    for d in moved:
+        if src[d] is not None:
+            t = coll.all_gather(t, mesh, src[d], dim=d)
+    for d in moved:
+        if dst[d] is not None:
+            size = t.shape[d] // axis_size(mesh, dst[d])
+            t = t.narrow(d, mesh.axis_rank(dst[d]) * size, size)
+    return t.contiguous() if moved else t
 
 
 def shard_params(params: Any, mesh: Mesh, cfg, hold: str = "tp") -> Any:
@@ -538,7 +576,9 @@ def cache_specs(mesh, cache: Any, kv_heads: int, batch_size: int,
     `seq_shard`: where no dim took "model", the cache length goes over
     "model" when it divides and C >= 4 x the axis.  A length over "model"
     decodes by the partial-softmax combine over "model"
-    (`use_mesh(seq_split="model")`).  The serving engine's bf16 / f32
+    (`use_mesh(seq_split="model")`), in every family's decoder.  A
+    per-layer cache ("layers": rglru, rwkv6, whisper) has its batch on
+    axis 0, its length on axis 1.  The serving engine's bf16 / f32
     dense rectangles take this rule (`DenseKVState.place`): a data rank
     holds its block of the slots, or of one slot's cache length, and a
     model rank its KV heads or its block of the length."""
@@ -610,7 +650,8 @@ def layer_state_specs(mesh, cfg, layers: Any) -> Any:
     and cross attention (B, C, H, hd) at local heads where the attention
     shards on whole heads.  The token shifts (B, 1, d) stay whole: the
     residual stream is replicated.  The batch never shards (every rank
-    holds every slot)."""
+    holds every slot).  What a rank holds under the weights' `hold`:
+    `state_specs`."""
     plan = tp_plan(cfg, mesh)
 
     def leaf(path, x):
@@ -627,6 +668,74 @@ def layer_state_specs(mesh, cfg, layers: Any) -> Any:
     return _map_with_path(leaf, layers)
 
 
+class _Shape:
+    """A stand-in with a `.shape`, for the spec rules."""
+
+    def __init__(self, shape):
+        self.shape = tuple(shape)
+
+
+def state_specs(mesh, cfg, shapes: dict, hold: str = "tp", *, rows=None,
+                sp: bool = False, seq_shard: bool = False) -> dict:
+    """Specs of one layer's recurrent or cross-attention state leaves
+    (`shapes`: name -> the whole leaf's shape, the batch on axis 0) as a
+    rank holds them: the rows over `rows` (the DP axes a decode's rows
+    split over; None: every rank holds every row); under "tp" the
+    "model" dims the port's TP computes with (`layer_state_specs`);
+    under "jax" / "fsdp" JAX's `cache_shardings` (`cache_specs`), which
+    may differ from those: rglru's `h` and conv window stay whole on
+    "model" (its recurrent block computes on its channels), rwkv6's `wkv`
+    takes its key dim where its time mix holds whole heads, and with `sp`
+    (a batch of one sequence whose cache length splits over the DP axes)
+    a leaf's second dim goes over the DP axes where it divides (`h`'s
+    channels).  `seq_shard`: the config's `cache_seq_shard` (JAX's dry
+    run reads it; its engine does not)."""
+    objs = {k: _Shape(v) for k, v in shapes.items()}
+    if hold == "tp":
+        specs = layer_state_specs(mesh, cfg, [objs])[0]
+        return {k: (rows, *s[1:]) for k, s in specs.items()}
+    if rows is None and not sp:     # every rank holds every row: no DP rule
+        mesh = MeshShape(("model",), {"model": axis_size(mesh, "model")})
+    batch = next(iter(shapes.values()))[0]
+    return cache_specs(mesh, objs, cfg.kv_heads, batch, seq_shard, n_heads=cfg.n_heads)
+
+
+def state_layouts(cfg, batch: int, dims: dict):
+    """(held, compute) specs of one layer's state leaves inside the
+    enclosing `use_mesh` (`state_specs` under its hold, and under "tp"),
+    or None where they agree (no mesh, "tp", or the same blocks): `dims`
+    name -> the whole leaf's dims after the batch, `batch` this rank's
+    rows.  A decoder moves each held leaf to its compute block before its
+    block runs and the new state back (`move_state`)."""
+    mesh, hold = current_mesh(), current_hold()
+    if mesh is None or hold == "tp":
+        return None
+    rows = split_axes()
+    seq = seq_axes()
+    whole = batch * axis_size(mesh, rows) if rows else batch
+    shapes = {k: (whole, *d) for k, d in dims.items()}
+    held = state_specs(mesh, cfg, shapes, hold, rows=rows,
+                       sp=seq is not None and "model" not in seq,
+                       seq_shard=cfg.cache_seq_shard)
+    comp = state_specs(mesh, cfg, shapes, "tp", rows=rows)
+
+    def live(spec):         # an axis of one rank splits nothing
+        return [tuple(n for n in spec_axes((a,)) if axis_size(mesh, n) > 1) for a in spec]
+    return None if all(live(held[k]) == live(comp[k]) for k in dims) else (held, comp)
+
+
+def move_state(st: dict, layouts, back: bool = False) -> dict:
+    """A layer's state leaves named in `layouts` (`state_layouts`) moved
+    from their held blocks to their compute blocks (`back`: the other way
+    round) by `reshard`; the others, and every leaf where `layouts` is
+    None, as they are."""
+    if layouts is None:
+        return st
+    src, dst = layouts[::-1] if back else layouts
+    mesh = current_mesh()
+    return {k: reshard(t, mesh, src[k], dst[k]) if k in src else t for k, t in st.items()}
+
+
 def _map_with_path(fn, tree, prefix=()):
     if isinstance(tree, dict):
         return {k: _map_with_path(fn, v, prefix + (k,)) for k, v in tree.items()}
@@ -640,31 +749,67 @@ def local_cache_shapes(mesh, cache: Any, specs: Any) -> Any:
     return tree_map(lambda x, s: local_shape(tuple(x.shape), s, mesh), cache, specs)
 
 
+KV_LEAVES = ("k", "v", "ck", "cv", "latent")
+
+
+def _kv_dims(specs: Any):
+    """(batch, length) entries of the specs of a dense cache's first KV
+    leaf: dims 1 and 2 of the (L, B, C, ...) leaves of "segments", dims 0
+    and 1 of a per-layer "k" (B, C, ...) of "layers" (rglru's ring,
+    whisper's self KV); None where the cache has no KV leaf (rwkv6)."""
+    if "segments" in specs:
+        spec = next(iter(specs["segments"][0].values()))
+        return spec[1], spec[2]
+    for layer in specs.get("layers", ()):
+        if "k" in layer:
+            return layer["k"][0], layer["k"][1]
+    return None
+
+
 def dense_split(mesh, specs: Any):
     """How `cache_specs`' specs split a dense cache over the DP axes:
     "rows" (the slots), "seq" (a single slot's cache length, SP) or None
     (every data rank holds the whole rectangle: no DP axis of more than
-    one rank, or neither dim divides).  The cache length may split over
-    "model" besides (`length_axes`)."""
+    one rank, neither dim divides, or no KV leaf).  The cache length may
+    split over "model" besides (`length_axes`)."""
     dp = dp_axes(mesh) if mesh is not None else None
-    if dp is None or axis_size(mesh, dp) == 1:
+    dims = _kv_dims(specs)
+    if dp is None or axis_size(mesh, dp) == 1 or dims is None:
         return None
-    spec = next(iter(specs["segments"][0].values()))
-    if spec[1] is not None:
+    if dims[0] is not None:
         return "rows"
-    return "seq" if spec[2] is not None and "model" not in spec_axes((spec[2],)) else None
+    return "seq" if dims[1] is not None and "model" not in spec_axes((dims[1],)) else None
 
 
 def length_axes(mesh, specs: Any):
     """The mesh axes of more than one rank that `cache_specs`' specs split
-    a dense cache's length over (dim 2 of its (L, B, C, ...) leaves): the
-    DP axes under SP, ("model",) where the length goes over "model" (MLA's
-    latent, `seq_shard`), else None."""
-    if mesh is None:
+    a dense cache's length over (that of its first KV leaf: `_kv_dims`):
+    the DP axes under SP, ("model",) where the length goes over "model"
+    (MLA's latent, `seq_shard`), else None."""
+    dims = _kv_dims(specs) if mesh is not None else None
+    if dims is None:
         return None
-    spec = next(iter(specs["segments"][0].values()))
-    axes = tuple(a for a in spec_axes((spec[2],)) if axis_size(mesh, a) > 1)
+    axes = tuple(a for a in spec_axes((dims[1],)) if axis_size(mesh, a) > 1)
     return axes or None
+
+
+def decode_split(mesh, specs: Any) -> dict:
+    """The `use_mesh` keywords of a decode over a dense cache placed by
+    `cache_specs`' `specs`, for the cache length: `seq_split` True where
+    a single slot's length splits over the DP axes, "model" where it
+    splits over "model", with `seq_leaves` naming the KV leaves whose
+    length splits (whisper's cross KV stays whole where its length does
+    not divide); {} where no length splits.  The rows' split
+    (`data_split`) follows the tokens' spec and is the caller's."""
+    split = "model" if length_axes(mesh, specs) == ("model",) else \
+        (dense_split(mesh, specs) == "seq" or None)
+    if split is None:
+        return {}
+    trees = specs["segments"] if "segments" in specs else specs["layers"]
+    cdim = 2 if "segments" in specs else 1
+    leaves = {k for t in trees for k, s in t.items()
+              if k in KV_LEAVES and any(axis_size(mesh, a) > 1 for a in spec_axes((s[cdim],)))}
+    return {"seq_split": split, "seq_leaves": frozenset(leaves)}
 
 
 def place(mesh, cache: Any, specs: Any) -> Any:
@@ -731,12 +876,12 @@ def tp_plan(cfg, mesh) -> TPPlan:
 
 
 _MESH: contextvars.ContextVar = contextvars.ContextVar(
-    "repro_torch_mesh", default=(None, None, None, None, "tp"))
+    "repro_torch_mesh", default=(None, None, None, None, "tp", None))
 
 
 @contextlib.contextmanager
 def use_mesh(mesh, *, data_split: bool = False, lanes=None, seq_split: bool | str = False,
-             hold: str | None = None):
+             seq_leaves=None, hold: str | None = None):
     """Run the enclosed model calls sharded over `mesh` (None: unsharded);
     the mesh is forgotten on exit.  `data_split`: the batch's rows are
     split over the mesh's DP axes (training, or a dense KV state's slots:
@@ -749,9 +894,12 @@ def use_mesh(mesh, *, data_split: bool = False, lanes=None, seq_split: bool | st
     themselves.  `seq_split`: the dense cache's length is split, True over
     the DP axes (a batch of one long sequence, SP), "model" over "model"
     (MLA's latent, `cache_seq_shard`; with `data_split` or alone): decode
-    attention combines the ranks' partial softmaxes.  `hold`: how the ranks hold the weights
-    (`HOLDS`); None keeps the enclosing context's on the same mesh, else
-    "tp"."""
+    attention combines the ranks' partial softmaxes.  `seq_leaves`: the
+    names of the cache leaves whose length splits (`decode_split`; None:
+    every KV leaf the decoder reads).  `hold`: how the ranks hold the
+    weights (`HOLDS`), and a recurrent state its leaves
+    (`state_layouts`); None keeps the enclosing context's on the same
+    mesh, else "tp"."""
     if seq_split not in (False, True, "model"):
         raise ValueError(f"seq_split {seq_split!r}: False, True or 'model'")
     dp = dp_axes(mesh) if mesh is not None and (data_split or seq_split is True) else None
@@ -766,7 +914,8 @@ def use_mesh(mesh, *, data_split: bool = False, lanes=None, seq_split: bool | st
         hold = outer[4] if mesh is not None and outer[0] is mesh else "tp"
     elif hold not in HOLDS:
         raise ValueError(f"hold {hold!r}: one of {HOLDS}")
-    token = _MESH.set((mesh, rows, lanes if rows is not None else None, sp, hold))
+    leaves = frozenset(seq_leaves) if sp is not None and seq_leaves is not None else None
+    token = _MESH.set((mesh, rows, lanes if rows is not None else None, sp, hold, leaves))
     try:
         yield mesh
     finally:
@@ -796,6 +945,14 @@ def seq_axes():
     `use_mesh(seq_split=)`: the DP axes (True) or ("model",) ("model");
     None: the length is whole."""
     return _MESH.get()[3]
+
+
+def length_split(leaf: str | None = None):
+    """The axes the length of the cache leaf named `leaf` is split over
+    inside the enclosing `use_mesh`: `seq_axes()` where `seq_leaves`
+    names the leaf (or names none, or `leaf` is None), else None."""
+    _, _, _, sp, _, leaves = _MESH.get()
+    return sp if leaf is None or leaves is None or leaf in leaves else None
 
 
 def current_hold() -> str:

@@ -171,7 +171,7 @@ class ServingEngine:
                                      bucket_min=bucket_min)
         if mesh is not None:
             sharding.check_shards(mcfg, self.params, mesh, hold)
-            self.state.place(mesh)
+            self.state.place(mesh, hold)
         self.pool = self.state.pool
         self.buckets = self.state.buckets
         self.capacity = self.state.capacity

@@ -34,8 +34,12 @@ slot, as JAX leaves them).  The recurrent and cross-attention states
 reallocate their per-layer leaves at this rank's channels and heads
 (`sharding.layer_state_specs`: rglru's `h` and conv window, rwkv6's
 `wkv`, the KV of rglru's ring and of whisper's self and cross
-attention; token shifts whole; every slot on every data rank), so the
-batch-1 caches a prefill makes under the mesh splice in as they are.
+attention; token shifts whole; every slot on every data rank), or,
+where the weights are held as JAX's table or FSDP's blocks, as JAX's
+`cache_shardings` places them (`sharding.state_specs`), so the batch-1
+caches a prefill makes under the mesh splice in as they are.  Their
+cache length never splits (JAX's engine ignores `cache_seq_shard` for
+these states).
 """
 from __future__ import annotations
 
@@ -171,6 +175,7 @@ class DenseKVState:
         self.capacity = max_len
         self.device = device
         self.quantized = quantized
+        self._seq: dict = {}          # `use_mesh`'s keywords for a split length (place)
         self.cache = api.init_cache(mcfg, max_batch, max_len, device=device)
         self.cache["index"] = torch.zeros((max_batch,), dtype=torch.int32,
                                           device=device)
@@ -181,12 +186,12 @@ class DenseKVState:
                 self.cache["segments"])
             self.scales = kvq.scale_struct(self.cache["segments"])
 
-    def place(self, mesh) -> None:
+    def place(self, mesh, hold: str = "tp") -> None:
         """The rectangles at this rank's blocks of `sharding.cache_specs`
         (KV heads, or the cache length, over "model"; the slots, or one
         slot's length, over "data"); int8 rectangles and scales at the
         local KV heads only, every slot whole (see the module
-        docstring)."""
+        docstring); whatever the weights' `hold`."""
         if self.quantized:
             self.cache["segments"] = _local_heads(mesh, self.mcfg, self.cache["segments"])
             self.scales = _local_heads(mesh, self.mcfg, self.scales)
@@ -198,6 +203,7 @@ class DenseKVState:
         self.mesh = mesh
         self.split = sharding.dense_split(mesh, specs)
         self.length = sharding.length_axes(mesh, specs)
+        self._seq = sharding.decode_split(mesh, specs)
         self._dp = sharding.dp_axes(mesh)
         self._row = mesh.axis_rank(self._dp) if self.split else 0
         self._block = mesh.axis_rank(self.length) if self.length else 0
@@ -243,13 +249,9 @@ class DenseKVState:
         row's slots split over "data" (with the lanes), the cache length
         split over "data" (SP) or over "model" (`length`), or the
         enclosing mesh as it is."""
-        kw: dict = {}
+        kw = dict(self._seq)
         if self.split == "rows":
-            kw = dict(data_split=True, lanes=(lanes.order, lanes.rows))
-        elif self.split == "seq":
-            kw = dict(seq_split=True)
-        if self.length == ("model",):
-            kw["seq_split"] = "model"
+            kw.update(data_split=True, lanes=(lanes.order, lanes.rows))
         return sharding.use_mesh(self.mesh, **kw) if kw else contextlib.nullcontext()
 
     def gather_lanes(self, out: torch.Tensor, lanes: Lanes) -> torch.Tensor:
@@ -382,9 +384,10 @@ class PagedKVState:
         self.buckets = paged_kv.prefill_buckets(max_len, bucket_min)
         self.capacity = paged_kv.pool_token_capacity(self.pool, max_len)
 
-    def place(self, mesh) -> None:
+    def place(self, mesh, hold: str = "tp") -> None:
         """The page pools (and int8 scales) at this rank's KV heads; the
-        page dims never shard (the JAX `paged_cache_shardings`)."""
+        page dims never shard (the JAX `paged_cache_shardings`), whatever
+        the weights' `hold`."""
         pool = self.pool
         pool.segments = _local_heads(mesh, self.mcfg, pool.segments)
         if pool.scales is not None:
@@ -491,12 +494,18 @@ class _LayersState:
     def release(self, b: int) -> None:
         pass
 
-    def place(self, mesh) -> None:
-        """The per-layer leaves at this rank's channels and heads; the
-        slot axis stays whole."""
+    def place(self, mesh, hold: str = "tp") -> None:
+        """The per-layer leaves at this rank's blocks of
+        `sharding.state_specs` under the weights' `hold`: the channels and
+        heads the port's TP computes with ("tp"), or JAX's
+        `cache_shardings` ("jax", "fsdp": rglru's `h` and conv window
+        whole, moved to the recurrent block's channels while it runs);
+        the slot axis stays whole."""
         layers = self.cache["layers"]
-        self.cache["layers"] = sharding.place(
-            mesh, layers, sharding.layer_state_specs(mesh, self.mcfg, layers))
+        specs = [sharding.state_specs(mesh, self.mcfg,
+                                      {k: tuple(t.shape) for k, t in lc.items()}, hold)
+                 for lc in layers]
+        self.cache["layers"] = sharding.place(mesh, layers, specs)
 
 
 class RecurrentState(_LayersState):

@@ -23,8 +23,10 @@ saved on the mesh and restored onto (n, 1)), "grad_rules" (each
 collective's gradient on toy tensors), "pipeline" (`pipeline_apply`
 on a ("pp",) mesh of every rank), "fsdp_train" (training steps with
 the weights held as FSDP's blocks and as the TP blocks), "fsdp_ckpt"
-(an FSDP checkpoint restored onto (n, 1) without FSDP) or "fsdp_layout"
-(`gather_held` on leaves of known values).
+(an FSDP checkpoint restored onto (n, 1) without FSDP), "fsdp_layout"
+(`gather_held` on leaves of known values) or "split_decode" (greedy
+decode of any family over a cache cut to JAX's `cache_specs`, its
+length split where they split it).
 Each result carries the collectives it called (`collectives.COUNTS`).
 
 Imports no JAX: the children run the port alone.
@@ -32,6 +34,7 @@ Imports no JAX: the children run the port alone.
 from __future__ import annotations
 
 import datetime
+import functools
 import math
 
 import numpy as np
@@ -621,9 +624,51 @@ def fsdp_layout_job(mesh):
     return out
 
 
+def split_decode_job(mesh, cfg, params, batch, max_len, steps, hold="tp"):
+    """A prefill through `api` under the mesh (the weights held as
+    `hold`), its whole cache cut to this rank's blocks of JAX's
+    `cache_specs` (`sharding.local_tree`), then `steps` greedy decode
+    steps under the split those specs imply (`decode_split`; the rows
+    over "data" where they divide): every step's logits with the rows
+    gathered over "data", the greedy tokens, and each cache leaf's whole
+    shape, local shape and spec after the last step."""
+    from repro_torch import bridge
+    from repro_torch.models import api
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import sharding
+
+    held = sharding.shard_params(params, mesh, cfg, hold)
+    with torch.no_grad(), sharding.use_mesh(mesh, hold=hold):
+        last, cache = api.prefill(cfg, held, batch, max_len)
+    b = batch["tokens"].shape[0]
+    specs = sharding.cache_specs(mesh, cache, cfg.kv_heads, b, cfg.cache_seq_shard,
+                                 n_heads=cfg.n_heads)
+    whole = [tuple(t.shape) for _, t in bridge.tree_paths(cache)]
+    cache = sharding.local_tree(cache, specs, mesh)
+    dp = sharding.batch_spec(mesh, b, 1)[0]
+    split = dict(data_split=dp is not None, **sharding.decode_split(mesh, specs))
+    tok = last[:, -1].argmax(-1, keepdim=True)
+    logits, tokens = [], [tok]
+    coll.reset()
+    for _ in range(steps):
+        with torch.no_grad(), sharding.use_mesh(mesh, hold=hold, **split):
+            lg, cache = api.decode_step(cfg, held, sharding.local_slice(tok, (dp, None), mesh),
+                                        cache)
+        lg = coll.all_gather(lg, mesh, dp, dim=0) if dp else lg
+        logits.append(lg)
+        tok = lg[:, -1].argmax(-1, keepdim=True)
+        tokens.append(tok)
+    counts = {k: coll.COUNTS[k] for k in coll.FORWARD}
+    leaves = [(sharding.path_str(p), w, tuple(t.shape), functools.reduce(
+        lambda tree, k: tree[k], p, specs)) for (p, t), w in zip(bridge.tree_paths(cache), whole)]
+    return {"logits": torch.stack(logits), "tokens": torch.cat(tokens, 1), "leaves": leaves,
+            "split": {k: sorted(v) if isinstance(v, frozenset) else v
+                      for k, v in split.items()}, "counts": counts}
+
+
 KINDS = {"forward": forward_job, "family_forward": family_forward_job,
          "engine": engine_job, "moe": moe_job, "replicas": replicas_job,
          "cluster": cluster_job, "spec": spec_job, "grad": grad_job, "train": train_job,
          "ckpt": ckpt_job, "grad_rules": grad_rules_job, "pipeline": pipeline_job,
          "fsdp_train": fsdp_train_job, "fsdp_ckpt": fsdp_ckpt_job,
-         "fsdp_layout": fsdp_layout_job}
+         "fsdp_layout": fsdp_layout_job, "split_decode": split_decode_job}

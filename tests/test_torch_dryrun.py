@@ -24,19 +24,23 @@ and the registry's cells) against the JAX package's, on the CPU.
   `AbstractMesh` of the production axis sizes; nothing compiled).  The
   collective byte counter equals each collective's result `nbytes`
   (forward and backward, the held-leaf gather too).  A decode cell with
-  `--override cache_seq_shard=true` on whisper-base (8 heads: its self
-  attention cache's length would split over "model", which its decoder
-  does not combine) is recorded as failed, and `main` exits non-zero.
+  `--override cache_seq_shard=true` the port refuses (whisper-base with
+  16 heads of KV but 8 `kv_heads`: the cache rule splits the 16 heads
+  over "model", its TP keeps them whole, and the decoder raises rather
+  than guess) is recorded as failed, and `main` exits non-zero.
   `report` renders both tables from the records.
 * In two more subprocesses, beside it: the decode cells whose layout
   follows JAX's (deepseek-v3-671b decode_32k on both meshes, its latent's
   length over "model"; internlm2-1.8b decode_32k with `cache_seq_shard`;
-  rwkv6-3b, recurrentgemma-2b and whisper-base decode_32k held as JAX's
-  table) and mixtral-8x7b train_4k on two pods with `moe_shard_map` (its
-  rows over ("pod", "data")), each at full depth: ok, with argument
-  bytes equal to JAX's specs', save recurrentgemma's `h` and conv
-  window, which a rank holds at its channels (its recurrent block runs
-  on them) where JAX replicates them on "model".
+  rwkv6-3b decode_32k, recurrentgemma-2b decode_32k on both meshes and
+  whisper-base decode_32k held as JAX's table; recurrentgemma-2b
+  decode_32k and whisper-base decode_32k on both meshes with
+  `cache_seq_shard`, their attention cache's length over "model";
+  recurrentgemma-2b long_500k on both meshes, its ring's length and `h`'s
+  channels over the DP axes) and mixtral-8x7b train_4k on two pods with
+  `moe_shard_map` (its rows over ("pod", "data")), each at full depth:
+  ok, with argument bytes equal to JAX's specs', every state leaf
+  included.
 """
 import functools
 import json
@@ -58,7 +62,6 @@ from repro.parallel import sharding as jax_sharding
 from repro.training import optimizer as jax_opt
 from repro_torch import bridge, configs
 from repro_torch.launch import analyze, dryrun, report, specs
-from repro_torch.parallel.mesh import MeshShape
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CELLS = jax_configs.cells()
@@ -68,16 +71,26 @@ RUN_CELLS = [("smollm-135m", "train_4k", "single", {"n_layers": 2}),
              ("smollm-135m", "decode_32k", "single", {}),
              ("mixtral-8x7b", "train_4k", "multi", {"n_layers": 2})]
 # the cells whose layout follows JAX's, full depth, in two more subprocesses
+SEQ = {"cache_seq_shard": True}
 DECODE_GROUPS = [[("deepseek-v3-671b", "decode_32k", "single", {}),
                   ("rwkv6-3b", "decode_32k", "single", {}),
                   ("recurrentgemma-2b", "decode_32k", "single", {}),
-                  ("whisper-base", "decode_32k", "single", {})],
+                  ("recurrentgemma-2b", "decode_32k", "multi", {}),
+                  ("recurrentgemma-2b", "decode_32k", "single", SEQ),
+                  ("whisper-base", "decode_32k", "single", {}),
+                  ("whisper-base", "decode_32k", "single", SEQ)],
                  [("deepseek-v3-671b", "decode_32k", "multi", {}),
-                  ("internlm2-1.8b", "decode_32k", "single", {"cache_seq_shard": True}),
-                  ("mixtral-8x7b", "train_4k", "multi", {"moe_shard_map": True})]]
+                  ("internlm2-1.8b", "decode_32k", "single", SEQ),
+                  ("mixtral-8x7b", "train_4k", "multi", {"moe_shard_map": True}),
+                  ("recurrentgemma-2b", "long_500k", "single", {}),
+                  ("recurrentgemma-2b", "long_500k", "multi", {}),
+                  ("whisper-base", "decode_32k", "multi", SEQ)]]
 DECODE_CELLS = [c for g in DECODE_GROUPS for c in g]
-# state leaves a rank holds otherwise than JAX's specs
-OWN_LEAVES = {"recurrentgemma-2b": ("h", "conv")}
+# the cell `test_cache_seq_shard_cell_is_recorded_failed` traces: whisper's KV
+# holds `n_heads`, which split over 16 where its TP (which needs `kv_heads`
+# to split too) keeps them whole, and the decoder raises
+FAILING = ["--arch", "whisper-base", "--shape", "decode_32k", "--override",
+           "cache_seq_shard=true", "n_heads=16", "kv_heads=8", "--tag", "seqshard"]
 JAX_KEYS = {"arch", "shape", "mesh", "n_devices", "policy", "ok", "tag", "overrides",
             "roofline", "memory_analysis"}
 
@@ -226,7 +239,7 @@ CHILD = textwrap.dedent("""
     dryrun.OUT_DIR = out_dir
     res = {"records": [dryrun.run_cell(a, s, m, overrides=o, verbose=False)
                        for a, s, m, o in cells]}
-    if sys.argv[3:] == ["cells"]:
+    if sys.argv[3] == "cells":
         print("RESULT" + json.dumps(res, default=float))
         sys.exit(0)
 
@@ -267,10 +280,9 @@ CHILD = textwrap.dedent("""
     res["tp_block_rows"] = y.shape[0]
     dist.destroy_process_group()
 
-    # a cache_seq_shard decode cell the port cannot run: recorded failed
+    # a cache_seq_shard decode cell the port refuses: recorded failed
     try:
-        dryrun.main(["--arch", "whisper-base", "--shape", "decode_32k", "--override",
-                     "cache_seq_shard=true", "--tag", "seqshard"])
+        dryrun.main(json.loads(sys.argv[3]))
         res["exit"] = 0
     except SystemExit as e:
         res["exit"] = str(e.code)
@@ -290,7 +302,8 @@ def children(tmp_path_factory):
     for i, cells in enumerate([RUN_CELLS, *DECODE_GROUPS]):
         out = tmp_path_factory.mktemp(f"dryrun_torch{i}")
         procs.append((out, subprocess.Popen(
-            [sys.executable, "-c", CHILD, str(out), json.dumps(cells)] + (["cells"] if i else []),
+            [sys.executable, "-c", CHILD, str(out), json.dumps(cells),
+             "cells" if i else json.dumps(FAILING)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)))
     got = []
     for out, proc in procs:
@@ -320,10 +333,8 @@ def _local_bytes(shape, spec, sizes) -> int:
     return n
 
 
-def jax_argument_bytes(arch, shape_name, mesh_kind, overrides, own=()) -> int:
-    """The per-device bytes of a cell's inputs under JAX's own specs;
-    `own`: names of decode state leaves counted under the port's specs
-    instead (`dryrun.cache_rank_specs`)."""
+def jax_argument_bytes(arch, shape_name, mesh_kind, overrides) -> int:
+    """The per-device bytes of a cell's inputs under JAX's own specs."""
     pol = dryrun.arch_policy(arch)
     shape = jax_configs.SHAPES[shape_name]
     kw = {"remat": "dots"} if shape.kind == "train" else {}
@@ -360,43 +371,12 @@ def jax_argument_bytes(arch, shape_name, mesh_kind, overrides, own=()) -> int:
     if shape.kind == "decode":
         tspec, cspec = jax_specs.decode_specs(cfg, shape)
         total += nbytes({"t": tspec}, by_sharding(jax_sharding.data_shardings(mesh, {"t": tspec})))
-        jspec = by_sharding(jax_sharding.cache_shardings(
-            mesh, cspec, cfg.kv_heads, shape.global_batch, seq_shard=cfg.cache_seq_shard))
-        pspec = _port_cache_specs(arch, shape_name, mesh_kind, overrides) if own else {}
-
-        def cache_spec(path, x):
-            keys = [getattr(p, "key", getattr(p, "idx", None)) for p in path]
-            if keys[-1] in own:
-                return pspec["/".join(map(str, keys))]
-            return jspec(path, x)
-        total += nbytes(cspec, cache_spec)
+        total += nbytes(cspec, by_sharding(jax_sharding.cache_shardings(
+            mesh, cspec, cfg.kv_heads, shape.global_batch, seq_shard=cfg.cache_seq_shard)))
     else:
         b = jax_specs.batch_specs(cfg, shape)
         total += nbytes(b, by_sharding(jax_sharding.data_shardings(mesh, b)))
     return total
-
-
-def _port_cache_specs(arch, shape_name, mesh_kind, overrides) -> dict:
-    """'/'-joined path -> the port's spec of a decode cell's cache leaves."""
-    dims, names = dryrun.production_shape(mesh_kind == "multi")
-    mesh = MeshShape(names, dict(zip(names, dims)))
-    shape = configs.SHAPES[shape_name]
-    cfg = dryrun.tune_config(configs.get_config(arch), shape).replace(**overrides)
-    _, cache = specs.decode_specs(cfg, shape)
-    tree = dryrun.cache_rank_specs(cfg, mesh, cache, shape.global_batch)
-    out = {}
-
-    def walk(t, at):
-        if isinstance(t, dict):
-            for k, v in t.items():
-                walk(v, f"{at}/{k}" if at else k)
-        elif isinstance(t, list):
-            for i, v in enumerate(t):
-                walk(v, f"{at}/{i}")
-        else:
-            out[at] = t
-    walk(tree, "")
-    return out
 
 
 @pytest.mark.parametrize("i", range(len(RUN_CELLS)))
@@ -444,12 +424,20 @@ def test_cache_seq_shard_cell_is_recorded_failed(traced):
     res, out = traced
     assert res["exit"] not in (0, "0", None)
     rec = json.load(open(out / "seqshard.json"))
-    assert not rec["ok"] and "cache_seq_shard" in rec["error"] and rec["traceback"]
-    assert rec["arch"] == "whisper-base"
+    assert not rec["ok"] and "heads a rank" in rec["error"] and rec["traceback"]
+    assert rec["arch"] == "whisper-base" and rec["overrides"]["cache_seq_shard"] is True
 
 
-@pytest.mark.parametrize("i", range(len(DECODE_CELLS)),
-                         ids=[f"{a}-{s}-{m}" for a, s, m, _ in DECODE_CELLS])
+def _cell_ids(cells) -> list:
+    """"arch-shape-mesh", its overrides' names added where that repeats."""
+    out: list = []
+    for a, s, m, ov in cells:
+        cid = f"{a}-{s}-{m}"
+        out.append(cid + "".join(f"-{k}" for k in ov) if cid in out else cid)
+    return out
+
+
+@pytest.mark.parametrize("i", range(len(DECODE_CELLS)), ids=_cell_ids(DECODE_CELLS))
 def test_jax_layout_cell_argument_bytes_equal_jax_specs(children, i):
     """The decode cells (and the pod shard_map MoE cell) that hold JAX's
     layout: ok, held as JAX's blocks, argument bytes JAX's."""
@@ -458,10 +446,8 @@ def test_jax_layout_cell_argument_bytes_equal_jax_specs(children, i):
     assert rec["ok"], rec.get("traceback")
     arch, shape_name, mesh, ov = DECODE_CELLS[i]
     assert rec["hold"] == ("fsdp" if dryrun.arch_policy(arch)["fsdp"] else "jax")
-    want = jax_argument_bytes(arch, shape_name, mesh, ov, OWN_LEAVES.get(arch, ()))
-    assert rec["memory_analysis"]["argument_size_in_bytes"] == want
-    if arch in OWN_LEAVES:      # the listed leaves are all that differs, and a rank holds less
-        assert want < jax_argument_bytes(arch, shape_name, mesh, ov)
+    assert rec["memory_analysis"]["argument_size_in_bytes"] == \
+        jax_argument_bytes(arch, shape_name, mesh, ov)
 
 
 def test_report_renders_both_tables(traced):
