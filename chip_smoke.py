@@ -173,7 +173,7 @@ exit, no result line) when a check fails:
    rate on batches already on the card (CUDA events) and its peak device
    memory by both routes, printed with the card's name and power
    limit; then serving on a mesh (`tp_path_phase`): two ranks spawned on
-   the one card over gloo, a (1, 2) mesh, smollm-135m (6 of 30 layers, bf16,
+   the one card over gloo, a (1, 2) mesh, smollm-135m (4 of 30 layers, bf16,
    the three flags) serving the main path's 12 requests through the
    paged engine with tensor parallelism (every rank's kernel launches
    and collectives per layer per step as the sharding implies, the
@@ -188,7 +188,7 @@ exit, no result line) when a check fails:
    distance from the bf16 plain route) and mixtral-8x7b with
    moe_groups=4 on one rank (float32, no drops, token-equal to
    moe_groups=0).  Each rank draws only its blocks of the weights.  Then
-   every family on that (1, 2) mesh (`family_mesh_phase`): rwkv6-3b (6
+   every family on that (1, 2) mesh (`family_mesh_phase`): rwkv6-3b (4
    of 32 layers, wkv6 at 20 heads), recurrentgemma-2b (4 of 26 layers, rglru_scan at
    1280 channels, flash and the fused norm, its 10 / 1 heads replicated)
    and whisper-base (6 + 6 layers, 1500-frame windows) at full width in
@@ -200,10 +200,10 @@ exit, no result line) when a check fails:
    one-card engine's streams compared and printed; at 8 layers in float32
    tokens and acceptance counts equal to the one-card engine's); then the
    cluster on a (2, 2) mesh of four ranks (`cluster_mesh_phase`): 2
-   replicas x tp 2 of smollm-135m (6 of 30 layers, bf16, the three flags), 16
+   replicas x tp 2 of smollm-135m (4 of 30 layers, bf16, the three flags), 16
    `LoadGenerator` requests under the seed-0 chaos script, every rank
    ending with the same request records, paged_decode once a layer for
-   every decode step of the rank's own replica's engines, and at 4 layers
+   every decode step of the rank's own replica's engines, and at 2 layers
    in float32 the same prompts as a burst under the chaos script
    token-equal to the one-card 2-replica cluster.  Launch counts are
    set to 0 just before each path
@@ -233,6 +233,27 @@ exit, no result line) when a check fails:
    prefill each (danube's 4600 tokens, qwen2-vl's and deepseek's 300)
    are broken down the same way; whisper's step must run none of the
    port's kernels.
+
+6. The codesign path (`codesign_path_phase`, last; its two compiles run
+   in a thread beside the kernel build, `codesign_start`, which leaves
+   the card idle): the README's
+   quickstart spec (resnet50 + vit_b16, `av_33ms`, a pool of 4) compiled
+   by `repro_torch.mozart.compile` at the default budgets
+   (`SAConfig()`, `GAConfig()`) on the card (no device named) and with
+   `device="cpu"` (one torch thread), every cache cleared between the two; each run's wall
+   seconds, pool and per-network objective value, energy, EDP, hardware
+   cost and ratio to the best single-SKU design are printed with the
+   card's name and power limit; the two JSON artifacts must be
+   byte-identical (else the first differing line is printed), the pools
+   and every network's design equal, and every metric within 1e-12
+   relative.  Then the tests' chatbot spec (resnet50 + an OPT-1.3B decode
+   graph, the tests' tiny budgets) compiled on the card and saved under
+   build/; `repro_torch.launch.serve`'s command line serves smollm-135m
+   under `--policy <artifact> --policy-network opt_dec` (launch counts
+   set to 0 just before and read just after): every kernel the policy's
+   fusion flags name must launch, and the greedy tokens must equal those
+   of an engine built from the policy `load_policy` reads from the same
+   file, serving the same requests.
 
 Before the closing lines, one JSON object `{"tp_path": {...}}` with the
 mesh path's record and one `{"train_path": {...}}` with the training
@@ -366,7 +387,7 @@ SPEC_K = 4
 # more than the unsharded MLP's), so its logits may lie up to twice as
 # far from the float32 route as the unsharded engine's, plus a floor
 TP = 2
-MESH_SMOLLM_LAYERS = 6       # smollm-135m's depth (of 30) on the serving meshes
+MESH_SMOLLM_LAYERS = 4       # smollm-135m's depth (of 30) on the serving meshes
 TP_LOGITS_SLACK = (2.0, 1e-3)
 # (arch, d, F / 2, N), (arch, H / 2, Hkv / 2, hd, window), (arch, E / 2, d, F, C)
 TP_MLP = (("smollm-135m", 576, 768, (DECODE_N, 300)), ("h2o-danube-1.8b", 2560, 3456, (DECODE_N,)),
@@ -382,11 +403,11 @@ TP_MOE = (("mixtral-8x7b", 4, 4096, 14336, 8), ("deepseek-v3-671b", 128, 7168, 2
 # a quarter) and the float32 cluster check's depth; the cluster path runs
 # 2 replicas x tp 2 on four ranks
 FAM_F32_LAYERS = (("rwkv6-3b", 2), ("recurrentgemma-2b", 3), ("whisper-base", 2))
-FAM_LAYERS = {"rwkv6-3b": 6, "recurrentgemma-2b": 4}     # of 32 and 26, full width
+FAM_LAYERS = {"rwkv6-3b": 4, "recurrentgemma-2b": 4}     # of 32 and 26, full width
 RGLRU_KERNELS = dict(attn_impl="flash", norm_impl="fused")
 SPEC_F32_LAYERS = 8
 CLUSTER_MESH = (2, 2)
-CLUSTER_F32_LAYERS = 4
+CLUSTER_F32_LAYERS = 2
 # four ranks share the one card there: a cluster step takes ~5x the
 # one-card cluster's, so its deadlines are 10x `CLUSTER_DEADLINE_MS` (at
 # 2000 ms, 13 of 16 requests were shed before a token on an H100)
@@ -396,7 +417,7 @@ CLUSTER_MESH_DEADLINE_MS = 10 * CLUSTER_DEADLINE_MS
 DATA_MESH_WORLDS = (2, 4)
 DATA_SP_PROMPT = 6000
 DATA_SP_LAYERS = 2
-DATA_F32_LAYERS = 8         # smollm's float32 token check on the data mesh (of 30)
+DATA_F32_LAYERS = 4         # smollm's float32 token check on the data mesh (of 30)
 # the variant archs' served paths (bf16, full width, weights drawn on the card):
 # h2o-danube-1.8b's prompts, 6 of 16-300 tokens and 2 past its window of
 # 4096 (the ring wraps, the window cuts), and its max_len; qwen2-vl-2b's
@@ -423,7 +444,7 @@ WHISPER_MAX_LEN = 256
 TRAIN_MESH = (2, 2)
 TRAIN_MESH_F32 = (4, 3, 4, 128)
 TRAIN_MESH_BF16 = (6, 8, 256, 3)
-TRAIN_MESH_BF16_LAYERS = 10  # of smollm-135m's 30
+TRAIN_MESH_BF16_LAYERS = 6   # of smollm-135m's 30
 PIPE_MICRO = (4, 2, 256)
 PIPE_F32_LAYERS = 4
 PIPE_GRAD_TOL = 1e-4
@@ -3529,7 +3550,7 @@ def _tp_rank(rank: int, world: int, store: str, policy: str, out: str) -> None:
 def tp_path_phase(torch) -> dict:
     """Serving on a mesh: two ranks spawned on the one card, joined over
     gloo (NCCL takes one card a rank), a (1, 2) mesh (`_tp_rank`).  At
-    full width smollm-135m (6 of 30 layers, bf16, the three flags) serves the
+    full width smollm-135m (4 of 30 layers, bf16, the three flags) serves the
     main path's 12 requests through the paged engine with tensor
     parallelism: per rank, every kernel launch and collective per layer
     per step must be what the sharding implies (the MLP at F 768, the
@@ -3732,7 +3753,7 @@ def _fam_path(torch, mesh, arch: str) -> dict:
 
 
 def _spec_mesh(torch, mesh, policy: str) -> dict:
-    """Spec-decode on the mesh: smollm-135m (6 of 30 layers, bf16, the three
+    """Spec-decode on the mesh: smollm-135m (4 of 30 layers, bf16, the three
     flags) with the CLI's 7-layer shared-trunk draft, k `SPEC_K`, 8
     requests of 16-300 tokens, 32 new each, through `serve_specdec(mesh=)`
     (the target sharded, the draft whole on each rank), beside the
@@ -3873,7 +3894,7 @@ def _spawn(fn, world: int, policy: str, tag: str) -> dict:
 
 def family_mesh_phase(torch) -> dict:
     """Every family on a mesh: two ranks spawned on the one card over
-    gloo, a (1, 2) mesh (`_fam_rank`).  At full width, bf16: rwkv6-3b (6
+    gloo, a (1, 2) mesh (`_fam_rank`).  At full width, bf16: rwkv6-3b (4
     of 32 layers, wkv6 at 20 of 40 heads, decode and chunked prefill),
     recurrentgemma-2b (4 of 26 layers, rglru_scan at 1280 of 2560 channels,
     flash and the fused norm; its 10 / 1 heads replicated) and
@@ -4028,7 +4049,7 @@ def _cluster_mesh_rank(rank: int, world: int, store: str, policy: str, out: str)
 def cluster_mesh_phase(torch) -> dict:
     """The serving cluster on per-replica meshes: four ranks spawned on the
     one card over gloo, a (2, 2) mesh, 2 replicas x tp 2
-    (`_cluster_mesh_rank`).  smollm-135m (6 of 30 layers, bf16, the three
+    (`_cluster_mesh_rank`).  smollm-135m (4 of 30 layers, bf16, the three
     flags) serves `CLUSTER_REQUESTS` `LoadGenerator` requests (Poisson at
     `CLUSTER_RATE` a second, `CLUSTER_MESH_DEADLINE_MS` deadlines) under
     the seed-0 chaos script over `CLUSTER_HORIZON` steps through
@@ -4280,7 +4301,7 @@ def _data_mesh_rank(rank: int, world: int, store: str, policy: str, out: str) ->
 def data_mesh_phase(torch) -> dict:
     """Serving with the batch over "data": ranks spawned on the one card
     over gloo on a (2, 1) and then a (2, 2) mesh (`_data_mesh_rank`).
-    smollm-135m at full width (6 of 30 layers, bf16, the three flags, dense
+    smollm-135m at full width (4 of 30 layers, bf16, the three flags, dense
     KV, 4 slots: 2 a data row) serves 8 requests: every rank's state at
     half the KV bytes of the KV-head placement alone, each kernel of the
     path launched as the layers and calls imply, the collectives a decode
@@ -5968,6 +5989,178 @@ def prefill_breakdown_phase(torch, eng, arch: str, plen: int, share: str = "flas
         check(not any(k in name for name in by_name), f"prefill {arch}: {k} ran")
 
 
+CODESIGN_SERVE = ["--arch", "smollm-135m", "--requests", "4", "--max-new", "8",
+                  "--max-batch", "4", "--max-len", "128", "--seed", "0"]
+CODESIGN_RTOL = 1e-12
+
+
+def _codesign_compile(torch, spec, device) -> tuple:
+    """One `mozart.compile` of `spec` from cold caches on `device` (None:
+    the card, as a user calls it): (deployment, wall seconds)."""
+    from repro_torch import mozart
+    from repro_torch.core import engine
+
+    engine.clear_all_caches()
+    t0 = time.perf_counter()
+    dep = mozart.compile(spec) if device is None else mozart.compile(spec, device=device)
+    if device is None:
+        torch.cuda.synchronize()
+    return dep, time.perf_counter() - t0
+
+
+def codesign_start(torch):
+    """Step 1 of `codesign_path_phase`, started in a thread beside the
+    kernel build (its nvcc processes leave the card idle and the main
+    thread waits on them): the README quickstart spec compiled at the
+    default budgets on the card, then with `device="cpu"` on one torch
+    thread (the nvcc processes hold the other cores), every cache
+    cleared between the two.  Returns (thread, result box); join it
+    before anything on the card is timed."""
+    import threading
+
+    from repro_torch import mozart
+
+    spec = mozart.MozartSpec(networks={"resnet50": "resnet50", "vit": "vit_b16"},
+                             scenario="av_33ms", pool_size=4)
+    box: dict = {}
+
+    def run() -> None:
+        try:
+            box["card"] = _codesign_compile(torch, spec, None)
+            threads = torch.get_num_threads()
+            torch.set_num_threads(1)
+            try:
+                box["cpu"] = _codesign_compile(torch, spec, "cpu")
+            finally:
+                torch.set_num_threads(threads)
+        except BaseException as e:           # re-raised by the joining thread
+            box["error"] = e
+
+    th = threading.Thread(target=run, name="codesign", daemon=True)
+    th.start()
+    return th, box
+
+
+def codesign_join(started) -> dict:
+    th, box = started
+    th.join()
+    if "error" in box:
+        raise box["error"]
+    return box
+
+
+def _codesign_rows(dep) -> dict:
+    """Per network: the objective value, energy, EDP, hardware cost and
+    the ratio to the best single-SKU design, from `summary()` and the
+    designs' metrics."""
+    summ = dep.summary()["per_network"]
+    rows = {}
+    for name, m in dep.metrics().items():
+        rows[name] = {"value": summ[name]["value"], "energy": m["energy"], "edp": m["edp"],
+                      "energy_cost": m["energy_cost"], "hw_cost_usd": m["hw_cost_usd"],
+                      "vs_best_homogeneous": summ[name].get("vs_best_homogeneous"),
+                      "vs_unconstrained": summ[name].get("vs_unconstrained")}
+    return rows
+
+
+def codesign_path_phase(torch, launchers, compiled) -> dict:
+    """The codesign stack on the card against the same search on the
+    host (`compiled`: `codesign_join`'s two compiles), then a served
+    model under a policy the card compiled (see the module docstring,
+    item 6)."""
+    from repro_torch import configs, mozart
+    from repro_torch.core import operators
+    from repro_torch.core.fusion import GAConfig
+    from repro_torch.core.pool import SAConfig
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch.policy import load_policy
+
+    card = card_line()
+    runs = {}
+    for where in ("card", "cpu"):
+        dep, secs = compiled[where]
+        runs[where] = (dep, secs, _codesign_rows(dep))
+        print(f"[smoke] codesign {where}: quickstart spec (resnet50 + vit_b16, av_33ms, "
+              f"pool 4, SAConfig() x GAConfig()) compiled in {secs:.2f} s wall beside "
+              f"the kernel build ({'one torch thread; ' if where == 'cpu' else ''}card "
+              f"{card}); pool {dep.pool_labels()}", flush=True)
+        for name, row in runs[where][2].items():
+            print(f"[smoke] codesign {where} {name}: " + ", ".join(
+                f"{k} {v!r}" for k, v in row.items()), flush=True)
+    (card_dep, card_s, card_rows), (cpu_dep, cpu_s, cpu_rows) = runs["card"], runs["cpu"]
+    a, b = card_dep.to_json(), cpu_dep.to_json()
+    first = next((f"line {i}: {x.strip()} | {y.strip()}"
+                  for i, (x, y) in enumerate(zip(a.splitlines(), b.splitlines()))
+                  if x != y), None if a == b else "lengths differ")
+    print(f"[smoke] codesign artifacts byte-identical card vs cpu: {a == b}"
+          + ("" if a == b else f"; first difference {first}"), flush=True)
+    check(card_dep.pool_labels() == cpu_dep.pool_labels(),
+          f"codesign pools differ: {card_dep.pool_labels()} vs {cpu_dep.pool_labels()}")
+    for name in cpu_dep.designs:
+        check(card_dep.designs[name].to_dict() == cpu_dep.designs[name].to_dict(),
+              f"codesign: {name}'s design differs between the card and the host")
+        for k, v in cpu_rows[name].items():
+            w = card_rows[name][k]
+            check((v is None and w is None)
+                  or abs(w - v) <= CODESIGN_RTOL * abs(v),
+                  f"codesign {name} {k}: card {w!r} vs cpu {v!r}")
+
+    # The tests' chatbot spec compiled on the card, then served.
+    chat = mozart.MozartSpec(
+        networks={"resnet50": "resnet50",
+                  "opt_dec": operators.lm_operator_graph(operators.OPT_1_3B, 512, "decode",
+                                                         cache_len=512)},
+        scenario="chatbot", pool_size=4, seq=512,
+        sa=SAConfig(iterations=1, inner_ga=GAConfig(population=3, generations=1)),
+        ga=GAConfig(population=4, generations=2), baselines=("best_homogeneous",))
+    dep, chat_s = _codesign_compile(torch, chat, None)
+    path = dep.save(ROOT / "build" / "codesign_chatbot.json")
+    flags = load_policy(path, "opt_dec").fusion_flags()
+    print(f"[smoke] codesign chatbot spec compiled on the card in {chat_s:.2f} s, saved "
+          f"{path}; opt_dec fusion flags {flags}", flush=True)
+    argv = CODESIGN_SERVE + ["--policy", str(path), "--policy-network", "opt_dec"]
+    served = []
+    real_serve = serve_mod.serve
+
+    def keep(eng, reqs):                  # the CLI's own engine and requests
+        served.append(reqs)
+        return real_serve(eng, reqs)
+
+    for ln in launchers.values():
+        ln.launches = 0
+    serve_mod.serve = keep
+    try:
+        serve_mod.main(argv)
+    finally:
+        serve_mod.serve = real_serve
+    counts = {name: ln.launches for name, ln in launchers.items()}
+    names = {"flash_attention": ("flash_attention", "paged_decode"),
+             "fused_mlp": ("fused_mlp",),
+             "fused_norm": ("fused_rmsnorm", "fused_rmsnorm_residual")}
+    want = [k for flag, on in flags.items() if on for k in names[flag]]
+    print(f"[smoke] codesign serve {' '.join(argv)}: launches {counts}", flush=True)
+    check(served and all(counts[k] > 0 for k in want),
+          f"codesign serve: a kernel the policy names did not launch: {counts}")
+    args = serve_mod._parser().parse_args(argv)
+    eng = serve_mod.build_engine(configs.get_config("smollm-135m"),
+                                 policy=load_policy(path, "opt_dec"),
+                                 max_batch=args.max_batch, max_len=args.max_len,
+                                 seed=args.seed, device=args.device)
+    reqs = serve_mod._cli_requests(args, eng.mcfg)
+    real_serve(eng, reqs)
+    cli = {r.rid: list(r.out_tokens) for r in served[0]}
+    direct = {r.rid: list(r.out_tokens) for r in reqs}
+    print(f"[smoke] codesign serve tokens equal to the engine built from load_policy: "
+          f"{cli == direct} ({len(cli)} requests, "
+          f"{sum(len(t) for t in cli.values())} tokens)", flush=True)
+    check(cli == direct, f"codesign serve: CLI tokens {cli} != direct {direct}")
+    del eng
+    free(torch)
+    return {"card_s": card_s, "cpu_s": cpu_s, "identical": a == b,
+            "pool": card_dep.pool_labels(), "per_network": card_rows,
+            "chatbot_s": chat_s, "serve_launches": counts, "flags": flags, "card": card}
+
+
 def main() -> int:
     import torch
 
@@ -5987,9 +6180,15 @@ def main() -> int:
     card = card_line()
     print(f"[smoke] card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
+    codesign_started = codesign_start(torch)
     build_s = _build.build()
     print(f"[smoke] built {', '.join(_build.SOURCES)} in {build_s:.1f}s "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})", flush=True)
+    t0 = time.perf_counter()
+    compiled = codesign_join(codesign_started)
+    print(f"[smoke] codesign compiles beside the build: card {compiled['card'][1]:.2f} s, "
+          f"host {compiled['cpu'][1]:.2f} s; waited {time.perf_counter() - t0:.1f} s "
+          f"after the build", flush=True)
     ptxas_phase()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5998,14 +6197,14 @@ def main() -> int:
 
     dryrun_started = dryrun_start()
     try:
-        return _main(torch, F, build_s, dryrun_started)
+        return _main(torch, F, build_s, dryrun_started, compiled)
     finally:
         if dryrun_started[0].poll() is None:
             dryrun_started[0].kill()
             dryrun_started[0].wait()
 
 
-def _main(torch, F, build_s, dryrun_started) -> int:
+def _main(torch, F, build_s, dryrun_started, compiled) -> int:
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.fused_mlp import kernel as mk
     from repro_torch.kernels.fused_norm import kernel as nk
@@ -6130,6 +6329,10 @@ def _main(torch, F, build_s, dryrun_started) -> int:
     length_mesh_phase(torch)
     dryrun_phase(torch, dryrun_started)
     mark("length mesh and dry run")
+    codesign = codesign_path_phase(torch, dict(norms, fused_mlp=mk.MLP,
+                                               flash_attention=fk.FLASH,
+                                               paged_decode=fk.PAGED), compiled)
+    mark("codesign path")
 
     meta = {
         "fused_rmsnorm": ("fused_norm.cu", "fused_norm/kernel.py:51",
@@ -6168,6 +6371,7 @@ def _main(torch, F, build_s, dryrun_started) -> int:
                         "dtype": dtype, "build_s": build_s})
     print(json.dumps({"train_path": dict(train_summary, grad_check=grad_check,
                                          grad_rows=grad_gaps)}), flush=True)
+    print(json.dumps({"codesign_path": codesign}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
