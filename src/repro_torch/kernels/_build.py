@@ -21,6 +21,8 @@ process.
 
 Every C entry point returns `cudaGetLastError()` after its launch;
 `Launcher` raises when that is not 0 and counts launches that succeed.
+Under `torch.profiler` each call runs inside an `mz.launch` host op
+(`repro_torch.spans.op`), so the profiler links the kernel to its launch.
 """
 from __future__ import annotations
 
@@ -35,6 +37,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from repro_torch.spans import op
 
 _SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 # build/kernels/ at the root of the checkout (listed in .gitignore)
@@ -168,7 +172,9 @@ class Launcher:
         return self._fn
 
     def __call__(self, *args) -> None:
-        err = self._resolve()(*args)
+        fn = self._resolve()
+        with op("mz.launch"):
+            err = fn(*args)
         if err != 0:
             msg = getattr(library(self.lib_name),
                           f"{self.lib_name}_error_string")(err)

@@ -195,7 +195,6 @@ def serve(engine: ServingEngine, requests: list[Request]) -> dict:
     the engine waits for each step's tokens, so the marks are real).
     Counts are those of this call, not of the engine's lifetime."""
     before = {k: v for k, v in engine.stats.items() if isinstance(v, int)}
-    n_occ = len(engine.stats["slot_occupancy"])
     for r in requests:
         engine.submit(r)
     t0 = time.perf_counter()
@@ -209,7 +208,6 @@ def serve(engine: ServingEngine, requests: list[Request]) -> dict:
             if r.t_first is not None and r.t_done is not None
             and len(r.out_tokens) > 1]
     st = {k: engine.stats[k] - v for k, v in before.items()}
-    occ = engine.stats["slot_occupancy"][n_occ:]
 
     def pct(xs, q):
         return float(np.percentile(xs, q) * 1e3) if xs else float("nan")
@@ -220,7 +218,8 @@ def serve(engine: ServingEngine, requests: list[Request]) -> dict:
             "tpot_p50_ms": pct(tpot, 50), "tpot_p99_ms": pct(tpot, 99),
             "decode_steps": st["decode_steps"], "prefills": st["prefills"],
             "preemptions": st["preemptions"], "nan_steps": st["nan_steps"],
-            "occupancy": float(np.mean(occ)) if occ else 0.0}
+            "occupancy": (st["occupied_slot_steps"] / (st["decode_steps"] * engine.max_batch)
+                          if st["decode_steps"] else 0.0)}
 
 
 def serve_cluster(mcfg: ModelConfig, params, *, n_replicas: int,

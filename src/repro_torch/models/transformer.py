@@ -40,6 +40,11 @@ JAX's table, or FSDP's blocks over the DP axes too): each layer, the
 embedding and the head then gather their TP blocks as they run
 (`sharding.compute_tree`).  With no mesh nothing changes.
 
+Under `torch.profiler` each layer's attention runs in an `mz.attn` span
+and its MLP in `mz.mlp` (`mz.moe` for a routed layer), the unembedding
+in `mz.unembed` (`repro_torch.spans`; free with no profiler); norms stay
+in the enclosing span.
+
 Caches are updated in place (the JAX functions return fresh arrays):
 `decode_step` writes the new token's k/v into the cache tensors it is
 given and returns the same tensors, which saves a copy of the cache per
@@ -60,6 +65,7 @@ from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.moe_mlp import ops as moe_ops
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import sharding
+from repro_torch.spans import span
 
 from .common import (apply_norm, apply_norm_residual, apply_rope, attend_blocks, attention,
                      block_slot, copy_if, cross_entropy, cross_entropy_sum, gelu,
@@ -635,11 +641,14 @@ def moe_block_shard_map(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.T
 
 
 def _ffn(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor):
+    """A layer's MLP or MoE block, in an `mz.mlp` / `mz.moe` span."""
     if kind == "moe":
-        return moe_block(cfg, p["moe"], h)
+        with span("mz.moe"):
+            return moe_block(cfg, p["moe"], h)
     plan = _plan(cfg)
-    return mlp_block(cfg, p["mlp"], h,
-                     mesh=plan.mesh if plan is not None and plan.mlp else None)
+    with span("mz.mlp"):
+        return mlp_block(cfg, p["mlp"], h,
+                         mesh=plan.mesh if plan is not None and plan.mlp else None)
 
 
 def _held_layer(cfg: ModelConfig, kind: str, at: str, p: Params, x: torch.Tensor, rope):
@@ -651,8 +660,10 @@ def _held_layer(cfg: ModelConfig, kind: str, at: str, p: Params, x: torch.Tensor
 
 
 def layer_fwd(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, rope):
-    a, kv = attn_block(cfg, p["attn"], apply_norm(cfg, p["norm1"], x), rope)
-    a = _attn_sum(cfg, a)
+    h = apply_norm(cfg, p["norm1"], x)
+    with span("mz.attn"):
+        a, kv = attn_block(cfg, p["attn"], h, rope)
+        a = _attn_sum(cfg, a)
     # fused norm_impl runs the attn-residual add + norm2 as one kernel
     x, h = apply_norm_residual(cfg, p["norm2"], x, a)
     return x + _ffn(cfg, kind, p, h), kv
@@ -670,14 +681,16 @@ def embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor):
 
 def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor):
     """Logits (..., V); under a mesh with the vocab sharded, each rank's
-    columns (rows of a tied embedding) and one all_gather of them."""
+    columns (rows of a tied embedding) and one all_gather of them.  In an
+    `mz.unembed` span."""
     plan = _plan(cfg)
-    x = vocab_in(x, plan)
-    if cfg.tie_embeddings:
-        logits = x @ sharding.compute_tree(cfg, params["embed"], "embed").to(cfg.tdtype).T
-    else:
-        logits = x @ sharding.compute_tree(cfg, params["head"], "head").to(cfg.tdtype)
-    return vocab_logits(logits, plan)
+    with span("mz.unembed"):
+        x = vocab_in(x, plan)
+        if cfg.tie_embeddings:
+            logits = x @ sharding.compute_tree(cfg, params["embed"], "embed").to(cfg.tdtype).T
+        else:
+            logits = x @ sharding.compute_tree(cfg, params["head"], "head").to(cfg.tdtype)
+        return vocab_logits(logits, plan)
 
 
 def hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor | None,
@@ -854,7 +867,8 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor | None,
             if cfg.window and take == clen:
                 last = torch.roll(last, shifts=s % clen, dims=2)
             seg[key][:, :, :take] = last.to(seg[key].dtype)
-    cache["index"] = torch.tensor(s, dtype=torch.int32, device=x.device)
+    # a fill, not a copy from host memory: no wait for the forward
+    cache["index"] = torch.full((), s, dtype=torch.int32, device=x.device)
     return unembed(cfg, params, x[:, -1:]), cache
 
 
@@ -988,9 +1002,10 @@ def _decode_layers(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         per_layer = zip(*(seg_cache[k].unbind(0) for k in keys))
         for lp, views in zip(_layers(sp), per_layer):
             lp = sharding.compute_tree(cfg, lp, f"segments/{i}/kind_{kind}", layer=True)
-            a = layer_attn(lp["attn"], apply_norm(cfg, lp["norm1"], x),
-                           dict(zip(keys, views)), rope)
-            a = _attn_sum(cfg, a)
+            h = apply_norm(cfg, lp["norm1"], x)
+            with span("mz.attn"):
+                a = layer_attn(lp["attn"], h, dict(zip(keys, views)), rope)
+                a = _attn_sum(cfg, a)
             x, h = apply_norm_residual(cfg, lp["norm2"], x, a)
             x = x + _ffn(cfg, kind, lp, h)
     x = apply_norm(cfg, params["final_norm"], x)

@@ -62,6 +62,18 @@ Every mark and deadline verdict reads `engine.clock` (default
 agree on and sets `self_paced` False: it then feeds the engine's step
 pace (`observe_step`) from that clock, so every rank's deadline
 verdicts rest on the same numbers.
+
+Beside the scheduling counts, `stats` holds `occupied_slot_steps` (live
+slots summed over decode steps), `steps` (`step()` calls), `step_us`
+(host µs inside them) and `sync_wait_us` (host µs waiting on the
+device), each read off `engine.clock`; `Request.t_admit` marks a
+request's first admission.  The host waits on the device only in
+`_synced`: the NaN guard, the sampled tokens, a mesh's agreement, and a
+drain before each state call (`_drain`, on a CUDA device: the call's
+first copy from host memory would wait there anyway), so `step_us` less
+`sync_wait_us` is the host's own time.  Under `torch.profiler` the engine
+opens `mz.*` spans (`repro_torch.spans`) around the step, the admission,
+each prefill (named with its request's id), the decode and each wait.
 """
 from __future__ import annotations
 
@@ -77,6 +89,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import sharding
+from repro_torch.spans import span
 
 from . import paged as paged_kv
 from .resilience import logits_finite
@@ -104,6 +117,7 @@ class Request:
     finish_reason: str | None = None
     # wall-clock marks for TTFT/TPOT accounting (monotonic seconds)
     t_submit: float | None = None
+    t_admit: float | None = None  # first admission (prefill start)
     t_first: float | None = None
     t_done: float | None = None
     admit_seq: int = -1           # admission order (preemption picks max)
@@ -180,9 +194,10 @@ class ServingEngine:
         self.next_token = np.zeros((max_batch, 1), np.int64)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.stats = {"decode_steps": 0, "prefills": 0,
-                      "tokens_out": 0, "slot_occupancy": [],
+                      "tokens_out": 0, "occupied_slot_steps": 0,
                       "preemptions": 0, "rejected": 0,
-                      "shed": 0, "nan_steps": 0}
+                      "shed": 0, "nan_steps": 0,
+                      "steps": 0, "step_us": 0, "sync_wait_us": 0}
 
     def _new_state(self, *, page_size: int, num_pages: int | None, bucket_min: int):
         """The decode state this engine serves from: the page pool, dense
@@ -278,7 +293,7 @@ class ServingEngine:
         if self.mesh is None:
             return values
         t = torch.as_tensor(values, dtype=torch.long, device=self.device)
-        return coll.broadcast(t, self.mesh).tolist()
+        return self._synced(torch.Tensor.tolist, coll.broadcast(t, self.mesh))
 
     def _run_model(self, fn, *args, **kw):
         """A state call (prefill or decode) under this engine's mesh."""
@@ -300,8 +315,28 @@ class ServingEngine:
         return int(sample(logits_row, self.generator,
                           temperature=req.temperature)[0])
 
+    def _synced(self, fn, *args):
+        """fn(*args), a read that waits on the device: an `mz.sync` span,
+        its host time added to `stats["sync_wait_us"]`."""
+        t0 = self.clock()
+        with span("mz.sync"):
+            out = fn(*args)
+        self.stats["sync_wait_us"] += round((self.clock() - t0) * 1e6)
+        return out
+
+    def _drain(self) -> None:
+        """Before a state call on a CUDA device: wait for the device in
+        `_synced`.  The call's first copy from host memory (its tokens)
+        would wait for the stream at the same point."""
+        if self.device.type == "cuda":
+            self._synced(torch.cuda.synchronize, self.device)
+
     def _admit(self) -> None:
         """Prefill queued requests into free slots (continuous batching)."""
+        with span("mz.admit"):
+            self._admit_slots()
+
+    def _admit_slots(self) -> None:
         for b in range(self.max_batch):
             if self.slots[b] is not None or not self.queue:
                 continue
@@ -328,7 +363,11 @@ class ServingEngine:
             # +1: the next decode writes KV at position plen
             if self.paged and not self.pool.ensure(b, plen + 1):
                 break       # pool dry — wait for decode-side frees
-            last = self._run_model(self.state.prefill, b, seq, frames=req.frames)
+            if req.t_admit is None:
+                req.t_admit = self.clock()
+            self._drain()
+            with span("mz.prefill", f"rid={req.rid} len={plen}"):
+                last = self._run_model(self.state.prefill, b, seq, frames=req.frames)
             self.queue.pop(qi)
             self.slots[b] = req
             req.admit_seq = self._admit_counter
@@ -337,7 +376,7 @@ class ServingEngine:
             if resumed:
                 self.next_token[b, 0] = req.out_tokens[-1]
                 continue
-            tok = self._agree([self._sample_one(last[0, -1:], req)])[0]
+            tok = self._agree([self._synced(self._sample_one, last[0, -1:], req)])[0]
             req.out_tokens.append(tok)
             if req.t_first is None:
                 req.t_first = self.clock()
@@ -364,6 +403,16 @@ class ServingEngine:
         if self.health["nan_detected"]:
             return 0
         t_step = self.clock()
+        with span("mz.step"):
+            n = self._step()
+        dt = self.clock() - t_step
+        self.stats["steps"] += 1
+        self.stats["step_us"] += round(dt * 1e6)
+        if n and self.self_paced:
+            self.observe_step(dt)
+        return n
+
+    def _step(self) -> int:
         self._admit()
         live = [b for b, r in enumerate(self.slots) if r is not None]
         for b in list(live):
@@ -378,9 +427,7 @@ class ServingEngine:
         if not self._advance(active):
             return 0
         self.stats["decode_steps"] += 1
-        self.stats["slot_occupancy"].append(len(live) / self.max_batch)
-        if self.self_paced:
-            self.observe_step(self.clock() - t_step)
+        self.stats["occupied_slot_steps"] += len(live)
         return len(active)
 
     def observe_step(self, dt: float) -> None:
@@ -391,16 +438,19 @@ class ServingEngine:
     def _advance(self, active: list[int]) -> bool:
         """Decode the active slots one step, guard, sample, finish.
         Returns False when the NaN guard swallowed the step."""
-        logits, lane = self._run_model(self.state.decode, self.next_token, active)
+        self._drain()
+        with span("mz.decode"):
+            logits, lane = self._run_model(self.state.decode, self.next_token, active)
         last = logits[:, -1]
-        if self.guard_nan and not logits_finite(last):
+        if self.guard_nan and not self._synced(logits_finite, last):
             # emit nothing from non-finite logits; flag for the watchdog
             self.health["nan_detected"] = True
             self.stats["nan_steps"] += 1
             return False
-        greedy = last.argmax(dim=-1).tolist()
+        greedy = self._synced(torch.Tensor.tolist, last.argmax(dim=-1))
         toks = self._agree([greedy[lane[b]] if self.slots[b].temperature <= 0.0
-                            else self._sample_one(last[lane[b]][None], self.slots[b])
+                            else self._synced(self._sample_one, last[lane[b]][None],
+                                              self.slots[b])
                             for b in active])
         for b, tok in zip(active, toks):
             req = self.slots[b]

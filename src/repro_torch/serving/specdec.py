@@ -37,6 +37,7 @@ from repro_torch.models import api, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import sharding
+from repro_torch.spans import span
 
 from .engine import Request, ServingEngine
 from .resilience import logits_finite
@@ -234,29 +235,31 @@ class SpecDecodeEngine(ServingEngine):
         written back)."""
         k = self.k
         sel = active + [active[0]] * (self.decode_batch - len(active))
-        idx = torch.as_tensor(sel, dtype=torch.long, device=self.device)
-        tok = torch.as_tensor(self.next_token[np.asarray(sel)], dtype=torch.long,
-                              device=self.device)
-        dsub = gather_slots(self.draft_state.cache, idx)
-        base = dsub["index"].clone()
-        drafts, t = [], tok
-        for _ in range(k):             # the draft runs whole on every rank
-            logits, dsub = api.decode_step(self.draft_cfg, self.draft_params, t, dsub)
-            t = logits[:, -1].argmax(-1, keepdim=True)
-            drafts.append(t)
-        drafts = torch.cat(drafts, 1)                                # (w, k)
-        if self.mesh is not None:        # the verify window must be rank 0's
-            drafts = coll.broadcast(drafts, self.mesh)
-        # the target verifies this rank's lanes (its data row's slots where
-        # they split over "data") and every rank reads every lane's logits
-        lanes = self.state.step_lanes(sel)
-        tsub = gather_slots(self.state.cache, lanes.idx)
-        window = torch.cat([tok, drafts[:, :-1]], 1)                 # (w, k)
-        with sharding.use_mesh(self.mesh), self.state.split_run(lanes):
-            logits, tsub = api.decode_window(self.mcfg, self.params,
-                                             window.index_select(0, lanes.rows), tsub)
-        logits = self.state.gather_lanes(logits, lanes)
-        if self.guard_nan and not logits_finite(logits):
+        self._drain()
+        with span("mz.decode"):
+            idx = torch.as_tensor(sel, dtype=torch.long, device=self.device)
+            tok = torch.as_tensor(self.next_token[np.asarray(sel)], dtype=torch.long,
+                                  device=self.device)
+            dsub = gather_slots(self.draft_state.cache, idx)
+            base = dsub["index"].clone()
+            drafts, t = [], tok
+            for _ in range(k):             # the draft runs whole on every rank
+                logits, dsub = api.decode_step(self.draft_cfg, self.draft_params, t, dsub)
+                t = logits[:, -1].argmax(-1, keepdim=True)
+                drafts.append(t)
+            drafts = torch.cat(drafts, 1)                                # (w, k)
+            if self.mesh is not None:        # the verify window must be rank 0's
+                drafts = coll.broadcast(drafts, self.mesh)
+            # the target verifies this rank's lanes (its data row's slots where
+            # they split over "data") and every rank reads every lane's logits
+            lanes = self.state.step_lanes(sel)
+            tsub = gather_slots(self.state.cache, lanes.idx)
+            window = torch.cat([tok, drafts[:, :-1]], 1)                 # (w, k)
+            with sharding.use_mesh(self.mesh), self.state.split_run(lanes):
+                logits, tsub = api.decode_window(self.mcfg, self.params,
+                                                 window.index_select(0, lanes.rows), tsub)
+            logits = self.state.gather_lanes(logits, lanes)
+        if self.guard_nan and not self._synced(logits_finite, logits):
             self.health["nan_detected"] = True
             self.stats["nan_steps"] += 1
             return False                 # the sub-caches are dropped
@@ -266,8 +269,7 @@ class SpecDecodeEngine(ServingEngine):
         acc = torch.cat([match.sum(1, keepdim=True), choice], 1)     # (w, 1 + k)
         if self.mesh is not None:        # rank 0's accepted tokens and counts
             acc = coll.broadcast(acc, self.mesh)
-        drafts_np = drafts.cpu().numpy()
-        acc_np = acc.cpu().numpy()
+        drafts_np, acc_np = self._synced(lambda: (drafts.cpu().numpy(), acc.cpu().numpy()))
         lane = _lane_map(sel)
         consumed = np.zeros(len(sel), np.int64)
         for b in active:

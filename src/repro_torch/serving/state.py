@@ -279,7 +279,7 @@ class DenseKVState:
                 clen = dst.shape[2]       # a split length: this rank's block
                 off = self._block * clen
                 dst[:, at].copy_(src[:, 0, off:off + clen])
-            self.cache["index"][at] = len(seq)
+            self.cache["index"][at].fill_(len(seq))
             return last
         if self.quantized:
             for (dst, src), (dsc, _) in zip(
@@ -291,7 +291,9 @@ class DenseKVState:
         else:
             for dst, src in _leaf_pairs(self.cache["segments"], cache1["segments"]):
                 dst[:, b].copy_(src[:, 0])
-        self.cache["index"][b] = len(seq)
+        # a fill: `index[b] = n` copies n from host memory, which waits
+        # for the forward above
+        self.cache["index"][b].fill_(len(seq))
         return last
 
     def _decode_quantized(self, params: Params, next_token: np.ndarray,
@@ -341,16 +343,18 @@ class DenseKVState:
             return self.gather_lanes(logits, lanes), _lane_map(sel)
         # full width: every slot this rank holds, in slot order
         lanes = self.step_lanes(list(range(self.max_batch)))
+        # every slot advances; those that are not active step back after,
+        # in one batched update (their index copied before the forward is
+        # launched, so that the copy waits for nothing)
+        inactive = [at for at in (self.local_slot(b) for b in range(self.max_batch)
+                                  if b not in active) if at is not None]
+        back = torch.as_tensor(inactive, device=self.device) if inactive else None
         with self.split_run(lanes):
             logits, new = api.decode_step(
                 self.mcfg, params, self._tokens_of(next_token, lanes.slots), self.cache)
         self.cache = new
-        # every slot advanced; those that were not active step back in one
-        # batched update
-        inactive = [at for at in (self.local_slot(b) for b in range(self.max_batch)
-                                  if b not in active) if at is not None]
-        if inactive:
-            self.cache["index"][torch.as_tensor(inactive, device=self.device)] -= 1
+        if back is not None:
+            self.cache["index"][back] -= 1
         return self.gather_lanes(logits, lanes), {b: b for b in active}
 
     def release(self, b: int) -> None:
